@@ -1,0 +1,277 @@
+"""Stream synthesis and partition striping (host side, numpy).
+
+The port's own copy of the JAX package's ``io/stream.py`` functions on the
+main path — the same numpy operations in the same order, so planes are
+byte-identical across the packages (``tests/test_torch_stream.py``):
+
+* :func:`synthesize_stream` scales the stream's volume by ``mult_data``
+  (fraction-sample below 1, duplicate ×N otherwise), shuffles with a seed
+  and sorts by label, so each class is one planted concept;
+* :func:`stripe_partitions` places row ``i`` on partition ``i % P`` and pads
+  each partition to a rectangular ``[P, NB, B]`` grid with a validity plane;
+* :func:`stripe_partitions_packed` is the compressed form the main path
+  uploads: row-table gather indices plus a one-byte per-batch permutation.
+
+Only ``synth:`` datasets load; CSV ingest (and its quarantine mask) is not
+ported yet (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..engine.loop import Batches, PackedIndexedBatches
+
+
+class StreamData:
+    """A prepared drift stream (host-side, numpy).
+
+    A stream synthesized by integer duplication (``mult_data >= 1``) is
+    stored compressed: ``base_X``/``base_y`` (the row table) plus ``src``
+    (stream position → table row), with ``X == base_X[src]``; the dense
+    ``X``/``y`` views materialize lazily on first access.
+    """
+
+    def __init__(
+        self,
+        X: np.ndarray | None = None,  # [N, F] f32
+        y: np.ndarray | None = None,  # [N] i32, labels re-indexed to 0..C-1
+        num_classes: int = 0,
+        dist_between_changes: int = 0,  # rows // classes
+        base_X: np.ndarray | None = None,  # [T, F] f32 deduplicated row table
+        base_y: np.ndarray | None = None,  # [T] i32
+        src: np.ndarray | None = None,  # [N] i32: stream position → table row
+    ):
+        assert (X is not None and y is not None) or src is not None
+        self._X = X
+        self._y = y
+        self.num_classes = num_classes
+        self.dist_between_changes = dist_between_changes
+        self.base_X = base_X
+        self.base_y = base_y
+        self.src = src
+
+    @property
+    def X(self) -> np.ndarray:
+        if self._X is None:
+            self._X = self.base_X[self.src]
+        return self._X
+
+    @property
+    def y(self) -> np.ndarray:
+        if self._y is None:
+            self._y = self.base_y[self.src]
+        return self._y
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.src) if self.src is not None else len(self._y)
+
+    @property
+    def num_features(self) -> int:
+        return (self.base_X if self.base_X is not None else self._X).shape[1]
+
+
+def synthesize_stream(
+    X: np.ndarray,
+    y: np.ndarray,
+    mult_data: float = 1.0,
+    seed: int = 0,
+    standardize: bool = True,
+) -> StreamData:
+    """Volume-scale, shuffle, sort-by-target — seeded.
+
+    ``mult_data >= 1`` composes duplicate/shuffle/sort as index operations
+    over the untouched row table (compressed form; standardization moments
+    are the table's, which equal the duplicated stream's). ``mult_data < 1``
+    subsamples rows and materializes directly.
+    """
+    rng = np.random.default_rng(seed)
+    n = len(y)
+
+    def _standardize(A):
+        A = np.ascontiguousarray(A, np.float32)
+        if not standardize:
+            return A
+        mu = A.mean(axis=0)
+        sd = A.std(axis=0)
+        # Constant (or non-finite) columns standardize to 0, not 0/0.
+        sd = np.where((sd > 0) & np.isfinite(sd), sd, np.float32(1.0))
+        mu = np.where(np.isfinite(mu), mu, np.float32(0.0))
+        return (A - mu) / sd
+
+    if mult_data < 1.0:
+        take = rng.permutation(n)[: max(1, int(round(n * mult_data)))]
+        X, y = X[take], y[take]
+        order = np.argsort(y, kind="stable")
+        X, y = X[order], y[order]
+        classes, y_idx = np.unique(y, return_inverse=True)
+        return StreamData(
+            X=_standardize(X),
+            y=y_idx.astype(np.int32),
+            num_classes=len(classes),
+            dist_between_changes=len(y) // len(classes),
+        )
+
+    reps = int(mult_data)
+    sel = rng.permutation(n * reps) % n  # each table row exactly `reps` times
+    order = np.argsort(y[sel], kind="stable")
+    src = sel[order].astype(np.int32)
+    classes, y_base = np.unique(y, return_inverse=True)
+    return StreamData(
+        num_classes=len(classes),
+        dist_between_changes=len(src) // len(classes),
+        base_X=_standardize(X),
+        base_y=y_base.astype(np.int32),
+        src=src,
+    )
+
+
+def load_stream(
+    path: str, mult_data: float = 1.0, seed: int = 0, standardize: bool = True
+) -> StreamData:
+    """Dataset → prepared stream. Only ``synth:`` specs (see
+    ``io.synth.parse_synth``) are supported."""
+    if not path.startswith("synth:"):
+        raise NotImplementedError(
+            f"dataset {path!r}: CSV ingest (io/sanitize.py, data_policy) is "
+            "not ported yet (ROADMAP A10); use a 'synth:' dataset"
+        )
+    from .synth import parse_synth
+
+    X, y = parse_synth(path[len("synth:") :])
+    return synthesize_stream(X, y, mult_data, seed, standardize)
+
+
+def _pad(arr: np.ndarray, padded: int, fill) -> np.ndarray:
+    out = np.full((padded, *arr.shape[1:]), fill, arr.dtype)
+    out[: len(arr)] = arr
+    return out
+
+
+def stripe_chunk(
+    X: np.ndarray,
+    y: np.ndarray,
+    start_row: int,
+    partitions: int,
+    per_batch: int,
+    nb: int,
+    shuffle_seed: int | None = None,
+) -> Batches:
+    """Pad + row-stripe one contiguous span of the stream into ``[P, NB, B]``.
+
+    Row ``start_row + i`` goes to partition ``(start_row + i) % P``;
+    ``shuffle_seed`` applies the per-microbatch shuffle on the host
+    (counter-based on the absolute batch slot, so chunking is invariant).
+    """
+    n = len(y)
+    p, b = partitions, per_batch
+    gmap, rows, valid = _stripe_maps(n, start_row, p, b, nb, shuffle_seed)
+    return Batches(
+        X=_pad(np.asarray(X, np.float32), p * nb * b, 0.0)[gmap],
+        y=_pad(np.asarray(y, np.int32), p * nb * b, 0)[gmap],
+        rows=rows,
+        valid=valid,
+    )
+
+
+def _stripe_maps(
+    n: int, start_row: int, p: int, b: int, nb: int, shuffle_seed: int | None
+):
+    """The stripe as a gather: ``striped[p, s, j] = padded[gmap[p, s, j]]``;
+    returns ``(gmap, rows, valid)``, each ``[P, NB, B]``."""
+    assert shuffle_seed is None or start_row % (p * b) == 0, (
+        "stripe-time shuffle needs start_row aligned to partitions*per_batch"
+    )
+    perms = _stripe_perms(p, b, nb, shuffle_seed, start_row // (p * b))
+    gmap = _stripe_gmap(perms)
+    rows = (start_row + gmap).astype(np.int32)
+    valid = gmap < n
+    return gmap, rows, valid
+
+
+def _stripe_perms(
+    p: int, b: int, nb: int, shuffle_seed: int | None, start_slot: int = 0
+) -> np.ndarray:
+    """Within-batch shuffle permutations ``[P, NB, B]`` (identity when
+    unshuffled), counter-based on the absolute batch slot."""
+    if shuffle_seed is None:
+        j = np.arange(b, dtype=np.int64)
+        return np.broadcast_to(j, (p, nb, b))
+    from ..utils.prng import row_uniforms
+
+    u = row_uniforms(shuffle_seed, start_slot * p, nb * p, b, stream_id=3)
+    return np.argsort(u.reshape(nb, p, b), axis=-1).swapaxes(0, 1)
+
+
+def _stripe_gmap(perms: np.ndarray) -> np.ndarray:
+    """``gmap[p, s, j] = (s·B + perm[p, s, j])·P + p`` — the stripe gather,
+    replayed on the device by ``engine.loop.expand_packed``."""
+    p, nb, b = perms.shape
+    slot = np.arange(nb, dtype=np.int64)[None, :, None]
+    part = np.arange(p, dtype=np.int64)[:, None, None]
+    return (slot * b + perms) * p + part
+
+
+def stripe_geometry(
+    num_rows: int, partitions: int, per_batch: int
+) -> tuple[int, int]:
+    """``(rows per partition, microbatches per partition)`` — ceil at both
+    levels; the last batch is padded and masked."""
+    per_part = -(-num_rows // partitions)
+    return per_part, -(-per_part // per_batch)
+
+
+def stripe_partitions(
+    stream: StreamData,
+    partitions: int,
+    per_batch: int,
+    shuffle_seed: int | None = None,
+) -> Batches:
+    """Row-stripe the whole stream over P partitions: ``X [P, NB, B, F]``,
+    ``y/rows/valid [P, NB, B]``."""
+    _, nb = stripe_geometry(stream.num_rows, partitions, per_batch)
+    return stripe_chunk(
+        stream.X, stream.y, 0, partitions, per_batch, nb, shuffle_seed
+    )
+
+
+def stripe_partitions_packed(
+    stream: StreamData,
+    partitions: int,
+    per_batch: int,
+    shuffle_seed: int | None = None,
+) -> PackedIndexedBatches:
+    """The compressed stripe: the row table, row-table gather indices
+    ``idx [P, NB, B]`` (int16 when the table allows) and the per-batch
+    permutation ``perm [P, NB, B]`` in its smallest lossless dtype. Requires
+    a stream synthesized with ``mult_data >= 1``."""
+    if stream.src is None:
+        raise ValueError(
+            "stream has no compressed form (subsampled or hand-built); "
+            "use stripe_partitions"
+        )
+    n = stream.num_rows
+    p, b = partitions, per_batch
+    _, nb = stripe_geometry(n, p, b)
+    if p * nb * b > 2**31 - 1:
+        raise ValueError(
+            f"padded stripe grid of {p * nb * b:,} positions exceeds int32 "
+            "(expand_packed synthesizes positions as int32)"
+        )
+    perms = _stripe_perms(p, b, nb, shuffle_seed)
+    idx = _pad(stream.src.astype(np.int64), p * nb * b, 0)[_stripe_gmap(perms)]
+    dt = np.int16 if len(stream.base_y) <= np.iinfo(np.int16).max else np.int32
+    if b <= 256:
+        pdt = np.uint8
+    elif b <= np.iinfo(np.int16).max + 1:
+        pdt = np.int16
+    else:
+        pdt = np.int32
+    return PackedIndexedBatches(
+        base_X=stream.base_X,
+        base_y=stream.base_y,
+        idx=idx.astype(dt),
+        perm=np.ascontiguousarray(perms.astype(pdt)),
+        n_rows=np.int32(n),
+    )

@@ -1,0 +1,99 @@
+"""nvcc build of the port's CUDA sources into shared libraries.
+
+Each kernel's ``csrc/<name>.cu`` compiles on its own into
+``kernels/_build/lib<name>-<digest>.so`` (a directory ``.gitignore`` lists)
+at its first use, keyed on a hash of the source and the flags, so a fresh
+checkout builds on the first call and later calls reuse the library. The
+library has a plain C interface and is loaded with ``ctypes``
+(``kernels/__init__.py``); no PyTorch header is compiled, which keeps a
+build to seconds. A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+COMMON_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+# Per-kernel extra flags. K1 is held bit-identical to its plain version,
+# so nvcc must not contract a*b+c into FMAs on its own.
+KERNELS = {
+    "ddm_window": ("-fmad=false",),
+    "centroid_predict_err": (),
+}
+
+
+def nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc``
+    or the one on ``PATH``."""
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH); the port's CUDA kernels need the CUDA toolkit to build"
+    )
+
+
+def _command(name: str, out: Path) -> list[str]:
+    return [nvcc(), *COMMON_FLAGS, *KERNELS[name], "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lives for the current source and flags."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; known: {sorted(KERNELS)}")
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join((*COMMON_FLAGS, *KERNELS[name])).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Build ``name`` unless its library for this source already exists;
+    returns the library path. Raises ``RuntimeError`` if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        _command(name, tmp), capture_output=True, text=True, check=False
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed building {name} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel, one nvcc process each, all started together;
+    returns the wall seconds each build took (0 for a cached library)."""
+
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return name, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(pool.map(timed, KERNELS))
