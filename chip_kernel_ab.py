@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Device time of the port's hand-written kernels in two trees, on one card.
+
+Run from the repository root: ``python3 chip_kernel_ab.py OTHER_TREE``,
+where OTHER_TREE is a checkout of another commit of this repository (for
+example ``git archive <commit> | tar -x -C OTHER_TREE``). It runs
+OTHER_TREE, this tree, this tree and OTHER_TREE in turn, each in its own
+process, so the two are compared on one card with the drift between runs
+visible. Each run builds that tree's kernels and times K1 (``ddm_window``)
+and K2 (``centroid_predict_err``) at ``chip_smoke.py``'s main-path shapes
+on the same inputs:
+
+* ``ms``: device time of one launch — 50 calls of the kernel's wrapper
+  captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
+  so the graph holds 50 kernel launches), replays timed with CUDA events,
+  median of 5 rounds (``chip_smoke.graph_ms``);
+* ``host_us``: the wrapper's host cost per call (``chip_smoke.host_us``).
+
+It prints the card's name and power limit, one JSON line per run, and a
+last JSON line with each tree's medians. Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def one(root: str) -> dict:
+    """Time the kernels of the tree at ``root`` (this process imports its
+    package, so it runs in a process of its own)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # this tree's helpers; they import no package
+
+    sys.path[:] = [root] + [x for x in sys.path if os.path.abspath(x or ".") != HERE]
+    from distributed_drift_detection_tpu_torch import api, config
+    from distributed_drift_detection_tpu_torch.kernels import _build
+    from distributed_drift_detection_tpu_torch.models import classifiers
+    from distributed_drift_detection_tpu_torch.ops import ddm
+
+    assert os.path.abspath(ddm.__file__).startswith(os.path.abspath(root) + os.sep)
+    dev = torch.device("cuda")
+    _build.build_all()
+    prep = api.prepare(config.RunConfig(**cs.SMOKE), device=dev)
+    p, w, b = prep.config.partitions, prep.config.window, prep.config.per_batch
+
+    rng = np.random.default_rng(1)
+    prm = config.DDMParams()
+    e0, v0 = (torch.from_numpy(a).to(dev) for a in cs.ddm_inputs(rng, p, 1, 300))
+    e1, v1 = (torch.from_numpy(a).to(dev) for a in cs.ddm_inputs(rng, p, w, b))
+    state, _ = ddm.ddm_window_reference(ddm.ddm_init((p,), dev), e0, v0, prm)
+
+    def k1():
+        return ddm.ddm_window(state, e1, v1, prm)
+
+    st = prep.stream
+    cent, bias, T, Ty, idx = (
+        torch.from_numpy(a).to(dev)
+        for a in cs.k2_inputs(np.random.default_rng(2), st.base_X, st.base_y,
+                              p, w * b, st.num_classes)
+    )
+    # the table as the tree's window engine hands it to K2
+    pad = getattr(classifiers, "pad_row_table", None)
+    Tk = pad(T) if pad else T
+
+    def k2():
+        return classifiers.centroid_predict_err(cent, bias, Tk, Ty, idx)
+
+    return {
+        "tree": root,
+        "ddm_window": {"ms": cs.graph_ms(k1), "host_us": cs.host_us(k1)},
+        "centroid_predict_err": {"ms": cs.graph_ms(k2), "host_us": cs.host_us(k2)},
+    }
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2])))
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import chip_smoke
+
+    print(chip_smoke.card())
+    other = os.path.abspath(sys.argv[1])
+    runs = []
+    for root in (other, HERE, HERE, other):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", root],
+            capture_output=True, text=True, timeout=600, cwd=HERE,
+        )
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return 1
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]))
+    summary = {}
+    for label, root in (("other", other), ("this", HERE)):
+        mine = [r for r in runs if r["tree"] == root]
+        summary[label] = {
+            k: {m: statistics.median(r[k][m] for r in mine) for m in ("ms", "host_us")}
+            for k in ("ddm_window", "centroid_predict_err")
+        }
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

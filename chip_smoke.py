@@ -12,13 +12,25 @@ without them. Phases, each fatal on failure:
    [16, 128·100] (fresh and carried states, all-padding rows, the
    DDM_ROBUST noise floor), the centroid predict + error indicator (K2)
    with equal predictions and errors at 16 × 12,800 rows, F = 21, C = 40 —
-   and time kernel and plain version;
+   and on the edge cases of their designs (K1: cluster sizes 8 and 1, a
+   cluster size that does not divide W, W below it, a CTA of padding only,
+   rows of several tiles; K2: near-tie rows, F = 21, 27 and 37, C = 40 and
+   64, int16 and int32 indices); then time each kernel three ways:
+   ``ms``, the device time of one launch (50 raw launches through
+   ``kernels.launcher`` with preallocated outputs, captured into one CUDA
+   graph, replays timed with CUDA events, median of 5 rounds); ``host_us``,
+   the wrapper's host cost per call (host clock over 200 calls); and
+   ``plain_ms``, the plain version's time per call (CUDA events around 50
+   calls, median of 5 rounds);
 4. drive the main path, ``run(cfg, device="cuda")`` at bench.py's headline
    geometry (2.048 M rows, 16 partitions, per_batch 100) on the synthetic
    twin of outdoorStream: 624 detections, flags equal field by field to the
    same config run through the port on the CPU, and both kernels launched
    (their launch counters are reset just before the run and read just
-   after). Final Time is the median of three warm runs.
+   after). Final Time is the median of three warm runs;
+5. trace one more warm detect phase with ``torch.profiler`` and print
+   each kernel's in-run launches and device µs per launch, and the
+   device's idle share over the phase.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -55,7 +67,9 @@ def check(ok: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 50, rounds: int = 5) -> float:
-    """Median over ``rounds`` of the mean device time of ``reps`` calls."""
+    """Median over ``rounds`` of the mean time of ``reps`` calls, between
+    CUDA events on the host's stream: host-bound for a fast kernel behind
+    a slow wrapper, so it times only the plain versions."""
     import torch
 
     fn()
@@ -73,6 +87,52 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+def graph_ms(launch, reps: int = 50, rounds: int = 5) -> float:
+    """Device time of one ``launch()``: ``reps`` calls captured into one
+    CUDA graph, each replay timed with CUDA events; the median over
+    ``rounds`` replays, divided by ``reps``. ``launch`` must enqueue only
+    the kernel (outputs preallocated), so the graph holds nothing else."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's cost of one ``fn()`` call, in µs: the host clock over
+    ``calls`` calls (no synchronize inside), divided by their number."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -80,104 +140,227 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def ddm_inputs(rng, p, w, b):
     """Bernoulli error indicators with per-partition rate jumps; ragged
-    padding, and partition 1 all padding."""
+    padding, partition 1 all padding, and in partition 0 the batches
+    [W/4, W/2) all padding (whole CTAs of a cluster of 8)."""
     n = w * b
     flip = rng.integers(0, n, p)[:, None]
     rate = np.where(np.arange(n)[None] < flip, rng.uniform(0, 0.05, (p, 1)),
                     rng.uniform(0.2, 0.9, (p, 1)))
     errs = (rng.random((p, n)) < rate).astype(np.float32).reshape(p, w, b)
     valid = rng.random((p, w, b)) < 0.98
-    valid[1] = False
-    valid[3, w // 2:] = False
+    if p > 1:
+        valid[1] = False
+    if p > 3:
+        valid[3, w // 2:] = False
+    valid[0, w // 4: w // 2] = False
     return errs, valid
 
 
-def check_k1(torch, ddm, params_mod, p, w, b, dev):
-    """K1 against its plain version, bit for bit; returns its kernel row."""
-    rng = np.random.default_rng(1)
+# K1 edge cases (P, W, B): cluster sizes 8 (P=1) and 1 (P=200); cluster
+# sizes that do not divide W (7, 130); W below the cluster size (5 < 8);
+# slices of several 2048-element tiles (P=67: cs=1, 5200 elements a CTA).
+K1_EDGES = [(1, 128, 100), (200, 7, 20), (16, 130, 20), (1, 5, 30),
+            (3, 7, 33), (67, 40, 130)]
+
+
+def k1_cases(torch, ddm, params_mod, p, w, b, dev, rng):
+    """(name, params, carried state, errs, valid) at [P, W, B] for the
+    three parameter sets; the carried state is the plain version's over an
+    earlier window (the 'warmup' one has +inf minima with a payload)."""
     cases = {
         "classic": params_mod.DDMParams(),
         "robust": params_mod.DDM_ROBUST,
         "warmup": params_mod.DDMParams(min_num_instances=500),
     }
-    timed = None
-    for name, prm in cases.items():  # times the classic case
+    out = []
+    for name, prm in cases.items():
         e0, v0 = (torch.from_numpy(a).to(dev) for a in ddm_inputs(rng, p, 1, 300))
         e1, v1 = (torch.from_numpy(a).to(dev) for a in ddm_inputs(rng, p, w, b))
-        # a reachable carried state: the plain version over an earlier window
-        fresh = ddm.ddm_init((p,), dev)
-        carried, _ = ddm.ddm_window_reference(fresh, e0, v0, prm)
-        if name == "warmup":
-            check(bool((torch.isinf(carried.ps_min) & torch.isfinite(carried.p_min)).any()),
-                  "K1 inputs miss a carried inf state with a finite payload")
-        for state in (fresh, carried):
-            got = ddm.ddm_window(state, e1, v1, prm)
-            want = ddm.ddm_window_reference(state, e1, v1, prm)
-            torch.cuda.synchronize()
-            for g, r in zip(got[0] + got[1], want[0] + want[1]):
-                check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
-                      f"K1 differs from its plain version ({name})")
-        if timed is None:
-            timed = (carried, e1, v1, prm)
-    state, e1, v1, prm = timed
-    ms = time_ms(lambda: ddm.ddm_window(state, e1, v1, prm))
+        carried, _ = ddm.ddm_window_reference(ddm.ddm_init((p,), dev), e0, v0, prm)
+        out.append((name, prm, carried, e1, v1))
+    return out
+
+
+def check_k1_equal(torch, ddm, prm, state, e1, v1, what):
+    got = ddm.ddm_window(state, e1, v1, prm)
+    want = ddm.ddm_window_reference(state, e1, v1, prm)
+    torch.cuda.synchronize()
+    for g, r in zip(got[0] + got[1], want[0] + want[1]):
+        check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+              f"K1 differs from its plain version ({what})")
+
+
+def check_k1(torch, ddm, kernels, params_mod, p, w, b, dev):
+    """K1 against its plain version, bit for bit, at the main path's shape
+    and the edge cases; times it; returns its kernel row."""
+    rng = np.random.default_rng(1)
+    for shape in [(p, w, b)] + K1_EDGES:
+        for name, prm, carried, e1, v1 in k1_cases(torch, ddm, params_mod, *shape, dev, rng):
+            if name == "warmup" and shape == (p, w, b):
+                check(bool((torch.isinf(carried.ps_min) & torch.isfinite(carried.p_min)).any()),
+                      "K1 inputs miss a carried inf state with a finite payload")
+            for state in (ddm.ddm_init((shape[0],), dev), carried):
+                check_k1_equal(torch, ddm, prm, state, e1, v1, f"{name} {shape}")
+    print(f"K1 ddm_window: bitwise equal at [{p}, {w}x{b}] and "
+          + ", ".join(f"[{a}, {c}x{d}] (cs={ddm.cluster_size(a)})" for a, c, d in K1_EDGES))
+
+    # timed: the classic case at the main path's shape, from a carried state
+    _, prm, state, e1, v1 = k1_cases(torch, ddm, params_mod, p, w, b, dev,
+                                     np.random.default_rng(1))[0]
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = ddm.DDMState(*(torch.empty_like(leaf) for leaf in state))
+    args = ddm.ddm_window_args(state, e1, v1, prm, fw, fc, end)
+    fn = kernels.launcher("ddm_window")
+    ms = graph_ms(lambda: kernels.check(
+        "ddm_window", fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: ddm.ddm_window(state, e1, v1, prm))
     plain_ms = time_ms(lambda: ddm.ddm_window_reference(state, e1, v1, prm))
     n = p * w * b
     # each input read once (errs f32, live u8, 5 state leaves), each output
     # written once ([P, W] i32 twice, 5 state leaves); ~14 f32 operations a
     # element (2 divisions, sqrt, 2 FMAs, adds, compares)
     b_ms, by = bound(n * 5 + p * 5 * 4 * 2 + p * w * 8, n * 14)
-    print(f"K1 ddm_window [{p}, {w}x{b}]: bitwise equal; {ms:.4f} ms kernel, "
-          f"{plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by})")
+    print(f"K1 ddm_window [{p}, {w}x{b}] cs={ddm.cluster_size(p)}: {ms:.5f} ms "
+          f"device (graph of 50), {h_us:.1f} us host a call, {plain_ms:.4f} ms "
+          f"plain, bound {b_ms:.5f} ms ({by})")
     return dict(
         name="ddm_window", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/ddm_window.cu",
         replaces="distributed_drift_detection_tpu/ops/ddm.py:277",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-        library_ms=None,
+        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None,
     )
 
 
-def check_k2(torch, classifiers, stream, p, w, b, dev):
-    """K2 against its plain version: equal preds and errs; its kernel row."""
-    rng = np.random.default_rng(2)
-    T = torch.from_numpy(stream.base_X).to(dev)
-    Ty = torch.from_numpy(stream.base_y).to(dev)
-    c, f = stream.num_classes, stream.num_features
-    # centroids near the class means, a quarter of the classes absent per
-    # partition, and partition 0 with every class absent (all -inf rows)
-    means = np.stack([stream.base_X[stream.base_y == k].mean(0) for k in range(c)])
+def k2_inputs(rng, base_X, base_y, p, n, c, idx_dtype=np.int16):
+    """Centroids near the class means of ``base_X``, a quarter of the
+    classes absent per partition, partition 0 with every class absent (all
+    -inf rows), and random gather indices: numpy arrays."""
+    f = base_X.shape[1]
+    ky = base_y % c
+    means = np.stack([base_X[ky == k].mean(0) if (ky == k).any()
+                      else np.zeros(f, np.float32) for k in range(c)])
     cent = (means[None] + 0.05 * rng.normal(size=(p, c, f))).astype(np.float32)
     bias = (-0.5 * (cent.astype(np.float64) ** 2).sum(-1)).astype(np.float32)
     bias[rng.random((p, c)) < 0.25] = -np.inf
     bias[0] = -np.inf
-    idx = rng.integers(0, len(stream.base_y), (p, w * b)).astype(np.int16)
-    args = [torch.from_numpy(a).to(dev) for a in (cent, bias)] + [T, Ty]
-    idx_t = torch.from_numpy(idx).to(dev)
-    err, pred = classifiers.centroid_predict_err(*args, idx_t, return_pred=True)
-    rerr, rpred = classifiers.centroid_predict_err_reference(*args, idx_t)
+    idx = rng.integers(0, len(base_y), (p, n)).astype(idx_dtype)
+    return cent, bias, base_X, ky.astype(np.int32), idx
+
+
+def tie_inputs():
+    """C = 5, F = 6: class 0 absent, classes 1 and 3 identical (an exact
+    tie: the first wins), class 4 a hair from class 2, and rows that sit
+    5e-5 from the 2/4 tie on either side; expected predictions."""
+    c, f = 5, 6
+    cent = np.zeros((c, f), np.float32)
+    cent[1] = cent[3] = 1.0
+    cent[2] = cent[4] = 2.0
+    cent[4, 0] = 2.001
+    bias = (-0.5 * (cent * cent).sum(1)).astype(np.float32)
+    bias[0] = -np.inf
+    rows = np.stack([np.full(f, 1.0), np.r_[2.05, np.full(f - 1, 2.0)],
+                     np.r_[1.95, np.full(f - 1, 2.0)]]).astype(np.float32)
+    want = np.array([1, 4, 2], np.int32)
+    return cent[None], bias[None], rows, want
+
+
+def check_k2_equal(torch, classifiers, arrays, dev, what):
+    cent, bias, T, Ty, idx = (torch.from_numpy(a).to(dev) for a in arrays)
+    err, pred = classifiers.centroid_predict_err(cent, bias, T, Ty, idx, return_pred=True)
+    rerr, rpred = classifiers.centroid_predict_err_reference(cent, bias, T, Ty, idx)
     torch.cuda.synchronize()
-    check(torch.equal(pred, rpred), "K2 predictions differ from its plain version")
-    check(torch.equal(err, rerr), "K2 errors differ from its plain version")
+    check(torch.equal(pred, rpred), f"K2 predictions differ from its plain version ({what})")
+    check(torch.equal(err, rerr), f"K2 errors differ from its plain version ({what})")
+    return err, pred, rerr
+
+
+def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
+    """K2 against its plain version — equal preds and errs — at the main
+    path's shape and the edge cases; times it; returns its kernel row."""
+    rng = np.random.default_rng(2)
+    c, f = stream.num_classes, stream.num_features
+    arrays = k2_inputs(rng, stream.base_X, stream.base_y, p, w * b, c)
+    err, _, rerr = check_k2_equal(torch, classifiers, arrays, dev, "main path")
     check(bool((err > 0).any()) and bool((err == 0).any()), "K2 inputs give one error value only")
     max_err = float((err - rerr).abs().max())
-    ms = time_ms(lambda: classifiers.centroid_predict_err(*args, idx_t))
-    plain_ms = time_ms(lambda: classifiers.centroid_predict_err_reference(*args, idx_t))
-    rows = p * w * b
+
+    edges = []
+    for ef, ec, dt in [(21, 40, np.int32), (27, 40, np.int16), (27, 64, np.int32),
+                       (37, 64, np.int16), (37, 40, np.int32)]:
+        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 3
+        ty = rng.integers(0, ec, 3000).astype(np.int32)
+        table = (protos[ty] + 0.3 * rng.normal(size=(3000, ef))).astype(np.float32)
+        check_k2_equal(torch, classifiers, k2_inputs(rng, table, ty, 4, 3000, ec, dt),
+                       dev, f"F={ef} C={ec} {np.dtype(dt).name}")
+        edges.append(f"F={ef} C={ec} {np.dtype(dt).name}")
+    cent, bias, rows, want = tie_inputs()
+    for dt in (np.int16, np.int32):
+        idx = np.arange(len(rows), dtype=dt)[None]
+        _, pred, _ = check_k2_equal(torch, classifiers, (cent, bias, rows, want, idx),
+                                    dev, "near ties")
+        check(np.array_equal(pred.cpu().numpy()[0], want), "K2 near-tie predictions")
+    print(f"K2 centroid_predict_err: preds and errs equal at [{p}, {w * b}] "
+          f"F={f} C={c}, near ties, " + ", ".join(edges))
+
+    cent_t, bias_t, T, Ty, idx_t = (torch.from_numpy(a).to(dev) for a in arrays)
+    Tp = classifiers.pad_row_table(T)
+    err_buf = torch.empty(idx_t.shape, dtype=torch.float32, device=dev)
+    args = classifiers.centroid_predict_err_args(cent_t, bias_t, Tp, Ty, idx_t, err_buf)
+    fn = kernels.launcher("centroid_predict_err")
+    ms = graph_ms(lambda: kernels.check(
+        "centroid_predict_err", fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: classifiers.centroid_predict_err(cent_t, bias_t, Tp, Ty, idx_t))
+    plain_ms = time_ms(
+        lambda: classifiers.centroid_predict_err_reference(cent_t, bias_t, T, Ty, idx_t))
+    rows_n = p * w * b
     # idx i16 + err f32 per row, the row table and labels, centroids + bias;
     # 2·F·C operations a row for the dot products
-    nbytes = rows * 6 + T.numel() * 4 + Ty.numel() * 4 + cent.nbytes + bias.nbytes
-    b_ms, by = bound(nbytes, rows * 2 * f * c)
-    print(f"K2 centroid_predict_err [{p}, {w * b}] F={f} C={c}: preds and errs "
-          f"equal; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-          f"{b_ms:.5f} ms ({by})")
+    nbytes = rows_n * 6 + T.numel() * 4 + Ty.numel() * 4 + cent_t.numel() * 4 + bias_t.numel() * 4
+    b_ms, by = bound(nbytes, rows_n * 2 * f * c)
+    print(f"K2 centroid_predict_err [{p}, {w * b}] F={f} C={c}: {ms:.5f} ms "
+          f"device (graph of 50), {h_us:.1f} us host a call, {plain_ms:.4f} ms "
+          f"plain, bound {b_ms:.5f} ms ({by})")
     return dict(
         name="centroid_predict_err", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/centroid_predict_err.cu",
         replaces="distributed_drift_detection_tpu/models/classifiers.py:100",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=by, library_ms=None,
+        max_abs_err=max_err, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None,
     )
+
+
+KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
+                  "centroid_predict_err": "centroid_predict_err_kernel"}
+
+
+def in_run_profile(torch, api, prep, dev):
+    """One warm detect phase under ``torch.profiler``: each kernel's
+    (launches, device µs per launch), and the summary of the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = api.upload(prep.batches, dev)
+    prep.runner(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prep.runner(batches)
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    check(bool(kern), "the profiler saw no device kernels in the detect phase")
+    busy_us = sum(e.self_device_time_total for e in kern)
+    per = {}
+    for name, symbol in KERNEL_SYMBOLS.items():
+        hits = [e for e in kern if symbol in e.key]
+        count = sum(e.count for e in hits)
+        check(count > 0, f"the profiler saw no {name} launch in the detect phase")
+        per[name] = (count, sum(e.self_device_time_total for e in hits) / count)
+    summary = {"detect_s": detect_s, "kernels": sum(e.count for e in kern),
+               "busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / detect_s}
+    return per, summary
 
 
 def main(device: str = "cuda") -> int:
@@ -187,7 +370,7 @@ def main(device: str = "cuda") -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 2
-    from distributed_drift_detection_tpu_torch import api, config
+    from distributed_drift_detection_tpu_torch import api, config, kernels
     from distributed_drift_detection_tpu_torch.kernels import _build
     from distributed_drift_detection_tpu_torch.models import classifiers
     from distributed_drift_detection_tpu_torch.ops import ddm
@@ -196,11 +379,7 @@ def main(device: str = "cuda") -> int:
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi)
+    print(card())
 
     # 2. build
     t0 = time.perf_counter()
@@ -218,8 +397,8 @@ def main(device: str = "cuda") -> int:
           f"{tuple(prep.batches.idx.shape)} {prep.batches.idx.dtype}, perm "
           f"{prep.batches.perm.dtype}, row table {prep.stream.base_X.shape}")
     check((w, r) == (128, 4), f"auto W x R resolved to {w} x {r}, not 128 x 4")
-    rows = [check_k1(torch, ddm, config, p, w, b, dev),
-            check_k2(torch, classifiers, prep.stream, p, w, b, dev)]
+    rows = [check_k1(torch, ddm, kernels, config, p, w, b, dev),
+            check_k2(torch, classifiers, kernels, prep.stream, p, w, b, dev)]
 
     # 4. the main path, counted
     t0 = time.perf_counter()
@@ -256,12 +435,29 @@ def main(device: str = "cuda") -> int:
           f"{prep.stream.num_rows / final:,.0f} rows/s; phases "
           + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items()))
 
+    # 5. the kernels inside the run
+    per, summary = in_run_profile(torch, api, prep, dev)
+    print("in-run (one traced detect phase): "
+          + ", ".join(f"{k} {c} launches x {us:.2f} us" for k, (c, us) in per.items())
+          + f"; {summary['kernels']} kernels busy {summary['busy_s']:.4f} s of "
+          f"{summary['detect_s']:.4f} s, idle share {summary['idle_share']:.3f}")
+    for row in rows:
+        row["in_run_launches"], row["in_run_us"] = per[row["name"]]
+
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
 
 
 if __name__ == "__main__":

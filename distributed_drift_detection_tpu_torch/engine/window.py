@@ -23,9 +23,10 @@ region, exactly as the JAX engine's lock-step lanes do. The loop condition
 
 The window never materializes its ``[P, W·B, F]`` rows: the model's
 ``predict_err`` gathers them from the row table through the index plane
-(on the card, inside kernel K2 for the centroid model). A dense stream
-(``Batches``) is addressed the same way, through a flat row index into its
-padded feature plane.
+(on the card, inside kernel K2 for the centroid model). The engine builds
+that table once per run with its row stride rounded up to 4 floats
+(``models.base.pad_row_table``). A dense stream (``Batches``) is addressed
+the same way, through a flat row index into its padded feature plane.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..config import DDMParams
-from ..models.base import Model
+from ..models.base import Model, pad_row_table, row_stride
 from .loop import (
     Batches,
     FlagRows,
@@ -77,12 +78,21 @@ def make_window_span(
             tail = torch.full((p, w, *x.shape[2:]), fill, dtype=x.dtype, device=dev)
             return torch.cat([x, tail], 1)
 
+        # The model gathers from `rows` (the table with its row stride
+        # rounded up to 4 floats, K2's 16-byte gathers); the refits take
+        # their rows from `table`, the first F columns.
         if indexed:
             table, labels = batches.base_X, batches.base_y
+            rows = pad_row_table(table)
             r_idx = pad_tail(batches.idx, 0)  # [P, NBF+W, B]
         else:
-            r_X = pad_tail(batches.X, 0.0)  # [P, NBF+W, B, F]
-            table = r_X.reshape(-1, r_X.shape[-1])
+            f = batches.X.shape[-1]
+            r_X = torch.zeros(  # [P, NBF+W, B, row_stride(F)], zero tail
+                (p, nbf + w, b, row_stride(f)), dtype=batches.X.dtype, device=dev
+            )
+            r_X[:, :nbf, :, :f] = batches.X
+            rows = r_X.view(-1, r_X.shape[-1])
+            table = rows[:, :f]
             labels = pad_tail(batches.y, 0).reshape(-1)
             r_idx = torch.arange(
                 table.shape[0], dtype=torch.int32, device=dev
@@ -136,7 +146,7 @@ def make_window_span(
                 fitted = model.fit(a_X_c, a_y_c, a_w_c)
                 pred_params = _select(retr_c & any_ne, fitted, params_c)
                 errs = model.predict_err(
-                    pred_params, table, labels, flat_idx
+                    pred_params, rows, labels, flat_idx
                 ).view(p, w, b)
 
                 new_ddm, res = det.window(ddm_c, errs, live)

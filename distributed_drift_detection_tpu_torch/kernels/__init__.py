@@ -2,8 +2,10 @@
 
 Each library is built by ``kernels._build`` on first use and loaded once.
 A launch function takes raw device pointers (``tensor.data_ptr()``) and
-PyTorch's current stream, launches, and returns ``cudaGetLastError()``;
-:func:`check` turns a nonzero code into an exception. The checked,
+PyTorch's current stream, launches, and returns a CUDA error code (that
+of the launch call, or ``cudaGetLastError()``); :func:`check` turns a
+nonzero code into an exception — a refused launch, such as K1's cluster
+launch on a card without clusters, raises there. The checked,
 counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
 ``centroid_predict_err``).
@@ -24,14 +26,15 @@ _SIGNATURES = {
     "ddm_window": (
         "ddm_window_launch",
         [_P, _P, _P, _P, _P, _P, _P,  # errs, live, 5 state leaves
-         _I, _I, _I, _I, _I,  # p, n, w, b, min_num_instances
+         _I, _I, _I, _I, _I, _I,  # p, n, w, b, cluster size, min_num_instances
          _F, _F, _F, _I,  # warning, out-control, band floor, use floor
          _P, _P, _P, _P, _P, _P, _P,  # first warning/change, 5 end leaves
          _P],  # stream
     ),
     "centroid_predict_err": (
         "centroid_predict_err_launch",
-        [_P, _P, _P, _I, _P, _P,  # table, labels, idx, idx bytes, cent, bias
+        [_P, _I, _P, _P, _I, _P, _P,  # table, its row stride, labels, idx,
+                                      # idx bytes, cent, bias
          _I, _I, _I, _I,  # p, n, c, f
          _P, _P, _P],  # err, pred, stream
     ),

@@ -8,9 +8,11 @@ partitions; the port's take the ``[P]`` partition axis written out. A
 * ``fit(X [P, B, F], y [P, B], w [P, B]) -> params`` — a fresh fit on one
   microbatch per partition; ``w`` is the {0, 1} row-validity weight;
 * ``predict(params, X [P, N, F]) -> preds [P, N] i32``;
-* ``predict_err(params, T [R, F], Ty [R], idx [P, N]) -> err [P, N] f32`` —
+* ``predict_err(params, T, Ty [R], idx [P, N]) -> err [P, N] f32`` —
   the error indicator ``predict(T[idx]) != Ty[idx]`` the engine feeds the
   detector, with the rows gathered from the table ``T`` through ``idx``.
+  The engine passes ``T`` as :func:`pad_row_table` leaves it, ``[R,
+  row_stride(F)]``; columns past F are padding.
 
 The ported families (majority, centroid) consume no PRNG key.
 """
@@ -18,6 +20,8 @@ The ported families (majority, centroid) consume no PRNG key.
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
+
+import torch
 
 
 class Model(NamedTuple):
@@ -33,3 +37,23 @@ class ModelSpec(NamedTuple):
 
     num_features: int
     num_classes: int
+
+
+def row_stride(f: int) -> int:
+    """Row stride of kernel K2's row table: ``f`` rounded up to a multiple
+    of 4, so every row starts on a 16-byte boundary."""
+    return (int(f) + 3) & ~3
+
+
+def pad_row_table(T: torch.Tensor) -> torch.Tensor:
+    """The row table ``T [R, F]`` as kernel K2 gathers it: ``[R,
+    row_stride(F)]``, zero past column F — ``T`` itself when it already is
+    (F a multiple of 4, contiguous). The window engine builds it once per
+    run."""
+    r, f = T.shape
+    fp = row_stride(f)
+    if fp == f and T.is_contiguous():
+        return T
+    out = torch.zeros((r, fp), dtype=T.dtype, device=T.device)
+    out[:, :f] = T
+    return out

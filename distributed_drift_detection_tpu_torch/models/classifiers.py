@@ -4,7 +4,8 @@ Twins of the JAX package's ``models/classifiers.py`` ``make_majority``
 (:44-59) and ``make_centroid`` (:67-104), batched over partitions. The
 centroid predict fused with the error indicator is the hand-written CUDA
 kernel K2 (``csrc/centroid_predict_err.cu``), reached through
-:func:`centroid_predict_err`.
+:func:`centroid_predict_err`; it gathers rows from the padded row table of
+:func:`~.base.pad_row_table`.
 
 The fits stay plain PyTorch, as the JAX package left them to XLA. The
 centroid fit's segment sums are taken in float64 and rounded once to f32:
@@ -20,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .base import Model, ModelSpec
+from .base import Model, ModelSpec, pad_row_table, row_stride
 
 
 def _argmax_first(scores: torch.Tensor) -> torch.Tensor:
@@ -79,6 +80,19 @@ def centroid_predict_err_reference(centroids, bias, T, Ty, idx):
     return (pred != Ty[i]).float(), pred
 
 
+# Shared memory a block can use on an H100 (227 KB). K2 stages one
+# partition's centroids and bias there and, for F <= 32, its block's
+# K2_BLOCK_ROWS rows with their indices and labels
+# (csrc/centroid_predict_err.cu kBlockRows).
+MAX_SHARED_BYTES = 232448
+K2_BLOCK_ROWS = 256
+
+
+def _k2_shared_bytes(c: int, f: int) -> int:
+    fp = row_stride(f)
+    return 4 * (c * fp + c) + (4 * K2_BLOCK_ROWS * (fp + 2) if f <= 32 else 0)
+
+
 def _check_cuda(name, t, dtypes, shape, device):
     if t.device != device or t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
         raise ValueError(
@@ -89,41 +103,60 @@ def _check_cuda(name, t, dtypes, shape, device):
         raise ValueError(f"centroid_predict_err: {name} must be contiguous")
 
 
+def centroid_predict_err_args(centroids, bias, T, Ty, idx, err, pred=None):
+    """Kernel K2's launch arguments, stream excluded, for checked CUDA
+    inputs (``T`` padded by :func:`pad_row_table`) and preallocated
+    outputs."""
+    p, c, f = centroids.shape
+    return (
+        T.data_ptr(), T.shape[1], Ty.data_ptr(), idx.data_ptr(),
+        idx.element_size(), centroids.data_ptr(), bias.data_ptr(),
+        p, idx.shape[1], c, f,
+        err.data_ptr(), None if pred is None else pred.data_ptr(),
+    )
+
+
 def centroid_predict_err(centroids, bias, T, Ty, idx, return_pred=False):
     """Nearest-centroid predict fused with the error indicator.
 
     ``centroids [P, C, F]`` and ``bias [P, C]`` f32 per partition, row table
-    ``T [R, F]`` f32 with labels ``Ty [R]`` i32, gather index ``idx [P, N]``
-    int16 or int32. Returns ``err [P, N]`` f32 (and ``pred [P, N]`` i32 when
-    ``return_pred``). CUDA tensors launch kernel K2
-    (``csrc/centroid_predict_err.cu``) and add one to
-    ``centroid_predict_err.launches``; CPU tensors run the plain version.
+    ``T`` f32 — ``[R, F]``, or its copy ``[R, row_stride(F)]`` from
+    :func:`pad_row_table` (columns past F are not read) — with labels
+    ``Ty [R]`` i32, gather index ``idx [P, N]`` int16 or int32. Returns
+    ``err [P, N]`` f32 (and ``pred [P, N]`` i32 when ``return_pred``).
+    CUDA tensors launch kernel K2 (``csrc/centroid_predict_err.cu``) and
+    add one to ``centroid_predict_err.launches``; an unpadded ``T`` whose F
+    is not a multiple of 4 is padded first (one copy a call). CPU tensors
+    run the plain version.
     """
+    f = centroids.shape[-1]
     if idx.device.type == "cpu":
-        err, pred = centroid_predict_err_reference(centroids, bias, T, Ty, idx)
+        err, pred = centroid_predict_err_reference(centroids, bias, T[:, :f], Ty, idx)
         return (err, pred) if return_pred else err
     if idx.device.type != "cuda":
         raise ValueError(f"centroid_predict_err: unsupported device {idx.device}")
     dev = idx.device
-    p, c, f = centroids.shape
+    p, c, _ = centroids.shape
     n = idx.shape[1]
+    if T.shape[1] == f:
+        T = pad_row_table(T)
     _check_cuda("centroids", centroids, (torch.float32,), (p, c, f), dev)
     _check_cuda("bias", bias, (torch.float32,), (p, c), dev)
-    _check_cuda("T", T, (torch.float32,), (T.shape[0], f), dev)
+    _check_cuda("T", T, (torch.float32,), (T.shape[0], row_stride(f)), dev)
     _check_cuda("Ty", Ty, (torch.int32,), (T.shape[0],), dev)
     _check_cuda("idx", idx, (torch.int16, torch.int32), (p, n), dev)
-    smem = 4 * (c * f + c + f * 128)  # csrc/centroid_predict_err.cu kThreads
-    if smem > 48 * 1024:
+    if T.data_ptr() % 16:
+        raise ValueError("centroid_predict_err: T must start on a 16-byte boundary")
+    smem = _k2_shared_bytes(c, f)
+    if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"centroid_predict_err: C={c}, F={f} need {smem} B of shared "
-            "memory, over the kernel's 48 KB"
+            f"memory, over the card's {MAX_SHARED_BYTES}"
         )
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
     pred = torch.empty((p, n), dtype=torch.int32, device=dev) if return_pred else None
     code = kernels.launcher("centroid_predict_err")(
-        T.data_ptr(), Ty.data_ptr(), idx.data_ptr(), idx.element_size(),
-        centroids.data_ptr(), bias.data_ptr(), p, n, c, f,
-        err.data_ptr(), pred.data_ptr() if return_pred else None,
+        *centroid_predict_err_args(centroids, bias, T, Ty, idx, err, pred),
         kernels.stream_handle(dev),
     )
     kernels.check("centroid_predict_err", code)

@@ -28,6 +28,7 @@ makes the rounding to f32 the FMA's single rounding.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -197,6 +198,37 @@ def _check_cuda(name, t, dtype, shape, device):
         raise ValueError(f"ddm_window: {name} must be contiguous")
 
 
+def cluster_size(partitions: int, sms: int = 132) -> int:
+    """CTAs per partition row of kernel K1's cluster launch: enough to
+    cover the card's ``sms`` multiprocessors, at most the portable cluster
+    size of 8 and at least 1 — 8 at P = 16 on an H100, 1 from P = 67."""
+    return min(8, max(1, int(sms) // max(int(partitions), 1)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ddm_window_args(state, errs, valid, params, first_warning, first_change, end):
+    """Kernel K1's launch arguments, stream excluded, for checked CUDA
+    inputs and preallocated outputs (``[P, W]`` i32 twice and a
+    :class:`DDMState` of ``[P]`` leaves)."""
+    p, w, b = errs.shape
+    floor = band_floor(params)
+    idx = errs.device.index
+    cs = cluster_size(p, _sm_count(torch.cuda.current_device() if idx is None else idx))
+    return (
+        errs.data_ptr(), valid.data_ptr(),
+        *(leaf.data_ptr() for leaf in state),
+        p, w * b, w, b, cs, int(params.min_num_instances),
+        _f32(params.warning_level), _f32(params.out_control_level),
+        floor, int(floor != 0.0),
+        first_warning.data_ptr(), first_change.data_ptr(),
+        *(leaf.data_ptr() for leaf in end),
+    )
+
+
 def ddm_window(
     state: DDMState,
     errs: torch.Tensor,
@@ -205,9 +237,10 @@ def ddm_window(
 ) -> tuple[DDMState, DDMWindowResult]:
     """The DDM window statistic (contract of :func:`ddm_window_reference`).
 
-    CUDA tensors launch kernel K1 (``csrc/ddm_window.cu``) and add one to
-    ``ddm_window.launches``; CPU tensors run the plain version. ``valid``
-    may be bool or uint8.
+    CUDA tensors launch kernel K1 (``csrc/ddm_window.cu``, one cluster of
+    :func:`cluster_size` CTAs per partition) and add one to
+    ``ddm_window.launches``; a refused launch raises. CPU tensors run the
+    plain version. ``valid`` may be bool or uint8.
     """
     if errs.device.type == "cpu":
         return ddm_window_reference(state, errs, valid, params)
@@ -225,14 +258,8 @@ def ddm_window(
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty((p, w), dtype=torch.int32, device=dev)
     end = DDMState(*(torch.empty_like(leaf) for leaf in state))
-    floor = band_floor(params)
     code = kernels.launcher("ddm_window")(
-        errs.data_ptr(), valid.data_ptr(),
-        *(leaf.data_ptr() for leaf in state),
-        p, w * b, w, b, int(params.min_num_instances),
-        _f32(params.warning_level), _f32(params.out_control_level),
-        floor, int(floor != 0.0),
-        fw.data_ptr(), fc.data_ptr(), *(leaf.data_ptr() for leaf in end),
+        *ddm_window_args(state, errs, valid, params, fw, fc, end),
         kernels.stream_handle(dev),
     )
     kernels.check("ddm_window", code)

@@ -9,6 +9,7 @@ the DDM entries of ``tests/golden/traces.json``. The kernel itself
 runs only on the card (``tests/test_torch_kernels.py``).
 """
 
+import functools
 import json
 import os
 
@@ -122,6 +123,114 @@ def test_window_dispatches_to_plain_on_cpu():
     assert tddm.ddm_window.launches == before  # CPU tensors launch nothing
     for x, y in zip(a[0] + a[1], b[0] + b[1]):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The split of kernel K1 (csrc/ddm_window.cu): a row over a cluster of CTAs
+# ---------------------------------------------------------------------------
+
+
+def _combine(a, b):
+    """``a`` precedes ``b``: the later (ps, p, s, has) record wins on ``<=``."""
+    take = b[3] & (~a[3] | (b[0] <= a[0]))
+    return tuple(torch.where(take, y, x) for x, y in zip(a, b))
+
+
+def _segmented_window(state, errs, valid, params, segments):
+    """Plain emulation of K1's split of each row over ``segments`` CTAs,
+    segment k owning batches [k·W//S, (k+1)·W//S): segment aggregates —
+    the (count, error sum) totals, then the latest record holding the
+    minimum of (ps masked, p, s) — are combined exclusively in segment
+    order, the carried minima first, and each segment is finished from its
+    prefix."""
+    p_, w, b = errs.shape
+    e = errs.reshape(p_, w * b)
+    v = valid.reshape(p_, w * b).bool()
+    cuts = [(k * w // segments) * b for k in range(segments + 1)]
+    parts = [slice(lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+    # 1. count and error-sum totals; exclusive prefixes in segment order
+    pre, run_c, run_e = [], state.count.clone(), torch.zeros(p_)
+    for sl in parts:
+        pre.append((run_c, run_e))
+        run_c = run_c + v[:, sl].sum(1, dtype=torch.int32)
+        run_e = run_e + (e[:, sl] * v[:, sl].float()).sum(1)
+    # 2. per segment: the statistic and its min aggregate
+    seg = []
+    for sl, (pc, pe) in zip(parts, pre):
+        cnt = pc[:, None] + torch.cumsum(v[:, sl].int(), 1, dtype=torch.int32)
+        esum = state.err_sum[:, None] + (pe[:, None] + torch.cumsum(e[:, sl] * v[:, sl].float(), 1))
+        p, s, ps = tddm._stats(cnt, esum)
+        check = v[:, sl] & ((cnt + 1) >= params.min_num_instances)
+        masked = torch.where(check, ps, torch.full_like(ps, float("inf")))
+        run = tddm._run_min(masked, p, s) if masked.shape[1] else None
+        has = torch.full((p_,), masked.shape[1] > 0)
+        agg = (tuple(x[:, -1] for x in run) + (has,) if run is not None
+               else (torch.full((p_,), float("inf")), torch.zeros(p_), torch.zeros(p_), has))
+        seg.append((cnt, esum, ps, check, run, agg))
+    # 3. exclusive prefix of the aggregates, then finish each segment
+    prefix = (state.ps_min, state.p_min, state.s_min, torch.ones(p_, dtype=torch.bool))
+    warns, changes, end = [], [], None
+    for cnt, esum, ps, check, run, agg in seg:
+        if run is not None:
+            first = tuple(x[:, None].expand_as(ps) for x in prefix)
+            ps_min, p_min, s_min, _ = _combine(first, run + (torch.ones_like(check),))
+            s_band = tddm._band_s(s_min, params)
+            change = check & (ps > tddm._threshold(p_min, params.out_control_level, s_band))
+            warn = check & ~change & (ps > tddm._threshold(p_min, params.warning_level, s_band))
+            warns.append(warn)
+            changes.append(change)
+            end = (cnt, esum, ps_min, p_min, s_min)
+        prefix = _combine(prefix, agg)
+    res = tddm.summarise_window(torch.cat(warns, 1).view(p_, w, b),
+                                torch.cat(changes, 1).view(p_, w, b))
+    return tddm.DDMState(*(x[:, -1].contiguous() for x in end)), res
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(w, which, carried):
+    """Inputs at [6, W, 20] (partition 1 all padding, batches [W/4, W/2)
+    of partition 0 all padding) and JAX's window over them."""
+    params, jparams = PARAMS[which]
+    errs, valid = _inputs(10 + w, w=w)
+    valid[0, w // 4: w // 2] = False
+    p = errs.shape[0]
+    if carried:
+        jstate = _carried_state(w, p, jparams)
+    else:
+        jstate = jax.vmap(lambda _: jddm.ddm_init())(jnp.arange(p))
+    jend, jres = _jax_window(jstate, jnp.asarray(errs), jnp.asarray(valid), jparams)
+    return params, jstate, errs, valid, (jend, jres)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+@pytest.mark.parametrize("which", sorted(PARAMS))
+@pytest.mark.parametrize("w", [5, 16, 130])
+@pytest.mark.parametrize("segments", [1, 2, 3, 8])
+def test_segmented_split_is_exact(segments, w, which, carried):
+    """K1's split of a row over CTAs (segment aggregates combined
+    exclusively in order, each segment finished from its prefix) equals the
+    plain version and JAX's ddm_window bit for bit — segments that do not
+    divide W, empty segments (W = 5 < 8), an all-padding segment and
+    carried +inf minima with a finite payload included."""
+    params, jstate, errs, valid, (jend, jres) = _split_case(w, which, carried)
+    state = convert.ddm_state(jstate)
+    e, v = torch.from_numpy(errs), torch.from_numpy(valid)
+    got = _segmented_window(state, e, v, params, segments)
+    want = tddm.ddm_window_reference(state, e, v, params)
+    for g, r in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    for f in jddm.DDMState._fields:
+        np.testing.assert_array_equal(
+            _bits(getattr(jend, f)), _bits(getattr(got[0], f).numpy()), err_msg=f
+        )
+    np.testing.assert_array_equal(np.asarray(jres.first_change), got[1].first_change.numpy())
+    np.testing.assert_array_equal(np.asarray(jres.first_warning), got[1].first_warning.numpy())
+
+
+@pytest.mark.parametrize("p, cs", [(1, 8), (16, 8), (17, 7), (20, 6), (66, 2), (67, 1), (200, 1)])
+def test_cluster_size(p, cs):
+    """K1's CTAs per partition: min(8, max(1, SMs // P)) on 132 SMs."""
+    assert tddm.cluster_size(p) == cs
 
 
 def _oracle(params):

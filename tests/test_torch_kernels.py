@@ -39,12 +39,22 @@ def _ddm_inputs(seed, p, w, b):
                     rng.uniform(0.3, 0.9, (p, 1)))
     errs = (rng.random((p, n)) < rate).astype(np.float32).reshape(p, w, b)
     valid = rng.random((p, w, b)) < 0.9
-    valid[1] = False  # an all-padding row
+    if p > 1:
+        valid[1] = False  # an all-padding row
+    valid[0, w // 4: w // 2] = False  # whole CTAs of padding at cs = 8
     return errs, valid
 
 
+# (P, W, B): the main path's shape; cluster sizes 8 (P <= 16) and 1
+# (P = 200); cluster sizes that do not divide W (7, 130); W below the
+# cluster size (5, 7 < 8); a CTA slice of several 2048-element tiles
+# (P = 67: cs = 1, 5200 elements).
+K1_SHAPES = [(6, 5, 20), (16, 128, 100), (3, 7, 33), (1, 128, 100),
+             (200, 7, 20), (16, 130, 20), (1, 5, 30), (67, 40, 130)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6, 5, 20), (16, 128, 100), (3, 7, 33)])
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("which", sorted(PARAMS))
 def test_ddm_window_kernel_bitwise(dev, which, shape):
     """K1 equals its plain version on the card in every output, the end
@@ -55,6 +65,8 @@ def test_ddm_window_kernel_bitwise(dev, which, shape):
     e1, v1 = (torch.from_numpy(a).to(dev) for a in _ddm_inputs(2, p, w, b))
     fresh = ddm.ddm_init((p,), dev)
     carried, _ = ddm.ddm_window_reference(fresh, e0, v0, params)
+    if which == "warmup":  # 40 elements < 60: +inf minima with a payload
+        assert bool((torch.isinf(carried.ps_min) & torch.isfinite(carried.p_min)).all())
     for state in (fresh, carried):
         before = ddm.ddm_window.launches
         got = ddm.ddm_window(state, e1, v1, params)
@@ -85,3 +97,72 @@ def test_centroid_predict_err_kernel(dev, idx_dtype):
     rerr, rpred = classifiers.centroid_predict_err_reference(*args, idx_t)
     assert torch.equal(pred, rpred) and torch.equal(err, rerr)
     assert int(pred[0].abs().sum()) == 0
+
+
+def _k2_case(seed, p, n, c, f, r=600):
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 3
+    ty = rng.integers(0, c, r).astype(np.int32)
+    table = (protos[ty] + 0.3 * rng.normal(size=(r, f))).astype(np.float32)
+    cent = (protos[None] + 0.1 * rng.normal(size=(p, c, f))).astype(np.float32)
+    bias = (-0.5 * (cent.astype(np.float64) ** 2).sum(-1)).astype(np.float32)
+    bias[rng.random((p, c)) < 0.3] = -np.inf
+    bias[0] = -np.inf
+    idx = rng.integers(0, r, (p, n))
+    return cent, bias, table, ty, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f, c", [(21, 40), (27, 40), (27, 64), (32, 40), (37, 64),
+                                  (3, 5), (256, 64)])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+def test_centroid_predict_err_kernel_widths(dev, f, c, idx_dtype):
+    """K2's register path (F up to 32, in float4 steps with a ragged last
+    step), its generic path (F = 37, and F = 256 with 66 KB of centroids
+    above the default 48 KB), C = 40 and 64: equal to its plain version,
+    from the padded row table and from the unpadded one."""
+    cent, bias, table, ty, idx = _k2_case(f * 100 + c, 3, 1100, c, f)
+    args = [torch.from_numpy(a).to(dev) for a in (cent, bias, table, ty)]
+    idx_t = torch.from_numpy(idx).to(dev, idx_dtype)
+    rerr, rpred = classifiers.centroid_predict_err_reference(*args, idx_t)
+    padded = classifiers.pad_row_table(args[2])
+    assert padded.shape[1] % 4 == 0
+    for T in (padded, args[2]):
+        err, pred = classifiers.centroid_predict_err(
+            args[0], args[1], T, args[3], idx_t, return_pred=True)
+        assert torch.equal(pred, rpred) and torch.equal(err, rerr)
+    assert int(pred[0].abs().sum()) == 0  # every class absent: class 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+def test_centroid_predict_err_kernel_near_ties(dev, idx_dtype):
+    """The near-tie rows of tests/test_torch_models.py: an exact tie goes
+    to the first class, and 5e-5 either side of a near tie is resolved."""
+    c, f = 5, 6
+    cent = np.zeros((c, f), np.float32)
+    cent[1] = cent[3] = 1.0
+    cent[2] = cent[4] = 2.0
+    cent[4, 0] = 2.001
+    bias = (-0.5 * (cent * cent).sum(1)).astype(np.float32)
+    bias[0] = -np.inf
+    rows = np.stack([np.full(f, 1.0), np.r_[2.05, np.full(f - 1, 2.0)],
+                     np.r_[1.95, np.full(f - 1, 2.0)]]).astype(np.float32)
+    want = np.array([1, 4, 2], np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (cent[None], bias[None], rows, want)]
+    idx = torch.arange(3, device=dev, dtype=idx_dtype)[None]
+    err, pred = classifiers.centroid_predict_err(*args, idx, return_pred=True)
+    assert pred.cpu().numpy()[0].tolist() == want.tolist()
+    assert int(err.sum()) == 0
+
+
+@pytest.mark.cuda
+def test_centroid_predict_err_kernel_refuses_oversized_centroids(dev):
+    """Centroids beyond the card's 227 KB of shared memory a block raise
+    before any launch."""
+    cent, bias, table, ty, idx = _k2_case(0, 1, 10, 64, 1000, r=20)
+    args = [torch.from_numpy(a).to(dev) for a in (cent, bias, table, ty)]
+    before = classifiers.centroid_predict_err.launches
+    with pytest.raises(ValueError, match="shared"):
+        classifiers.centroid_predict_err(*args, torch.from_numpy(idx).to(dev, torch.int32))
+    assert classifiers.centroid_predict_err.launches == before

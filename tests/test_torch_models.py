@@ -34,6 +34,8 @@ from distributed_drift_detection_tpu_torch.models.classifiers import (  # noqa: 
     centroid_scores,
     make_centroid,
     make_majority,
+    pad_row_table,
+    row_stride,
 )
 
 P, B, F, C, N = 4, 30, 6, 5, 40
@@ -103,6 +105,32 @@ def test_centroid_predict_err_matches_jax(data, jax_centroid):
     np.testing.assert_array_equal(pred.numpy(), jpreds)
     np.testing.assert_array_equal(err.numpy(), (jpreds != qy).astype(np.float32))
     assert centroid_predict_err.launches == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("f", [1, 4, 6, 21, 27, 32, 37])
+def test_pad_row_table(f):
+    """K2's row table: row stride F rounded up to 4, equal to T on the
+    first F columns and zero beyond; T itself when F is a multiple of 4."""
+    T = torch.from_numpy(np.random.default_rng(f).normal(size=(7, f)).astype(np.float32))
+    padded = pad_row_table(T)
+    assert padded.shape == (7, row_stride(f)) and padded.is_contiguous()
+    assert row_stride(f) % 4 == 0 and 0 <= row_stride(f) - f < 4
+    assert torch.equal(padded[:, :f], T) and not padded[:, f:].any()
+    assert (padded is T) == (f % 4 == 0)
+
+
+def test_centroid_predict_err_takes_padded_table(data, jax_centroid):
+    """The wrapper reads only the first F columns of a padded row table."""
+    _, _, _, qX, qy = data
+    jp, _, jpreds = jax_centroid
+    T = torch.from_numpy(qX.reshape(-1, F))
+    idx = torch.arange(P * N, dtype=torch.int32).view(P, N)
+    err, pred = centroid_predict_err(
+        *convert.centroid_params(jp), pad_row_table(T), torch.from_numpy(qy.reshape(-1)),
+        idx, return_pred=True,
+    )
+    np.testing.assert_array_equal(pred.numpy(), jpreds)
+    np.testing.assert_array_equal(err.numpy(), (jpreds != qy).astype(np.float32))
 
 
 def _tie_params():

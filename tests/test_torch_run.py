@@ -133,6 +133,26 @@ def test_default_device_is_the_card():
         tpkg.run(_cfg(tconfig))
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_kernel_ab.py"])
+def test_chip_scripts_refuse_without_a_card(script):
+    """The chip scripts import no JAX, and without a card they exit 2
+    having printed no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present here; the refusal is the no-card path")
+    mod = script[:-3]
+    out = subprocess.run(
+        [sys.executable, "-c", f"import sys, {mod}; assert 'jax' not in sys.modules"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=False,
+    )
+    assert out.returncode == 0, out.stderr
+    args = ["parent-tree"] if script == "chip_kernel_ab.py" else []
+    out = subprocess.run(
+        [sys.executable, script, *args], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=False,
+    )
+    assert out.returncode == 2 and out.stdout == "", (out.stdout, out.stderr)
+
+
 @pytest.mark.parametrize(
     "kw, item",
     [
