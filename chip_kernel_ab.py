@@ -6,9 +6,11 @@ where OTHER_TREE is a checkout of another commit of this repository (for
 example ``git archive <commit> | tar -x -C OTHER_TREE``). It runs
 OTHER_TREE, this tree, this tree and OTHER_TREE in turn, each in its own
 process, so the two are compared on one card with the drift between runs
-visible. Each run builds that tree's kernels and times K1 (``ddm_window``)
-and K2 (``centroid_predict_err``) at ``chip_smoke.py``'s main-path shapes
-on the same inputs:
+visible. Each run builds that tree's kernels and times K1 (``ddm_window``),
+K2 (``centroid_predict_err``) and the zoo kernels K5-ph (``ph_window``),
+K5-hddm_w (``hddm_w_window``) and K5-adwin (``adwin_window``) at
+``chip_smoke.py``'s main-path shapes on the same inputs — a kernel the
+other tree does not have is left out of its run:
 
 * ``ms``: device time of one launch — 50 calls of the kernel's wrapper
   captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
@@ -73,11 +75,30 @@ def one(root: str) -> dict:
     def k2():
         return classifiers.centroid_predict_err(cent, bias, Tk, Ty, idx)
 
-    return {
+    out = {
         "tree": root,
         "ddm_window": {"ms": cs.graph_ms(k1), "host_us": cs.host_us(k1)},
         "centroid_predict_err": {"ms": cs.graph_ms(k2), "host_us": cs.host_us(k2)},
     }
+    try:
+        from distributed_drift_detection_tpu_torch.ops import adwin, detectors
+    except ImportError:
+        return out
+    ze, zv = (torch.from_numpy(a).to(dev) for a in cs.ddm_inputs(np.random.default_rng(1), p, w, b))
+    zoo = {
+        "ph_window": (detectors.ph_window, detectors.ph_init((p,), dev),
+                      config.PHParams(threshold=32.0)),
+        "hddm_w_window": (detectors.hddm_w_window, detectors.hddm_w_init((p,), dev),
+                          config.HDDMWParams()),
+        "adwin_window": (adwin.adwin_window, adwin.adwin_init(config.ADWINParams(), (p,), dev),
+                         config.ADWINParams()),
+    }
+    for name, (fn, zstate, prm) in zoo.items():
+        def call(fn=fn, zstate=zstate, prm=prm):
+            return fn(zstate, ze, zv, prm)
+
+        out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
+    return out
 
 
 def main() -> int:
@@ -112,7 +133,7 @@ def main() -> int:
         mine = [r for r in runs if r["tree"] == root]
         summary[label] = {
             k: {m: statistics.median(r[k][m] for r in mine) for m in ("ms", "host_us")}
-            for k in ("ddm_window", "centroid_predict_err")
+            for k in mine[0] if k != "tree"
         }
     print(json.dumps(summary))
     return 0

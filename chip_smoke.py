@@ -6,7 +6,9 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build both hand-written kernels from ``csrc/`` with nvcc (in parallel);
+2. build the five hand-written kernels from ``csrc/`` with nvcc (in
+   parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K5-ph
+   ``ph_window``, K5-hddm_w ``hddm_w_window``, K5-adwin ``adwin_window``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes — the DDM window statistic (K1) bit for bit at
    [16, 128·100] (fresh and carried states, all-padding rows, the
@@ -30,7 +32,20 @@ without them. Phases, each fatal on failure:
    after). Final Time is the median of three warm runs;
 5. trace one more warm detect phase with ``torch.profiler`` and print
    each kernel's in-run launches and device µs per launch, and the
-   device's idle share over the phase.
+   device's idle share over the phase;
+6. hold each zoo kernel (K5) against its plain version at the main path's
+   shape [16, 128·100] and on its design's edge cases — Page–Hinkley and
+   HDDM-W bit for bit, ADWIN's int32 state and flags exactly — and time it
+   as K1 and K2 are timed;
+7. drive ``detector='ph'``, ``'hddm_w'`` and ``'adwin'`` through ``run`` at
+   the same geometry, each kernel's launch counter reset just before its
+   run and read just after: flags equal to the port's CPU run, detections
+   and mean delay equal to the JAX package's (pinned below); Final Time
+   (median of 3 warm runs) and one traced detect phase each;
+8. drive the plain-PyTorch members (``eddm``, ``hddm``, ``kswin``,
+   ``stepd``), the ``gnb`` and ``linear`` models and the ``window=1``
+   engine (DDM, and Page–Hinkley) at a smaller depth (``mult_data`` 64):
+   flags equal to the port's CPU run, the kernels they use launched.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -52,6 +67,22 @@ SMOKE = dict(
 )
 EXPECTED_DETECTIONS = 624  # 16 partitions x 39 planted boundaries
 EXPECTED_MEAN_DELAY = 788.63  # rows, the JAX package's run of SMOKE
+# The JAX package's run of SMOKE with each zoo kernel's detector:
+# (detections, mean delay in rows).
+ZOO_EXPECTED = {"ph": (624, 820.8077), "hddm_w": (624, 781.6282),
+                "adwin": (624, 792.7051)}
+# Runs at a smaller depth: (name, RunConfig overrides, kernels launched).
+SHALLOW = [
+    ("eddm", dict(detector="eddm"), ("centroid_predict_err",)),
+    ("hddm", dict(detector="hddm"), ("centroid_predict_err",)),
+    ("kswin", dict(detector="kswin"), ("centroid_predict_err",)),
+    ("stepd", dict(detector="stepd"), ("centroid_predict_err",)),
+    ("gnb", dict(model="gnb"), ("ddm_window",)),
+    ("linear", dict(model="linear"), ("ddm_window", "centroid_predict_err")),
+    ("window=1 ddm", dict(window=1), ("ddm_window", "centroid_predict_err")),
+    ("window=1 ph", dict(window=1, detector="ph"), ("ph_window", "centroid_predict_err")),
+]
+SHALLOW_MULT = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -331,13 +362,178 @@ def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
     )
 
 
+def wrappers():
+    """Each kernel's counted wrapper, by kernel name."""
+    from distributed_drift_detection_tpu_torch.models import classifiers
+    from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors
+
+    return {"ddm_window": ddm.ddm_window,
+            "centroid_predict_err": classifiers.centroid_predict_err,
+            "ph_window": detectors.ph_window,
+            "hddm_w_window": detectors.hddm_w_window,
+            "adwin_window": adwin.adwin_window}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def zoo_table(config):
+    """Per zoo kernel: (JAX source line, plain version, init, the timed
+    params, every params set checked, global-scratch words per row)."""
+    from distributed_drift_detection_tpu_torch.ops import adwin, detectors
+
+    return {
+        "ph_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:251",
+            reference=detectors.ph_window_reference,
+            init=lambda prm, p, dev: detectors.ph_init((p,), dev),
+            params=[config.PHParams(threshold=32.0),
+                    config.PHParams(min_num_instances=5, threshold=3.0, alpha=0.9),
+                    config.PHParams(min_num_instances=3, delta=0.0, threshold=0.5, alpha=0.0)],
+            # cumsum, mean (a division), 2 compose evaluations of 5 ops, the
+            # final fma + max, 3 compares
+            ops_per_element=18),
+        "hddm_w_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:736",
+            reference=detectors.hddm_w_window_reference,
+            init=lambda prm, p, dev: detectors.hddm_w_init((p,), dev),
+            params=[config.HDDMWParams(), config.HDDMWParams(lam=0.3)],
+            # 2 trees x 2 compose evaluations of 6 ops, 2 final fma pairs,
+            # 3 bounds (3 ops and a square root each), compares
+            ops_per_element=50),
+        "adwin_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/adwin.py:348",
+            reference=adwin.adwin_window_reference,
+            init=lambda prm, p, dev: adwin.adwin_init(prm, (p,), dev),
+            params=[config.ADWINParams(), config.ADWINParams(clock=1),
+                    config.ADWINParams(max_levels=3, clock=4)],
+            ops_per_element=4),
+    }
+
+
+# K5 edge shapes (P, W, B): P = 1 and 17, W below a CTA's thread count,
+# and rows of 26,000 and 16,000 elements whose scan levels overflow shared
+# memory into the global scratch.
+K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
+
+
+def k5_inputs(rng, p, w, b, first_change=False):
+    """K1's inputs, plus an all-zero first half in partition 2 (HDDM-W key
+    ties once v converges) and, with ``first_change``, an error in each
+    row's first element."""
+    errs, valid = ddm_inputs(rng, p, w, b)
+    if p > 2:
+        errs[2].reshape(-1)[: (w * b) // 2] = 0.0
+    if first_change:
+        errs[:, 0, 0] = 1.0
+        valid[:, 0, 0] = True
+    return errs, valid
+
+
+def check_k5_equal(torch, got, want, what):
+    torch.cuda.synchronize()
+    for g, r in zip(got[0] + got[1], want[0] + want[1]):
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        check(torch.equal(g, r), f"{what} differs from its plain version")
+
+
+def check_k5(torch, kernels, config, name, p, w, b, dev):
+    """Zoo kernel ``name`` against its plain version at the main path's
+    shape and the edge shapes, from fresh and carried states; times it;
+    returns its kernel row."""
+    from distributed_drift_detection_tpu_torch.ops import adwin, detectors
+
+    info = zoo_table(config)[name]
+    window = wrappers()[name]
+    rng = np.random.default_rng(5)
+    for shape in [(p, w, b)] + K5_EDGES:
+        for prm in info["params"]:
+            if getattr(prm, "clock", 32) == 1 and shape[1] * shape[2] > 2000:
+                continue  # ADWIN's plain version flushes per element there
+            for first in (False, True):
+                e0, v0 = (torch.from_numpy(a).to(dev) for a in k5_inputs(rng, shape[0], 3, 40))
+                e1, v1 = (torch.from_numpy(a).to(dev)
+                          for a in k5_inputs(rng, *shape, first_change=first))
+                fresh = info["init"](prm, shape[0], dev)
+                carried, _ = info["reference"](fresh, e0, v0, prm)
+                for state in (fresh, carried):
+                    check_k5_equal(torch, window(state, e1, v1, prm),
+                                   info["reference"](state, e1, v1, prm),
+                                   f"{name} {shape} {prm}")
+    print(f"K5 {name}: equal to its plain version at [{p}, {w}x{b}] and "
+          + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in K5_EDGES)
+          + f", {len(info['params'])} parameter sets, fresh and carried states")
+
+    prm = info["params"][0]
+    e1, v1 = (torch.from_numpy(a).to(dev) for a in k5_inputs(np.random.default_rng(1), p, w, b))
+    e0, v0 = (torch.from_numpy(a).to(dev) for a in k5_inputs(np.random.default_rng(2), p, 3, 40))
+    state, _ = info["reference"](info["init"](prm, p, dev), e0, v0, prm)
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = type(state)(*(torch.empty_like(leaf) for leaf in state))
+    if name == "adwin_window":
+        scratch = adwin.adwin_scratch(p, w * b, prm, dev)
+        args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
+    else:
+        words = (2, 3) if name == "ph_window" else (6, 4)
+        scratch = torch.empty((p, detectors.scratch_words(w * b, *words)),
+                              dtype=torch.float32, device=dev)
+        fn_args = detectors.ph_window_args if name == "ph_window" else detectors.hddm_w_window_args
+        args = fn_args(state, e1, v1, prm, fw, fc, end, scratch)
+    fn = kernels.launcher(name)
+    ms = graph_ms(lambda: kernels.check(name, fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: window(state, e1, v1, prm))
+    plain_ms = time_ms(lambda: info["reference"](state, e1, v1, prm), reps=10, rounds=3)
+    n = p * w * b
+    state_bytes = sum(leaf.numel() * leaf.element_size() for leaf in state)
+    # errs f32 + live u8 per element, the state read and written, [P, W]
+    # i32 twice written; the element operations of the statistic
+    b_ms, by = bound(n * 5 + 2 * state_bytes + p * w * 8, n * info["ops_per_element"])
+    print(f"K5 {name} [{p}, {w}x{b}]: {ms:.5f} ms device (graph of 50), "
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound "
+          f"{b_ms:.5f} ms ({by})")
+    return dict(
+        name=name, route="cuda",
+        source=f"distributed_drift_detection_tpu_torch/csrc/{name}.cu",
+        replaces=info["replaces"], max_abs_err=0.0, ms=ms, host_us=h_us,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+    )
+
+
+def run_equal(api, np_, cfg, dev, what):
+    """Run ``cfg`` on the card with the launch counters reset just before
+    and read just after; check the flags and vote against the port's CPU
+    run. Returns (card result, launches)."""
+    ref = api.run(cfg, device="cpu")
+    reset_launches()
+    res = api.run(cfg, device=dev)
+    launches = read_launches()
+    for f in res.flags._fields:
+        check(np_.array_equal(getattr(res.flags, f), getattr(ref.flags, f)),
+              f"{what}: flags.{f} differ between the card and the CPU")
+    check(np_.array_equal(res.drift_vote, ref.drift_vote), f"{what}: drift vote differs")
+    check(bool(np_.isfinite(res.drift_vote).all()), f"{what}: non-finite drift vote")
+    return res, launches
+
+
 KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
-                  "centroid_predict_err": "centroid_predict_err_kernel"}
+                  "centroid_predict_err": "centroid_predict_err_kernel",
+                  "ph_window": "ph_window_kernel",
+                  "hddm_w_window": "hddm_w_window_kernel",
+                  "adwin_window": "adwin_window_kernel"}
 
 
-def in_run_profile(torch, api, prep, dev):
-    """One warm detect phase under ``torch.profiler``: each kernel's
-    (launches, device µs per launch), and the summary of the phase."""
+def in_run_profile(torch, api, prep, dev, names=("ddm_window", "centroid_predict_err")):
+    """One warm detect phase under ``torch.profiler``: each of the kernels
+    ``names``' (launches, device µs per launch), and the summary of the
+    phase."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = api.upload(prep.batches, dev)
@@ -353,8 +549,8 @@ def in_run_profile(torch, api, prep, dev):
     check(bool(kern), "the profiler saw no device kernels in the detect phase")
     busy_us = sum(e.self_device_time_total for e in kern)
     per = {}
-    for name, symbol in KERNEL_SYMBOLS.items():
-        hits = [e for e in kern if symbol in e.key]
+    for name in names:
+        hits = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
         count = sum(e.count for e in hits)
         check(count > 0, f"the profiler saw no {name} launch in the detect phase")
         per[name] = (count, sum(e.self_device_time_total for e in hits) / count)
@@ -405,11 +601,9 @@ def main(device: str = "cuda") -> int:
     ref = api.run(cfg, device="cpu")
     print(f"port on the CPU: {ref.metrics.num_detections} detections in "
           f"{time.perf_counter() - t0:.1f} s")
-    ddm.ddm_window.launches = 0
-    classifiers.centroid_predict_err.launches = 0
+    reset_launches()
     res = api.run(cfg, device=dev)
-    launches = {"ddm_window": ddm.ddm_window.launches,
-                "centroid_predict_err": classifiers.centroid_predict_err.launches}
+    launches = read_launches()
     m = res.metrics
     print(f"port on the card: {m.num_detections} detections, mean delay "
           f"{m.mean_delay_rows:.4f} rows, launches {launches}")
@@ -422,8 +616,8 @@ def main(device: str = "cuda") -> int:
               f"flags.{f} differ between the card and the CPU")
     check(np.array_equal(res.drift_vote, ref.drift_vote), "drift vote differs")
     check(bool(np.isfinite(res.drift_vote).all()), "non-finite drift vote")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("ddm_window", "centroid_predict_err"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     for row in rows:
         row["launches"] = launches[row["name"]]
 
@@ -443,6 +637,49 @@ def main(device: str = "cuda") -> int:
           f"{summary['detect_s']:.4f} s, idle share {summary['idle_share']:.3f}")
     for row in rows:
         row["in_run_launches"], row["in_run_us"] = per[row["name"]]
+
+    # 6. the zoo kernels against their plain versions
+    for name in ("ph_window", "hddm_w_window", "adwin_window"):
+        rows.append(check_k5(torch, kernels, config, name, p, w, b, dev))
+
+    # 7. the zoo kernels' paths at SMOKE width, counted
+    final_times = {"ddm": final}
+    for det, kname in (("ph", "ph_window"), ("hddm_w", "hddm_w_window"),
+                       ("adwin", "adwin_window")):
+        zcfg = config.replace(cfg, detector=det)
+        zres, zl = run_equal(api, np, zcfg, dev, det)
+        want_n, want_delay = ZOO_EXPECTED[det]
+        zm = zres.metrics
+        print(f"{det} on the card: {zm.num_detections} detections, mean delay "
+              f"{zm.mean_delay_rows:.4f} rows, flags equal to the CPU run, launches {zl}")
+        check(zm.num_detections == want_n, f"{det}: {zm.num_detections} detections, expected {want_n}")
+        check(abs(zm.mean_delay_rows - want_delay) < 0.01,
+              f"{det}: mean delay {zm.mean_delay_rows}, expected {want_delay}")
+        check(zl[kname] > 0 and zl["centroid_predict_err"] > 0,
+              f"{det}: kernel {kname} was not launched on its path")
+        zrow = next(r for r in rows if r["name"] == kname)
+        zrow["launches"] = zl[kname]
+        zprep = api.prepare(zcfg, device=dev)
+        ztimes = [api.run(zcfg, device=dev) for _ in range(3)]
+        final_times[det] = statistics.median(t.total_time for t in ztimes)
+        zper, zsum = in_run_profile(torch, api, zprep, dev, (kname, "centroid_predict_err"))
+        zrow["in_run_launches"], zrow["in_run_us"] = zper[kname]
+        print(f"{det}: Final Time (median of 3 warm runs) {final_times[det]:.4f} s; "
+              f"in-run {kname} {zper[kname][0]} launches x {zper[kname][1]:.2f} us; "
+              f"{zsum['kernels']} kernels busy {zsum['busy_s']:.4f} s of "
+              f"{zsum['detect_s']:.4f} s, idle share {zsum['idle_share']:.3f}")
+
+    # 8. the plain members, gnb, linear and window=1 at a smaller depth
+    for what, kw, used in SHALLOW:
+        scfg = config.replace(cfg, mult_data=SHALLOW_MULT, **kw)
+        sres, sl = run_equal(api, np, scfg, dev, what)
+        for k in used:
+            check(sl[k] > 0, f"{what}: kernel {k} was not launched")
+        print(f"{what} (mult_data {SHALLOW_MULT}) on the card: "
+              f"{sres.metrics.num_detections} detections, flags equal to the "
+              f"CPU run, launches {sl}")
+    print("Final Time at SMOKE by detector: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

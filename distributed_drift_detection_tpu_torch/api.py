@@ -1,9 +1,11 @@
 """Top-level API of the port: configure → run → metrics.
 
 The twin of the JAX package's ``api.prepare`` (:413-472) and ``api.run``
-(:995-1191) for the main path: a ``synth:`` stream, the majority or
-centroid model, DDM, the speculative window engine, the packed indexed
-stream (dense for ``mult_data < 1``) and either collect mode. The timed
+(:995-1191) for a ``synth:`` stream, the deterministic-fit models
+(majority, centroid, gnb, linear), every detector of the zoo, the
+speculative window engine over the packed indexed stream (dense for
+``mult_data < 1``) or the sequential ``window=1`` engine over the dense
+stream, and either collect mode. The timed
 span is the reference's Final Time: ``upload`` → ``detect`` (ended by a
 device synchronize) → ``collect`` (flags to the host, drift vote, delay
 metric).
@@ -24,6 +26,7 @@ import torch
 from .config import (
     COLLECT_MODES,
     RunConfig,
+    auto_ph_threshold,
     auto_rotations,
     auto_window,
     host_shuffle_seed,
@@ -68,7 +71,7 @@ class RunResult(NamedTuple):
     telemetry_path: "str | None" = None  # telemetry is not ported: always None
 
 
-PORTED_MODELS = ("majority", "centroid")
+PORTED_MODELS = ("majority", "centroid", "gnb", "linear")
 
 
 def _check_slice(cfg: RunConfig) -> None:
@@ -87,12 +90,10 @@ def _check_slice(cfg: RunConfig) -> None:
         )
     unported = [
         (cfg.model not in PORTED_MODELS,
-         f"model={cfg.model!r} (ROADMAP A4 gnb/linear, A9 mlp/forest/rf)"),
-        (cfg.detector != "ddm", f"detector={cfg.detector!r} (ROADMAP A8)"),
+         f"model={cfg.model!r} (ROADMAP A9 mlp/forest/rf)"),
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
-        (cfg.window == 1, "window=1, the sequential engine (ROADMAP A5)"),
         (bool(cfg.telemetry_dir), "telemetry_dir (ROADMAP A15)"),
         (bool(cfg.profile_dir or cfg.trace_dir),
          "profile_dir/trace_dir (ROADMAP A15)"),
@@ -105,12 +106,25 @@ def _check_slice(cfg: RunConfig) -> None:
 
 def _resolve_policies(cfg: RunConfig, stream: StreamData) -> RunConfig:
     """Resolve the auto policies against the stream's geometry: the retrain
-    guard per model family, then the window width, then the depth."""
+    guard per model family, then the window width, then the depth, and
+    Page–Hinkley's λ (``ph.threshold == 0``)."""
     cfg = replace(cfg, retrain_error_threshold=resolve_retrain_threshold(cfg))
     cfg = replace(cfg, window=auto_window(cfg, stream.dist_between_changes))
-    return replace(
+    cfg = replace(
         cfg, window_rotations=auto_rotations(cfg, stream.dist_between_changes)
     )
+    if cfg.detector == "ph":  # auto_ph_threshold passes an explicit λ through
+        cfg = replace(cfg, ph=cfg.ph._replace(
+            threshold=auto_ph_threshold(cfg, stream.dist_between_changes)
+        ))
+    return cfg
+
+
+# The hand-written kernel of each detector's window statistic.
+DETECTOR_KERNELS = {
+    "ddm": "ddm_window", "ph": "ph_window", "hddm_w": "hddm_w_window",
+    "adwin": "adwin_window",
+}
 
 
 def prepare(
@@ -127,13 +141,14 @@ def prepare(
         )
     cfg = _resolve_policies(cfg, stream)
     # Duplicated streams ship packed (row table + gather indices + 1-byte
-    # shuffle perms); subsampled ones ride the dense striper.
-    packed = stream.src is not None
+    # shuffle perms) to the window engine; subsampled ones, and every
+    # stream of the window=1 engine, ride the dense striper.
+    packed = stream.src is not None and cfg.window > 1
     striper = stripe_partitions_packed if packed else stripe_partitions
     batches = striper(
         stream, cfg.partitions, cfg.per_batch, shuffle_seed=host_shuffle_seed(cfg)
     )
-    model = build_model(cfg.model, ModelSpec(stream.num_features, stream.num_classes))
+    model = build_model(cfg.model, ModelSpec(stream.num_features, stream.num_classes), cfg)
     _, nb = stripe_geometry(stream.num_rows, cfg.partitions, cfg.per_batch)
     capacity = (
         cfg.collect_capacity or auto_compact_capacity(cfg.partitions, max(nb - 1, 1))
@@ -146,15 +161,19 @@ def prepare(
         retrain_error_threshold=cfg.retrain_error_threshold,
         window=cfg.window,
         packed=packed,
-        detector=make_detector(cfg.detector, ddm=cfg.ddm),
+        detector=make_detector(
+            cfg.detector, ddm=cfg.ddm, ph=cfg.ph, eddm=cfg.eddm, hddm=cfg.hddm,
+            hddm_w=cfg.hddm_w, adwin=cfg.adwin, kswin=cfg.kswin, stepd=cfg.stepd,
+        ),
         rotations=cfg.window_rotations,
         compact_capacity=capacity,
     )
     if dev.type == "cuda":
         from . import kernels
 
-        kernels.launcher("ddm_window")
-        if cfg.model == "centroid":
+        if cfg.detector in DETECTOR_KERNELS:
+            kernels.launcher(DETECTOR_KERNELS[cfg.detector])
+        if cfg.model in ("centroid", "linear"):
             kernels.launcher("centroid_predict_err")
     return PreparedRun(stream, batches, runner, cfg, dev)
 

@@ -1,7 +1,7 @@
 """Carry weights and state across from the JAX package.
 
-The JAX package's pytrees — model parameters, the DDM state, the loop
-carry — become the port's tensors. The inputs are the JAX NamedTuples (or
+The JAX package's pytrees — model parameters, every detector's state, the
+loop carry — become the port's tensors. The inputs are the JAX NamedTuples (or
 anything with the same field names) whose leaves convert with
 ``np.asarray``; nothing of JAX is imported here. A single partition's
 pytree (no leading axis) gains a leading ``[1]`` partition axis; a vmapped
@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from .engine.loop import LoopCarry
-from .models.classifiers import CentroidParams
+from .models.classifiers import CentroidParams, GNBParams, LinearParams
+from .ops import detectors
+from .ops.adwin import ADWINState
 from .ops.ddm import DDMState
 
 
@@ -37,31 +39,71 @@ def majority_params(params, device="cpu") -> torch.Tensor:
     return _tensor(params, np.int32, device, np.ndim(params) == 1)
 
 
+def _params(cls, params, device, batched_ndim: dict):
+    """A NamedTuple of f32 leaves; batched when the leaf named first in
+    ``batched_ndim`` has that many dimensions."""
+    name, nd = next(iter(batched_ndim.items()))
+    batched = np.ndim(getattr(params, name)) == nd
+    return cls(*(_tensor(getattr(params, f), np.float32, device, batched)
+                 for f in cls._fields))
+
+
+def gnb_params(params, device="cpu") -> GNBParams:
+    """JAX ``GNBParams`` (``offset [F]`` or ``[P, F]``, …)."""
+    return _params(GNBParams, params, device, {"offset": 2})
+
+
+def linear_params(params, device="cpu") -> LinearParams:
+    """JAX ``LinearParams`` (``w [F, C]`` or ``[P, F, C]``, ``b``)."""
+    return _params(LinearParams, params, device, {"w": 3})
+
+
+# Each detector's state class, and the leaves held in int32 (the rest f32).
+_STATES = {
+    "ddm": (DDMState, {"count"}),
+    "ph": (detectors.PHState, {"count"}),
+    "eddm": (detectors.EDDMState, {"count", "num_errors", "last_err_t"}),
+    "hddm": (detectors.HDDMState, {"count", "n_min"}),
+    "hddm_w": (detectors.HDDMWState, {"count", "n2"}),
+    "kswin": (detectors.KSWINState, {"t"}),
+    "stepd": (detectors.STEPDState, {"t"}),
+    "adwin": (ADWINState, set(ADWINState._fields)),
+}
+
+
+def detector_state(name: str, state, device="cpu"):
+    """The JAX state of detector ``name`` (``RunConfig.detector``) with
+    scalar leaves (one partition) or a leading ``[P]``; the ring-buffer
+    and histogram leaves keep their trailing axes."""
+    cls, ints = _STATES[name]
+    batched = np.ndim(getattr(state, cls._fields[0])) == 1
+    return cls(*(
+        _tensor(getattr(state, f), np.int32 if f in ints else np.float32, device, batched)
+        for f in cls._fields
+    ))
+
+
 def ddm_state(state, device="cpu") -> DDMState:
     """JAX ``DDMState`` (scalar leaves, or ``[P]``)."""
-    batched = np.ndim(state.count) == 1
-    return DDMState(
-        _tensor(state.count, np.int32, device, batched),
-        *(
-            _tensor(getattr(state, f), np.float32, device, batched)
-            for f in ("err_sum", "ps_min", "p_min", "s_min")
-        ),
-    )
+    return detector_state("ddm", state, device)
 
 
-def loop_carry(carry, model: str, device="cpu") -> LoopCarry:
-    """JAX ``LoopCarry`` of a ``'majority'`` or ``'centroid'`` run; its
-    PRNG ``key`` is dropped (the ported fits consume none)."""
+_MODEL_PARAMS = {
+    "centroid": centroid_params, "majority": majority_params,
+    "gnb": gnb_params, "linear": linear_params,
+}
+
+
+def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCarry:
+    """JAX ``LoopCarry`` of a run with a deterministic-fit ``model`` and
+    ``detector``; its PRNG ``key`` is dropped (the ported fits consume
+    none)."""
     batched = np.ndim(carry.retrain) == 1
-    if model == "centroid":
-        params = centroid_params(carry.params, device)
-    elif model == "majority":
-        params = majority_params(carry.params, device)
-    else:
+    if model not in _MODEL_PARAMS:
         raise NotImplementedError(f"model {model!r} is not ported yet")
     return LoopCarry(
-        params=params,
-        ddm=ddm_state(carry.ddm, device),
+        params=_MODEL_PARAMS[model](carry.params, device),
+        ddm=detector_state(detector, carry.ddm, device),
         a_X=_tensor(carry.a_X, np.float32, device, batched),
         a_y=_tensor(carry.a_y, np.int32, device, batched),
         a_w=_tensor(carry.a_w, np.float32, device, batched),

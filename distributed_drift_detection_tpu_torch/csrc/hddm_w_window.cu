@@ -1,0 +1,264 @@
+// K5-hddm_w — the HDDM-W window statistic, one partition row per CTA.
+//
+// Replaces the JAX package's ops/detectors.py `hddm_w_window` ->
+// `_hddm_w_masks` (:736) and `summarise_window` (XLA-lowered there: two
+// associative_scans of pairs of affine maps, a cummin, a cummax, cumsums,
+// gathers, masked argmax). Per row of W·B error indicators:
+//
+// 1. the running count n (a block scan of valid counts over thread chunks);
+// 2. the stream EWMA pair (z, v): each element an affine map y -> A·y + B
+//    (absorb (1-λ, λx) and ((1-λ)², λ²); the first element since reset
+//    initialises, (0, x) and (0, 1); padding the identity), composed on
+//    the combine tree and applied to the carried (z0, v0);
+// 3. the cut: key = z + sqrt(v·ln(1/δ)/2) on live elements, a cut where the
+//    key is strictly below every earlier key and the carried cut's key (a
+//    block min-scan, then each thread's chunk in order), the frozen (z1, v1)
+//    at the latest cut, and the monitoring count n2 (a block scan of
+//    non-cut live counts and a latest-cut record scan);
+// 4. the monitoring EWMA pair (z2, v2): the same maps, reset (0, 0) at every
+//    cut and initialised at the first element after it, composed on the tree;
+// 5. the tests diff = z2 - z1 >= sqrt((v1+v2)·ln(1/δ)/2) at the drift and
+//    warning confidences, and per batch the first change and the first
+//    warning at or before it.
+//
+// It writes [W] first-warning and first-change indices and the eight
+// end-state scalars; per element it keeps n, z, v, the cut flags, n2 and the
+// latest cut's index in a global scratch (L2-resident: 24 B an element).
+//
+// Bound on an H100: errs and live, 5 B an element, 8 B per batch — about
+// 1 MB per call at [16, 12800], 0.3 us at 3.35 TB/s. What costs time is the
+// dependence along the row: two combine trees of 27 levels each with a
+// barrier between levels, and five block scans. The levels above the first
+// (16 B tuples, 205 KB at N = 12,800) live in shared memory when they fit
+// beside the static shared memory, else in the global scratch.
+//
+// Exactness (bit-identical to `hddm_w_window_reference`; a one-ulp change
+// in z moves a strict cut): the trees are lax.associative_scan's
+// (zoo_scan.cuh); every multiply-add the plain version fuses is __fmaf_rn
+// (A2·B1 + B2 in the compose and A·y0 + B at the end, as XLA on the CPU
+// fuses them), built with -fmad=false and -ftz=true (XLA on the CPU flushes
+// subnormals: (1-λ)^k underflows after some thousands of elements, and the
+// plain version flushes as it does). Minima, counts and latest records are
+// order-free.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "zoo_scan.cuh"
+
+namespace {
+
+using zoo::kThreads;
+
+struct Aff {  // (z, v) -> (az·z + bz, av·v + bv)
+  float az, bz, av, bv;
+};
+
+__device__ __forceinline__ Aff compose(const Aff& f, const Aff& g) {  // f, then g
+  return Aff{__fmul_rn(g.az, f.az), __fmaf_rn(g.az, f.bz, g.bz),
+             __fmul_rn(g.av, f.av), __fmaf_rn(g.av, f.bv, g.bv)};
+}
+
+struct Consts {
+  float lam, one_m, one_m2, lam2;
+};
+
+// reset: (0, 0); init: (0, x) and (0, 1); absorb: (1-λ, λx) and ((1-λ)², λ²).
+__device__ __forceinline__ Aff element(bool reset, bool init, bool absorb, float x,
+                                       const Consts& k) {
+  if (reset) return Aff{0.0f, 0.0f, 0.0f, 0.0f};
+  if (init) return Aff{0.0f, x, 0.0f, 1.0f};
+  if (absorb) return Aff{k.one_m, __fmul_rn(k.lam, x), k.one_m2, k.lam2};
+  return Aff{1.0f, 0.0f, 1.0f, 0.0f};
+}
+
+__device__ __forceinline__ float eps(float v, float log_conf) {
+  return __fsqrt_rn(__fmul_rn(__fmul_rn(v, log_conf), 0.5f));
+}
+
+// The latest cut before a point: its element index (-1: none) and the
+// running count of non-cut live elements there.
+struct Cut {
+  int g, ce;
+};
+
+union ScanBuf {
+  int i[2 * kThreads];
+  float f[2 * kThreads];
+  Cut c[2 * kThreads];
+};
+
+constexpr int kImprove = 1;
+constexpr int kE2 = 2;
+
+__global__ void __launch_bounds__(kThreads) hddm_w_window_kernel(
+    const float* __restrict__ errs, const uint8_t* __restrict__ live,
+    const int* __restrict__ count_in, const float* __restrict__ z_in,
+    const float* __restrict__ v_in, const float* __restrict__ z1_in,
+    const float* __restrict__ v1_in, const int* __restrict__ n2_in,
+    const float* __restrict__ z2_in, const float* __restrict__ v2_in, int w,
+    int b, Consts kc, float log_drift, float log_warning,
+    float* __restrict__ scratch, long long row_words, int levels_in_smem,
+    int* __restrict__ first_warning, int* __restrict__ first_change,
+    int* __restrict__ count_out, float* __restrict__ z_out,
+    float* __restrict__ v_out, float* __restrict__ z1_out,
+    float* __restrict__ v1_out, int* __restrict__ n2_out,
+    float* __restrict__ z2_out, float* __restrict__ v2_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) ScanBuf sb;
+  const int row = blockIdx.x;
+  const int n = w * b;
+  int* fc = reinterpret_cast<int*>(smem);
+  int* fw = fc + w;
+  const size_t firsts = (2 * static_cast<size_t>(w) * sizeof(int) + 15) & ~size_t(15);
+  float* rs = scratch + static_cast<size_t>(row) * row_words;
+  int* e_n = reinterpret_cast<int*>(rs);          // running count
+  float* e_z = rs + n;                            // stream EWMA
+  float* e_v = rs + 2 * static_cast<size_t>(n);   // its bound condition
+  int* e_flags = reinterpret_cast<int*>(rs + 3 * static_cast<size_t>(n));
+  int* e_n2 = reinterpret_cast<int*>(rs + 4 * static_cast<size_t>(n));
+  int* e_g = reinterpret_cast<int*>(rs + 5 * static_cast<size_t>(n));  // latest cut, -1
+  Aff* lev = levels_in_smem ? reinterpret_cast<Aff*>(smem + firsts)
+                            : reinterpret_cast<Aff*>(rs + 6 * static_cast<size_t>(n));
+  const float* e = errs + static_cast<size_t>(row) * n;
+  const uint8_t* v = live + static_cast<size_t>(row) * n;
+  zoo::first_init(fc, fw, w, b);
+  auto comb = [](const Aff& f, const Aff& g) { return compose(f, g); };
+  auto add = [](int x, int y) { return x + y; };
+
+  // 1. running count
+  int lo, hi;
+  zoo::chunk_of(n, lo, hi);
+  int mine = 0;
+  for (int j = lo; j < hi; ++j) mine += v[j] != 0;
+  int cnt = count_in[row] + zoo::block_exclusive_scan(mine, 0, add, sb.i);
+  for (int j = lo; j < hi; ++j) {
+    cnt += v[j] != 0;
+    e_n[j] = cnt;
+  }
+  __syncthreads();
+
+  // 2. the stream EWMA (z, v)
+  const float z0 = z_in[row];
+  const float v0 = v_in[row];
+  zoo::tree_scan(
+      n, lev,
+      [&](int j) {
+        const bool ok = v[j] != 0;
+        const bool init = ok && e_n[j] == 1;
+        return element(false, init, ok && !init, e[j], kc);
+      },
+      comb,
+      [&](int j, const Aff& s) {
+        e_z[j] = __fmaf_rn(s.az, z0, s.bz);
+        e_v[j] = __fmaf_rn(s.av, v0, s.bv);
+      });
+  __syncthreads();
+
+  // 3. cuts: a strict running minimum of the key, then the latest cut and
+  //    the monitoring count
+  const float v1_0 = v1_in[row];
+  const float z1_0 = z1_in[row];
+  const float carried = v1_0 > 0.0f ? __fadd_rn(z1_0, eps(v1_0, log_drift)) : CUDART_INF_F;
+  auto key = [&](int j) {
+    return v[j] ? __fadd_rn(e_z[j], eps(e_v[j], log_drift)) : CUDART_INF_F;
+  };
+  float kmin = CUDART_INF_F;
+  for (int j = lo; j < hi; ++j) kmin = fminf(kmin, key(j));
+  float excl = zoo::block_exclusive_scan(
+      kmin, CUDART_INF_F, [](float x, float y) { return fminf(x, y); }, sb.f);
+  int ne2 = 0;
+  Cut last{-1, 0};  // the chunk's latest cut, ce counted within the chunk
+  for (int j = lo; j < hi; ++j) {
+    const float kj = key(j);
+    const bool improve = v[j] && kj < fminf(excl, carried);
+    excl = fminf(excl, kj);
+    const bool e2 = v[j] && !improve;
+    ne2 += e2;
+    if (improve) last = Cut{j, ne2};
+    e_flags[j] = (improve ? kImprove : 0) | (e2 ? kE2 : 0);
+  }
+  const int ce_base = zoo::block_exclusive_scan(ne2, 0, add, sb.i);
+  if (last.g >= 0) last.ce += ce_base;
+  Cut cut = zoo::block_exclusive_scan(
+      last, Cut{-1, 0}, [](const Cut& x, const Cut& y) { return y.g >= 0 ? y : x; }, sb.c);
+  const int n2_0 = n2_in[row];
+  int ce = ce_base;
+  for (int j = lo; j < hi; ++j) {
+    const int f = e_flags[j];
+    ce += (f & kE2) != 0;
+    if (f & kImprove) cut = Cut{j, ce};
+    e_n2[j] = cut.g >= 0 ? ce - cut.ce : n2_0 + ce;
+    e_g[j] = cut.g;
+  }
+  __syncthreads();
+
+  // 4–5. the monitoring EWMA (z2, v2) and the tests
+  const float z2_0 = z2_in[row];
+  const float v2_0 = v2_in[row];
+  zoo::tree_scan(
+      n, lev,
+      [&](int j) {
+        const int f = e_flags[j];
+        const bool e2 = f & kE2;
+        const bool init = e2 && e_n2[j] == 1;
+        return element(f & kImprove, init, e2 && !init, e[j], kc);
+      },
+      comb,
+      [&](int j, const Aff& s) {
+        const float z2 = __fmaf_rn(s.az, z2_0, s.bz);
+        const float v2 = __fmaf_rn(s.av, v2_0, s.bv);
+        const int g = e_g[j];
+        const float z1 = g >= 0 ? e_z[g] : z1_0;
+        const float v1 = g >= 0 ? e_v[g] : v1_0;
+        const int n2 = e_n2[j];
+        const bool testable = (e_flags[j] & kE2) && n2 >= 1;
+        const float diff = __fsub_rn(z2, z1);
+        const float vv = __fadd_rn(v1, v2);
+        const bool change = testable && diff >= eps(vv, log_drift);
+        const bool warning = testable && !change && diff >= eps(vv, log_warning);
+        zoo::first_mark(fc, fw, j, b, warning, change);
+        if (j == n - 1) {
+          count_out[row] = e_n[j];
+          z_out[row] = e_z[j];
+          v_out[row] = e_v[j];
+          z1_out[row] = z1;
+          v1_out[row] = v1;
+          n2_out[row] = n2;
+          z2_out[row] = z2;
+          v2_out[row] = v2;
+        }
+      });
+  __syncthreads();
+  zoo::first_store(fc, fw, w, b, first_warning + static_cast<size_t>(row) * w,
+                   first_change + static_cast<size_t>(row) * w);
+}
+
+}  // namespace
+
+// One CTA per partition row. `scratch` holds p rows of
+// 6·n + 4·scan_levels(n) floats (n = w·b). Returns a CUDA error code.
+extern "C" int hddm_w_window_launch(
+    const float* errs, const uint8_t* live, const int* count_in,
+    const float* z_in, const float* v_in, const float* z1_in,
+    const float* v1_in, const int* n2_in, const float* z2_in,
+    const float* v2_in, int p, int w, int b, float lam, float one_m,
+    float one_m2, float lam2, float log_drift, float log_warning,
+    float* scratch, int* first_warning, int* first_change, int* count_out,
+    float* z_out, float* v_out, float* z1_out, float* v1_out, int* n2_out,
+    float* z2_out, float* v2_out, void* stream) {
+  const long long n = static_cast<long long>(w) * b;
+  const long long levels = zoo::scan_levels(n);
+  size_t smem = 0;
+  int in_smem = 0;
+  cudaError_t e =
+      zoo::dynamic_smem(hddm_w_window_kernel, w, levels * sizeof(Aff), smem, in_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  hddm_w_window_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      errs, live, count_in, z_in, v_in, z1_in, v1_in, n2_in, z2_in, v2_in, w,
+      b, Consts{lam, one_m, one_m2, lam2}, log_drift, log_warning, scratch,
+      6 * n + 4 * levels, in_smem, first_warning, first_change, count_out,
+      z_out, v_out, z1_out, v1_out, n2_out, z2_out, v2_out);
+  return static_cast<int>(cudaGetLastError());
+}

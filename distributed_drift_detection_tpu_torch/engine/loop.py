@@ -1,12 +1,13 @@
-"""Containers of the partition loop and the helpers the window engine shares.
+"""The sequential partition loop, its containers, and the helpers the
+window engine shares.
 
-The port's twin of the JAX package's ``engine/loop.py:44-244``. The
-containers hold numpy arrays on the host (stripers) and tensors on the
-device (engines), always with the leading ``[P]`` partition axis written
-out: what the JAX package vmaps over partitions, the port batches.
-
-The sequential batch-per-step engine (``make_partition_runner``) is not
-ported yet (ROADMAP A5); ``api.run`` raises for ``window=1``.
+The port's twin of the JAX package's ``engine/loop.py``. The containers
+hold numpy arrays on the host (stripers) and tensors on the device
+(engines), always with the leading ``[P]`` partition axis written out:
+what the JAX package vmaps over partitions, the port batches.
+:func:`make_partition_runner` is the ``window=1`` engine — one microbatch
+per step, every partition in step, a Python loop where the JAX package
+has ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -67,11 +68,11 @@ class LoopCarry(NamedTuple):
     """State carried across windows, every leaf with a leading ``[P]``.
 
     The JAX carry's PRNG ``key`` has no counterpart: the ported fits
-    (majority, centroid) consume none.
+    (majority, centroid, gnb, linear) consume none.
     """
 
     params: object
-    ddm: object  # DDMState
+    ddm: object  # the detector's state (DDMState for DDM)
     a_X: torch.Tensor  # [P, B, F] f32
     a_y: torch.Tensor  # [P, B] i32
     a_w: torch.Tensor  # [P, B] f32 validity weights
@@ -134,3 +135,120 @@ def _check_retrain_threshold(thr: "float | None") -> None:
             "(config.resolve_retrain_threshold); pass None to disable or a "
             "non-negative float to pin"
         )
+
+
+def make_partition_step(
+    model,
+    ddm_params: DDMParams,
+    *,
+    shuffle: bool = False,
+    retrain_error_threshold: float | None = None,
+    detector=None,
+):
+    """Build the loop body ``step(carry, table, labels, idx, b_rows,
+    b_valid) -> (carry, FlagRows)`` over one microbatch per partition: the
+    batch's rows are ``table[idx]`` (``idx`` ``[P, B]`` into the row table
+    ``[R, row_stride(F)]`` of :func:`~..models.base.pad_row_table`, labels
+    ``[R]``), ``b_rows``/``b_valid`` its ``[P, B]`` planes; the flag leaves
+    are ``[P]``.
+
+    Train on demand (fit always, apply on a pending retrain), predict the
+    error indicators, detect with ``detector`` (DDM from ``ddm_params``
+    when None), and on change rotate ``batch_a`` to this batch, reset the
+    detector and set the retrain. ``shuffle=True`` (an in-loop permutation
+    from PRNG keys) is not ported: the port's streams are shuffled on the
+    host at stripe time."""
+    if shuffle:
+        raise NotImplementedError(
+            "in-loop shuffle=True draws PRNG keys (ROADMAP A9); shuffle on "
+            "the host at stripe time instead"
+        )
+    _check_retrain_threshold(retrain_error_threshold)
+    det = resolve_detector(ddm_params, detector)
+
+    def step(carry: LoopCarry, table, labels, idx, b_rows, b_valid):
+        p, f = carry.a_X.shape[0], carry.a_X.shape[-1]
+        b_w = b_valid.float()
+        nonempty = b_valid.any(1)
+        fitted = model.fit(carry.a_X, carry.a_y, carry.a_w)
+        params = _select(carry.retrain & nonempty, fitted, carry.params)
+        errs = model.predict_err(params, table, labels, idx)
+        new_ddm, res = det.batch(carry.ddm, errs, b_valid)
+        change = (res.first_change >= 0) & nonempty
+        if retrain_error_threshold is not None:
+            err_rate = (errs * b_w).sum(1) / b_w.sum(1).clamp_min(1.0)
+            forced = nonempty & ~change & (err_rate > retrain_error_threshold)
+        else:
+            forced = torch.zeros_like(change)
+        rotate = change | forced
+        flags = FlagRows(
+            res.first_warning,
+            _gather_row(b_rows, res.first_warning),
+            res.first_change,
+            _gather_row(b_rows, res.first_change),
+            forced,
+        )
+        i = idx.long()
+        new_carry = LoopCarry(
+            params=params,
+            ddm=_select(rotate, det.init((p,), b_valid.device), new_ddm),
+            a_X=_select(rotate, table[i, :f], carry.a_X),
+            a_y=_select(rotate, labels[i], carry.a_y),
+            a_w=_select(rotate, b_w, carry.a_w),
+            retrain=torch.where(nonempty, rotate, carry.retrain),
+        )
+        return new_carry, flags
+
+    return step
+
+
+def make_partition_runner(
+    model,
+    ddm_params: DDMParams,
+    *,
+    shuffle: bool = False,
+    retrain_error_threshold: float | None = None,
+    detector=None,
+):
+    """Build ``run(batches: Batches) -> FlagRows`` (leaves ``[P, NB-1]``):
+    batch 0 of each partition seeds ``batch_a``, then one
+    :func:`make_partition_step` per batch. The dense planes become one row
+    table with its row stride padded to 4 floats, built once."""
+    from ..models.base import row_stride
+
+    det = resolve_detector(ddm_params, detector)
+    step = make_partition_step(
+        model, ddm_params, shuffle=shuffle,
+        retrain_error_threshold=retrain_error_threshold, detector=det,
+    )
+
+    def run(batches: Batches) -> FlagRows:
+        p, nb, b, f = batches.X.shape
+        dev = batches.X.device
+        table = torch.zeros((p * nb * b, row_stride(f)), dtype=torch.float32, device=dev)
+        table[:, :f] = batches.X.reshape(-1, f)
+        labels = batches.y.reshape(-1)
+
+        def by_step(x):  # [P, NB, B] -> [NB, P, B]: each step's slice contiguous
+            return x.transpose(0, 1).contiguous()
+
+        idx = by_step(torch.arange(p * nb * b, dtype=torch.int32, device=dev).view(p, nb, b))
+        b_rows, b_valid = by_step(batches.rows), by_step(batches.valid)
+        carry = LoopCarry(
+            params=model.init(p, dev),
+            ddm=det.init((p,), dev),
+            a_X=batches.X[:, 0],
+            a_y=batches.y[:, 0],
+            a_w=batches.valid[:, 0].float(),
+            retrain=torch.ones(p, dtype=torch.bool, device=dev),
+        )
+        rows = []
+        for s in range(1, nb):
+            carry, flags = step(carry, table, labels, idx[s], b_rows[s], b_valid[s])
+            rows.append(flags)
+        if not rows:
+            empty = torch.empty((p, 0), dtype=torch.int32, device=dev)
+            return FlagRows(empty, empty, empty, empty, empty.bool())
+        return FlagRows(*(torch.stack(leaf, 1) for leaf in zip(*rows)))
+
+    return run

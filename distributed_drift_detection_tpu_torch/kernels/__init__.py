@@ -8,7 +8,8 @@ nonzero code into an exception — a refused launch, such as K1's cluster
 launch on a card without clusters, raises there. The checked,
 counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
-``centroid_predict_err``).
+``centroid_predict_err``, ``ops/detectors.py`` ``ph_window`` and
+``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,32 @@ _SIGNATURES = {
                                       # idx bytes, cent, bias
          _I, _I, _I, _I,  # p, n, c, f
          _P, _P, _P],  # err, pred, stream
+    ),
+    "ph_window": (
+        "ph_window_launch",
+        [_P, _P, _P, _P, _P,  # errs, live, 3 state leaves
+         _I, _I, _I, _I,  # p, w, b, min_num_instances
+         _F, _F, _F, _F,  # alpha, delta, threshold, warning threshold
+         _P, _P, _P, _P, _P, _P,  # scratch, first warning/change, 3 end leaves
+         _P],  # stream
+    ),
+    "hddm_w_window": (
+        "hddm_w_window_launch",
+        [_P, _P] + [_P] * 8  # errs, live, 8 state leaves
+        + [_I, _I, _I,  # p, w, b
+           _F, _F, _F, _F, _F, _F,  # λ, 1−λ, (1−λ)², λ², ln(1/δ) drift, warning
+           _P, _P, _P]  # scratch, first warning/change
+        + [_P] * 8  # 8 end leaves
+        + [_P],  # stream
+    ),
+    "adwin_window": (
+        "adwin_window_launch",
+        [_P, _P] + [_P] * 6  # errs, live, 6 state leaves
+        + [_I, _I, _I, _I, _I, _I, _I, _I,  # p, w, b, clock, max_buckets,
+                                            # max_levels, min_window, min_side
+           _F, _P, _P, _P]  # ln(2/δ), scratch, first warning/change
+        + [_P] * 6  # 6 end leaves
+        + [_P],  # stream
     ),
 }
 

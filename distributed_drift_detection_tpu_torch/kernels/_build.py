@@ -2,7 +2,8 @@
 
 Each kernel's ``csrc/<name>.cu`` compiles on its own into
 ``kernels/_build/lib<name>-<digest>.so`` (a directory ``.gitignore`` lists)
-at its first use, keyed on a hash of the source and the flags, so a fresh
+at its first use, keyed on a hash of the source, the ``csrc/*.cuh`` headers
+and the flags, so a fresh
 checkout builds on the first call and later calls reuse the library. The
 library has a plain C interface and is loaded with ``ctypes``
 (``kernels/__init__.py``); no PyTorch header is compiled, which keeps a
@@ -27,11 +28,15 @@ COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-# Per-kernel extra flags. K1 is held bit-identical to its plain version,
-# so nvcc must not contract a*b+c into FMAs on its own.
+# Per-kernel extra flags. K1 and the zoo kernels are held bit-identical to
+# their plain versions, so nvcc must not contract a*b+c into FMAs on its
+# own; K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU does.
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
+    "ph_window": ("-fmad=false", "-ftz=true"),
+    "hddm_w_window": ("-fmad=false", "-ftz=true"),
+    "adwin_window": ("-fmad=false",),
 }
 
 
@@ -61,6 +66,8 @@ def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; known: {sorted(KERNELS)}")
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join((*COMMON_FLAGS, *KERNELS[name])).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -14,7 +14,7 @@ partitions; the port's take the ``[P]`` partition axis written out. A
   The engine passes ``T`` as :func:`pad_row_table` leaves it, ``[R,
   row_stride(F)]``; columns past F are padding.
 
-The ported families (majority, centroid) consume no PRNG key.
+The ported families (majority, centroid, gnb, linear) consume no PRNG key.
 """
 
 from __future__ import annotations

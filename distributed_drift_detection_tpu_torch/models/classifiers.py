@@ -1,17 +1,21 @@
-"""The deterministic-fit classifiers of the main path: majority, centroid.
+"""The deterministic-fit classifiers: majority, centroid, gnb, linear.
 
 Twins of the JAX package's ``models/classifiers.py`` ``make_majority``
-(:44-59) and ``make_centroid`` (:67-104), batched over partitions. The
-centroid predict fused with the error indicator is the hand-written CUDA
-kernel K2 (``csrc/centroid_predict_err.cu``), reached through
+(:44-59), ``make_centroid`` (:67-104), ``make_gnb`` (:110-184) and
+``make_linear`` (:187-240), batched over partitions. The centroid predict
+fused with the error indicator is the hand-written CUDA kernel K2
+(``csrc/centroid_predict_err.cu``), reached through
 :func:`centroid_predict_err`; it gathers rows from the padded row table of
-:func:`~.base.pad_row_table`.
+:func:`~.base.pad_row_table`. ``linear``'s score ``X·W + b`` has K2's form
+``X·Cᵀ + bias`` with ``C = Wᵀ``, so its predict launches K2 too.
 
-The fits stay plain PyTorch, as the JAX package left them to XLA. The
-centroid fit's segment sums are taken in float64 and rounded once to f32:
-sums of at most B f32 values are exact there for realistic data, so the
-CPU and the card give the same centroids whatever order their reductions
-use.
+The fits stay plain PyTorch, as the JAX package left them to XLA. They
+run in float64 and round once to f32 — the centroid fit's segment sums,
+the gnb moments and the linear fit's 32 gradient steps — so the CPU and
+the card give the same parameters whatever order their reductions use
+(the JAX package fits in f32; the port's parameters agree with its to
+float32 rounding, and the predictions the tests compare are equal).
+``gnb``'s predict is two plain products, in float64 for the same reason.
 """
 
 from __future__ import annotations
@@ -197,13 +201,143 @@ def make_centroid(spec: ModelSpec) -> Model:
     return Model("centroid", init, fit, predict, predict_err)
 
 
+# --------------------------------------------------------------------------
+# Gaussian naive Bayes (closed form)
+# --------------------------------------------------------------------------
+
+
+class GNBParams(NamedTuple):
+    """Prediction-ready form, as the JAX package's ``GNBParams``."""
+
+    offset: torch.Tensor  # [P, F]: global feature mean the moments are centred on
+    half_inv_var: torch.Tensor  # [P, C, F]: ½/σ² (smoothed)
+    mean_inv_var: torch.Tensor  # [P, C, F]: μc/σ² (class means centred on offset)
+    bias: torch.Tensor  # [P, C]: log prior − ½Σ log σ² − ½Σ μc²/σ² (−inf absent)
+
+
+def gnb_scores(params: GNBParams, X: torch.Tensor) -> torch.Tensor:
+    """``X [P, N, F]`` → ``[P, N, C]`` f64: −½Σ(x−μ)²/σ² + log prior −
+    ½Σ log σ², as two products over the centred features."""
+    Xc = X.double() - params.offset.double()[:, None]
+    return (
+        -torch.bmm(Xc * Xc, params.half_inv_var.double().transpose(1, 2))
+        + torch.bmm(Xc, params.mean_inv_var.double().transpose(1, 2))
+        + params.bias.double()[:, None]
+    )
+
+
+def make_gnb(spec: ModelSpec, *, var_smoothing: float = 1e-6) -> Model:
+    """Gaussian naive Bayes with a closed-form fit; variances smoothed by
+    ``var_smoothing ×`` the batch's largest feature variance; classes absent
+    from the training batch score −inf."""
+    f, c = spec.num_features, spec.num_classes
+
+    def init(p, device="cpu"):
+        bias = torch.full((p, c), float("-inf"), dtype=torch.float32, device=device)
+        bias[:, 0] = 0.0
+        return GNBParams(
+            torch.zeros((p, f), dtype=torch.float32, device=device),
+            torch.full((p, c, f), 0.5, dtype=torch.float32, device=device),
+            torch.zeros((p, c, f), dtype=torch.float32, device=device),
+            bias,
+        )
+
+    def fit(X, y, w):
+        X, w = X.double(), w.double()
+        onehot = torch.nn.functional.one_hot(y.long(), c).double() * w[..., None]
+        counts = onehot.sum(1)  # [P, C]
+        denom = counts.clamp_min(1.0)[..., None]
+        wsum = w.sum(1).clamp_min(1.0)[:, None]  # [P, 1]
+        gmean = (X * w[..., None]).sum(1) / wsum  # [P, F]
+        Xc = X - gmean[:, None]
+        mean_c = torch.bmm(onehot.transpose(1, 2), Xc) / denom
+        sq_c = torch.bmm(onehot.transpose(1, 2), Xc * Xc) / denom
+        gvar = (Xc * Xc * w[..., None]).sum(1) / wsum
+        eps = var_smoothing * gvar.amax(1).clamp_min(1e-12)
+        var = (sq_c - mean_c * mean_c).clamp_min(0.0) + eps[:, None, None]
+        inv_var = 1.0 / var
+        bias = (
+            torch.log(counts / wsum)
+            - 0.5 * torch.log(var).sum(2)
+            - 0.5 * (mean_c * mean_c * inv_var).sum(2)
+        )
+        return GNBParams(gmean.float(), (0.5 * inv_var).float(),
+                         (mean_c * inv_var).float(), bias.float())
+
+    def predict(params, X):
+        return _argmax_first(gnb_scores(params, X))
+
+    def predict_err(params, T, Ty, idx):
+        i = idx.long()
+        return (predict(params, T[i, :f]) != Ty[i]).float()
+
+    return Model("gnb", init, fit, predict, predict_err)
+
+
+# --------------------------------------------------------------------------
+# linear (multinomial logistic regression)
+# --------------------------------------------------------------------------
+
+
+class LinearParams(NamedTuple):
+    w: torch.Tensor  # [P, F, C]
+    b: torch.Tensor  # [P, C]
+
+
+def make_linear(spec: ModelSpec, *, fit_steps: int = 32, learning_rate: float = 0.5) -> Model:
+    """Softmax regression fitted with ``fit_steps`` full-batch gradient
+    steps from zero; predict is kernel K2's ``argmax(X·Cᵀ + bias)`` with
+    ``C = Wᵀ``."""
+    f, c = spec.num_features, spec.num_classes
+
+    def init(p, device="cpu"):
+        return LinearParams(
+            torch.zeros((p, f, c), dtype=torch.float32, device=device),
+            torch.zeros((p, c), dtype=torch.float32, device=device),
+        )
+
+    def fit(X, y, w):
+        X = X.double()
+        onehot = torch.nn.functional.one_hot(y.long(), c).double()
+        wn = (w.double() / w.double().sum(1, keepdim=True).clamp_min(1.0))[..., None]
+        W = torch.zeros((X.shape[0], f, c), dtype=torch.float64, device=X.device)
+        b = torch.zeros((X.shape[0], c), dtype=torch.float64, device=X.device)
+        for _ in range(int(fit_steps)):
+            logits = torch.bmm(X, W) + b[:, None]
+            e = torch.exp(logits - logits.amax(-1, keepdim=True))
+            g = (e / e.sum(-1, keepdim=True) - onehot) * wn  # [P, B, C]
+            W = W - learning_rate * torch.bmm(X.transpose(1, 2), g)
+            b = b - learning_rate * g.sum(1)
+        return LinearParams(W.float(), b.float())
+
+    def predict(params, X):
+        return _argmax_first(torch.bmm(X, params.w) + params.b[:, None])
+
+    def predict_err(params, T, Ty, idx):
+        cent = params.w.transpose(1, 2).contiguous()
+        return centroid_predict_err(cent, params.b, T, Ty, idx)
+
+    return Model("linear", init, fit, predict, predict_err)
+
+
 def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
-    """Build a model by config name (``RunConfig.model``)."""
+    """Build a model by config name (``RunConfig.model``); ``cfg`` supplies
+    ``linear``'s ``fit_steps`` and ``learning_rate``."""
     if name == "majority":
         return make_majority(spec)
     if name == "centroid":
         return make_centroid(spec)
-    raise NotImplementedError(
-        f"model {name!r} is not ported yet (ROADMAP A4 for gnb/linear, A9 "
-        "for mlp/forest/rf); the port runs majority and centroid"
+    if name == "gnb":
+        return make_gnb(spec)
+    if name == "linear":
+        if cfg is None:
+            return make_linear(spec)
+        return make_linear(spec, fit_steps=cfg.fit_steps, learning_rate=cfg.learning_rate)
+    if name in ("mlp", "forest", "rf"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP A9: key-consuming "
+            "fits); the port runs majority, centroid, gnb and linear"
+        )
+    raise ValueError(
+        f"unknown model {name!r}; expected majority|centroid|gnb|linear|mlp|forest|rf"
     )

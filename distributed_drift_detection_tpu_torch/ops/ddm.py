@@ -21,9 +21,10 @@ is set. The caller resets the detector on change.
 Exactness against the JAX package: counts and error sums are integers held
 in f32, so prefix sums in any order agree; XLA on the CPU computes each
 threshold ``p_min + level·s_band`` as one fused multiply-add (measured), so
-the plain version forms it in float64 — the product of two f32 values is
-exact there, and for the shipped levels (0.5, 1.5) so is the sum, which
-makes the rounding to f32 the FMA's single rounding.
+the plain version forms it with :func:`.prefix.fma`.
+
+The batch form (:func:`ddm_batch`, the sequential ``window=1`` engine's)
+is the window form at W = 1, so on the card it launches K1 too.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import torch
 
 from ..config import DDMParams
 from .. import kernels
+from .prefix import f32 as _f32
+from .prefix import fma
 
 
 class DDMState(NamedTuple):
@@ -46,6 +49,13 @@ class DDMState(NamedTuple):
     ps_min: torch.Tensor  # f32: running min of p+s (inf until first update)
     p_min: torch.Tensor  # f32: p at the running min
     s_min: torch.Tensor  # f32: s at the running min
+
+
+class DDMBatchResult(NamedTuple):
+    """Per-batch detection summary: first indices within the batch, or −1."""
+
+    first_warning: torch.Tensor  # i32 [...]
+    first_change: torch.Tensor  # i32 [...]
 
 
 class DDMWindowResult(NamedTuple):
@@ -67,11 +77,6 @@ def ddm_init(shape=(), device="cpu") -> DDMState:
     )
 
 
-def _f32(x: float) -> float:
-    """``x`` rounded to float32 (the JAX package's weak-typed scalars)."""
-    return float(np.float32(x))
-
-
 def band_floor(params: DDMParams) -> float:
     """The f32 band floor ``noise_floor / out_control_level`` (0 when off)."""
     if float(params.noise_floor) == 0.0:
@@ -89,7 +94,7 @@ def _band_s(s_min: torch.Tensor, params: DDMParams) -> torch.Tensor:
 
 def _threshold(p_min: torch.Tensor, level: float, s_band: torch.Tensor):
     """``p_min + level·s_band`` rounded once, as XLA's fused multiply-add."""
-    return (p_min.double() + _f32(level) * s_band.double()).float()
+    return fma(level, s_band, p_min)
 
 
 def _stats(cnt: torch.Tensor, esum: torch.Tensor):
@@ -149,6 +154,24 @@ def summarise_window(warning: torch.Tensor, change: torch.Tensor) -> DDMWindowRe
     return DDMWindowResult(first_warning, first_change)
 
 
+def summarise_batch(warning: torch.Tensor, change: torch.Tensor) -> DDMBatchResult:
+    """``[..., B]`` masks → ``[...]`` first indices (the early-break
+    protocol: the first change wins; later warnings do not count)."""
+    res = summarise_window(warning[..., None, :], change[..., None, :])
+    return DDMBatchResult(res.first_warning[..., 0], res.first_change[..., 0])
+
+
+def batch_from_window(window):
+    """The batch form ``(state, errs [P, B], valid [P, B]) -> (state,
+    DDMBatchResult [P])`` of a window statistic: its window at W = 1."""
+
+    def batch(state, errs, valid):
+        end, res = window(state, errs[:, None], valid[:, None])
+        return end, DDMBatchResult(res.first_warning[:, 0], res.first_change[:, 0])
+
+    return batch
+
+
 def ddm_window_reference(
     state: DDMState,
     errs: torch.Tensor,
@@ -188,14 +211,35 @@ def ddm_window_reference(
     return end, summarise_window(warning.view(p_, w, b), change.view(p_, w, b))
 
 
-def _check_cuda(name, t, dtype, shape, device):
+def _check_cuda(kernel, name, t, dtype, shape, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"ddm_window: {name} must be {dtype} {tuple(shape)} on {device}, "
+            f"{kernel}: {name} must be {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
     if not t.is_contiguous():
-        raise ValueError(f"ddm_window: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_window_inputs(kernel: str, state, errs, valid, dtypes: dict) -> None:
+    """The checks of a window kernel's wrapper: ``errs`` f32 ``[P, W, B]``,
+    ``valid`` bool or uint8 of that shape, every state leaf of its dtype
+    (``dtypes[name]``) with a leading ``[P]``, all contiguous on one card."""
+    dev = errs.device
+    p, w, b = errs.shape
+    _check_cuda(kernel, "errs", errs, torch.float32, (p, w, b), dev)
+    if valid.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"{kernel}: valid must be bool or uint8, got {valid.dtype}")
+    _check_cuda(kernel, "valid", valid, valid.dtype, (p, w, b), dev)
+    for name, leaf in state._asdict().items():
+        _check_cuda(kernel, f"state.{name}", leaf, dtypes[name], (p, *leaf.shape[1:]), dev)
+
+
+def launch_window(kernel: str, args, dev) -> None:
+    """Launch window kernel ``kernel`` on PyTorch's current stream and raise
+    if the launch was refused."""
+    code = kernels.launcher(kernel)(*args, kernels.stream_handle(dev))
+    kernels.check(kernel, code)
 
 
 def cluster_size(partitions: int, sms: int = 132) -> int:
@@ -246,25 +290,27 @@ def ddm_window(
         return ddm_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
         raise ValueError(f"ddm_window: unsupported device {errs.device}")
+    check_window_inputs(
+        "ddm_window", state, errs, valid,
+        {f: torch.int32 if f == "count" else torch.float32 for f in DDMState._fields},
+    )
     dev = errs.device
     p, w, b = errs.shape
-    _check_cuda("errs", errs, torch.float32, (p, w, b), dev)
-    if valid.dtype not in (torch.bool, torch.uint8):
-        raise ValueError(f"ddm_window: valid must be bool or uint8, got {valid.dtype}")
-    _check_cuda("valid", valid, valid.dtype, (p, w, b), dev)
-    for name, leaf in state._asdict().items():
-        dt = torch.int32 if name == "count" else torch.float32
-        _check_cuda(f"state.{name}", leaf, dt, (p,), dev)
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty((p, w), dtype=torch.int32, device=dev)
     end = DDMState(*(torch.empty_like(leaf) for leaf in state))
-    code = kernels.launcher("ddm_window")(
-        *ddm_window_args(state, errs, valid, params, fw, fc, end),
-        kernels.stream_handle(dev),
-    )
-    kernels.check("ddm_window", code)
+    launch_window("ddm_window", ddm_window_args(state, errs, valid, params, fw, fc, end), dev)
     ddm_window.launches += 1
     return end, DDMWindowResult(fw, fc)
 
 
 ddm_window.launches = 0
+
+
+def ddm_batch(state: DDMState, errs, valid, params: DDMParams = DDMParams()):
+    """One microbatch per partition (``errs``/``valid`` ``[P, B]``): the
+    state after it and ``[P]`` first-warning/first-change indices — the
+    window statistic at W = 1 (kernel K1 on a CUDA tensor)."""
+    return batch_from_window(lambda s, e, v: ddm_window(s, e, v, params))(
+        state, errs, valid
+    )

@@ -171,24 +171,39 @@ def make_mesh_runner(
 
     ``packed=True`` takes :class:`PackedIndexedBatches` and expands their
     geometry planes on the device first; otherwise ``batches`` are dense
-    :class:`Batches`. ``window > 1`` is the speculative window engine; the
-    sequential ``window = 1`` engine is not ported yet (ROADMAP A5).
+    :class:`Batches`. ``window > 1`` is the speculative window engine,
+    ``window = 1`` the sequential batch-per-step engine (dense batches
+    only, ``rotations`` 1).
     """
-    if window <= 1:
-        raise NotImplementedError(
-            "window=1 is the sequential batch-per-step engine, not ported yet "
-            "(ROADMAP A5); use window > 1 or the auto window (0)"
+    if window == 0:
+        raise ValueError(
+            "window=0 (auto) needs stream geometry and is resolved by "
+            "api.prepare (config.auto_window); pass an explicit width here"
         )
-    from ..engine.window import make_window_runner
+    if packed and window <= 1:
+        raise ValueError("indexed batches require the window engine (window > 1)")
+    if window <= 1 and rotations != 1:
+        raise ValueError("rotations only applies to the window engine (window > 1)")
+    if window > 1:
+        from ..engine.window import make_window_runner
 
-    run_one = make_window_runner(
-        model,
-        ddm_params,
-        window=window,
-        retrain_error_threshold=retrain_error_threshold,
-        detector=detector,
-        rotations=rotations,
-    )
+        run_one = make_window_runner(
+            model,
+            ddm_params,
+            window=window,
+            retrain_error_threshold=retrain_error_threshold,
+            detector=detector,
+            rotations=rotations,
+        )
+    else:
+        from ..engine.loop import make_partition_runner
+
+        run_one = make_partition_runner(
+            model,
+            ddm_params,
+            retrain_error_threshold=retrain_error_threshold,
+            detector=detector,
+        )
 
     def run(batches) -> MeshRunResult:
         if packed:

@@ -100,6 +100,37 @@ def test_window_matches_jax_bitwise(seed, which, carried):
     np.testing.assert_array_equal(np.asarray(jres.first_warning), tres.first_warning.numpy())
 
 
+@pytest.mark.parametrize("which", sorted(PARAMS))
+def test_batch_matches_jax_bitwise(which):
+    """``ddm_batch`` (the window=1 engine's form) from a carried state:
+    end state bit for bit, first indices equal."""
+    params, jparams = PARAMS[which]
+    errs, valid = _inputs(9, w=1, b=80)
+    jstate = _carried_state(9, errs.shape[0], jparams)
+    jend, jres = jax.vmap(jddm.ddm_batch, in_axes=(0, 0, 0, None))(
+        jstate, jnp.asarray(errs[:, 0]), jnp.asarray(valid[:, 0]), jparams)
+    tend, tres = tddm.ddm_batch(convert.ddm_state(jstate), torch.from_numpy(errs[:, 0]),
+                                torch.from_numpy(valid[:, 0]), params)
+    for f in jddm.DDMState._fields:
+        np.testing.assert_array_equal(
+            _bits(getattr(jend, f)), _bits(getattr(tend, f).numpy()), err_msg=f)
+    np.testing.assert_array_equal(np.asarray(jres.first_change), tres.first_change.numpy())
+    np.testing.assert_array_equal(np.asarray(jres.first_warning), tres.first_warning.numpy())
+
+
+def test_summarise_batch_matches_jax():
+    """Per-element masks → first indices under the early-break protocol: a
+    warning after the first change does not count."""
+    rng = np.random.default_rng(4)
+    warning = rng.random((50, 30)) < 0.05
+    change = rng.random((50, 30)) < 0.03
+    want = jax.vmap(jddm.summarise_batch)(jnp.asarray(warning), jnp.asarray(change))
+    got = tddm.summarise_batch(torch.from_numpy(warning), torch.from_numpy(change))
+    for f in ("first_warning", "first_change"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), getattr(got, f).numpy())
+    assert ((np.asarray(want.first_warning) < 0) & warning.any(1)).any()
+
+
 def test_window_inputs_cover_the_hard_cases():
     """The parametrized inputs really reach what the window semantics turn
     on: detections and warnings, an all-padding row, and a carried state

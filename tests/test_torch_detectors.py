@@ -1,0 +1,436 @@
+"""The port's detector zoo against the JAX package's, bit for bit.
+
+Every member's window and batch forms on CPU tensors (for Page–Hinkley,
+HDDM-W and ADWIN the plain versions of kernels K5-ph, K5-hddm_w and
+K5-adwin) must give the same end state and first-warning/first-change
+indices as ``jax.vmap`` of the JAX package's, on the same numpy-seeded
+padded streams, from fresh states and from states the JAX package carried
+(converted through ``convert.detector_state``). Float leaves are compared
+by their bits. The per-element masks are held against the NumPy oracles
+of ``tests/test_detectors.py`` and every case of
+``tests/golden/traces.json`` (ADWIN at ``clock=1`` against the textbook
+``tests/classic.py``). The kernels themselves run only on the card
+(``tests/test_torch_kernels.py``).
+"""
+
+import functools
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
+
+from distributed_drift_detection_tpu import config as jconfig  # noqa: E402
+from distributed_drift_detection_tpu.ops import adwin as jadwin  # noqa: E402
+from distributed_drift_detection_tpu.ops import detectors as jdet  # noqa: E402
+from distributed_drift_detection_tpu_torch import config as tconfig  # noqa: E402
+from distributed_drift_detection_tpu_torch import convert  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops import adwin as tadwin  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops import detectors as tdet  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops import prefix  # noqa: E402
+
+from test_detectors import (  # noqa: E402
+    OracleADWIN,
+    OracleEDDM,
+    OracleEDDMExact,
+    OracleHDDM,
+    OracleHDDMW,
+    OracleKSWIN,
+    OraclePH,
+    OracleSTEPD,
+    firsts,
+    oracle_flags,
+    planted_stream,
+)
+
+# (name, detector, params as keyword arguments of both packages' config
+# classes); small windows so 100-element batches exercise full testing.
+MEMBERS = {
+    "ph": ("ph", "PHParams", dict(min_num_instances=5, delta=0.005, threshold=3.0, alpha=0.9)),
+    "ph_classic": ("ph", "PHParams", dict(min_num_instances=5, delta=0.005, threshold=3.0)),
+    "eddm": ("eddm", "EDDMParams", dict(min_num_errors=5)),
+    "eddm_exact": ("eddm", "EDDMParams", dict(min_num_errors=5, paper_exact=True)),
+    "hddm": ("hddm", "HDDMParams", {}),
+    "hddm_w": ("hddm_w", "HDDMWParams", {}),
+    "hddm_w_fast": ("hddm_w", "HDDMWParams", dict(lam=0.3)),
+    "adwin": ("adwin", "ADWINParams", dict(max_levels=12, clock=4)),
+    "adwin_default": ("adwin", "ADWINParams", {}),
+    "kswin": ("kswin", "KSWINParams", dict(window_size=40, stat_size=10)),
+    "stepd": ("stepd", "STEPDParams", dict(window_size=20)),
+}
+ORACLES = {
+    "ph": OraclePH, "ph_classic": OraclePH, "eddm": OracleEDDM,
+    "eddm_exact": OracleEDDMExact, "hddm": OracleHDDM, "hddm_w": OracleHDDMW,
+    "hddm_w_fast": OracleHDDMW, "adwin": OracleADWIN, "adwin_default": OracleADWIN,
+    "kswin": OracleKSWIN, "stepd": OracleSTEPD,
+}
+
+
+def _params(member):
+    name, cls, kw = MEMBERS[member]
+    return name, getattr(jconfig, cls)(**kw), getattr(tconfig, cls)(**kw)
+
+
+def _jdetector(member):
+    name, jp, _ = _params(member)
+    return jdet.make_detector(name, **{name: jp})
+
+
+def _tdetector(member):
+    name, _, tp = _params(member)
+    return tdet.make_detector(name, **{name: tp})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fns(member):
+    det = _jdetector(member)
+    return (
+        jax.jit(jax.vmap(det.window)),
+        jax.jit(jax.vmap(det.batch)),
+        jax.jit(jax.vmap(lambda _: det.init())),
+    )
+
+
+def _inputs(seed, p=4, w=5, b=20):
+    """Error indicators with per-partition rate jumps and ragged padding;
+    partition 1 all padding, partition 2 padded at the end."""
+    rng = np.random.default_rng(seed)
+    n = w * b
+    flip = rng.integers(0, n, p)[:, None]
+    rate = np.where(np.arange(n)[None] < flip, rng.uniform(0.0, 0.15, (p, 1)),
+                    rng.uniform(0.3, 0.9, (p, 1)))
+    errs = (rng.random((p, n)) < rate).astype(np.float32).reshape(p, w, b)
+    valid = rng.random((p, w, b)) < 0.9
+    valid[1] = False
+    valid[2, -1, 5:] = False
+    return errs, valid
+
+
+def _carried(member, seed, p=4):
+    """A reachable JAX state: one earlier window from a fresh state."""
+    jwin, _, jinit = _jax_fns(member)
+    e, v = _inputs(seed + 500, p=p)
+    state, _ = jwin(jinit(jnp.arange(p)), jnp.asarray(e), jnp.asarray(v))
+    return state
+
+
+def _bits(x):
+    a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _assert_same_state(jstate, tstate):
+    for f in jstate._fields:
+        j, t = _bits(getattr(jstate, f)), _bits(getattr(tstate, f).numpy())
+        assert j.dtype == t.dtype, f
+        np.testing.assert_array_equal(j, t, err_msg=f)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+@pytest.mark.parametrize("member", sorted(MEMBERS))
+def test_window_matches_jax_bitwise(member, carried):
+    name = MEMBERS[member][0]
+    jwin, _, jinit = _jax_fns(member)
+    errs, valid = _inputs(sorted(MEMBERS).index(member))
+    jstate = _carried(member, 3) if carried else jinit(jnp.arange(4))
+    jend, jres = jwin(jstate, jnp.asarray(errs), jnp.asarray(valid))
+    tend, tres = _tdetector(member).window(
+        convert.detector_state(name, jstate), torch.from_numpy(errs), torch.from_numpy(valid)
+    )
+    _assert_same_state(jend, tend)
+    for f in ("first_warning", "first_change"):
+        np.testing.assert_array_equal(np.asarray(getattr(jres, f)), getattr(tres, f).numpy())
+
+
+@pytest.mark.parametrize("member", sorted(MEMBERS))
+def test_batch_matches_jax_bitwise(member):
+    """The batch form (the window=1 engine's) from a carried state."""
+    name = MEMBERS[member][0]
+    _, jbatch, _ = _jax_fns(member)
+    errs, valid = _inputs(7, w=1, b=60)
+    jstate = _carried(member, 11)
+    jend, jres = jbatch(jstate, jnp.asarray(errs[:, 0]), jnp.asarray(valid[:, 0]))
+    tend, tres = _tdetector(member).batch(
+        convert.detector_state(name, jstate),
+        torch.from_numpy(errs[:, 0]), torch.from_numpy(valid[:, 0]),
+    )
+    _assert_same_state(jend, tend)
+    for f in ("first_warning", "first_change"):
+        np.testing.assert_array_equal(np.asarray(getattr(jres, f)), getattr(tres, f).numpy())
+
+
+def test_inputs_reach_every_outcome():
+    """The parity inputs are not vacuous: across the members they give
+    changes and warnings, and a carried state that differs from a fresh
+    one."""
+    changes = warnings = 0
+    for member in MEMBERS:
+        jwin, _, jinit = _jax_fns(member)
+        errs, valid = _inputs(sorted(MEMBERS).index(member))
+        _, res = jwin(_carried(member, 3), jnp.asarray(errs), jnp.asarray(valid))
+        changes += int((np.asarray(res.first_change) >= 0).sum())
+        warnings += int((np.asarray(res.first_warning) >= 0).sum())
+    assert changes > 20 and warnings > 5
+
+
+def _masks(member, errs, valid):
+    """The port's per-element masks of one stream (a [1, N] row)."""
+    name, _, tp = _params(member)
+    fn = tadwin._adwin_masks if name == "adwin" else getattr(tdet, f"_{name}_masks")
+    state = _tdetector(member).init((1,), "cpu")
+    _, warn, change = fn(state, torch.from_numpy(errs)[None], torch.from_numpy(valid)[None], tp)
+    return warn[0].numpy(), change[0].numpy()
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("member", sorted(MEMBERS))
+def test_masks_match_oracle(member, seed):
+    """First warning and first change of the per-element masks equal the
+    independent NumPy oracle's on a padded planted stream (the JAX
+    package's own oracle test)."""
+    rng = np.random.default_rng(seed)
+    errs, valid = planted_stream(rng, 256, flip_at=128)
+    ow, oc, _ = oracle_flags(ORACLES[member], _params(member)[1], errs, valid)
+    warn, change = _masks(member, errs, valid)
+    assert firsts(warn, change) == firsts(ow, oc)
+
+
+def _golden_cases():
+    path = os.path.join(os.path.dirname(__file__), "golden", "traces.json")
+    with open(path) as fh:
+        return [c for c in json.load(fh) if c["detector"] != "ddm"]
+
+
+def _golden_stream(spec):
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    try:
+        import generate
+    finally:
+        sys.path.pop(0)
+    return np.asarray(generate.make_stream(spec), np.float32)
+
+
+@pytest.mark.parametrize("case", _golden_cases(), ids=lambda c: c["case"])
+def test_masks_match_golden_trace(case):
+    """Every element's warning and change equal the committed trace
+    (the ADWIN clock=1 cases are the textbook classic ADWIN's)."""
+    name = case["detector"]
+    params = getattr(tconfig, MEMBERS[name][1] if name in MEMBERS else "")(**case["params"])
+    errs = _golden_stream(case["stream"])
+    fn = tadwin._adwin_masks if name == "adwin" else getattr(tdet, f"_{name}_masks")
+    init = tdet.make_detector(name, **{name: params}).init
+    _, warn, change = fn(init((1,), "cpu"), torch.from_numpy(errs)[None],
+                         torch.ones((1, len(errs)), dtype=torch.bool), params)
+    assert np.flatnonzero(change[0].numpy()).tolist() == case["changes"]
+    assert np.flatnonzero(warn[0].numpy()).tolist() == case["warnings"]
+
+
+STEPS = {
+    "ph": tdet.ph_step, "ph_classic": tdet.ph_step, "eddm": tdet.eddm_step,
+    "eddm_exact": tdet.eddm_step, "hddm": tdet.hddm_step, "hddm_w": tdet.hddm_w_step,
+    "hddm_w_fast": tdet.hddm_w_step, "adwin": tadwin.adwin_step,
+    "adwin_default": tadwin.adwin_step, "kswin": tdet.kswin_step, "stepd": tdet.stepd_step,
+}
+
+
+@pytest.mark.parametrize("member", sorted(MEMBERS))
+def test_step_matches_oracle(member):
+    """The per-element executable spec agrees with the oracle element by
+    element (no reset, as the oracle runs)."""
+    rng = np.random.default_rng(7)
+    errs, _ = planted_stream(rng, 200, flip_at=100)
+    ow, oc, _ = oracle_flags(ORACLES[member], _params(member)[1], errs, np.ones(200, bool))
+    tp = _params(member)[2]
+    state = _tdetector(member).init((1,), "cpu")
+    warn, change = [], []
+    for e in errs:
+        state, (w, c) = STEPS[member](state, torch.tensor([e]), tp)
+        warn.append(bool(w[0]))
+        change.append(bool(c[0]))
+    np.testing.assert_array_equal(warn, ow)
+    np.testing.assert_array_equal(change, oc)
+
+
+def _jax_ph_compose(first, second):
+    a1, b1, k1 = first
+    a2, b2, k2 = second
+    return a2 * a1, a2 * b1 + b2, jnp.maximum(k2, a2 * k1 + b2)
+
+
+def _jax_affine_compose(f, g):
+    az1, bz1, av1, bv1 = f
+    az2, bz2, av2, bv2 = g
+    return az2 * az1, az2 * bz1 + bz2, av2 * av1, av2 * bv1 + bv2
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 100, 257, 1000, 4096])
+def test_associative_scan_matches_lax_bitwise(n):
+    """The plain scan evaluates lax.associative_scan's combine tree, so
+    combines that round give the same bits on odd, even and power-of-two
+    lengths: float addition, and Page–Hinkley's clamp-affine compose on
+    its elements at α = 1 (padding is the identity, the clamp -1e30).
+
+    HDDM-W's pair of affine maps is held to 2 ulp, not to the bit: XLA
+    decides per fusion whether it contracts ``a*b + c`` into one FMA, and
+    at lengths from about 200 a few of its scan elements come out of the
+    unfused form (measured: at most 2 ulp from the fused tree). The flags
+    and end states the tests compare are equal."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(3, n)) * 1e3 ** rng.integers(-1, 2, (3, n))).astype(np.float32)
+    want = jax.jit(jax.vmap(lambda v: lax.associative_scan(jnp.add, v)))(x)
+    (got,) = prefix.associative_scan(lambda u, v: (u[0] + v[0],), (torch.from_numpy(x),))
+    np.testing.assert_array_equal(_bits(want), _bits(got.numpy()))
+
+    valid = rng.random((3, n)) < 0.9
+    a = np.ones((3, n), np.float32)
+    b = np.where(valid, rng.normal(size=(3, n)), 0.0).astype(np.float32)
+    k = np.where(valid, 0.0, -1e30).astype(np.float32)
+    want = jax.jit(jax.vmap(lambda *e: lax.associative_scan(_jax_ph_compose, e)))(a, b, k)
+    got = prefix.associative_scan(tdet._ph_compose, tuple(torch.from_numpy(e) for e in (a, b, k)))
+    for w_, g in zip(want, got):
+        np.testing.assert_array_equal(_bits(w_), _bits(g.numpy()))
+
+    errs = torch.from_numpy((rng.random((3, n)) < 0.3).astype(np.float32))
+    v = torch.from_numpy(valid)
+    first = v & (torch.cumsum(v.int(), 1) == 1)
+    elems = tdet._affine_elements(torch.zeros_like(v), first, v & ~first, errs,
+                                  tdet.hddm_w_constants(tconfig.HDDMWParams()))
+    want = jax.jit(jax.vmap(lambda *e: lax.associative_scan(_jax_affine_compose, e)))(
+        *(e.numpy() for e in elems))
+    got = prefix.associative_scan(tdet._affine_compose, elems)
+    for w_, g in zip(want, got):
+        ulps = np.abs(_bits(w_).astype(np.int64) - _bits(g.numpy()))
+        assert ulps.max() <= 2 and (ulps == 0).mean() > 0.9
+
+
+def test_fma_is_correctly_rounded():
+    """``prefix.fma`` rounds ``a*b + c`` once: against exact rational
+    arithmetic on values where two roundings differ."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a, b = (rng.standard_normal(2000).astype(np.float32) for _ in range(2))
+    c = (-(a.astype(np.float64) * b) * (1 + rng.uniform(-1e-7, 1e-7, 2000))).astype(np.float32)
+    got = prefix.fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    two = a * b + c
+    assert (got != two).sum() > 100  # the cases where a fused result differs
+    for x, y, z, g in zip(a[:500], b[:500], c[:500], got[:500]):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        near = np.float32(float(exact))
+        cands = [np.nextafter(near, np.float32(-np.inf)), near, np.nextafter(near, np.float32(np.inf))]
+        # nearest, ties to the even significand
+        assert g == min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                              int(np.float32(v).view(np.int32)) & 1))
+
+
+def test_ph_alpha_zero_with_padding():
+    """alpha = 0 composed across padded elements stays finite and matches
+    the step spec (the JAX package's NaN regression)."""
+    params = tconfig.PHParams(min_num_instances=3, delta=0.0, threshold=0.5, alpha=0.0)
+    errs = torch.tensor([[1, 0, 1, 1, 1, 1, 1, 1]], dtype=torch.float32)
+    valid = torch.tensor([[True, False, True, True, False, True, True, True]])
+    st = tdet.ph_init((1,))
+    warn, change = np.zeros(8, bool), np.zeros(8, bool)
+    for i in range(8):
+        if valid[0, i]:
+            st, (w, c) = tdet.ph_step(st, errs[:, i], params)
+            warn[i], change[i] = bool(w[0]), bool(c[0])
+    end, res = tdet.ph_window(tdet.ph_init((1,)), errs.view(1, 1, 8), valid.view(1, 1, 8), params)
+    assert torch.isfinite(end.m).all()
+    assert (int(res.first_warning[0, 0]), int(res.first_change[0, 0])) == firsts(warn, change)
+
+
+def test_adwin_capacity_forgetting_matches_jax():
+    """With max_levels = 3 the histogram forgets at capacity; the port
+    walks the same bounded window as the JAX package, state and all."""
+    kw = dict(max_levels=3, clock=4)
+    rng = np.random.default_rng(11)
+    errs = (rng.random((2, 900)) < 0.2).astype(np.float32)
+    valid = np.ones((2, 900), bool)
+    jp, tp = jconfig.ADWINParams(**kw), tconfig.ADWINParams(**kw)
+    jend, jres = jax.vmap(lambda e, v: jadwin.adwin_batch(jadwin.adwin_init(jp), e, v, jp))(
+        jnp.asarray(errs), jnp.asarray(valid))
+    tend, tres = tadwin.adwin_batch(tadwin.adwin_init(tp, (2,)), torch.from_numpy(errs),
+                                    torch.from_numpy(valid), tp)
+    assert (tend.n < tend.t).all()  # forgetting happened
+    _assert_same_state(jend, tend)
+    np.testing.assert_array_equal(np.asarray(jres.first_change), tres.first_change.numpy())
+
+
+def test_adwin_indicator_guard(monkeypatch):
+    """The opt-in 0/1 guard raises on a real-valued valid error and lets
+    masked ones through; off by default and for '0'/'false'."""
+    real = torch.full((1, 1, 8), 0.5)
+    ones = torch.ones((1, 1, 8), dtype=torch.bool)
+    state = tadwin.adwin_init(tconfig.ADWINParams(), (1,))
+    tadwin.adwin_window(state, real, ones)  # off: silently truncated
+    for off in ("", "0", "false", "OFF", "no"):
+        monkeypatch.setenv("DDD_DEBUG_INDICATORS", off)
+        assert not tadwin._indicator_checks_enabled()
+    monkeypatch.setenv("DDD_DEBUG_INDICATORS", "1")
+    masked = torch.tensor([[[0.0, 0.5, 1.0, 2.0]]])
+    tadwin.adwin_window(state, masked, torch.tensor([[[True, False, True, False]]]))
+    with pytest.raises(ValueError, match="non-indicator"):
+        tadwin.adwin_window(state, real, ones)
+
+
+@pytest.mark.parametrize("name, kw, match", [
+    ("ph", dict(alpha=1.5, threshold=1.0), "alpha"),
+    ("ph", dict(alpha=-0.5, threshold=1.0), "alpha"),
+    ("ph", dict(threshold=0.0), "threshold"),
+    ("hddm", dict(drift_confidence=0.0), "drift_confidence"),
+    ("hddm_w", dict(lam=0.0), "lam"),
+    ("hddm_w", dict(lam=1.0), "lam"),
+    ("hddm_w", dict(drift_confidence=1.5), "drift_confidence"),
+    ("adwin", dict(delta=0.0), "delta"),
+    ("adwin", dict(clock=0), "clock"),
+    ("adwin", dict(max_buckets=1), "max_buckets"),
+    ("adwin", dict(max_levels=31), "max_levels"),
+    ("adwin", dict(max_levels=30), "int32"),
+    ("adwin", dict(min_window=4, min_side=5), "min_side"),
+    ("kswin", dict(alpha=0.0), "alpha"),
+    ("kswin", dict(window_size=30, stat_size=30), "stat_size"),
+    ("stepd", dict(alpha_drift=0.0), "alpha_drift"),
+    ("stepd", dict(window_size=1), "window_size"),
+])
+def test_invalid_params_raise(name, kw, match):
+    """make_detector and the window forms refuse what the JAX package
+    refuses, with the same messages."""
+    cls = {m[0]: m[1] for m in MEMBERS.values()}[name]
+    params = getattr(tconfig, cls)(**kw)
+    with pytest.raises(ValueError, match=match):
+        jdet.make_detector(name, **{name: getattr(jconfig, cls)(**kw)})
+    with pytest.raises(ValueError, match=match):
+        tdet.make_detector(name, **{name: params})
+    window = tadwin.adwin_window if name == "adwin" else getattr(tdet, f"{name}_window")
+    init = {"adwin": lambda: tadwin.adwin_init(tconfig.ADWINParams(), (1,)),
+            "kswin": lambda: tdet.kswin_init(tconfig.KSWINParams(), (1,)),
+            "stepd": lambda: tdet.stepd_init(tconfig.STEPDParams(), (1,))}.get(
+        name, lambda: getattr(tdet, f"{name}_init")((1,)))
+    if name in ("ph", "hddm_w", "adwin", "kswin", "stepd"):
+        with pytest.raises(ValueError, match=match):
+            window(init(), torch.zeros((1, 2, 4)), torch.ones((1, 2, 4), dtype=torch.bool), params)
+
+
+def test_unknown_detector_raises():
+    with pytest.raises(ValueError, match="unknown detector"):
+        tdet.make_detector("ecdd")
+
+
+def test_zoo_windows_dispatch_to_plain_on_cpu():
+    """On CPU tensors the three kernel wrappers run their plain versions
+    and launch nothing."""
+    errs, valid = (torch.from_numpy(x) for x in _inputs(5))
+    before = (tdet.ph_window.launches, tdet.hddm_w_window.launches, tadwin.adwin_window.launches)
+    for member in ("ph", "hddm_w", "adwin"):
+        det = _tdetector(member)
+        det.window(det.init((4,), "cpu"), errs, valid)
+    assert (tdet.ph_window.launches, tdet.hddm_w_window.launches,
+            tadwin.adwin_window.launches) == before

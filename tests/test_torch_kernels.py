@@ -166,3 +166,101 @@ def test_centroid_predict_err_kernel_refuses_oversized_centroids(dev):
     with pytest.raises(ValueError, match="shared"):
         classifiers.centroid_predict_err(*args, torch.from_numpy(idx).to(dev, torch.int32))
     assert classifiers.centroid_predict_err.launches == before
+
+
+# --------------------------------------------------------------------------
+# the zoo kernels K5-ph, K5-hddm_w, K5-adwin
+# --------------------------------------------------------------------------
+
+from distributed_drift_detection_tpu_torch import config as tconfig  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops import adwin as tadwin  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops import detectors as tdet  # noqa: E402
+
+
+def zoo_inputs(seed, p, w, b, first_change=False):
+    """DDM's inputs, plus a constant all-zero stretch in partition 2 (HDDM-W
+    key ties once v converges) and, with ``first_change``, an error in
+    every row's first element."""
+    errs, valid = _ddm_inputs(seed, p, w, b)
+    if p > 2:
+        errs[2].reshape(-1)[: (w * b) // 2] = 0.0
+    if first_change:
+        errs[:, 0, 0] = 1.0
+        valid[:, 0, 0] = True
+    return errs, valid
+
+
+# (P, W, B): the main path's shape; P = 1 and 17; W below and above a few
+# CTA threads' chunk; N = 26,000 and 16,000 (the scan levels then exceed
+# shared memory and go to the global scratch).
+ZOO_SHAPES = [(16, 128, 100), (3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
+ZOO = {
+    "ph": (tdet.ph_window, tdet.ph_window_reference, tdet.ph_init, [
+        tconfig.PHParams(min_num_instances=5, threshold=3.0),
+        tconfig.PHParams(min_num_instances=5, threshold=3.0, alpha=0.9),
+        tconfig.PHParams(min_num_instances=3, delta=0.0, threshold=0.5, alpha=0.0),
+    ]),
+    "hddm_w": (tdet.hddm_w_window, tdet.hddm_w_window_reference, tdet.hddm_w_init, [
+        tconfig.HDDMWParams(), tconfig.HDDMWParams(lam=0.3),
+    ]),
+    "adwin": (tadwin.adwin_window, tadwin.adwin_window_reference, None, [
+        tconfig.ADWINParams(), tconfig.ADWINParams(clock=1),
+        tconfig.ADWINParams(max_levels=3, clock=4),
+    ]),
+}
+
+
+def _zoo_init(name, params, p, dev):
+    if name == "adwin":
+        return tadwin.adwin_init(params, (p,), dev)
+    return ZOO[name][2]((p,), dev)
+
+
+def _same(got, want):
+    for g, r in zip(got[0] + got[1], want[0] + want[1]):
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ZOO_SHAPES)
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_window_kernels_bitwise(dev, name, shape):
+    """Each zoo kernel equals its plain version on the card in every
+    output — float leaves bit for bit, ADWIN's int32 state exactly — from
+    a fresh state (empty prefixes), from a carried one, with all-padding
+    rows, an error in the first element, HDDM-W key ties, PH at alpha = 0
+    with padding, ADWIN at clock = 1 and forgetting at capacity."""
+    window, reference, _, cases = ZOO[name]
+    p, w, b = shape
+    for k, params in enumerate(cases):
+        if getattr(params, "clock", 32) == 1 and w * b > 2000:
+            continue  # ADWIN's plain version flushes per element there
+        for first in (False, True):
+            e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(10 + k, p, 3, 40))
+            e1, v1 = (torch.from_numpy(a).to(dev)
+                      for a in zoo_inputs(20 + k, p, w, b, first_change=first))
+            fresh = _zoo_init(name, params, p, dev)
+            carried, _ = reference(fresh, e0, v0, params)
+            for state in (fresh, carried):
+                launches = window.launches
+                got = window(state, e1, v1, params)
+                want = reference(state, e1, v1, params)
+                assert window.launches == launches + 1
+                _same(got, want)
+
+
+@pytest.mark.cuda
+def test_adwin_kernel_forgets_at_capacity(dev):
+    """A drift-free stream long enough that max_levels = 3 forgets: the
+    kernel's window lags t exactly as the plain version's."""
+    params = tconfig.ADWINParams(max_levels=3, clock=4)
+    rng = np.random.default_rng(11)
+    errs = torch.from_numpy((rng.random((2, 9, 100)) < 0.2).astype(np.float32)).to(dev)
+    valid = torch.ones_like(errs, dtype=torch.bool)
+    state = tadwin.adwin_init(params, (2,), dev)
+    got = tadwin.adwin_window(state, errs, valid, params)
+    want = tadwin.adwin_window_reference(state, errs, valid, params)
+    assert bool((want[0].n < want[0].t).all())
+    _same(got, want)

@@ -5,8 +5,10 @@ take the same config on the same ``synth:`` stream; every ``FlagRows``
 leaf, the drift vote and the ``DelayMetrics`` must be equal. The configs
 cover the auto W×R window engine, a pinned depth, the retrain guard, an
 unshuffled stream, both collect modes, the majority model, the DDM_ROBUST
-noise floor and a subsampled (``mult_data < 1``) stream, which rides the
-dense striper.
+noise floor, a subsampled (``mult_data < 1``) stream, which rides the
+dense striper, every detector of the zoo on the window engine, the
+sequential ``window=1`` engine (DDM, Page–Hinkley, ADWIN, and gnb), and
+the gnb and linear models.
 """
 
 import dataclasses
@@ -39,6 +41,19 @@ CONFIGS = {
     "majority": dict(model="majority"),
     "robust": dict(ddm="robust"),
     "dense": dict(mult_data=0.8, per_batch=10),
+    "ph": dict(detector="ph"),
+    "eddm": dict(detector="eddm"),
+    "hddm": dict(detector="hddm"),
+    "hddm_w": dict(detector="hddm_w"),
+    "adwin": dict(detector="adwin", window=8),
+    "kswin": dict(detector="kswin", mult_data=8),
+    "stepd": dict(detector="stepd"),
+    "seq_ddm": dict(window=1),
+    "seq_ph": dict(window=1, detector="ph"),
+    "seq_adwin": dict(window=1, detector="adwin"),
+    "seq_gnb": dict(window=1, model="gnb"),
+    "gnb": dict(model="gnb"),
+    "linear": dict(model="linear"),
 }
 
 
@@ -77,6 +92,7 @@ def test_metrics_and_resolved_config_equal(pair):
         )
     for f in ("window", "window_rotations", "retrain_error_threshold"):
         assert getattr(j.config, f) == getattr(t.config, f), f
+    assert tuple(j.config.ph) == tuple(t.config.ph)  # the resolved λ
     assert set(t.timings) == {"prepare", "upload", "detect", "collect"}
 
 
@@ -157,10 +173,10 @@ def test_chip_scripts_refuse_without_a_card(script):
     "kw, item",
     [
         (dict(model="mlp"), "A9"),
-        (dict(detector="ph"), "A8"),
+        (dict(model="forest"), "A9"),
         (dict(tenants=2), "A11"),
         (dict(mesh_devices=2), "A15"),
-        (dict(window=1), "A5"),
+        (dict(model="rf"), "A9"),
         (dict(telemetry_dir="t"), "A15"),
         (dict(validate=True), "A15"),
         (dict(dataset="data.csv"), "A10"),
@@ -256,3 +272,70 @@ def test_compact_flag_table_matches_jax(capacity):
     j = np.asarray(jcompact(JFlags(*leaves), capacity))
     t = tcompact(TFlags(*(torch.from_numpy(x) for x in leaves)), capacity).numpy()
     assert j.dtype == t.dtype and j.tobytes() == t.tobytes()
+
+
+def test_partition_step_continues_a_carried_jax_state():
+    """The sequential (window=1) engine: the JAX package's step runs the
+    first half of a dense stream with the gnb model and Page–Hinkley; its
+    LoopCarry, carried across through ``convert.loop_carry``, lets the
+    port's step run the second half with the same flags and the same end
+    detector state, bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from distributed_drift_detection_tpu.engine import loop as jloop
+    from distributed_drift_detection_tpu.io import stream as jstream
+    from distributed_drift_detection_tpu.models import ModelSpec as JSpec
+    from distributed_drift_detection_tpu.models import build_model as jbuild
+    from distributed_drift_detection_tpu.ops.detectors import make_detector as jdet
+    from distributed_drift_detection_tpu_torch import convert
+    from distributed_drift_detection_tpu_torch.engine import loop as tloop
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.models.base import pad_row_table
+    from distributed_drift_detection_tpu_torch.ops.detectors import make_detector as tdet
+
+    stream = jstream.load_stream(BASE["dataset"], 3, seed=0)
+    b = jstream.stripe_partitions(stream, 4, 25, shuffle_seed=7)
+    spec = (stream.num_features, stream.num_classes)
+    jph, tph = jconfig.PHParams(threshold=8.0), tconfig.PHParams(threshold=8.0)
+    jmodel = jbuild("gnb", JSpec(*spec))
+    jstep = jloop.make_partition_step(jmodel, jconfig.DDMParams(), shuffle=False,
+                                      detector=jdet("ph", ph=jph))
+    p, nb = b.y.shape[:2]
+    mid = nb // 2
+    init = jloop.LoopCarry(
+        params=jax.vmap(lambda _: jmodel.init(None))(jnp.arange(p)),
+        ddm=jax.vmap(lambda _: jdet("ph", ph=jph).init())(jnp.arange(p)),
+        a_X=jnp.asarray(b.X[:, 0]), a_y=jnp.asarray(b.y[:, 0]),
+        a_w=jnp.asarray(b.valid[:, 0], jnp.float32), retrain=jnp.ones(p, bool),
+        key=jax.random.split(jax.random.key(0), p),
+    )
+
+    def scan(carry, lo, hi):
+        part = jloop.Batches(*(jnp.asarray(x[:, lo:hi]) for x in b))
+        return jax.vmap(lambda c, bb: lax.scan(jstep, c, bb))(carry, part)
+
+    carry, _ = scan(init, 1, mid)
+    jend, jflags = scan(carry, mid, nb)
+    assert (np.asarray(jflags.change_local) >= 0).any()
+
+    tstep = tloop.make_partition_step(build_model("gnb", ModelSpec(*spec)), tconfig.DDMParams(),
+                                      detector=tdet("ph", ph=tph))
+    X = torch.from_numpy(np.ascontiguousarray(b.X))
+    table = pad_row_table(X.reshape(-1, spec[0]))
+    labels = torch.from_numpy(np.ascontiguousarray(b.y)).reshape(-1)
+    idx = torch.arange(table.shape[0], dtype=torch.int32).view(p, nb, -1)
+    tcarry = convert.loop_carry(carry, "gnb", detector="ph")
+    flags = []
+    for s in range(mid, nb):
+        tcarry, f = tstep(tcarry, table, labels, idx[:, s].contiguous(),
+                          torch.from_numpy(b.rows[:, s].copy()), torch.from_numpy(b.valid[:, s].copy()))
+        flags.append(f)
+    for i, name in enumerate(jflags._fields):
+        got = torch.stack([f[i] for f in flags], 1).numpy()
+        np.testing.assert_array_equal(np.asarray(getattr(jflags, name)), got, err_msg=name)
+    for name in jend.ddm._fields:
+        j, t = np.asarray(getattr(jend.ddm, name)), getattr(tcarry.ddm, name).numpy()
+        np.testing.assert_array_equal(j.view(np.int32), t.view(np.int32), err_msg=name)
+    for name in ("a_X", "a_y", "a_w", "retrain"):
+        np.testing.assert_array_equal(np.asarray(getattr(jend, name)), getattr(tcarry, name).numpy())
