@@ -36,7 +36,8 @@ without them. Phases, each fatal on failure:
 6. hold each zoo kernel (K5) against its plain version at the main path's
    shape [16, 128·100] and on its design's edge cases — Page–Hinkley and
    HDDM-W bit for bit, ADWIN's int32 state and flags exactly — and time it
-   as K1 and K2 are timed;
+   as K1 and K2 are timed; for ADWIN also the flushes of the timed
+   launch's longest row (its dependent chain) and the µs a flush;
 7. drive ``detector='ph'``, ``'hddm_w'`` and ``'adwin'`` through ``run`` at
    the same geometry, each kernel's launch counter reset just before its
    run and read just after: flags equal to the port's CPU run, detections
@@ -499,12 +500,21 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     print(f"K5 {name} [{p}, {w}x{b}]: {ms:.5f} ms device (graph of 50), "
           f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound "
           f"{b_ms:.5f} ms ({by})")
-    return dict(
+    row = dict(
         name=name, route="cuda",
         source=f"distributed_drift_detection_tpu_torch/csrc/{name}.cu",
         replaces=info["replaces"], max_abs_err=0.0, ms=ms, host_us=h_us,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
     )
+    if name == "adwin_window":
+        # the rows' flush chains run side by side, one CTA each: the
+        # longest one is the launch's chain
+        n_flush = (state.t % prm.clock + v1.flatten(1).sum(1, dtype=torch.int32)) // prm.clock
+        row["flushes"] = int(n_flush.max())
+        row["us_per_flush"] = ms * 1e3 / row["flushes"]
+        print(f"K5 {name}: {row['flushes']} flushes in the longest row, "
+              f"{row['us_per_flush']:.4f} us a flush")
+    return row
 
 
 def run_equal(api, np_, cfg, dev, what):

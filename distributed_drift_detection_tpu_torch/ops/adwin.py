@@ -256,10 +256,12 @@ def adwin_window_reference(state: ADWINState, errs, valid, params: ADWINParams =
 
 
 def adwin_scratch(p: int, n: int, params: ADWINParams, device) -> torch.Tensor:
-    """Kernel K5-adwin's global scratch: per row, each element's absorb
-    counter and, per chunk, its sum and verdict."""
+    """Kernel K5-adwin's global scratch: per row and chunk, its sum (then
+    its verdict) and the flush's ``ln n`` term — the chunk table, used
+    only where it does not fit in shared memory beside the flush ring or
+    the histogram."""
     nc = n // int(params.clock) + 1
-    return torch.empty((p, n + 2 * nc), dtype=torch.int32, device=device)
+    return torch.empty((p, 2 * nc), dtype=torch.int32, device=device)
 
 
 def adwin_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
@@ -279,8 +281,10 @@ def adwin_window(state: ADWINState, errs, valid, params: ADWINParams = ADWINPara
     """The ADWIN window statistic (contract of :func:`.ddm.ddm_window`).
 
     CUDA tensors launch kernel K5-adwin (``csrc/adwin_window.cu``, one CTA
-    per partition) and add one to ``adwin_window.launches``; a refused
-    launch raises. CPU tensors run the plain version."""
+    per partition; a level's slots in registers when ``max_buckets + 1 <=
+    8``, else in shared memory, the launcher choosing from ``params``) and
+    add one to ``adwin_window.launches``; a refused launch raises. CPU
+    tensors run the plain version."""
     if errs.device.type == "cpu":
         return adwin_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":

@@ -364,6 +364,49 @@ def test_adwin_capacity_forgetting_matches_jax():
     np.testing.assert_array_equal(np.asarray(jres.first_change), tres.first_change.numpy())
 
 
+def _drift_late(seed, p, n, flip=0.8):
+    """All-valid 0/1 rows: error rate 0.1, then 0.6 from ``flip`` of the row."""
+    rng = np.random.default_rng(seed)
+    rate = np.where(np.arange(n)[None] < int(flip * n), 0.1, 0.6)
+    return (rng.random((p, n)) < rate).astype(np.float32), np.ones((p, n), bool)
+
+
+# ADWINParams keyword arguments and row length: > 32 occupied bucket
+# boundaries with slots in registers (C = 8) and in shared memory (C = 13)
+# in kernel K5-adwin, and a row shorter than one chunk (no flush).
+ADWIN_SHAPES = {
+    "over_32_boundaries": (dict(max_buckets=7, max_levels=8, clock=2), 2000),
+    "max_buckets_12": (dict(max_buckets=12, max_levels=8, clock=2), 2000),
+    "no_flush": ({}, 31),
+}
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+@pytest.mark.parametrize("case", sorted(ADWIN_SHAPES))
+def test_adwin_histogram_shapes_match_jax(case, carried):
+    """The plain version of K5-adwin against ``jax.vmap`` of the JAX
+    package's ``adwin_batch`` on the histogram shapes the kernel's paths
+    split on, from a fresh state and from one carried over 64 elements."""
+    kw, n = ADWIN_SHAPES[case]
+    jp, tp = jconfig.ADWINParams(**kw), tconfig.ADWINParams(**kw)
+    jbatch = jax.vmap(lambda s, e, v: jadwin.adwin_batch(s, e, v, jp))
+    jstate = jax.vmap(lambda _: jadwin.adwin_init(jp))(jnp.arange(2))
+    if carried:
+        e0, v0 = _drift_late(3, 2, 64, flip=1.0)
+        jstate, _ = jbatch(jstate, jnp.asarray(e0), jnp.asarray(v0))
+    errs, valid = _drift_late(4, 2, n)
+    jend, jres = jbatch(jstate, jnp.asarray(errs), jnp.asarray(valid))
+    tend, tres = tadwin.adwin_batch(convert.detector_state("adwin", jstate),
+                                    torch.from_numpy(errs), torch.from_numpy(valid), tp)
+    _assert_same_state(jend, tend)
+    np.testing.assert_array_equal(np.asarray(jres.first_change), tres.first_change.numpy())
+    if case == "no_flush":
+        np.testing.assert_array_equal(tend.t.numpy() // tp.clock, np.asarray(jstate.t) // tp.clock)
+    else:
+        assert int(tend.counts.sum(1).min()) > 32
+        assert (tres.first_change >= 0).all()  # the cut fires with > 32 boundaries
+
+
 def test_adwin_indicator_guard(monkeypatch):
     """The opt-in 0/1 guard raises on a real-valued valid error and lets
     masked ones through; off by default and for '0'/'false'."""

@@ -264,3 +264,78 @@ def test_adwin_kernel_forgets_at_capacity(dev):
     want = tadwin.adwin_window_reference(state, errs, valid, params)
     assert bool((want[0].n < want[0].t).all())
     _same(got, want)
+
+
+def _adwin_late_drift(seed, p, n, flip=0.8):
+    """All-valid 0/1 rows: error rate 0.05, then 0.95 from ``flip`` of the row."""
+    rng = np.random.default_rng(seed)
+    rate = np.where(np.arange(n)[None] < int(flip * n), 0.05, 0.95)
+    return (rng.random((p, n)) < rate).astype(np.float32), np.ones((p, n), bool)
+
+
+# K5-adwin's paths: (params, [P, W, B]).
+ADWIN_PATHS = {
+    # slots in registers (C = 8), > 32 occupied boundaries: lanes test two
+    "registers_over_32_boundaries": (tconfig.ADWINParams(max_buckets=7, max_levels=8, clock=2),
+                                     (2, 20, 100)),
+    # C = 13 > 8: the shared-memory histogram, > 32 boundaries
+    "shared_histogram": (tconfig.ADWINParams(max_buckets=12, max_levels=8, clock=2),
+                         (2, 20, 100)),
+    # fewer than `clock` valid elements: no flush
+    "no_flush": (tconfig.ADWINParams(), (2, 1, 31)),
+    # the chunk tables of 17,000 and 6,000 chunks do not fit beside the
+    # ring (registers) or an 8 x 2001 histogram (shared): global scratch
+    "global_chunk_table_registers": (tconfig.ADWINParams(max_buckets=7, max_levels=28, clock=1),
+                                     (1, 170, 100)),
+    "global_chunk_table_shared": (tconfig.ADWINParams(max_buckets=2000, max_levels=8, clock=1),
+                                  (2, 60, 100)),
+    # the top level overflows mid-window: the ln n table, then ln n in place
+    "forgets_mid_window": (tconfig.ADWINParams(max_levels=3, clock=4), (2, 9, 100)),
+}
+
+
+def _adwin_smem_bytes(params, w, b, table):
+    """K5-adwin's dynamic shared memory (csrc/adwin_window.cu's launcher):
+    the per-batch firsts, then with slots in registers the flush ring
+    (2 x 32 records of 292 ints) and 15 warps' boundary arrays, or with
+    slots in shared memory one boundary array and the histogram; then,
+    with ``table``, the chunk table."""
+    lc = params.max_levels * (params.max_buckets + 1)
+    firsts = (2 * w * 4 + 15) // 16 * 16
+    if params.max_buckets + 1 <= 8:
+        need = 2 * 32 * 292 * 4 + 15 * lc * 8
+    else:
+        need = lc * 12
+    return firsts + need + ((w * b // params.clock + 1) * 8 if table else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADWIN_PATHS))
+def test_adwin_kernel_paths(dev, case):
+    """K5-adwin equals its plain version int32-exactly on each of its
+    paths, from a fresh state and from one carried over 64 elements; each
+    case checks that its inputs reach the path it names."""
+    params, (p, w, b) = ADWIN_PATHS[case]
+    e0, v0 = (torch.from_numpy(a.reshape(p, 2, 32)).to(dev)
+              for a in _adwin_late_drift(1, p, 64, flip=1.0))
+    e1, v1 = (torch.from_numpy(a.reshape(p, w, b)).to(dev)
+              for a in _adwin_late_drift(2, p, w * b))
+    fresh = tadwin.adwin_init(params, (p,), dev)
+    carried, _ = tadwin.adwin_window_reference(fresh, e0, v0, params)
+    if case.startswith("global_chunk_table"):
+        optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        assert _adwin_smem_bytes(params, w, b, True) > optin
+        assert _adwin_smem_bytes(params, w, b, False) + 8192 < optin
+    for state in (fresh, carried):
+        launches = tadwin.adwin_window.launches
+        got = tadwin.adwin_window(state, e1, v1, params)
+        want = tadwin.adwin_window_reference(state, e1, v1, params)
+        assert tadwin.adwin_window.launches == launches + 1
+        _same(got, want)
+        end = want[0]
+        if case == "no_flush":
+            assert torch.equal(end.t // params.clock, state.t // params.clock)
+        elif case == "forgets_mid_window":
+            assert bool((state.n == state.t).all() and (end.n < end.t).all())
+        else:
+            assert int(end.counts.sum(1).min()) > 32
