@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of the port's hand-written kernels in two trees, on one card.
+"""Device time of the port's hand-written kernels in several trees, on one card.
 
-Run from the repository root: ``python3 chip_kernel_ab.py OTHER_TREE``,
-where OTHER_TREE is a checkout of another commit of this repository (for
-example ``git archive <commit> | tar -x -C OTHER_TREE``). It runs
-OTHER_TREE, this tree, this tree and OTHER_TREE in turn, each in its own
-process, so the two are compared on one card with the drift between runs
-visible. Each run builds that tree's kernels and times K1 (``ddm_window``),
-K2 (``centroid_predict_err``) and the zoo kernels K5-ph (``ph_window``),
-K5-hddm_w (``hddm_w_window``) and K5-adwin (``adwin_window``) at
-``chip_smoke.py``'s main-path shapes on the same inputs — a kernel the
-other tree does not have is left out of its run:
+Run from the repository root:
+``python3 chip_kernel_ab.py [--only NAME[,NAME...]] TREE [TREE ...]``, where
+each TREE is a checkout of another commit or variant of this repository
+(for example ``git archive <commit> | tar -x -C TREE``). It runs the TREEs
+in order, this tree twice, then the TREEs in reverse order, each in a
+process of its own, so all are compared on one card with the drift between
+runs visible. Each run builds that tree's kernels and times K1
+(``ddm_window``), K2 (``centroid_predict_err``), K7 (``centroid_fit``) and
+the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``) and
+K5-adwin (``adwin_window``) at ``chip_smoke.py``'s main-path shapes on the
+same inputs — a kernel a tree does not have is left out of its run, and
+``--only`` keeps the named kernels alone:
 
 * ``ms``: device time of one launch — 50 calls of the kernel's wrapper
   captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
@@ -33,9 +35,10 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def one(root: str) -> dict:
-    """Time the kernels of the tree at ``root`` (this process imports its
-    package, so it runs in a process of its own)."""
+def one(root: str, only: set | None = None) -> dict:
+    """Time the kernels of the tree at ``root`` — those in ``only``, if
+    given (this process imports its package, so it runs in a process of
+    its own)."""
     import numpy as np
     import torch
 
@@ -75,37 +78,56 @@ def one(root: str) -> dict:
     def k2():
         return classifiers.centroid_predict_err(cent, bias, Tk, Ty, idx)
 
-    out = {
-        "tree": root,
-        "ddm_window": {"ms": cs.graph_ms(k1), "host_us": cs.host_us(k1)},
-        "centroid_predict_err": {"ms": cs.graph_ms(k2), "host_us": cs.host_us(k2)},
-    }
+    calls = {"ddm_window": k1, "centroid_predict_err": k2}
+    if hasattr(classifiers, "centroid_fit"):
+        fit_idx = torch.from_numpy(np.random.default_rng(3).integers(
+            0, len(st.base_y), (p, b))).to(dev)
+        fX = torch.from_numpy(st.base_X).to(dev)[fit_idx]
+        fy = torch.from_numpy(st.base_y.astype(np.int32)).to(dev)[fit_idx]
+        fw = (torch.rand((p, b), device=dev) < 0.98).float()
+
+        def k7():
+            return classifiers.centroid_fit(fX, fy, fw, st.num_classes)
+
+        calls["centroid_fit"] = k7
     try:
         from distributed_drift_detection_tpu_torch.ops import adwin, detectors
     except ImportError:
-        return out
-    ze, zv = (torch.from_numpy(a).to(dev) for a in cs.ddm_inputs(np.random.default_rng(1), p, w, b))
-    zoo = {
-        "ph_window": (detectors.ph_window, detectors.ph_init((p,), dev),
-                      config.PHParams(threshold=32.0)),
-        "hddm_w_window": (detectors.hddm_w_window, detectors.hddm_w_init((p,), dev),
-                          config.HDDMWParams()),
-        "adwin_window": (adwin.adwin_window, adwin.adwin_init(config.ADWINParams(), (p,), dev),
-                         config.ADWINParams()),
-    }
-    for name, (fn, zstate, prm) in zoo.items():
-        def call(fn=fn, zstate=zstate, prm=prm):
-            return fn(zstate, ze, zv, prm)
+        adwin = None
+    if adwin is not None:
+        ze, zv = (torch.from_numpy(a).to(dev)
+                  for a in cs.ddm_inputs(np.random.default_rng(1), p, w, b))
+        zoo = {
+            "ph_window": (detectors.ph_window, detectors.ph_init((p,), dev),
+                          config.PHParams(threshold=32.0)),
+            "hddm_w_window": (detectors.hddm_w_window, detectors.hddm_w_init((p,), dev),
+                              config.HDDMWParams()),
+            "adwin_window": (adwin.adwin_window,
+                             adwin.adwin_init(config.ADWINParams(), (p,), dev),
+                             config.ADWINParams()),
+        }
+        for name, (fn, zstate, prm) in zoo.items():
+            def call(fn=fn, zstate=zstate, prm=prm):
+                return fn(zstate, ze, zv, prm)
 
-        out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
+            calls[name] = call
+    out = {"tree": root}
+    for name, call in calls.items():
+        if only is None or name in only:
+            out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2])))
+    args = sys.argv[1:]
+    if len(args) >= 2 and args[0] == "--one":
+        only = set(args[2].split(",")) if len(args) > 2 else None
+        print(json.dumps(one(args[1], only)))
         return 0
-    if len(sys.argv) != 2:
+    only = None
+    if args[:1] == ["--only"] and len(args) >= 2:
+        only, args = args[1], args[2:]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -116,11 +138,12 @@ def main() -> int:
     import chip_smoke
 
     print(chip_smoke.card())
-    other = os.path.abspath(sys.argv[1])
+    others = [os.path.abspath(a) for a in args]
     runs = []
-    for root in (other, HERE, HERE, other):
+    for root in others + [HERE, HERE] + others[::-1]:
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root],
+            [sys.executable, os.path.abspath(__file__), "--one", root]
+            + ([only] if only else []),
             capture_output=True, text=True, timeout=600, cwd=HERE,
         )
         if out.returncode != 0:
@@ -129,7 +152,7 @@ def main() -> int:
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]))
     summary = {}
-    for label, root in (("other", other), ("this", HERE)):
+    for label, root in [("this", HERE)] + [(o, o) for o in others]:
         mine = [r for r in runs if r["tree"] == root]
         summary[label] = {
             k: {m: statistics.median(r[k][m] for r in mine) for m in ("ms", "host_us")}

@@ -6,18 +6,22 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the five hand-written kernels from ``csrc/`` with nvcc (in
-   parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K5-ph
-   ``ph_window``, K5-hddm_w ``hddm_w_window``, K5-adwin ``adwin_window``;
+2. build the six hand-written kernels from ``csrc/`` with nvcc (in
+   parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
+   ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
+   K5-adwin ``adwin_window``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes — the DDM window statistic (K1) bit for bit at
    [16, 128·100] (fresh and carried states, all-padding rows, the
    DDM_ROBUST noise floor), the centroid predict + error indicator (K2)
-   with equal predictions and errors at 16 × 12,800 rows, F = 21, C = 40 —
+   with equal predictions and errors at 16 × 12,800 rows, F = 21, C = 40,
+   the centroid fit (K7) bit for bit on [16, 100] training batches —
    and on the edge cases of their designs (K1: cluster sizes 8 and 1, a
    cluster size that does not divide W, W below it, a CTA of padding only,
    rows of several tiles; K2: near-tie rows, F = 21, 27 and 37, C = 40 and
-   64, int16 and int32 indices); then time each kernel three ways:
+   64, int16 and int32 indices; K7: per_batch 256 and 1000, few and many
+   (class, feature) pairs, labels of no class); then time each kernel three
+   ways:
    ``ms``, the device time of one launch (50 raw launches through
    ``kernels.launcher`` with preallocated outputs, captured into one CUDA
    graph, replays timed with CUDA events, median of 5 rounds); ``host_us``,
@@ -27,15 +31,17 @@ without them. Phases, each fatal on failure:
 4. drive the main path, ``run(cfg, device="cuda")`` at bench.py's headline
    geometry (2.048 M rows, 16 partitions, per_batch 100) on the synthetic
    twin of outdoorStream: 624 detections, flags equal field by field to the
-   same config run through the port on the CPU, and both kernels launched
-   (their launch counters are reset just before the run and read just
-   after). Final Time is the median of three warm runs;
+   same config run through the port on the CPU, and its three kernels (K1,
+   K2, K7) launched (their launch counters are reset just before the run
+   and read just after). Final Time is the median of three warm runs;
 5. trace one more warm detect phase with ``torch.profiler`` and print
    each kernel's in-run launches and device µs per launch, and the
    device's idle share over the phase;
 6. hold each zoo kernel (K5) against its plain version at the main path's
    shape [16, 128·100] and on its design's edge cases — Page–Hinkley and
-   HDDM-W bit for bit, ADWIN's int32 state and flags exactly — and time it
+   HDDM-W bit for bit (HDDM-W on its cluster path at P = 16 and P = 1 and
+   with clusters of one CTA at P = 80, and on its global-scratch path),
+   ADWIN's int32 state and flags exactly — and time it
    as K1 and K2 are timed; for ADWIN also the flushes of the timed
    launch's longest row (its dependent chain) and the µs a flush;
 7. drive ``detector='ph'``, ``'hddm_w'`` and ``'adwin'`` through ``run`` at
@@ -74,14 +80,15 @@ ZOO_EXPECTED = {"ph": (624, 820.8077), "hddm_w": (624, 781.6282),
                 "adwin": (624, 792.7051)}
 # Runs at a smaller depth: (name, RunConfig overrides, kernels launched).
 SHALLOW = [
-    ("eddm", dict(detector="eddm"), ("centroid_predict_err",)),
-    ("hddm", dict(detector="hddm"), ("centroid_predict_err",)),
-    ("kswin", dict(detector="kswin"), ("centroid_predict_err",)),
-    ("stepd", dict(detector="stepd"), ("centroid_predict_err",)),
+    ("eddm", dict(detector="eddm"), ("centroid_predict_err", "centroid_fit")),
+    ("hddm", dict(detector="hddm"), ("centroid_predict_err", "centroid_fit")),
+    ("kswin", dict(detector="kswin"), ("centroid_predict_err", "centroid_fit")),
+    ("stepd", dict(detector="stepd"), ("centroid_predict_err", "centroid_fit")),
     ("gnb", dict(model="gnb"), ("ddm_window",)),
     ("linear", dict(model="linear"), ("ddm_window", "centroid_predict_err")),
-    ("window=1 ddm", dict(window=1), ("ddm_window", "centroid_predict_err")),
-    ("window=1 ph", dict(window=1, detector="ph"), ("ph_window", "centroid_predict_err")),
+    ("window=1 ddm", dict(window=1), ("ddm_window", "centroid_predict_err", "centroid_fit")),
+    ("window=1 ph", dict(window=1, detector="ph"),
+     ("ph_window", "centroid_predict_err", "centroid_fit")),
 ]
 SHALLOW_MULT = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -363,6 +370,76 @@ def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
     )
 
 
+# K7 edge cases (P, B, F, C): per_batch 256 and 1000 (four row tiles),
+# C·(F + 1) below one warp, and 16,448 (class, feature) pairs whose shared
+# memory halves the row tile.
+K7_EDGES = [(4, 256, 27, 5), (3, 1000, 21, 40), (2, 7, 3, 4), (1, 300, 256, 64)]
+
+
+def k7_inputs(rng, base_X, base_y, p, b, c):
+    """A training batch per partition gathered from the row table (labels
+    taken mod C, every partition missing its last class), {0, 1} weights,
+    and a few labels of no class (C): numpy arrays."""
+    idx = rng.integers(0, len(base_y), (p, b))
+    X = base_X[idx].astype(np.float32)
+    y = (base_y[idx] % max(c - 1, 1)).astype(np.int32)
+    y[rng.random((p, b)) < 0.02] = c
+    w = (rng.random((p, b)) < 0.98).astype(np.float32)
+    return X, y, w
+
+
+def check_k7_equal(torch, classifiers, arrays, c, dev, what):
+    X, y, w = (torch.from_numpy(a).to(dev) for a in arrays)
+    got = classifiers.centroid_fit(X, y, w, c)
+    want = classifiers.centroid_fit_reference(X, y, w, c)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+              f"K7 differs from its plain version ({what})")
+    check(bool(torch.isinf(got.bias[:, -1]).all()), f"K7: an absent class is not -inf ({what})")
+
+
+def check_k7(torch, classifiers, kernels, stream, p, b, dev):
+    """K7 against its plain version, bit for bit, at the main path's shape
+    (a [P, per_batch] training batch of the SMOKE stream) and the edge
+    cases; times it; returns its kernel row."""
+    rng = np.random.default_rng(7)
+    c, f = stream.num_classes, stream.num_features
+    arrays = k7_inputs(rng, stream.base_X, stream.base_y, p, b, c)
+    check_k7_equal(torch, classifiers, arrays, c, dev, "main path")
+    for ep, eb, ef, ec in K7_EDGES:
+        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 3
+        ty = rng.integers(0, ec, 2000).astype(np.int32)
+        table = (protos[ty] + 0.5 * rng.normal(size=(2000, ef))).astype(np.float32)
+        check_k7_equal(torch, classifiers, k7_inputs(rng, table, ty, ep, eb, ec), ec, dev,
+                       f"P={ep} B={eb} F={ef} C={ec}")
+    print(f"K7 centroid_fit: bitwise equal at [{p}, {b}] F={f} C={c} and "
+          + ", ".join(f"P={a} B={d} F={e} C={g}" for a, d, e, g in K7_EDGES))
+
+    X, y, w = (torch.from_numpy(a).to(dev) for a in arrays)
+    cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
+    bias = torch.empty((p, c), dtype=torch.float32, device=dev)
+    args = classifiers.centroid_fit_args(X, y, w, cent, bias)
+    fn = kernels.launcher("centroid_fit")
+    ms = graph_ms(lambda: kernels.check("centroid_fit", fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: classifiers.centroid_fit(X, y, w, c))
+    plain_ms = time_ms(lambda: classifiers.centroid_fit_reference(X, y, w, c), reps=10, rounds=3)
+    # X f32, y i32 and w f32 read once, centroids and biases written once;
+    # each weighted row added into its class (F + 1 adds), a division a
+    # centroid element and an FMA a bias term
+    b_ms, by = bound(p * b * (f + 2) * 4 + p * c * (f + 1) * 4,
+                     p * b * (f + 1) + 2 * p * c * f)
+    print(f"K7 centroid_fit [{p}, {b}] F={f} C={c}: {ms:.5f} ms device (graph of 50), "
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by})")
+    return dict(
+        name="centroid_fit", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/centroid_fit.cu",
+        replaces="distributed_drift_detection_tpu/models/classifiers.py:92",
+        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+    )
+
+
 def wrappers():
     """Each kernel's counted wrapper, by kernel name."""
     from distributed_drift_detection_tpu_torch.models import classifiers
@@ -370,6 +447,7 @@ def wrappers():
 
     return {"ddm_window": ddm.ddm_window,
             "centroid_predict_err": classifiers.centroid_predict_err,
+            "centroid_fit": classifiers.centroid_fit,
             "ph_window": detectors.ph_window,
             "hddm_w_window": detectors.hddm_w_window,
             "adwin_window": adwin.adwin_window}
@@ -422,6 +500,11 @@ def zoo_table(config):
 # and rows of 26,000 and 16,000 elements whose scan levels overflow shared
 # memory into the global scratch.
 K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
+# and for K5-hddm_w's two paths: its cluster path at P = 1 (7 CTAs), with
+# clusters of one CTA at P = 80, a full cluster of 8 CTAs, batches that
+# straddle CTAs; its global-scratch path at P = 80 (with the two long rows
+# above).
+K5_HDDM_W_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
 
 
 def k5_inputs(rng, p, w, b, first_change=False):
@@ -454,7 +537,8 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     info = zoo_table(config)[name]
     window = wrappers()[name]
     rng = np.random.default_rng(5)
-    for shape in [(p, w, b)] + K5_EDGES:
+    edges = K5_EDGES + (K5_HDDM_W_EDGES if name == "hddm_w_window" else [])
+    for shape in [(p, w, b)] + edges:
         for prm in info["params"]:
             if getattr(prm, "clock", 32) == 1 and shape[1] * shape[2] > 2000:
                 continue  # ADWIN's plain version flushes per element there
@@ -469,7 +553,7 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
                                    info["reference"](state, e1, v1, prm),
                                    f"{name} {shape} {prm}")
     print(f"K5 {name}: equal to its plain version at [{p}, {w}x{b}] and "
-          + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in K5_EDGES)
+          + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in edges)
           + f", {len(info['params'])} parameter sets, fresh and carried states")
 
     prm = info["params"][0]
@@ -482,12 +566,17 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     if name == "adwin_window":
         scratch = adwin.adwin_scratch(p, w * b, prm, dev)
         args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
+    elif name == "hddm_w_window":
+        ctas = detectors.hddm_w_ctas(p, w * b, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        scratch = detectors.hddm_w_scratch(p, w * b, ctas, dev)
+        args = detectors.hddm_w_window_args(state, e1, v1, prm, fw, fc, end, scratch, ctas)
+        print(f"K5 {name}: timed on its {'cluster' if ctas else 'global-scratch'} path, "
+              f"{ctas} CTAs a row")
     else:
-        words = (2, 3) if name == "ph_window" else (6, 4)
-        scratch = torch.empty((p, detectors.scratch_words(w * b, *words)),
+        scratch = torch.empty((p, detectors.scratch_words(w * b, 2, 3)),
                               dtype=torch.float32, device=dev)
-        fn_args = detectors.ph_window_args if name == "ph_window" else detectors.hddm_w_window_args
-        args = fn_args(state, e1, v1, prm, fw, fc, end, scratch)
+        args = detectors.ph_window_args(state, e1, v1, prm, fw, fc, end, scratch)
     fn = kernels.launcher(name)
     ms = graph_ms(lambda: kernels.check(name, fn(*args, kernels.stream_handle(dev))))
     h_us = host_us(lambda: window(state, e1, v1, prm))
@@ -535,12 +624,14 @@ def run_equal(api, np_, cfg, dev, what):
 
 KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "centroid_predict_err": "centroid_predict_err_kernel",
+                  "centroid_fit": "centroid_fit_kernel",
                   "ph_window": "ph_window_kernel",
                   "hddm_w_window": "hddm_w_window_kernel",
                   "adwin_window": "adwin_window_kernel"}
 
 
-def in_run_profile(torch, api, prep, dev, names=("ddm_window", "centroid_predict_err")):
+def in_run_profile(torch, api, prep, dev,
+                   names=("ddm_window", "centroid_predict_err", "centroid_fit")):
     """One warm detect phase under ``torch.profiler``: each of the kernels
     ``names``' (launches, device µs per launch), and the summary of the
     phase."""
@@ -604,7 +695,8 @@ def main(device: str = "cuda") -> int:
           f"{prep.batches.perm.dtype}, row table {prep.stream.base_X.shape}")
     check((w, r) == (128, 4), f"auto W x R resolved to {w} x {r}, not 128 x 4")
     rows = [check_k1(torch, ddm, kernels, config, p, w, b, dev),
-            check_k2(torch, classifiers, kernels, prep.stream, p, w, b, dev)]
+            check_k2(torch, classifiers, kernels, prep.stream, p, w, b, dev),
+            check_k7(torch, classifiers, kernels, prep.stream, p, b, dev)]
 
     # 4. the main path, counted
     t0 = time.perf_counter()
@@ -626,7 +718,7 @@ def main(device: str = "cuda") -> int:
               f"flags.{f} differ between the card and the CPU")
     check(np.array_equal(res.drift_vote, ref.drift_vote), "drift vote differs")
     check(bool(np.isfinite(res.drift_vote).all()), "non-finite drift vote")
-    for name in ("ddm_window", "centroid_predict_err"):
+    for name in ("ddm_window", "centroid_predict_err", "centroid_fit"):
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -665,14 +757,15 @@ def main(device: str = "cuda") -> int:
         check(zm.num_detections == want_n, f"{det}: {zm.num_detections} detections, expected {want_n}")
         check(abs(zm.mean_delay_rows - want_delay) < 0.01,
               f"{det}: mean delay {zm.mean_delay_rows}, expected {want_delay}")
-        check(zl[kname] > 0 and zl["centroid_predict_err"] > 0,
-              f"{det}: kernel {kname} was not launched on its path")
+        check(zl[kname] > 0 and zl["centroid_predict_err"] > 0 and zl["centroid_fit"] > 0,
+              f"{det}: kernel {kname}, K2 or K7 was not launched on its path")
         zrow = next(r for r in rows if r["name"] == kname)
         zrow["launches"] = zl[kname]
         zprep = api.prepare(zcfg, device=dev)
         ztimes = [api.run(zcfg, device=dev) for _ in range(3)]
         final_times[det] = statistics.median(t.total_time for t in ztimes)
-        zper, zsum = in_run_profile(torch, api, zprep, dev, (kname, "centroid_predict_err"))
+        zper, zsum = in_run_profile(torch, api, zprep, dev,
+                                    (kname, "centroid_predict_err", "centroid_fit"))
         zrow["in_run_launches"], zrow["in_run_us"] = zper[kname]
         print(f"{det}: Final Time (median of 3 warm runs) {final_times[det]:.4f} s; "
               f"in-run {kname} {zper[kname][0]} launches x {zper[kname][1]:.2f} us; "

@@ -46,7 +46,7 @@
 // warps: the 5-step shuffle scan, the boundaries' shared-memory round
 // trip, the cut tests (4 IEEE divisions and a square root each, one a lane
 // while the boundaries are at most 32, ≈ 15–25 at SMOKE) and ln n (the
-// table, or the double-precision log once the top level has overflowed).
+// table, or `xla_logf` once the top level has overflowed).
 // The chunk table (sums, then verdicts, and lg) lives in shared memory, or
 // in a global scratch for a row whose table does not fit beside the ring
 // or the histogram. The JAX package runs all N/clock + 1 steps (dead ones
@@ -56,10 +56,10 @@
 // and the flags equal `adwin_window_reference` exactly where the cut tests
 // do; which lane or warp tests a boundary cannot change an OR. The cut
 // bound is the plain version's float32 expression, built with -fmad=false,
-// the one fused multiply-add XLA forms there as __fmaf_rn, and ln n taken
-// as the float32 rounding of the double-precision log of f32(max(n, 1)) —
-// on the CPU the plain version does the same with torch.log on float64 —
-// so both agree with the correctly rounded value.
+// the one fused multiply-add XLA forms there as __fmaf_rn, and ln n of
+// f32(max(n, 1)) computed as XLA's CPU float32 log computes it (`xla_logf`,
+// the plain version's `xla_log`): not correctly rounded, but the same bits
+// as the JAX package's for every n below 2^24.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -184,10 +184,32 @@ struct Level {
         L(L_), C(C_), max_buckets(max_buckets_), clock(clock_) {}
 };
 
-// ln(2/δ) + ln(f32(max(n, 1))), ln correctly rounded to float32 (header).
+// ln x for a normal float x > 0 as XLA's CPU backend computes float32 log
+// (GenerateVF32Log, Cephes' logf, with the fused multiply-adds of its LLVM
+// lowering); the plain version is ops/prefix.py `xla_log`, step for step.
+__device__ __forceinline__ float xla_logf(float x) {
+  const int bits = __float_as_int(x);
+  float e = __fadd_rn(static_cast<float>((bits >> 23) - 0x7f), 1.0f);
+  const float m = __int_as_float((bits & ~0x7f800000) | 0x3f000000);
+  const bool lo = m < 0.707106781186547524f;
+  e = __fsub_rn(e, lo ? 1.0f : 0.0f);
+  float r = __fadd_rn(__fsub_rn(m, 1.0f), lo ? m : 0.0f);
+  const float r2 = __fmul_rn(r, r);
+  const float r3 = __fmul_rn(r2, r);
+  float y = __fmaf_rn(__fmaf_rn(r, 7.0376836292e-2f, -1.1514610310e-1f), r, 1.1676998740e-1f);
+  const float y1 =
+      __fmaf_rn(__fmaf_rn(r, -1.2420140846e-1f, 1.4249322787e-1f), r, -1.6668057665e-1f);
+  const float y2 =
+      __fmaf_rn(__fmaf_rn(r, 2.0000714765e-1f, -2.4999993993e-1f), r, 3.3333331174e-1f);
+  y = __fmaf_rn(__fmaf_rn(y, r3, y1), r3, y2);
+  y = __fmaf_rn(y, r3, __fmul_rn(-2.12194440e-4f, e));
+  r = __fmaf_rn(-r2, 0.5f, r);
+  return __fmaf_rn(0.693359375f, e, __fadd_rn(r, y));
+}
+
+// ln(2/δ) + ln(f32(max(n, 1))), ln as XLA computes it (header).
 __device__ __forceinline__ float log_term(float log_2_delta, long long n) {
-  const float nf = static_cast<float>(n > 1 ? n : 1);
-  return __fadd_rn(log_2_delta, __double2float_rn(log(static_cast<double>(nf))));
+  return __fadd_rn(log_2_delta, xla_logf(static_cast<float>(n > 1 ? n : 1)));
 }
 
 // One flush's cascade, by the warp holding the histogram: chunk sum x in;

@@ -1,20 +1,19 @@
-// K5-hddm_w — the HDDM-W window statistic, one partition row per CTA.
+// K5-hddm_w — the HDDM-W window statistic.
 //
 // Replaces the JAX package's ops/detectors.py `hddm_w_window` ->
 // `_hddm_w_masks` (:736) and `summarise_window` (XLA-lowered there: two
 // associative_scans of pairs of affine maps, a cummin, a cummax, cumsums,
 // gathers, masked argmax). Per row of W·B error indicators:
 //
-// 1. the running count n (a block scan of valid counts over thread chunks);
+// 1. the running count n (a scan of valid counts);
 // 2. the stream EWMA pair (z, v): each element an affine map y -> A·y + B
 //    (absorb (1-λ, λx) and ((1-λ)², λ²); the first element since reset
 //    initialises, (0, x) and (0, 1); padding the identity), composed on
 //    the combine tree and applied to the carried (z0, v0);
 // 3. the cut: key = z + sqrt(v·ln(1/δ)/2) on live elements, a cut where the
 //    key is strictly below every earlier key and the carried cut's key (a
-//    block min-scan, then each thread's chunk in order), the frozen (z1, v1)
-//    at the latest cut, and the monitoring count n2 (a block scan of
-//    non-cut live counts and a latest-cut record scan);
+//    min-scan), the frozen (z1, v1) at the latest cut, and the monitoring
+//    count n2 (a scan of non-cut live counts and a latest-cut record);
 // 4. the monitoring EWMA pair (z2, v2): the same maps, reset (0, 0) at every
 //    cut and initialised at the first element after it, composed on the tree;
 // 5. the tests diff = z2 - z1 >= sqrt((v1+v2)·ln(1/δ)/2) at the drift and
@@ -22,30 +21,63 @@
 //    warning at or before it.
 //
 // It writes [W] first-warning and first-change indices and the eight
-// end-state scalars; per element it keeps n, z, v, the cut flags, n2 and the
-// latest cut's index in a global scratch (L2-resident: 24 B an element).
+// end-state scalars.
 //
 // Bound on an H100: errs and live, 5 B an element, 8 B per batch — about
 // 1 MB per call at [16, 12800], 0.3 us at 3.35 TB/s. What costs time is the
-// dependence along the row: two combine trees of 27 levels each with a
-// barrier between levels, and five block scans. The levels above the first
-// (16 B tuples, 205 KB at N = 12,800) live in shared memory when they fit
-// beside the static shared memory, else in the global scratch.
+// dependence along the row: two combine trees and the order-free scans.
+// Two paths, the launcher taking the one the wrapper names:
+//
+// * the cluster path (rows of at most 2048 CTAs' worth: N <= 2048·cs, cs the
+//   cluster size K1 uses, 8 at P = 16): one thread-block cluster of
+//   ceil(N / 2048) CTAs per row, 7 at N = 12,800. CTA r owns the aligned
+//   segment [2048·r, 2048·(r+1)), each of its 256 threads 8 consecutive
+//   elements, whose state (error, z, v, z1, v1, n2 and the cut flags) stays
+//   in registers from load to test — nothing per element goes to memory.
+//   The order-free scans are warp shuffles, one shared-memory pass over the
+//   warp totals and one exchange of CTA totals through distributed shared
+//   memory (cluster_scan.cuh): the count, and the key's running minimum
+//   carried with the element that set it — the latest cut, with its count
+//   and its (z, v), so the frozen (z1, v1) and n2 come with it and not by
+//   a gather or a second scan. The tree prefixes are built the same way
+//   (`tree_prefixes`, below): the tree's levels inside a thread's 8
+//   elements in registers, the next five by shuffles inside a warp, three
+//   by one warp's shuffles inside the CTA, and only one 16-byte tuple a CTA
+//   goes through distributed shared memory; each CTA computes the tiny top
+//   of the tree and sweeps down locally. A batch's first-change and
+//   first-warning marks go, by shared-memory atomics (remote ones for a
+//   batch that straddles two segments), to the CTA that holds its first
+//   element. Five cluster barriers a launch.
+// * the global-scratch path (longer rows, P >= 67 at N = 12,800): one CTA of
+//   512 threads per row, each thread over a contiguous chunk; per element
+//   n, z, v, the cut flags, n2 and the latest cut's index in a global
+//   scratch (L2-resident: 24 B an element), the tree levels above the
+//   first in shared memory when they fit (205 KB at N = 12,800), else in
+//   the scratch; Hillis–Steele block scans and zoo_scan.cuh's `tree_scan`.
 //
 // Exactness (bit-identical to `hddm_w_window_reference`; a one-ulp change
-// in z moves a strict cut): the trees are lax.associative_scan's
-// (zoo_scan.cuh); every multiply-add the plain version fuses is __fmaf_rn
-// (A2·B1 + B2 in the compose and A·y0 + B at the end, as XLA on the CPU
-// fuses them), built with -fmad=false and -ftz=true (XLA on the CPU flushes
-// subnormals: (1-λ)^k underflows after some thousands of elements, and the
-// plain version flushes as it does). Minima, counts and latest records are
-// order-free.
+// in z moves a strict cut): both paths evaluate lax.associative_scan's
+// combine tree pair for pair — its prefix of the first m elements is the
+// left fold, most significant first, of the balanced combines of the
+// aligned power-of-two blocks of m's binary expansion, and the cluster
+// path builds exactly those blocks at each scale; every multiply-add the
+// plain version fuses is __fmaf_rn (A2·B1 + B2 in the compose and A·y0 + B
+// at the end, as XLA on the CPU fuses them), built with -fmad=false and
+// -ftz=true (XLA on the CPU flushes subnormals: (1-λ)^k underflows after
+// some thousands of elements, and the plain version flushes as it does).
+// Minima, counts and latest records are order-free.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <utility>
+
+#include "cluster_scan.cuh"
 #include "zoo_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -235,19 +267,375 @@ __global__ void __launch_bounds__(kThreads) hddm_w_window_kernel(
                    first_change + static_cast<size_t>(row) * w);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster path.
+
+constexpr int kCThreads = 256;
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kEpt = 8;                    // elements a thread
+constexpr int kSeg = kCThreads * kEpt;     // 2048 elements a CTA
+
+__device__ __forceinline__ Aff identity() { return Aff{1.0f, 0.0f, 1.0f, 0.0f}; }
+
+// has ? acc, then x : x — a fold step that starts from the empty prefix.
+__device__ __forceinline__ Aff then(bool has, const Aff& acc, const Aff& x) {
+  return has ? compose(acc, x) : x;
+}
+
+// A warp's up-sweep of one value a lane: lev[d], at a lane that is a
+// multiple of 2^d, is the tree's value of the block of lanes
+// [lane, lane + 2^d) (d = 0..D).
+template <int D, int N>
+__device__ __forceinline__ void up_sweep(Aff (&lev)[N], const Aff& v) {
+  static_assert(N > D, "");
+  lev[0] = v;
+#pragma unroll
+  for (int d = 1; d <= D; ++d)
+    lev[d] = compose(lev[d - 1], cl::shfl_down(lev[d - 1], 1 << (d - 1)));
+}
+
+// acc, then the tree's values of the aligned blocks of m's binary
+// expansion (m < 2^(D+1) lanes' worth), most significant first, from an
+// up-sweep; m may differ between lanes. Every lane must call it.
+template <int D, int N>
+__device__ __forceinline__ void fold_blocks(Aff& acc, bool& has, const Aff (&lev)[N], int m) {
+  static_assert(N > D, "");
+#pragma unroll
+  for (int b = D; b >= 0; --b) {
+    const Aff val = cl::shfl_idx(lev[b], (m >> (b + 1)) << (b + 1));
+    if ((m >> b) & 1) {
+      acc = then(has, acc, val);
+      has = true;
+    }
+  }
+}
+
+// Per CTA: the tree's block value and the prefixes at warp granularity.
+struct TreeShared {
+  Aff tile;                 // the CTA's 2048-element block, published
+  Aff wU[kCWarps];          // each warp's 256-element block
+  Aff wE[kCWarps + 1];      // the prefix at each warp's start, and at the end
+  int wEhas[kCWarps + 1];   // 0: the empty prefix (element 0 of the row)
+};
+
+// The inclusive scan of the row's elements under `compose` on
+// lax.associative_scan's tree: out[q] = the prefix of the first a+q+1
+// elements (a = this thread's first element, q < 8 and a+q < n), given the
+// thread's element maps g[q] (identity past n). The prefix of m elements is
+// the left fold of the tree's values of the aligned blocks of m's binary
+// expansion (header); m = a+q+1 splits into the blocks of the CTA's start
+// (CTAs of lower rank: the cluster's top of the tree), of the warp's start
+// within the CTA, of the thread's start within the warp and of q+1 within
+// the thread, except q = 7, whose prefix is the next thread's start. At
+// each of the three upper scales one warp's up-sweep and fold by shuffles
+// (`up_sweep`, `fold_blocks`); within the thread, registers. Every thread
+// of the cluster calls it.
+__device__ __forceinline__ void tree_prefixes(cg::cluster_group& cluster,
+                                              const Aff (&g)[kEpt], int n, int cs,
+                                              TreeShared& ts, Aff (&out)[kEpt]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  // the thread's levels 1-3, then the warp's levels 3-8 over its lanes
+  Aff u1[4], u2[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) u1[k] = compose(g[2 * k], g[2 * k + 1]);
+  u2[0] = compose(u1[0], u1[1]);
+  u2[1] = compose(u1[2], u1[3]);
+  Aff ulev[6];
+  up_sweep<5>(ulev, compose(u2[0], u2[1]));
+  if (lane == 0) ts.wU[warp] = ulev[5];
+  __syncthreads();
+  // warp 0: the CTA's levels 8-11 over its warps, the CTA's value
+  // published; then the cluster's levels 11-14 over its CTAs, the prefixes
+  // at this CTA's start and end and at each warp's start
+  Aff wlev[4];
+  if (warp == 0) {
+    up_sweep<3>(wlev, lane < kCWarps ? ts.wU[lane] : identity());
+    if (lane == 0) ts.tile = wlev[3];
+  }
+  cluster.sync();
+  if (warp == 0) {
+    const int full = min(cs, n / kSeg);  // complete CTA blocks: they have a value
+    Aff tlev[4];
+    up_sweep<3>(tlev, lane < full ? cluster.map_shared_rank(&ts, lane)->tile : identity());
+    Aff e_cta = identity(), e_next = identity();
+    bool has = false, has_next = false;
+    fold_blocks<3>(e_cta, has, tlev, rank);
+    fold_blocks<3>(e_next, has_next, tlev, rank + 1);  // used only if rank < full
+    fold_blocks<3>(e_cta, has, wlev, lane);
+    if (lane < kCWarps) {
+      ts.wE[lane] = e_cta;
+      ts.wEhas[lane] = has;
+    } else if (lane == kCWarps) {
+      ts.wE[kCWarps] = e_next;
+      ts.wEhas[kCWarps] = has_next;
+    }
+  }
+  __syncthreads();
+  // the prefix at the thread's start: the warp's, then the lane blocks
+  Aff acc = ts.wE[warp];
+  bool has = ts.wEhas[warp] != 0;
+  fold_blocks<4>(acc, has, ulev, lane);
+  Aff next = cl::shfl_down(acc, 1);
+  if (lane == 31) next = ts.wE[warp + 1];
+  out[0] = then(has, acc, g[0]);
+  out[1] = then(has, acc, u1[0]);
+  out[2] = compose(out[1], g[2]);
+  out[3] = then(has, acc, u2[0]);
+  out[4] = compose(out[3], g[4]);
+  out[5] = compose(out[3], u1[2]);
+  out[6] = compose(out[5], g[6]);
+  out[7] = next;
+}
+
+// The running minimum of the key with its payload: the element that set
+// it (g, -1 for none or the carried cut), the running valid count there
+// and its (z, v). The strict `<` keeps the earliest of equal keys, so the
+// minimum over a range is the latest cut in it — a cut is an element whose
+// key is below every earlier one — and the combine is order-free.
+struct KeyMin {
+  float key;
+  int g, cnt;
+  float z, v;
+};
+
+__device__ __forceinline__ KeyMin key_min(const KeyMin& a, const KeyMin& b) {
+  return b.key < a.key ? b : a;
+}
+
+// Batches overlapping CTA r's segment: its first-change and first-warning
+// marks in shared memory, for batches floor(2048·r / b) on.
+__device__ __forceinline__ int marks_per_cta(int r, int n, int b) {
+  const int lo = r * kSeg;
+  return (min(lo + kSeg, n) - 1) / b - lo / b + 1;
+}
+
+struct ClusterShared {
+  TreeShared tree[2];
+  int cnt_pub, cnt_b, ibuf[kCWarps];
+  KeyMin key_pub, key_b, kbuf[kCWarps];
+};
+
+__global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
+    const float* __restrict__ errs, const uint8_t* __restrict__ live,
+    const int* __restrict__ count_in, const float* __restrict__ z_in,
+    const float* __restrict__ v_in, const float* __restrict__ z1_in,
+    const float* __restrict__ v1_in, const int* __restrict__ n2_in,
+    const float* __restrict__ z2_in, const float* __restrict__ v2_in, int w,
+    int b, int cs, Consts kc, float log_drift, float log_warning,
+    int* __restrict__ first_warning, int* __restrict__ first_change,
+    int* __restrict__ count_out, float* __restrict__ z_out,
+    float* __restrict__ v_out, float* __restrict__ z1_out,
+    float* __restrict__ v1_out, int* __restrict__ n2_out,
+    float* __restrict__ z2_out, float* __restrict__ v2_out) {
+  __shared__ ClusterShared sh;
+  extern __shared__ int first_s[];  // [2·nbl]: first change, first warning
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / cs;
+  const int n = w * b;
+  const int tid = threadIdx.x;
+  const int seg0 = rank * kSeg;
+  const int a = seg0 + tid * kEpt;
+  const int ne = max(0, min(kEpt, n - a));
+  const float* e = errs + static_cast<size_t>(row) * n;
+  const uint8_t* lv = live + static_cast<size_t>(row) * n;
+
+  // the marks of the batches overlapping the segment, from k_lo on
+  const int k_lo = seg0 / b;
+  const int nbl = marks_per_cta(rank, n, b);
+  int* fc_s = first_s;
+  int* fw_s = first_s + nbl;
+  for (int k = tid; k < nbl; k += kCThreads) {
+    fc_s[k] = b;
+    fw_s[k] = b;
+  }
+
+  float x[kEpt];
+  unsigned ok = 0;
+  if (ne == kEpt && (reinterpret_cast<uintptr_t>(e + a) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(lv + a) & 7) == 0) {
+    const float4 x0 = __ldg(reinterpret_cast<const float4*>(e + a));
+    const float4 x1 = __ldg(reinterpret_cast<const float4*>(e + a) + 1);
+    const uint2 l = __ldg(reinterpret_cast<const uint2*>(lv + a));
+    x[0] = x0.x; x[1] = x0.y; x[2] = x0.z; x[3] = x0.w;
+    x[4] = x1.x; x[5] = x1.y; x[6] = x1.z; x[7] = x1.w;
+#pragma unroll
+    for (int q = 0; q < kEpt; ++q)
+      if ((((q < 4 ? l.x : l.y) >> (8 * (q & 3))) & 0xffu) != 0) ok |= 1u << q;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kEpt; ++q) {
+      x[q] = q < ne ? e[a + q] : 0.0f;
+      if (q < ne && lv[a + q] != 0) ok |= 1u << q;
+    }
+  }
+  auto add = [](int p, int q) { return p + q; };
+
+  // 1. running count before the thread's first element
+  int tot;
+  const int xc = cl::block_exclusive(__popc(ok), 0, add, sh.ibuf, tot);
+  const int cnt0 = count_in[row] + xc +
+                   cl::cluster_exclusive(cluster, tot, 0, add, &sh.cnt_pub, &sh.cnt_b);
+
+  // 2. the stream EWMA (z, v)
+  Aff gen[kEpt], pre[kEpt];
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    const bool okq = (ok >> q) & 1u;
+    const bool init = okq && cnt0 + __popc(ok & ((2u << q) - 1u)) == 1;
+    gen[q] = q < ne ? element(false, init, okq && !init, x[q], kc) : identity();
+  }
+  tree_prefixes(cluster, gen, n, cs, sh.tree[0], pre);
+  const float z0 = z_in[row];
+  const float v0 = v_in[row];
+  float z[kEpt], v[kEpt];
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    z[q] = __fmaf_rn(pre[q].az, z0, pre[q].bz);
+    v[q] = __fmaf_rn(pre[q].av, v0, pre[q].bv);
+  }
+
+  // 3. cuts: an element is a cut where its key is below every earlier key
+  //    and the carried cut's; the latest cut so far (its count and frozen
+  //    (z, v)) is the running minimum's payload, and the monitoring count
+  //    n2 is the count of live elements after it (a cut is not one)
+  const float v1_0 = v1_in[row];
+  const float z1_0 = z1_in[row];
+  const float carried = v1_0 > 0.0f ? __fadd_rn(z1_0, eps(v1_0, log_drift)) : CUDART_INF_F;
+  float key[kEpt];
+  int cnt[kEpt];  // the running count at each element
+  const KeyMin none{CUDART_INF_F, -1, 0, 0.0f, 0.0f};
+  KeyMin mine = none;
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    key[q] = (ok >> q) & 1u ? __fadd_rn(z[q], eps(v[q], log_drift)) : CUDART_INF_F;
+    cnt[q] = cnt0 + __popc(ok & ((2u << q) - 1u));
+    if (q < ne) mine = key_min(mine, KeyMin{key[q], a + q, cnt[q], z[q], v[q]});
+  }
+  auto kmin = [](const KeyMin& p, const KeyMin& q) { return key_min(p, q); };
+  KeyMin ktot;
+  const KeyMin before = cl::block_exclusive(mine, none, kmin, sh.kbuf, ktot);
+  KeyMin run = key_min(
+      key_min(KeyMin{carried, -1, 0, 0.0f, 0.0f},
+              cl::cluster_exclusive(cluster, ktot, none, kmin, &sh.key_pub, &sh.key_b)),
+      before);
+  const int n2_0 = n2_in[row];
+  const int count0 = count_in[row];
+  unsigned improve = 0, e2 = 0;
+  int n2[kEpt];
+  float z1[kEpt], v1[kEpt];
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    if (key[q] < run.key) {  // a live element: padding keys are +inf
+      improve |= 1u << q;
+      run = KeyMin{key[q], a + q, cnt[q], z[q], v[q]};
+    } else if ((ok >> q) & 1u) {
+      e2 |= 1u << q;
+    }
+    n2[q] = run.g >= 0 ? cnt[q] - run.cnt : n2_0 + cnt[q] - count0;
+    z1[q] = run.g >= 0 ? run.z : z1_0;
+    v1[q] = run.g >= 0 ? run.v : v1_0;
+  }
+
+  // 4-5. the monitoring EWMA (z2, v2) and the tests
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    const bool e2q = (e2 >> q) & 1u;
+    const bool init = e2q && n2[q] == 1;
+    gen[q] = q < ne ? element((improve >> q) & 1u, init, e2q && !init, x[q], kc) : identity();
+  }
+  tree_prefixes(cluster, gen, n, cs, sh.tree[1], pre);
+  const float z2_0 = z2_in[row];
+  const float v2_0 = v2_in[row];
+#pragma unroll
+  for (int q = 0; q < kEpt; ++q) {
+    if (q < ne) {
+      const int j = a + q;
+      const float z2 = __fmaf_rn(pre[q].az, z2_0, pre[q].bz);
+      const float v2 = __fmaf_rn(pre[q].av, v2_0, pre[q].bv);
+      const bool testable = ((e2 >> q) & 1u) && n2[q] >= 1;
+      const float diff = __fsub_rn(z2, z1[q]);
+      const float vv = __fadd_rn(v1[q], v2);
+      const bool change = testable && diff >= eps(vv, log_drift);
+      const bool warning = testable && !change && diff >= eps(vv, log_warning);
+      if (change || warning) {  // into the marks of the CTA holding the batch's start
+        const int k = j / b;
+        const int owner = k * b / kSeg;
+        const int olo = owner * kSeg / b;
+        int* marks = owner == rank ? first_s : cluster.map_shared_rank(first_s, owner);
+        if (change) atomicMin(&marks[k - olo], j % b);
+        if (warning) atomicMin(&marks[marks_per_cta(owner, n, b) + k - olo], j % b);
+      }
+      if (j == n - 1) {
+        count_out[row] = cnt[q];
+        z_out[row] = z[q];
+        v_out[row] = v[q];
+        z1_out[row] = z1[q];
+        v1_out[row] = v1[q];
+        n2_out[row] = n2[q];
+        z2_out[row] = z2;
+        v2_out[row] = v2;
+      }
+    }
+  }
+
+  // Per batch, from the CTA holding its first element, once every CTA's
+  // marks are in. A warning counts only at or before the batch's first
+  // change.
+  cluster.sync();
+  for (int i = tid; i < nbl; i += kCThreads) {
+    const int k = k_lo + i;
+    if (k * b < seg0) continue;  // its first element is in an earlier CTA
+    const int fc = fc_s[i];
+    const int fw = fw_s[i];
+    const size_t at = static_cast<size_t>(row) * w + k;
+    first_change[at] = fc < b ? fc : -1;
+    first_warning[at] = (fw < b && (fc >= b || fw <= fc)) ? fw : -1;
+  }
+}
+
 }  // namespace
 
-// One CTA per partition row. `scratch` holds p rows of
-// 6·n + 4·scan_levels(n) floats (n = w·b). Returns a CUDA error code.
+// `ctas` > 0: the cluster path, one cluster of `ctas` CTAs per partition row
+// (ctas = ceil(w·b / 2048) <= 8; `scratch` unused). `ctas` = 0: the
+// global-scratch path, one CTA per row, `scratch` holding p rows of
+// 6·n + 4·scan_levels(n) floats (n = w·b). Returns a CUDA error code: a
+// refused cluster launch is returned, never worked around.
 extern "C" int hddm_w_window_launch(
     const float* errs, const uint8_t* live, const int* count_in,
     const float* z_in, const float* v_in, const float* z1_in,
     const float* v1_in, const int* n2_in, const float* z2_in,
-    const float* v2_in, int p, int w, int b, float lam, float one_m,
+    const float* v2_in, int p, int w, int b, int ctas, float lam, float one_m,
     float one_m2, float lam2, float log_drift, float log_warning,
     float* scratch, int* first_warning, int* first_change, int* count_out,
     float* z_out, float* v_out, float* z1_out, float* v1_out, int* n2_out,
     float* z2_out, float* v2_out, void* stream) {
+  const Consts kc{lam, one_m, one_m2, lam2};
+  if (ctas > 0) {
+    const size_t smem = 2 * static_cast<size_t>(kSeg / b + 2) * sizeof(int);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(p) * ctas);
+    cfg.blockDim = dim3(kCThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, hddm_w_window_kernel_cluster, errs, live, count_in, z_in, v_in, z1_in, v1_in,
+        n2_in, z2_in, v2_in, w, b, ctas, kc, log_drift, log_warning, first_warning,
+        first_change, count_out, z_out, v_out, z1_out, v1_out, n2_out, z2_out, v2_out);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long n = static_cast<long long>(w) * b;
   const long long levels = zoo::scan_levels(n);
   size_t smem = 0;
@@ -257,7 +645,7 @@ extern "C" int hddm_w_window_launch(
   if (e != cudaSuccess) return static_cast<int>(e);
   hddm_w_window_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       errs, live, count_in, z_in, v_in, z1_in, v1_in, n2_in, z2_in, v2_in, w,
-      b, Consts{lam, one_m, one_m2, lam2}, log_drift, log_warning, scratch,
+      b, kc, log_drift, log_warning, scratch,
       6 * n + 4 * levels, in_smem, first_warning, first_change, count_out,
       z_out, v_out, z1_out, v1_out, n2_out, z2_out, v2_out);
   return static_cast<int>(cudaGetLastError());

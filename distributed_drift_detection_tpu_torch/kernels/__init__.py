@@ -8,8 +8,8 @@ nonzero code into an exception — a refused launch, such as K1's cluster
 launch on a card without clusters, raises there. The checked,
 counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
-``centroid_predict_err``, ``ops/detectors.py`` ``ph_window`` and
-``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``).
+``centroid_predict_err`` and ``centroid_fit``, ``ops/detectors.py``
+``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,12 @@ _SIGNATURES = {
          _I, _I, _I, _I,  # p, n, c, f
          _P, _P, _P],  # err, pred, stream
     ),
+    "centroid_fit": (
+        "centroid_fit_launch",
+        [_P, _P, _P,  # X, y, w
+         _I, _I, _I, _I,  # p, b, f, c
+         _P, _P, _P],  # cent, bias, stream
+    ),
     "ph_window": (
         "ph_window_launch",
         [_P, _P, _P, _P, _P,  # errs, live, 3 state leaves
@@ -50,7 +56,7 @@ _SIGNATURES = {
     "hddm_w_window": (
         "hddm_w_window_launch",
         [_P, _P] + [_P] * 8  # errs, live, 8 state leaves
-        + [_I, _I, _I,  # p, w, b
+        + [_I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA, global scratch)
            _F, _F, _F, _F, _F, _F,  # λ, 1−λ, (1−λ)², λ², ln(1/δ) drift, warning
            _P, _P, _P]  # scratch, first warning/change
         + [_P] * 8  # 8 end leaves

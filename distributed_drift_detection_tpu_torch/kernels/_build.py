@@ -30,10 +30,12 @@ COMMON_FLAGS = (
 )
 # Per-kernel extra flags. K1 and the zoo kernels are held bit-identical to
 # their plain versions, so nvcc must not contract a*b+c into FMAs on its
-# own; K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU does.
+# own; K7, K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU
+# does.
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
+    "centroid_fit": ("-fmad=false", "-ftz=true"),
     "ph_window": ("-fmad=false", "-ftz=true"),
     "hddm_w_window": ("-fmad=false", "-ftz=true"),
     "adwin_window": ("-fmad=false",),

@@ -9,13 +9,18 @@ fused with the error indicator is the hand-written CUDA kernel K2
 :func:`~.base.pad_row_table`. ``linear``'s score ``X·W + b`` has K2's form
 ``X·Cᵀ + bias`` with ``C = Wᵀ``, so its predict launches K2 too.
 
-The fits stay plain PyTorch, as the JAX package left them to XLA. They
-run in float64 and round once to f32 — the centroid fit's segment sums,
-the gnb moments and the linear fit's 32 gradient steps — so the CPU and
-the card give the same parameters whatever order their reductions use
-(the JAX package fits in f32; the port's parameters agree with its to
-float32 rounding, and the predictions the tests compare are equal).
-``gnb``'s predict is two plain products, in float64 for the same reason.
+The centroid fit is bit-identical to the JAX package's jitted fit: a
+float32 sum over the training rows in row order and a fused multiply-add
+chain over the features for the bias (:func:`centroid_fit_reference`); on
+the card it is the hand-written kernel K7 (``csrc/centroid_fit.cu``),
+reached through :func:`centroid_fit`. ``gnb`` follows the JAX package's
+float32 expressions the same way (class sums in row order, XLA's ``log``,
+its fused variance), but XLA's order for the global mean and variance is
+unknown, so they sum in row order and its parameters agree with the JAX
+package's to float32 rounding, not to the bit; ``linear``'s 32 gradient
+steps run in float64 and round once, for the same agreement (ROADMAP
+Queue C). The predictions the tests compare are equal. ``gnb``'s predict
+is two plain products, in float64.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..ops.prefix import f32, fma, xla_log
 from .base import Model, ModelSpec, pad_row_table, row_stride
 
 
@@ -171,6 +177,112 @@ def centroid_predict_err(centroids, bias, T, Ty, idx, return_pred=False):
 centroid_predict_err.launches = 0
 
 
+def _row_sums(X, y, w, c):
+    """Per-class sums of the rows of ``X [P, B, F]`` (with their {0, 1}
+    weights ``w``) and the per-class weight counts, each a float32 sum over
+    the B rows in row order — the order of XLA's CPU ``onehot.T @ X`` at
+    the batch sizes measured (ROADMAP Queue C, C1). A label outside [0, C)
+    counts for no class, as in ``one_hot``."""
+    p, b, f = X.shape
+    parts = torch.arange(p, device=X.device)
+    ok = (y >= 0) & (y < c)
+    cls = torch.where(ok, y, 0).long()
+    wv = torch.where(ok, w, 0.0).float()
+    sums = torch.zeros((p, c, f), dtype=torch.float32, device=X.device)
+    counts = torch.zeros((p, c), dtype=torch.float32, device=X.device)
+    for r in range(b):  # each product w·x is exact: 0 or x
+        sums[parts, cls[:, r]] += wv[:, r, None] * X[:, r]
+        counts[parts, cls[:, r]] += wv[:, r]
+    return sums, counts
+
+
+def _seq_sum(x, dim):
+    """``Σ x`` along ``dim``, a float32 sum from 0 in index order (XLA's
+    CPU reduce along the features; along the rows, the port's order)."""
+    acc = torch.zeros_like(x.select(dim, 0), dtype=torch.float32)
+    for t in x.unbind(dim):
+        acc = acc + t
+    return acc
+
+
+def _log0(x):
+    """XLA's float32 ``log`` of ``x >= 0`` (normal or zero), ``-inf`` at 0."""
+    return torch.where(x == 0, float("-inf"), xla_log(torch.where(x == 0, 1.0, x)))
+
+
+def _fma_sum(a, b):
+    """``Σ_f a·b`` over the last axis as one fused multiply-add chain from
+    0 in feature order (XLA's CPU reduce of a product)."""
+    acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = fma(a[..., j], b[..., j], acc)
+    return acc
+
+
+def centroid_fit_reference(X, y, w, c: int) -> CentroidParams:
+    """Plain PyTorch version of :func:`centroid_fit` (float32, the JAX
+    package's jitted ``make_centroid.fit`` bit for bit at per_batch <= 384
+    on normal inputs)."""
+    sums, counts = _row_sums(X, y, w, c)
+    cent = sums / counts.clamp_min(1.0)[..., None]
+    sq = -0.5 * _fma_sum(cent, cent)
+    return CentroidParams(cent, torch.where(counts > 0, sq, float("-inf")))
+
+
+def centroid_fit_args(X, y, w, cent, bias):
+    """Kernel K7's launch arguments, stream excluded, for checked CUDA
+    inputs and preallocated outputs."""
+    p, b, f = X.shape
+    return (X.data_ptr(), y.data_ptr(), w.data_ptr(), p, b, f, cent.shape[1],
+            cent.data_ptr(), bias.data_ptr())
+
+
+def _k7_shared_bytes(c: int, f: int) -> int:
+    """K7's shared memory with a tile of one row: the [C, F + 1] sums and
+    counts, then one row, its label and weight (csrc/centroid_fit.cu)."""
+    return 4 * (c * (f + 1) + f + 2)
+
+
+def centroid_fit(X, y, w, c: int) -> CentroidParams:
+    """The nearest-centroid fit of ``X [P, B, F]`` f32, labels ``y [P, B]``
+    and {0, 1} weights ``w [P, B]``: per class the mean of its rows and
+    ``-0.5‖mean‖²`` (``-inf`` for a class with no weighted row).
+
+    CUDA tensors launch kernel K7 (``csrc/centroid_fit.cu``) and add one to
+    ``centroid_fit.launches``; CPU tensors run
+    :func:`centroid_fit_reference`. Both are the JAX package's jitted fit
+    bit for bit (module docstring)."""
+    if X.device.type == "cpu":
+        return centroid_fit_reference(X, y, w, c)
+    if X.device.type != "cuda":
+        raise ValueError(f"centroid_fit: unsupported device {X.device}")
+    dev = X.device
+    p, b, f = X.shape
+    X = X.float().contiguous()
+    y = y.int().contiguous()
+    w = w.float().contiguous()
+    for name, t in (("y", y), ("w", w)):
+        if t.device != dev or tuple(t.shape) != (p, b):
+            raise ValueError(f"centroid_fit: {name} must be [{p}, {b}] on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if _k7_shared_bytes(c, f) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"centroid_fit: C={c}, F={f} need {_k7_shared_bytes(c, f)} B of "
+            f"shared memory, over the card's {MAX_SHARED_BYTES}"
+        )
+    cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
+    bias = torch.empty((p, c), dtype=torch.float32, device=dev)
+    code = kernels.launcher("centroid_fit")(
+        *centroid_fit_args(X, y, w, cent, bias), kernels.stream_handle(dev)
+    )
+    kernels.check("centroid_fit", code)
+    centroid_fit.launches += 1
+    return CentroidParams(cent, bias)
+
+
+centroid_fit.launches = 0
+
+
 def make_centroid(spec: ModelSpec) -> Model:
     """Nearest-class-centroid classifier with a closed-form fit; classes
     absent from the training batch get a ``-inf`` score."""
@@ -184,13 +296,7 @@ def make_centroid(spec: ModelSpec) -> Model:
         )
 
     def fit(X, y, w):
-        onehot = torch.nn.functional.one_hot(y.long(), c).float() * w[..., None]
-        counts = onehot.sum(1)  # [P, C], sums of {0, 1}: exact
-        sums = torch.bmm(onehot.double().transpose(1, 2), X.double()).float()
-        cent = sums / counts.clamp_min(1.0)[..., None]
-        sq = (-0.5 * (cent.double() ** 2).sum(-1)).float()
-        bias = torch.where(counts > 0, sq, torch.full_like(sq, float("-inf")))
-        return CentroidParams(cent, bias)
+        return centroid_fit(X, y, w, c)
 
     def predict(params, X):
         return _argmax_first(centroid_scores(params, X))
@@ -243,26 +349,27 @@ def make_gnb(spec: ModelSpec, *, var_smoothing: float = 1e-6) -> Model:
         )
 
     def fit(X, y, w):
-        X, w = X.double(), w.double()
-        onehot = torch.nn.functional.one_hot(y.long(), c).double() * w[..., None]
-        counts = onehot.sum(1)  # [P, C]
-        denom = counts.clamp_min(1.0)[..., None]
-        wsum = w.sum(1).clamp_min(1.0)[:, None]  # [P, 1]
-        gmean = (X * w[..., None]).sum(1) / wsum  # [P, F]
+        # The JAX package's float32 expressions, with the one multiply-add
+        # XLA fuses (the variance); XLA's order for the global mean and
+        # variance is unknown (module docstring).
+        X, w = X.float(), w.float()
+        wsum = w.sum(1).clamp_min(1.0)[:, None]  # [P, 1], sums of {0, 1}: exact
+        gmean = _seq_sum(X * w[..., None], 1) / wsum  # [P, F]
         Xc = X - gmean[:, None]
-        mean_c = torch.bmm(onehot.transpose(1, 2), Xc) / denom
-        sq_c = torch.bmm(onehot.transpose(1, 2), Xc * Xc) / denom
-        gvar = (Xc * Xc * w[..., None]).sum(1) / wsum
-        eps = var_smoothing * gvar.amax(1).clamp_min(1e-12)
-        var = (sq_c - mean_c * mean_c).clamp_min(0.0) + eps[:, None, None]
-        inv_var = 1.0 / var
+        sums, counts = _row_sums(Xc, y, w, c)  # [P, C, F], [P, C]
+        denom = counts.clamp_min(1.0)[..., None]
+        mean_c = sums / denom
+        sq_c = _row_sums(Xc * Xc, y, w, c)[0] / denom
+        gvar = _seq_sum(Xc * Xc * w[..., None], 1) / wsum
+        eps = f32(var_smoothing) * gvar.amax(1).clamp_min(f32(1e-12))
+        var = fma(-mean_c, mean_c, sq_c).clamp_min(0.0) + eps[:, None, None]
+        inv_var = torch.ones_like(var) / var
         bias = (
-            torch.log(counts / wsum)
-            - 0.5 * torch.log(var).sum(2)
-            - 0.5 * (mean_c * mean_c * inv_var).sum(2)
+            _log0(counts / wsum)
+            - 0.5 * _seq_sum(_log0(var), -1)
+            - 0.5 * _fma_sum(mean_c * mean_c, inv_var)
         )
-        return GNBParams(gmean.float(), (0.5 * inv_var).float(),
-                         (mean_c * inv_var).float(), bias.float())
+        return GNBParams(gmean, 0.5 * inv_var, mean_c * inv_var, bias)
 
     def predict(params, X):
         return _argmax_first(gnb_scores(params, X))

@@ -17,12 +17,13 @@ the restructuring and its invariants.
 (``csrc/adwin_window.cu``) on a CUDA tensor and runs the plain version
 (:func:`adwin_window_reference`) on a CPU tensor.
 
-``ln n`` is taken correctly rounded to float32, from a float64 log, on
-both (``torch.log`` of a double here, ``log`` of a double in the kernel):
-XLA's float32 log on the CPU is not correctly rounded (it differs in the
-last bit for about 0.8 % of the integers below 2^22), so the JAX package
-and the port can disagree only where a cut test sits within an ulp of its
-bound.
+``ln n`` is XLA's float32 log on the CPU, operation for operation
+(``ops.prefix.xla_log``; in the kernel, ``xla_logf``). It is not
+correctly rounded — it differs from the correctly rounded value for about
+0.6 % of the integers below 2^24 — so the port computes the same
+polynomial with the same fused multiply-adds, and agrees with the JAX
+package bit for bit on every n below 2^24 (``tests/test_torch_detectors.py``
+checks those below 2^22).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from ..config import ADWINParams
 from .ddm import DDMWindowResult, batch_from_window, check_window_inputs, launch_window
 from .detectors import _window
-from .prefix import f32, fma, rdiv
+from .prefix import f32, fma, rdiv, xla_log
 
 # --- opt-in indicator debug guard -------------------------------------------
 #
@@ -126,10 +127,23 @@ def _validate_adwin(params: ADWINParams) -> None:
         )
 
 
+# ln n for n below 2^20 (4 MB a device), built once from `xla_log`: the
+# plain version takes ln n once a flush, and xla_log is some 170 small
+# tensor operations.
+_LOG_TABLE_N = 1 << 20
+_log_tables: dict = {}
+
+
 def log_n(n: torch.Tensor) -> torch.Tensor:
-    """``ln(f32(max(n, 1)))`` correctly rounded to float32 (module
-    docstring)."""
-    return torch.log(n.clamp_min(1).float().double()).float()
+    """``ln(f32(max(n, 1)))`` as XLA computes it (``prefix.xla_log``)."""
+    n = n.clamp_min(1)
+    table = _log_tables.get(n.device)
+    if table is None:
+        table = xla_log(torch.arange(_LOG_TABLE_N, device=n.device).clamp_min(1).float())
+        _log_tables[n.device] = table
+    small = n < _LOG_TABLE_N
+    got = table[torch.where(small, n, 0).long()]
+    return got if bool(small.all()) else torch.where(small, got, xla_log(n.float()))
 
 
 def _flush_chunk(sums, counts, n, total, chunk_sum, live, params: ADWINParams):

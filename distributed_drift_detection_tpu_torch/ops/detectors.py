@@ -48,8 +48,10 @@ from ..config import (
 from .ddm import (
     DDMWindowResult,
     _run_min,
+    _sm_count,
     batch_from_window,
     check_window_inputs,
+    cluster_size,
     ddm_init,
     ddm_window,
     launch_window,
@@ -567,26 +569,52 @@ def hddm_w_window_reference(state: HDDMWState, errs, valid, params: HDDMWParams 
     return _window(lambda s, e, v: _hddm_w_masks(s, e, v, params), state, errs, valid)
 
 
-def hddm_w_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
-    """Kernel K5-hddm_w's launch arguments, stream excluded."""
+# Elements a CTA of K5-hddm_w's cluster path owns (csrc/hddm_w_window.cu
+# kSeg): 256 threads of 8.
+HDDM_W_SEGMENT = 2048
+
+
+def hddm_w_ctas(p: int, n: int, sms: int = 132) -> int:
+    """CTAs a row of K5-hddm_w's cluster path: ``ceil(n / 2048)`` when that
+    is at most K1's cluster size for ``p`` partitions on ``sms``
+    multiprocessors (:func:`.ddm.cluster_size`: 8 at P = 16, so rows of up
+    to 16,384 elements); else 0, the global-scratch path (one CTA a row)."""
+    need = -(-int(n) // HDDM_W_SEGMENT)
+    return need if 0 < need <= cluster_size(p, sms) else 0
+
+
+def hddm_w_window_args(state, errs, valid, params, first_warning, first_change, end,
+                       scratch, ctas):
+    """Kernel K5-hddm_w's launch arguments, stream excluded: ``ctas`` from
+    :func:`hddm_w_ctas`, ``scratch`` None on the cluster path."""
     _validate_hddm_w(params)
     p, w, b = errs.shape
     k = hddm_w_constants(params)
     return (
         errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
-        p, w, b, k["lam"], k["one_m"], k["one_m2"], k["lam2"],
-        k["log_drift"], k["log_warning"], scratch.data_ptr(),
+        p, w, b, ctas, k["lam"], k["one_m"], k["one_m2"], k["lam2"],
+        k["log_drift"], k["log_warning"], None if scratch is None else scratch.data_ptr(),
         first_warning.data_ptr(), first_change.data_ptr(),
         *(leaf.data_ptr() for leaf in end),
     )
 
 
+def hddm_w_scratch(p: int, n: int, ctas: int, device):
+    """K5-hddm_w's global scratch (24 B an element and the tree's levels),
+    used only on the global-scratch path (``ctas`` 0)."""
+    if ctas:
+        return None
+    return torch.empty((p, scratch_words(n, 6, 4)), dtype=torch.float32, device=device)
+
+
 def hddm_w_window(state: HDDMWState, errs, valid, params: HDDMWParams = HDDMWParams()):
     """The HDDM-W window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-hddm_w (``csrc/hddm_w_window.cu``, one
-    CTA per partition) and add one to ``hddm_w_window.launches``; a refused
-    launch raises. CPU tensors run the plain version."""
+    CUDA tensors launch kernel K5-hddm_w (``csrc/hddm_w_window.cu``: a
+    thread-block cluster of :func:`hddm_w_ctas` CTAs a partition, or one
+    CTA with a global scratch for longer rows) and add one to
+    ``hddm_w_window.launches``; a refused launch raises. CPU tensors run
+    the plain version."""
     if errs.device.type == "cpu":
         return hddm_w_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -598,10 +626,12 @@ def hddm_w_window(state: HDDMWState, errs, valid, params: HDDMWParams = HDDMWPar
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = HDDMWState(*(torch.empty_like(leaf) for leaf in state))
-    scratch = torch.empty((p, scratch_words(w * b, 6, 4)), dtype=torch.float32, device=dev)
+    idx = dev.index
+    ctas = hddm_w_ctas(p, w * b, _sm_count(torch.cuda.current_device() if idx is None else idx))
+    scratch = hddm_w_scratch(p, w * b, ctas, dev)
     launch_window(
         "hddm_w_window",
-        hddm_w_window_args(state, errs, valid, params, fw, fc, end, scratch), dev,
+        hddm_w_window_args(state, errs, valid, params, fw, fc, end, scratch, ctas), dev,
     )
     hddm_w_window.launches += 1
     return end, DDMWindowResult(fw, fc)

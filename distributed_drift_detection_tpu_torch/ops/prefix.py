@@ -1,7 +1,7 @@
 """Float32 arithmetic as the JAX package's CPU lowering does it.
 
 The zoo's window statistics are held bit for bit against the JAX package,
-so their plain versions reproduce three facts about XLA on the CPU
+so their plain versions reproduce these facts about XLA on the CPU
 (measured against its outputs):
 
 * :func:`associative_scan` evaluates ``lax.associative_scan``'s combine
@@ -13,6 +13,9 @@ so their plain versions reproduce three facts about XLA on the CPU
   final application, EDDM's variance, ADWIN's cut bound): :func:`fma`
   computes it with one rounding;
 * XLA rewrites ``x / const`` into ``x * f32(1/const)``: :func:`div_const`;
+* XLA's CPU float32 ``log`` is a Cephes polynomial with fused
+  multiply-adds, not correctly rounded: :func:`xla_log` computes it
+  operation for operation;
 * XLA on the CPU flushes subnormal results to zero: :func:`ftz`, applied
   where a product can underflow (a scan's running product of forgetting
   factors, ``α^k`` or ``(1−λ)^k``, underflows after some hundreds of
@@ -64,6 +67,43 @@ def fma(a, b, c) -> torch.Tensor:
     toward = torch.where(err > 0, float("inf"), float("-inf")).to(t.dtype)
     t = torch.where((err != 0) & even, torch.nextafter(t, toward), t)
     return ftz(t.float())
+
+
+# XLA's CPU float32 log (xla/service/cpu/polynomial_approximations.cc
+# GenerateVF32Log, a port of Cephes' logf) with the fused multiply-adds its
+# LLVM lowering forms: the nine-term polynomial in three chains, each
+# multiply-add fused, and the tail's multiply-adds fused where the product
+# has one use.
+_LOG_P = tuple(f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+))
+_LOG_Q1, _LOG_Q2 = f32(-2.12194440e-4), f32(0.693359375)
+_SQRT_HALF = f32(0.707106781186547524)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """``ln x`` for normal float32 ``x > 0``, bit for bit as XLA on the CPU
+    computes ``jnp.log``: ``x = m·2^e`` with ``m`` in [√½, √2), then
+    ``ln m`` by Cephes' polynomial in ``m − 1``, plus ``e·ln 2`` in two
+    parts."""
+    bits = x.float().view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    lo = m < _SQRT_HALF
+    e = e - lo.float()
+    r = (m - 1.0) + torch.where(lo, m, torch.zeros_like(m))
+    r2 = r * r
+    r3 = r2 * r
+    p = _LOG_P
+    y = fma(fma(r, p[0], p[1]), r, p[2])
+    y1 = fma(fma(r, p[3], p[4]), r, p[5])
+    y2 = fma(fma(r, p[6], p[7]), r, p[8])
+    y = fma(fma(y, r3, y1), r3, y2)
+    y = fma(y, r3, _LOG_Q1 * e)
+    r = fma(-r2, 0.5, r)
+    return fma(_LOG_Q2, e, r + y)
 
 
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:

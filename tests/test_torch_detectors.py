@@ -364,6 +364,91 @@ def test_adwin_capacity_forgetting_matches_jax():
     np.testing.assert_array_equal(np.asarray(jres.first_change), tres.first_change.numpy())
 
 
+def test_tree_prefix_is_a_fold_of_aligned_blocks():
+    """The rule K5-hddm_w's cluster path builds its tree prefixes on
+    (csrc/hddm_w_window.cu): ``lax.associative_scan``'s prefix of the first
+    m elements is the left fold, most significant first, of the balanced
+    combines of the aligned power-of-two blocks of m's binary expansion.
+    Checked with a non-associative combine that records the pairing."""
+    mod = (1 << 31) - 1
+
+    def comb(a, b):
+        return ((a[0] * 1000003 + b[0] * 999983 + 7) % mod,)
+
+    def block(g, start, size):
+        if size == 1:
+            return g[start]
+        half = size // 2
+        return (block(g, start, half) * 1000003 + block(g, start + half, half) * 999983 + 7) % mod
+
+    for n in range(1, 300):
+        gt = torch.arange(1, n + 1, dtype=torch.int64) * 7919 % mod
+        want = prefix.associative_scan(comb, (gt,))[0].tolist()
+        g = gt.tolist()
+        for m in range(1, n + 1):
+            acc, start = None, 0
+            for bit in range(m.bit_length() - 1, -1, -1):
+                if (m >> bit) & 1:
+                    v = block(g, start, 1 << bit)
+                    acc = v if acc is None else (acc * 1000003 + v * 999983 + 7) % mod
+                    start += 1 << bit
+            assert acc == want[m - 1], (n, m)
+
+
+@pytest.mark.parametrize("p, n, ctas", [
+    (16, 12800, 7), (1, 21, 1), (80, 21, 1), (80, 12800, 0), (16, 16384, 8),
+    (16, 16385, 0), (67, 2048, 1), (67, 2049, 0), (1, 0, 0),
+])
+def test_hddm_w_path_choice(p, n, ctas):
+    """K5-hddm_w takes its cluster path, ceil(N / 2048) CTAs a row, where
+    they fit within K1's cluster size on 132 SMs, else its global-scratch
+    path (0)."""
+    assert tdet.hddm_w_ctas(p, n, 132) == ctas
+
+
+def test_log_n_matches_xla_log():
+    """ADWIN's ``ln n`` is XLA's CPU float32 log bit for bit on every n in
+    [1, 2^22) (the JAX package's ``jnp.log`` of ``f32(max(n, 1))``)."""
+    n = np.arange(1, 1 << 22, dtype=np.int32)
+    want = np.asarray(jax.jit(jnp.log)(n.astype(np.float32))).view(np.int32)
+    got = tadwin.log_n(torch.from_numpy(n)).numpy().view(np.int32)
+    np.testing.assert_array_equal(got, want)
+    # XLA's log is not correctly rounded; the float64 log would differ here
+    assert (np.log(n.astype(np.float64)).astype(np.float32).view(np.int32) != want).any()
+
+
+def _spread(n, k):
+    """``k`` errors spread evenly over ``n`` elements (0/1 f32)."""
+    e = np.zeros(n, np.float32)
+    e[(np.arange(k) * n) // k] = 1
+    return e
+
+
+def c3_row():
+    """One 11,936-element row from a fresh ADWIN state (default params):
+    699 errors in the first 10,752 elements, 142 in the last 1,184. Its
+    last flush (n = 11,936, total 841) has a bucket boundary at n0 =
+    10,752, s0 = 699 whose cut test sits within an ulp of its bound: it
+    fires with XLA's ``ln n`` and not with the correctly rounded one."""
+    return np.concatenate([_spread(10752, 699), _spread(1184, 142)])[None]
+
+
+def test_adwin_fires_on_xla_log_tie():
+    """``adwin_batch`` on :func:`c3_row` fires at its last element, as the
+    JAX package's does; a correctly rounded ``ln n`` would not fire."""
+    errs = c3_row()
+    valid = np.ones_like(errs, bool)
+    jp, tp = jconfig.ADWINParams(), tconfig.ADWINParams()
+    jend, jres = jax.vmap(lambda e, v: jadwin.adwin_batch(jadwin.adwin_init(jp), e, v, jp))(
+        jnp.asarray(errs), jnp.asarray(valid))
+    tend, tres = tadwin.adwin_batch(tadwin.adwin_init(tp, (1,)), torch.from_numpy(errs),
+                                    torch.from_numpy(valid), tp)
+    _assert_same_state(jend, tend)
+    assert int(jres.first_change[0]) == int(tres.first_change[0]) == errs.shape[1] - 1
+    n = torch.tensor([errs.shape[1]])
+    assert not torch.equal(tadwin.log_n(n), torch.log(n.double()).float())
+
+
 def _drift_late(seed, p, n, flip=0.8):
     """All-valid 0/1 rows: error rate 0.1, then 0.6 from ``flip`` of the row."""
     rng = np.random.default_rng(seed)

@@ -169,6 +169,58 @@ def test_centroid_predict_err_kernel_refuses_oversized_centroids(dev):
 
 
 # --------------------------------------------------------------------------
+# K7, the centroid fit
+# --------------------------------------------------------------------------
+
+# (P, B, F, C): the main path's shape; per_batch 256 and 1000 (four tiles
+# of 256 rows); C·(F + 1) below one warp; 16,448 (class, feature) pairs,
+# more than a block's threads, whose shared memory halves the row tile.
+K7_SHAPES = [(16, 100, 21, 40), (4, 256, 27, 5), (3, 1000, 21, 40), (2, 7, 3, 4),
+             (1, 300, 256, 64)]
+
+
+def _k7_inputs(seed, p, b, f, c):
+    """Rows near ``c`` prototypes, {0, 1} weights, one class absent in
+    every partition and a few labels outside [0, C) (no class)."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 3
+    y = rng.integers(0, max(c - 1, 1), (p, b)).astype(np.int32)
+    X = (protos[y] + 0.5 * rng.normal(size=(p, b, f))).astype(np.float32)
+    w = (rng.random((p, b)) < 0.9).astype(np.float32)
+    y[rng.random((p, b)) < 0.02] = c
+    return X, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_SHAPES)
+def test_centroid_fit_kernel_bitwise(dev, shape):
+    """K7 equals its plain version bit for bit — on the card and on the
+    CPU — centroids, biases and the -inf of absent classes."""
+    p, b, f, c = shape
+    host = [torch.from_numpy(a) for a in _k7_inputs(sum(shape), p, b, f, c)]
+    before = classifiers.centroid_fit.launches
+    got = classifiers.centroid_fit(*(t.to(dev) for t in host), c)
+    assert classifiers.centroid_fit.launches == before + 1
+    on_card = classifiers.centroid_fit_reference(*(t.to(dev) for t in host), c)
+    on_cpu = classifiers.centroid_fit_reference(*host, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), h.view(torch.int32))
+    assert bool(torch.isinf(got.bias[:, -1]).all())
+
+
+@pytest.mark.cuda
+def test_centroid_fit_kernel_refuses_oversized(dev):
+    """A [C, F + 1] table beyond the card's 227 KB of shared memory a block
+    raises before any launch."""
+    host = _k7_inputs(0, 1, 10, 1000, 64)
+    before = classifiers.centroid_fit.launches
+    with pytest.raises(ValueError, match="shared"):
+        classifiers.centroid_fit(*(torch.from_numpy(a).to(dev) for a in host), 64)
+    assert classifiers.centroid_fit.launches == before
+
+
+# --------------------------------------------------------------------------
 # the zoo kernels K5-ph, K5-hddm_w, K5-adwin
 # --------------------------------------------------------------------------
 
@@ -249,6 +301,47 @@ def test_zoo_window_kernels_bitwise(dev, name, shape):
                 want = reference(state, e1, v1, params)
                 assert window.launches == launches + 1
                 _same(got, want)
+
+
+# K5-hddm_w's paths, (P, W, B) and whether a row takes the cluster path:
+# ragged rows of 21 elements and of 12,800 (7 CTAs, the last a quarter
+# full) at P = 1, 16 and 80 (clusters of 8, 8 and 1 CTAs at most: the
+# longer rows at P = 80 take the global-scratch path); a full cluster of 8
+# (16,384 elements) and one element more (global scratch); batches that
+# straddle CTAs (B = 129), one batch over every CTA (B = 16,384) and
+# batches of one element.
+HDDM_W_PATHS = {
+    "p1_ragged_21": ((1, 3, 7), True), "p16_ragged_21": ((16, 3, 7), True),
+    "p80_ragged_21": ((80, 3, 7), True), "p1_12800": ((1, 128, 100), True),
+    "p16_12800": ((16, 128, 100), True), "p80_12800": ((80, 128, 100), False),
+    "full_cluster": ((2, 128, 128), True), "one_more": ((2, 16385, 1), False),
+    "straddling_batches": ((3, 127, 129), True), "one_batch": ((2, 1, 16384), True),
+    "batches_of_one": ((2, 4000, 1), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HDDM_W_PATHS))
+def test_hddm_w_kernel_paths(dev, case):
+    """K5-hddm_w equals its plain version bit for bit on its cluster path
+    (clusters of 1 to 8 CTAs, state in registers) and its global-scratch
+    path, from fresh and carried states, with HDDM-W key ties and an error
+    in each row's first element; each case checks the path it names."""
+    (p, w, b), cluster = HDDM_W_PATHS[case]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (tdet.hddm_w_ctas(p, w * b, sms) > 0) == cluster
+    for k, params in enumerate(ZOO["hddm_w"][3]):
+        e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(30 + k, p, 3, 40))
+        e1, v1 = (torch.from_numpy(a).to(dev)
+                  for a in zoo_inputs(40 + k, p, w, b, first_change=True))
+        fresh = tdet.hddm_w_init((p,), dev)
+        carried, _ = tdet.hddm_w_window_reference(fresh, e0, v0, params)
+        for state in (fresh, carried):
+            launches = tdet.hddm_w_window.launches
+            got = tdet.hddm_w_window(state, e1, v1, params)
+            want = tdet.hddm_w_window_reference(state, e1, v1, params)
+            assert tdet.hddm_w_window.launches == launches + 1
+            _same(got, want)
 
 
 @pytest.mark.cuda
@@ -339,3 +432,22 @@ def test_adwin_kernel_paths(dev, case):
             assert bool((state.n == state.t).all() and (end.n < end.t).all())
         else:
             assert int(end.counts.sum(1).min()) > 32
+
+
+@pytest.mark.cuda
+def test_adwin_kernel_fires_on_xla_log_tie(dev):
+    """The row of ``test_adwin_fires_on_xla_log_tie``
+    (tests/test_torch_detectors.py): its last flush's cut test sits within
+    an ulp of its bound at n = 11,936, where XLA's ln n differs from the
+    correctly rounded one. K5-adwin fires there, as its plain version and
+    the JAX package do."""
+    row = np.concatenate([np.zeros(10752, np.float32), np.zeros(1184, np.float32)])
+    row[(np.arange(699) * 10752) // 699] = 1
+    row[10752 + (np.arange(142) * 1184) // 142] = 1
+    errs = torch.from_numpy(row.reshape(1, 8, 1492)).to(dev)
+    valid = torch.ones_like(errs, dtype=torch.bool)
+    params = tconfig.ADWINParams()
+    state = tadwin.adwin_init(params, (1,), dev)
+    got = tadwin.adwin_window(state, errs, valid, params)
+    _same(got, tadwin.adwin_window_reference(state, errs, valid, params))
+    assert got[1].first_change.cpu().numpy().tolist() == [[-1] * 7 + [1491]]

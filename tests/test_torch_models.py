@@ -3,17 +3,23 @@ package's.
 
 Fits run on the same numpy-seeded batches in both packages; predictions use
 JAX-fitted parameters carried across through ``convert.py``. Predictions
-must be exact. Scores agree within ``rtol = atol = 1e-6``: the matmul sums
-in another order than XLA on the CPU. The port fits gnb and linear in
-float64 and rounds once (the JAX package fits in float32), so their fitted
-parameters agree to a stated tolerance, not to the bit: linear's to
-``rtol = 1e-4``, ``atol = 1e-5`` (float32 rounding over 32 gradient
-steps); gnb's to ``rtol = 1e-3`` — the JAX package's float32 variance
-``E[(x−m)²]_c − μ_c²`` cancels, which leaves it about 1e-4 relative error
-(measured 1.5e-4) that the float64 fit does not have. Predictions are
-compared exactly. The centroid predict fused with the
-error indicator is kernel K2 on the card (``tests/test_torch_kernels.py``);
-on CPU tensors its wrapper runs the plain version tested here.
+must be exact. The centroid fit is bit-identical to the JAX package's
+jitted fit (``test_centroid_fit_bit_identical_to_jitted_jax``); against
+its eager, op-by-op form, which rounds the squares of the bias before it
+sums them, it agrees to ``rtol = atol = 1e-6``. Scores agree within
+``rtol = atol = 1e-6``: the matmul sums in another order than XLA on the
+CPU, and at a near tie the argmax can differ
+(``test_centroid_predict_near_ties``). The port's gnb fit follows the JAX
+package's float32 expressions but sums the global moments in row order,
+and linear fits in float64 and rounds once, so their fitted parameters
+agree to a stated tolerance, not to the bit: linear's to ``rtol = 1e-4``,
+``atol = 1e-5`` (float32 rounding over 32 gradient steps); gnb's to
+``rtol = 1e-3`` — the float32 variance ``E[(x−m)²]_c − μ_c²`` cancels, so
+a different rounding of the global mean moves it by about 1e-4 relative.
+Predictions are compared exactly. The centroid predict fused with the
+error indicator is kernel K2 on the card, the fit kernel K7
+(``tests/test_torch_kernels.py``); on CPU tensors their wrappers run the
+plain versions tested here.
 """
 
 import numpy as np
@@ -40,6 +46,8 @@ from distributed_drift_detection_tpu_torch.models.classifiers import (  # noqa: 
     build_model,
     centroid_predict_err,
     centroid_scores,
+    _argmax_first,
+    centroid_fit,
     make_centroid,
     make_majority,
     pad_row_table,
@@ -84,6 +92,33 @@ def test_centroid_fit_matches_jax(data, jax_centroid):
     np.testing.assert_array_equal(np.isinf(jb), np.isinf(tb))  # absent classes
     fin = np.isfinite(jb)
     np.testing.assert_allclose(tb[fin], jb[fin], rtol=1e-6, atol=1e-6)
+
+
+def _fit_batch(seed, b, f, c, p=4):
+    """A training batch per partition: rows near ``c`` prototypes, about
+    one row in ten padded (weight 0), the last class absent."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 3
+    y = rng.integers(0, c - 1, (p, b)).astype(np.int32)
+    X = (protos[y] + 0.5 * rng.normal(size=(p, b, f))).astype(np.float32)
+    w = (rng.random((p, b)) < 0.9).astype(np.float32)
+    return X, y, w
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("f, c", [(21, 40), (27, 5)])
+@pytest.mark.parametrize("per_batch", [100, 256])
+def test_centroid_fit_bit_identical_to_jitted_jax(per_batch, f, c, seed):
+    """The port's centroid fit (K7's plain version on CPU tensors) equals
+    ``jax.jit(jax.vmap(fit))`` of the JAX package bit for bit: centroids,
+    biases, and the -inf of absent classes."""
+    X, y, w = _fit_batch(seed, per_batch, f, c)
+    m = j_centroid(JSpec(f, c))
+    jp = jax.jit(jax.vmap(lambda a, b, d: m.fit(None, a, b, d)))(X, y, w)
+    tp = centroid_fit(*(torch.from_numpy(a) for a in (X, y, w)), c)
+    for j, t in zip(jp, tp):
+        assert np.array_equal(np.asarray(j).view(np.int32), t.numpy().view(np.int32))
+    assert np.isinf(np.asarray(jp.bias)[:, -1]).all()
 
 
 def test_centroid_predict_with_carried_params(data, jax_centroid):
@@ -169,6 +204,37 @@ def test_centroid_ties(row, want):
     tpred = int(make_centroid(ModelSpec(F, C)).predict(
         convert.centroid_params(jp), torch.from_numpy(x)[None])[0, 0])
     assert jpred == tpred == want
+
+
+def test_centroid_predict_near_ties():
+    """Rows within a few ulps of equidistant from two centroids (ROADMAP
+    Queue C, C2): the port's ``centroid_scores`` argmax and the JAX
+    package's jitted ``make_centroid.predict`` agree on every row whose
+    float64 margin between its two best classes exceeds F + 1 roundings
+    of the largest term; on the rest they can differ, since neither sums
+    the dot in the other's order (measured: about a third of these rows)."""
+    f, c, n = 21, 40, 2000
+    rng = np.random.default_rng(5)
+    cent = (rng.normal(size=(c, f)) * 3).astype(np.float32)
+    bias = (-0.5 * (cent.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    i = rng.integers(0, c, n)
+    k = (i + 1 + rng.integers(0, c - 1, n)) % c
+    d = cent[i].astype(np.float64) - cent[k]
+    db = bias[i].astype(np.float64) - bias[k]
+    x0 = (cent[i] + cent[k]) / 2 + 0.3 * rng.normal(size=(n, f))
+    x = (x0 - ((x0 * d).sum(1) + db)[:, None] / (d * d).sum(1)[:, None] * d).astype(np.float32)
+    bits = x.view(np.int32).copy()
+    bits[np.arange(n), rng.integers(0, f, n)] += rng.integers(-3, 4, n)
+    x = bits.view(np.float32)
+    jpred = np.asarray(jax.jit(j_centroid(JSpec(f, c)).predict)(
+        JCentroid(jnp.asarray(cent), jnp.asarray(bias)), jnp.asarray(x)))
+    params = convert.centroid_params(JCentroid(jnp.asarray(cent)[None], jnp.asarray(bias)[None]))
+    tpred = _argmax_first(centroid_scores(params, torch.from_numpy(x)[None]))[0].numpy()
+    s64 = np.sort(x.astype(np.float64) @ cent.T.astype(np.float64) + bias, 1)
+    scale = (np.abs(x).astype(np.float64) @ np.abs(cent.T) + np.abs(bias)).max(1)
+    clear = s64[:, -1] - s64[:, -2] > (f + 1) * scale * 2.0**-24
+    assert clear.sum() > n // 10 and (~clear).sum() > n // 2
+    np.testing.assert_array_equal(tpred[clear], jpred[clear])
 
 
 def test_centroid_all_absent_row_predicts_zero():
