@@ -39,7 +39,7 @@ without them. Phases, each fatal on failure:
    device's idle share over the phase;
 6. hold each zoo kernel (K5) against its plain version at the main path's
    shape [16, 128·100] and on its design's edge cases — Page–Hinkley and
-   HDDM-W bit for bit (HDDM-W on its cluster path at P = 16 and P = 1 and
+   HDDM-W bit for bit (each on its cluster path at P = 16 and P = 1 and
    with clusters of one CTA at P = 80, and on its global-scratch path),
    ADWIN's int32 state and flags exactly — and time it
    as K1 and K2 are timed; for ADWIN also the flushes of the timed
@@ -500,11 +500,12 @@ def zoo_table(config):
 # and rows of 26,000 and 16,000 elements whose scan levels overflow shared
 # memory into the global scratch.
 K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
-# and for K5-hddm_w's two paths: its cluster path at P = 1 (7 CTAs), with
-# clusters of one CTA at P = 80, a full cluster of 8 CTAs, batches that
-# straddle CTAs; its global-scratch path at P = 80 (with the two long rows
-# above).
-K5_HDDM_W_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
+# and for the two paths of K5-ph and K5-hddm_w: the cluster path at P = 1
+# (7 CTAs), with clusters of one CTA at P = 80, a full cluster of 8 CTAs,
+# batches that straddle CTAs; the global-scratch path at P = 80 (with the
+# two long rows above).
+K5_CLUSTER_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
+CLUSTER_KERNELS = ("ph_window", "hddm_w_window")
 
 
 def k5_inputs(rng, p, w, b, first_change=False):
@@ -537,7 +538,7 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     info = zoo_table(config)[name]
     window = wrappers()[name]
     rng = np.random.default_rng(5)
-    edges = K5_EDGES + (K5_HDDM_W_EDGES if name == "hddm_w_window" else [])
+    edges = K5_EDGES + (K5_CLUSTER_EDGES if name in CLUSTER_KERNELS else [])
     for shape in [(p, w, b)] + edges:
         for prm in info["params"]:
             if getattr(prm, "clock", 32) == 1 and shape[1] * shape[2] > 2000:
@@ -566,17 +567,16 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     if name == "adwin_window":
         scratch = adwin.adwin_scratch(p, w * b, prm, dev)
         args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
-    elif name == "hddm_w_window":
-        ctas = detectors.hddm_w_ctas(p, w * b, torch.cuda.get_device_properties(
+    else:
+        ctas = detectors.cluster_ctas(p, w * b, torch.cuda.get_device_properties(
             dev).multi_processor_count)
-        scratch = detectors.hddm_w_scratch(p, w * b, ctas, dev)
-        args = detectors.hddm_w_window_args(state, e1, v1, prm, fw, fc, end, scratch, ctas)
+        scratch_of, args_of = {
+            "ph_window": (detectors.ph_scratch, detectors.ph_window_args),
+            "hddm_w_window": (detectors.hddm_w_scratch, detectors.hddm_w_window_args),
+        }[name]
+        args = args_of(state, e1, v1, prm, fw, fc, end, scratch_of(p, w * b, ctas, dev), ctas)
         print(f"K5 {name}: timed on its {'cluster' if ctas else 'global-scratch'} path, "
               f"{ctas} CTAs a row")
-    else:
-        scratch = torch.empty((p, detectors.scratch_words(w * b, 2, 3)),
-                              dtype=torch.float32, device=dev)
-        args = detectors.ph_window_args(state, e1, v1, prm, fw, fc, end, scratch)
     fn = kernels.launcher(name)
     ms = graph_ms(lambda: kernels.check(name, fn(*args, kernels.stream_handle(dev))))
     h_us = host_us(lambda: window(state, e1, v1, prm))

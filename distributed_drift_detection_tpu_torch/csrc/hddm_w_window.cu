@@ -40,14 +40,15 @@
 //   carried with the element that set it — the latest cut, with its count
 //   and its (z, v), so the frozen (z1, v1) and n2 come with it and not by
 //   a gather or a second scan. The tree prefixes are built the same way
-//   (`tree_prefixes`, below): the tree's levels inside a thread's 8
-//   elements in registers, the next five by shuffles inside a warp, three
-//   by one warp's shuffles inside the CTA, and only one 16-byte tuple a CTA
-//   goes through distributed shared memory; each CTA computes the tiny top
-//   of the tree and sweeps down locally. A batch's first-change and
-//   first-warning marks go, by shared-memory atomics (remote ones for a
-//   batch that straddles two segments), to the CTA that holds its first
-//   element. Five cluster barriers a launch.
+//   (cluster_tree.cuh `tree_prefixes`, shared with K5-ph's cluster path):
+//   the tree's levels inside a thread's 8 elements in registers, the next
+//   five by shuffles inside a warp, three by one warp's shuffles inside the
+//   CTA, and only one 16-byte tuple a CTA goes through distributed shared
+//   memory; each CTA computes the tiny top of the tree and sweeps down
+//   locally. A batch's first-change and
+//   first-warning marks go, by shared-memory atomics (one a thread and
+//   batch; remote ones for a batch that straddles two segments), to the CTA
+//   that holds its first element. Five cluster barriers a launch.
 // * the global-scratch path (longer rows, P >= 67 at N = 12,800): one CTA of
 //   512 threads per row, each thread over a contiguous chunk; per element
 //   n, z, v, the cut flags, n2 and the latest cut's index in a global
@@ -74,7 +75,7 @@
 
 #include <utility>
 
-#include "cluster_scan.cuh"
+#include "cluster_tree.cuh"
 #include "zoo_scan.cuh"
 
 namespace cg = cooperative_groups;
@@ -268,128 +269,18 @@ __global__ void __launch_bounds__(kThreads) hddm_w_window_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The cluster path.
+// The cluster path (cluster_tree.cuh: the tree, the loads, the marks).
 
-constexpr int kCThreads = 256;
-constexpr int kCWarps = kCThreads / 32;
-constexpr int kEpt = 8;                    // elements a thread
-constexpr int kSeg = kCThreads * kEpt;     // 2048 elements a CTA
+using ct::kEpt;
+using ct::kSeg;
 
-__device__ __forceinline__ Aff identity() { return Aff{1.0f, 0.0f, 1.0f, 0.0f}; }
-
-// has ? acc, then x : x — a fold step that starts from the empty prefix.
-__device__ __forceinline__ Aff then(bool has, const Aff& acc, const Aff& x) {
-  return has ? compose(acc, x) : x;
-}
-
-// A warp's up-sweep of one value a lane: lev[d], at a lane that is a
-// multiple of 2^d, is the tree's value of the block of lanes
-// [lane, lane + 2^d) (d = 0..D).
-template <int D, int N>
-__device__ __forceinline__ void up_sweep(Aff (&lev)[N], const Aff& v) {
-  static_assert(N > D, "");
-  lev[0] = v;
-#pragma unroll
-  for (int d = 1; d <= D; ++d)
-    lev[d] = compose(lev[d - 1], cl::shfl_down(lev[d - 1], 1 << (d - 1)));
-}
-
-// acc, then the tree's values of the aligned blocks of m's binary
-// expansion (m < 2^(D+1) lanes' worth), most significant first, from an
-// up-sweep; m may differ between lanes. Every lane must call it.
-template <int D, int N>
-__device__ __forceinline__ void fold_blocks(Aff& acc, bool& has, const Aff (&lev)[N], int m) {
-  static_assert(N > D, "");
-#pragma unroll
-  for (int b = D; b >= 0; --b) {
-    const Aff val = cl::shfl_idx(lev[b], (m >> (b + 1)) << (b + 1));
-    if ((m >> b) & 1) {
-      acc = then(has, acc, val);
-      has = true;
-    }
+struct AffTree {
+  using T = Aff;
+  static __device__ __forceinline__ Aff compose(const Aff& f, const Aff& g) {
+    return ::compose(f, g);
   }
-}
-
-// Per CTA: the tree's block value and the prefixes at warp granularity.
-struct TreeShared {
-  Aff tile;                 // the CTA's 2048-element block, published
-  Aff wU[kCWarps];          // each warp's 256-element block
-  Aff wE[kCWarps + 1];      // the prefix at each warp's start, and at the end
-  int wEhas[kCWarps + 1];   // 0: the empty prefix (element 0 of the row)
+  static __device__ __forceinline__ Aff identity() { return Aff{1.0f, 0.0f, 1.0f, 0.0f}; }
 };
-
-// The inclusive scan of the row's elements under `compose` on
-// lax.associative_scan's tree: out[q] = the prefix of the first a+q+1
-// elements (a = this thread's first element, q < 8 and a+q < n), given the
-// thread's element maps g[q] (identity past n). The prefix of m elements is
-// the left fold of the tree's values of the aligned blocks of m's binary
-// expansion (header); m = a+q+1 splits into the blocks of the CTA's start
-// (CTAs of lower rank: the cluster's top of the tree), of the warp's start
-// within the CTA, of the thread's start within the warp and of q+1 within
-// the thread, except q = 7, whose prefix is the next thread's start. At
-// each of the three upper scales one warp's up-sweep and fold by shuffles
-// (`up_sweep`, `fold_blocks`); within the thread, registers. Every thread
-// of the cluster calls it.
-__device__ __forceinline__ void tree_prefixes(cg::cluster_group& cluster,
-                                              const Aff (&g)[kEpt], int n, int cs,
-                                              TreeShared& ts, Aff (&out)[kEpt]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int rank = static_cast<int>(cluster.block_rank());
-
-  // the thread's levels 1-3, then the warp's levels 3-8 over its lanes
-  Aff u1[4], u2[2];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) u1[k] = compose(g[2 * k], g[2 * k + 1]);
-  u2[0] = compose(u1[0], u1[1]);
-  u2[1] = compose(u1[2], u1[3]);
-  Aff ulev[6];
-  up_sweep<5>(ulev, compose(u2[0], u2[1]));
-  if (lane == 0) ts.wU[warp] = ulev[5];
-  __syncthreads();
-  // warp 0: the CTA's levels 8-11 over its warps, the CTA's value
-  // published; then the cluster's levels 11-14 over its CTAs, the prefixes
-  // at this CTA's start and end and at each warp's start
-  Aff wlev[4];
-  if (warp == 0) {
-    up_sweep<3>(wlev, lane < kCWarps ? ts.wU[lane] : identity());
-    if (lane == 0) ts.tile = wlev[3];
-  }
-  cluster.sync();
-  if (warp == 0) {
-    const int full = min(cs, n / kSeg);  // complete CTA blocks: they have a value
-    Aff tlev[4];
-    up_sweep<3>(tlev, lane < full ? cluster.map_shared_rank(&ts, lane)->tile : identity());
-    Aff e_cta = identity(), e_next = identity();
-    bool has = false, has_next = false;
-    fold_blocks<3>(e_cta, has, tlev, rank);
-    fold_blocks<3>(e_next, has_next, tlev, rank + 1);  // used only if rank < full
-    fold_blocks<3>(e_cta, has, wlev, lane);
-    if (lane < kCWarps) {
-      ts.wE[lane] = e_cta;
-      ts.wEhas[lane] = has;
-    } else if (lane == kCWarps) {
-      ts.wE[kCWarps] = e_next;
-      ts.wEhas[kCWarps] = has_next;
-    }
-  }
-  __syncthreads();
-  // the prefix at the thread's start: the warp's, then the lane blocks
-  Aff acc = ts.wE[warp];
-  bool has = ts.wEhas[warp] != 0;
-  fold_blocks<4>(acc, has, ulev, lane);
-  Aff next = cl::shfl_down(acc, 1);
-  if (lane == 31) next = ts.wE[warp + 1];
-  out[0] = then(has, acc, g[0]);
-  out[1] = then(has, acc, u1[0]);
-  out[2] = compose(out[1], g[2]);
-  out[3] = then(has, acc, u2[0]);
-  out[4] = compose(out[3], g[4]);
-  out[5] = compose(out[3], u1[2]);
-  out[6] = compose(out[5], g[6]);
-  out[7] = next;
-}
 
 // The running minimum of the key with its payload: the element that set
 // it (g, -1 for none or the carried cut), the running valid count there
@@ -406,20 +297,13 @@ __device__ __forceinline__ KeyMin key_min(const KeyMin& a, const KeyMin& b) {
   return b.key < a.key ? b : a;
 }
 
-// Batches overlapping CTA r's segment: its first-change and first-warning
-// marks in shared memory, for batches floor(2048·r / b) on.
-__device__ __forceinline__ int marks_per_cta(int r, int n, int b) {
-  const int lo = r * kSeg;
-  return (min(lo + kSeg, n) - 1) / b - lo / b + 1;
-}
-
 struct ClusterShared {
-  TreeShared tree[2];
-  int cnt_pub, cnt_b, ibuf[kCWarps];
-  KeyMin key_pub, key_b, kbuf[kCWarps];
+  ct::TreeShared<Aff> tree[2];
+  int cnt_pub, cnt_b, ibuf[ct::kWarps];
+  KeyMin key_pub, key_b, kbuf[ct::kWarps];
 };
 
-__global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
+__global__ void __launch_bounds__(ct::kThreads, 1) hddm_w_window_kernel_cluster(
     const float* __restrict__ errs, const uint8_t* __restrict__ live,
     const int* __restrict__ count_in, const float* __restrict__ z_in,
     const float* __restrict__ v_in, const float* __restrict__ z1_in,
@@ -432,47 +316,18 @@ __global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
     float* __restrict__ v1_out, int* __restrict__ n2_out,
     float* __restrict__ z2_out, float* __restrict__ v2_out) {
   __shared__ ClusterShared sh;
-  extern __shared__ int first_s[];  // [2·nbl]: first change, first warning
+  extern __shared__ int marks[];  // ct::init_marks
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int row = blockIdx.x / cs;
   const int n = w * b;
   const int tid = threadIdx.x;
-  const int seg0 = rank * kSeg;
-  const int a = seg0 + tid * kEpt;
+  const int a = rank * kSeg + tid * kEpt;
   const int ne = max(0, min(kEpt, n - a));
-  const float* e = errs + static_cast<size_t>(row) * n;
-  const uint8_t* lv = live + static_cast<size_t>(row) * n;
-
-  // the marks of the batches overlapping the segment, from k_lo on
-  const int k_lo = seg0 / b;
-  const int nbl = marks_per_cta(rank, n, b);
-  int* fc_s = first_s;
-  int* fw_s = first_s + nbl;
-  for (int k = tid; k < nbl; k += kCThreads) {
-    fc_s[k] = b;
-    fw_s[k] = b;
-  }
-
+  ct::init_marks(marks, rank, n, b);
   float x[kEpt];
-  unsigned ok = 0;
-  if (ne == kEpt && (reinterpret_cast<uintptr_t>(e + a) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(lv + a) & 7) == 0) {
-    const float4 x0 = __ldg(reinterpret_cast<const float4*>(e + a));
-    const float4 x1 = __ldg(reinterpret_cast<const float4*>(e + a) + 1);
-    const uint2 l = __ldg(reinterpret_cast<const uint2*>(lv + a));
-    x[0] = x0.x; x[1] = x0.y; x[2] = x0.z; x[3] = x0.w;
-    x[4] = x1.x; x[5] = x1.y; x[6] = x1.z; x[7] = x1.w;
-#pragma unroll
-    for (int q = 0; q < kEpt; ++q)
-      if ((((q < 4 ? l.x : l.y) >> (8 * (q & 3))) & 0xffu) != 0) ok |= 1u << q;
-  } else {
-#pragma unroll
-    for (int q = 0; q < kEpt; ++q) {
-      x[q] = q < ne ? e[a + q] : 0.0f;
-      if (q < ne && lv[a + q] != 0) ok |= 1u << q;
-    }
-  }
+  const unsigned ok = ct::load_elements(errs + static_cast<size_t>(row) * n,
+                                        live + static_cast<size_t>(row) * n, a, ne, x);
   auto add = [](int p, int q) { return p + q; };
 
   // 1. running count before the thread's first element
@@ -487,9 +342,9 @@ __global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
   for (int q = 0; q < kEpt; ++q) {
     const bool okq = (ok >> q) & 1u;
     const bool init = okq && cnt0 + __popc(ok & ((2u << q) - 1u)) == 1;
-    gen[q] = q < ne ? element(false, init, okq && !init, x[q], kc) : identity();
+    gen[q] = q < ne ? element(false, init, okq && !init, x[q], kc) : AffTree::identity();
   }
-  tree_prefixes(cluster, gen, n, cs, sh.tree[0], pre);
+  ct::tree_prefixes<AffTree>(cluster, gen, n, cs, sh.tree[0], pre);
   const float z0 = z_in[row];
   const float v0 = v_in[row];
   float z[kEpt], v[kEpt];
@@ -546,11 +401,13 @@ __global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
   for (int q = 0; q < kEpt; ++q) {
     const bool e2q = (e2 >> q) & 1u;
     const bool init = e2q && n2[q] == 1;
-    gen[q] = q < ne ? element((improve >> q) & 1u, init, e2q && !init, x[q], kc) : identity();
+    gen[q] = q < ne ? element((improve >> q) & 1u, init, e2q && !init, x[q], kc)
+                    : AffTree::identity();
   }
-  tree_prefixes(cluster, gen, n, cs, sh.tree[1], pre);
+  ct::tree_prefixes<AffTree>(cluster, gen, n, cs, sh.tree[1], pre);
   const float z2_0 = z2_in[row];
   const float v2_0 = v2_in[row];
+  ct::ThreadMarks tm(a, b);
 #pragma unroll
   for (int q = 0; q < kEpt; ++q) {
     if (q < ne) {
@@ -562,14 +419,7 @@ __global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
       const float vv = __fadd_rn(v1[q], v2);
       const bool change = testable && diff >= eps(vv, log_drift);
       const bool warning = testable && !change && diff >= eps(vv, log_warning);
-      if (change || warning) {  // into the marks of the CTA holding the batch's start
-        const int k = j / b;
-        const int owner = k * b / kSeg;
-        const int olo = owner * kSeg / b;
-        int* marks = owner == rank ? first_s : cluster.map_shared_rank(first_s, owner);
-        if (change) atomicMin(&marks[k - olo], j % b);
-        if (warning) atomicMin(&marks[marks_per_cta(owner, n, b) + k - olo], j % b);
-      }
+      tm.note(cluster, marks, rank, j, n, b, warning, change);
       if (j == n - 1) {
         count_out[row] = cnt[q];
         z_out[row] = z[q];
@@ -582,20 +432,11 @@ __global__ void __launch_bounds__(kCThreads, 1) hddm_w_window_kernel_cluster(
       }
     }
   }
+  tm.flush(cluster, marks, rank, n, b);
 
-  // Per batch, from the CTA holding its first element, once every CTA's
-  // marks are in. A warning counts only at or before the batch's first
-  // change.
   cluster.sync();
-  for (int i = tid; i < nbl; i += kCThreads) {
-    const int k = k_lo + i;
-    if (k * b < seg0) continue;  // its first element is in an earlier CTA
-    const int fc = fc_s[i];
-    const int fw = fw_s[i];
-    const size_t at = static_cast<size_t>(row) * w + k;
-    first_change[at] = fc < b ? fc : -1;
-    first_warning[at] = (fw < b && (fc >= b || fw <= fc)) ? fw : -1;
-  }
+  ct::store_marks(marks, rank, n, b, first_warning + static_cast<size_t>(row) * w,
+                  first_change + static_cast<size_t>(row) * w);
 }
 
 }  // namespace
@@ -615,27 +456,12 @@ extern "C" int hddm_w_window_launch(
     float* z_out, float* v_out, float* z1_out, float* v1_out, int* n2_out,
     float* z2_out, float* v2_out, void* stream) {
   const Consts kc{lam, one_m, one_m2, lam2};
-  if (ctas > 0) {
-    const size_t smem = 2 * static_cast<size_t>(kSeg / b + 2) * sizeof(int);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(p) * ctas);
-    cfg.blockDim = dim3(kCThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = ctas;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, hddm_w_window_kernel_cluster, errs, live, count_in, z_in, v_in, z1_in, v1_in,
-        n2_in, z2_in, v2_in, w, b, ctas, kc, log_drift, log_warning, first_warning,
-        first_change, count_out, z_out, v_out, z1_out, v1_out, n2_out, z2_out, v2_out);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (ctas > 0)
+    return ct::launch_clusters(
+        hddm_w_window_kernel_cluster, p, ctas, b, stream, errs, live, count_in, z_in, v_in,
+        z1_in, v1_in, n2_in, z2_in, v2_in, w, b, ctas, kc, log_drift, log_warning,
+        first_warning, first_change, count_out, z_out, v_out, z1_out, v1_out, n2_out, z2_out,
+        v2_out);
   const long long n = static_cast<long long>(w) * b;
   const long long levels = zoo::scan_levels(n);
   size_t smem = 0;

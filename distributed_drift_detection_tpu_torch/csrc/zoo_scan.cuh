@@ -1,5 +1,6 @@
-// Device building blocks of the zoo's window kernels (K5-ph, K5-hddm_w,
-// K5-adwin): one CTA per partition row, kThreads threads.
+// Device building blocks of the zoo's one-CTA window kernels (K5-adwin, and
+// the global-scratch paths of K5-ph and K5-hddm_w): one CTA per partition
+// row, kThreads threads.
 //
 // * tree_scan: an inclusive scan with a rounding combine, evaluated on the
 //   same combine tree as the plain versions (ops/prefix.py

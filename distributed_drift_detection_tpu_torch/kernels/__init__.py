@@ -48,7 +48,8 @@ _SIGNATURES = {
     "ph_window": (
         "ph_window_launch",
         [_P, _P, _P, _P, _P,  # errs, live, 3 state leaves
-         _I, _I, _I, _I,  # p, w, b, min_num_instances
+         _I, _I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA, global
+                              # scratch), min_num_instances
          _F, _F, _F, _F,  # alpha, delta, threshold, warning threshold
          _P, _P, _P, _P, _P, _P,  # scratch, first warning/change, 3 end leaves
          _P],  # stream

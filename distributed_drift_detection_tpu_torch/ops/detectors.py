@@ -23,8 +23,10 @@ divisions as XLA on the CPU).
 Page–Hinkley and HDDM-W have hand-written CUDA kernels for their window
 statistic (K5-ph ``csrc/ph_window.cu``, K5-hddm_w ``csrc/hddm_w_window.cu``;
 ADWIN's, K5-adwin, is in :mod:`.adwin`): on a CUDA tensor :func:`ph_window`
-and :func:`hddm_w_window` launch them, on a CPU tensor they run the plain
-version. EDDM, HDDM-A, KSWIN and STEPD are plain PyTorch on either device.
+and :func:`hddm_w_window` launch them (both as a thread-block cluster per
+partition where the row fits, :func:`cluster_ctas`), on a CPU tensor they
+run the plain version. EDDM, HDDM-A, KSWIN and STEPD are plain PyTorch on
+either device.
 """
 
 from __future__ import annotations
@@ -177,15 +179,17 @@ def ph_window_reference(state: PHState, errs, valid, params: PHParams):
     return _window(lambda s, e, v: _ph_masks(s, e, v, params), state, errs, valid)
 
 
-def ph_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
-    """Kernel K5-ph's launch arguments, stream excluded."""
+def ph_window_args(state, errs, valid, params, first_warning, first_change, end, scratch,
+                   ctas):
+    """Kernel K5-ph's launch arguments, stream excluded: ``ctas`` from
+    :func:`cluster_ctas`, ``scratch`` None on the cluster path."""
     _validate_ph(params)
     p, w, b = errs.shape
     thr, wthr = ph_thresholds(params)
     return (
         errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
-        p, w, b, int(params.min_num_instances), f32(params.alpha),
-        f32(params.delta), thr, wthr, scratch.data_ptr(),
+        p, w, b, ctas, int(params.min_num_instances), f32(params.alpha),
+        f32(params.delta), thr, wthr, None if scratch is None else scratch.data_ptr(),
         first_warning.data_ptr(), first_change.data_ptr(),
         *(leaf.data_ptr() for leaf in end),
     )
@@ -203,13 +207,43 @@ def scratch_words(n: int, elem_words: int, tuple_words: int) -> int:
     return elem_words * n + tuple_words * levels
 
 
+# Elements a CTA of the zoo kernels' cluster paths owns (csrc/cluster_tree.cuh
+# kSeg): 256 threads of 8.
+CLUSTER_SEGMENT = 2048
+
+
+def cluster_ctas(p: int, n: int, sms: int = 132) -> int:
+    """CTAs a row of K5-ph's and K5-hddm_w's cluster paths: ``ceil(n /
+    2048)`` when that is at most K1's cluster size for ``p`` partitions on
+    ``sms`` multiprocessors (:func:`.ddm.cluster_size`: 8 at P = 16, so rows
+    of up to 16,384 elements); else 0, the global-scratch path (one CTA a
+    row). The path follows from the shape alone."""
+    need = -(-int(n) // CLUSTER_SEGMENT)
+    return need if 0 < need <= cluster_size(p, sms) else 0
+
+
+def _device_ctas(dev, p: int, n: int) -> int:
+    """:func:`cluster_ctas` on the card ``dev``."""
+    idx = dev.index
+    return cluster_ctas(p, n, _sm_count(torch.cuda.current_device() if idx is None else idx))
+
+
+def ph_scratch(p: int, n: int, ctas: int, device):
+    """K5-ph's global scratch (8 B an element and the tree's levels), used
+    only on the global-scratch path (``ctas`` 0)."""
+    if ctas:
+        return None
+    return torch.empty((p, scratch_words(n, 2, 3)), dtype=torch.float32, device=device)
+
+
 def ph_window(state: PHState, errs, valid, params: PHParams):
     """The Page–Hinkley window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-ph (``csrc/ph_window.cu``, one CTA per
-    partition) and add one to ``ph_window.launches``; a refused launch
-    raises. CPU tensors run the plain version. ``valid`` may be bool or
-    uint8."""
+    CUDA tensors launch kernel K5-ph (``csrc/ph_window.cu``: a thread-block
+    cluster of :func:`cluster_ctas` CTAs a partition, or one CTA with a
+    global scratch for longer rows) and add one to ``ph_window.launches``;
+    a refused launch raises. CPU tensors run the plain version. ``valid``
+    may be bool or uint8."""
     if errs.device.type == "cpu":
         return ph_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -222,8 +256,11 @@ def ph_window(state: PHState, errs, valid, params: PHParams):
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = PHState(*(torch.empty_like(leaf) for leaf in state))
-    scratch = torch.empty((p, scratch_words(w * b, 2, 3)), dtype=torch.float32, device=dev)
-    launch_window("ph_window", ph_window_args(state, errs, valid, params, fw, fc, end, scratch), dev)
+    ctas = _device_ctas(dev, p, w * b)
+    scratch = ph_scratch(p, w * b, ctas, dev)
+    launch_window(
+        "ph_window", ph_window_args(state, errs, valid, params, fw, fc, end, scratch, ctas), dev,
+    )
     ph_window.launches += 1
     return end, DDMWindowResult(fw, fc)
 
@@ -569,24 +606,10 @@ def hddm_w_window_reference(state: HDDMWState, errs, valid, params: HDDMWParams 
     return _window(lambda s, e, v: _hddm_w_masks(s, e, v, params), state, errs, valid)
 
 
-# Elements a CTA of K5-hddm_w's cluster path owns (csrc/hddm_w_window.cu
-# kSeg): 256 threads of 8.
-HDDM_W_SEGMENT = 2048
-
-
-def hddm_w_ctas(p: int, n: int, sms: int = 132) -> int:
-    """CTAs a row of K5-hddm_w's cluster path: ``ceil(n / 2048)`` when that
-    is at most K1's cluster size for ``p`` partitions on ``sms``
-    multiprocessors (:func:`.ddm.cluster_size`: 8 at P = 16, so rows of up
-    to 16,384 elements); else 0, the global-scratch path (one CTA a row)."""
-    need = -(-int(n) // HDDM_W_SEGMENT)
-    return need if 0 < need <= cluster_size(p, sms) else 0
-
-
 def hddm_w_window_args(state, errs, valid, params, first_warning, first_change, end,
                        scratch, ctas):
     """Kernel K5-hddm_w's launch arguments, stream excluded: ``ctas`` from
-    :func:`hddm_w_ctas`, ``scratch`` None on the cluster path."""
+    :func:`cluster_ctas`, ``scratch`` None on the cluster path."""
     _validate_hddm_w(params)
     p, w, b = errs.shape
     k = hddm_w_constants(params)
@@ -611,7 +634,7 @@ def hddm_w_window(state: HDDMWState, errs, valid, params: HDDMWParams = HDDMWPar
     """The HDDM-W window statistic (contract of :func:`.ddm.ddm_window`).
 
     CUDA tensors launch kernel K5-hddm_w (``csrc/hddm_w_window.cu``: a
-    thread-block cluster of :func:`hddm_w_ctas` CTAs a partition, or one
+    thread-block cluster of :func:`cluster_ctas` CTAs a partition, or one
     CTA with a global scratch for longer rows) and add one to
     ``hddm_w_window.launches``; a refused launch raises. CPU tensors run
     the plain version."""
@@ -626,8 +649,7 @@ def hddm_w_window(state: HDDMWState, errs, valid, params: HDDMWParams = HDDMWPar
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = HDDMWState(*(torch.empty_like(leaf) for leaf in state))
-    idx = dev.index
-    ctas = hddm_w_ctas(p, w * b, _sm_count(torch.cuda.current_device() if idx is None else idx))
+    ctas = _device_ctas(dev, p, w * b)
     scratch = hddm_w_scratch(p, w * b, ctas, dev)
     launch_window(
         "hddm_w_window",

@@ -395,15 +395,109 @@ def test_tree_prefix_is_a_fold_of_aligned_blocks():
             assert acc == want[m - 1], (n, m)
 
 
+def _fold_of_aligned_blocks(comb, elems, start=None):
+    """Every inclusive prefix of ``elems`` (a tuple of [n] tensors) built as
+    the zoo kernels' cluster paths build it (csrc/cluster_tree.cuh
+    ``tree_prefixes``): the tree's values of the complete aligned blocks,
+    level by level, then for each m the left fold of the blocks of m's
+    binary expansion, most significant first — from the empty prefix, or,
+    given ``start``, from that tuple composed in front."""
+    n = elems[0].shape[0]
+    levels = [elems]
+    while levels[-1][0].shape[0] >= 2:
+        lv, h = levels[-1], levels[-1][0].shape[0] // 2
+        levels.append(comb(tuple(x[0:2 * h:2] for x in lv), tuple(x[1:2 * h:2] for x in lv)))
+    m = torch.arange(1, n + 1)
+    if start is None:
+        acc, has = tuple(torch.zeros_like(x) for x in elems), torch.zeros(n, dtype=torch.bool)
+    else:
+        acc, has = tuple(torch.full_like(x, s) for x, s in zip(elems, start)), torch.ones(
+            n, dtype=torch.bool)
+    for bit in range(len(levels) - 1, -1, -1):
+        take = ((m >> bit) & 1).bool()
+        idx = (((m >> (bit + 1)) << (bit + 1)) >> bit).clamp(max=levels[bit][0].shape[0] - 1)
+        val = tuple(x[idx] for x in levels[bit])
+        step = tuple(torch.where(has, c, v) for c, v in zip(comb(acc, val), val))
+        acc = tuple(torch.where(take, t, a) for t, a in zip(step, acc))
+        has = has | take
+    return acc
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 0.9999])
+@pytest.mark.parametrize("n", [1, 2, 7, 255, 256, 257, 2049, 12800])
+def test_ph_tree_prefix_fold_from_the_empty_prefix(n, alpha):
+    """K5-ph's cluster path composes Page–Hinkley's maps as a fold of
+    aligned blocks that starts from the empty prefix: bit for bit the plain
+    scan (``lax.associative_scan``'s tree), from a carried state, with
+    padding inside the row and, at alpha = 0.5 on long rows, the running
+    product alpha^k flushed to 0. Starting the fold from the padding map
+    (1, 0, -1e30) instead is not the same: where A is 0 that map's clamp
+    turns max(K, A·m + B) into max(K, B), which differs at alpha = 0 on the
+    row's first element (an error above the carried mean) — why the kernel
+    carries a ``has`` flag rather than a synthetic identity."""
+    rng = np.random.default_rng(n)
+    valid = rng.random(n) < 0.9
+    valid[n // 3: n // 3 + 5] = False  # a run of padding
+    errs = (rng.random(n) < 0.3).astype(np.float32)
+    valid[0], errs[0] = True, 1.0
+    v, e = torch.from_numpy(valid), torch.from_numpy(errs)
+    cnt = 40 + torch.cumsum(v.int(), 0, dtype=torch.int32)  # carried: 40 elements,
+    xsum = 4.0 + torch.cumsum(e * v.float(), 0)  # 4 of them errors
+    params = tconfig.PHParams(alpha=alpha)
+    elems = (torch.where(v, prefix.f32(params.alpha), 1.0),
+             torch.where(v, e - xsum / cnt.float() - prefix.f32(params.delta), 0.0),
+             torch.where(v, 0.0, tdet._NO_CLAMP))
+    want = prefix.associative_scan(tdet._ph_compose, elems)
+    got = _fold_of_aligned_blocks(tdet._ph_compose, elems)
+    for w_, g in zip(want, got):
+        np.testing.assert_array_equal(_bits(w_.numpy()), _bits(g.numpy()))
+    if alpha == 0.5 and n >= 2049:
+        assert bool((want[0] == 0).any())  # alpha^k flushed inside the row
+    if alpha == 0.0:
+        padded = _fold_of_aligned_blocks(tdet._ph_compose, elems, start=(1.0, 0.0, tdet._NO_CLAMP))
+        assert (_bits(want[2].numpy()) != _bits(padded[2].numpy())).any()
+
+
 @pytest.mark.parametrize("p, n, ctas", [
     (16, 12800, 7), (1, 21, 1), (80, 21, 1), (80, 12800, 0), (16, 16384, 8),
     (16, 16385, 0), (67, 2048, 1), (67, 2049, 0), (1, 0, 0),
 ])
 def test_hddm_w_path_choice(p, n, ctas):
-    """K5-hddm_w takes its cluster path, ceil(N / 2048) CTAs a row, where
-    they fit within K1's cluster size on 132 SMs, else its global-scratch
-    path (0)."""
-    assert tdet.hddm_w_ctas(p, n, 132) == ctas
+    """K5-hddm_w and K5-ph take their cluster paths, ceil(N / 2048) CTAs a
+    row, where they fit within K1's cluster size on 132 SMs, else their
+    global-scratch paths (0): one shape rule for both."""
+    assert tdet.cluster_ctas(p, n, 132) == ctas
+
+
+@pytest.mark.parametrize("ctas", [7, 0])
+@pytest.mark.parametrize("name", ["ph", "hddm_w"])
+def test_cluster_window_args_match_launch_signature(name, ctas):
+    """K5-ph's and K5-hddm_w's launch arguments fit their ctypes
+    signatures (kernels/__init__.py) one for one, in C type: the CTAs a row
+    where the launcher reads them, and no scratch on the cluster path."""
+    from distributed_drift_detection_tpu_torch import kernels
+
+    p, w, b = 2, 4, 5
+    params = {"ph": tconfig.PHParams(threshold=3.0), "hddm_w": tconfig.HDDMWParams()}[name]
+    state = getattr(tdet, f"{name}_init")((p,))
+    errs = torch.zeros((p, w, b), dtype=torch.float32)
+    valid = torch.ones((p, w, b), dtype=torch.bool)
+    fw = torch.empty((p, w), dtype=torch.int32)
+    end = type(state)(*(torch.empty_like(leaf) for leaf in state))
+    scratch = getattr(tdet, f"{name}_scratch")(p, w * b, ctas, "cpu")
+    assert (scratch is None) == (ctas > 0)
+    args = getattr(tdet, f"{name}_window_args")(state, errs, valid, params, fw, fw, end,
+                                                scratch, ctas)
+    types = kernels._SIGNATURES[f"{name}_window"][1]
+    assert len(args) + 1 == len(types)  # the stream last
+    kinds = {kernels._I: int, kernels._F: float}
+    for arg, ctype in zip(args, types):
+        if ctype is kernels._P:
+            assert arg is None or isinstance(arg, int)
+        else:
+            assert type(arg) is kinds[ctype]
+    assert args[2 + len(state) + 3] == ctas  # after errs, live, the state, p, w, b
+    assert (args[types.index(kernels._P, 2 + len(state) + 4)] is None) == (ctas > 0)
 
 
 def test_log_n_matches_xla_log():

@@ -303,14 +303,14 @@ def test_zoo_window_kernels_bitwise(dev, name, shape):
                 _same(got, want)
 
 
-# K5-hddm_w's paths, (P, W, B) and whether a row takes the cluster path:
-# ragged rows of 21 elements and of 12,800 (7 CTAs, the last a quarter
-# full) at P = 1, 16 and 80 (clusters of 8, 8 and 1 CTAs at most: the
-# longer rows at P = 80 take the global-scratch path); a full cluster of 8
-# (16,384 elements) and one element more (global scratch); batches that
-# straddle CTAs (B = 129), one batch over every CTA (B = 16,384) and
-# batches of one element.
-HDDM_W_PATHS = {
+# The paths of K5-ph and K5-hddm_w (one shape rule, ``cluster_ctas``), (P,
+# W, B) and whether a row takes the cluster path: ragged rows of 21
+# elements and of 12,800 (7 CTAs, the last a quarter full) at P = 1, 16 and
+# 80 (clusters of 8, 8 and 1 CTAs at most: the longer rows at P = 80 take
+# the global-scratch path); a full cluster of 8 (16,384 elements) and one
+# element more (global scratch); batches that straddle CTAs (B = 129), one
+# batch over every CTA (B = 16,384) and batches of one element.
+CLUSTER_PATHS = {
     "p1_ragged_21": ((1, 3, 7), True), "p16_ragged_21": ((16, 3, 7), True),
     "p80_ragged_21": ((80, 3, 7), True), "p1_12800": ((1, 128, 100), True),
     "p16_12800": ((16, 128, 100), True), "p80_12800": ((80, 128, 100), False),
@@ -321,27 +321,50 @@ HDDM_W_PATHS = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(HDDM_W_PATHS))
-def test_hddm_w_kernel_paths(dev, case):
-    """K5-hddm_w equals its plain version bit for bit on its cluster path
-    (clusters of 1 to 8 CTAs, state in registers) and its global-scratch
-    path, from fresh and carried states, with HDDM-W key ties and an error
-    in each row's first element; each case checks the path it names."""
-    (p, w, b), cluster = HDDM_W_PATHS[case]
+@pytest.mark.parametrize("case", sorted(CLUSTER_PATHS))
+@pytest.mark.parametrize("name", ["hddm_w", "ph"])
+def test_cluster_kernel_paths(dev, name, case):
+    """K5-ph and K5-hddm_w equal their plain versions bit for bit on their
+    cluster paths (clusters of 1 to 8 CTAs, state in registers) and their
+    global-scratch paths, from fresh and carried states, with an error in
+    each row's first element, HDDM-W key ties and every Page–Hinkley
+    parameter set (alpha = 0 among them); each case checks the path it
+    names."""
+    window, reference, init, cases = ZOO[name]
+    (p, w, b), cluster = CLUSTER_PATHS[case]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (tdet.hddm_w_ctas(p, w * b, sms) > 0) == cluster
-    for k, params in enumerate(ZOO["hddm_w"][3]):
+    assert (tdet.cluster_ctas(p, w * b, sms) > 0) == cluster
+    for k, params in enumerate(cases):
         e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(30 + k, p, 3, 40))
         e1, v1 = (torch.from_numpy(a).to(dev)
                   for a in zoo_inputs(40 + k, p, w, b, first_change=True))
-        fresh = tdet.hddm_w_init((p,), dev)
-        carried, _ = tdet.hddm_w_window_reference(fresh, e0, v0, params)
+        fresh = init((p,), dev)
+        carried, _ = reference(fresh, e0, v0, params)
         for state in (fresh, carried):
-            launches = tdet.hddm_w_window.launches
-            got = tdet.hddm_w_window(state, e1, v1, params)
-            want = tdet.hddm_w_window_reference(state, e1, v1, params)
-            assert tdet.hddm_w_window.launches == launches + 1
+            launches = window.launches
+            got = window(state, e1, v1, params)
+            want = reference(state, e1, v1, params)
+            assert window.launches == launches + 1
             _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["p16_12800", "straddling_batches", "p80_12800"])
+def test_ph_kernel_flushed_alpha_power(dev, case):
+    """All-live rows at alpha = 0.5: the running product alpha^k flushes to
+    0 inside a CTA's segment (after some hundreds of elements), on both of
+    K5-ph's paths, bit for bit from fresh and carried states."""
+    (p, w, b), _ = CLUSTER_PATHS[case]
+    params = tconfig.PHParams(min_num_instances=5, threshold=3.0, alpha=0.5)
+    rng = np.random.default_rng(50)
+    e1 = torch.from_numpy((rng.random((p, w, b)) < 0.3).astype(np.float32)).to(dev)
+    v1 = torch.ones_like(e1, dtype=torch.bool)
+    e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(51, p, 3, 40))
+    fresh = tdet.ph_init((p,), dev)
+    carried, _ = tdet.ph_window_reference(fresh, e0, v0, params)
+    for state in (fresh, carried):
+        _same(tdet.ph_window(state, e1, v1, params),
+              tdet.ph_window_reference(state, e1, v1, params))
 
 
 @pytest.mark.cuda
