@@ -11,14 +11,17 @@ runs visible. Each run builds that tree's kernels and times K1
 (``ddm_window``), K2 (``centroid_predict_err``), K7 (``centroid_fit``) and
 the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``) and
 K5-adwin (``adwin_window``) at ``chip_smoke.py``'s main-path shapes on the
-same inputs — a kernel a tree does not have is left out of its run, and
-``--only`` keeps the named kernels alone:
+same inputs (K7 on the main path's first training batch, and as
+``centroid_fit_random_rows`` on a batch of random rows) — a kernel a tree
+does not have is left out of its run, and ``--only`` keeps the named
+kernels alone:
 
 * ``ms``: device time of one launch — 50 calls of the kernel's wrapper
   captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
   so the graph holds 50 kernel launches), replays timed with CUDA events,
   median of 5 rounds (``chip_smoke.graph_ms``);
-* ``host_us``: the wrapper's host cost per call (``chip_smoke.host_us``).
+* ``host_us``: the wrapper's host cost per call (``chip_smoke.host_us``,
+  the median of 5 rounds of 200 calls).
 
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
@@ -52,7 +55,11 @@ def one(root: str, only: set | None = None) -> dict:
 
     assert os.path.abspath(ddm.__file__).startswith(os.path.abspath(root) + os.sep)
     dev = torch.device("cuda")
-    _build.build_all()
+    if only is None:
+        _build.build_all()
+    else:
+        for name in only & set(_build.KERNELS):
+            _build.build(name)
     prep = api.prepare(config.RunConfig(**cs.SMOKE), device=dev)
     p, w, b = prep.config.partitions, prep.config.window, prep.config.per_batch
 
@@ -80,16 +87,18 @@ def one(root: str, only: set | None = None) -> dict:
 
     calls = {"ddm_window": k1, "centroid_predict_err": k2}
     if hasattr(classifiers, "centroid_fit"):
-        fit_idx = torch.from_numpy(np.random.default_rng(3).integers(
-            0, len(st.base_y), (p, b))).to(dev)
-        fX = torch.from_numpy(st.base_X).to(dev)[fit_idx]
-        fy = torch.from_numpy(st.base_y.astype(np.int32)).to(dev)[fit_idx]
-        fw = (torch.rand((p, b), device=dev) < 0.98).float()
+        # the main path's first training batch (one class a partition)
+        fX, fy, fw = (torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches))
 
-        def k7():
-            return classifiers.centroid_fit(fX, fy, fw, st.num_classes)
+        # and a batch of random rows (about 2.5 rows a class)
+        rX, ry, rw = (torch.from_numpy(a).to(dev) for a in cs.k7_inputs(
+            np.random.default_rng(3), st.base_X, st.base_y, p, b, st.num_classes))
+
+        def k7(X=fX, y=fy, w=fw):
+            return classifiers.centroid_fit(X, y, w, st.num_classes)
 
         calls["centroid_fit"] = k7
+        calls["centroid_fit_random_rows"] = lambda: k7(rX, ry, rw)
     try:
         from distributed_drift_detection_tpu_torch.ops import adwin, detectors
     except ImportError:

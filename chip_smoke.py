@@ -15,19 +15,26 @@ without them. Phases, each fatal on failure:
    [16, 128·100] (fresh and carried states, all-padding rows, the
    DDM_ROBUST noise floor), the centroid predict + error indicator (K2)
    with equal predictions and errors at 16 × 12,800 rows, F = 21, C = 40,
-   the centroid fit (K7) bit for bit on [16, 100] training batches —
+   the centroid fit (K7) bit for bit on the main path's first [16, 100]
+   training batch (one class a partition) and on batches of random rows —
    and on the edge cases of their designs (K1: cluster sizes 8 and 1, a
    cluster size that does not divide W, W below it, a CTA of padding only,
    rows of several tiles; K2: near-tie rows, F = 21, 27 and 37, C = 40 and
    64, int16 and int32 indices; K7: per_batch 256 and 1000, few and many
-   (class, feature) pairs, labels of no class); then time each kernel three
-   ways:
+   (class, feature) pairs, labels of no class, and the label layouts of its
+   sorted row list: one class, C = 1, B = 1, B = 2049, every label of no
+   class, all weights 0); then time each kernel three ways:
    ``ms``, the device time of one launch (50 raw launches through
    ``kernels.launcher`` with preallocated outputs, captured into one CUDA
    graph, replays timed with CUDA events, median of 5 rounds); ``host_us``,
    the wrapper's host cost per call (host clock over 200 calls); and
    ``plain_ms``, the plain version's time per call (CUDA events around 50
-   calls, median of 5 rounds);
+   calls, median of 5 rounds). K7 is timed on the main path's first
+   training batch, its ``ms`` also on the random rows, beside two
+   yardsticks timed as ``ms`` is: ``library_ms``, ``torch.bmm`` of the
+   weighted one-hot labels and the rows (the class sums alone), and
+   ``floor_ms``, an empty kernel launched with K7's grid, block and shared
+   memory;
 4. drive the main path, ``run(cfg, device="cuda")`` at bench.py's headline
    geometry (2.048 M rows, 16 partitions, per_batch 100) on the synthetic
    twin of outdoorStream: 624 detections, flags equal field by field to the
@@ -157,19 +164,22 @@ def graph_ms(launch, reps: int = 50, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def host_us(fn, calls: int = 200) -> float:
+def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
     """The host's cost of one ``fn()`` call, in µs: the host clock over
-    ``calls`` calls (no synchronize inside), divided by their number."""
+    ``calls`` calls (no synchronize inside), divided by their number; the
+    median over ``rounds`` rounds, each after a synchronize."""
     import torch
 
     fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t / calls * 1e6
+    return statistics.median(out)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -370,10 +380,16 @@ def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
     )
 
 
-# K7 edge cases (P, B, F, C): per_batch 256 and 1000 (four row tiles),
-# C·(F + 1) below one warp, and 16,448 (class, feature) pairs whose shared
-# memory halves the row tile.
+# K7 edge cases (P, B, F, C): per_batch 256 and 1000 (one row tile each),
+# C·(F + 1) below one warp, and 16,448 (class, feature) pairs, more than a
+# block's threads, whose shared memory halves the row tile.
 K7_EDGES = [(4, 256, 27, 5), (3, 1000, 21, 40), (2, 7, 3, 4), (1, 300, 256, 64)]
+# and the label layouts of its sorted row list, (P, B, F, C) each: every
+# row of one class (a chain of B), C = 1, B = 1 (XLA's product), three row
+# tiles of 1024 (B = 2049), every label outside [0, C), all weights 0.
+K7_LAYOUTS = {"one class": (4, 100, 21, 40), "C=1": (3, 100, 21, 1),
+              "B=1": (16, 1, 21, 40), "B=2049": (2, 2049, 21, 40),
+              "no class": (4, 100, 21, 40), "weights 0": (4, 100, 21, 40)}
 
 
 def k7_inputs(rng, base_X, base_y, p, b, c):
@@ -388,7 +404,33 @@ def k7_inputs(rng, base_X, base_y, p, b, c):
     return X, y, w
 
 
-def check_k7_equal(torch, classifiers, arrays, c, dev, what):
+def k7_main_batch(batches):
+    """The main path's first training batch of each partition — the rows
+    of the packed stream's first batch, their labels and validity weights
+    (``engine/loop.py`` ``expand_packed`` at slot 0): numpy arrays. On
+    SMOKE's stream every batch holds one class."""
+    idx = np.asarray(batches.idx)
+    p = idx.shape[0]
+    i0 = idx[:, 0].astype(np.int64)
+    gmap = np.asarray(batches.perm)[:, 0].astype(np.int64) * p + np.arange(p)[:, None]
+    return (np.asarray(batches.base_X)[i0], np.asarray(batches.base_y)[i0].astype(np.int32),
+            (gmap < int(batches.n_rows)).astype(np.float32))
+
+
+def k7_layout(rng, base_X, base_y, name):
+    """``k7_inputs`` at the layout's shape, then its labels or weights."""
+    p, b, _, c = K7_LAYOUTS[name]
+    X, y, w = k7_inputs(rng, base_X, base_y, p, b, c)
+    if name == "one class":
+        y[:] = 7
+    elif name == "no class":
+        y[:] = np.where(np.arange(b) % 2 == 0, c, -3)
+    elif name == "weights 0":
+        w[:] = 0.0
+    return X, y, w
+
+
+def check_k7_equal(torch, classifiers, arrays, c, dev, what, last_absent=True):
     X, y, w = (torch.from_numpy(a).to(dev) for a in arrays)
     got = classifiers.centroid_fit(X, y, w, c)
     want = classifiers.centroid_fit_reference(X, y, w, c)
@@ -396,32 +438,53 @@ def check_k7_equal(torch, classifiers, arrays, c, dev, what):
     for g, r in zip(got, want):
         check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
               f"K7 differs from its plain version ({what})")
-    check(bool(torch.isinf(got.bias[:, -1]).all()), f"K7: an absent class is not -inf ({what})")
+    if last_absent:
+        check(bool(torch.isinf(got.bias[:, -1]).all()),
+              f"K7: an absent class is not -inf ({what})")
 
 
-def check_k7(torch, classifiers, kernels, stream, p, b, dev):
-    """K7 against its plain version, bit for bit, at the main path's shape
-    (a [P, per_batch] training batch of the SMOKE stream) and the edge
-    cases; times it; returns its kernel row."""
+def check_k7(torch, classifiers, kernels, prep, p, b, dev):
+    """K7 against its plain version, bit for bit, on the main path's first
+    training batch, on [P, per_batch] batches of random rows of the SMOKE
+    stream, the edge cases and the label layouts; times it on the main
+    path's batch (and on the random rows), with two yardsticks; returns
+    its kernel row."""
     rng = np.random.default_rng(7)
+    stream = prep.stream
     c, f = stream.num_classes, stream.num_features
+    main = k7_main_batch(prep.batches)
+    classes = max(len(np.unique(yq)) for yq in main[1])
+    check_k7_equal(torch, classifiers, main, c, dev, "main path", last_absent=False)
     arrays = k7_inputs(rng, stream.base_X, stream.base_y, p, b, c)
-    check_k7_equal(torch, classifiers, arrays, c, dev, "main path")
-    for ep, eb, ef, ec in K7_EDGES:
+    check_k7_equal(torch, classifiers, arrays, c, dev, "random rows")
+
+    def table(ef, ec):
         protos = rng.normal(size=(ec, ef)).astype(np.float32) * 3
         ty = rng.integers(0, ec, 2000).astype(np.int32)
-        table = (protos[ty] + 0.5 * rng.normal(size=(2000, ef))).astype(np.float32)
-        check_k7_equal(torch, classifiers, k7_inputs(rng, table, ty, ep, eb, ec), ec, dev,
-                       f"P={ep} B={eb} F={ef} C={ec}")
-    print(f"K7 centroid_fit: bitwise equal at [{p}, {b}] F={f} C={c} and "
-          + ", ".join(f"P={a} B={d} F={e} C={g}" for a, d, e, g in K7_EDGES))
+        return (protos[ty] + 0.5 * rng.normal(size=(2000, ef))).astype(np.float32), ty
 
-    X, y, w = (torch.from_numpy(a).to(dev) for a in arrays)
+    for ep, eb, ef, ec in K7_EDGES:
+        check_k7_equal(torch, classifiers, k7_inputs(rng, *table(ef, ec), ep, eb, ec), ec,
+                       dev, f"P={ep} B={eb} F={ef} C={ec}")
+    for name, (_, _, ef, ec) in K7_LAYOUTS.items():
+        check_k7_equal(torch, classifiers, k7_layout(rng, *table(ef, ec), name), ec, dev,
+                       name, last_absent=ec > 1)
+    print(f"K7 centroid_fit: bitwise equal on the main path's first batch [{p}, {b}] "
+          f"F={f} C={c} (classes a partition: at most {classes}) and on random rows, and at "
+          + ", ".join(f"P={a} B={d} F={e} C={g}" for a, d, e, g in K7_EDGES)
+          + ", label layouts " + ", ".join(f"{k} {v}" for k, v in K7_LAYOUTS.items()))
+
+    fn = kernels.launcher("centroid_fit")
     cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
     bias = torch.empty((p, c), dtype=torch.float32, device=dev)
-    args = classifiers.centroid_fit_args(X, y, w, cent, bias)
-    fn = kernels.launcher("centroid_fit")
-    ms = graph_ms(lambda: kernels.check("centroid_fit", fn(*args, kernels.stream_handle(dev))))
+
+    def graph_of(batch):
+        args = classifiers.centroid_fit_args(*batch, cent, bias)
+        return graph_ms(lambda: kernels.check("centroid_fit", fn(*args, kernels.stream_handle(dev))))
+
+    random_ms = graph_of([torch.from_numpy(a).to(dev) for a in arrays])
+    X, y, w = (torch.from_numpy(a).to(dev) for a in main)
+    ms = graph_of((X, y, w))
     h_us = host_us(lambda: classifiers.centroid_fit(X, y, w, c))
     plain_ms = time_ms(lambda: classifiers.centroid_fit_reference(X, y, w, c), reps=10, rounds=3)
     # X f32, y i32 and w f32 read once, centroids and biases written once;
@@ -430,13 +493,30 @@ def check_k7(torch, classifiers, kernels, stream, p, b, dev):
     b_ms, by = bound(p * b * (f + 2) * 4 + p * c * (f + 1) * 4,
                      p * b * (f + 1) + 2 * p * c * f)
     print(f"K7 centroid_fit [{p}, {b}] F={f} C={c}: {ms:.5f} ms device (graph of 50), "
-          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by})")
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}); "
+          f"on random rows (about {b / c:.1f} rows a class) {random_ms:.5f} ms")
+    # yardsticks: the one PyTorch call for the class sums, bmm(onehot·wᵀ, X)
+    # (the sums only, in cuBLAS's order), and an empty kernel launched with
+    # K7's grid, block and shared memory
+    ok = (y >= 0) & (y < c)
+    onehot = torch.zeros((p, b, c), dtype=torch.float32, device=dev)
+    onehot.scatter_(2, torch.where(ok, y, 0).long()[..., None], (w * ok)[..., None])
+    onehot_t = onehot.transpose(1, 2).contiguous()
+    sums = torch.empty((p, c, f), dtype=torch.float32, device=dev)
+    lib_ms = graph_ms(lambda: torch.bmm(onehot_t, X, out=sums))
+    floor = kernels.launcher("centroid_fit_floor")
+    floor_ms = graph_ms(lambda: kernels.check(
+        "centroid_fit_floor", floor(p, b, f, c, kernels.stream_handle(dev))))
+    print(f"K7 centroid_fit yardsticks: library {lib_ms:.5f} ms (torch.bmm(onehot_wT, X), "
+          f"the class sums only, not in row order), floor {floor_ms:.5f} ms (an empty "
+          "kernel with K7's grid, block and shared memory; graphs of 50)")
     return dict(
         name="centroid_fit", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/centroid_fit.cu",
         replaces="distributed_drift_detection_tpu/models/classifiers.py:92",
         max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=by, library_ms=None,
+        bound_ms=b_ms, bound_by=by, library_ms=lib_ms, floor_ms=floor_ms,
+        random_rows_ms=random_ms,
     )
 
 
@@ -696,7 +776,7 @@ def main(device: str = "cuda") -> int:
     check((w, r) == (128, 4), f"auto W x R resolved to {w} x {r}, not 128 x 4")
     rows = [check_k1(torch, ddm, kernels, config, p, w, b, dev),
             check_k2(torch, classifiers, kernels, prep.stream, p, w, b, dev),
-            check_k7(torch, classifiers, kernels, prep.stream, p, b, dev)]
+            check_k7(torch, classifiers, kernels, prep, p, b, dev)]
 
     # 4. the main path, counted
     t0 = time.perf_counter()

@@ -237,8 +237,8 @@ def make_partition_runner(
         carry = LoopCarry(
             params=model.init(p, dev),
             ddm=det.init((p,), dev),
-            a_X=batches.X[:, 0],
-            a_y=batches.y[:, 0],
+            a_X=batches.X[:, 0].contiguous(),  # as the fit takes them
+            a_y=batches.y[:, 0].contiguous(),
             a_w=batches.valid[:, 0].float(),
             retrain=torch.ones(p, dtype=torch.bool, device=dev),
         )

@@ -255,7 +255,8 @@ def make_window_runner(
                 valid=batches.valid[:, 1:],
             )
         else:
-            a_X, a_y = batches.X[:, 0], batches.y[:, 0]
+            # contiguous, as the fit takes them
+            a_X, a_y = batches.X[:, 0].contiguous(), batches.y[:, 0].contiguous()
             rest = Batches(*(leaf[:, 1:] for leaf in batches))
         carry = LoopCarry(
             params=model.init(p, dev),

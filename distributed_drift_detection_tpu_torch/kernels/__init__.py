@@ -45,6 +45,13 @@ _SIGNATURES = {
          _I, _I, _I, _I,  # p, b, f, c
          _P, _P, _P],  # cent, bias, stream
     ),
+    # an empty kernel launched as K7 is (same grid, block and shared
+    # memory), in K7's library: the floor under K7's time
+    "centroid_fit_floor": (
+        "centroid_fit_floor_launch",
+        [_I, _I, _I, _I, _P],  # p, b, f, c, stream
+        "centroid_fit",
+    ),
     "ph_window": (
         "ph_window_launch",
         [_P, _P, _P, _P, _P,  # errs, live, 3 state leaves
@@ -80,8 +87,8 @@ def launcher(name: str):
     """The C launch function of kernel ``name`` (built and loaded once)."""
     from ._build import build
 
-    lib = ctypes.CDLL(str(build(name)))
-    symbol, argtypes = _SIGNATURES[name]
+    symbol, argtypes, *library = _SIGNATURES[name]
+    lib = ctypes.CDLL(str(build(library[0] if library else name)))
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -89,8 +96,13 @@ def launcher(name: str):
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as an integer handle.
+
+    Read as PyTorch's own generated kernel launchers read it
+    (``_cuda_getCurrentRawStream``), without building a ``torch.cuda.Stream``
+    object on every call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(name: str, code: int) -> None:

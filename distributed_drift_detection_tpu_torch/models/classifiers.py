@@ -182,8 +182,13 @@ def _row_sums(X, y, w, c):
     weights ``w``) and the per-class weight counts, each a float32 sum over
     the B rows in row order — the order of XLA's CPU ``onehot.T @ X`` at
     the batch sizes measured (ROADMAP Queue C, C1). A label outside [0, C)
-    counts for no class, as in ``one_hot``."""
+    counts for no class, as in ``one_hot``. At B = 1 XLA's dot is the
+    product ``onehot·w·x`` itself, with no +0 start, so a zero product
+    keeps its sign."""
     p, b, f = X.shape
+    if b == 1:
+        oh = (torch.arange(c, device=X.device) == y[:, :1]).float() * w[:, :1].float()
+        return oh[..., None] * X[:, 0, None, :], oh
     parts = torch.arange(p, device=X.device)
     ok = (y >= 0) & (y < c)
     cls = torch.where(ok, y, 0).long()
@@ -238,9 +243,11 @@ def centroid_fit_args(X, y, w, cent, bias):
 
 
 def _k7_shared_bytes(c: int, f: int) -> int:
-    """K7's shared memory with a tile of one row: the [C, F + 1] sums and
-    counts, then one row, its label and weight (csrc/centroid_fit.cu)."""
-    return 4 * (c * (f + 1) + f + 2)
+    """K7's shared memory at its smallest row tile, one 32-row chunk
+    (csrc/centroid_fit.cu ``smem_words``): the row block feature-major with
+    a row of ones, F + 1 rows of 32 + 4 words, the weights, the [C, F + 1]
+    sums and counts, and a row bitmap word per class."""
+    return 4 * ((f + 1) * 36 + 32 + c * (f + 1) + c)
 
 
 def centroid_fit(X, y, w, c: int) -> CentroidParams:

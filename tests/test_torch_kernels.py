@@ -209,6 +209,54 @@ def test_centroid_fit_kernel_bitwise(dev, shape):
     assert bool(torch.isinf(got.bias[:, -1]).all())
 
 
+# K7's label layouts, (P, B, F, C) each: every row of one class (a chain of
+# B), C = 1, B = 1 (XLA's product, zero products keep their sign), three
+# row tiles of 1024 (B = 2049, above 48 KB of shared memory, partition 1's
+# rows off a 16-byte boundary), every label outside [0, C), all weights 0.
+K7_LAYOUTS = {
+    "one_class": (4, 100, 21, 40),
+    "one_class_c1": (3, 100, 21, 1),
+    "per_batch_1": (16, 1, 21, 40),
+    "per_batch_2049": (2, 2049, 21, 40),
+    "no_class": (4, 100, 21, 40),
+    "weights_0": (4, 100, 21, 40),
+}
+
+
+def _k7_layout(name):
+    """``_k7_inputs`` at the layout's shape, then its labels or weights."""
+    p, b, f, c = K7_LAYOUTS[name]
+    X, y, w = _k7_inputs(sorted(K7_LAYOUTS).index(name), p, b, f, c)
+    if name == "one_class":
+        y[:] = 7
+    elif name == "no_class":
+        y[:] = np.where(np.arange(b) % 2 == 0, c, -3)
+    elif name == "weights_0":
+        w[:] = 0.0
+    return X, y, w, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K7_LAYOUTS))
+def test_centroid_fit_kernel_label_layouts(dev, layout):
+    """K7 equals its plain version bit for bit on the card and on the CPU
+    for each label layout of its sorted row list."""
+    X, y, w, c = _k7_layout(layout)
+    host = [torch.from_numpy(a) for a in (X, y, w)]
+    before = classifiers.centroid_fit.launches
+    got = classifiers.centroid_fit(*(t.to(dev) for t in host), c)
+    assert classifiers.centroid_fit.launches == before + 1
+    on_card = classifiers.centroid_fit_reference(*(t.to(dev) for t in host), c)
+    on_cpu = classifiers.centroid_fit_reference(*host, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), h.view(torch.int32))
+    if layout in ("no_class", "weights_0"):
+        assert bool(torch.isinf(got.bias).all())
+    else:
+        assert bool(torch.isfinite(got.bias).any())
+
+
 @pytest.mark.cuda
 def test_centroid_fit_kernel_refuses_oversized(dev):
     """A [C, F + 1] table beyond the card's 227 KB of shared memory a block

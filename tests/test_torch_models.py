@@ -42,12 +42,15 @@ from distributed_drift_detection_tpu.models.classifiers import (  # noqa: E402
 )
 from distributed_drift_detection_tpu_torch import convert  # noqa: E402
 from distributed_drift_detection_tpu_torch.models import ModelSpec  # noqa: E402
+from distributed_drift_detection_tpu_torch.ops.prefix import fma  # noqa: E402
 from distributed_drift_detection_tpu_torch.models.classifiers import (  # noqa: E402
     build_model,
     centroid_predict_err,
     centroid_scores,
     _argmax_first,
+    _row_sums,
     centroid_fit,
+    centroid_fit_reference,
     make_centroid,
     make_majority,
     pad_row_table,
@@ -119,6 +122,120 @@ def test_centroid_fit_bit_identical_to_jitted_jax(per_batch, f, c, seed):
     for j, t in zip(jp, tp):
         assert np.array_equal(np.asarray(j).view(np.int32), t.numpy().view(np.int32))
     assert np.isinf(np.asarray(jp.bias)[:, -1]).all()
+
+
+# K7's order, modelled on the CPU: cases of (per_batch, label layout) at
+# P = 4, F = 21, C = 40.
+K7_ORDER_CASES = {
+    "per_batch_1": (1, None),
+    "per_batch_100": (100, None),
+    "per_batch_256": (256, None),
+    "per_batch_384": (384, None),
+    "one_class": (100, "one_class"),
+    "no_class": (100, "no_class"),
+    "weights_0": (100, "weights_0"),
+    "negative_zero": (100, "negative_zero"),
+}
+
+
+def _k7_order_batch(case, f=21, c=40):
+    """``_fit_batch`` with a few labels outside [0, C), then the case's
+    layout."""
+    b, layout = K7_ORDER_CASES[case]
+    X, y, w = _fit_batch(sorted(K7_ORDER_CASES).index(case), b, f, c)
+    rng = np.random.default_rng(b)
+    y[rng.random(y.shape) < 0.03] = c
+    y[rng.random(y.shape) < 0.02] = -1
+    if layout == "one_class":
+        y[:] = 3
+    elif layout == "no_class":
+        y[:] = np.where(rng.random(y.shape) < 0.5, c, -7)
+    elif layout == "weights_0":
+        w[:] = 0.0
+    elif layout == "negative_zero":
+        X[:, :, ::4] = -0.0
+        X[:, ::5] = -0.0
+        X[:, :, 1] = -np.abs(X[:, :, 1])
+    return X, y, w
+
+
+def _k7_sorted_rows(y, c):
+    """csrc/centroid_fit.cu ``class_rows`` on one partition's labels ``y
+    [B]`` (B in one row tile): bit i of class k's word for 32-row chunk ch
+    marks row 32·ch + i; read chunk by chunk, low bit first, class k's
+    words list its rows. Returns (list, offsets): ``list[off[k]:off[k + 1]]``
+    holds class k's rows in the kernel's order."""
+    words = [[sum(1 << i for i, lab in enumerate(y[c0:c0 + 32].tolist()) if lab == k)
+              for c0 in range(0, len(y), 32)] for k in range(c)]
+    order, off = [], [0]
+    for k in range(c):
+        for ch, m in enumerate(words[k]):
+            while m:
+                low = m & -m
+                order.append(32 * ch + low.bit_length() - 1)
+                m ^= low
+        off.append(len(order))
+    return torch.tensor(order, dtype=torch.long), torch.tensor(off, dtype=torch.long)
+
+
+def _k7_class_sums(X, y, w, c):
+    """The kernel's sums: per class, from +0, w·x and w of the rows in its
+    slice of the sorted list, in list order (at B = 1, XLA's product)."""
+    p, b, f = X.shape
+    sums = torch.zeros((p, c, f), dtype=torch.float32)
+    counts = torch.zeros((p, c), dtype=torch.float32)
+    lists = []
+    for q in range(p):
+        order, off = _k7_sorted_rows(y[q], c)
+        lists.append((order, off))
+        for k in range(c):
+            if b == 1:
+                oh = torch.tensor(1.0 if int(y[q, 0]) == k else 0.0) * w[q, 0]
+                sums[q, k], counts[q, k] = oh * X[q, 0], oh
+                continue
+            a = torch.zeros(f, dtype=torch.float32)
+            n = torch.zeros((), dtype=torch.float32)
+            for r in order[off[k]:off[k + 1]].tolist():
+                a = a + w[q, r] * X[q, r]
+                n = n + w[q, r]
+            sums[q, k], counts[q, k] = a, n
+    return sums, counts, lists
+
+
+@pytest.mark.parametrize("case", sorted(K7_ORDER_CASES))
+def test_centroid_fit_sorted_list_model(case):
+    """A CPU model of K7's order — a stable class-sorted row list, each
+    class summed over its slice in list order — is stable, gives the plain
+    version's sums and counts bit for bit, and its centroids and biases
+    equal ``centroid_fit_reference``'s and ``jax.jit(jax.vmap(fit))``'s."""
+    f, c = 21, 40
+    X, y, w = _k7_order_batch(case, f, c)
+    tX, ty, tw = (torch.from_numpy(a) for a in (X, y, w))
+    sums, counts, lists = _k7_class_sums(tX, ty, tw, c)
+    for q, (order, off) in enumerate(lists):
+        labels = ty[q, order]
+        for k in range(c):
+            rows = order[off[k]:off[k + 1]]
+            assert bool((labels[off[k]:off[k + 1]] == k).all())
+            assert bool((rows[1:] > rows[:-1]).all())  # stable: row order
+            assert len(rows) == int((ty[q] == k).sum())
+    want_sums, want_counts = _row_sums(tX, ty, tw, c)
+    assert torch.equal(sums.view(torch.int32), want_sums.view(torch.int32))
+    assert torch.equal(counts.view(torch.int32), want_counts.view(torch.int32))
+
+    cent = sums / counts.clamp_min(1.0)[..., None]
+    sq = torch.zeros((X.shape[0], c), dtype=torch.float32)
+    for j in range(f):
+        sq = fma(cent[..., j], cent[..., j], sq)
+    bias = torch.where(counts > 0, -0.5 * sq, float("-inf"))
+    ref = centroid_fit_reference(tX, ty, tw, c)
+    m = j_centroid(JSpec(f, c))
+    jp = jax.jit(jax.vmap(lambda a, b, d: m.fit(None, a, b, d)))(X, y, w)
+    for mine, r, j in zip((cent, bias), ref, jp):
+        assert torch.equal(mine.view(torch.int32), r.view(torch.int32))
+        assert np.array_equal(mine.numpy().view(np.int32), np.asarray(j).view(np.int32))
+    if case in ("no_class", "weights_0"):
+        assert bool(torch.isinf(bias).all()) and not bool(torch.signbit(cent).any())
 
 
 def test_centroid_predict_with_carried_params(data, jax_centroid):

@@ -187,6 +187,27 @@ def test_unported_surfaces_raise(kw, item):
         tpkg.run(_cfg(tconfig, **kw), device="cpu")
 
 
+@pytest.mark.parametrize("kw", [{}, CONFIGS["dense"], CONFIGS["seq_ddm"]],
+                         ids=["packed", "dense", "window1"])
+def test_fit_inputs_need_no_copy(monkeypatch, kw):
+    """The engines hand the centroid fit contiguous f32 rows, i32 labels
+    and f32 weights, so its wrapper's conversions copy nothing and add no
+    launch on the card (packed, dense and ``window=1`` streams)."""
+    from distributed_drift_detection_tpu_torch.models import classifiers
+
+    seen = []
+    fit = classifiers.centroid_fit
+
+    def spy(X, y, w, c):
+        seen.append([(t.dtype, t.is_contiguous()) for t in (X, y, w)])
+        return fit(X, y, w, c)
+
+    monkeypatch.setattr(classifiers, "centroid_fit", spy)
+    tpkg.run(_cfg(tconfig, **kw), device="cpu")
+    want = [(torch.float32, True), (torch.int32, True), (torch.float32, True)]
+    assert seen and all(s == want for s in seen)
+
+
 def test_config_is_a_copy():
     """The port's RunConfig has the JAX package's fields and defaults."""
     j = {f.name: f.default for f in dataclasses.fields(jconfig.RunConfig)}
