@@ -6,10 +6,11 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the six hand-written kernels from ``csrc/`` with nvcc (in
+2. build the nine hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
    ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
-   K5-adwin ``adwin_window``;
+   K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
+   ``mlp_predict_err``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes — the DDM window statistic (K1) bit for bit at
    [16, 128·100] (fresh and carried states, all-padding rows, the
@@ -59,7 +60,19 @@ without them. Phases, each fatal on failure:
 8. drive the plain-PyTorch members (``eddm``, ``hddm``, ``kswin``,
    ``stepd``), the ``gnb`` and ``linear`` models and the ``window=1``
    engine (DDM, and Page–Hinkley) at a smaller depth (``mult_data`` 64):
-   flags equal to the port's CPU run, the kernels they use launched.
+   flags equal to the port's CPU run, the kernels they use launched;
+9. the ``mlp`` (MLP(128, 64), 32 steps, the threefry key chain): K8
+   against the CPU generator bit for bit at the main path's init, K9
+   against its plain version (to ``K9_RTOL``/``K9_TIGHT_ATOL`` after 4
+   steps, within ``K9_ATOL`` after 32) on the main path's first training
+   batch with its fit keys, on random rows and the edge cases (and the
+   init bit for bit with no step), K10's predictions equal to its
+   plain version's off the near ties at [16, 12,800]; each timed as K7 is,
+   with a ``floor_ms``; then ``run`` at SMOKE's full width and depth,
+   counted: detections equal to the JAX package's and mean delay within a
+   batch of it (pinned below), whether the flags equal the port's CPU run
+   bit for bit (printed, not required), Final Time and one traced detect
+   phase.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -67,6 +80,7 @@ error, times and bound; the last line is the device JSON.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -85,6 +99,10 @@ EXPECTED_MEAN_DELAY = 788.63  # rows, the JAX package's run of SMOKE
 # (detections, mean delay in rows).
 ZOO_EXPECTED = {"ph": (624, 820.8077), "hddm_w": (624, 781.6282),
                 "adwin": (624, 792.7051)}
+# The JAX package's run of SMOKE with model='mlp' (MLP(128, 64), 32 steps,
+# ddm): (detections, mean delay in rows). Its fits cannot match XLA's to
+# the bit, so the bar is equal detections and a mean delay within a batch.
+MLP_EXPECTED = (624, 788.6282051282051)
 # Runs at a smaller depth: (name, RunConfig overrides, kernels launched).
 SHALLOW = [
     ("eddm", dict(detector="eddm"), ("centroid_predict_err", "centroid_fit")),
@@ -520,17 +538,313 @@ def check_k7(torch, classifiers, kernels, prep, p, b, dev):
     )
 
 
+# --------------------------------------------------------------------------
+# the MLP's kernels: K8 random_normal, K9 mlp_fit, K10 mlp_predict_err
+# --------------------------------------------------------------------------
+
+# K9 against its plain version (the bounds tests/test_torch_kernels.py
+# states): the two sum their products in other orders, and over a fit's
+# steps a hidden unit's input within rounding of zero flips its ReLU
+# gradient in one version only, after which that partition's trajectories
+# part. Held after 4 steps to rtol 1e-4 / atol 2e-6, after all to 5e-2.
+K9_RTOL, K9_TIGHT_ATOL, K9_TIGHT_STEPS = 1e-4, 2e-6, 4
+K9_ATOL = 5e-2
+# K9 edge cases (P, B, F, C, hidden, steps): B not a multiple of 32 with
+# C = 5, F = 27 (≈ 223 KB of shared memory), a batch too large for shared
+# memory (the global workspace), narrow widths.
+K9_EDGES = [(4, 37, 27, 5, (128, 64), 32), (4, 100, 27, 40, (128, 64), 32),
+            (3, 300, 21, 40, (128, 64), 8), (4, 50, 21, 40, (16, 8), 4)]
+
+
+def mlp_dims(stream, cfg):
+    return (stream.num_features, *cfg.mlp_hidden, stream.num_classes)
+
+
+def mlp_keys(torch, prep, dev):
+    """The main path's first init keys and first fit keys (level 0 of the
+    window engine's first iteration), as the engine draws them."""
+    from distributed_drift_detection_tpu_torch.engine.loop import device_keys
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    p, r = prep.config.partitions, prep.config.window_rotations
+    pair = threefry.split(threefry.split(threefry.key(prep.config.seed), p), 2)
+    _, fit = threefry.window_fit_keys(pair[:, 0], 1, r)
+    return device_keys(pair[:, 1], dev), device_keys(fit[0, 0], dev)
+
+
+def mlp_fit_ops(dims, b, steps):
+    """f32 operations of one partition's fit: per step the forward
+    products, the weight gradients and the backward products (2 a
+    multiply-add), the rest of a step being O(B·width)."""
+    macs = sum(a * c for a, c in zip(dims[:-1], dims[1:]))
+    back = sum(a * c for a, c in zip(dims[1:-1], dims[2:]))
+    return 2 * steps * b * (2 * macs + back)
+
+
+def check_k8(torch, kernels, mlp, threefry, prep, dev):
+    """K8 against the CPU generator, bit for bit, at the main path's init
+    (16 keys, each layer's normals and factor) and a single normal; times
+    the init's largest launch; returns its kernel row."""
+    dims = mlp_dims(prep.stream, prep.config)
+    init_keys, _ = mlp_keys(torch, prep, dev)
+    layer_keys = threefry.split(init_keys, len(dims) - 1).int()
+    factors = mlp.init_scales(dims)
+    sizes = [a * c for a, c in zip(dims[:-1], dims[1:])]
+    for l, n in enumerate(sizes):
+        keys = layer_keys[:, l].contiguous()
+        got = threefry.random_normal(keys, n, factors[l])
+        want = threefry.random_normal(keys.cpu(), n, factors[l])
+        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"K8 differs from the CPU generator (layer {l}, {n} normals a key)")
+    one = threefry.random_normal(init_keys[:1], 1)
+    check(torch.equal(one.cpu().view(torch.int32),
+                      threefry.random_normal(init_keys[:1].cpu(), 1).view(torch.int32)),
+          "K8 differs from the CPU generator (one normal)")
+    print(f"K8 random_normal: bitwise equal to the CPU generator at the main path's init "
+          f"({init_keys.shape[0]} keys x {sizes} normals) and one normal")
+
+    big = max(range(len(sizes)), key=lambda l: sizes[l])
+    n, keys, factor = sizes[big], layer_keys[:, big].contiguous(), factors[big]
+    out = torch.empty((keys.shape[0], n), dtype=torch.float32, device=dev)
+    args = threefry.random_normal_args(keys, out, factor)
+    fn = kernels.launcher("random_normal")
+    ms = graph_ms(lambda: kernels.check("random_normal", fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: threefry.random_normal(keys, n, factor))
+    plain_ms = time_ms(lambda: threefry.random_normal_reference(keys, n, factor),
+                       reps=5, rounds=3)
+    floor = kernels.launcher("random_normal_floor")
+    floor_ms = graph_ms(lambda: kernels.check(
+        "random_normal_floor", floor(keys.shape[0], n, kernels.stream_handle(dev))))
+    # the normals written once (the keys are 8 bytes a row); a hash of 20
+    # rounds of 3 integer operations and its key schedule (≈ 75), the
+    # map's ≈ 40 f32 operations, counted at the f32 rate
+    total = keys.shape[0] * n
+    b_ms, by = bound(total * 4 + keys.numel() * 4, total * 115)
+    print(f"K8 random_normal [{keys.shape[0]} keys x {n}]: {ms:.5f} ms device (graph of 50), "
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
+          f"floor {floor_ms:.5f} ms (an empty kernel with its grid)")
+    return dict(
+        name="random_normal", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/random_normal.cu",
+        replaces="distributed_drift_detection_tpu/models/classifiers.py:266",
+        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+    )
+
+
+def k9_inputs(rng, base_X, base_y, p, b, c):
+    """A training batch per partition of random rows (labels mod C), {0, 1}
+    weights, partition 1 all invalid: numpy arrays."""
+    idx = rng.integers(0, len(base_y), (p, b))
+    X = base_X[idx].astype(np.float32)
+    y = (base_y[idx] % c).astype(np.int32)
+    w = (rng.random((p, b)) < 0.95).astype(np.float32)
+    if p > 1:
+        w[1] = 0.0
+    return X, y, w
+
+
+def check_k9_close(torch, mlp, keys, batch, dims, steps, lr, what):
+    """K9 and its plain version after at most ``K9_TIGHT_STEPS`` steps, to
+    ``K9_RTOL`` / ``K9_TIGHT_ATOL`` on every parameter."""
+    short = min(steps, K9_TIGHT_STEPS)
+    got = mlp.mlp_fit(keys, *batch, dims, short, lr)
+    want = mlp.mlp_fit_reference(keys, *batch, dims, short, lr, 0.9)
+    ok = all(torch.allclose(g, r, rtol=K9_RTOL, atol=K9_TIGHT_ATOL)
+             for gl, rl in zip(got, want) for g, r in zip(gl, rl))
+    check(ok, f"K9 differs from its plain version after {short} steps ({what})")
+
+
+def fit_gap(torch, got, want):
+    return max(float((g.cpu() - r.cpu()).abs().max()) for gl, rl in zip(got, want)
+               for g, r in zip(gl, rl))
+
+
+def check_k9(torch, kernels, mlp, prep, dev):
+    """K9 against its plain version within ``K9_ATOL`` on the main path's
+    first training batch with its fit keys, on random rows and on the edge
+    cases, and bit for bit against the init with no step; times it on the
+    main path's batch; returns its kernel row and the fitted params."""
+    cfg, stream = prep.config, prep.stream
+    dims = mlp_dims(stream, cfg)
+    steps, lr = cfg.fit_steps, cfg.mlp_learning_rate
+    _, fit_keys = mlp_keys(torch, prep, dev)
+    rng = np.random.default_rng(9)
+    p, b = cfg.partitions, cfg.per_batch
+    main = [torch.from_numpy(a).to(dev) for a in k7_main_batch(prep.batches)]
+    rand = [torch.from_numpy(a).to(dev) for a in k9_inputs(rng, stream.base_X, stream.base_y,
+                                                          p, b, stream.num_classes)]
+    gaps = {}
+    for what, batch in (("main path", main), ("random rows", rand)):
+        check_k9_close(torch, mlp, fit_keys, batch, dims, steps, lr, what)
+        got = mlp.mlp_fit(fit_keys, *batch, dims, steps, lr)
+        want = mlp.mlp_fit_reference(fit_keys, *batch, dims, steps, lr, 0.9)
+        torch.cuda.synchronize()
+        gaps[what] = fit_gap(torch, got, want)
+        check(gaps[what] <= K9_ATOL, f"K9 differs from its plain version by {gaps[what]} ({what})")
+        if what == "main path":
+            main_params = got
+    init = mlp.mlp_init(fit_keys, dims)
+    zero = mlp.mlp_fit(fit_keys, *main, dims, 0, lr)
+    check(all(torch.equal(z.w.view(torch.int32), i.w.view(torch.int32)) for z, i in zip(zero, init)),
+          "K9's init differs from the plain init (no step)")
+    for ep, eb, ef, ec, hidden, esteps in K9_EDGES:
+        edims = (ef, *hidden, ec)
+        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
+        ey = rng.integers(0, ec, (ep, eb)).astype(np.int32)
+        eX = (protos[ey] + 0.5 * rng.normal(size=(ep, eb, ef))).astype(np.float32)
+        ew = (rng.random((ep, eb)) < 0.9).astype(np.float32)
+        ew[0, ::3] = 0.0
+        ekeys = fit_keys[:ep].contiguous()
+        batch = [torch.from_numpy(a).to(dev) for a in (eX, ey, ew)]
+        check_k9_close(torch, mlp, ekeys, batch, edims, esteps, lr, f"P={ep} B={eb}")
+        got = mlp.mlp_fit(ekeys, *batch, edims, esteps, lr)
+        want = mlp.mlp_fit_reference(ekeys, *batch, edims, esteps, lr, 0.9)
+        gap = fit_gap(torch, got, want)
+        check(gap <= K9_ATOL, f"K9 differs from its plain version by {gap} "
+              f"(P={ep} B={eb} F={ef} C={ec} {hidden})")
+        gaps[f"P={ep} B={eb} F={ef} C={ec} {hidden} {esteps} steps"] = gap
+    print(f"K9 mlp_fit: within rtol {K9_RTOL} / atol {K9_TIGHT_ATOL} of its plain version "
+          f"after {K9_TIGHT_STEPS} steps, and within {K9_ATOL} after all (max abs gap: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + "); the init bit for bit with no step")
+
+    out = tuple(mlp.MLPLayer(torch.empty_like(l.w), torch.empty_like(l.b)) for l in main_params)
+    args, keep = mlp.mlp_fit_args(fit_keys, *main, dims, steps, lr, 0.9, out, None)
+    fn = kernels.launcher("mlp_fit")
+    ms = graph_ms(lambda: kernels.check("mlp_fit", fn(*args, kernels.stream_handle(dev))),
+                  reps=10, rounds=3)
+    h_us = host_us(lambda: mlp.mlp_fit(fit_keys, *main, dims, steps, lr), calls=20, rounds=3)
+    plain_ms = time_ms(lambda: mlp.mlp_fit_reference(fit_keys, *main, dims, steps, lr, 0.9),
+                       reps=3, rounds=3)
+    dim_arr = keep[0]
+    floor = kernels.launcher("mlp_fit_floor")
+    floor_ms = graph_ms(lambda: kernels.check("mlp_fit_floor", floor(
+        p, b, len(dims) - 1, ctypes.addressof(dim_arr), kernels.stream_handle(dev))))
+    nparams = sum(l.w[0].numel() + l.b[0].numel() for l in main_params)
+    b_ms, by = bound(p * b * (dims[0] + 2) * 4 + p * 8 + p * nparams * 4,
+                     p * mlp_fit_ops(dims, b, steps))
+    print(f"K9 mlp_fit [{p}, {b}] {dims} {steps} steps: {ms:.5f} ms device (graph of 10), "
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
+          f"floor {floor_ms:.5f} ms (an empty kernel with its grid, block and shared memory)")
+    del keep
+    return dict(
+        name="mlp_fit", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/mlp_fit.cu",
+        replaces="distributed_drift_detection_tpu/models/classifiers.py:286",
+        max_abs_err=max(gaps.values()), ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+    ), main_params
+
+
+def logit_near_ties(torch, params, rows):
+    """Rows whose two best float64 logits lie within 1e-4·(1 + |top|) —
+    inside the float32 rounding of three layers' sums."""
+    h = rows.double()
+    for layer in params[:-1]:
+        h = torch.relu(torch.bmm(h, layer.w.double()) + layer.b.double()[:, None])
+    logits = torch.bmm(h, params[-1].w.double()) + params[-1].b.double()[:, None]
+    top2 = logits.topk(2, -1).values
+    return (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
+
+
+def check_k10_equal(torch, mlp, params, T, Ty, idx, what):
+    err, pred = mlp.mlp_predict_err(params, T, Ty, idx, return_pred=True)
+    rerr, rpred = mlp.mlp_predict_err_reference(params, T, Ty, idx)
+    torch.cuda.synchronize()
+    tie = logit_near_ties(torch, params, T[idx.long()])
+    check(torch.equal(pred[~tie], rpred[~tie]),
+          f"K10 predictions differ from its plain version off the near ties ({what})")
+    check(torch.equal(err, (pred != Ty[idx.long()]).float()), f"K10 errors are not pred != y ({what})")
+    return int(tie.sum()), int((pred != rpred).sum())
+
+
+def check_k10(torch, kernels, mlp, prep, params, dev):
+    """K10 against its plain version — equal predictions off the near ties
+    — at the main path's shape with the main path's first fitted params,
+    and on the edge cases; times it; returns its kernel row."""
+    cfg, stream = prep.config, prep.stream
+    dims = mlp_dims(stream, cfg)
+    p, n = cfg.partitions, cfg.window * cfg.per_batch
+    rng = np.random.default_rng(10)
+    T = torch.from_numpy(stream.base_X).to(dev)
+    Ty = torch.from_numpy(stream.base_y.astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, len(stream.base_y), (p, n)).astype(np.int16)).to(dev)
+    ties, differ = check_k10_equal(torch, mlp, params, T, Ty, idx, "main path")
+    max_err = float((mlp.mlp_predict_err(params, T, Ty, idx)
+                     - mlp.mlp_predict_err_reference(params, T, Ty, idx)[0]).abs().max())
+    notes = [f"main path {ties} near ties, {differ} predictions differ"]
+    for ep, en, ef, ec, hidden, dt in [(3, 1000, 27, 5, (128, 64), np.int32),
+                                       (4, 333, 21, 40, (16, 8), np.int16)]:
+        edims = (ef, *hidden, ec)
+        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
+        ey = rng.integers(0, ec, (ep, 100)).astype(np.int32)
+        eX = (protos[ey] + 0.5 * rng.normal(size=(ep, 100, ef))).astype(np.float32)
+        ew = np.ones((ep, 100), np.float32)
+        eparams = mlp.mlp_fit_reference(
+            threefry_keys(torch, ep, dev), *(torch.from_numpy(a).to(dev) for a in (eX, ey, ew)),
+            edims, 8, 0.05, 0.9)
+        eT = torch.from_numpy((protos[rng.integers(0, ec, 3000)]
+                               + 0.7 * rng.normal(size=(3000, ef))).astype(np.float32)).to(dev)
+        eTy = torch.from_numpy(rng.integers(0, ec, 3000).astype(np.int32)).to(dev)
+        eidx = torch.from_numpy(rng.integers(0, 3000, (ep, en)).astype(dt)).to(dev)
+        t, d = check_k10_equal(torch, mlp, eparams, eT, eTy, eidx, f"P={ep} N={en} F={ef} C={ec}")
+        notes.append(f"P={ep} N={en} F={ef} C={ec} {hidden} {np.dtype(dt).name}: {t} near ties")
+    print("K10 mlp_predict_err: predictions equal to its plain version off the near ties "
+          "(two best float64 logits within 1e-4·(1 + |top|)), errors = pred != y; "
+          + "; ".join(notes))
+
+    Tp = mlp.pad_row_table(T)
+    err_buf = torch.empty((p, n), dtype=torch.float32, device=dev)
+    args, keep = mlp.mlp_predict_err_args(params, Tp, Ty, idx, err_buf)
+    fn = kernels.launcher("mlp_predict_err")
+    ms = graph_ms(lambda: kernels.check("mlp_predict_err", fn(*args, kernels.stream_handle(dev))),
+                  reps=10, rounds=3)
+    h_us = host_us(lambda: mlp.mlp_predict_err(params, Tp, Ty, idx))
+    plain_ms = time_ms(lambda: mlp.mlp_predict_err_reference(params, Tp, Ty, idx), reps=5, rounds=3)
+    floor = kernels.launcher("mlp_predict_err_floor")
+    floor_ms = graph_ms(lambda: kernels.check("mlp_predict_err_floor", floor(
+        p, n, len(dims) - 1, ctypes.addressof(keep[0]), kernels.stream_handle(dev))))
+    macs = sum(a * c for a, c in zip(dims[:-1], dims[1:]))
+    nparams = sum(l.w[0].numel() + l.b[0].numel() for l in params)
+    # idx i16 + err f32 per row, the row table and labels, the params
+    nbytes = p * n * 6 + T.numel() * 4 + Ty.numel() * 4 + p * nparams * 4
+    b_ms, by = bound(nbytes, p * n * 2 * macs)
+    print(f"K10 mlp_predict_err [{p}, {n}] {dims}: {ms:.5f} ms device (graph of 10), "
+          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
+          f"floor {floor_ms:.5f} ms (an empty kernel with its grid, block and shared memory)")
+    del keep
+    return dict(
+        name="mlp_predict_err", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/mlp_predict_err.cu",
+        replaces="distributed_drift_detection_tpu/models/classifiers.py:302",
+        max_abs_err=max_err, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+    )
+
+
+def threefry_keys(torch, p, dev):
+    from distributed_drift_detection_tpu_torch.engine.loop import device_keys
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    return device_keys(threefry.split(threefry.key(p), p), dev)
+
+
 def wrappers():
     """Each kernel's counted wrapper, by kernel name."""
-    from distributed_drift_detection_tpu_torch.models import classifiers
+    from distributed_drift_detection_tpu_torch.models import classifiers, mlp
     from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors
+    from distributed_drift_detection_tpu_torch.utils import threefry
 
     return {"ddm_window": ddm.ddm_window,
             "centroid_predict_err": classifiers.centroid_predict_err,
             "centroid_fit": classifiers.centroid_fit,
             "ph_window": detectors.ph_window,
             "hddm_w_window": detectors.hddm_w_window,
-            "adwin_window": adwin.adwin_window}
+            "adwin_window": adwin.adwin_window,
+            "random_normal": threefry.random_normal,
+            "mlp_fit": mlp.mlp_fit,
+            "mlp_predict_err": mlp.mlp_predict_err}
 
 
 def reset_launches() -> None:
@@ -707,7 +1021,10 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "centroid_fit": "centroid_fit_kernel",
                   "ph_window": "ph_window_kernel",
                   "hddm_w_window": "hddm_w_window_kernel",
-                  "adwin_window": "adwin_window_kernel"}
+                  "adwin_window": "adwin_window_kernel",
+                  "random_normal": "random_normal_kernel",
+                  "mlp_fit": "mlp_fit_kernel",
+                  "mlp_predict_err": "mlp_predict_err_kernel"}
 
 
 def in_run_profile(torch, api, prep, dev,
@@ -861,7 +1178,54 @@ def main(device: str = "cuda") -> int:
         print(f"{what} (mult_data {SHALLOW_MULT}) on the card: "
               f"{sres.metrics.num_detections} detections, flags equal to the "
               f"CPU run, launches {sl}")
-    print("Final Time at SMOKE by detector: "
+
+    # 9. the mlp: K8, K9 and K10 against their plain versions, then its path
+    # at SMOKE's full width and depth, counted
+    from distributed_drift_detection_tpu_torch.models import mlp
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    mcfg = config.replace(cfg, model="mlp")
+    mprep = api.prepare(mcfg, device=dev)
+    check(tuple(mprep.config.mlp_hidden) == (128, 64) and mprep.config.fit_steps == 32
+          and (mprep.config.window, mprep.config.window_rotations) == (128, 4),
+          f"the mlp path resolved to {mprep.config}")
+    rows.append(check_k8(torch, kernels, mlp, threefry, mprep, dev))
+    k9_row, fitted = check_k9(torch, kernels, mlp, mprep, dev)
+    rows.append(k9_row)
+    rows.append(check_k10(torch, kernels, mlp, mprep, fitted, dev))
+    t0 = time.perf_counter()
+    mref = api.run(mcfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    mres = api.run(mcfg, device=dev)
+    ml = read_launches()
+    mm, want_n, want_delay = mres.metrics, *MLP_EXPECTED
+    same = all(np.array_equal(getattr(mres.flags, f), getattr(mref.flags, f))
+               for f in mres.flags._fields)
+    print(f"mlp on the card: {mm.num_detections} detections, mean delay "
+          f"{mm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay:.4f}); "
+          f"flags {'equal' if same else 'NOT equal'} bit for bit to the port's CPU run "
+          f"({mref.metrics.num_detections} detections, {mref.metrics.mean_delay_rows:.4f} "
+          f"rows, {cpu_s:.1f} s); launches {ml}")
+    check(mm.num_detections == want_n, f"mlp: {mm.num_detections} detections, expected {want_n}")
+    check(abs(mm.mean_delay_rows - want_delay) <= cfg.per_batch,
+          f"mlp: mean delay {mm.mean_delay_rows}, more than a batch from {want_delay}")
+    check(bool(np.isfinite(mres.drift_vote).all()), "mlp: non-finite drift vote")
+    for k in ("random_normal", "mlp_fit", "mlp_predict_err", "ddm_window"):
+        check(ml[k] > 0, f"mlp: kernel {k} was not launched on its path")
+    mtimes = [api.run(mcfg, device=dev) for _ in range(3)]
+    final_times["mlp"] = statistics.median(t.total_time for t in mtimes)
+    names = ("random_normal", "mlp_fit", "mlp_predict_err")
+    mper, msum = in_run_profile(torch, api, mprep, dev, names + ("ddm_window",))
+    for row in rows[-3:]:
+        row["launches"] = ml[row["name"]]
+        row["in_run_launches"], row["in_run_us"] = mper[row["name"]]
+    print(f"mlp: Final Time (median of 3 warm runs) {final_times['mlp']:.4f} s; in-run "
+          + ", ".join(f"{k} {mper[k][0]} launches x {mper[k][1]:.2f} us" for k in names)
+          + f"; {msum['kernels']} kernels busy {msum['busy_s']:.4f} s of "
+          f"{msum['detect_s']:.4f} s, idle share {msum['idle_share']:.3f}")
+
+    print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))
 
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,8 @@
 
 The twin of the JAX package's ``api.prepare`` (:413-472) and ``api.run``
 (:995-1191) for a ``synth:`` stream, the deterministic-fit models
-(majority, centroid, gnb, linear), every detector of the zoo, the
+(majority, centroid, gnb, linear) and the ``mlp`` on JAX's threefry keys
+(``split(key(seed), P)``, ``utils/threefry.py``), every detector of the zoo, the
 speculative window engine over the packed indexed stream (dense for
 ``mult_data < 1``) or the sequential ``window=1`` engine over the dense
 stream, and either collect mode. The timed
@@ -17,6 +18,7 @@ ROADMAP item that ports them (:func:`_check_slice`; CSV datasets in
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple
 
@@ -47,6 +49,7 @@ from .models import ModelSpec, build_model
 from .ops.detectors import make_detector
 from .parallel.mesh import auto_compact_capacity, host_flags, make_mesh_runner
 from .results import append_result
+from .utils import threefry
 from .utils.timing import PhaseTimer
 
 
@@ -71,7 +74,7 @@ class RunResult(NamedTuple):
     telemetry_path: "str | None" = None  # telemetry is not ported: always None
 
 
-PORTED_MODELS = ("majority", "centroid", "gnb", "linear")
+PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp")
 
 
 def _check_slice(cfg: RunConfig) -> None:
@@ -90,7 +93,7 @@ def _check_slice(cfg: RunConfig) -> None:
         )
     unported = [
         (cfg.model not in PORTED_MODELS,
-         f"model={cfg.model!r} (ROADMAP A9 mlp/forest/rf)"),
+         f"model={cfg.model!r} (ROADMAP A9b forest, A9c rf)"),
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
@@ -124,6 +127,14 @@ def _resolve_policies(cfg: RunConfig, stream: StreamData) -> RunConfig:
 DETECTOR_KERNELS = {
     "ddm": "ddm_window", "ph": "ph_window", "hddm_w": "hddm_w_window",
     "adwin": "adwin_window",
+}
+
+
+# The hand-written kernels of each model's fit and predict.
+MODEL_KERNELS = {
+    "centroid": ("centroid_fit", "centroid_predict_err"),
+    "linear": ("centroid_predict_err",),
+    "mlp": ("random_normal", "mlp_fit", "mlp_predict_err"),
 }
 
 
@@ -168,13 +179,17 @@ def prepare(
         rotations=cfg.window_rotations,
         compact_capacity=capacity,
     )
+    if model.keyed:  # the partitions' keys, as the JAX package's prepare draws them
+        runner = functools.partial(
+            runner, key=threefry.split(threefry.key(cfg.seed), cfg.partitions)
+        )
     if dev.type == "cuda":
         from . import kernels
 
         if cfg.detector in DETECTOR_KERNELS:
             kernels.launcher(DETECTOR_KERNELS[cfg.detector])
-        if cfg.model in ("centroid", "linear"):
-            kernels.launcher("centroid_predict_err")
+        for name in MODEL_KERNELS.get(cfg.model, ()):
+            kernels.launcher(name)
     return PreparedRun(stream, batches, runner, cfg, dev)
 
 

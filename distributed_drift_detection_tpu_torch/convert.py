@@ -15,6 +15,7 @@ import torch
 
 from .engine.loop import LoopCarry
 from .models.classifiers import CentroidParams, GNBParams, LinearParams
+from .models.mlp import MLPLayer
 from .ops import detectors
 from .ops.adwin import ADWINState
 from .ops.ddm import DDMState
@@ -58,6 +59,12 @@ def linear_params(params, device="cpu") -> LinearParams:
     return _params(LinearParams, params, device, {"w": 3})
 
 
+def mlp_params(params, device="cpu") -> tuple:
+    """The JAX ``MLPLayer`` tuple (``w [din, dout]`` or ``[P, din, dout]``,
+    ``b``) as the port's tuple of :class:`~.models.mlp.MLPLayer`."""
+    return tuple(_params(MLPLayer, layer, device, {"w": 3}) for layer in params)
+
+
 # Each detector's state class, and the leaves held in int32 (the rest f32).
 _STATES = {
     "ddm": (DDMState, {"count"}),
@@ -90,17 +97,22 @@ def ddm_state(state, device="cpu") -> DDMState:
 
 _MODEL_PARAMS = {
     "centroid": centroid_params, "majority": majority_params,
-    "gnb": gnb_params, "linear": linear_params,
+    "gnb": gnb_params, "linear": linear_params, "mlp": mlp_params,
 }
 
 
 def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCarry:
-    """JAX ``LoopCarry`` of a run with a deterministic-fit ``model`` and
-    ``detector``; its PRNG ``key`` is dropped (the ported fits consume
-    none)."""
+    """JAX ``LoopCarry`` of a run with ``model`` and ``detector``. For the
+    keyed ``mlp`` its ``key`` is carried as key data — pass
+    ``carry._replace(key=jax.random.key_data(carry.key))`` — and kept as
+    uint32 numpy ``[P, 2]`` on the host; the other families' key is
+    dropped (their fits consume none)."""
     batched = np.ndim(carry.retrain) == 1
     if model not in _MODEL_PARAMS:
         raise NotImplementedError(f"model {model!r} is not ported yet")
+    key = None
+    if model == "mlp":
+        key = np.array(carry.key, dtype=np.uint32).reshape(-1, 2)
     return LoopCarry(
         params=_MODEL_PARAMS[model](carry.params, device),
         ddm=detector_state(detector, carry.ddm, device),
@@ -108,4 +120,5 @@ def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCa
         a_y=_tensor(carry.a_y, np.int32, device, batched),
         a_w=_tensor(carry.a_w, np.float32, device, batched),
         retrain=_tensor(carry.retrain, np.bool_, device, batched),
+        key=key,
     )

@@ -14,9 +14,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import DDMParams
+from ..utils import threefry
 
 
 class Batches(NamedTuple):
@@ -67,8 +69,10 @@ class FlagRows(NamedTuple):
 class LoopCarry(NamedTuple):
     """State carried across windows, every leaf with a leading ``[P]``.
 
-    The JAX carry's PRNG ``key`` has no counterpart: the ported fits
-    (majority, centroid, gnb, linear) consume none.
+    ``key`` is the JAX carry's PRNG key as its data: ``[P, 2]`` uint32 on
+    the host (``utils/threefry.py``), for a keyed model (``mlp``); None for
+    the families that consume none. The engines draw the key chain from it
+    on the host, once a run.
     """
 
     params: object
@@ -77,6 +81,7 @@ class LoopCarry(NamedTuple):
     a_y: torch.Tensor  # [P, B] i32
     a_w: torch.Tensor  # [P, B] f32 validity weights
     retrain: torch.Tensor  # [P] bool
+    key: "np.ndarray | None" = None  # [P, 2] uint32, keyed models only
 
 
 def expand_packed(packed: PackedIndexedBatches) -> IndexedBatches:
@@ -98,11 +103,18 @@ def expand_packed(packed: PackedIndexedBatches) -> IndexedBatches:
     )
 
 
+def device_keys(keys: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 key data ``[..., 2]`` as the int32 bit patterns the
+    kernels take, on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(keys, np.uint32).view(np.int32)).to(device)
+
+
 def _select(pred: torch.Tensor, a, b):
     """Leaf-wise ``where(pred, a, b)`` over two equal NamedTuples (or
     tensors); ``pred`` is ``[P]`` and broadcasts over trailing axes."""
     if isinstance(a, tuple):
-        return type(a)(*(_select(pred, x, y) for x, y in zip(a, b)))
+        leaves = (_select(pred, x, y) for x, y in zip(a, b))
+        return type(a)(*leaves) if hasattr(a, "_fields") else tuple(leaves)
     return torch.where(pred.view(pred.shape + (1,) * (a.dim() - 1)), a, b)
 
 
@@ -155,22 +167,34 @@ def make_partition_step(
     Train on demand (fit always, apply on a pending retrain), predict the
     error indicators, detect with ``detector`` (DDM from ``ddm_params``
     when None), and on change rotate ``batch_a`` to this batch, reset the
-    detector and set the retrain. ``shuffle=True`` (an in-loop permutation
-    from PRNG keys) is not ported: the port's streams are shuffled on the
-    host at stripe time."""
+    detector and set the retrain. A keyed model fits from the step's fit
+    key: ``key, k_shuf, k_fit = split(carry.key, 3)``, as the JAX loop
+    splits (its window engine takes ``k_fit`` second); ``keys`` passes
+    ``(key, k_fit)`` precomputed — the host's next keys and the fit keys
+    on the device — else the step splits ``carry.key`` itself.
+    ``shuffle=True`` (an in-loop permutation from ``k_shuf``) is not
+    ported: the JAX package's ``api.run`` never asks for it, and the
+    port's streams are shuffled on the host at stripe time."""
     if shuffle:
         raise NotImplementedError(
-            "in-loop shuffle=True draws PRNG keys (ROADMAP A9); shuffle on "
-            "the host at stripe time instead"
+            "in-loop shuffle=True is not ported (ROADMAP A10, with the "
+            "feeders): the threefry PRNG is (utils/threefry.py), but the "
+            "port shuffles on the host at stripe time instead"
         )
     _check_retrain_threshold(retrain_error_threshold)
     det = resolve_detector(ddm_params, detector)
 
-    def step(carry: LoopCarry, table, labels, idx, b_rows, b_valid):
+    def step(carry: LoopCarry, table, labels, idx, b_rows, b_valid, keys=None):
         p, f = carry.a_X.shape[0], carry.a_X.shape[-1]
         b_w = b_valid.float()
         nonempty = b_valid.any(1)
-        fitted = model.fit(carry.a_X, carry.a_y, carry.a_w)
+        next_key, k_fit = None, None
+        if model.keyed:
+            if keys is None:
+                split = threefry.split(carry.key, 3)
+                keys = (split[:, 0], device_keys(split[:, 2], b_valid.device))
+            next_key, k_fit = keys
+        fitted = model.fit(carry.a_X, carry.a_y, carry.a_w, key=k_fit)
         params = _select(carry.retrain & nonempty, fitted, carry.params)
         errs = model.predict_err(params, table, labels, idx)
         new_ddm, res = det.batch(carry.ddm, errs, b_valid)
@@ -196,6 +220,7 @@ def make_partition_step(
             a_y=_select(rotate, labels[i], carry.a_y),
             a_w=_select(rotate, b_w, carry.a_w),
             retrain=torch.where(nonempty, rotate, carry.retrain),
+            key=next_key,
         )
         return new_carry, flags
 
@@ -213,7 +238,11 @@ def make_partition_runner(
     """Build ``run(batches: Batches) -> FlagRows`` (leaves ``[P, NB-1]``):
     batch 0 of each partition seeds ``batch_a``, then one
     :func:`make_partition_step` per batch. The dense planes become one row
-    table with its row stride padded to 4 floats, built once."""
+    table with its row stride padded to 4 floats, built once. A keyed
+    model takes the partitions' keys ``key [P, 2]`` uint32 (``api.prepare``:
+    ``split(key(seed), P)``): ``key, k_init = split(key)`` for its init,
+    then the step chain of :func:`~..utils.threefry.loop_fit_keys`, drawn on
+    the host and uploaded once."""
     from ..models.base import row_stride
 
     det = resolve_detector(ddm_params, detector)
@@ -222,9 +251,15 @@ def make_partition_runner(
         retrain_error_threshold=retrain_error_threshold, detector=det,
     )
 
-    def run(batches: Batches) -> FlagRows:
+    def run(batches: Batches, key=None) -> FlagRows:
         p, nb, b, f = batches.X.shape
         dev = batches.X.device
+        chain = fit_keys = init_key = None
+        if model.keyed:
+            pair = threefry.split(np.asarray(key, np.uint32), 2)
+            init_key = device_keys(pair[:, 1], dev)
+            chain, fit_keys = threefry.loop_fit_keys(pair[:, 0], max(nb - 1, 0))
+            fit_keys = device_keys(fit_keys, dev)
         table = torch.zeros((p * nb * b, row_stride(f)), dtype=torch.float32, device=dev)
         table[:, :f] = batches.X.reshape(-1, f)
         labels = batches.y.reshape(-1)
@@ -235,16 +270,18 @@ def make_partition_runner(
         idx = by_step(torch.arange(p * nb * b, dtype=torch.int32, device=dev).view(p, nb, b))
         b_rows, b_valid = by_step(batches.rows), by_step(batches.valid)
         carry = LoopCarry(
-            params=model.init(p, dev),
+            params=model.init(p, dev, key=init_key),
             ddm=det.init((p,), dev),
             a_X=batches.X[:, 0].contiguous(),  # as the fit takes them
             a_y=batches.y[:, 0].contiguous(),
             a_w=batches.valid[:, 0].float(),
             retrain=torch.ones(p, dtype=torch.bool, device=dev),
+            key=None if chain is None else chain[0],
         )
         rows = []
         for s in range(1, nb):
-            carry, flags = step(carry, table, labels, idx[s], b_rows[s], b_valid[s])
+            keys = None if chain is None else (chain[s], fit_keys[s - 1])
+            carry, flags = step(carry, table, labels, idx[s], b_rows[s], b_valid[s], keys)
             rows.append(flags)
         if not rows:
             empty = torch.empty((p, 0), dtype=torch.int32, device=dev)

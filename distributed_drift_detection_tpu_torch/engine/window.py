@@ -27,14 +27,25 @@ The window never materializes its ``[P, W·B, F]`` rows: the model's
 that table once per run with its row stride rounded up to 4 floats
 (``models.base.pad_row_table``). A dense stream (``Batches``) is addressed
 the same way, through a flat row index into its padded feature plane.
+
+A keyed model (``mlp``) fits from the JAX engine's key chain: each
+iteration ``key, k_fit, k_shuf = split(key, 3)``, one fit key a level
+(``k_fit`` itself at R = 1, else ``split(k_fit, R)``), and only active
+lanes advance their key. The chain depends on the iteration count alone,
+so the span draws it on the host for as many iterations as can run and
+uploads it once (``utils/threefry.py`` ``window_fit_keys``); a lane that
+has finished fits from later keys than JAX's frozen one, but its fit is
+never committed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import DDMParams
 from ..models.base import Model, pad_row_table, row_stride
+from ..utils import threefry
 from .loop import (
     Batches,
     FlagRows,
@@ -43,6 +54,7 @@ from .loop import (
     _check_retrain_threshold,
     _gather_row,
     _select,
+    device_keys,
     resolve_detector,
 )
 
@@ -112,6 +124,16 @@ def make_window_span(
         a_X, a_y, a_w, retrain = (
             carry_in.a_X, carry_in.a_y, carry_in.a_w, carry_in.retrain
         )
+        # A keyed model's fit keys, drawn once on the host for as many
+        # iterations as can run — each advances an active lane by at least
+        # min(R, W) batches or to its end — and uploaded once.
+        chain = fit_keys = None
+        if model.keyed:
+            bound = -(-nbf // min(r_levels, w))
+            chain, fit_keys = threefry.window_fit_keys(carry_in.key, bound, r_levels)
+            fit_keys = device_keys(fit_keys, dev)
+            lane_iters = torch.zeros(p, dtype=torch.long, device=dev)
+        it = 0
 
         while bool((ptr < nbf).any()):
             active = ptr < nbf
@@ -132,7 +154,7 @@ def make_window_span(
                 torch.zeros((p, w), dtype=torch.bool, device=dev),
             )
 
-            for _ in range(r_levels):
+            for lvl in range(r_levels):
                 live = (
                     sl_valid
                     & (rows_w[None, :] >= start[:, None])[:, :, None]
@@ -143,7 +165,10 @@ def make_window_span(
 
                 # Train on demand: the model is frozen within a level, so a
                 # pending retrain applies at level start.
-                fitted = model.fit(a_X_c, a_y_c, a_w_c)
+                fitted = model.fit(
+                    a_X_c, a_y_c, a_w_c,
+                    key=None if fit_keys is None else fit_keys[it, lvl],
+                )
                 pred_params = _select(retr_c & any_ne, fitted, params_c)
                 errs = model.predict_err(
                     pred_params, rows, labels, flat_idx
@@ -214,8 +239,13 @@ def make_window_span(
             a_w = _select(active, a_w_c, a_w)
             retrain = torch.where(active, retr_c, retrain)
             ptr = ptr + torch.where(active, torch.minimum(start, remaining), 0)
+            if chain is not None:
+                lane_iters += active  # a lane's key advances while it is active
+            it += 1
 
-        carry_out = LoopCarry(params, ddm, a_X, a_y, a_w, retrain)
+        # each lane's key after its own iterations
+        key_out = None if chain is None else chain[lane_iters.cpu().numpy(), np.arange(p)]
+        carry_out = LoopCarry(params, ddm, a_X, a_y, a_w, retrain, key_out)
         return carry_out, FlagRows(*(leaf[:, :nbf] for leaf in flags))
 
     return span
@@ -243,9 +273,13 @@ def make_window_runner(
         rotations=rotations,
     )
 
-    def run(batches: "Batches | IndexedBatches") -> FlagRows:
+    def run(batches: "Batches | IndexedBatches", key=None) -> FlagRows:
         p = batches.valid.shape[0]
         dev = batches.valid.device
+        init_key = None
+        if model.keyed:  # key, k_init = split(key), per partition
+            pair = threefry.split(np.asarray(key, np.uint32), 2)
+            key, init_key = pair[:, 0], device_keys(pair[:, 1], dev)
         if isinstance(batches, IndexedBatches):
             i0 = batches.idx[:, 0].long()
             a_X, a_y = batches.base_X[i0], batches.base_y[i0]
@@ -259,12 +293,13 @@ def make_window_runner(
             a_X, a_y = batches.X[:, 0].contiguous(), batches.y[:, 0].contiguous()
             rest = Batches(*(leaf[:, 1:] for leaf in batches))
         carry = LoopCarry(
-            params=model.init(p, dev),
+            params=model.init(p, dev, key=init_key),
             ddm=det.init((p,), dev),
             a_X=a_X,
             a_y=a_y,
             a_w=batches.valid[:, 0].float(),
             retrain=torch.ones(p, dtype=torch.bool, device=dev),
+            key=key if model.keyed else None,
         )
         _, flags = span(carry, rest)
         return flags

@@ -9,7 +9,9 @@ launch on a card without clusters, raises there. The checked,
 counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
 ``centroid_predict_err`` and ``centroid_fit``, ``ops/detectors.py``
-``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``).
+``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
+``utils/threefry.py`` ``random_normal``, ``models/mlp.py`` ``mlp_fit``
+and ``mlp_predict_err``).
 """
 
 from __future__ import annotations
@@ -78,6 +80,37 @@ _SIGNATURES = {
            _F, _P, _P, _P]  # ln(2/δ), scratch, first warning/change
         + [_P] * 6  # 6 end leaves
         + [_P],  # stream
+    ),
+    "random_normal": (
+        "random_normal_launch",
+        [_P, _I, _I, _F, _P,  # keys, key count, normals a key, factor, out
+         _P],  # stream
+    ),
+    # each kernel's empty twin, launched as the kernel is (same grid,
+    # block and shared memory), in its library: the floor under its time
+    "random_normal_floor": (
+        "random_normal_floor_launch", [_I, _I, _P], "random_normal",
+    ),
+    "mlp_fit": (
+        "mlp_fit_launch",
+        [_P, _P, _P, _P,  # keys, X, y, w
+         _I, _I, _I, _P, _P,  # p, b, layers, host widths [L + 1], host init factors [L]
+         _I, _F, _F,  # steps, learning rate, momentum
+         _P, _P, _P,  # host arrays of the output w and b pointers, global workspace
+         _P],  # stream
+    ),
+    "mlp_fit_floor": (
+        "mlp_fit_floor_launch", [_I, _I, _I, _P, _P], "mlp_fit",
+    ),
+    "mlp_predict_err": (
+        "mlp_predict_err_launch",
+        [_P, _I, _P, _P, _I,  # table, its row stride, labels, idx, idx bytes
+         _I, _I, _I, _P,  # p, n, layers, host widths [L + 1]
+         _P, _P,  # host arrays of the w and b pointers
+         _P, _P, _P],  # err, pred, stream
+    ),
+    "mlp_predict_err_floor": (
+        "mlp_predict_err_floor_launch", [_I, _I, _I, _P, _P], "mlp_predict_err",
     ),
 }
 

@@ -31,7 +31,8 @@ COMMON_FLAGS = (
 # Per-kernel extra flags. K1 and the zoo kernels are held bit-identical to
 # their plain versions, so nvcc must not contract a*b+c into FMAs on its
 # own; K7, K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU
-# does.
+# does. K8 and K9 draw threefry normals bit-identical to JAX's
+# (csrc/threefry.cuh), under the same two flags.
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
@@ -39,6 +40,9 @@ KERNELS = {
     "ph_window": ("-fmad=false", "-ftz=true"),
     "hddm_w_window": ("-fmad=false", "-ftz=true"),
     "adwin_window": ("-fmad=false",),
+    "random_normal": ("-fmad=false", "-ftz=true"),
+    "mlp_fit": ("-fmad=false", "-ftz=true"),
+    "mlp_predict_err": (),
 }
 
 

@@ -10,11 +10,13 @@ from .classifiers import (
     make_linear,
     make_majority,
 )
+from .mlp import MLPLayer, make_mlp, mlp_fit, mlp_predict_err
 
 __all__ = [
     "CentroidParams",
     "GNBParams",
     "LinearParams",
+    "MLPLayer",
     "Model",
     "ModelSpec",
     "build_model",
@@ -23,4 +25,7 @@ __all__ = [
     "make_gnb",
     "make_linear",
     "make_majority",
+    "make_mlp",
+    "mlp_fit",
+    "mlp_predict_err",
 ]

@@ -4,9 +4,11 @@ The JAX package's models are pure functions of one partition, vmapped over
 partitions; the port's take the ``[P]`` partition axis written out. A
 :class:`Model` is four functions:
 
-* ``init(p, device) -> params`` — params with final shapes, leading ``[P]``;
-* ``fit(X [P, B, F], y [P, B], w [P, B]) -> params`` — a fresh fit on one
-  microbatch per partition; ``w`` is the {0, 1} row-validity weight;
+* ``init(p, device, key=None) -> params`` — params with final shapes,
+  leading ``[P]``;
+* ``fit(X [P, B, F], y [P, B], w [P, B], key=None) -> params`` — a fresh
+  fit on one microbatch per partition; ``w`` is the {0, 1} row-validity
+  weight;
 * ``predict(params, X [P, N, F]) -> preds [P, N] i32``;
 * ``predict_err(params, T, Ty [R], idx [P, N]) -> err [P, N] f32`` —
   the error indicator ``predict(T[idx]) != Ty[idx]`` the engine feeds the
@@ -14,7 +16,11 @@ partitions; the port's take the ``[P]`` partition axis written out. A
   The engine passes ``T`` as :func:`pad_row_table` leaves it, ``[R,
   row_stride(F)]``; columns past F are padding.
 
-The ported families (majority, centroid, gnb, linear) consume no PRNG key.
+``key`` is the partitions' threefry keys ``[P, 2]`` (``utils/threefry.py``;
+uint32 words, as int32 bit patterns on the device). A family whose init and
+fit consume it (``mlp``) sets ``keyed``, and the engines then draw the JAX
+package's key chain for it; the others (majority, centroid, gnb, linear)
+ignore ``key`` and get none.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ class Model(NamedTuple):
     fit: Callable[..., Any]
     predict: Callable[..., Any]
     predict_err: Callable[..., Any]
+    keyed: bool = False  # init and fit consume the partitions' keys
 
 
 class ModelSpec(NamedTuple):

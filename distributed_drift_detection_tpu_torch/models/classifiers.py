@@ -51,10 +51,10 @@ def _argmax_first(scores: torch.Tensor) -> torch.Tensor:
 def make_majority(spec: ModelSpec) -> Model:
     c = spec.num_classes
 
-    def init(p, device="cpu"):
+    def init(p, device="cpu", key=None):
         return torch.zeros(p, dtype=torch.int32, device=device)
 
-    def fit(X, y, w):
+    def fit(X, y, w, key=None):
         counts = torch.zeros(y.shape[0], c, dtype=torch.float32, device=y.device)
         counts.scatter_add_(1, y.long(), w)
         return _argmax_first(counts)  # ties: the lowest class
@@ -295,14 +295,14 @@ def make_centroid(spec: ModelSpec) -> Model:
     absent from the training batch get a ``-inf`` score."""
     f, c = spec.num_features, spec.num_classes
 
-    def init(p, device="cpu"):
+    def init(p, device="cpu", key=None):
         bias = torch.full((p, c), float("-inf"), dtype=torch.float32, device=device)
         bias[:, 0] = 0.0
         return CentroidParams(
             torch.zeros((p, c, f), dtype=torch.float32, device=device), bias
         )
 
-    def fit(X, y, w):
+    def fit(X, y, w, key=None):
         return centroid_fit(X, y, w, c)
 
     def predict(params, X):
@@ -345,7 +345,7 @@ def make_gnb(spec: ModelSpec, *, var_smoothing: float = 1e-6) -> Model:
     from the training batch score −inf."""
     f, c = spec.num_features, spec.num_classes
 
-    def init(p, device="cpu"):
+    def init(p, device="cpu", key=None):
         bias = torch.full((p, c), float("-inf"), dtype=torch.float32, device=device)
         bias[:, 0] = 0.0
         return GNBParams(
@@ -355,7 +355,7 @@ def make_gnb(spec: ModelSpec, *, var_smoothing: float = 1e-6) -> Model:
             bias,
         )
 
-    def fit(X, y, w):
+    def fit(X, y, w, key=None):
         # The JAX package's float32 expressions, with the one multiply-add
         # XLA fuses (the variance); XLA's order for the global mean and
         # variance is unknown (module docstring).
@@ -404,13 +404,13 @@ def make_linear(spec: ModelSpec, *, fit_steps: int = 32, learning_rate: float = 
     ``C = Wᵀ``."""
     f, c = spec.num_features, spec.num_classes
 
-    def init(p, device="cpu"):
+    def init(p, device="cpu", key=None):
         return LinearParams(
             torch.zeros((p, f, c), dtype=torch.float32, device=device),
             torch.zeros((p, c), dtype=torch.float32, device=device),
         )
 
-    def fit(X, y, w):
+    def fit(X, y, w, key=None):
         X = X.double()
         onehot = torch.nn.functional.one_hot(y.long(), c).double()
         wn = (w.double() / w.double().sum(1, keepdim=True).clamp_min(1.0))[..., None]
@@ -436,7 +436,8 @@ def make_linear(spec: ModelSpec, *, fit_steps: int = 32, learning_rate: float = 
 
 def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
     """Build a model by config name (``RunConfig.model``); ``cfg`` supplies
-    ``linear``'s ``fit_steps`` and ``learning_rate``."""
+    ``fit_steps``, ``linear``'s ``learning_rate`` and ``mlp``'s
+    ``mlp_hidden`` and ``mlp_learning_rate``."""
     if name == "majority":
         return make_majority(spec)
     if name == "centroid":
@@ -447,10 +448,18 @@ def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
         if cfg is None:
             return make_linear(spec)
         return make_linear(spec, fit_steps=cfg.fit_steps, learning_rate=cfg.learning_rate)
-    if name in ("mlp", "forest", "rf"):
+    if name == "mlp":
+        from .mlp import make_mlp
+
+        if cfg is None:
+            return make_mlp(spec)
+        return make_mlp(spec, hidden=tuple(cfg.mlp_hidden), fit_steps=cfg.fit_steps,
+                        learning_rate=cfg.mlp_learning_rate)
+    if name in ("forest", "rf"):
+        item = {"forest": "A9b", "rf": "A9c"}[name]
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP A9: key-consuming "
-            "fits); the port runs majority, centroid, gnb and linear"
+            f"model {name!r} is not ported yet (ROADMAP {item}); the port runs "
+            "majority, centroid, gnb, linear and mlp"
         )
     raise ValueError(
         f"unknown model {name!r}; expected majority|centroid|gnb|linear|mlp|forest|rf"

@@ -1,0 +1,333 @@
+"""The per-partition MLP, fitted on the card from a threefry key.
+
+Twin of the JAX package's ``models/classifiers.py`` ``make_mlp``
+(:249-305), batched over partitions: ``hidden`` ReLU layers and a linear
+output layer, params a tuple of :class:`MLPLayer` ``(w [P, din, dout], b
+[P, dout])``, a fresh fit per microbatch of ``fit_steps`` full-batch SGD
+steps with momentum from ``init(key)``.
+
+The init is JAX's bit for bit: ``split(key, layers)``, then per layer the
+normals of ``utils/threefry.py`` times ``√(2 / din)`` with zero biases.
+Under ``jit`` (where the JAX engines run it) XLA folds ``√(2/din) ·
+normal`` into ``erf_inv(u) · f32(√2 · √(2/din))``; the port computes that
+form (:func:`init_scales`). The fit's matrix products cannot follow XLA's
+unknown summation order (ROADMAP Queue C, C2), so fitted parameters agree
+with JAX to a tolerance, not to the bit.
+
+Three hand-written kernels carry the family on the card, each beside its
+plain version: K8 ``random_normal`` (``utils/threefry.py``) for ``init``,
+K9 ``mlp_fit`` (``csrc/mlp_fit.cu``: init from the key and every SGD step
+in one launch, a CTA a partition) and K10 ``mlp_predict_err``
+(``csrc/mlp_predict_err.cu``: the forward pass over rows gathered from the
+padded row table, argmax and the error indicator).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.prefix import f32
+from ..utils import threefry
+from .base import Model, ModelSpec, pad_row_table, row_stride
+from .classifiers import MAX_SHARED_BYTES, _argmax_first
+
+# Layers the kernels take (csrc/mlp_fit.cu, csrc/mlp_predict_err.cu kMaxLayers).
+MAX_LAYERS = 8
+
+
+class MLPLayer(NamedTuple):
+    w: torch.Tensor  # [P, din, dout]
+    b: torch.Tensor  # [P, dout]
+
+
+def init_scales(dims) -> list[float]:
+    """Per layer, the float32 factor XLA's jitted init multiplies
+    ``erf_inv(u)`` by: ``f32(f32(√2) · f32(√f32(2 / din)))``."""
+    sqrt2 = np.float32(math.sqrt(2.0))
+    return [float(sqrt2 * np.sqrt(np.float32(2.0 / d))) for d in dims[:-1]]
+
+
+def _keys(key: torch.Tensor) -> torch.Tensor:
+    """Per-partition keys ``[P, 2]`` as int32 bit patterns on their device."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.from_numpy(np.asarray(key, np.uint32).view(np.int32))
+    return key.int() if key.dtype == torch.int64 else key
+
+
+def mlp_init(key, dims, device=None, normal=None) -> tuple:
+    """``make_mlp.init`` for every partition: ``key [P, 2]`` (uint32
+    words; numpy or an int tensor) → a tuple of :class:`MLPLayer`. The
+    normals come from ``normal`` — by default kernel K8's wrapper
+    ``threefry.random_normal``."""
+    normal = normal or threefry.random_normal
+    key = _keys(key)
+    if device is not None:
+        key = key.to(device)
+    layer_keys = threefry.split(key, len(dims) - 1).int()  # [P, L, 2]
+    p = key.shape[0]
+    out = []
+    for l, (din, dout, factor) in enumerate(zip(dims[:-1], dims[1:], init_scales(dims))):
+        w = normal(layer_keys[:, l].contiguous(), din * dout, factor)
+        out.append(MLPLayer(w.view(p, din, dout),
+                            torch.zeros((p, dout), dtype=torch.float32, device=key.device)))
+    return tuple(out)
+
+
+def mlp_forward(params, X: torch.Tensor) -> torch.Tensor:
+    """Logits ``[P, N, C]`` of ``X [P, N, F]`` (plain)."""
+    h = X
+    for layer in params[:-1]:
+        h = torch.relu(torch.bmm(h, layer.w) + layer.b[:, None])
+    last = params[-1]
+    return torch.bmm(h, last.w) + last.b[:, None]
+
+
+def mlp_fit_reference(key, X, y, w, dims, fit_steps: int, learning_rate: float,
+                      momentum: float) -> tuple:
+    """Plain PyTorch version of :func:`mlp_fit`: the gradient of JAX's
+    ``loss_fn`` written out as its VJP computes it — ``log_softmax`` with
+    the max shift held constant, ``g + e·(−Σg / Σe)`` for its backward,
+    ReLU's gradient where the activation is positive — with ``wn = w /
+    max(Σw, 1)``, then ``vel = m·vel − lr·g``, ``p = p + vel``; every
+    gradient from the old parameters."""
+    params = [list(layer) for layer in
+              mlp_init(key, dims, X.device, threefry.random_normal_reference)]
+    X, w = X.float(), w.float()
+    c = dims[-1]
+    onehot = ((torch.arange(c, device=X.device) == y[..., None].long())).float()
+    wn = w / w.sum(1, keepdim=True).clamp_min(1.0)
+    g_logp = -(wn[..., None] * onehot)
+    g_sum = g_logp.sum(-1, keepdim=True)
+    vel = [[torch.zeros_like(t) for t in layer] for layer in params]
+    lr, mom = f32(learning_rate), f32(momentum)
+    for _ in range(int(fit_steps)):
+        acts = [X]
+        for l, (W, b) in enumerate(params):
+            z = torch.bmm(acts[-1], W) + b[:, None]
+            acts.append(torch.relu(z) if l < len(params) - 1 else z)
+        logits = acts.pop()
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        d = g_logp + e * (-g_sum / e.sum(-1, keepdim=True))
+        grads = []
+        for l in reversed(range(len(params))):
+            grads.append((torch.bmm(acts[l].transpose(1, 2), d), d.sum(1)))
+            if l:
+                d = torch.where(acts[l] > 0, torch.bmm(d, params[l][0].transpose(1, 2)), 0.0)
+        for l, g in enumerate(reversed(grads)):
+            for k in range(2):
+                vel[l][k] = mom * vel[l][k] - lr * g[k]
+                params[l][k] = params[l][k] + vel[l][k]
+    return tuple(MLPLayer(*layer) for layer in params)
+
+
+def _k9_words(dims, b: int) -> int:
+    """Floats of K9's per-partition workspace (csrc/mlp_fit.cu
+    ``Layout``): params and velocities with each weight row padded by one
+    float, the hidden activations and logits, the rows, labels and
+    weights — each region rounded up to 4 floats."""
+    def r4(n):
+        return (n + 3) & ~3
+
+    params = sum(r4(din * (dout + 1)) + r4(dout) for din, dout in zip(dims[:-1], dims[1:]))
+    acts = sum(r4(b * d) for d in dims[1:])
+    return 2 * params + acts + r4(b * dims[0]) + 2 * r4(b)
+
+
+def _layer_arrays(dims, layers):
+    """ctypes arrays of the layer widths, the init factors and the leaves'
+    device pointers, for the launchers."""
+    n = len(dims) - 1
+    dim_arr = (ctypes.c_int * (n + 1))(*dims)
+    scale_arr = (ctypes.c_float * n)(*init_scales(dims))
+    w_arr = (ctypes.c_void_p * n)(*(l.w.data_ptr() for l in layers))
+    b_arr = (ctypes.c_void_p * n)(*(l.b.data_ptr() for l in layers))
+    return dim_arr, scale_arr, w_arr, b_arr
+
+
+def _check_dims(name, dims):
+    if not 2 <= len(dims) <= MAX_LAYERS + 1:
+        raise ValueError(f"{name}: {len(dims) - 1} layers, the kernel takes 1..{MAX_LAYERS}")
+    if min(dims) < 1:
+        raise ValueError(f"{name}: every layer width must be >= 1, got {dims}")
+
+
+def mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum, out, scratch):
+    """Kernel K9's launch arguments, stream excluded, for checked CUDA
+    inputs, preallocated output layers ``out`` and the global workspace
+    (``None`` when the workspace fits shared memory). Returns the ctypes
+    arrays too, which must outlive the call."""
+    p, b, _ = X.shape
+    dim_arr, scale_arr, w_arr, b_arr = _layer_arrays(dims, out)
+    args = (key.data_ptr(), X.data_ptr(), y.data_ptr(), w.data_ptr(), p, b,
+            len(dims) - 1, ctypes.addressof(dim_arr), ctypes.addressof(scale_arr),
+            int(fit_steps), f32(learning_rate), f32(momentum),
+            ctypes.addressof(w_arr), ctypes.addressof(b_arr),
+            None if scratch is None else scratch.data_ptr())
+    return args, (dim_arr, scale_arr, w_arr, b_arr)
+
+
+def mlp_fit(key, X, y, w, dims, fit_steps: int = 32, learning_rate: float = 0.05,
+            momentum: float = 0.9) -> tuple:
+    """The MLP fit of ``X [P, B, F]`` f32, labels ``y [P, B]`` and {0, 1}
+    weights ``w [P, B]`` from the fit keys ``key [P, 2]``: a tuple of
+    :class:`MLPLayer`.
+
+    CUDA tensors launch kernel K9 (``csrc/mlp_fit.cu``) and add one to
+    ``mlp_fit.launches``; CPU tensors run :func:`mlp_fit_reference`."""
+    dims = tuple(int(d) for d in dims)
+    if X.device.type == "cpu":
+        return mlp_fit_reference(key, X, y, w, dims, fit_steps, learning_rate, momentum)
+    if X.device.type != "cuda":
+        raise ValueError(f"mlp_fit: unsupported device {X.device}")
+    _check_dims("mlp_fit", dims)
+    if int(fit_steps) < 0:
+        raise ValueError(f"mlp_fit: fit_steps must be >= 0, got {fit_steps}")
+    dev = X.device
+    p, b, f = X.shape
+    if f != dims[0]:
+        raise ValueError(f"mlp_fit: X has {f} features, the net takes {dims[0]}")
+    key = _keys(key).contiguous()
+    X = X.float().contiguous()
+    y = y.int().contiguous()
+    w = w.float().contiguous()
+    for name, t, shape in (("key", key, (p, 2)), ("y", y, (p, b)), ("w", w, (p, b))):
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"mlp_fit: {name} must be {list(shape)} on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    out = tuple(
+        MLPLayer(torch.empty((p, din, dout), dtype=torch.float32, device=dev),
+                 torch.empty((p, dout), dtype=torch.float32, device=dev))
+        for din, dout in zip(dims[:-1], dims[1:])
+    )
+    words = _k9_words(dims, b)
+    scratch = (torch.empty((p, words), dtype=torch.float32, device=dev)
+               if 4 * words > MAX_SHARED_BYTES else None)
+    args, keep = mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum,
+                              out, scratch)
+    code = kernels.launcher("mlp_fit")(*args, kernels.stream_handle(dev))
+    del keep
+    kernels.check("mlp_fit", code)
+    mlp_fit.launches += 1
+    return out
+
+
+mlp_fit.launches = 0
+
+
+def mlp_predict_err_reference(params, T, Ty, idx):
+    """Plain PyTorch version of :func:`mlp_predict_err`: ``(err, pred)``."""
+    i = idx.long()
+    f = params[0].w.shape[1]
+    pred = _argmax_first(mlp_forward(params, T[i, :f].float()))
+    return (pred != Ty[i]).float(), pred
+
+
+K10_ROWS = 64  # rows a block (csrc/mlp_predict_err.cu kRows)
+
+
+def _k10_shared_bytes(dims, f: int) -> int:
+    """K10's shared memory (csrc/mlp_predict_err.cu ``smem_words``): the
+    partition's weights and biases, two activation tiles of kRows rows at
+    the widest layer, and the tile's rows."""
+    rows = K10_ROWS
+    weights = sum(((din * dout + 3) & ~3) + ((dout + 3) & ~3)
+                  for din, dout in zip(dims[:-1], dims[1:]))
+    return 4 * (weights + 2 * rows * max(dims[1:]) + rows * row_stride(f))
+
+
+def mlp_predict_err_args(params, T, Ty, idx, err, pred=None):
+    """Kernel K10's launch arguments, stream excluded, for checked CUDA
+    inputs (``T`` padded by :func:`pad_row_table`) and preallocated
+    outputs. Returns the ctypes arrays too, which must outlive the call."""
+    dims = (params[0].w.shape[1], *(layer.w.shape[2] for layer in params))
+    dim_arr, _, w_arr, b_arr = _layer_arrays(dims, params)
+    args = (T.data_ptr(), T.shape[1], Ty.data_ptr(), idx.data_ptr(), idx.element_size(),
+            idx.shape[0], idx.shape[1], len(params), ctypes.addressof(dim_arr),
+            ctypes.addressof(w_arr), ctypes.addressof(b_arr),
+            err.data_ptr(), None if pred is None else pred.data_ptr())
+    return args, (dim_arr, w_arr, b_arr)
+
+
+def mlp_predict_err(params, T, Ty, idx, return_pred=False):
+    """The MLP's predict fused with the error indicator, over the rows
+    ``T[idx]`` of the row table ``T`` — ``[R, F]`` or its padded copy
+    ``[R, row_stride(F)]`` — with labels ``Ty [R]`` i32 and gather index
+    ``idx [P, N]`` int16 or int32: ``err [P, N]`` f32 (and ``pred``).
+
+    CUDA tensors launch kernel K10 (``csrc/mlp_predict_err.cu``) and add
+    one to ``mlp_predict_err.launches``; CPU tensors run
+    :func:`mlp_predict_err_reference`."""
+    if idx.device.type == "cpu":
+        err, pred = mlp_predict_err_reference(params, T, Ty, idx)
+        return (err, pred) if return_pred else err
+    if idx.device.type != "cuda":
+        raise ValueError(f"mlp_predict_err: unsupported device {idx.device}")
+    dev = idx.device
+    dims = (params[0].w.shape[1], *(layer.w.shape[2] for layer in params))
+    _check_dims("mlp_predict_err", dims)
+    f = dims[0]
+    if T.shape[1] == f:
+        T = pad_row_table(T)
+    p, n = idx.shape
+    checks = [("T", T, (torch.float32,), (T.shape[0], row_stride(f))),
+              ("Ty", Ty, (torch.int32,), (T.shape[0],)),
+              ("idx", idx, (torch.int16, torch.int32), (p, n))]
+    for l, layer in enumerate(params):
+        checks += [(f"w{l}", layer.w, (torch.float32,), (p, dims[l], dims[l + 1])),
+                   (f"b{l}", layer.b, (torch.float32,), (p, dims[l + 1]))]
+    for name, t, dtypes, shape in checks:
+        if t.device != dev or t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"mlp_predict_err: {name} must be {'/'.join(map(str, dtypes))} "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"mlp_predict_err: {name} must be contiguous")
+    if T.data_ptr() % 16:
+        raise ValueError("mlp_predict_err: T must start on a 16-byte boundary")
+    smem = _k10_shared_bytes(dims, f)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"mlp_predict_err: the net {dims} needs {smem} B of shared "
+                         f"memory, over the card's {MAX_SHARED_BYTES}")
+    err = torch.empty((p, n), dtype=torch.float32, device=dev)
+    pred = torch.empty((p, n), dtype=torch.int32, device=dev) if return_pred else None
+    args, keep = mlp_predict_err_args(params, T, Ty, idx, err, pred)
+    code = kernels.launcher("mlp_predict_err")(*args, kernels.stream_handle(dev))
+    del keep
+    kernels.check("mlp_predict_err", code)
+    mlp_predict_err.launches += 1
+    return (err, pred) if return_pred else err
+
+
+mlp_predict_err.launches = 0
+
+
+def make_mlp(spec: ModelSpec, *, hidden=(128, 64), fit_steps: int = 32,
+             learning_rate: float = 0.05, momentum: float = 0.9) -> Model:
+    """MLP with ReLU hidden layers ``hidden``, fitted with ``fit_steps``
+    SGD + momentum steps from ``init(key)``; its ``init`` and ``fit`` take
+    the partitions' keys (``keyed``)."""
+    dims = (spec.num_features, *(int(h) for h in hidden), spec.num_classes)
+
+    def init(p, device="cpu", key=None):
+        if key is None:
+            raise ValueError("the mlp's init draws its weights from a key [P, 2]")
+        return mlp_init(key, dims, device)
+
+    def fit(X, y, w, key=None):
+        if key is None:
+            raise ValueError("the mlp's fit draws its init from a key [P, 2]")
+        return mlp_fit(key, X, y, w, dims, fit_steps, learning_rate, momentum)
+
+    def predict(params, X):
+        return _argmax_first(mlp_forward(params, X))
+
+    def predict_err(params, T, Ty, idx):
+        return mlp_predict_err(params, T, Ty, idx)
+
+    return Model("mlp", init, fit, predict, predict_err, keyed=True)

@@ -167,7 +167,8 @@ def make_mesh_runner(
     rotations: int = 1,
     compact_capacity: int = 0,
 ):
-    """Build ``run(batches) -> MeshRunResult`` on one device.
+    """Build ``run(batches, key=None) -> MeshRunResult`` on one device;
+    ``key`` is the partitions' keys ``[P, 2]`` uint32 of a keyed model.
 
     ``packed=True`` takes :class:`PackedIndexedBatches` and expands their
     geometry planes on the device first; otherwise ``batches`` are dense
@@ -205,11 +206,13 @@ def make_mesh_runner(
             detector=detector,
         )
 
-    def run(batches) -> MeshRunResult:
+    def run(batches, key=None) -> MeshRunResult:
         if packed:
             if not isinstance(batches, PackedIndexedBatches):
                 raise TypeError("packed runner expects PackedIndexedBatches")
             batches = expand_packed(batches)
+        if model.keyed:
+            return finish_mesh_run(run_one(batches, key), compact_capacity=compact_capacity)
         return finish_mesh_run(run_one(batches), compact_capacity=compact_capacity)
 
     return run

@@ -522,3 +522,153 @@ def test_adwin_kernel_fires_on_xla_log_tie(dev):
     got = tadwin.adwin_window(state, errs, valid, params)
     _same(got, tadwin.adwin_window_reference(state, errs, valid, params))
     assert got[1].first_change.cpu().numpy().tolist() == [[-1] * 7 + [1491]]
+
+
+# --------------------------------------------------------------------------
+# the MLP kernels K8 random_normal, K9 mlp_fit, K10 mlp_predict_err
+# --------------------------------------------------------------------------
+
+from distributed_drift_detection_tpu_torch.models import mlp as tmlp  # noqa: E402
+from distributed_drift_detection_tpu_torch.utils import threefry  # noqa: E402
+
+# K9 against its plain version: the two sum their products in other
+# orders, and over a fit's steps a hidden unit's input within rounding of
+# zero flips its ReLU gradient in one version only; from there that
+# partition's trajectories part (1.04e-3 after 32 steps in one partition
+# of the main_path case, on an H100), the others staying within 2e-6. So
+# each case is held twice: after at most 4 steps every parameter to
+# K9_RTOL / K9_TIGHT_ATOL, and after all its steps to K9_ATOL.
+K9_RTOL, K9_TIGHT_ATOL, K9_TIGHT_STEPS = 1e-4, 2e-6, 4
+K9_ATOL = 5e-2
+
+
+def _keys(seed, p):
+    return torch.from_numpy(threefry.split(threefry.key(seed), p).view(np.int32).copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2560, 2688, 8192])
+@pytest.mark.parametrize("factor", ["sqrt2", "init"])
+def test_random_normal_kernel_bitwise(dev, factor, n):
+    """K8 equals the CPU generator bit for bit (which is jax.random's)."""
+    f = threefry.SQRT2 if factor == "sqrt2" else tmlp.init_scales((21, 5))[0]
+    keys = _keys(n, 16)
+    before = threefry.random_normal.launches
+    got = threefry.random_normal(keys.to(dev), n, f)
+    assert threefry.random_normal.launches == before + 1
+    want = threefry.random_normal(keys, n, f)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _mlp_batch(seed, p, b, f, c):
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 2
+    y = rng.integers(0, c, (p, b)).astype(np.int32)
+    X = (protos[y] + 0.5 * rng.normal(size=(p, b, f))).astype(np.float32)
+    w = (rng.random((p, b)) < 0.9).astype(np.float32)
+    return X, y, w, protos
+
+
+# (P, B, F, C, hidden, steps): the main path's shapes; B not a multiple of
+# 32 with C = 5; F = 27 (≈ 223 KB of shared memory); a batch too large for
+# shared memory (the global workspace); invalid rows and labels of no
+# class; an all-invalid batch; narrow widths; one hidden layer; the init
+# alone.
+K9_CASES = {
+    "main_path": (16, 100, 21, 40, (128, 64), 32),
+    "b37_c5": (4, 37, 27, 5, (128, 64), 32),
+    "f27_c40": (4, 100, 27, 40, (128, 64), 32),
+    "global_workspace": (3, 300, 21, 40, (128, 64), 8),
+    "invalid_rows": (4, 100, 21, 40, (128, 64), 32),
+    "all_invalid": (3, 100, 21, 40, (128, 64), 32),
+    "narrow": (4, 50, 21, 40, (16, 8), 4),
+    "one_hidden": (2, 64, 21, 40, (32,), 8),
+    "init_only": (16, 100, 21, 40, (128, 64), 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K9_CASES))
+def test_mlp_fit_kernel(dev, case):
+    """K9 against its plain version — to ``K9_RTOL``/``K9_TIGHT_ATOL``
+    after ``K9_TIGHT_STEPS`` steps, within ``K9_ATOL`` after all; with no
+    gradient (an all-invalid batch) and with no step, the init bit for
+    bit."""
+    p, b, f, c, hidden, steps = K9_CASES[case]
+    dims = (f, *hidden, c)
+    X, y, w, _ = _mlp_batch(len(case), p, b, f, c)
+    if case == "invalid_rows":
+        w[:, ::3] = 0.0
+        y[0, :5] = c
+        w[1] = 0.0
+    if case == "all_invalid":
+        w[:] = 0.0
+    host = [_keys(p + b, p)] + [torch.from_numpy(a) for a in (X, y, w)]
+    before = tmlp.mlp_fit.launches
+    short = min(steps, K9_TIGHT_STEPS)
+    got = tmlp.mlp_fit(*(t.to(dev) for t in host), dims, short)
+    want = tmlp.mlp_fit_reference(*host, dims, short, 0.05, 0.9)
+    for g, r in zip(got, want):
+        for gv, rv in zip(g, r):
+            assert gv.shape == rv.shape
+            torch.testing.assert_close(gv.cpu(), rv, rtol=K9_RTOL, atol=K9_TIGHT_ATOL)
+    got = tmlp.mlp_fit(*(t.to(dev) for t in host), dims, steps)
+    assert tmlp.mlp_fit.launches == before + 2
+    want = tmlp.mlp_fit_reference(*host, dims, steps, 0.05, 0.9)
+    for g, r in zip(got, want):
+        for gv, rv in zip(g, r):
+            assert bool(torch.isfinite(gv).all())
+            assert float((gv.cpu() - rv).abs().max()) <= K9_ATOL
+    if case in ("all_invalid", "init_only"):
+        init = tmlp.mlp_init(host[0], dims)
+        for g, i in zip(got, init):
+            assert torch.equal(g.w.cpu().view(torch.int32), i.w.view(torch.int32))
+            assert torch.equal(g.b.cpu(), i.b)
+
+
+def _near_ties(params, rows):
+    """Rows whose two best float64 logits lie within 1e-4·(1 + |top|)."""
+    h = rows.double()
+    for layer in params[:-1]:
+        h = torch.relu(torch.bmm(h, layer.w.double()) + layer.b.double()[:, None])
+    logits = torch.bmm(h, params[-1].w.double()) + params[-1].b.double()[:, None]
+    top2 = logits.topk(2, -1).values
+    return (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
+
+
+# (P, N, F, C, hidden): the main path's shape; N not a multiple of the
+# block's 64 rows with C = 5 and F = 27; narrow widths.
+K10_CASES = {
+    "main_path": (16, 12800, 21, 40, (128, 64)),
+    "ragged_c5_f27": (3, 1000, 27, 5, (128, 64)),
+    "narrow": (4, 333, 21, 40, (16, 8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("case", sorted(K10_CASES))
+def test_mlp_predict_err_kernel(dev, case, idx_dtype):
+    """K10's predictions equal its plain version's on the same parameters
+    except on near ties, and its errors are ``pred != label``."""
+    p, n, f, c, hidden = K10_CASES[case]
+    dims = (f, *hidden, c)
+    X, y, w, protos = _mlp_batch(len(case), p, 100, f, c)
+    params = tmlp.mlp_fit_reference(_keys(7, p), *(torch.from_numpy(a) for a in (X, y, w)),
+                                    dims, 8, 0.05, 0.9)
+    rng = np.random.default_rng(n)
+    T = torch.from_numpy((protos[rng.integers(0, c, 3000)]
+                          + 0.7 * rng.normal(size=(3000, f))).astype(np.float32))
+    Ty = torch.from_numpy(rng.integers(0, c, 3000).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 3000, (p, n))).to(idx_dtype)
+    before = tmlp.mlp_predict_err.launches
+    err, pred = tmlp.mlp_predict_err(
+        tuple(tmlp.MLPLayer(l.w.to(dev), l.b.to(dev)) for l in params),
+        T.to(dev), Ty.to(dev), idx.to(dev), return_pred=True)
+    assert tmlp.mlp_predict_err.launches == before + 1
+    rerr, rpred = tmlp.mlp_predict_err_reference(params, T, Ty, idx)
+    tie = _near_ties(params, T[idx.long()])
+    pred, err = pred.cpu(), err.cpu()
+    assert torch.equal(pred[~tie], rpred[~tie])
+    assert torch.equal(err, (pred != Ty[idx.long()]).float())
+    assert int(tie.sum()) < max(5, n * p // 1000)

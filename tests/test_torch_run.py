@@ -7,8 +7,11 @@ cover the auto W×R window engine, a pinned depth, the retrain guard, an
 unshuffled stream, both collect modes, the majority model, the DDM_ROBUST
 noise floor, a subsampled (``mult_data < 1``) stream, which rides the
 dense striper, every detector of the zoo on the window engine, the
-sequential ``window=1`` engine (DDM, Page–Hinkley, ADWIN, and gnb), and
-the gnb and linear models.
+sequential ``window=1`` engine (DDM, Page–Hinkley, ADWIN, and gnb), the
+gnb and linear models, and the mlp — whose fits draw JAX's threefry key
+chain — on the window engine at R = 1, R = 4 and the auto depth, and on
+``window=1``: its fitted parameters agree with JAX's to a tolerance only,
+but on these configs the flags come out equal bit for bit.
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ BASE = dict(
     dataset="synth:prototypes,seed=0,concepts=6,rows_per_concept=100,features=5",
     mult_data=3, partitions=4, per_batch=50, results_csv="",
 )
+MLP_NARROW = dict(mlp_hidden=(16, 8), fit_steps=8)
 CONFIGS = {
     "auto": {},
     "rotations2": dict(window_rotations=2),
@@ -54,6 +58,12 @@ CONFIGS = {
     "seq_gnb": dict(window=1, model="gnb"),
     "gnb": dict(model="gnb"),
     "linear": dict(model="linear"),
+    # the mlp on JAX's threefry key chain, at narrow widths: the auto W×R
+    # window engine, R = 1 and R = 4, and window=1
+    "mlp": dict(model="mlp", **MLP_NARROW),
+    "mlp_r1": dict(model="mlp", window_rotations=1, **MLP_NARROW),
+    "mlp_w8r4": dict(model="mlp", window=8, window_rotations=4, **MLP_NARROW),
+    "seq_mlp": dict(model="mlp", window=1, **MLP_NARROW),
 }
 
 
@@ -172,7 +182,7 @@ def test_chip_scripts_refuse_without_a_card(script):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(model="mlp"), "A9"),
+        (dict(model="forest", window=1), "A9"),
         (dict(model="forest"), "A9"),
         (dict(tenants=2), "A11"),
         (dict(mesh_devices=2), "A15"),
@@ -185,6 +195,18 @@ def test_chip_scripts_refuse_without_a_card(script):
 def test_unported_surfaces_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tpkg.run(_cfg(tconfig, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("model, item", [("forest", "A9b"), ("rf", "A9c")])
+def test_unported_models_name_their_items(model, item):
+    """forest and rf stay refused, each naming its own ROADMAP item, at
+    ``run`` and at ``build_model``."""
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+
+    with pytest.raises(NotImplementedError, match=rf"{item}\b"):
+        tpkg.run(_cfg(tconfig, model=model), device="cpu")
+    with pytest.raises(NotImplementedError, match=rf"{item}\b"):
+        build_model(model, ModelSpec(5, 3))
 
 
 @pytest.mark.parametrize("kw", [{}, CONFIGS["dense"], CONFIGS["seq_ddm"]],
