@@ -10,11 +10,12 @@ process of its own, so all are compared on one card with the drift between
 runs visible. Each run builds that tree's kernels and times K1
 (``ddm_window``), K2 (``centroid_predict_err``), K7 (``centroid_fit``) and
 the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``) and
-K5-adwin (``adwin_window``) at ``chip_smoke.py``'s main-path shapes on the
-same inputs (K7 on the main path's first training batch, and as
-``centroid_fit_random_rows`` on a batch of random rows) — a kernel a tree
-does not have is left out of its run, and ``--only`` keeps the named
-kernels alone:
+K5-adwin (``adwin_window``) and K9 (``mlp_fit``) at ``chip_smoke.py``'s
+main-path shapes on the same inputs (K7 on the main path's first training
+batch, and as ``centroid_fit_random_rows`` on a batch of random rows; K9 on
+the main path's first training batch with its fit keys, 32 steps of
+MLP(128, 64)) — a kernel a tree does not have is left out of its run, and
+``--only`` keeps the named kernels alone:
 
 * ``ms``: device time of one launch — 50 calls of the kernel's wrapper
   captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
@@ -22,6 +23,15 @@ kernels alone:
   median of 5 rounds (``chip_smoke.graph_ms``);
 * ``host_us``: the wrapper's host cost per call (``chip_smoke.host_us``,
   the median of 5 rounds of 200 calls).
+
+K9 is timed as ``chip_smoke.py`` times it: ``ms`` over graphs of 10
+launches (3 rounds), ``host_us`` over 3 rounds of 20 calls, and
+``floor_ms``, an empty kernel launched with K9's grid, cluster, block and
+shared memory; beside them the SHA-256 of the fitted parameters' bytes on
+that batch (``digest``) and on chip_smoke's F = 27 batch (``digest_f27``),
+which must be equal across trees (K9's redesigns keep every chain). A tree
+whose K9 launches a cluster a partition is timed at the size its launcher
+picks (``cluster_ctas``); ``chip_smoke.py`` times the other sizes.
 
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
@@ -124,7 +134,48 @@ def one(root: str, only: set | None = None) -> dict:
     for name, call in calls.items():
         if only is None or name in only:
             out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
+    if only is None or "mlp_fit" in only:
+        out.update(k9_runs(torch, cs, prep, dev))
     return out
+
+
+def k9_runs(torch, cs, prep, dev) -> dict:
+    """K9 of the tree on the path: timed and digested (see the docstring)."""
+    import ctypes
+
+    from distributed_drift_detection_tpu_torch import kernels
+    from distributed_drift_detection_tpu_torch.models import mlp
+
+    cfg, st = prep.config, prep.stream
+    dims = (st.num_features, *cfg.mlp_hidden, st.num_classes)
+    steps, lr = cfg.fit_steps, cfg.mlp_learning_rate
+    _, keys = cs.mlp_keys(torch, prep, dev)
+    batch = [torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches)]
+    p, b = batch[0].shape[:2]
+    f27 = [torch.from_numpy(a).to(dev) for a in cs.k9_f27_batch()]
+    f27_dims = (cs.K9_F27[2], *cs.K9_F27[4], cs.K9_F27[3])
+    f27_keys = keys[: cs.K9_F27[0]].contiguous()
+    # a tree whose K9 launches a cluster a partition takes its size as an
+    # argument of the kernel and of its floor
+    extra = (mlp.k9_launch_plan(batch[0].device, dims, b, p)[0],) if hasattr(
+        mlp, "k9_launch_plan") else ()
+    got = mlp.mlp_fit(keys, *batch, dims, steps, lr)
+    row = {"digest": cs.params_digest(got)}
+    if extra:
+        row["cluster_ctas"] = extra[0]
+    out = tuple(mlp.MLPLayer(torch.empty_like(l.w), torch.empty_like(l.b)) for l in got)
+    args, keep = mlp.mlp_fit_args(keys, *batch, dims, steps, lr, 0.9, out, None, *extra)
+    fn = kernels.launcher("mlp_fit")
+    row["ms"] = cs.graph_ms(lambda: kernels.check(
+        "mlp_fit", fn(*args, kernels.stream_handle(dev))), reps=10, rounds=3)
+    row["digest_f27"] = cs.params_digest(mlp.mlp_fit(f27_keys, *f27, f27_dims, 32, lr))
+    row["host_us"] = cs.host_us(lambda: mlp.mlp_fit(keys, *batch, dims, steps, lr),
+                                calls=20, rounds=3)
+    floor = kernels.launcher("mlp_fit_floor")
+    row["floor_ms"] = cs.graph_ms(lambda: kernels.check("mlp_fit_floor", floor(
+        p, b, len(dims) - 1, ctypes.addressof(keep[0]), *extra, kernels.stream_handle(dev))))
+    del keep
+    return {"mlp_fit": row}
 
 
 def main() -> int:
@@ -164,7 +215,9 @@ def main() -> int:
     for label, root in [("this", HERE)] + [(o, o) for o in others]:
         mine = [r for r in runs if r["tree"] == root]
         summary[label] = {
-            k: {m: statistics.median(r[k][m] for r in mine) for m in ("ms", "host_us")}
+            k: {m: (statistics.median(r[k][m] for r in mine) if m.endswith(("ms", "us"))
+                    else sorted({r[k][m] for r in mine}))
+                for m in mine[0][k]}
             for k in mine[0] if k != "tree"
         }
     print(json.dumps(summary))

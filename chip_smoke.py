@@ -66,7 +66,10 @@ without them. Phases, each fatal on failure:
    against its plain version (to ``K9_RTOL``/``K9_TIGHT_ATOL`` after 4
    steps, within ``K9_ATOL`` after 32) on the main path's first training
    batch with its fit keys, on random rows and the edge cases (and the
-   init bit for bit with no step), K10's predictions equal to its
+   init bit for bit with no step), and bit for bit against the one-CTA
+   kernel it replaced (pinned digests) on that batch at every cluster size and on an F = 27
+   batch, timed at the launcher's cluster size and at each; K10's
+   predictions equal to its
    plain version's off the near ties at [16, 12,800]; each timed as K7 is,
    with a ``floor_ms``; then ``run`` at SMOKE's full width and depth,
    counted: detections equal to the JAX package's and mean delay within a
@@ -81,6 +84,7 @@ error, times and bound; the last line is the device JSON.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import statistics
 import subprocess
@@ -556,6 +560,40 @@ K9_EDGES = [(4, 37, 27, 5, (128, 64), 32), (4, 100, 27, 40, (128, 64), 32),
             (3, 300, 21, 40, (128, 64), 8), (4, 50, 21, 40, (16, 8), 4)]
 
 
+# K9's fit is bit for bit the same at every cluster size and tile shape: the
+# SHA-256 of the fitted parameters' bytes (``params_digest``) that the
+# one-CTA kernel of commit b2a30dd gives on the main path's first training batch with
+# its fit keys after 32 steps, and on the F = 27 batch ``k9_f27_batch``
+# (NVIDIA H100 80GB HBM3; chip_kernel_ab.py against b2a30dd).
+K9_MAIN_DIGEST = "72f2a6a1ae3765feea944798cef28d7621e943e5d030bc91967eefc70cc3f39b"
+K9_F27_DIGEST = "bc1b93f25051df4a7dd30711650a558997fb0156b2df6ea148d1155d8dae4717"
+# the F = 27 batch's shape (P, B, F, C, hidden, steps); its rows are
+# ``k9_f27_batch``'s
+K9_F27 = (4, 100, 27, 40, (128, 64), 32)
+
+
+def params_digest(params) -> str:
+    """SHA-256 of the fitted parameters' bytes, layer by layer (w, then b)."""
+    h = hashlib.sha256()
+    for layer in params:
+        for t in layer:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k9_f27_batch(seed: int = 27):
+    """K9's F = 27 batch (``K9_F27``): rows around C prototypes, labels,
+    {0, 1} weights with every third row of partition 0 invalid."""
+    p, b, f, c, _, _ = K9_F27
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 2
+    y = rng.integers(0, c, (p, b)).astype(np.int32)
+    X = (protos[y] + 0.5 * rng.normal(size=(p, b, f))).astype(np.float32)
+    w = (rng.random((p, b)) < 0.9).astype(np.float32)
+    w[0, ::3] = 0.0
+    return X, y, w
+
+
 def mlp_dims(stream, cfg):
     return (stream.num_features, *cfg.mlp_hidden, stream.num_classes)
 
@@ -663,8 +701,11 @@ def fit_gap(torch, got, want):
 def check_k9(torch, kernels, mlp, prep, dev):
     """K9 against its plain version within ``K9_ATOL`` on the main path's
     first training batch with its fit keys, on random rows and on the edge
-    cases, and bit for bit against the init with no step; times it on the
-    main path's batch; returns its kernel row and the fitted params."""
+    cases, and bit for bit against the init with no step; bit for bit
+    against the one-CTA kernel (the pinned digests) on the main path's batch and
+    the F = 27 batch, at every cluster size; times it on the main path's
+    batch at the launcher's cluster size and at each; returns its kernel row
+    and the fitted params."""
     cfg, stream = prep.config, prep.stream
     dims = mlp_dims(stream, cfg)
     steps, lr = cfg.fit_steps, cfg.mlp_learning_rate
@@ -709,9 +750,34 @@ def check_k9(torch, kernels, mlp, prep, dev):
           + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
           + "); the init bit for bit with no step")
 
-    out = tuple(mlp.MLPLayer(torch.empty_like(l.w), torch.empty_like(l.b)) for l in main_params)
-    args, keep = mlp.mlp_fit_args(fit_keys, *main, dims, steps, lr, 0.9, out, None)
+    ctas, _ = mlp.k9_launch_plan(main[0].device, dims, b, p)
+    check(params_digest(main_params) == K9_MAIN_DIGEST,
+          "K9 differs from the one-CTA kernel on the main path's batch (digest)")
+    fp, _, ff, fc, fhidden, fsteps = K9_F27
+    f27 = [torch.from_numpy(a).to(dev) for a in k9_f27_batch()]
+    check(params_digest(mlp.mlp_fit(fit_keys[:fp].contiguous(), *f27, (ff, *fhidden, fc),
+                                     fsteps, lr)) == K9_F27_DIGEST,
+          "K9 differs from the one-CTA kernel on the F = 27 batch (digest)")
     fn = kernels.launcher("mlp_fit")
+    by_cluster = {}
+    for size in mlp.K9_CTAS:
+        got = tuple(mlp.MLPLayer(torch.empty_like(l.w), torch.empty_like(l.b))
+                    for l in main_params)
+        sargs, skeep = mlp.mlp_fit_args(fit_keys, *main, dims, steps, lr, 0.9, got, None, size)
+        kernels.check("mlp_fit", fn(*sargs, kernels.stream_handle(dev)))
+        torch.cuda.synchronize()
+        check(params_digest(got) == K9_MAIN_DIGEST,
+              f"K9 with {size} CTAs a partition differs from the one-CTA kernel (digest)")
+        by_cluster[size] = graph_ms(lambda: kernels.check(
+            "mlp_fit", fn(*sargs, kernels.stream_handle(dev))), reps=10, rounds=3)
+        del skeep
+    print(f"K9 mlp_fit: bit for bit the one-CTA kernel (pinned digests: the main path's batch at "
+          f"every cluster size, the F = 27 batch); {ctas} CTAs a partition chosen; device ms "
+          "by CTAs a partition (graph of 10): "
+          + ", ".join(f"{k}: {v:.5f}" for k, v in by_cluster.items()))
+
+    out = tuple(mlp.MLPLayer(torch.empty_like(l.w), torch.empty_like(l.b)) for l in main_params)
+    args, keep = mlp.mlp_fit_args(fit_keys, *main, dims, steps, lr, 0.9, out, None, ctas)
     ms = graph_ms(lambda: kernels.check("mlp_fit", fn(*args, kernels.stream_handle(dev))),
                   reps=10, rounds=3)
     h_us = host_us(lambda: mlp.mlp_fit(fit_keys, *main, dims, steps, lr), calls=20, rounds=3)
@@ -720,13 +786,14 @@ def check_k9(torch, kernels, mlp, prep, dev):
     dim_arr = keep[0]
     floor = kernels.launcher("mlp_fit_floor")
     floor_ms = graph_ms(lambda: kernels.check("mlp_fit_floor", floor(
-        p, b, len(dims) - 1, ctypes.addressof(dim_arr), kernels.stream_handle(dev))))
+        p, b, len(dims) - 1, ctypes.addressof(dim_arr), ctas, kernels.stream_handle(dev))))
     nparams = sum(l.w[0].numel() + l.b[0].numel() for l in main_params)
     b_ms, by = bound(p * b * (dims[0] + 2) * 4 + p * 8 + p * nparams * 4,
                      p * mlp_fit_ops(dims, b, steps))
-    print(f"K9 mlp_fit [{p}, {b}] {dims} {steps} steps: {ms:.5f} ms device (graph of 10), "
-          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
-          f"floor {floor_ms:.5f} ms (an empty kernel with its grid, block and shared memory)")
+    print(f"K9 mlp_fit [{p}, {b}] {dims} {steps} steps, {ctas} CTAs a partition: {ms:.5f} ms "
+          f"device (graph of 10), {h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound "
+          f"{b_ms:.5f} ms ({by}), floor {floor_ms:.5f} ms (an empty kernel with its grid, "
+          "cluster, block and shared memory)")
     del keep
     return dict(
         name="mlp_fit", route="cuda",
@@ -734,6 +801,7 @@ def check_k9(torch, kernels, mlp, prep, dev):
         replaces="distributed_drift_detection_tpu/models/classifiers.py:286",
         max_abs_err=max(gaps.values()), ms=ms, host_us=h_us, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+        cluster_ctas=ctas, ms_by_cluster=by_cluster,
     ), main_params
 
 

@@ -97,10 +97,19 @@ _SIGNATURES = {
          _I, _I, _I, _P, _P,  # p, b, layers, host widths [L + 1], host init factors [L]
          _I, _F, _F,  # steps, learning rate, momentum
          _P, _P, _P,  # host arrays of the output w and b pointers, global workspace
-         _P],  # stream
+         _I, _P],  # CTAs a partition (a cluster), stream
     ),
     "mlp_fit_floor": (
-        "mlp_fit_floor_launch", [_I, _I, _I, _P, _P], "mlp_fit",
+        "mlp_fit_floor_launch", [_I, _I, _I, _P, _I, _P], "mlp_fit",
+    ),
+    # K9 at a shape (rows, layers, host widths, CTAs a cluster, host int
+    # out): the floats of one CTA's workspace; the card's most co-resident
+    # clusters
+    "mlp_fit_words": (
+        "mlp_fit_words", [_I, _I, _P, _I, _P], "mlp_fit",
+    ),
+    "mlp_fit_max_clusters": (
+        "mlp_fit_max_clusters", [_I, _I, _P, _I, _P], "mlp_fit",
     ),
     "mlp_predict_err": (
         "mlp_predict_err_launch",

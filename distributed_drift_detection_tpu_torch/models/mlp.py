@@ -17,14 +17,16 @@ with JAX to a tolerance, not to the bit.
 Three hand-written kernels carry the family on the card, each beside its
 plain version: K8 ``random_normal`` (``utils/threefry.py``) for ``init``,
 K9 ``mlp_fit`` (``csrc/mlp_fit.cu``: init from the key and every SGD step
-in one launch, a CTA a partition) and K10 ``mlp_predict_err``
-(``csrc/mlp_predict_err.cu``: the forward pass over rows gathered from the
-padded row table, argmax and the error indicator).
+in one launch, a thread-block cluster a partition, :func:`k9_launch_plan`) and
+K10 ``mlp_predict_err`` (``csrc/mlp_predict_err.cu``: the forward pass
+over rows gathered from the padded row table, argmax and the error
+indicator).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -126,17 +128,83 @@ def mlp_fit_reference(key, X, y, w, dims, fit_steps: int, learning_rate: float,
     return tuple(MLPLayer(*layer) for layer in params)
 
 
-def _k9_words(dims, b: int) -> int:
-    """Floats of K9's per-partition workspace (csrc/mlp_fit.cu
-    ``Layout``): params and velocities with each weight row padded by one
-    float, the hidden activations and logits, the rows, labels and
-    weights — each region rounded up to 4 floats."""
+# Words of K9's Layout at the head of its workspace: 9 arrays of
+# MAX_LAYERS ints and 6 ints, rounded up to 4 (csrc/mlp_fit.cu kHeader).
+K9_HEADER = (9 * MAX_LAYERS + 6 + 3) & ~3
+
+
+def _pad4(n: int) -> int:
+    """K9's row stride for n floats (csrc/mlp_fit.cu ``pad4``): at least n
+    rounded up to 4, and 4 times an odd number."""
+    return ((((n + 3) & ~3) // 4) | 1) * 4
+
+
+def _k9_words(dims, b: int, cs: int = 1) -> int:
+    """Floats of one CTA's workspace in K9 with ``cs`` CTAs a partition
+    (csrc/mlp_fit.cu ``Layout``): the layout itself (``K9_HEADER``
+    words), the parameters with each weight row padded (``_pad4``), the
+    velocities of the CTA's columns (the widest slice, whole groups of 4,
+    of each layer), each layer's output with padded rows, with ``cs > 1`` a
+    gradient buffer as wide for each hidden layer but the first, a float a
+    row, the rows (padded), labels and weights — each region rounded up to
+    4 floats. The kernel's own count, ``mlp_fit_words``, sizes a launch;
+    this copy lets :func:`k9_plan` be worked out without a card."""
     def r4(n):
         return (n + 3) & ~3
 
-    params = sum(r4(din * (dout + 1)) + r4(dout) for din, dout in zip(dims[:-1], dims[1:]))
-    acts = sum(r4(b * d) for d in dims[1:])
-    return 2 * params + acts + r4(b * dims[0]) + 2 * r4(b)
+    def widest(n):  # csrc/mlp_fit.cu `cut`: whole groups of 4 a CTA
+        return 4 * -(-((n + 3) // 4) // cs)
+
+    pairs = list(zip(dims[:-1], dims[1:]))
+    params = sum(r4(din * _pad4(dout)) + r4(dout) for din, dout in pairs)
+    vel = sum(r4(din * widest(dout)) + r4(widest(dout)) for din, dout in pairs)
+    acts = sum(r4(b * _pad4(d)) for d in dims[1:])
+    grads = sum(r4(b * _pad4(d)) for d in dims[2:-1]) if cs > 1 else 0
+    return (K9_HEADER + params + vel + acts + grads + r4(b) + r4(b * _pad4(dims[0]))
+            + 2 * r4(b))
+
+
+# CTAs a partition K9 takes (csrc/mlp_fit.cu `valid_cs`), and the cluster
+# sizes its plan tries, in this order: on an H100 at the main path's shapes
+# 4 CTAs a partition ran fastest, 2 next; 8 ran slower than 4 (PERF.md §6).
+K9_CTAS = (1, 2, 4, 8)
+K9_CLUSTER_SIZES = (4, 2)
+
+
+def k9_plan(p: int, words, max_clusters) -> tuple[int, bool]:
+    """K9's launch at ``P = p`` partitions: ``(cs, shared)``, the CTAs a
+    partition and whether the workspace sits in shared memory, from
+    ``words(cs)`` (the floats of one CTA's workspace) and
+    ``max_clusters(cs)`` (the clusters the card holds at once). The first
+    ``cs`` of :data:`K9_CLUSTER_SIZES` whose workspace fits shared memory
+    and whose ``p`` clusters are all resident; else one CTA a partition,
+    its workspace in shared memory if it fits there, else in global
+    memory. The card is asked only about sizes that fit."""
+    for cs in K9_CLUSTER_SIZES:
+        if 4 * words(cs) <= MAX_SHARED_BYTES and max_clusters(cs) >= p:
+            return cs, True
+    return 1, 4 * words(1) <= MAX_SHARED_BYTES
+
+
+@functools.cache
+def k9_launch_plan(device: torch.device, dims: tuple, b: int, p: int) -> tuple[int, int | None]:
+    """:func:`k9_plan` on ``device`` from the kernel's own counts
+    (``mlp_fit_words``, ``mlp_fit_max_clusters``), worked out once per
+    (device, shape): ``(cs, scratch_words)``, ``scratch_words`` the floats
+    of a partition's global workspace, or ``None`` when the workspace sits
+    in shared memory."""
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+
+    def ask(name, cs):
+        out = ctypes.c_int(0)
+        kernels.check(name, kernels.launcher(name)(
+            b, len(dims) - 1, ctypes.addressof(dim_arr), cs, ctypes.byref(out)))
+        return out.value
+
+    with torch.cuda.device(device):
+        cs, shared = k9_plan(p, lambda cs: ask("mlp_fit_words", cs),
+                             lambda cs: ask("mlp_fit_max_clusters", cs))
+        return cs, None if shared else ask("mlp_fit_words", 1)
 
 
 def _layer_arrays(dims, layers):
@@ -157,18 +225,19 @@ def _check_dims(name, dims):
         raise ValueError(f"{name}: every layer width must be >= 1, got {dims}")
 
 
-def mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum, out, scratch):
+def mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum, out, scratch,
+                 cs: int = 1):
     """Kernel K9's launch arguments, stream excluded, for checked CUDA
-    inputs, preallocated output layers ``out`` and the global workspace
-    (``None`` when the workspace fits shared memory). Returns the ctypes
-    arrays too, which must outlive the call."""
+    inputs, preallocated output layers ``out``, the global workspace
+    (``None`` when the workspace fits shared memory) and ``cs`` CTAs a
+    partition. Returns the ctypes arrays too, which must outlive the call."""
     p, b, _ = X.shape
     dim_arr, scale_arr, w_arr, b_arr = _layer_arrays(dims, out)
     args = (key.data_ptr(), X.data_ptr(), y.data_ptr(), w.data_ptr(), p, b,
             len(dims) - 1, ctypes.addressof(dim_arr), ctypes.addressof(scale_arr),
             int(fit_steps), f32(learning_rate), f32(momentum),
             ctypes.addressof(w_arr), ctypes.addressof(b_arr),
-            None if scratch is None else scratch.data_ptr())
+            None if scratch is None else scratch.data_ptr(), int(cs))
     return args, (dim_arr, scale_arr, w_arr, b_arr)
 
 
@@ -178,7 +247,8 @@ def mlp_fit(key, X, y, w, dims, fit_steps: int = 32, learning_rate: float = 0.05
     weights ``w [P, B]`` from the fit keys ``key [P, 2]``: a tuple of
     :class:`MLPLayer`.
 
-    CUDA tensors launch kernel K9 (``csrc/mlp_fit.cu``) and add one to
+    CUDA tensors launch kernel K9 (``csrc/mlp_fit.cu``), with the CTAs a
+    partition :func:`k9_launch_plan` picks, and add one to
     ``mlp_fit.launches``; CPU tensors run :func:`mlp_fit_reference`."""
     dims = tuple(int(d) for d in dims)
     if X.device.type == "cpu":
@@ -205,11 +275,11 @@ def mlp_fit(key, X, y, w, dims, fit_steps: int = 32, learning_rate: float = 0.05
                  torch.empty((p, dout), dtype=torch.float32, device=dev))
         for din, dout in zip(dims[:-1], dims[1:])
     )
-    words = _k9_words(dims, b)
-    scratch = (torch.empty((p, words), dtype=torch.float32, device=dev)
-               if 4 * words > MAX_SHARED_BYTES else None)
+    cs, words = k9_launch_plan(dev, dims, b, p)
+    scratch = (None if words is None else
+               torch.empty((p, words), dtype=torch.float32, device=dev))
     args, keep = mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum,
-                              out, scratch)
+                              out, scratch, cs)
     code = kernels.launcher("mlp_fit")(*args, kernels.stream_handle(dev))
     del keep
     kernels.check("mlp_fit", code)

@@ -626,6 +626,116 @@ def test_mlp_fit_kernel(dev, case):
             assert torch.equal(g.b.cpu(), i.b)
 
 
+# (P, B, F, C, hidden, steps) run at every cluster size K9's launcher can
+# pick: the main path's shapes; a batch not a multiple of 32 with C = 5 and
+# F = 27; C = 5 and hidden (16, 8), so at 8 CTAs a partition some own no
+# unit of the last layer and one unit of a hidden layer; one hidden layer
+# (no backward product is exchanged); no hidden layer (the logits' slice
+# is written again right after the next step's start).
+K9_CLUSTER_CASES = {
+    "main_path": (16, 100, 21, 40, (128, 64), 32),
+    "b37_c5_f27": (4, 37, 27, 5, (128, 64), 32),
+    "c5_h16_8": (4, 50, 21, 5, (16, 8), 8),
+    "one_hidden": (2, 64, 21, 40, (32,), 8),
+    "no_hidden": (3, 40, 21, 5, (), 4),
+}
+
+
+def _mlp_fit_at(key, X, y, w, dims, steps, cs):
+    """K9 launched through its launcher with ``cs`` CTAs a partition and
+    the workspace in shared memory (``mlp_fit`` picks its own size): the
+    fitted layers."""
+    from distributed_drift_detection_tpu_torch import kernels
+
+    p, dev = X.shape[0], X.device
+    out = tuple(tmlp.MLPLayer(torch.empty((p, din, dout), device=dev),
+                              torch.empty((p, dout), device=dev))
+                for din, dout in zip(dims[:-1], dims[1:]))
+    args, keep = tmlp.mlp_fit_args(key, X, y, w, dims, steps, 0.05, 0.9, out, None, cs)
+    kernels.check("mlp_fit", kernels.launcher("mlp_fit")(*args, kernels.stream_handle(dev)))
+    torch.cuda.synchronize()
+    del keep
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("case", sorted(K9_CLUSTER_CASES))
+def test_mlp_fit_kernel_cluster_sizes(dev, case, cs):
+    """K9 with ``cs`` CTAs a partition fits the same parameters, bit for
+    bit, as with one CTA a partition and as at the size ``mlp_fit`` picks
+    (each output keeps its one chain)."""
+    p, b, f, c, hidden, steps = K9_CLUSTER_CASES[case]
+    dims = (f, *hidden, c)
+    X, y, w, _ = _mlp_batch(len(case) + cs, p, b, f, c)
+    w[0, ::3] = 0.0
+    args = [t.to(dev) for t in [_keys(p + b, p)] + [torch.from_numpy(a) for a in (X, y, w)]]
+    one = _mlp_fit_at(*args, dims, steps, 1)
+    got = _mlp_fit_at(*args, dims, steps, cs)
+    before = tmlp.mlp_fit.launches
+    chosen = tmlp.mlp_fit(*args, dims, steps)
+    assert tmlp.mlp_fit.launches == before + 1
+    for g, o, h in zip(got, one, chosen):
+        for gv, ov, hv in zip(g, o, h):
+            assert torch.equal(gv.view(torch.int32), ov.view(torch.int32))
+            assert torch.equal(hv.view(torch.int32), ov.view(torch.int32))
+    if steps <= K9_TIGHT_STEPS:
+        want = tmlp.mlp_fit_reference(*(t.cpu() for t in args), dims, steps, 0.05, 0.9)
+        for g, r in zip(got, want):
+            for gv, rv in zip(g, r):
+                torch.testing.assert_close(gv.cpu(), rv, rtol=K9_RTOL, atol=K9_TIGHT_ATOL)
+
+
+# (dims, B), as tests/test_torch_mlp.py's K9_SHAPES: SMOKE at F = 21 and
+# F = 27, B = 37 with C = 5, the global workspace's B = 300, narrow widths,
+# one hidden layer, none
+K9_SHAPES = [((21, 128, 64, 40), 100), ((27, 128, 64, 40), 100), ((27, 128, 64, 5), 37),
+             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+@pytest.mark.parametrize("dims, b", K9_SHAPES)
+def test_k9_words_is_the_kernels_count(dev, dims, b, cs):
+    """``models/mlp.py`` ``_k9_words``, the Python copy that plans K9
+    without a card, counts the floats of the kernel's own layout
+    (``mlp_fit_words``, which sizes every launch)."""
+    import ctypes
+
+    from distributed_drift_detection_tpu_torch import kernels
+
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    out = ctypes.c_int(0)
+    kernels.check("mlp_fit_words", kernels.launcher("mlp_fit_words")(
+        b, len(dims) - 1, ctypes.addressof(dim_arr), cs, ctypes.byref(out)))
+    assert tmlp._k9_words(dims, b, cs) == out.value
+
+
+@pytest.mark.cuda
+def test_mlp_fit_kernel_matches_pinned_digest(dev):
+    """K9 fits, bit for bit, the parameters of the one-CTA kernel it
+    replaced: the SHA-256 of the fitted parameters on the main path's
+    first training batch (32 steps of MLP(128, 64) from the main path's fit
+    keys) and on chip_smoke's F = 27 batch equals the pinned digests
+    (``chip_smoke.K9_MAIN_DIGEST``, ``K9_F27_DIGEST``), at the launcher's
+    own choice of cluster size."""
+    import chip_smoke as cs
+
+    from distributed_drift_detection_tpu_torch import api, config
+
+    prep = api.prepare(config.RunConfig(**cs.SMOKE, model="mlp"), device=dev)
+    dims = cs.mlp_dims(prep.stream, prep.config)
+    _, keys = cs.mlp_keys(torch, prep, dev)
+    batch = [torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches)]
+    got = tmlp.mlp_fit(keys, *batch, dims, 32, prep.config.mlp_learning_rate)
+    assert cs.params_digest(got) == cs.K9_MAIN_DIGEST
+    p, b, f, c, hidden, steps = cs.K9_F27
+    f27 = [torch.from_numpy(a).to(dev) for a in cs.k9_f27_batch()]
+    got = tmlp.mlp_fit(keys[:p].contiguous(), *f27, (f, *hidden, c), steps,
+                       prep.config.mlp_learning_rate)
+    assert cs.params_digest(got) == cs.K9_F27_DIGEST
+
+
 def _near_ties(params, rows):
     """Rows whose two best float64 logits lie within 1e-4·(1 + |top|)."""
     h = rows.double()

@@ -278,3 +278,320 @@ def test_mlp_partition_step_continues_a_carried_jax_state():
         got = torch.stack([fl[i] for fl in flags], 1).numpy()
         np.testing.assert_array_equal(np.asarray(getattr(jflags, name)), got, err_msg=name)
     np.testing.assert_array_equal(tcarry.key, np.asarray(jax.random.key_data(jend.key)))
+
+
+# --------------------------------------------------------------------------
+# K9's launch plan and its cluster dataflow, mirrored in Python
+# (csrc/mlp_fit.cu `layout`, `cut`, `pull` and the kernel's barriers)
+# --------------------------------------------------------------------------
+
+from distributed_drift_detection_tpu_torch.models import mlp as tmlp  # noqa: E402
+
+
+def _cut(n, k, cs):
+    """CTA k's first unit of a layer of n: whole groups of 4 units
+    (csrc/mlp_fit.cu ``cut``)."""
+    return min(n, 4 * (k * -(-n // 4) // cs))
+
+
+def _owner(c, n, cs):
+    """The CTA whose slice of n holds unit c (csrc/mlp_fit.cu ``owner``)."""
+    return ((c // 4 + 1) * cs - 1) // -(-n // 4)
+
+
+def _pad4(n):
+    """A row stride for n floats (csrc/mlp_fit.cu ``pad4``)."""
+    return ((((n + 3) & ~3) // 4) | 1) * 4
+
+
+def _layout(dims, rows, cs):
+    """csrc/mlp_fit.cu ``layout``, region by region: {name: (offset, floats)}."""
+    def r4(n):
+        return (n + 3) & ~3
+
+    regions, off = {"header": (0, 9 * 8 + 6)}, 80
+
+    def put(name, n):
+        nonlocal off
+        regions[name] = (off, n)
+        off += r4(n)
+
+    pairs = list(zip(dims[:-1], dims[1:]))
+    for l, (din, dout) in enumerate(pairs):
+        put(f"w{l}", din * _pad4(dout))
+        put(f"b{l}", dout)
+    for l, (din, dout) in enumerate(pairs):
+        widest = max(_cut(dout, k + 1, cs) - _cut(dout, k, cs) for k in range(cs))
+        put(f"vw{l}", din * 4 * -(-((dout + 3) // 4) // cs))
+        put(f"vb{l}", 4 * -(-((dout + 3) // 4) // cs))
+        assert widest <= regions[f"vb{l}"][1]
+    for l, d in enumerate(dims[1:]):
+        put(f"act{l}", rows * _pad4(d))
+    for l in range(1, len(dims) - 2):
+        if cs > 1:
+            put(f"grad{l}", rows * _pad4(dims[l + 1]))
+    put("row", rows)
+    put("x", rows * _pad4(dims[0]))
+    put("y", rows)
+    put("wn", rows)
+    return regions, off
+
+
+# (dims, B): SMOKE at F = 21 and F = 27, B = 37 with C = 5, the global
+# workspace's B = 300, narrow widths, one hidden layer, none
+K9_SHAPES = [((21, 128, 64, 40), 100), ((27, 128, 64, 40), 100), ((27, 128, 64, 5), 37),
+             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40)]
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+@pytest.mark.parametrize("dims, b", K9_SHAPES)
+def test_k9_words_mirror_the_kernel_layout(dims, b, cs):
+    """``_k9_words`` is the kernel's per-CTA layout: disjoint regions, each
+    on a 16-byte boundary, the velocities holding the widest slice, every
+    row stride a multiple of 4 floats (float4 reads) and an odd number of
+    float4s (no bank conflicts) that covers its row rounded up to 4."""
+    regions, total = _layout(dims, b, cs)
+    assert tmlp._k9_words(dims, b, cs) == total
+    spans = sorted(regions.values())
+    for (o1, n1), (o2, _) in zip(spans, spans[1:]):
+        assert o1 % 4 == 0 and o1 + n1 <= o2
+    for n in dims:
+        assert _pad4(n) % 8 == 4 and _pad4(n) >= n + (-n) % 4
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 16, 21, 40, 64, 128, 129])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+def test_k9_slices_partition_the_units(n, cs):
+    """The CTAs' slices of a layer cover its units once, in order, each
+    starting on a group of 4, and ``owner`` names the CTA whose slice holds
+    each unit."""
+    cuts = [_cut(n, k, cs) for k in range(cs + 1)]
+    assert cuts[0] == 0 and cuts[-1] == n and cuts == sorted(cuts)
+    assert all(c % 4 == 0 for c in cuts[:-1])
+    for c in range(n):
+        k = _owner(c, n, cs)
+        assert cuts[k] <= c < cuts[k + 1]
+
+
+# H100 SXM-like co-residency tables, {cs: clusters the card holds at once}
+ROOMY = {8: 16, 4: 33, 2: 66}
+TIGHT = {8: 14, 4: 12, 2: 66}
+
+
+@pytest.mark.parametrize("dims, b, p, table, want", [
+    ((21, 128, 64, 40), 100, 16, ROOMY, (4, True)),   # SMOKE, F = 21
+    ((27, 128, 64, 40), 100, 16, ROOMY, (4, True)),   # F = 27
+    ((21, 128, 64, 40), 100, 16, TIGHT, (2, True)),   # 16 clusters of 4 do not fit
+    ((27, 128, 64, 40), 100, 16, {}, (1, True)),      # no cluster fits: one CTA, shared
+    ((21, 128, 64, 40), 100, 200, ROOMY, (1, True)),  # more partitions than any wave
+    ((21, 128, 64, 40), 300, 3, ROOMY, (1, False)),   # the global workspace
+    ((21, 128, 64, 40), 110, 4, ROOMY, (4, True)),    # only 4 CTAs a partition fit shared memory
+])
+def test_k9_plan_is_a_function_of_the_shapes(dims, b, p, table, want):
+    """``k9_plan`` on ``_k9_words``: the first of ``K9_CLUSTER_SIZES``
+    whose workspace fits shared memory and whose P clusters are
+    co-resident, else one CTA in shared or global memory; the card is asked
+    only about sizes that fit, and the same shapes give the same plan."""
+    assert set(tmlp.K9_CLUSTER_SIZES) <= set(tmlp.K9_CTAS)
+    asked = []
+
+    def words(cs):
+        return tmlp._k9_words(dims, b, cs)
+
+    def max_clusters(cs):
+        asked.append(cs)
+        return table.get(cs, 0)
+
+    got = tmlp.k9_plan(p, words, max_clusters)
+    assert got == want
+    assert all(4 * tmlp._k9_words(dims, b, cs) <= tmlp.MAX_SHARED_BYTES for cs in asked)
+    assert tmlp.k9_plan(p, words, max_clusters) == got
+    shared = 4 * tmlp._k9_words(dims, b, got[0]) <= tmlp.MAX_SHARED_BYTES
+    assert got[1] == shared
+
+
+def _chain(A, B):
+    """out[m, n] = Σ_t A[m, t]·B[t, n], one float32 chain an output in t
+    order (elementwise, so a slice's values do not depend on the slice)."""
+    acc = torch.zeros(A.shape[0], B.shape[1])
+    for t in range(A.shape[1]):
+        acc = acc + A[:, t:t + 1] * B[t:t + 1, :]
+    return acc
+
+
+class _Cta:
+    """One CTA's replica of K9's workspace, with what it read and wrote
+    itself and what other CTAs sent into it since the last barrier."""
+
+    def __init__(self, bufs):
+        self.buf = bufs
+        self.marks()
+
+    def marks(self):
+        self.read, self.wrote, self.got = (
+            {n: torch.zeros(t.shape, dtype=torch.bool) for n, t in self.buf.items()}
+            for _ in range(3))
+
+    def get(self, name, at):
+        self.read[name][at] = True
+        return self.buf[name][at].clone()
+
+    def set(self, name, at, value):
+        self.wrote[name][at] = True
+        self.buf[name][at] = value
+
+
+def _k9_model(key, X, y, w, dims, steps, cs, lr=0.05, mom=0.9):
+    """K9's per-CTA dataflow for one partition: each CTA a generator that
+    yields at the kernel's cluster barriers, holding its own replica of the
+    workspace (what it neither computes nor receives stays NaN) and sending
+    (``put``, ``push_rows``) into the others' replicas. At each barrier no
+    CTA may have read or written, since the last one, what another sent
+    into it then (the sender does not wait for the receiver). Returns each
+    layer's (w, b) gathered from the CTAs' own columns."""
+    L, B, c = len(dims) - 1, X.shape[0], dims[-1]
+    nan = float("nan")
+    init = tmlp.mlp_init(key[None], dims, normal=tmlp.threefry.random_normal_reference)
+    ctas = []
+    for k in range(cs):
+        bufs = {"x": X.clone()}
+        for l in range(L):
+            din, dout = dims[l], dims[l + 1]
+            j0, j1 = _cut(dout, k, cs), _cut(dout, k + 1, cs)
+            bufs[f"w{l}"] = torch.full((din, dout), nan)
+            bufs[f"w{l}"][:, j0:j1] = init[l].w[0][:, j0:j1]
+            bufs[f"b{l}"] = torch.full((dout,), nan)
+            bufs[f"b{l}"][j0:j1] = 0.0
+            bufs[f"vw{l}"] = torch.zeros(din, j1 - j0)
+            bufs[f"vb{l}"] = torch.zeros(j1 - j0)
+            bufs[f"act{l}"] = torch.full((B, dout), nan)
+            if 1 <= l < L - 1 and cs > 1:
+                bufs[f"grad{l}"] = torch.full((B, dout), nan)
+        ctas.append(_Cta(bufs))
+    wn = w / torch.clamp(w.sum(), min=1.0)
+    onehot = (torch.arange(c)[None] == y[:, None].long())
+    every = slice(None)
+
+    def grad(l):
+        return f"grad{l}" if 1 <= l < L - 1 and cs > 1 else f"act{l}"
+
+    def put(k, name, at, value, share=True):
+        ctas[k].set(name, at, value)
+        for m in range(cs):
+            if m != k and share:
+                ctas[m].buf[name][at] = value
+                ctas[m].got[name][at] = True
+
+    def push_rows(k, l):
+        din, dout = dims[l], dims[l + 1]
+        j0, j1 = _cut(dout, k, cs), _cut(dout, k + 1, cs)
+        for i in range(din):
+            o = _owner(i, din, cs)
+            if o != k:
+                ctas[o].buf[f"w{l}"][i, j0:j1] = ctas[k].get(f"w{l}", (i, slice(j0, j1)))
+                ctas[o].got[f"w{l}"][i, j0:j1] = True
+
+    def program(k):
+        me = ctas[k]
+        for step in range(steps):
+            yield  # C
+            if cs > 1:
+                for l in range(1, L):
+                    if l == 1 or step == 0:
+                        push_rows(k, l)
+            for l in range(L):
+                dout = dims[l + 1]
+                cols = slice(_cut(dout, k, cs), _cut(dout, k + 1, cs))
+                inp = me.get("x" if l == 0 else f"act{l - 1}", every)
+                z = _chain(inp, me.get(f"w{l}", (every, cols))) + me.get(f"b{l}", cols)
+                put(k, f"act{l}", (every, cols), torch.relu(z) if l < L - 1 else z)
+                yield  # the layer's output is complete everywhere
+            e = me.get(f"act{L - 1}", every)
+            e = torch.exp(e - e.amax(-1, keepdim=True))
+            s = torch.zeros(B)
+            for j in range(c):
+                s = s + e[:, j]
+            g_y = -wn
+            g_sum = torch.where((y >= 0) & (y < c), g_y, 0.0)
+            me.set(f"act{L - 1}", every,
+                   torch.where(onehot, g_y[:, None], -0.0) + e * (-g_sum / s)[:, None])
+            for l in reversed(range(L)):
+                din, dout = dims[l], dims[l + 1]
+                j0, j1 = _cut(dout, k, cs), _cut(dout, k + 1, cs)
+                inp = me.get("x" if l == 0 else f"act{l - 1}", every)
+                d = me.get(grad(l), (every, slice(j0, j1)))
+                me.set(f"vw{l}", every, mom * me.get(f"vw{l}", every) - lr * _chain(inp.T, d))
+                gb = torch.zeros(j1 - j0)
+                for r in range(B):
+                    gb = gb + d[r]
+                me.set(f"vb{l}", every, mom * me.get(f"vb{l}", every) - lr * gb)
+                if l > 0:
+                    units = slice(_cut(din, k, cs), _cut(din, k + 1, cs))
+                    back = _chain(me.get(grad(l), every), me.get(f"w{l}", (units, every)).T)
+                    h = me.get(f"act{l - 1}", (every, units))
+                    put(k, grad(l - 1), (every, units), torch.where(h > 0, back, 0.0),
+                        share=l >= 2)
+                cols = slice(j0, j1)
+                me.set(f"w{l}", (every, cols),
+                       me.get(f"w{l}", (every, cols)) + me.get(f"vw{l}", every))
+                me.set(f"b{l}", cols, me.get(f"b{l}", cols) + me.get(f"vb{l}", every))
+                if cs > 1 and l >= 2:
+                    yield  # the gradient sent above is complete everywhere
+                    push_rows(k, l)
+
+    gens = [program(k) for k in range(cs)]
+    live = True
+    while live:
+        live = False
+        for g in gens:  # each CTA up to its next barrier
+            live = next(g, "done") is None or live
+        for k, cta in enumerate(ctas):
+            for name, got in cta.got.items():
+                clash = got & (cta.read[name] | cta.wrote[name])
+                assert not clash.any(), f"CTA {k} used {name} while another sent into it"
+            cta.marks()
+    out = []
+    for l in range(L):
+        dout = dims[l + 1]
+        W, b = torch.empty(dims[l], dout), torch.empty(dout)
+        for k in range(cs):
+            j0, j1 = _cut(dout, k, cs), _cut(dout, k + 1, cs)
+            W[:, j0:j1], b[j0:j1] = ctas[k].buf[f"w{l}"][:, j0:j1], ctas[k].buf[f"b{l}"][j0:j1]
+        out.append((W, b))
+    return out
+
+
+# (B, F, C, hidden, steps): narrow widths with C = 5 (at 8 CTAs some own no
+# logit), two and three hidden layers (backward products exchanged), one,
+# none
+K9_MODEL_CASES = {
+    "h16_8_c5": (12, 7, 5, (16, 8), 3),
+    "h6_9_4_c3": (9, 5, 3, (6, 9, 4), 3),
+    "h10": (8, 6, 4, (10,), 3),
+    "no_hidden": (7, 6, 5, (), 3),
+}
+
+
+@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("case", sorted(K9_MODEL_CASES))
+def test_k9_cluster_dataflow_model(case, cs):
+    """K9's exchange schedule: with ``cs`` CTAs a partition, every value a
+    CTA reads it computed or received before the last barrier, and no CTA
+    sends into a value another may still be reading or writing — so the
+    fit equals the one-CTA fit bit for bit, and that one agrees with
+    ``mlp_fit_reference``."""
+    b, f, c, hidden, steps = K9_MODEL_CASES[case]
+    dims = (f, *hidden, c)
+    X, y, w, _ = _batch(len(case), 1, b, f, c)
+    w[0, ::4] = 0.0
+    _, key = _keys(len(case), 1)
+    X, y, w = (torch.from_numpy(a[0]) for a in (X, y, w))
+    one = _k9_model(key[0], X, y, w, dims, steps, 1)
+    got = _k9_model(key[0], X, y, w, dims, steps, cs)
+    for (gw, gb), (ow, ob) in zip(got, one):
+        assert torch.equal(gw.view(torch.int32), ow.view(torch.int32))
+        assert torch.equal(gb.view(torch.int32), ob.view(torch.int32))
+    want = tmlp.mlp_fit_reference(key, X[None], y[None], w[None], dims, steps, 0.05, 0.9)
+    for (ow, ob), layer in zip(one, want):
+        torch.testing.assert_close(ow, layer.w[0], rtol=1e-4, atol=2e-6)
+        torch.testing.assert_close(ob, layer.b[0], rtol=1e-4, atol=2e-6)
