@@ -10,12 +10,14 @@ process of its own, so all are compared on one card with the drift between
 runs visible. Each run builds that tree's kernels and times K1
 (``ddm_window``), K2 (``centroid_predict_err``), K7 (``centroid_fit``) and
 the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``) and
-K5-adwin (``adwin_window``) and K9 (``mlp_fit``) at ``chip_smoke.py``'s
-main-path shapes on the same inputs (K7 on the main path's first training
-batch, and as ``centroid_fit_random_rows`` on a batch of random rows; K9 on
-the main path's first training batch with its fit keys, 32 steps of
-MLP(128, 64)) — a kernel a tree does not have is left out of its run, and
-``--only`` keeps the named kernels alone:
+K5-adwin (``adwin_window``), K9 (``mlp_fit``) and K10
+(``mlp_predict_err``) at ``chip_smoke.py``'s main-path shapes on the same
+inputs (K7 on the main path's first training batch, and as
+``centroid_fit_random_rows`` on a batch of random rows; K9 on the main
+path's first training batch with its fit keys, 32 steps of MLP(128, 64);
+K10 on ``chip_smoke.k10_main_inputs`` with the parameters K9 fits there) —
+a kernel a tree does not have is left out of its run, and ``--only`` keeps
+the named kernels alone:
 
 * ``ms``: device time of one launch — 50 calls of the kernel's wrapper
   captured into one CUDA graph (a wrapper enqueues nothing but its kernel,
@@ -32,6 +34,11 @@ that batch (``digest``) and on chip_smoke's F = 27 batch (``digest_f27``),
 which must be equal across trees (K9's redesigns keep every chain). A tree
 whose K9 launches a cluster a partition is timed at the size its launcher
 picks (``cluster_ctas``); ``chip_smoke.py`` times the other sizes.
+
+K10 is timed through its wrapper as K1 is, over graphs of 10 launches (3
+rounds), beside the SHA-256 of its predictions and errors there
+(``digest``) and on ``chip_smoke.k10_f27_case`` (``digest_f27``), which
+must be equal across trees (K10's redesign keeps every chain).
 
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
@@ -136,6 +143,8 @@ def one(root: str, only: set | None = None) -> dict:
             out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
     if only is None or "mlp_fit" in only:
         out.update(k9_runs(torch, cs, prep, dev))
+    if only is None or "mlp_predict_err" in only:
+        out.update(k10_runs(torch, cs, prep, dev))
     return out
 
 
@@ -176,6 +185,31 @@ def k9_runs(torch, cs, prep, dev) -> dict:
         p, b, len(dims) - 1, ctypes.addressof(keep[0]), *extra, kernels.stream_handle(dev))))
     del keep
     return {"mlp_fit": row}
+
+
+def k10_runs(torch, cs, prep, dev) -> dict:
+    """K10 of the tree on the path: timed and digested (see the docstring)."""
+    from distributed_drift_detection_tpu_torch.models import mlp
+
+    cfg, st = prep.config, prep.stream
+    dims = cs.mlp_dims(st, cfg)
+    _, keys = cs.mlp_keys(torch, prep, dev)
+    batch = [torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches)]
+    params = mlp.mlp_fit(keys, *batch, dims, cfg.fit_steps, cfg.mlp_learning_rate)
+    p, n = cfg.partitions, cfg.window * cfg.per_batch
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in cs.k10_main_inputs(st, p, n))
+    Tp = mlp.pad_row_table(T)
+    err, pred = mlp.mlp_predict_err(params, Tp, Ty, idx, return_pred=True)
+    row = {"digest": cs.k10_digest(pred, err)}
+    ferr, fpred = mlp.mlp_predict_err(*cs.k10_f27_case(torch, mlp, dev), return_pred=True)
+    row["digest_f27"] = cs.k10_digest(fpred, ferr)
+
+    def call():
+        return mlp.mlp_predict_err(params, Tp, Ty, idx)
+
+    row["ms"] = cs.graph_ms(call, reps=10, rounds=3)
+    row["host_us"] = cs.host_us(call)
+    return {"mlp_predict_err": row}
 
 
 def main() -> int:

@@ -21,10 +21,12 @@ without them. Phases, each fatal on failure:
    and on the edge cases of their designs (K1: cluster sizes 8 and 1, a
    cluster size that does not divide W, W below it, a CTA of padding only,
    rows of several tiles; K2: near-tie rows, F = 21, 27 and 37, C = 40 and
-   64, int16 and int32 indices; K7: per_batch 256 and 1000, few and many
-   (class, feature) pairs, labels of no class, and the label layouts of its
-   sorted row list: one class, C = 1, B = 1, B = 2049, every label of no
-   class, all weights 0); then time each kernel three ways:
+   64, int16 and int32 indices, and C = 3,000 at F = 21, its classes in
+   chunks, equal off the near ties; K7: per_batch 256 and 1000, few and
+   many (class, feature) pairs, labels of no class, C = 3,000 at F = 21
+   (classes in chunks), and the label layouts of its sorted row list: one
+   class, C = 1, B = 1, B = 2049, every label of no class, all weights 0);
+   then time each kernel three ways:
    ``ms``, the device time of one launch (50 raw launches through
    ``kernels.launcher`` with preallocated outputs, captured into one CUDA
    graph, replays timed with CUDA events, median of 5 rounds); ``host_us``,
@@ -68,14 +70,25 @@ without them. Phases, each fatal on failure:
    batch with its fit keys, on random rows and the edge cases (and the
    init bit for bit with no step), and bit for bit against the one-CTA
    kernel it replaced (pinned digests) on that batch at every cluster size and on an F = 27
-   batch, timed at the launcher's cluster size and at each; K10's
-   predictions equal to its
-   plain version's off the near ties at [16, 12,800]; each timed as K7 is,
+   batch (and a nine-layer net against its plain version), timed at the
+   launcher's cluster size and at each; K10 bit for bit the kernel it replaced
+   (pinned digests ``K10_MAIN_DIGEST``, ``K10_F27_DIGEST``) at [16,
+   12,800] with the fitted params and on the F = 27 case, at its plan and
+   at every plan of ``K10_VARIANTS`` (resident and streamed weights, one
+   tile a CTA and persistent CTAs, 64 and 128 rows, 128 and 256 threads),
+   its predictions equal to its plain version's off the near ties there
+   and on ``K10_EDGES`` (C5's nets, no hidden layer, nine layers, the
+   global workspace; each plan printed), timed at each plan, with
+   ``library_ms`` (the layers' ``torch.bmm`` alone); each timed as K7 is,
    with a ``floor_ms``; then ``run`` at SMOKE's full width and depth,
    counted: detections equal to the JAX package's and mean delay within a
    batch of it (pinned below), whether the flags equal the port's CPU run
    bit for bit (printed, not required), Final Time and one traced detect
-   phase.
+   phase;
+10. the nets of ROADMAP C5, ``mlp_hidden`` (256, 128) and (512,) (``C5_NETS``),
+   through ``run`` at SMOKE on the card, counted: 624 detections and a
+   mean delay within a batch of the port's CPU run of the same config,
+   Final Time, K10's plan and one traced detect phase each.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -120,6 +133,9 @@ SHALLOW = [
      ("ph_window", "centroid_predict_err", "centroid_fit")),
 ]
 SHALLOW_MULT = 64
+# The mlp's nets of ROADMAP C5, run end to end at SMOKE beside the main
+# path's: K10 streams their weights through its ring.
+C5_NETS = [(256, 128), (512,)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -347,6 +363,30 @@ def check_k2_equal(torch, classifiers, arrays, dev, what):
     return err, pred, rerr
 
 
+def check_k2_chunks(torch, classifiers, rng, dev):
+    """K2 at C = 3,000 classes, F = 21 — more than shared memory holds at
+    once (2,058), so its classes run in chunks: predictions equal to its
+    plain version's off the near ties (the two best float64 scores within
+    1e-4·(1 + |top|): the kernel's dot chain and torch.bmm sum in other
+    orders), errors ``pred != y``. Returns the near ties' count."""
+    ec, ef = 3000, 21
+    protos = rng.normal(size=(ec, ef)).astype(np.float32) * 3
+    ty = rng.integers(0, ec, 6000).astype(np.int32)
+    table = (protos[ty] + 0.3 * rng.normal(size=(6000, ef))).astype(np.float32)
+    cent, bias, T, Ty, idx = (torch.from_numpy(a).to(dev)
+                              for a in k2_inputs(rng, table, ty, 4, 3000, ec, np.int32))
+    err, pred = classifiers.centroid_predict_err(cent, bias, T, Ty, idx, return_pred=True)
+    _, rpred = classifiers.centroid_predict_err_reference(cent, bias, T, Ty, idx)
+    scores = (T[idx.long()].double() @ cent.double().transpose(1, 2)
+              + bias.double()[:, None])
+    top2 = scores.topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
+    check(torch.equal(pred[~tie], rpred[~tie]),
+          "K2 predictions differ from its plain version off the near ties (C=3000)")
+    check(torch.equal(err, (pred != Ty[idx.long()]).float()), "K2 errors are not pred != y (C=3000)")
+    return int(tie.sum())
+
+
 def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
     """K2 against its plain version — equal preds and errs — at the main
     path's shape and the edge cases; times it; returns its kernel row."""
@@ -366,6 +406,8 @@ def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
         check_k2_equal(torch, classifiers, k2_inputs(rng, table, ty, 4, 3000, ec, dt),
                        dev, f"F={ef} C={ec} {np.dtype(dt).name}")
         edges.append(f"F={ef} C={ec} {np.dtype(dt).name}")
+    ties = check_k2_chunks(torch, classifiers, rng, dev)
+    edges.append(f"F=21 C=3000 int32 (classes in chunks; {ties} near ties)")
     cent, bias, rows, want = tie_inputs()
     for dt in (np.int16, np.int32):
         idx = np.arange(len(rows), dtype=dt)[None]
@@ -403,9 +445,12 @@ def check_k2(torch, classifiers, kernels, stream, p, w, b, dev):
 
 
 # K7 edge cases (P, B, F, C): per_batch 256 and 1000 (one row tile each),
-# C·(F + 1) below one warp, and 16,448 (class, feature) pairs, more than a
-# block's threads, whose shared memory halves the row tile.
-K7_EDGES = [(4, 256, 27, 5), (3, 1000, 21, 40), (2, 7, 3, 4), (1, 300, 256, 64)]
+# C·(F + 1) below one warp, 16,448 (class, feature) pairs, more than a
+# block's threads, whose shared memory halves the row tile, and C = 3,000
+# at F = 21, more classes than shared memory holds at once (2,490): its
+# classes in chunks, at one row tile of 100 and of 1,000.
+K7_EDGES = [(4, 256, 27, 5), (3, 1000, 21, 40), (2, 7, 3, 4), (1, 300, 256, 64),
+            (3, 100, 21, 3000), (2, 1000, 21, 3000)]
 # and the label layouts of its sorted row list, (P, B, F, C) each: every
 # row of one class (a chain of B), C = 1, B = 1 (XLA's product), three row
 # tiles of 1024 (B = 2049), every label outside [0, C), all weights 0.
@@ -555,9 +600,10 @@ K9_RTOL, K9_TIGHT_ATOL, K9_TIGHT_STEPS = 1e-4, 2e-6, 4
 K9_ATOL = 5e-2
 # K9 edge cases (P, B, F, C, hidden, steps): B not a multiple of 32 with
 # C = 5, F = 27 (≈ 223 KB of shared memory), a batch too large for shared
-# memory (the global workspace), narrow widths.
+# memory (the global workspace), narrow widths, nine layers.
 K9_EDGES = [(4, 37, 27, 5, (128, 64), 32), (4, 100, 27, 40, (128, 64), 32),
-            (3, 300, 21, 40, (128, 64), 8), (4, 50, 21, 40, (16, 8), 4)]
+            (3, 300, 21, 40, (128, 64), 8), (4, 50, 21, 40, (16, 8), 4),
+            (2, 64, 21, 40, (32,) * 8, 8)]
 
 
 # K9's fit is bit for bit the same at every cluster size and tile shape: the
@@ -816,63 +862,193 @@ def logit_near_ties(torch, params, rows):
     return (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
 
 
+# K10 is bit for bit the same at every plan (tile, rows a CTA, CTAs a
+# partition, weight path): the SHA-256 of its predictions and errors
+# (``k10_digest``) that the one-output-a-thread kernel of commit b2a30dd
+# (unchanged through cbca321) gives at the main path's shape
+# (``k10_main_inputs``) with the main path's first fitted params (K9's,
+# pinned by K9_MAIN_DIGEST), and on the ragged case ``k10_f27_case``
+# (F = 27, C = 5, int32 indices) (NVIDIA H100 80GB HBM3; chip_kernel_ab.py
+# against cbca321).
+K10_MAIN_DIGEST = "69d959effb4abe4d5284f4f0ee3712296ebbb9c09be0c47acfae505917f579e1"
+K10_F27_DIGEST = "286950d9f4ede00a4ab9163edd4701fd6ae6bddd832197d4b588490e750d5f9a"
+# the ragged case's shape (P, N, F, C, hidden); its data is k10_f27_case's
+K10_F27 = (3, 1000, 27, 5, (128, 64))
+# K10's nets beyond the main path's, (P, N, F, C, hidden, idx dtype): the
+# ragged case; narrow widths; the nets of ROADMAP C5 — (256, 128) and
+# (512,) stream their weights, no hidden layer, nine layers; a layer too
+# wide for shared memory (the global workspace).
+K10_EDGES = [(3, 1000, 27, 5, (128, 64), np.int32), (4, 333, 21, 40, (16, 8), np.int16),
+             (4, 2000, 21, 40, (256, 128), np.int16), (4, 2000, 21, 40, (512,), np.int16),
+             (3, 777, 21, 40, (), np.int32), (2, 500, 21, 40, (32,) * 8, np.int16),
+             (2, 300, 21, 40, (4096,), np.int16)]
+
+
+def k10_digest(pred, err) -> str:
+    """SHA-256 of K10's predictions (int32) and errors (f32), in that order."""
+    h = hashlib.sha256()
+    for t in (pred, err):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k10_main_inputs(stream, p, n):
+    """The row table, its labels and a random int16 gather index [p, n]
+    over it (seed 10): numpy arrays."""
+    rng = np.random.default_rng(10)
+    idx = rng.integers(0, len(stream.base_y), (p, n)).astype(np.int16)
+    return stream.base_X, stream.base_y.astype(np.int32), idx
+
+
+def k10_case(torch, mlp, dev, p, n, f, c, hidden, dt, seed):
+    """A K10 case from numpy alone (seed ``seed``): params drawn at the
+    init's scale with small biases, a table of 3,000 rows around C
+    prototypes pushed through the first layer's shape, its labels and a
+    gather index of dtype ``dt`` — as tensors on ``dev``."""
+    rng = np.random.default_rng(seed)
+    dims = (f, *hidden, c)
+    params = tuple(
+        mlp.MLPLayer(torch.from_numpy((rng.normal(size=(p, a, b)) * np.sqrt(2.0 / a))
+                                      .astype(np.float32)).to(dev),
+                     torch.from_numpy((0.1 * rng.normal(size=(p, b))).astype(np.float32)).to(dev))
+        for a, b in zip(dims[:-1], dims[1:]))
+    protos = rng.normal(size=(c, f)).astype(np.float32) * 2
+    T = (protos[rng.integers(0, c, 3000)] + 0.7 * rng.normal(size=(3000, f))).astype(np.float32)
+    Ty = rng.integers(0, c, 3000).astype(np.int32)
+    idx = rng.integers(0, 3000, (p, n)).astype(dt)
+    return params, *(torch.from_numpy(a).to(dev) for a in (T, Ty, idx))
+
+
+def k10_f27_case(torch, mlp, dev):
+    p, n, f, c, hidden = K10_F27
+    return k10_case(torch, mlp, dev, p, n, f, c, hidden, np.int32, 27)
+
+
+def k10_plan_text(plan) -> str:
+    return (f"{plan.rows} rows a tile, {plan.threads} threads, {plan.ctas} CTAs a partition, "
+            f"weights {'streamed' if plan.stream else 'resident'}, "
+            + (f"global workspace {plan.global_words} floats a CTA" if plan.global_
+               else "no global workspace")
+            + f", {plan.shared_bytes} B shared")
+
+
 def check_k10_equal(torch, mlp, params, T, Ty, idx, what):
     err, pred = mlp.mlp_predict_err(params, T, Ty, idx, return_pred=True)
     rerr, rpred = mlp.mlp_predict_err_reference(params, T, Ty, idx)
     torch.cuda.synchronize()
-    tie = logit_near_ties(torch, params, T[idx.long()])
+    tie = logit_near_ties(torch, params, T[idx.long()][..., :params[0].w.shape[1]])
     check(torch.equal(pred[~tie], rpred[~tie]),
           f"K10 predictions differ from its plain version off the near ties ({what})")
     check(torch.equal(err, (pred != Ty[idx.long()]).float()), f"K10 errors are not pred != y ({what})")
     return int(tie.sum()), int((pred != rpred).sum())
 
 
+def k10_launch(torch, kernels, mlp, params, T, Ty, idx, force):
+    """K10 through its launcher at the forced plan fields ``force``
+    (uncounted): (pred, err)."""
+    dev = idx.device
+    p, n = idx.shape
+    dims = (params[0].w.shape[1], *(l.w.shape[2] for l in params))
+    plan = mlp.k10_launch_plan(dev, dims, p, n, tuple(force))
+    err = torch.empty((p, n), dtype=torch.float32, device=dev)
+    pred = torch.empty((p, n), dtype=torch.int32, device=dev)
+    args, keep = mlp.mlp_predict_err_args(params, mlp.pad_row_table(T), Ty, idx, err, pred,
+                                          mlp.k10_scratch(plan, p, dev), mlp.k10_force(plan))
+    kernels.check("mlp_predict_err", kernels.launcher("mlp_predict_err")(
+        *args, kernels.stream_handle(dev)))
+    torch.cuda.synchronize()
+    del keep
+    return pred, err
+
+
+# K10's plans timed beside the chosen one, (label, forced fields (rows,
+# threads, CTAs a partition, stream)): one tile a CTA (CTAs 10**6, cut to
+# the tiles) at 64 and 128 rows and 128 and 256 threads; persistent CTAs at
+# the same; the weights streamed.
+K10_VARIANTS = [
+    ("tile a CTA, 64 rows, 128 thr", (64, 128, 10**6, 0)),
+    ("tile a CTA, 64 rows, 256 thr", (64, 256, 10**6, 0)),
+    ("tile a CTA, 128 rows, 128 thr", (128, 128, 10**6, 0)),
+    ("tile a CTA, 128 rows, 256 thr", (128, 256, 10**6, 0)),
+    ("persistent, 64 rows, 128 thr", (64, 128, 0, 0)),
+    ("persistent, 64 rows, 256 thr", (64, 256, 0, 0)),
+    ("persistent, 128 rows, 128 thr", (128, 128, 0, 0)),
+    ("persistent, 128 rows, 256 thr", (128, 256, 0, 0)),
+    ("persistent, 128 rows, 256 thr, streamed", (128, 256, 0, 1)),
+    ("persistent, 64 rows, 256 thr, streamed", (64, 256, 0, 1)),
+]
+
+
 def check_k10(torch, kernels, mlp, prep, params, dev):
-    """K10 against its plain version — equal predictions off the near ties
-    — at the main path's shape with the main path's first fitted params,
-    and on the edge cases; times it; returns its kernel row."""
+    """K10 bit for bit the kernel it replaced (the pinned digests) at the main
+    path's shape with the main path's first fitted params and on the
+    F = 27 case, at its plan and at every variant of ``K10_VARIANTS``
+    (both weight paths among them); against its plain version — equal
+    predictions off the near ties — there and on ``K10_EDGES``, each with
+    its plan printed; times the chosen plan and each variant; returns its
+    kernel row."""
     cfg, stream = prep.config, prep.stream
     dims = mlp_dims(stream, cfg)
     p, n = cfg.partitions, cfg.window * cfg.per_batch
-    rng = np.random.default_rng(10)
-    T = torch.from_numpy(stream.base_X).to(dev)
-    Ty = torch.from_numpy(stream.base_y.astype(np.int32)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, len(stream.base_y), (p, n)).astype(np.int16)).to(dev)
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in k10_main_inputs(stream, p, n))
     ties, differ = check_k10_equal(torch, mlp, params, T, Ty, idx, "main path")
-    max_err = float((mlp.mlp_predict_err(params, T, Ty, idx)
-                     - mlp.mlp_predict_err_reference(params, T, Ty, idx)[0]).abs().max())
+    err, pred = mlp.mlp_predict_err(params, T, Ty, idx, return_pred=True)
+    check(k10_digest(pred, err) == K10_MAIN_DIGEST,
+          "K10 differs from the kernel it replaced at the main path's shape (digest)")
+    fcase = k10_f27_case(torch, mlp, dev)
+    ferr, fpred = mlp.mlp_predict_err(*fcase, return_pred=True)
+    check(k10_digest(fpred, ferr) == K10_F27_DIGEST,
+          "K10 differs from the kernel it replaced on the F = 27 case (digest)")
+    max_err = float((err - mlp.mlp_predict_err_reference(params, T, Ty, idx)[0]).abs().max())
+    plan = mlp.k10_launch_plan(dev, dims, p, n)
+    print(f"K10 mlp_predict_err: bit for bit the kernel it replaced (pinned digests at the main path's "
+          f"shape and the F = 27 case); main path plan: {k10_plan_text(plan)}")
     notes = [f"main path {ties} near ties, {differ} predictions differ"]
-    for ep, en, ef, ec, hidden, dt in [(3, 1000, 27, 5, (128, 64), np.int32),
-                                       (4, 333, 21, 40, (16, 8), np.int16)]:
+    for k, (ep, en, ef, ec, hidden, dt) in enumerate(K10_EDGES):
+        case = k10_case(torch, mlp, dev, ep, en, ef, ec, hidden, dt, 100 + k)
         edims = (ef, *hidden, ec)
-        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
-        ey = rng.integers(0, ec, (ep, 100)).astype(np.int32)
-        eX = (protos[ey] + 0.5 * rng.normal(size=(ep, 100, ef))).astype(np.float32)
-        ew = np.ones((ep, 100), np.float32)
-        eparams = mlp.mlp_fit_reference(
-            threefry_keys(torch, ep, dev), *(torch.from_numpy(a).to(dev) for a in (eX, ey, ew)),
-            edims, 8, 0.05, 0.9)
-        eT = torch.from_numpy((protos[rng.integers(0, ec, 3000)]
-                               + 0.7 * rng.normal(size=(3000, ef))).astype(np.float32)).to(dev)
-        eTy = torch.from_numpy(rng.integers(0, ec, 3000).astype(np.int32)).to(dev)
-        eidx = torch.from_numpy(rng.integers(0, 3000, (ep, en)).astype(dt)).to(dev)
-        t, d = check_k10_equal(torch, mlp, eparams, eT, eTy, eidx, f"P={ep} N={en} F={ef} C={ec}")
-        notes.append(f"P={ep} N={en} F={ef} C={ec} {hidden} {np.dtype(dt).name}: {t} near ties")
+        what = f"P={ep} N={en} F={ef} C={ec} {hidden} {np.dtype(dt).name}"
+        t, d = check_k10_equal(torch, mlp, *case, what)
+        eplan = mlp.k10_launch_plan(dev, edims, ep, en)
+        print(f"K10 {what}: {t} near ties, {d} differ; plan: {k10_plan_text(eplan)}")
+        notes.append(f"{what}: {t} near ties")
     print("K10 mlp_predict_err: predictions equal to its plain version off the near ties "
           "(two best float64 logits within 1e-4·(1 + |top|)), errors = pred != y; "
           + "; ".join(notes))
 
     Tp = mlp.pad_row_table(T)
-    err_buf = torch.empty((p, n), dtype=torch.float32, device=dev)
-    args, keep = mlp.mlp_predict_err_args(params, Tp, Ty, idx, err_buf)
     fn = kernels.launcher("mlp_predict_err")
+    by_plan = {}
+    for label, force in [("chosen", mlp.k10_force(plan))] + K10_VARIANTS:
+        vplan = mlp.k10_launch_plan(dev, dims, p, n, tuple(force))
+        vpred, verr = k10_launch(torch, kernels, mlp, params, T, Ty, idx, force)
+        check(torch.equal(vpred, pred) and torch.equal(verr.view(torch.int32), err.view(torch.int32)),
+              f"K10's plan {label} ({k10_plan_text(vplan)}) differs from its chosen plan")
+        fpred2, ferr2 = k10_launch(torch, kernels, mlp, *fcase, force)
+        check(k10_digest(fpred2, ferr2) == K10_F27_DIGEST,
+              f"K10's plan {label} differs from the kernel it replaced on the F = 27 case (digest)")
+        out = torch.empty((p, n), dtype=torch.float32, device=dev)
+        vargs, vkeep = mlp.mlp_predict_err_args(params, Tp, Ty, idx, out, None, None,
+                                                mlp.k10_force(vplan))
+        by_plan[label] = graph_ms(lambda: kernels.check(
+            "mlp_predict_err", fn(*vargs, kernels.stream_handle(dev))), reps=10, rounds=3)
+        del vkeep
+    print("K10 mlp_predict_err: every plan bit for bit the chosen one (both weight paths "
+          "among them); device ms by plan (graph of 10): "
+          + ", ".join(f"{k}: {v:.5f}" for k, v in by_plan.items()))
+
+    err_buf = torch.empty((p, n), dtype=torch.float32, device=dev)
+    args, keep = mlp.mlp_predict_err_args(params, Tp, Ty, idx, err_buf, None, None,
+                                          mlp.k10_force(plan))
     ms = graph_ms(lambda: kernels.check("mlp_predict_err", fn(*args, kernels.stream_handle(dev))),
                   reps=10, rounds=3)
     h_us = host_us(lambda: mlp.mlp_predict_err(params, Tp, Ty, idx))
     plain_ms = time_ms(lambda: mlp.mlp_predict_err_reference(params, Tp, Ty, idx), reps=5, rounds=3)
+    lib_ms = k10_library_ms(torch, params, Tp, idx, dims[0])
     floor = kernels.launcher("mlp_predict_err_floor")
     floor_ms = graph_ms(lambda: kernels.check("mlp_predict_err_floor", floor(
-        p, n, len(dims) - 1, ctypes.addressof(keep[0]), kernels.stream_handle(dev))))
+        p, n, len(dims) - 1, ctypes.addressof(keep[0]), *mlp.k10_force(plan),
+        kernels.stream_handle(dev))))
     macs = sum(a * c for a, c in zip(dims[:-1], dims[1:]))
     nparams = sum(l.w[0].numel() + l.b[0].numel() for l in params)
     # idx i16 + err f32 per row, the row table and labels, the params
@@ -880,15 +1056,36 @@ def check_k10(torch, kernels, mlp, prep, params, dev):
     b_ms, by = bound(nbytes, p * n * 2 * macs)
     print(f"K10 mlp_predict_err [{p}, {n}] {dims}: {ms:.5f} ms device (graph of 10), "
           f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
-          f"floor {floor_ms:.5f} ms (an empty kernel with its grid, block and shared memory)")
+          f"library {lib_ms:.5f} ms (the products only, not the fused function: the layers' "
+          f"torch.bmm on the gathered rows, TF32 off, graph of 10), floor {floor_ms:.5f} ms "
+          "(an empty kernel with its grid, block and shared memory)")
     del keep
     return dict(
         name="mlp_predict_err", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/mlp_predict_err.cu",
         replaces="distributed_drift_detection_tpu/models/classifiers.py:302",
         max_abs_err=max_err, ms=ms, host_us=h_us, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=lib_ms, floor_ms=floor_ms,
+        plan=mlp.k10_force(plan), ms_by_plan=by_plan,
     )
+
+
+def k10_library_ms(torch, params, Tp, idx, f):
+    """K10's yardstick: the layers' ``torch.bmm`` products alone (biases,
+    ReLU, the argmax and the gather left out) on the gathered rows, TF32
+    off, timed as ``ms`` is (graph of 10)."""
+    rows = Tp[idx.long(), :f].contiguous()
+    outs = [torch.empty((rows.shape[0], rows.shape[1], l.w.shape[2]), device=rows.device)
+            for l in params]
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def products():
+        h = rows
+        for l, o in zip(params, outs):
+            torch.bmm(h, l.w, out=o)
+            h = o
+
+    return graph_ms(products, reps=10, rounds=3)
 
 
 def threefry_keys(torch, p, dev):
@@ -1292,6 +1489,41 @@ def main(device: str = "cuda") -> int:
           + ", ".join(f"{k} {mper[k][0]} launches x {mper[k][1]:.2f} us" for k in names)
           + f"; {msum['kernels']} kernels busy {msum['busy_s']:.4f} s of "
           f"{msum['detect_s']:.4f} s, idle share {msum['idle_share']:.3f}")
+
+    # 10. the nets of ROADMAP C5 at SMOKE, end to end, counted: detections
+    # equal to the JAX package's, mean delay within a batch of the port's
+    # CPU run of the same config (K9's products follow C4's tolerance)
+    for hidden in C5_NETS:
+        ccfg = config.replace(mcfg, mlp_hidden=hidden)
+        t0 = time.perf_counter()
+        cref = api.run(ccfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        reset_launches()
+        cres = api.run(ccfg, device=dev)
+        cl = read_launches()
+        cm = cres.metrics
+        cplan = mlp.k10_launch_plan(dev, mlp_dims(mprep.stream, ccfg), p, w * b)
+        ctimes = [api.run(ccfg, device=dev) for _ in range(3)]
+        final_times[f"mlp{hidden}"] = statistics.median(t.total_time for t in ctimes)
+        cper, csum = in_run_profile(torch, api, api.prepare(ccfg, device=dev), dev,
+                                    ("mlp_fit", "mlp_predict_err"))
+        print(f"mlp {hidden} on the card: {cm.num_detections} detections, mean delay "
+              f"{cm.mean_delay_rows:.4f} rows (the port's CPU run: "
+              f"{cref.metrics.num_detections}, {cref.metrics.mean_delay_rows:.4f} rows, "
+              f"{cpu_s:.1f} s); Final Time (median of 3 warm runs) "
+              f"{final_times[f'mlp{hidden}']:.4f} s; K10 plan: {k10_plan_text(cplan)}; "
+              f"launches {cl}; in-run "
+              + ", ".join(f"{k} {c} launches x {us:.2f} us" for k, (c, us) in cper.items())
+              + f"; {csum['kernels']} kernels busy {csum['busy_s']:.4f} s of "
+              f"{csum['detect_s']:.4f} s, idle share {csum['idle_share']:.3f}")
+        check(cm.num_detections == EXPECTED_DETECTIONS,
+              f"mlp {hidden}: {cm.num_detections} detections, expected {EXPECTED_DETECTIONS}")
+        check(abs(cm.mean_delay_rows - cref.metrics.mean_delay_rows) <= cfg.per_batch,
+              f"mlp {hidden}: mean delay {cm.mean_delay_rows}, more than a batch from the "
+              f"CPU run's {cref.metrics.mean_delay_rows}")
+        check(bool(np.isfinite(cres.drift_vote).all()), f"mlp {hidden}: non-finite drift vote")
+        for k in ("random_normal", "mlp_fit", "mlp_predict_err"):
+            check(cl[k] > 0, f"mlp {hidden}: kernel {k} was not launched on its path")
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

@@ -50,7 +50,10 @@
 //   tiles when the pairs fit one block, else in shared memory;
 // * then one thread per class runs the bias chain from shared memory.
 // Rows beyond one tile (kMaxTileRows) run tile by tile, each class chain
-// carried over in row order. The launcher asks the card nothing at the
+// carried over in row order. Classes whose sums do not fit shared memory
+// even at the smallest tile (above 2,490 at F = 21) run in chunks of `cc`,
+// in class order, each chunk over all the rows; with one chunk the path is
+// the one-pass kernel's. The launcher asks the card nothing at the
 // main path's shapes: the opt-in shared-memory limit is read once per
 // device, and the kernel's limit raised once per (device, size), only for
 // a launch above the 48 KB default. Measured on an H100 80GB HBM3 against
@@ -114,33 +117,33 @@ __device__ __forceinline__ void async_load(float* xt, int ld, const float* src, 
 }
 
 // The tile's stable class-sorted row list, as row bitmaps: bit i of
-// rows_of[k·chunks + ch] marks row 32·ch + i as one of class k's. A warp
-// per class, a ballot of the label per chunk; labels outside [0, C) enter
-// no class.
-__device__ __forceinline__ void class_rows(const int* __restrict__ yt, int rows, int c,
+// rows_of[k·chunks + ch] marks row 32·ch + i as one of class k0 + k's, for
+// the cn classes from k0. A warp per class, a ballot of the label per
+// chunk; labels outside [0, C) enter no class.
+__device__ __forceinline__ void class_rows(const int* __restrict__ yt, int rows, int k0, int cn,
                                            unsigned* __restrict__ rows_of) {
   const int lane = threadIdx.x & 31;
   const int chunks = (rows + 31) >> 5;
-  for (int k = threadIdx.x >> 5; k < c; k += blockDim.x >> 5) {
+  for (int k = threadIdx.x >> 5; k < cn; k += blockDim.x >> 5) {
 #pragma unroll 4
     for (int ch = 0; ch < chunks; ++ch) {
       const int r = 32 * ch + lane;
-      const unsigned m = __ballot_sync(kFull, r < rows && yt[r] == k);
+      const unsigned m = __ballot_sync(kFull, r < rows && yt[r] == k0 + k);
       if (lane == 0) rows_of[k * chunks + ch] = m;
     }
   }
 }
 
-// Pair (k, j) over this tile's rows: adds w·x of class k's rows in row
-// order into `a` and their weights into `n`, where x is row j of the
+// Pair (k, j) over this tile's rows: adds w·x of class k0 + k's rows in
+// row order into `a` and their weights into `n`, where x is row j of the
 // feature-major block xt — feature j, or for the count pair j == F the
 // row of 1.0f (w·1 = w exactly), so both kinds of pair run the same code.
 // At B = 1, XLA's product instead (module note).
-__device__ __forceinline__ void chain(int k, const float* xj, int b, int rows,
+__device__ __forceinline__ void chain(int k, int k0, const float* xj, int b, int rows,
                                       const float* ws, const int* yt,
                                       const unsigned* rows_of, float& a, float& n) {
   if (b == 1) {
-    const float oh = __fmul_rn(yt[0] == k ? 1.0f : 0.0f, ws[0]);
+    const float oh = __fmul_rn(yt[0] == k0 + k ? 1.0f : 0.0f, ws[0]);
     a = __fmul_rn(oh, xj[0]);
     n = oh;
     return;
@@ -173,69 +176,74 @@ __device__ __forceinline__ void chain(int k, const float* xj, int b, int rows,
 
 __global__ void __launch_bounds__(kMaxThreads)
     centroid_fit_kernel(const float* __restrict__ X, const int* __restrict__ y,
-                        const float* __restrict__ w, int b, int f, int c, int tile,
+                        const float* __restrict__ w, int b, int f, int c, int tile, int cc,
                         float* __restrict__ cent, float* __restrict__ bias) {
   extern __shared__ __align__(16) float xt[];
   const int ld = xstride(tile);
   float* ws = xt + (f + 1) * ld;
   float* acc = ws + round32(tile);
-  unsigned* rows_of = reinterpret_cast<unsigned*>(acc + c * (f + 1));
+  unsigned* rows_of = reinterpret_cast<unsigned*>(acc + cc * (f + 1));
 
   const int tid = threadIdx.x;
   const int f1 = f + 1;
-  const int pairs = c * f1;
-  const bool in_regs = pairs <= static_cast<int>(blockDim.x);
   const size_t part = blockIdx.x;
   const float* Xp = X + part * b * f;
   const int* yp = y + part * b;
   const float* wp = w + part * b;
 
   for (int r = tid; r < ld; r += blockDim.x) xt[f * ld + r] = 1.0f;
-  if (!in_regs)
-    for (int i = tid; i < pairs; i += blockDim.x) acc[i] = 0.0f;
-  float a = 0.0f, n = 0.0f;  // pair tid's sum and count, when in_regs
+  for (int k0 = 0; k0 < c; k0 += cc) {  // a chunk of classes at a time
+    const int cn = min(cc, c - k0);
+    const int pairs = cn * f1;
+    const bool in_regs = pairs <= static_cast<int>(blockDim.x);
+    if (!in_regs)
+      for (int i = tid; i < pairs; i += blockDim.x) acc[i] = 0.0f;
+    float a = 0.0f, n = 0.0f;  // pair tid's sum and count, when in_regs
 
-  for (int t0 = 0; t0 < b; t0 += tile) {
-    const int rows = min(tile, b - t0);
-    async_load(xt, ld, Xp + static_cast<size_t>(t0) * f, rows, f, wp + t0, ws);
-    const int* yt = yp + t0;
-    class_rows(yt, rows, c, rows_of);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    if (in_regs) {
-      if (tid < pairs) chain(tid / f1, xt + (tid % f1) * ld, b, rows, ws, yt, rows_of, a, n);
-    } else {
-      for (int i = tid; i < pairs; i += blockDim.x) {
-        float ai = acc[i], ni = 0.0f;
-        chain(i / f1, xt + (i % f1) * ld, b, rows, ws, yt, rows_of, ai, ni);
-        acc[i] = ai;
+    for (int t0 = 0; t0 < b; t0 += tile) {
+      const int rows = min(tile, b - t0);
+      async_load(xt, ld, Xp + static_cast<size_t>(t0) * f, rows, f, wp + t0, ws);
+      const int* yt = yp + t0;
+      class_rows(yt, rows, k0, cn, rows_of);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      if (in_regs) {
+        if (tid < pairs)
+          chain(tid / f1, k0, xt + (tid % f1) * ld, b, rows, ws, yt, rows_of, a, n);
+      } else {
+        for (int i = tid; i < pairs; i += blockDim.x) {
+          float ai = acc[i], ni = 0.0f;
+          chain(i / f1, k0, xt + (i % f1) * ld, b, rows, ws, yt, rows_of, ai, ni);
+          acc[i] = ai;
+        }
+      }
+      // the next tile overwrites the rows; the division below reads the counts
+      if (t0 + tile < b || !in_regs) __syncthreads();
+    }
+
+    // cent = sums / max(counts, 1), kept in acc for the bias (counts stay
+    // in column F)
+    for (int i = tid; i < pairs; i += blockDim.x) {
+      const int k = i / f1;
+      const int j = i - k * f1;
+      const float s = in_regs ? a : acc[i];
+      if (j < f) {
+        const float v = __fdiv_rn(s, fmaxf(in_regs ? n : acc[k * f1 + f], 1.0f));
+        acc[i] = v;
+        cent[(part * c + k0 + k) * f + j] = v;
+      } else if (in_regs) {
+        acc[i] = s;
       }
     }
-    // the next tile overwrites the rows; the division below reads the counts
-    if (t0 + tile < b || !in_regs) __syncthreads();
-  }
+    __syncthreads();
 
-  // cent = sums / max(counts, 1), kept in acc for the bias (counts stay in
-  // column F)
-  for (int i = tid; i < pairs; i += blockDim.x) {
-    const int k = i / f1;
-    const int j = i - k * f1;
-    const float s = in_regs ? a : acc[i];
-    if (j < f) {
-      const float v = __fdiv_rn(s, fmaxf(in_regs ? n : acc[k * f1 + f], 1.0f));
-      acc[i] = v;
-      cent[(part * c + k) * f + j] = v;
-    } else if (in_regs) {
-      acc[i] = s;
+    for (int k = tid; k < cn; k += blockDim.x) {
+      const float* row = acc + k * f1;
+      float s = 0.0f;
+      for (int j = 0; j < f; ++j) s = __fmaf_rn(row[j], row[j], s);
+      bias[part * c + k0 + k] = row[f] > 0.0f ? __fmul_rn(-0.5f, s) : -CUDART_INF_F;
     }
-  }
-  __syncthreads();
-
-  for (int k = tid; k < c; k += blockDim.x) {
-    const float* row = acc + k * f1;
-    float s = 0.0f;
-    for (int j = 0; j < f; ++j) s = __fmaf_rn(row[j], row[j], s);
-    bias[part * c + k] = row[f] > 0.0f ? __fmul_rn(-0.5f, s) : -CUDART_INF_F;
+    if (k0 + cc < c) __syncthreads();  // the next chunk rewrites the rows and sums
   }
 }
 
@@ -245,23 +253,34 @@ __global__ void centroid_fit_floor_kernel() {}
 
 struct Config {
   int tile;
+  int cc;  // classes a chunk
   int threads;
   size_t smem;
 };
 
 std::atomic<int> g_optin[kMaxDevices];  // 0: not read yet
 
-// K7's launch for P partitions of B rows: a thread per pair (at most a
-// block's 1024), the largest row tile (at most kMaxTileRows) whose shared
-// memory fits the card; above 48 KB, `kernel`'s limit is raised once per
-// (device, size) (`raised` holds the largest size set per device).
+// A thread per (class, feature or count) pair of a chunk, at most 1024.
+void set_threads(int f, Config& cfg) {
+  const int pairs = cfg.cc * (f + 1);
+  cfg.threads = pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : (pairs + 31) / 32 * 32);
+}
+
+// K7's launch for P partitions of B rows: the largest row tile (at most
+// kMaxTileRows) whose shared memory fits the card with every class; else
+// classes in chunks — the largest chunk that fits beside the largest tile
+// that holds one class — and a thread per pair of a chunk (at most a
+// block's 1024); above 48 KB, `kernel`'s limit is raised once per (device,
+// size) (`raised` holds the largest size set per device).
 cudaError_t configure(int b, int f, int c, const void* kernel, std::atomic<int>* raised,
                       Config& cfg) {
-  const int pairs = c * (f + 1);
-  cfg.threads = pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : (pairs + 31) / 32 * 32);
+  cfg.cc = c;
   cfg.tile = b < 1 ? 1 : (b > kMaxTileRows ? kMaxTileRows : b);
   cfg.smem = 4 * smem_words(f, c, cfg.tile);
-  if (cfg.smem <= kDefaultSmem) return cudaSuccess;
+  if (cfg.smem <= kDefaultSmem) {
+    set_threads(f, cfg);
+    return cudaSuccess;
+  }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -274,7 +293,24 @@ cudaError_t configure(int b, int f, int c, const void* kernel, std::atomic<int>*
   }
   while (cfg.tile > 1 && 4 * smem_words(f, c, cfg.tile) > static_cast<size_t>(optin))
     cfg.tile /= 2;
-  cfg.smem = 4 * smem_words(f, c, cfg.tile);
+  if (4 * smem_words(f, c, cfg.tile) > static_cast<size_t>(optin)) {
+    // classes in chunks: each class costs F + 1 sums and a bitmap word a
+    // 32-row chunk beside the tile's rows and weights
+    cfg.tile = b < 1 ? 1 : (b > kMaxTileRows ? kMaxTileRows : b);
+    for (;;) {
+      const size_t fixed = smem_words(f, 0, cfg.tile);
+      const size_t per_class = smem_words(f, 1, cfg.tile) - fixed;
+      if (4 * (fixed + per_class) <= static_cast<size_t>(optin)) {
+        const size_t fit = (static_cast<size_t>(optin) / 4 - fixed) / per_class;
+        cfg.cc = fit < static_cast<size_t>(c) ? static_cast<int>(fit) : c;
+        break;
+      }
+      if (cfg.tile == 1) return cudaErrorInvalidValue;
+      cfg.tile /= 2;
+    }
+  }
+  set_threads(f, cfg);
+  cfg.smem = 4 * smem_words(f, cfg.cc, cfg.tile);
   if (cfg.smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
   if (cfg.smem > kDefaultSmem &&
       static_cast<int>(cfg.smem) > raised[dev].load(std::memory_order_relaxed)) {
@@ -300,7 +336,7 @@ extern "C" int centroid_fit_launch(const float* X, const int* y, const float* w,
                                   g_raised, cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
   centroid_fit_kernel<<<p, cfg.threads, cfg.smem, static_cast<cudaStream_t>(stream)>>>(
-      X, y, w, b, f, c, cfg.tile, cent, bias);
+      X, y, w, b, f, c, cfg.tile, cfg.cc, cent, bias);
   return static_cast<int>(cudaGetLastError());
 }
 

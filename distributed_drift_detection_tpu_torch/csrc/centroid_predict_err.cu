@@ -36,7 +36,11 @@
 // * each block covers kRows·kThreads rows of one partition and stages the
 //   centroids once for them. (The broadcast shared loads cost one
 //   wavefront a value for the warp, so kRows rows a thread is what keeps
-//   them below the FMA rate.)
+//   them below the FMA rate.) Classes beyond what fits shared memory
+//   beside the rows (2,058 at F = 21) are staged in chunks of `cc`, in
+//   class order, each row's best score and class carried across chunks
+//   in registers; with all classes in one chunk the path is the one-pass
+//   kernel's.
 //
 // Numerics: per (row, class) `acc = 0`, then `acc = fmaf(x[j], c[k][j],
 // acc)` for j = 0..F-1 in order (the padded lanes never enter the chain),
@@ -56,6 +60,7 @@ constexpr int kThreads = 64;
 constexpr int kRows = 4;  // rows per thread, held in registers
 constexpr int kBlockRows = kThreads * kRows;
 constexpr int kGenericThreads = 128;  // the F > 32 kernel's block
+constexpr size_t kMaxSmem = 232448;    // a block's shared memory on an H100
 
 __host__ __device__ constexpr int round4(int f) { return (f + 3) & ~3; }
 
@@ -83,23 +88,24 @@ __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
-// Start copying the centroids of `part` into shared memory at stride
-// round4(F), zero-padded, and the bias after them.
+// Start copying classes [k0, k0 + cn) of `part`'s C centroids into
+// shared memory at stride round4(F), zero-padded, and their bias after
+// them.
 __device__ __forceinline__ void stage_centroids(
     const float* __restrict__ centroids, const float* __restrict__ bias,
-    int part, int c, int f, float* cs, float* bs) {
+    int part, int c, int k0, int cn, int f, float* cs, float* bs) {
   const int fp = round4(f);
-  const float* cp = centroids + static_cast<size_t>(part) * c * f;
-  for (int k = threadIdx.x; k < c * f; k += blockDim.x) {
+  const float* cp = centroids + (static_cast<size_t>(part) * c + k0) * f;
+  for (int k = threadIdx.x; k < cn * f; k += blockDim.x) {
     const int cls = k / f;
     copy4(cs + cls * fp + k - cls * f, cp + k);
   }
-  for (int k = threadIdx.x; k < c * (fp - f); k += blockDim.x) {
+  for (int k = threadIdx.x; k < cn * (fp - f); k += blockDim.x) {
     const int cls = k / (fp - f);
     cs[cls * fp + f + k - cls * (fp - f)] = 0.0f;
   }
-  for (int k = threadIdx.x; k < c; k += blockDim.x)
-    copy4(bs + k, bias + static_cast<size_t>(part) * c + k);
+  for (int k = threadIdx.x; k < cn; k += blockDim.x)
+    copy4(bs + k, bias + static_cast<size_t>(part) * c + k0 + k);
 }
 
 // One row's score chain against one class: fmaf over the F = 4·(NV-1) +
@@ -120,18 +126,19 @@ __device__ __forceinline__ float dot(const float4 (&x)[NV],
   return acc;
 }
 
-// Class k's score for each row; the first maximum wins (strict `>`).
+// Class k0 + k's score (k in the staged chunk) for each row; the first
+// maximum wins (strict `>`).
 template <int NV, int TAIL>
 __device__ __forceinline__ void take(const float4 (&x)[kRows][NV],
                                      const float4* cs4, const float* bs,
-                                     int k, float (&best)[kRows],
+                                     int k, int k0, float (&best)[kRows],
                                      int (&arg)[kRows]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float score = dot<NV, TAIL>(x[r], cs4 + k * NV) + bs[k];
     if (score > best[r]) {
       best[r] = score;
-      arg[r] = k;
+      arg[r] = k0 + k;
     }
   }
 }
@@ -140,13 +147,13 @@ template <typename Idx, int NV, int TAIL>
 __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
     const float* __restrict__ table, int ldt, const int* __restrict__ labels,
     const Idx* __restrict__ idx, const float* __restrict__ centroids,
-    const float* __restrict__ bias, int n, int c, int f,
+    const float* __restrict__ bias, int n, int c, int f, int cc,
     float* __restrict__ err, int* __restrict__ pred) {
   extern __shared__ float4 sm4[];
   float4* xs = sm4;  // [kBlockRows, NV] the block's rows
-  float4* cs4 = xs + kBlockRows * NV;       // [C, NV] centroids
-  float* bs = reinterpret_cast<float*>(cs4 + c * NV);  // [C] bias
-  int* is = reinterpret_cast<int*>(bs + c);  // [kBlockRows] table rows
+  float4* cs4 = xs + kBlockRows * NV;       // [cc, NV] a chunk's centroids
+  float* bs = reinterpret_cast<float*>(cs4 + cc * NV);  // [cc] bias
+  int* is = reinterpret_cast<int*>(bs + cc);  // [kBlockRows] table rows
   int* ls = is + kBlockRows;                 // [kBlockRows] their labels
   const int tid = threadIdx.x;
   const int part = blockIdx.y;
@@ -154,9 +161,10 @@ __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
   const int m = min(kBlockRows, n - base);
   const Idx* ip = idx + static_cast<size_t>(part) * n + base;
 
-  // 1. The block's indices (coalesced), while the centroids are copied.
-  stage_centroids(centroids, bias, part, c, f, reinterpret_cast<float*>(cs4),
-                  bs);
+  // 1. The block's indices (coalesced), while the first chunk's centroids
+  //    are copied.
+  stage_centroids(centroids, bias, part, c, 0, min(cc, c), f,
+                  reinterpret_cast<float*>(cs4), bs);
   for (int i = tid; i < m; i += kThreads) is[i] = static_cast<int>(ip[i]);
   __syncthreads();
   // 2. The rows, NV 16-byte copies each with neighbouring threads on one
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
   __syncthreads();
 
   // 3. This thread's rows r·kThreads + tid into registers, then every
-  //    class, two at a time.
+  //    class, two at a time, a chunk of classes at a time.
   float4 x[kRows][NV];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -187,12 +195,23 @@ __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
     best[r] = -CUDART_INF_F;
     arg[r] = 0;
   }
-  int k = 0;
-  for (; k + 1 < c; k += 2) {
-    take<NV, TAIL>(x, cs4, bs, k, best, arg);
-    take<NV, TAIL>(x, cs4, bs, k + 1, best, arg);
+  for (int k0 = 0; k0 < c; k0 += cc) {
+    if (k0 > 0) {  // every thread is past the last chunk: stage the next
+      __syncthreads();
+      stage_centroids(centroids, bias, part, c, k0, min(cc, c - k0), f,
+                      reinterpret_cast<float*>(cs4), bs);
+      copies_commit();
+      copies_wait<0>();
+      __syncthreads();
+    }
+    const int cn = min(cc, c - k0);
+    int k = 0;
+    for (; k + 1 < cn; k += 2) {
+      take<NV, TAIL>(x, cs4, bs, k, k0, best, arg);
+      take<NV, TAIL>(x, cs4, bs, k + 1, k0, best, arg);
+    }
+    if (k < cn) take<NV, TAIL>(x, cs4, bs, k, k0, best, arg);
   }
-  if (k < c) take<NV, TAIL>(x, cs4, bs, k, best, arg);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = r * kThreads + tid;
@@ -210,42 +229,47 @@ template <typename Idx>
 __global__ void __launch_bounds__(kGenericThreads) centroid_predict_err_generic(
     const float* __restrict__ table, int ldt, const int* __restrict__ labels,
     const Idx* __restrict__ idx, const float* __restrict__ centroids,
-    const float* __restrict__ bias, int n, int c, int f,
+    const float* __restrict__ bias, int n, int c, int f, int cc,
     float* __restrict__ err, int* __restrict__ pred) {
   extern __shared__ float4 sm4[];
   const int fp = round4(f);
   float* cs = reinterpret_cast<float*>(sm4);
-  float* bs = cs + c * fp;
+  float* bs = cs + cc * fp;
   const int part = blockIdx.y;
-  stage_centroids(centroids, bias, part, c, f, cs, bs);
-  copies_commit();
-  copies_wait<0>();
-  __syncthreads();
   const int i = blockIdx.x * kGenericThreads + threadIdx.x;
-  if (i >= n) return;
-  const size_t at = static_cast<size_t>(part) * n + i;
-  const int ri = static_cast<int>(idx[at]);
+  const bool live = i < n;
+  const size_t at = static_cast<size_t>(part) * n + (live ? i : 0);
+  const int ri = live ? static_cast<int>(idx[at]) : 0;
   const float* x = table + static_cast<size_t>(ri) * ldt;
   float best = -CUDART_INF_F;
   int arg = 0;
-  for (int k = 0; k < c; ++k) {
-    const float* ck = cs + k * fp;
-    float acc = 0.0f;
-    for (int j = 0; j < f; ++j) acc = fmaf(__ldg(x + j), ck[j], acc);
-    const float score = acc + bs[k];
-    if (score > best) {
-      best = score;
-      arg = k;
+  for (int k0 = 0; k0 < c; k0 += cc) {  // a chunk of classes at a time
+    const int cn = min(cc, c - k0);
+    if (k0 > 0) __syncthreads();  // every thread is past the last chunk
+    stage_centroids(centroids, bias, part, c, k0, cn, f, cs, bs);
+    copies_commit();
+    copies_wait<0>();
+    __syncthreads();
+    for (int k = 0; live && k < cn; ++k) {
+      const float* ck = cs + k * fp;
+      float acc = 0.0f;
+      for (int j = 0; j < f; ++j) acc = fmaf(__ldg(x + j), ck[j], acc);
+      const float score = acc + bs[k];
+      if (score > best) {
+        best = score;
+        arg = k0 + k;
+      }
     }
   }
+  if (!live) return;
   err[at] = arg != labels[ri] ? 1.0f : 0.0f;
   if (pred != nullptr) pred[at] = arg;
 }
 
 template <typename Idx>
 using KernelFn = void (*)(const float*, int, const int*, const Idx*,
-                          const float*, const float*, int, int, int, float*,
-                          int*);
+                          const float*, const float*, int, int, int, int,
+                          float*, int*);
 
 // Launch one instantiation; above 48 KB of shared memory it first raises
 // the kernel's dynamic shared-memory limit (the wrapper caps the request
@@ -254,7 +278,8 @@ template <typename Idx>
 int run(KernelFn<Idx> kernel, dim3 grid, int threads, size_t smem,
         cudaStream_t stream, const float* table, int ldt, const int* labels,
         const Idx* idx, const float* centroids, const float* bias, int n,
-        int c, int f, float* err, int* pred) {
+        int c, int f, int cc, float* err, int* pred) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,7 +287,7 @@ int run(KernelFn<Idx> kernel, dim3 grid, int threads, size_t smem,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<grid, threads, smem, stream>>>(table, ldt, labels, idx, centroids,
-                                          bias, n, c, f, err, pred);
+                                          bias, n, c, f, cc, err, pred);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,16 +297,21 @@ int launch(const float* table, int ldt, const int* labels, const void* idx_v,
            int f, float* err, int* pred, cudaStream_t stream) {
   const Idx* idx = static_cast<const Idx*>(idx_v);
   const int fp = round4(f);
-  const size_t smem = (static_cast<size_t>(c) * fp + c) * sizeof(float);
-  // the register path adds the block's rows, indices and labels
-  const size_t reg_smem =
-      smem + static_cast<size_t>(kBlockRows) * (fp + 2) * sizeof(float);
+  // a class's centroid and bias; the register path adds the block's rows,
+  // indices and labels; the classes staged at once (all that fit)
+  const size_t per_class = (static_cast<size_t>(fp) + 1) * sizeof(float);
+  const size_t rows_smem = static_cast<size_t>(kBlockRows) * (fp + 2) * sizeof(float);
+  const size_t fixed = f <= 32 ? rows_smem : 0;
+  const size_t fit = kMaxSmem < fixed + per_class ? 1 : (kMaxSmem - fixed) / per_class;
+  const int cc = fit < static_cast<size_t>(c) ? static_cast<int>(fit) : c;
+  const size_t smem = cc * per_class;
+  const size_t reg_smem = smem + rows_smem;
   const dim3 reg_grid((n + kBlockRows - 1) / kBlockRows, p);
 #define K2_CASE(NV_, TAIL_)                                                   \
   case 4 * (NV_ - 1) + TAIL_:                                                 \
     return run<Idx>(centroid_predict_err_kernel<Idx, NV_, TAIL_>, reg_grid,   \
                     kThreads, reg_smem, stream, table, ldt, labels, idx,      \
-                    centroids, bias, n, c, f, err, pred);
+                    centroids, bias, n, c, f, cc, err, pred);
 #define K2_CASES(NV_) \
   K2_CASE(NV_, 1) K2_CASE(NV_, 2) K2_CASE(NV_, 3) K2_CASE(NV_, 4)
   switch (f) {
@@ -301,7 +331,7 @@ int launch(const float* table, int ldt, const int* labels, const void* idx_v,
   const dim3 grid((n + kGenericThreads - 1) / kGenericThreads, p);
   return run<Idx>(centroid_predict_err_generic<Idx>, grid, kGenericThreads,
                   smem, stream, table, ldt, labels, idx, centroids, bias, n,
-                  c, f, err, pred);
+                  c, f, cc, err, pred);
 }
 
 }  // namespace

@@ -85,7 +85,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 64;  // models/mlp.py MAX_LAYERS
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
@@ -118,8 +118,9 @@ __host__ __device__ inline int owner(int c, int n, int cs) {
   return ((c / 4 + 1) * cs - 1) / cdiv(n, 4);
 }
 
-// A CTA's workspace, in floats (`mlp_fit_words`): this Layout
-// itself (kHeader words, read by layer index without local memory), each
+// A CTA's workspace, in floats (`mlp_fit_words`): its header (9 ints a
+// layer and 6, rounded up to 4: sized by the net's own layers, read by
+// layer index from the workspace without local memory), each
 // layer's w [din][pad4(dout)] and b [dout], the velocities of the CTA's
 // columns (vw [din][v], vb [v], v the widest slice), each layer's output
 // [B][pad4(dout)] (the hidden activations, then the logits), with cs > 1
@@ -129,54 +130,80 @@ __host__ __device__ inline int owner(int c, int n, int cs) {
 // its activations in place), a float a row (each row's max, then its
 // softmax coefficient), the rows [B][pad4(F)], the labels and the
 // normalised weights; every region rounded up to 4.
-struct Layout {
-  int ldw[kMaxLayers], w[kMaxLayers], b[kMaxLayers];
-  int ldv[kMaxLayers], vw[kMaxLayers], vb[kMaxLayers];
-  int ldh[kMaxLayers], act[kMaxLayers], grad[kMaxLayers];
-  int row, ldx, x, y, wn, total;
-};
-constexpr int kHeader = (sizeof(Layout) / 4 + 3) & ~3;
+// The header: 9 arrays of an int a layer, then 6 ints.
+enum Field { kLdw, kW, kB, kLdv, kVw, kVb, kLdh, kAct, kGrad, kArrays };
+enum Scalar { kRow, kLdx, kX, kY, kWn, kTotal, kScalars };
 
-__host__ __device__ inline Layout layout(const Net& net, int rows, int cs) {
-  Layout lay{};
-  int off = kHeader;
-  for (int l = 0; l < net.layers; ++l) {
-    const int din = net.dims[l], dout = net.dims[l + 1];
-    lay.ldw[l] = pad4(dout);
-    lay.w[l] = off;
-    off += r4(din * lay.ldw[l]);
-    lay.b[l] = off;
+__host__ __device__ inline int header_words(int layers) { return r4(kArrays * layers + kScalars); }
+
+// A view of a header of `layers` layers.
+struct Layout {
+  const int* h;
+  int layers;
+  __host__ __device__ int at(Field f, int l) const { return h[f * layers + l]; }
+  __host__ __device__ int at(Scalar s) const { return h[kArrays * layers + s]; }
+  __host__ __device__ int ldw(int l) const { return at(kLdw, l); }
+  __host__ __device__ int w(int l) const { return at(kW, l); }
+  __host__ __device__ int b(int l) const { return at(kB, l); }
+  __host__ __device__ int ldv(int l) const { return at(kLdv, l); }
+  __host__ __device__ int vw(int l) const { return at(kVw, l); }
+  __host__ __device__ int vb(int l) const { return at(kVb, l); }
+  __host__ __device__ int ldh(int l) const { return at(kLdh, l); }
+  __host__ __device__ int act(int l) const { return at(kAct, l); }
+  __host__ __device__ int grad(int l) const { return at(kGrad, l); }
+  __host__ __device__ int row() const { return at(kRow); }
+  __host__ __device__ int ldx() const { return at(kLdx); }
+  __host__ __device__ int x() const { return at(kX); }
+  __host__ __device__ int y() const { return at(kY); }
+  __host__ __device__ int wn() const { return at(kWn); }
+};
+
+// Writes the header into h (when not null); returns the total.
+__host__ __device__ inline int layout(const Net& net, int rows, int cs, int* h) {
+  const int L = net.layers;
+  auto put = [&](int at, int v) {
+    if (h != nullptr) h[at] = v;
+  };
+  int off = header_words(L);
+  for (int l = 0; l < L; ++l) {
+    const int din = net.dims[l], dout = net.dims[l + 1], ldw = pad4(dout);
+    put(kLdw * L + l, ldw);
+    put(kW * L + l, off);
+    off += r4(din * ldw);
+    put(kB * L + l, off);
     off += r4(dout);
   }
-  for (int l = 0; l < net.layers; ++l) {
-    const int din = net.dims[l], dout = net.dims[l + 1];
-    lay.ldv[l] = 4 * cdiv(cdiv(dout, 4), cs);
-    lay.vw[l] = off;
-    off += r4(din * lay.ldv[l]);
-    lay.vb[l] = off;
-    off += r4(lay.ldv[l]);
+  for (int l = 0; l < L; ++l) {
+    const int din = net.dims[l], ldv = 4 * cdiv(cdiv(net.dims[l + 1], 4), cs);
+    put(kLdv * L + l, ldv);
+    put(kVw * L + l, off);
+    off += r4(din * ldv);
+    put(kVb * L + l, off);
+    off += r4(ldv);
   }
-  for (int l = 0; l < net.layers; ++l) {
-    lay.ldh[l] = pad4(net.dims[l + 1]);
-    lay.act[l] = off;
-    lay.grad[l] = off;
-    off += r4(rows * lay.ldh[l]);
+  for (int l = 0; l < L; ++l) {
+    const int ldh = pad4(net.dims[l + 1]);
+    put(kLdh * L + l, ldh);
+    put(kAct * L + l, off);
+    put(kGrad * L + l, off);
+    off += r4(rows * ldh);
   }
-  for (int l = 1; l < net.layers - 1 && cs > 1; ++l) {
-    lay.grad[l] = off;
-    off += r4(rows * lay.ldh[l]);
+  for (int l = 1; l < L - 1 && cs > 1; ++l) {
+    put(kGrad * L + l, off);
+    off += r4(rows * pad4(net.dims[l + 1]));
   }
-  lay.row = off;
+  const int ldx = pad4(net.dims[0]);
+  put(kArrays * L + kRow, off);
   off += r4(rows);
-  lay.ldx = pad4(net.dims[0]);
-  lay.x = off;
-  off += r4(rows * lay.ldx);
-  lay.y = off;
+  put(kArrays * L + kLdx, ldx);
+  put(kArrays * L + kX, off);
+  off += r4(rows * ldx);
+  put(kArrays * L + kY, off);
   off += r4(rows);
-  lay.wn = off;
+  put(kArrays * L + kWn, off);
   off += r4(rows);
-  lay.total = off;
-  return lay;
+  put(kArrays * L + kTotal, off);
+  return off;
 }
 
 // The three product loops. Every output is one fused multiply-add chain
@@ -452,21 +479,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
   const int part = blockIdx.x / cs;
   float* ws = kShared ? reinterpret_cast<float*>(smem4)
-                      : scratch + static_cast<size_t>(part) * layout(net, rows, 1).total;
-  if (threadIdx.x == 0) *reinterpret_cast<Layout*>(ws) = layout(net, rows, cs);
+                      : scratch + static_cast<size_t>(part) * layout(net, rows, 1, nullptr);
+  if (threadIdx.x == 0) layout(net, rows, cs, reinterpret_cast<int*>(ws));
   __syncthreads();
-  const Layout& lay = *reinterpret_cast<const Layout*>(ws);
+  const Layout lay{reinterpret_cast<const int*>(ws), net.layers};
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, n_layers = net.layers;
   const int f = net.dims[0], c = net.dims[n_layers];
-  float* xs = ws + lay.x;
-  int* ys = reinterpret_cast<int*>(ws + lay.y);
-  float* wn = ws + lay.wn;
-  float* lg = ws + lay.act[n_layers - 1];
+  float* xs = ws + lay.x();
+  int* ys = reinterpret_cast<int*>(ws + lay.y());
+  float* wn = ws + lay.wn();
+  float* lg = ws + lay.act(n_layers - 1);
 
   // The batch, and wn = w / max(Σw, 1) (a sum of {0, 1}: exact in any order).
   const float* Xp = X + static_cast<size_t>(part) * rows * f;
   for (int r = warp; r < rows; r += kWarps)
-    for (int i = lane; i < f; i += 32) xs[r * lay.ldx + i] = Xp[r * f + i];
+    for (int i = lane; i < f; i += 32) xs[r * lay.ldx() + i] = Xp[r * f + i];
   for (int r = tid; r < rows; r += kThreads) {
     ys[r] = y[part * rows + r];
     wn[r] = w[part * rows + r];
@@ -486,18 +513,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const threefry::Pair kl = threefry::split(key, static_cast<uint32_t>(l));
     const int din = net.dims[l], dout = net.dims[l + 1];
     const int j0 = cut(dout, rank, cs), ns = cut(dout, rank + 1, cs) - j0;
-    float* W = ws + lay.w[l];
-    float* vW = ws + lay.vw[l];
+    float* W = ws + lay.w(l);
+    float* vW = ws + lay.vw(l);
     for (int i = warp; i < din; i += kWarps)
       for (int jj = lane; jj < ns; jj += 32) {
         const int j = j0 + jj;
-        W[i * lay.ldw[l] + j] = threefry::normal(kl, static_cast<uint64_t>(i) * dout + j,
+        W[i * lay.ldw(l) + j] = threefry::normal(kl, static_cast<uint64_t>(i) * dout + j,
                                                  net.factor[l]);
-        vW[i * lay.ldv[l] + jj] = 0.0f;
+        vW[i * lay.ldv(l) + jj] = 0.0f;
       }
     for (int jj = tid; jj < ns; jj += kThreads) {
-      ws[lay.b[l] + j0 + jj] = 0.0f;
-      ws[lay.vb[l] + jj] = 0.0f;
+      ws[lay.b(l) + j0 + jj] = 0.0f;
+      ws[lay.vb(l) + jj] = 0.0f;
     }
   }
   __syncthreads();
@@ -508,7 +535,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (cs > 1) {
       for (int l = 1; l < n_layers; ++l)
         if (l == 1 || step == 0)
-          push_rows(cluster, cs, rank, ws + lay.w[l], lay.ldw[l], net.dims[l], net.dims[l + 1]);
+          push_rows(cluster, cs, rank, ws + lay.w(l), lay.ldw(l), net.dims[l], net.dims[l + 1]);
     }
 
     // Forward: out = in·W + b, ReLU on the hidden layers; each CTA its
@@ -516,14 +543,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int l = 0; l < n_layers; ++l) {
       const int din = net.dims[l], dout = net.dims[l + 1];
       const int j0 = cut(dout, rank, cs), j1 = cut(dout, rank + 1, cs);
-      const float* in = l == 0 ? xs : ws + lay.act[l - 1];
-      const int ldi = l == 0 ? lay.ldx : lay.ldh[l - 1];
-      const float* W = ws + lay.w[l];
-      const float* bias = ws + lay.b[l];
-      float* out = ws + lay.act[l];
-      const int ldo = lay.ldh[l];
+      const float* in = l == 0 ? xs : ws + lay.act(l - 1);
+      const int ldi = l == 0 ? lay.ldx() : lay.ldh(l - 1);
+      const float* W = ws + lay.w(l);
+      const float* bias = ws + lay.b(l);
+      float* out = ws + lay.act(l);
+      const int ldo = lay.ldh(l);
       const bool hidden = l < n_layers - 1;
-      forward_tiles(rows, j0, j1, din, in, ldi, W, lay.ldw[l], [&](int m, int n, float v) {
+      forward_tiles(rows, j0, j1, din, in, ldi, W, lay.ldw(l), [&](int m, int n, float v) {
         const float z = __fadd_rn(v, bias[n]);
         out[m * ldo + n] = hidden ? fmaxf(z, 0.0f) : z;
       });
@@ -534,21 +561,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       cluster_barrier(cluster, cs);
     }
 
-    softmax_grad(lg, lay.ldh[n_layers - 1], rows, c, ys, wn, ws + lay.row);
+    softmax_grad(lg, lay.ldh(n_layers - 1), rows, c, ys, wn, ws + lay.row());
     __syncthreads();
 
     // Backward, from the last layer down.
     for (int l = n_layers - 1; l >= 0; --l) {
       const int din = net.dims[l], dout = net.dims[l + 1];
       const int j0 = cut(dout, rank, cs), j1 = cut(dout, rank + 1, cs), ns = j1 - j0;
-      const float* in = l == 0 ? xs : ws + lay.act[l - 1];
-      const int ldi = l == 0 ? lay.ldx : lay.ldh[l - 1];
-      const float* d = ws + lay.grad[l];
-      const int ldd = lay.ldh[l], ldw = lay.ldw[l], ldv = lay.ldv[l];
-      float* W = ws + lay.w[l];
-      float* bias = ws + lay.b[l];
-      float* vW = ws + lay.vw[l];
-      float* vb = ws + lay.vb[l];
+      const float* in = l == 0 ? xs : ws + lay.act(l - 1);
+      const int ldi = l == 0 ? lay.ldx() : lay.ldh(l - 1);
+      const float* d = ws + lay.grad(l);
+      const int ldd = lay.ldh(l), ldw = lay.ldw(l), ldv = lay.ldv(l);
+      float* W = ws + lay.w(l);
+      float* bias = ws + lay.b(l);
+      float* vW = ws + lay.vw(l);
+      float* vb = ws + lay.vb(l);
       // the gradient of the CTA's columns into their velocity:
       // vel = m·vel − lr·inᵀd (W unchanged); the bias gradients on the
       // block's last threads
@@ -567,9 +594,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // product reads it whole
       if (l > 0) {
         const int below = net.dims[l];
-        const float* h = ws + lay.act[l - 1];
-        float* g_out = ws + lay.grad[l - 1];
-        const int ldh = lay.ldh[l - 1], i0 = cut(below, rank, cs), i1 = cut(below, rank + 1, cs);
+        const float* h = ws + lay.act(l - 1);
+        float* g_out = ws + lay.grad(l - 1);
+        const int ldh = lay.ldh(l - 1), i0 = cut(below, rank, cs), i1 = cut(below, rank + 1, cs);
         backward_tiles(rows, i0, i1, dout, d, ldd, W, ldw, [&](int m, int n, float g) {
           g_out[m * ldh + n] = h[m * ldh + n] > 0.0f ? g : 0.0f;
         });
@@ -606,9 +633,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* wo = net.w[l] + static_cast<size_t>(part) * din * dout;
     for (int i = warp; i < din; i += kWarps)
       for (int jj = lane; jj < ns; jj += 32)
-        wo[i * dout + j0 + jj] = ws[lay.w[l] + i * lay.ldw[l] + j0 + jj];
+        wo[i * dout + j0 + jj] = ws[lay.w(l) + i * lay.ldw(l) + j0 + jj];
     for (int jj = tid; jj < ns; jj += kThreads)
-      net.b[l][static_cast<size_t>(part) * dout + j0 + jj] = ws[lay.b[l] + j0 + jj];
+      net.b[l][static_cast<size_t>(part) * dout + j0 + jj] = ws[lay.b(l) + j0 + jj];
   }
   // no CTA leaves while another may still send into its shared memory
   if (cs > 1) cluster.sync();
@@ -626,7 +653,7 @@ std::atomic<int> g_floor_raised[kMaxDevices];
 // bytes, with `kernel`'s limit raised once per (device, size) above 48 KB.
 cudaError_t shared_bytes(const Net& net, int rows, int cs, const void* kernel,
                          std::atomic<int>* raised, size_t& smem) {
-  smem = 4 * static_cast<size_t>(layout(net, rows, cs).total);
+  smem = 4 * static_cast<size_t>(layout(net, rows, cs, nullptr));
   if (smem <= kDefaultSmem) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -716,13 +743,13 @@ extern "C" int mlp_fit_launch(const int* keys, const float* X, const int* y, con
 }
 
 // The floats of one CTA's workspace with `cs` CTAs a partition of [rows]
-// × dims (the Layout's total), into *out: the size of the shared memory a
+// × dims (the layout's total), into *out: the size of the shared memory a
 // launch takes and, at cs = 1, of a partition's global workspace.
 extern "C" int mlp_fit_words(int rows, int layers, const int* dims, int cs, int* out) {
   Net net;
   if (!make_net(layers, dims, nullptr, nullptr, nullptr, net) || !valid_cs(cs))
     return static_cast<int>(cudaErrorInvalidValue);
-  *out = layout(net, rows, cs).total;
+  *out = layout(net, rows, cs, nullptr);
   return 0;
 }
 
@@ -750,7 +777,7 @@ extern "C" int mlp_fit_floor_launch(int p, int rows, int layers, const int* dims
   if (!make_net(layers, dims, nullptr, nullptr, nullptr, net) || !valid_cs(cs))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
-  if (4 * static_cast<size_t>(layout(net, rows, cs).total) <= 232448) {
+  if (4 * static_cast<size_t>(layout(net, rows, cs, nullptr)) <= 232448) {
     const cudaError_t e = shared_bytes(net, rows, cs,
                                        reinterpret_cast<const void*>(mlp_fit_floor_kernel),
                                        g_floor_raised, smem);

@@ -115,11 +115,19 @@ _SIGNATURES = {
         "mlp_predict_err_launch",
         [_P, _I, _P, _P, _I,  # table, its row stride, labels, idx, idx bytes
          _I, _I, _I, _P,  # p, n, layers, host widths [L + 1]
-         _P, _P,  # host arrays of the w and b pointers
+         _P, _P, _P,  # host arrays of the w and b pointers, global workspace
+         _I, _I, _I, _I,  # the plan: rows a tile, threads, CTAs a partition,
+                          # streamed weights (0: the plan's; -1 for stream)
          _P, _P, _P],  # err, pred, stream
     ),
+    # K10's plan at a shape (p, n, layers, host widths, the four plan
+    # fields as the launch takes them, host int out[11])
+    "mlp_predict_err_plan": (
+        "mlp_predict_err_plan", [_I, _I, _I, _P, _I, _I, _I, _I, _P], "mlp_predict_err",
+    ),
     "mlp_predict_err_floor": (
-        "mlp_predict_err_floor_launch", [_I, _I, _I, _P, _P], "mlp_predict_err",
+        "mlp_predict_err_floor_launch", [_I, _I, _I, _P, _I, _I, _I, _I, _P],
+        "mlp_predict_err",
     ),
 }
 

@@ -91,14 +91,15 @@ def centroid_predict_err_reference(centroids, bias, T, Ty, idx):
 
 
 # Shared memory a block can use on an H100 (227 KB). K2 stages one
-# partition's centroids and bias there and, for F <= 32, its block's
-# K2_BLOCK_ROWS rows with their indices and labels
-# (csrc/centroid_predict_err.cu kBlockRows).
+# partition's centroids and bias there — in chunks of classes when they do
+# not fit — and, for F <= 32, its block's K2_BLOCK_ROWS rows with their
+# indices and labels (csrc/centroid_predict_err.cu kBlockRows).
 MAX_SHARED_BYTES = 232448
 K2_BLOCK_ROWS = 256
 
 
 def _k2_shared_bytes(c: int, f: int) -> int:
+    """K2's shared memory with ``c`` classes staged at once."""
     fp = row_stride(f)
     return 4 * (c * fp + c) + (4 * K2_BLOCK_ROWS * (fp + 2) if f <= 32 else 0)
 
@@ -157,11 +158,11 @@ def centroid_predict_err(centroids, bias, T, Ty, idx, return_pred=False):
     _check_cuda("idx", idx, (torch.int16, torch.int32), (p, n), dev)
     if T.data_ptr() % 16:
         raise ValueError("centroid_predict_err: T must start on a 16-byte boundary")
-    smem = _k2_shared_bytes(c, f)
+    smem = _k2_shared_bytes(1, f)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
-            f"centroid_predict_err: C={c}, F={f} need {smem} B of shared "
-            f"memory, over the card's {MAX_SHARED_BYTES}"
+            f"centroid_predict_err: F={f} needs {smem} B of shared memory at "
+            f"one class a chunk, over the card's {MAX_SHARED_BYTES}"
         )
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
     pred = torch.empty((p, n), dtype=torch.int32, device=dev) if return_pred else None
@@ -243,10 +244,11 @@ def centroid_fit_args(X, y, w, cent, bias):
 
 
 def _k7_shared_bytes(c: int, f: int) -> int:
-    """K7's shared memory at its smallest row tile, one 32-row chunk
-    (csrc/centroid_fit.cu ``smem_words``): the row block feature-major with
-    a row of ones, F + 1 rows of 32 + 4 words, the weights, the [C, F + 1]
-    sums and counts, and a row bitmap word per class."""
+    """K7's shared memory at its smallest row tile, one 32-row chunk, with
+    ``c`` classes a chunk (csrc/centroid_fit.cu ``smem_words``): the row
+    block feature-major with a row of ones, F + 1 rows of 32 + 4 words, the
+    weights, the [c, F + 1] sums and counts, and a row bitmap word per
+    class."""
     return 4 * ((f + 1) * 36 + 32 + c * (f + 1) + c)
 
 
@@ -272,10 +274,10 @@ def centroid_fit(X, y, w, c: int) -> CentroidParams:
         if t.device != dev or tuple(t.shape) != (p, b):
             raise ValueError(f"centroid_fit: {name} must be [{p}, {b}] on {dev}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    if _k7_shared_bytes(c, f) > MAX_SHARED_BYTES:
+    if _k7_shared_bytes(1, f) > MAX_SHARED_BYTES:
         raise ValueError(
-            f"centroid_fit: C={c}, F={f} need {_k7_shared_bytes(c, f)} B of "
-            f"shared memory, over the card's {MAX_SHARED_BYTES}"
+            f"centroid_fit: F={f} needs {_k7_shared_bytes(1, f)} B of shared "
+            f"memory at one class a chunk, over the card's {MAX_SHARED_BYTES}"
         )
     cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
     bias = torch.empty((p, c), dtype=torch.float32, device=dev)

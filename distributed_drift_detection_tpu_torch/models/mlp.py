@@ -39,8 +39,10 @@ from ..utils import threefry
 from .base import Model, ModelSpec, pad_row_table, row_stride
 from .classifiers import MAX_SHARED_BYTES, _argmax_first
 
-# Layers the kernels take (csrc/mlp_fit.cu, csrc/mlp_predict_err.cu kMaxLayers).
-MAX_LAYERS = 8
+# Layers the kernels take (csrc/mlp_fit.cu, csrc/mlp_predict_err.cu
+# kMaxLayers): a launch passes its layers' widths and pointers in a struct
+# among the kernel's parameters, which are limited to 4 KB.
+MAX_LAYERS = 64
 
 
 class MLPLayer(NamedTuple):
@@ -128,9 +130,14 @@ def mlp_fit_reference(key, X, y, w, dims, fit_steps: int, learning_rate: float,
     return tuple(MLPLayer(*layer) for layer in params)
 
 
-# Words of K9's Layout at the head of its workspace: 9 arrays of
-# MAX_LAYERS ints and 6 ints, rounded up to 4 (csrc/mlp_fit.cu kHeader).
-K9_HEADER = (9 * MAX_LAYERS + 6 + 3) & ~3
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _k9_header(layers: int) -> int:
+    """Words of K9's header at the head of its workspace: 9 ints a layer
+    and 6, rounded up to 4 (csrc/mlp_fit.cu ``header_words``)."""
+    return (9 * layers + 6 + 3) & ~3
 
 
 def _pad4(n: int) -> int:
@@ -141,7 +148,7 @@ def _pad4(n: int) -> int:
 
 def _k9_words(dims, b: int, cs: int = 1) -> int:
     """Floats of one CTA's workspace in K9 with ``cs`` CTAs a partition
-    (csrc/mlp_fit.cu ``Layout``): the layout itself (``K9_HEADER``
+    (csrc/mlp_fit.cu ``layout``): its header (:func:`_k9_header`
     words), the parameters with each weight row padded (``_pad4``), the
     velocities of the CTA's columns (the widest slice, whole groups of 4,
     of each layer), each layer's output with padded rows, with ``cs > 1`` a
@@ -149,8 +156,7 @@ def _k9_words(dims, b: int, cs: int = 1) -> int:
     row, the rows (padded), labels and weights — each region rounded up to
     4 floats. The kernel's own count, ``mlp_fit_words``, sizes a launch;
     this copy lets :func:`k9_plan` be worked out without a card."""
-    def r4(n):
-        return (n + 3) & ~3
+    r4 = _r4
 
     def widest(n):  # csrc/mlp_fit.cu `cut`: whole groups of 4 a CTA
         return 4 * -(-((n + 3) // 4) // cs)
@@ -160,7 +166,7 @@ def _k9_words(dims, b: int, cs: int = 1) -> int:
     vel = sum(r4(din * widest(dout)) + r4(widest(dout)) for din, dout in pairs)
     acts = sum(r4(b * _pad4(d)) for d in dims[1:])
     grads = sum(r4(b * _pad4(d)) for d in dims[2:-1]) if cs > 1 else 0
-    return (K9_HEADER + params + vel + acts + grads + r4(b) + r4(b * _pad4(dims[0]))
+    return (_k9_header(len(pairs)) + params + vel + acts + grads + r4(b) + r4(b * _pad4(dims[0]))
             + 2 * r4(b))
 
 
@@ -298,28 +304,138 @@ def mlp_predict_err_reference(params, T, Ty, idx):
     return (pred != Ty[i]).float(), pred
 
 
-K10_ROWS = 64  # rows a block (csrc/mlp_predict_err.cu kRows)
+class K10Plan(NamedTuple):
+    """Kernel K10's launch plan (csrc/mlp_predict_err.cu ``Plan``)."""
+
+    rows: int  # rows a tile
+    threads: int  # a CTA
+    ctas: int  # CTAs a partition
+    stream: int  # 1: the weights stream through a ring of chunks; 0: resident
+    global_: int  # 1: activations and gathered rows in a global workspace
+    wa: int  # width of the even layers' activation buffer
+    wb: int  # width of the odd layers'
+    shared_bytes: int  # a CTA
+    global_words: int  # floats of global workspace a CTA (0: none)
 
 
-def _k10_shared_bytes(dims, f: int) -> int:
-    """K10's shared memory (csrc/mlp_predict_err.cu ``smem_words``): the
-    partition's weights and biases, two activation tiles of kRows rows at
-    the widest layer, and the tile's rows."""
-    rows = K10_ROWS
-    weights = sum(((din * dout + 3) & ~3) + ((dout + 3) & ~3)
-                  for din, dout in zip(dims[:-1], dims[1:]))
-    return 4 * (weights + 2 * rows * max(dims[1:]) + rows * row_stride(f))
+# csrc/mlp_predict_err.cu: a thread's tile is 8 rows x 4 units; row tiles
+# the plan tries (resident weights at the first K10_RESIDENT of them, then
+# streamed at all); the default threads a CTA; floats a buffer of the
+# streamed weights' ring.
+K10_THREAD_ROWS = 8
+K10_ROWS = (128, 64, 32, 16, 8)
+K10_RESIDENT = 2
+K10_THREADS = 256
+K10_RING_WORDS = 4096
+K10_MAX_THREADS = 256
 
 
-def mlp_predict_err_args(params, T, Ty, idx, err, pred=None):
+def _k10_sizes(dims, rows: int, stream: int, global_: int):
+    """(wa, wb, shared words, global words) of K10's plan (csrc/
+    mlp_predict_err.cu ``size_plan``): the tile's indices (two buffers of
+    ``rows`` ints), then — unless global — the gathered rows [2][F][rows +
+    4] and the activations [wa + wb][rows + 4], then the resident weights
+    (layer l's w [din][dout rounded up to 4]) or the ring's two buffers."""
+    ldr = rows + 4
+    wa = max(dims[1::2], default=0)
+    wb = max(dims[2::2], default=0)
+    acts = (2 * dims[0] + wa + wb) * ldr
+    weights = (2 * K10_RING_WORDS if stream
+               else sum(din * _r4(dout) for din, dout in zip(dims[:-1], dims[1:])))
+    return wa, wb, 2 * _r4(rows) + weights + (0 if global_ else acts), acts if global_ else 0
+
+
+def k10_plan(dims, p: int, n: int, sms: int, per_sm, rows: int = 0, threads: int = 0,
+             ctas: int = 0, stream: int = -1) -> K10Plan:
+    """K10's launch plan for ``P = p`` partitions of ``n`` rows through
+    the net ``dims`` (csrc/mlp_predict_err.cu ``choose_plan`` and
+    ``full_plan``, mirrored so that a plan can be worked out without a
+    card): resident weights at the first of ``K10_ROWS[:K10_RESIDENT]``
+    rows a tile whose shared memory fits, else streamed weights at the
+    first of ``K10_ROWS`` that fits, else activations in a global
+    workspace at the largest tile (weights resident if they fit). Then
+    the CTAs a partition: ``sms · per_sm(shared_bytes, threads, global_)``
+    (the card's SMs times the CTAs an SM holds at once) shared out over
+    the ``p`` partitions, at least 1 and at most the partition's tiles.
+    ``rows``, ``threads``, ``ctas`` (> 0) and ``stream`` (>= 0) force a
+    field. Raises ``ValueError`` when no plan fits."""
+    dims = tuple(int(d) for d in dims)
+    threads = threads or K10_THREADS
+    if threads > K10_MAX_THREADS or threads % 32:
+        raise ValueError(f"mlp_predict_err: {threads} threads a CTA; the kernel takes "
+                         f"multiples of 32 up to {K10_MAX_THREADS}")
+    choices = (rows,) if rows else K10_ROWS
+    resident = choices if rows or stream == 0 else choices[:K10_RESIDENT]
+    tries = ([(r, 0, 0) for r in resident] if stream != 1 else [])
+    tries += [(r, 1, 0) for r in choices] if stream != 0 else []
+    tries += [(choices[0], s, 1) for s in (0, 1) if stream in (-1, s)]
+    for r, s, g in tries:
+        if r < K10_THREAD_ROWS or r % K10_THREAD_ROWS or r // K10_THREAD_ROWS > threads:
+            continue
+        wa, wb, words, gwords = _k10_sizes(dims, r, s, g)
+        if 4 * words <= MAX_SHARED_BYTES:
+            break
+    else:
+        raise ValueError(f"mlp_predict_err: no launch plan for the net {dims} fits "
+                         f"{MAX_SHARED_BYTES} B of shared memory (forced rows {rows}, "
+                         f"threads {threads}, stream {stream})")
+    tiles = -(-max(n, 1) // r)
+    if ctas <= 0:
+        ctas = max(1, sms * per_sm(4 * words, threads, g) // max(p, 1))
+    return K10Plan(r, threads, min(ctas, tiles), s, g, wa, wb, 4 * words, gwords)
+
+
+# A plan's forced fields, (rows, threads, ctas, stream): none forced.
+K10_AUTO = (0, 0, 0, -1)
+
+
+@functools.cache
+def k10_launch_plan(device: torch.device, dims: tuple, p: int, n: int,
+                    force: tuple = K10_AUTO) -> K10Plan:
+    """K10's plan on ``device`` as the kernel works it out
+    (``mlp_predict_err_plan``: the card's SMs and occupancy), once per
+    (device, shape, forced fields)."""
+    return K10Plan(*k10_kernel_plan(device, dims, p, n, force)[:9])
+
+
+def k10_kernel_plan(device: torch.device, dims: tuple, p: int, n: int,
+                    force: tuple = K10_AUTO) -> tuple:
+    """The kernel's own plan (``mlp_predict_err_plan``): the nine fields of
+    :class:`K10Plan`, then the card's CTAs an SM for it and its SMs (0, 0
+    with ``ctas`` forced)."""
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    out = (ctypes.c_int * 11)()
+    with torch.cuda.device(device):
+        kernels.check("mlp_predict_err_plan", kernels.launcher("mlp_predict_err_plan")(
+            p, n, len(dims) - 1, ctypes.addressof(dim_arr), *force, out))
+    return tuple(out)
+
+
+def k10_force(plan: K10Plan) -> tuple:
+    """The forced fields that make the kernel take ``plan`` as it is,
+    asking the card nothing: (rows, threads, ctas, stream)."""
+    return plan.rows, plan.threads, plan.ctas, plan.stream
+
+
+def k10_scratch(plan: K10Plan, p: int, device) -> torch.Tensor | None:
+    """K10's global workspace for ``plan`` (``None`` when it has none)."""
+    if not plan.global_words:
+        return None
+    return torch.empty((p * plan.ctas * plan.global_words,), dtype=torch.float32, device=device)
+
+
+def mlp_predict_err_args(params, T, Ty, idx, err, pred=None, scratch=None, force=K10_AUTO):
     """Kernel K10's launch arguments, stream excluded, for checked CUDA
-    inputs (``T`` padded by :func:`pad_row_table`) and preallocated
-    outputs. Returns the ctypes arrays too, which must outlive the call."""
+    inputs (``T`` padded by :func:`pad_row_table`), preallocated outputs,
+    the plan's global workspace (:func:`k10_scratch`) and the plan's
+    forced fields (``K10_AUTO``: none). Returns the ctypes arrays too,
+    which must outlive the call."""
     dims = (params[0].w.shape[1], *(layer.w.shape[2] for layer in params))
     dim_arr, _, w_arr, b_arr = _layer_arrays(dims, params)
     args = (T.data_ptr(), T.shape[1], Ty.data_ptr(), idx.data_ptr(), idx.element_size(),
             idx.shape[0], idx.shape[1], len(params), ctypes.addressof(dim_arr),
             ctypes.addressof(w_arr), ctypes.addressof(b_arr),
+            None if scratch is None else scratch.data_ptr(), *force,
             err.data_ptr(), None if pred is None else pred.data_ptr())
     return args, (dim_arr, w_arr, b_arr)
 
@@ -330,8 +446,9 @@ def mlp_predict_err(params, T, Ty, idx, return_pred=False):
     ``[R, row_stride(F)]`` — with labels ``Ty [R]`` i32 and gather index
     ``idx [P, N]`` int16 or int32: ``err [P, N]`` f32 (and ``pred``).
 
-    CUDA tensors launch kernel K10 (``csrc/mlp_predict_err.cu``) and add
-    one to ``mlp_predict_err.launches``; CPU tensors run
+    CUDA tensors launch kernel K10 (``csrc/mlp_predict_err.cu``) on the
+    plan :func:`k10_launch_plan` works out, and add one to
+    ``mlp_predict_err.launches``; CPU tensors run
     :func:`mlp_predict_err_reference`."""
     if idx.device.type == "cpu":
         err, pred = mlp_predict_err_reference(params, T, Ty, idx)
@@ -360,13 +477,13 @@ def mlp_predict_err(params, T, Ty, idx, return_pred=False):
             raise ValueError(f"mlp_predict_err: {name} must be contiguous")
     if T.data_ptr() % 16:
         raise ValueError("mlp_predict_err: T must start on a 16-byte boundary")
-    smem = _k10_shared_bytes(dims, f)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"mlp_predict_err: the net {dims} needs {smem} B of shared "
-                         f"memory, over the card's {MAX_SHARED_BYTES}")
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
     pred = torch.empty((p, n), dtype=torch.int32, device=dev) if return_pred else None
-    args, keep = mlp_predict_err_args(params, T, Ty, idx, err, pred)
+    if n == 0 or p == 0:
+        return (err, pred) if return_pred else err
+    plan = k10_launch_plan(dev, dims, p, n)
+    args, keep = mlp_predict_err_args(params, T, Ty, idx, err, pred, k10_scratch(plan, p, dev),
+                                      k10_force(plan))
     code = kernels.launcher("mlp_predict_err")(*args, kernels.stream_handle(dev))
     del keep
     kernels.check("mlp_predict_err", code)

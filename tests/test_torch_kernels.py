@@ -157,10 +157,36 @@ def test_centroid_predict_err_kernel_near_ties(dev, idx_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f", [21, 37])
+def test_centroid_predict_err_kernel_class_chunks(dev, f):
+    """C = 3,000 classes, more than shared memory holds at once (2,058 at
+    F = 21 on the register path; 1,417 at F = 37 on the generic one), run
+    in chunks of classes in class order: predictions equal to the plain
+    version's off the near ties (the two best float64 scores within
+    1e-4·(1 + |top|); the kernel's dot chain and torch.bmm sum in other
+    orders), errors ``pred != label``."""
+    c = 3000
+    cent, bias, table, ty, idx = _k2_case(c + f, 3, 1100, c, f)
+    args = [torch.from_numpy(a).to(dev) for a in (cent, bias, table, ty)]
+    idx_t = torch.from_numpy(idx).to(dev, torch.int32)
+    before = classifiers.centroid_predict_err.launches
+    err, pred = classifiers.centroid_predict_err(*args, idx_t, return_pred=True)
+    assert classifiers.centroid_predict_err.launches == before + 1
+    _, rpred = classifiers.centroid_predict_err_reference(*args, idx_t)
+    scores = (torch.from_numpy(table[idx]).double() @ torch.from_numpy(cent).double()
+              .transpose(1, 2) + torch.from_numpy(bias).double()[:, None])
+    top2 = scores.topk(2, -1).values
+    tie = ((top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())).to(dev)
+    assert torch.equal(pred[~tie], rpred[~tie])
+    assert torch.equal(err, (pred != args[3][idx_t.long()]).float())
+    assert int(tie.sum()) < 10
+
+
+@pytest.mark.cuda
 def test_centroid_predict_err_kernel_refuses_oversized_centroids(dev):
-    """Centroids beyond the card's 227 KB of shared memory a block raise
-    before any launch."""
-    cent, bias, table, ty, idx = _k2_case(0, 1, 10, 64, 1000, r=20)
+    """A centroid too wide for the card's 227 KB of shared memory a block
+    even one class at a time raises before any launch."""
+    cent, bias, table, ty, idx = _k2_case(0, 1, 10, 2, 60000, r=20)
     args = [torch.from_numpy(a).to(dev) for a in (cent, bias, table, ty)]
     before = classifiers.centroid_predict_err.launches
     with pytest.raises(ValueError, match="shared"):
@@ -257,14 +283,38 @@ def test_centroid_fit_kernel_label_layouts(dev, layout):
         assert bool(torch.isfinite(got.bias).any())
 
 
+# (P, B, F, C): C = 3,000 classes, more than shared memory holds at once
+# (2,490 at F = 21), in chunks of classes: at one row tile of 100 rows, and
+# of 1,000 (more classes present, smaller chunks)
+K7_CLASS_CHUNKS = [(3, 100, 21, 3000), (2, 1000, 21, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K7_CLASS_CHUNKS)
+def test_centroid_fit_kernel_class_chunks(dev, shape):
+    """K7 with its classes in chunks equals its plain version bit for bit
+    on the card and on the CPU (each class's chain is unchanged)."""
+    p, b, f, c = shape
+    host = [torch.from_numpy(a) for a in _k7_inputs(sum(shape), p, b, f, c)]
+    before = classifiers.centroid_fit.launches
+    got = classifiers.centroid_fit(*(t.to(dev) for t in host), c)
+    assert classifiers.centroid_fit.launches == before + 1
+    on_card = classifiers.centroid_fit_reference(*(t.to(dev) for t in host), c)
+    on_cpu = classifiers.centroid_fit_reference(*host, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), h.view(torch.int32))
+    assert bool(torch.isfinite(got.bias).any()) and bool(torch.isinf(got.bias[:, -1]).all())
+
+
 @pytest.mark.cuda
 def test_centroid_fit_kernel_refuses_oversized(dev):
-    """A [C, F + 1] table beyond the card's 227 KB of shared memory a block
-    raises before any launch."""
-    host = _k7_inputs(0, 1, 10, 1000, 64)
+    """Rows too wide for the card's 227 KB of shared memory a block even
+    at one class a chunk and one 32-row chunk raise before any launch."""
+    host = _k7_inputs(0, 1, 10, 1700, 4)
     before = classifiers.centroid_fit.launches
     with pytest.raises(ValueError, match="shared"):
-        classifiers.centroid_fit(*(torch.from_numpy(a).to(dev) for a in host), 64)
+        classifiers.centroid_fit(*(torch.from_numpy(a).to(dev) for a in host), 4)
     assert classifiers.centroid_fit.launches == before
 
 
@@ -572,8 +622,8 @@ def _mlp_batch(seed, p, b, f, c):
 # (P, B, F, C, hidden, steps): the main path's shapes; B not a multiple of
 # 32 with C = 5; F = 27 (≈ 223 KB of shared memory); a batch too large for
 # shared memory (the global workspace); invalid rows and labels of no
-# class; an all-invalid batch; narrow widths; one hidden layer; the init
-# alone.
+# class; an all-invalid batch; narrow widths; one hidden layer; nine
+# layers; the init alone.
 K9_CASES = {
     "main_path": (16, 100, 21, 40, (128, 64), 32),
     "b37_c5": (4, 37, 27, 5, (128, 64), 32),
@@ -583,6 +633,7 @@ K9_CASES = {
     "all_invalid": (3, 100, 21, 40, (128, 64), 32),
     "narrow": (4, 50, 21, 40, (16, 8), 4),
     "one_hidden": (2, 64, 21, 40, (32,), 8),
+    "nine_layers": (2, 64, 21, 40, (32,) * 8, 8),
     "init_only": (16, 100, 21, 40, (128, 64), 0),
 }
 
@@ -688,9 +739,10 @@ def test_mlp_fit_kernel_cluster_sizes(dev, case, cs):
 
 # (dims, B), as tests/test_torch_mlp.py's K9_SHAPES: SMOKE at F = 21 and
 # F = 27, B = 37 with C = 5, the global workspace's B = 300, narrow widths,
-# one hidden layer, none
+# one hidden layer, none, nine layers
 K9_SHAPES = [((21, 128, 64, 40), 100), ((27, 128, 64, 40), 100), ((27, 128, 64, 5), 37),
-             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40)]
+             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40),
+             ((21, *(32,) * 8, 40), 64)]
 
 
 @pytest.mark.cuda
@@ -747,20 +799,25 @@ def _near_ties(params, rows):
 
 
 # (P, N, F, C, hidden): the main path's shape; N not a multiple of the
-# block's 64 rows with C = 5 and F = 27; narrow widths.
+# tile's rows with C = 5 and F = 27; narrow widths; the nets the JAX package
+# runs beyond the main path's — (256, 128) and (512,), whose weights stream
+# through the ring, no hidden layer, nine layers — and a hidden layer too
+# wide for shared memory (the global workspace).
 K10_CASES = {
     "main_path": (16, 12800, 21, 40, (128, 64)),
     "ragged_c5_f27": (3, 1000, 27, 5, (128, 64)),
     "narrow": (4, 333, 21, 40, (16, 8)),
+    "h256_128": (4, 2000, 21, 40, (256, 128)),
+    "h512": (4, 2000, 21, 40, (512,)),
+    "no_hidden": (3, 777, 21, 40, ()),
+    "nine_layers": (2, 500, 21, 40, (32,) * 8),
+    "global_workspace": (2, 300, 21, 40, (4096,)),
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
-@pytest.mark.parametrize("case", sorted(K10_CASES))
-def test_mlp_predict_err_kernel(dev, case, idx_dtype):
-    """K10's predictions equal its plain version's on the same parameters
-    except on near ties, and its errors are ``pred != label``."""
+def _k10_case(case, idx_dtype=torch.int16):
+    """K10_CASES[case]: parameters fitted by the plain version (8 steps),
+    a 3,000-row table, its labels and a gather index, on the CPU."""
     p, n, f, c, hidden = K10_CASES[case]
     dims = (f, *hidden, c)
     X, y, w, protos = _mlp_batch(len(case), p, 100, f, c)
@@ -771,10 +828,24 @@ def test_mlp_predict_err_kernel(dev, case, idx_dtype):
                           + 0.7 * rng.normal(size=(3000, f))).astype(np.float32))
     Ty = torch.from_numpy(rng.integers(0, c, 3000).astype(np.int32))
     idx = torch.from_numpy(rng.integers(0, 3000, (p, n))).to(idx_dtype)
+    return params, T, Ty, idx
+
+
+def _on(dev, params, *tensors):
+    return (tuple(tmlp.MLPLayer(l.w.to(dev), l.b.to(dev)) for l in params),
+            *(t.to(dev) for t in tensors))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("case", sorted(K10_CASES))
+def test_mlp_predict_err_kernel(dev, case, idx_dtype):
+    """K10's predictions equal its plain version's on the same parameters
+    except on near ties, and its errors are ``pred != label``."""
+    params, T, Ty, idx = _k10_case(case, idx_dtype)
+    p, n = idx.shape
     before = tmlp.mlp_predict_err.launches
-    err, pred = tmlp.mlp_predict_err(
-        tuple(tmlp.MLPLayer(l.w.to(dev), l.b.to(dev)) for l in params),
-        T.to(dev), Ty.to(dev), idx.to(dev), return_pred=True)
+    err, pred = tmlp.mlp_predict_err(*_on(dev, params, T, Ty, idx), return_pred=True)
     assert tmlp.mlp_predict_err.launches == before + 1
     rerr, rpred = tmlp.mlp_predict_err_reference(params, T, Ty, idx)
     tie = _near_ties(params, T[idx.long()])
@@ -782,3 +853,89 @@ def test_mlp_predict_err_kernel(dev, case, idx_dtype):
     assert torch.equal(pred[~tie], rpred[~tie])
     assert torch.equal(err, (pred != Ty[idx.long()]).float())
     assert int(tie.sum()) < max(5, n * p // 1000)
+
+
+def _k10_at(params, T, Ty, idx, force):
+    """K10 through its launcher at the plan ``force`` (rows, threads, CTAs
+    a partition, stream; uncounted): (pred, err)."""
+    from distributed_drift_detection_tpu_torch import kernels
+
+    dev = idx.device
+    p, n = idx.shape
+    dims = (params[0].w.shape[1], *(l.w.shape[2] for l in params))
+    plan = tmlp.k10_launch_plan(dev, dims, p, n, force)
+    err = torch.empty((p, n), device=dev)
+    pred = torch.empty((p, n), dtype=torch.int32, device=dev)
+    args, keep = tmlp.mlp_predict_err_args(params, tmlp.pad_row_table(T), Ty, idx, err, pred,
+                                           tmlp.k10_scratch(plan, p, dev), tmlp.k10_force(plan))
+    kernels.check("mlp_predict_err", kernels.launcher("mlp_predict_err")(
+        *args, kernels.stream_handle(dev)))
+    torch.cuda.synchronize()
+    del keep
+    return pred, err
+
+
+# K10 plans forced on a net (rows a tile, threads, CTAs a partition,
+# stream): resident and streamed weights, one tile a CTA, 64 and 128 rows,
+# 128 and 256 threads, 8 rows (one row group; a pass spans every unit).
+K10_FORCED = [(128, 256, 0, 0), (128, 256, 0, 1), (64, 128, 0, 0), (64, 256, 10**6, 1),
+              (128, 128, 10**6, 0), (8, 256, 0, 1), (8, 32, 3, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", K10_FORCED)
+@pytest.mark.parametrize("case", ["main_path", "ragged_c5_f27", "no_hidden"])
+def test_mlp_predict_err_kernel_plans_bit_equal(dev, case, force):
+    """Every plan of K10 — both weight paths among them — gives the
+    predictions and errors of the plan ``mlp_predict_err`` picks, bit for
+    bit (each output keeps its one chain)."""
+    params, T, Ty, idx = _on(dev, *_k10_case(case))
+    err, pred = tmlp.mlp_predict_err(params, T, Ty, idx, return_pred=True)
+    got_pred, got_err = _k10_at(params, T, Ty, idx, force)
+    assert torch.equal(got_pred, pred)
+    assert torch.equal(got_err.view(torch.int32), err.view(torch.int32))
+
+
+# (dims, P, N): the main path's; C5's nets; no hidden layer; nine layers;
+# the global workspace; F = 27 at few rows
+K10_PLAN_SHAPES = [((21, 128, 64, 40), 16, 12800), ((21, 256, 128, 40), 16, 12800),
+                   ((21, 512, 40), 16, 12800), ((21, 40), 16, 12800),
+                   ((21, *(32,) * 8, 40), 2, 500), ((21, 4096, 40), 2, 300),
+                   ((27, 128, 64, 5), 3, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims, p, n", K10_PLAN_SHAPES)
+def test_k10_plan_is_the_kernels_plan(dev, dims, p, n):
+    """``models/mlp.py`` ``k10_plan``, the Python copy that plans K10
+    without a card, gives the kernel's own plan (``mlp_predict_err_plan``,
+    which sizes every launch): rows, threads, CTAs a partition, weight
+    path, workspace and word counts, from the card's SMs and occupancy."""
+    got = tmlp.k10_kernel_plan(dev, dims, p, n)
+    per_sm, sms = got[9:]
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    want = tmlp.k10_plan(dims, p, n, sms, lambda *_: per_sm)
+    assert tmlp.K10Plan(*got[:9]) == want
+
+
+@pytest.mark.cuda
+def test_mlp_predict_err_kernel_matches_pinned_digest(dev):
+    """K10 gives, bit for bit, the predictions and errors of the kernel it
+    replaced: the SHA-256 at the main path's shape with the main path's
+    first fitted params, and on chip_smoke's F = 27 case, equals the pinned
+    digests (``chip_smoke.K10_MAIN_DIGEST``, ``K10_F27_DIGEST``)."""
+    import chip_smoke as cs
+
+    from distributed_drift_detection_tpu_torch import api, config
+
+    prep = api.prepare(config.RunConfig(**cs.SMOKE, model="mlp"), device=dev)
+    dims = cs.mlp_dims(prep.stream, prep.config)
+    _, keys = cs.mlp_keys(torch, prep, dev)
+    batch = [torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches)]
+    params = tmlp.mlp_fit(keys, *batch, dims, 32, prep.config.mlp_learning_rate)
+    p, n = prep.config.partitions, prep.config.window * prep.config.per_batch
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in cs.k10_main_inputs(prep.stream, p, n))
+    err, pred = tmlp.mlp_predict_err(params, T, Ty, idx, return_pred=True)
+    assert cs.k10_digest(pred, err) == cs.K10_MAIN_DIGEST
+    ferr, fpred = tmlp.mlp_predict_err(*cs.k10_f27_case(torch, tmlp, dev), return_pred=True)
+    assert cs.k10_digest(fpred, ferr) == cs.K10_F27_DIGEST

@@ -104,11 +104,13 @@ def _near_tie(params, X):
     return ((top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())).numpy()
 
 
-@pytest.mark.parametrize("hidden", [(128, 64), (16, 8)])
+@pytest.mark.parametrize("hidden", [(128, 64), (16, 8), (256, 128), (512,), ()])
 def test_mlp_predict_with_carried_params(hidden):
     """JAX's fitted parameters, carried across by ``convert.mlp_params``:
     ``predict`` and ``predict_err`` (gathered from the padded row table)
-    equal JAX's ``predict`` and ``pred != y`` except on near ties."""
+    equal JAX's ``predict`` and ``pred != y`` except on near ties — for
+    the main path's net and the nets K10 streams or runs with no hidden
+    layer."""
     p, b, f, c = 3, 100, 21, 40
     X, y, w, protos = _batch(4, p, b, f, c)
     jm, tm = _models(f, c, hidden, 16)
@@ -309,7 +311,8 @@ def _layout(dims, rows, cs):
     def r4(n):
         return (n + 3) & ~3
 
-    regions, off = {"header": (0, 9 * 8 + 6)}, 80
+    layers = len(dims) - 1
+    regions, off = {"header": (0, 9 * layers + 6)}, r4(9 * layers + 6)
 
     def put(name, n):
         nonlocal off
@@ -338,9 +341,10 @@ def _layout(dims, rows, cs):
 
 
 # (dims, B): SMOKE at F = 21 and F = 27, B = 37 with C = 5, the global
-# workspace's B = 300, narrow widths, one hidden layer, none
+# workspace's B = 300, narrow widths, one hidden layer, none, nine layers
 K9_SHAPES = [((21, 128, 64, 40), 100), ((27, 128, 64, 40), 100), ((27, 128, 64, 5), 37),
-             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40)]
+             ((21, 128, 64, 40), 300), ((21, 16, 8, 5), 50), ((21, 32, 40), 64), ((21, 5), 40),
+             ((21, *(32,) * 8, 40), 64)]
 
 
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
@@ -408,6 +412,65 @@ def test_k9_plan_is_a_function_of_the_shapes(dims, b, p, table, want):
     assert tmlp.k9_plan(p, words, max_clusters) == got
     shared = 4 * tmlp._k9_words(dims, b, got[0]) <= tmlp.MAX_SHARED_BYTES
     assert got[1] == shared
+
+
+# (dims, P, N, rows a tile, streamed weights, global workspace, shared
+# bytes, global floats a CTA): the main path's net; ROADMAP C5's (256, 128)
+# and (512,), whose weights and activations do not fit together at 128
+# rows (their weights stream at 64); no hidden layer; nine layers; a layer
+# too wide for shared memory even at 8 rows (the global workspace); F = 27.
+K10_PLANS = [
+    ((21, 128, 64, 40), 16, 12800, 128, 0, 0, 178336, 0),
+    ((21, 256, 128, 40), 16, 12800, 64, 1, 0, 149152, 0),
+    ((21, 512, 40), 16, 12800, 64, 1, 0, 194848, 0),
+    ((21, 40), 16, 12800, 128, 0, 0, 47680, 0),
+    ((21, *(32,) * 8, 40), 2, 500, 128, 0, 0, 97696, 0),
+    ((21, 4096, 40), 2, 300, 128, 1, 1, 33792, 551496),
+    ((27, 128, 64, 5), 3, 1000, 128, 0, 0, 179552, 0),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K10_PLANS)))
+def test_k10_plan_is_a_function_of_the_shapes(case):
+    """``k10_plan`` (the Python copy of K10's ``choose_plan`` and
+    ``full_plan``): the row tile, weight path, workspace and word counts
+    follow from the net's shapes alone; the plan fits shared memory, its
+    weights are resident when they fit beside 64 or 128 rows, and the CTAs
+    a partition are the card's share — at least one, at most the tiles."""
+    dims, p, n, rows, stream, global_, shared, gwords = K10_PLANS[case]
+    plan = tmlp.k10_plan(dims, p, n, 132, lambda *_: 1)
+    assert (plan.rows, plan.stream, plan.global_) == (rows, stream, global_)
+    assert (plan.shared_bytes, plan.global_words) == (shared, gwords)
+    assert plan.threads == tmlp.K10_THREADS
+    assert plan.shared_bytes <= tmlp.MAX_SHARED_BYTES
+    assert plan.ctas == min(132 // p, -(-n // rows))
+    assert tmlp.k10_plan(dims, p, n, 132, lambda *_: 1) == plan
+    assert tmlp.k10_plan(dims, 1000, n, 132, lambda *_: 1).ctas == 1
+    # forcing the plan's own fields gives the plan itself
+    assert tmlp.k10_plan(dims, p, n, 132, lambda *_: 1, *tmlp.k10_force(plan)) == plan
+    if not stream:  # the resident weights also stream, at the same rows
+        forced = tmlp.k10_plan(dims, p, n, 132, lambda *_: 1, rows=rows, stream=1)
+        assert (forced.rows, forced.stream) == (rows, 1)
+
+
+def test_k10_plan_refuses_what_no_plan_fits():
+    """A forced plan that does not fit, or threads the kernel does not
+    take, raise with the shape in the message."""
+    with pytest.raises(ValueError, match="no launch plan"):
+        tmlp.k10_plan((21, 128, 64, 40), 16, 12800, 132, lambda *_: 1, rows=12)
+    with pytest.raises(ValueError, match="threads"):
+        tmlp.k10_plan((21, 128, 64, 40), 16, 12800, 132, lambda *_: 1, threads=512)
+
+
+@pytest.mark.parametrize("layers", [1, 9, 64])
+def test_check_dims_takes_up_to_64_layers(layers):
+    """The kernels take 1 to ``MAX_LAYERS`` (64) layers of any width; 65
+    and a zero width raise."""
+    tmlp._check_dims("k", (21, *(8,) * (layers - 1), 40))
+    with pytest.raises(ValueError, match="layers"):
+        tmlp._check_dims("k", (21, *(8,) * tmlp.MAX_LAYERS, 40))
+    with pytest.raises(ValueError, match="width"):
+        tmlp._check_dims("k", (21, *(8,) * (layers - 1), 0))
 
 
 def _chain(A, B):
