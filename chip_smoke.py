@@ -6,11 +6,13 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the nine hand-written kernels from ``csrc/`` with nvcc (in
+2. build the eleven hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
    ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
    K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
-   ``mlp_predict_err``;
+   ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``;
+   and the native CSV parser (``native/ddd_native.cc``, with the host C++
+   compiler into ``kernels/_build/``);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes — the DDM window statistic (K1) bit for bit at
    [16, 128·100] (fresh and carried states, all-padding rows, the
@@ -88,7 +90,34 @@ without them. Phases, each fatal on failure:
 10. the nets of ROADMAP C5, ``mlp_hidden`` (256, 128) and (512,) (``C5_NETS``),
    through ``run`` at SMOKE on the card, counted: 624 detections and a
    mean delay within a batch of the port's CPU run of the same config,
-   Final Time, K10's plan and one traced detect phase each.
+   Final Time, K10's plan and one traced detect phase each;
+11. CSV ingest: SMOKE's stream written as a CSV in the reference's schema
+   and run on the card under ``data_policy='strict'`` — the main path's
+   624 detections and 788.6282 rows, flags equal field by field to phase
+   4's ``synth:`` run, the parser that ran printed — then a dirty copy (a
+   NaN cell, a ragged row) under ``quarantine`` and ``repair``, whose
+   masked rows ride the dense striper through K1, K2 and K7, counted:
+   detections and mean delay equal to the JAX package's CPU run of the
+   same file (``DIRTY_EXPECTED``), flags equal to the port's CPU run, Final
+   Time (median of 3 warm runs) and the dense stream's upload seconds;
+12. wide rows: a centroid run on a CSV of F = 2,048 (K7's features in
+   chunks; K2 on its generic path), counted, flags equal to the port's CPU
+   run, K7 and K2 timed at its shapes (``wide_ms`` in their rows); K2 at
+   F = 60,000 (its features in chunks) against its plain version off the
+   near ties, timed;
+13. the forest (32 trees of depth 3): K11 and K12 bit for bit against
+   their plain versions on the main path's first training batch with its
+   fit keys (K12 at [16, 12,800]), on random rows and on
+   ``FOREST_EDGES``; each timed as K7 is, with a ``floor_ms``; then
+   ``run`` at SMOKE's full width and depth, counted: detections equal to
+   the JAX package's and mean delay within a batch of it
+   (``FOREST_EXPECTED``), whether the flags equal the port's CPU run
+   (printed), Final Time and one traced detect phase;
+14. the deep mlp: a net of 65 layers (64 hidden of 16), past the 64 a
+   launch's parameters hold: K9's init bit for bit (no step) and its fit
+   within ``K9_ATOL`` of its plain version after 2 steps on the main
+   path's first batch, K10 equal to its plain version off the near ties,
+   then a short run on the card, counted.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -99,6 +128,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1088,6 +1118,238 @@ def k10_library_ms(torch, params, Tp, idx, f):
     return graph_ms(products, reps=10, rounds=3)
 
 
+# --------------------------------------------------------------------------
+# the oblique forest's kernels: K11 forest_fit, K12 forest_predict_err
+# --------------------------------------------------------------------------
+
+# The JAX package's run of SMOKE with model='forest' (32 trees of depth 3,
+# W = 128, R = 4, the retrain guard 0.3): (detections, mean delay in rows).
+# Its projections cannot match XLA's dot to the bit (ROADMAP C6), so the
+# bar is equal detections and a mean delay within a batch.
+FOREST_EXPECTED = (624, 788.6282)
+# K11 and K12 edge cases (P, B, F, C, trees, depth, what): all weights
+# 0, B = 1, depth 1 and 8, one tree, C = 70 (above 64), int32 indices, a
+# batch too large for shared memory (K11's global workspace), the rialto
+# width, and each of K12's layouts past shared memory: rows read from the
+# table, projections read from device memory, both, and the votes in
+# device memory.
+FOREST_EDGES = [(3, 100, 21, 40, 32, 3, "weights 0"), (4, 1, 21, 40, 8, 3, "B=1"),
+                (2, 50, 5, 3, 3, 1, "depth 1"), (2, 100, 21, 70, 1, 8, "depth 8, C=70"),
+                (2, 30, 7, 4, 1, 3, "one tree"), (3, 100, 21, 40, 32, 3, "int32 idx"),
+                (2, 300, 21, 40, 32, 3, "global workspace"), (3, 64, 27, 10, 4, 2, "rialto width"),
+                (2, 60, 600, 5, 4, 2, "rows from the table"),
+                (2, 100, 300, 10, 32, 3, "projections from device memory"),
+                (2, 100, 2048, 10, 32, 3, "F=2048: rows and projections from device memory"),
+                (2, 50, 21, 40, 500, 1, "votes in device memory")]
+
+
+def forest_equal(torch, forest, params, T, Ty, idx, what):
+    """K12 on ``params`` equal to its plain version bit for bit."""
+    err, pred = forest.forest_predict_err(params, T, Ty, idx, return_pred=True)
+    rerr, rpred = forest.forest_predict_err_reference(params, T, Ty, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(pred, rpred) and torch.equal(err, rerr),
+          f"K12 differs from its plain version ({what})")
+
+
+def forest_fit_equal(torch, forest, key, X, y, w, trees, depth, c, what):
+    """K11 equal to its plain version bit for bit; returns K11's params."""
+    got = forest.forest_fit(key, X, y, w, trees, depth, c)
+    want = forest.forest_fit_reference(key, X, y, w, trees, depth, c)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        check(torch.equal(g, r), f"K11 differs from its plain version ({what})")
+    return got
+
+
+def forest_fit_ops(b, f, trees, depth):
+    """Operations one partition's fit needs, whatever its algorithm (the
+    integer hash of the draws left out): erf_inv's ≈ 40 a normal, z's
+    product and add a (row, node, feature), a selection of ⌈log2 B⌉
+    compares a (row, node) — what a sort of each column takes — the
+    routing's compare a (row, tree, level), and an add a (row, tree) for
+    the leaf counts and a row for the batch's class counts."""
+    tn = trees * ((1 << depth) - 1)
+    return (40 * f * tn + 2 * b * tn * f + b * math.ceil(math.log2(b)) * tn
+            + b * trees * depth + b * trees + b)
+
+
+def check_k11_k12(torch, kernels, forest, prep, dev):
+    """K11 and K12 against their plain versions bit for bit: K11 on the
+    main path's first training batch with its fit keys, on random rows and
+    on ``FOREST_EDGES``; K12 on K11's params at the main path's shape
+    [16, 12,800] and on the edges; times both as K7 is timed; returns
+    their kernel rows."""
+    cfg, stream = prep.config, prep.stream
+    trees, depth, c, f = cfg.forest_trees, cfg.forest_depth, stream.num_classes, stream.num_features
+    p, b, n = cfg.partitions, cfg.per_batch, cfg.window * cfg.per_batch
+    _, fit_keys = mlp_keys(torch, prep, dev)
+    main = [torch.from_numpy(a).to(dev) for a in k7_main_batch(prep.batches)]
+    rng = np.random.default_rng(11)
+    params = forest_fit_equal(torch, forest, fit_keys, *main, trees, depth, c, "main path")
+    rand = [torch.from_numpy(a).to(dev) for a in k7_inputs(rng, stream.base_X, stream.base_y,
+                                                          p, b, c)]
+    forest_fit_equal(torch, forest, fit_keys, *rand, trees, depth, c, "random rows")
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in k10_main_inputs(stream, p, n))
+    Tp = forest.pad_row_table(T)
+    forest_equal(torch, forest, params, Tp, Ty, idx, "main path")
+    for ep, eb, ef, ec, et, ed, what in FOREST_EDGES:
+        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
+        ey = rng.integers(0, ec, (ep, eb)).astype(np.int32)
+        eX = (protos[ey] + 0.5 * rng.normal(size=(ep, eb, ef))).astype(np.float32)
+        ew = (rng.random((ep, eb)) < 0.9).astype(np.float32)
+        if what == "weights 0":
+            ew[:] = 0.0
+        batch = [torch.from_numpy(a).to(dev) for a in (eX, ey, ew)]
+        eparams = forest_fit_equal(torch, forest, fit_keys[:ep].contiguous(), *batch, et, ed,
+                                   ec, what)
+        eT = (protos[rng.integers(0, ec, 900)] + 0.7 * rng.normal(size=(900, ef))).astype(np.float32)
+        eTy = rng.integers(0, ec, 900).astype(np.int32)
+        eidx = rng.integers(0, 900, (ep, 777)).astype(np.int32 if what == "int32 idx" else np.int16)
+        forest_equal(torch, forest, eparams, *(torch.from_numpy(a).to(dev) for a in (eT, eTy, eidx)),
+                     what)
+    print(f"K11 forest_fit and K12 forest_predict_err: bitwise equal to their plain versions on "
+          f"the main path's first batch [{p}, {b}] F={f} C={c} T={trees} depth {depth} with its "
+          f"fit keys (K12 at [{p}, {n}]), on random rows, and at "
+          + ", ".join(f"{w} (P={a} B={bb} F={ff} C={cc} T={tt} depth {dd})"
+                      for a, bb, ff, cc, tt, dd, w in FOREST_EDGES))
+
+    fit_fn, pred_fn = kernels.launcher("forest_fit"), kernels.launcher("forest_predict_err")
+    out = forest.ForestParams(*(torch.empty_like(t) for t in params))
+    scratch = forest.forest_fit_scratch(p, b, trees, depth, dev)
+    fargs = forest.forest_fit_args(fit_keys, *main, trees, depth, c, out, scratch)
+    fit_ms = graph_ms(lambda: kernels.check("forest_fit", fit_fn(*fargs, kernels.stream_handle(dev))))
+    fit_host = host_us(lambda: forest.forest_fit(fit_keys, *main, trees, depth, c))
+    fit_plain = time_ms(lambda: forest.forest_fit_reference(fit_keys, *main, trees, depth, c),
+                        reps=3, rounds=3)
+    floor = kernels.launcher("forest_fit_floor")
+    fit_floor = graph_ms(lambda: kernels.check("forest_fit_floor", floor(
+        p, b, trees, depth, int(scratch is not None), kernels.stream_handle(dev))))
+    tn = trees * ((1 << depth) - 1)
+    # X, y, w and the keys read once; proj, thresh and leaf_class written once
+    fb_ms, fby = bound(p * b * (f + 2) * 4 + p * 8 + p * (f * tn + tn + trees * (1 << depth)) * 4,
+                       p * forest_fit_ops(b, f, trees, depth))
+    print(f"K11 forest_fit [{p}, {b}] F={f} C={c} T={trees} depth {depth}: {fit_ms:.5f} ms "
+          f"device (graph of 50), {fit_host:.1f} us host a call, {fit_plain:.4f} ms plain, "
+          f"bound {fb_ms:.5f} ms ({fby}), floor {fit_floor:.5f} ms (an empty kernel with its "
+          "grid, block and shared memory)")
+
+    err = torch.empty((p, n), dtype=torch.float32, device=dev)
+    votes = forest.k12_votes(p, n, f, trees, depth, dev)
+    pargs = forest.forest_predict_err_args(params, Tp, Ty, idx, err, None, votes)
+    pred_ms = graph_ms(lambda: kernels.check("forest_predict_err",
+                                             pred_fn(*pargs, kernels.stream_handle(dev))),
+                       reps=10, rounds=3)
+    pred_host = host_us(lambda: forest.forest_predict_err(params, Tp, Ty, idx))
+    pred_plain = time_ms(lambda: forest.forest_predict_err_reference(params, Tp, Ty, idx),
+                         reps=3, rounds=3)
+    pfloor = kernels.launcher("forest_predict_err_floor")
+    pred_floor = graph_ms(lambda: kernels.check("forest_predict_err_floor", pfloor(
+        p, n, f, trees, depth, kernels.stream_handle(dev))))
+    # idx i16 + err f32 a row, the row table and labels, the params read
+    # once; a product and an add a (row, visited node, feature), and a
+    # tally of the T votes a row
+    pb_ms, pby = bound(p * n * 6 + Tp.numel() * 4 + Ty.numel() * 4
+                       + p * (f * tn + tn + trees * (1 << depth)) * 4,
+                       p * n * (2 * trees * depth * f + trees))
+    print(f"K12 forest_predict_err [{p}, {n}] F={f} T={trees} depth {depth}: {pred_ms:.5f} ms "
+          f"device (graph of 10), {pred_host:.1f} us host a call, {pred_plain:.4f} ms plain, "
+          f"bound {pb_ms:.5f} ms ({pby}), floor {pred_floor:.5f} ms (an empty kernel with its "
+          "grid, block and shared memory)")
+    rows = [
+        dict(name="forest_fit", route="cuda",
+             source="distributed_drift_detection_tpu_torch/csrc/forest_fit.cu",
+             replaces="distributed_drift_detection_tpu/models/classifiers.py:391",
+             max_abs_err=0.0, ms=fit_ms, host_us=fit_host, plain_ms=fit_plain,
+             bound_ms=fb_ms, bound_by=fby, library_ms=None, floor_ms=fit_floor),
+        dict(name="forest_predict_err", route="cuda",
+             source="distributed_drift_detection_tpu_torch/csrc/forest_predict_err.cu",
+             replaces="distributed_drift_detection_tpu/models/classifiers.py:431",
+             max_abs_err=0.0, ms=pred_ms, host_us=pred_host, plain_ms=pred_plain,
+             bound_ms=pb_ms, bound_by=pby, library_ms=None, floor_ms=pred_floor),
+    ]
+    return rows
+
+
+# --------------------------------------------------------------------------
+# CSV ingest, wide rows and the deep mlp
+# --------------------------------------------------------------------------
+
+# The JAX package's runs of SMOKE's CSV twin with data row 100's 4th field
+# NaN and data row 2500 ragged (its last two fields dropped), on the CPU:
+# (detections, mean delay in rows) under each policy.
+DIRTY_EXPECTED = {"quarantine": (624, 960.0385), "repair": (624, 956.6538)}
+# The wide-row run: a centroid stream of F = 2,048 written as a CSV, 8
+# concepts of 100 rows at mult_data 64 (51,200 rows, SMOKE's partitions
+# and per_batch): every partition finds its 7 planted boundaries.
+WIDE_SPEC = "prototypes,seed=0,concepts=8,rows_per_concept=100,features=2048"
+WIDE_MULT = 64
+WIDE_EXPECTED = 16 * 7
+# K2 at a width whose one class does not fit shared memory (its features
+# in chunks): (P, N, C, F).
+K2_FEATURE_CHUNKS = (2, 300, 5, 60000)
+# The deep mlp: 64 hidden layers of 16 (65 layers, past the 64 a launch's
+# parameters hold), at a small depth.
+DEEP_HIDDEN = (16,) * 64
+DEEP_MULT = 8
+
+
+def write_csv(spec: str, path: str, dirty: bool = False) -> None:
+    """``spec``'s rows written in the reference's schema (``io/datasets.py``);
+    with ``dirty``, data row 100's 4th field NaN and data row 2500 ragged."""
+    from distributed_drift_detection_tpu_torch.io.datasets import _write_schema_csv
+    from distributed_drift_detection_tpu_torch.io.synth import parse_synth
+
+    _write_schema_csv(*parse_synth(spec), path)
+    if dirty:
+        with open(path) as fh:
+            lines = fh.read().splitlines()
+        fields = lines[101].split(",")
+        fields[3] = "nan"
+        lines[101] = ",".join(fields)
+        lines[2501] = ",".join(lines[2501].split(",")[:-2])
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def wide_times(torch, kernels, classifiers, prep, dev) -> dict:
+    """K7 on the wide run's first training batch (its features in chunks)
+    and K2 at its predict's shape [P, W·B] (the generic path, its classes
+    in chunks), each by graph replay, with its bound; printed and
+    returned by name."""
+    stream, cfg = prep.stream, prep.config
+    p, b, c, f = cfg.partitions, cfg.per_batch, stream.num_classes, stream.num_features
+    X, y, w = (torch.from_numpy(a).to(dev) for a in k7_main_batch(prep.batches))
+    cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
+    bias = torch.empty((p, c), dtype=torch.float32, device=dev)
+    fit = kernels.launcher("centroid_fit")
+    fargs = classifiers.centroid_fit_args(X, y, w, cent, bias)
+    k7_ms = graph_ms(lambda: kernels.check("centroid_fit", fit(*fargs, kernels.stream_handle(dev))),
+                     reps=10, rounds=3)
+    k7_b, k7_by = bound(p * b * (f + 2) * 4 + p * c * (f + 1) * 4, p * b * (f + 1) + 2 * p * c * f)
+    n = cfg.window * b  # K2 scores against the centroids K7's replays wrote
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in k10_main_inputs(stream, p, n))
+    Tp = classifiers.pad_row_table(T)
+    err = torch.empty((p, n), dtype=torch.float32, device=dev)
+    pred = kernels.launcher("centroid_predict_err")
+    pargs = classifiers.centroid_predict_err_args(cent, bias, Tp, Ty, idx, err)
+    k2_ms = graph_ms(lambda: kernels.check("centroid_predict_err",
+                                           pred(*pargs, kernels.stream_handle(dev))),
+                     reps=10, rounds=3)
+    k2_b, k2_by = bound(p * n * 6 + Tp.numel() * 4 + p * c * (f + 1) * 4, p * n * 2 * f * c)
+    print(f"K7 centroid_fit at F={f} [{p}, {b}] C={c} (features in chunks): {k7_ms:.5f} ms "
+          f"device (graph of 10), bound {k7_b:.5f} ms ({k7_by}); K2 centroid_predict_err at "
+          f"F={f} [{p}, {n}] C={c}: {k2_ms:.5f} ms device (graph of 10), bound {k2_b:.5f} ms "
+          f"({k2_by})")
+    return {f"K7 F={f} [{p}, {b}] C={c}": k7_ms, f"K2 F={f} [{p}, {n}] C={c}": k2_ms}
+
+
+def flags_equal(np_, a, b) -> bool:
+    return all(np_.array_equal(getattr(a.flags, f), getattr(b.flags, f)) for f in a.flags._fields)
+
+
 def threefry_keys(torch, p, dev):
     from distributed_drift_detection_tpu_torch.engine.loop import device_keys
     from distributed_drift_detection_tpu_torch.utils import threefry
@@ -1097,7 +1359,7 @@ def threefry_keys(torch, p, dev):
 
 def wrappers():
     """Each kernel's counted wrapper, by kernel name."""
-    from distributed_drift_detection_tpu_torch.models import classifiers, mlp
+    from distributed_drift_detection_tpu_torch.models import classifiers, forest, mlp
     from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors
     from distributed_drift_detection_tpu_torch.utils import threefry
 
@@ -1109,7 +1371,9 @@ def wrappers():
             "adwin_window": adwin.adwin_window,
             "random_normal": threefry.random_normal,
             "mlp_fit": mlp.mlp_fit,
-            "mlp_predict_err": mlp.mlp_predict_err}
+            "mlp_predict_err": mlp.mlp_predict_err,
+            "forest_fit": forest.forest_fit,
+            "forest_predict_err": forest.forest_predict_err}
 
 
 def reset_launches() -> None:
@@ -1289,7 +1553,9 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "adwin_window": "adwin_window_kernel",
                   "random_normal": "random_normal_kernel",
                   "mlp_fit": "mlp_fit_kernel",
-                  "mlp_predict_err": "mlp_predict_err_kernel"}
+                  "mlp_predict_err": "mlp_predict_err_kernel",
+                  "forest_fit": "forest_fit_kernel",
+                  "forest_predict_err": "forest_predict_err_kernel"}
 
 
 def in_run_profile(torch, api, prep, dev,
@@ -1322,6 +1588,166 @@ def in_run_profile(torch, api, prep, dev,
     return per, summary
 
 
+def later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep, final_times, dev):
+    """Phases 11 to 14 (module docstring) after the main path's run ``res``
+    of ``cfg`` and the mlp's ``mcfg``/``mprep``: adds to ``final_times``;
+    returns the forest's kernel rows and K7's and K2's wide-row times."""
+    from distributed_drift_detection_tpu_torch.io import native
+    from distributed_drift_detection_tpu_torch.models import classifiers, mlp
+
+    p = cfg.partitions
+    # 11. CSV ingest: SMOKE's twin written as a CSV, under strict on the
+    # card (the main path's numbers and flags); a dirty copy under
+    # quarantine and repair (masked rows on the dense striper), counted
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    twin = f"{tmp.name}/twin.csv"
+    write_csv(SMOKE["dataset"][len("synth:"):], twin)
+    csv_cfg = config.replace(cfg, dataset=twin)
+    reset_launches()
+    cres = api.run(csv_cfg, device=dev)
+    cl = read_launches()
+    cm = cres.metrics
+    print(f"CSV twin ({'native' if native.native_available() else 'NumPy'} parser, strict) on "
+          f"the card: {cm.num_detections} detections, mean delay {cm.mean_delay_rows:.4f} rows, "
+          f"flags {'equal' if flags_equal(np, cres, res) else 'NOT equal'} to the synth: run; "
+          f"launches {cl}")
+    check(cm.num_detections == EXPECTED_DETECTIONS and
+          abs(cm.mean_delay_rows - EXPECTED_MEAN_DELAY) < 0.01,
+          f"CSV twin: {cm.num_detections} detections, {cm.mean_delay_rows} rows")
+    check(flags_equal(np, cres, res), "CSV twin: flags differ from the synth: run's")
+    for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+        check(cl[k] > 0, f"CSV twin: kernel {k} was not launched")
+    dirty = f"{tmp.name}/dirty.csv"
+    write_csv(SMOKE["dataset"][len("synth:"):], dirty, dirty=True)
+    for policy, (want_n, want_delay) in DIRTY_EXPECTED.items():
+        dcfg = config.replace(cfg, dataset=dirty, data_policy=policy,
+                              quarantine_path=f"{tmp.name}/{policy}.jsonl")
+        dres, dl = run_equal(api, np, dcfg, dev, f"dirty CSV ({policy})")
+        dm = dres.metrics
+        dtimes = [api.run(dcfg, device=dev) for _ in range(3)]
+        final_times[f"csv {policy}"] = statistics.median(t.total_time for t in dtimes)
+        upload = statistics.median(t.timings["upload"] for t in dtimes)
+        print(f"dirty CSV ({policy}) on the card: {dm.num_detections} detections, mean delay "
+              f"{dm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay}), "
+              f"{dres.stream.quarantine.rows_quarantined} rows quarantined, flags equal to the "
+              f"CPU run; Final Time (median of 3 warm runs) {final_times[f'csv {policy}']:.4f} s, "
+              f"upload of the dense stream {upload:.4f} s; launches {dl}")
+        check(dm.num_detections == want_n and abs(dm.mean_delay_rows - want_delay) < 0.01,
+              f"dirty CSV ({policy}): {dm.num_detections} detections, {dm.mean_delay_rows} rows")
+        for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+            check(dl[k] > 0, f"dirty CSV ({policy}): kernel {k} was not launched")
+
+    # 12. wide rows: a centroid run on a CSV of F = 2,048 (K7's features in
+    # chunks), counted; K2 at F = 60,000 (its features in chunks)
+    wide = f"{tmp.name}/wide.csv"
+    write_csv(WIDE_SPEC, wide)
+    wcfg = config.replace(cfg, dataset=wide, mult_data=WIDE_MULT)
+    wres, wl = run_equal(api, np, wcfg, dev, "F = 2,048")
+    print(f"F = 2,048 centroid run (mult_data {WIDE_MULT}) on the card: "
+          f"{wres.metrics.num_detections} detections, flags equal to the CPU run; launches {wl}")
+    check(wl["centroid_fit"] > 0 and wl["centroid_predict_err"] > 0,
+          "F = 2,048: K7 or K2 was not launched")
+    check(wres.metrics.num_detections == WIDE_EXPECTED,
+          f"F = 2,048: {wres.metrics.num_detections} detections, expected {WIDE_EXPECTED}")
+    wide_ms = wide_times(torch, kernels, classifiers, api.prepare(wcfg, device=dev), dev)
+    kp, kn, kc, kf = K2_FEATURE_CHUNKS
+    krng = np.random.default_rng(kf)
+    kcent = torch.from_numpy(krng.normal(size=(kp, kc, kf)).astype(np.float32)).to(dev)
+    kbias = torch.from_numpy(krng.normal(size=(kp, kc)).astype(np.float32)).to(dev)
+    kT = torch.from_numpy(krng.normal(size=(64, kf)).astype(np.float32)).to(dev)
+    kTy = torch.from_numpy(krng.integers(0, kc, 64).astype(np.int32)).to(dev)
+    kidx = torch.from_numpy(krng.integers(0, 64, (kp, kn)).astype(np.int32)).to(dev)
+    kerr, kpred = classifiers.centroid_predict_err(kcent, kbias, kT, kTy, kidx, return_pred=True)
+    _, rpred = classifiers.centroid_predict_err_reference(kcent, kbias, kT, kTy, kidx)
+    scores = torch.bmm(kT[kidx.long()].double(), kcent.double().transpose(1, 2)) + kbias.double()[:, None]
+    top2 = scores.topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
+    check(torch.equal(kpred[~tie], rpred[~tie]), "K2 at F = 60,000 differs off the near ties")
+    check(torch.equal(kerr, (kpred != kTy[kidx.long()]).float()), "K2 at F = 60,000: errors")
+    kfn = kernels.launcher("centroid_predict_err")
+    kerr2 = torch.empty_like(kerr)
+    kargs = classifiers.centroid_predict_err_args(kcent, kbias, classifiers.pad_row_table(kT), kTy,
+                                                  kidx, kerr2)
+    k2_ms = graph_ms(lambda: kernels.check("centroid_predict_err",
+                                           kfn(*kargs, kernels.stream_handle(dev))),
+                     reps=10, rounds=3)
+    print(f"K2 at F = {kf} (features in chunks): predictions equal to its plain version off "
+          f"{int(tie.sum())} near ties; [{kp}, {kn}] C={kc}: {k2_ms:.5f} ms device (graph of 10)")
+    wide_ms["K2 F=60000 [2, 300] C=5"] = k2_ms
+
+    # 13. the forest: K11 and K12 against their plain versions, then its
+    # path at SMOKE's full width and depth, counted
+    from distributed_drift_detection_tpu_torch.models import forest
+
+    fcfg = config.replace(cfg, model="forest")
+    fprep = api.prepare(fcfg, device=dev)
+    check((fprep.config.forest_trees, fprep.config.forest_depth, fprep.config.window,
+           fprep.config.window_rotations, fprep.config.retrain_error_threshold) == (32, 3, 128, 4, 0.3),
+          f"the forest path resolved to {fprep.config}")
+    rows = check_k11_k12(torch, kernels, forest, fprep, dev)
+    t0 = time.perf_counter()
+    fref = api.run(fcfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    fres = api.run(fcfg, device=dev)
+    fl = read_launches()
+    fm, want_n, want_delay = fres.metrics, *FOREST_EXPECTED
+    print(f"forest on the card: {fm.num_detections} detections, mean delay "
+          f"{fm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay:.4f}); flags "
+          f"{'equal' if flags_equal(np, fres, fref) else 'NOT equal'} bit for bit to the port's "
+          f"CPU run ({fref.metrics.num_detections} detections, "
+          f"{fref.metrics.mean_delay_rows:.4f} rows, {cpu_s:.1f} s); launches {fl}")
+    check(fm.num_detections == want_n, f"forest: {fm.num_detections} detections, expected {want_n}")
+    check(abs(fm.mean_delay_rows - want_delay) <= cfg.per_batch,
+          f"forest: mean delay {fm.mean_delay_rows}, more than a batch from {want_delay}")
+    check(bool(np.isfinite(fres.drift_vote).all()), "forest: non-finite drift vote")
+    for k in ("forest_fit", "forest_predict_err", "ddm_window"):
+        check(fl[k] > 0, f"forest: kernel {k} was not launched on its path")
+    ftimes = [api.run(fcfg, device=dev) for _ in range(3)]
+    final_times["forest"] = statistics.median(t.total_time for t in ftimes)
+    names = ("forest_fit", "forest_predict_err")
+    fper, fsum = in_run_profile(torch, api, fprep, dev, names + ("ddm_window",))
+    for row in rows[-2:]:
+        row["launches"] = fl[row["name"]]
+        row["in_run_launches"], row["in_run_us"] = fper[row["name"]]
+    print(f"forest: Final Time (median of 3 warm runs) {final_times['forest']:.4f} s; in-run "
+          + ", ".join(f"{k} {fper[k][0]} launches x {fper[k][1]:.2f} us" for k in names)
+          + f"; {fsum['kernels']} kernels busy {fsum['busy_s']:.4f} s of "
+          f"{fsum['detect_s']:.4f} s, idle share {fsum['idle_share']:.3f}")
+
+    # 14. the deep mlp: 65 layers, past the 64 a launch's parameters hold,
+    # through K9 and K10 against their plain versions, then a short run
+    deep = (mprep.stream.num_features, *DEEP_HIDDEN, mprep.stream.num_classes)
+    _, dkeys = mlp_keys(torch, mprep, dev)
+    dmain = [torch.from_numpy(a).to(dev) for a in k7_main_batch(mprep.batches)]
+    init = mlp.mlp_init(dkeys, deep)
+    zero = mlp.mlp_fit(dkeys, *dmain, deep, 0, 0.05)
+    check(all(torch.equal(z.w.view(torch.int32), i.w.view(torch.int32)) and torch.equal(z.b, i.b)
+              for z, i in zip(zero, init)), "K9's init differs from the plain init (65 layers)")
+    dparams = mlp.mlp_fit(dkeys, *dmain, deep, 2, 0.05)
+    dgap = fit_gap(torch, dparams, mlp.mlp_fit_reference(dkeys, *dmain, deep, 2, 0.05, 0.9))
+    check(dgap <= K9_ATOL, f"K9 differs from its plain version by {dgap} (65 layers)")
+    dT, dTy, didx = (torch.from_numpy(a).to(dev) for a in k10_main_inputs(mprep.stream, p, 2000))
+    dties, ddiff = check_k10_equal(torch, mlp, dparams, dT, dTy, didx, "65 layers")
+    dcfg = config.replace(mcfg, mlp_hidden=DEEP_HIDDEN, fit_steps=2, mult_data=DEEP_MULT)
+    dres, dl = None, None
+    reset_launches()
+    dres = api.run(dcfg, device=dev)
+    dl = read_launches()
+    check(dl["mlp_fit"] > 0 and dl["mlp_predict_err"] > 0, "65 layers: K9 or K10 not launched")
+    check(bool(np.isfinite(dres.drift_vote).all()), "65 layers: non-finite drift vote")
+    print(f"mlp of 65 layers {deep[:2]}..{deep[-2:]}: K9's init bit for bit, its fit "
+          f"{dgap:.3g} from its plain version after 2 steps (within {K9_ATOL}), K10 equal off "
+          f"{dties} near ties "
+          f"({ddiff} predictions differ) at [{p}, 2000]; run (mult_data {DEEP_MULT}, 2 steps) "
+          f"{dres.metrics.num_detections} detections, launches {dl}")
+    tmp.cleanup()
+    return rows, wide_ms
+
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -1346,6 +1772,10 @@ def main(device: str = "cuda") -> int:
     print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + f" (wall {time.perf_counter() - t0:.1f} s, nvcc -gencode "
           "arch=compute_90a,code=sm_90a)")
+    from distributed_drift_detection_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    print(f"native CSV parser: {native.build()} ({time.perf_counter() - t0:.1f} s)")
 
     # 3. each kernel against its plain version at the main path's shapes
     cfg = config.RunConfig(**SMOKE)
@@ -1524,6 +1954,15 @@ def main(device: str = "cuda") -> int:
         check(bool(np.isfinite(cres.drift_vote).all()), f"mlp {hidden}: non-finite drift vote")
         for k in ("random_normal", "mlp_fit", "mlp_predict_err"):
             check(cl[k] > 0, f"mlp {hidden}: kernel {k} was not launched on its path")
+
+    # 11.-14. CSV ingest, wide rows, the forest, the deep mlp
+    later, wide_ms = later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep,
+                                  final_times, dev)
+    for row in rows:
+        kid = {"centroid_fit": "K7", "centroid_predict_err": "K2"}.get(row["name"])
+        if kid:
+            row["wide_ms"] = {k: v for k, v in wide_ms.items() if k.startswith(kid)}
+    rows += later
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

@@ -1,19 +1,20 @@
 """Top-level API of the port: configure → run → metrics.
 
 The twin of the JAX package's ``api.prepare`` (:413-472) and ``api.run``
-(:995-1191) for a ``synth:`` stream, the deterministic-fit models
-(majority, centroid, gnb, linear) and the ``mlp`` on JAX's threefry keys
-(``split(key(seed), P)``, ``utils/threefry.py``), every detector of the zoo, the
-speculative window engine over the packed indexed stream (dense for
-``mult_data < 1``) or the sequential ``window=1`` engine over the dense
-stream, and either collect mode. The timed
+(:995-1191) for a ``synth:`` stream or a CSV under the stream contract
+(``data_policy``, ``io/sanitize.py``), the deterministic-fit models
+(majority, centroid, gnb, linear) and the ``mlp`` and ``forest`` on JAX's
+threefry keys (``split(key(seed), P)``, ``utils/threefry.py``), every
+detector of the zoo, the speculative window engine over the packed indexed
+stream (dense for ``mult_data < 1`` and for a stream with quarantined rows)
+or the sequential ``window=1`` engine over the dense stream, and either
+collect mode. The timed
 span is the reference's Final Time: ``upload`` → ``detect`` (ended by a
 device synchronize) → ``collect`` (flags to the host, drift vote, delay
 metric).
 
 Surfaces outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item that ports them (:func:`_check_slice`; CSV datasets in
-``io.stream.load_stream``).
+ROADMAP item that ports them (:func:`_check_slice`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from .config import (
     auto_window,
     host_shuffle_seed,
     replace,
+    resolve_quarantine_path,
     resolve_retrain_threshold,
 )
 from .device import resolve_device, synchronize
@@ -74,7 +76,7 @@ class RunResult(NamedTuple):
     telemetry_path: "str | None" = None  # telemetry is not ported: always None
 
 
-PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp")
+PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp", "forest")
 
 
 def _check_slice(cfg: RunConfig) -> None:
@@ -93,7 +95,7 @@ def _check_slice(cfg: RunConfig) -> None:
         )
     unported = [
         (cfg.model not in PORTED_MODELS,
-         f"model={cfg.model!r} (ROADMAP A9b forest, A9c rf)"),
+         f"model={cfg.model!r} (ROADMAP A9c rf)"),
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
@@ -135,7 +137,27 @@ MODEL_KERNELS = {
     "centroid": ("centroid_fit", "centroid_predict_err"),
     "linear": ("centroid_predict_err",),
     "mlp": ("random_normal", "mlp_fit", "mlp_predict_err"),
+    "forest": ("forest_fit", "forest_predict_err"),
 }
+
+
+def _load_stream_for(cfg: RunConfig) -> StreamData:
+    """The config's stream, through the stream contract (``io.sanitize``):
+    ``strict`` raises on a dirty row, ``quarantine`` masks it and writes the
+    sidecar (``resolve_quarantine_path``), ``repair`` imputes what it can
+    and quarantines the rest, so it writes the sidecar too."""
+    return load_stream(
+        cfg.dataset,
+        cfg.mult_data,
+        seed=cfg.seed,
+        standardize=cfg.standardize,
+        data_policy=cfg.data_policy,
+        quarantine_path=(
+            resolve_quarantine_path(cfg)
+            if cfg.data_policy in ("quarantine", "repair")
+            else None
+        ),
+    )
 
 
 def prepare(
@@ -147,14 +169,13 @@ def prepare(
     _check_slice(cfg)
     dev = resolve_device(device)
     if stream is None:
-        stream = load_stream(
-            cfg.dataset, cfg.mult_data, seed=cfg.seed, standardize=cfg.standardize
-        )
+        stream = _load_stream_for(cfg)
     cfg = _resolve_policies(cfg, stream)
     # Duplicated streams ship packed (row table + gather indices + 1-byte
-    # shuffle perms) to the window engine; subsampled ones, and every
-    # stream of the window=1 engine, ride the dense striper.
-    packed = stream.src is not None and cfg.window > 1
+    # shuffle perms) to the window engine; subsampled ones, streams with
+    # quarantined rows (a row mask is data, not geometry) and every stream
+    # of the window=1 engine ride the dense striper.
+    packed = stream.src is not None and cfg.window > 1 and not stream.has_masked_rows
     striper = stripe_partitions_packed if packed else stripe_partitions
     batches = striper(
         stream, cfg.partitions, cfg.per_batch, shuffle_seed=host_shuffle_seed(cfg)

@@ -15,6 +15,7 @@ import torch
 
 from .engine.loop import LoopCarry
 from .models.classifiers import CentroidParams, GNBParams, LinearParams
+from .models.forest import ForestParams
 from .models.mlp import MLPLayer
 from .ops import detectors
 from .ops.adwin import ADWINState
@@ -65,6 +66,17 @@ def mlp_params(params, device="cpu") -> tuple:
     return tuple(_params(MLPLayer, layer, device, {"w": 3}) for layer in params)
 
 
+def forest_params(params, device="cpu") -> ForestParams:
+    """JAX ``ForestParams(proj [F, T·n], thresh [T·n], leaf_class [T, 2^d])``,
+    or vmapped with a leading ``[P]``."""
+    batched = np.ndim(params.thresh) == 2
+    return ForestParams(
+        _tensor(params.proj, np.float32, device, batched),
+        _tensor(params.thresh, np.float32, device, batched),
+        _tensor(params.leaf_class, np.int32, device, batched),
+    )
+
+
 # Each detector's state class, and the leaves held in int32 (the rest f32).
 _STATES = {
     "ddm": (DDMState, {"count"}),
@@ -98,12 +110,13 @@ def ddm_state(state, device="cpu") -> DDMState:
 _MODEL_PARAMS = {
     "centroid": centroid_params, "majority": majority_params,
     "gnb": gnb_params, "linear": linear_params, "mlp": mlp_params,
+    "forest": forest_params,
 }
 
 
 def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCarry:
     """JAX ``LoopCarry`` of a run with ``model`` and ``detector``. For the
-    keyed ``mlp`` its ``key`` is carried as key data — pass
+    keyed ``mlp`` and ``forest`` its ``key`` is carried as key data — pass
     ``carry._replace(key=jax.random.key_data(carry.key))`` — and kept as
     uint32 numpy ``[P, 2]`` on the host; the other families' key is
     dropped (their fits consume none)."""
@@ -111,7 +124,7 @@ def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCa
     if model not in _MODEL_PARAMS:
         raise NotImplementedError(f"model {model!r} is not ported yet")
     key = None
-    if model == "mlp":
+    if model in ("mlp", "forest"):
         key = np.array(carry.key, dtype=np.uint32).reshape(-1, 2)
     return LoopCarry(
         params=_MODEL_PARAMS[model](carry.params, device),

@@ -53,7 +53,14 @@
 // carried over in row order. Classes whose sums do not fit shared memory
 // even at the smallest tile (above 2,490 at F = 21) run in chunks of `cc`,
 // in class order, each chunk over all the rows; with one chunk the path is
-// the one-pass kernel's. The launcher asks the card nothing at the
+// the one-pass kernel's. Rows too wide for shared memory even at one class
+// and one row (F above 1,570) are staged in chunks of `fc` features, in
+// feature order: each (class, feature) sum is its own chain over the rows,
+// so a chunk changes none, and each class's bias chain is carried from
+// chunk to chunk in shared memory in feature order, so the output stays
+// bit for bit the unchunked kernel's. That path is an instantiation of
+// its own (kFeatureChunks), so every narrower launch keeps the unchunked
+// kernel's loop and addressing. The launcher asks the card nothing at the
 // main path's shapes: the opt-in shared-memory limit is read once per
 // device, and the kernel's limit raised once per (device, size), only for
 // a launch above the 48 KB default. Measured on an H100 80GB HBM3 against
@@ -83,15 +90,17 @@ __host__ __device__ constexpr int round32(int n) { return (n + 31) & ~31; }
 // eight features' rows fall in distinct banks.
 __host__ __device__ constexpr int xstride(int tile) { return round32(tile) + 4; }
 
-// Shared memory, in 4-byte words: the row block feature-major, F + 1 rows
-// of xstride(tile) (row F holds 1.0f, the count pair's "feature"), the
-// tile's weights (padded to whole chunks), the per-pair sums and counts
-// [C, F + 1] (column F holds the count), and per class its row bitmaps,
-// a word for each 32-row chunk. The padding lets a chain read whole
-// chunks unconditionally.
-__host__ __device__ constexpr size_t smem_words(int f, int c, int tile) {
+// Shared memory, in 4-byte words, for f features staged at once: the row
+// block feature-major, f + 1 rows of xstride(tile) (row f holds 1.0f, the
+// count pair's "feature"), the tile's weights (padded to whole chunks), the
+// per-pair sums and counts [C, f + 1] (column f holds the count), per class
+// its row bitmaps, a word for each 32-row chunk, and, when the features
+// come in chunks, per class its bias chain carried between them. The
+// padding lets a chain read whole chunks unconditionally.
+__host__ __device__ constexpr size_t smem_words(int f, int c, int tile, bool fchunks = false) {
   return static_cast<size_t>(f + 1) * xstride(tile) + round32(tile) +
-         static_cast<size_t>(c) * (f + 1) + static_cast<size_t>(c) * ((tile + 31) / 32);
+         static_cast<size_t>(c) * (f + 1) + static_cast<size_t>(c) * ((tile + 31) / 32) +
+         (fchunks ? static_cast<size_t>(c) : 0);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -103,14 +112,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                ::"r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
-// The tile's rows [rows, F] from src into xt feature-major (xt[j·ld + r]),
-// and its weights to ws, by 4-byte cp.async (coalesced on the global
-// side). Every thread waits for its own copies.
+// The tile's rows [rows, f] from src into xt feature-major (xt[j·ld +
+// r]), and its weights to ws, by 4-byte cp.async (coalesced on the global
+// side); the rows of a chunk of features lie `stride` apart, else f.
+// Every thread waits for its own copies.
+template <bool kFeatureChunks>
 __device__ __forceinline__ void async_load(float* xt, int ld, const float* src, int rows,
-                                           int f, const float* wsrc, float* ws) {
+                                           int f, int stride, const float* wsrc, float* ws) {
   for (int i = threadIdx.x; i < rows * f; i += blockDim.x) {
     const int r = i / f;
-    cp_async4(xt + (i - r * f) * ld + r, src + i);
+    cp_async4(xt + (i - r * f) * ld + r,
+              kFeatureChunks ? src + static_cast<size_t>(r) * stride + (i - r * f) : src + i);
   }
   for (int i = threadIdx.x; i < rows; i += blockDim.x) cp_async4(ws + i, wsrc + i);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -174,74 +186,109 @@ __device__ __forceinline__ void chain(int k, int k0, const float* xj, int b, int
   }
 }
 
+// One chunk of cn classes from k0 and fn features from j0 over every row
+// tile: the sums, the centroids and the bias chains (carried in bsum
+// between feature chunks). Without kFeatureChunks, j0 = 0 and fn = f, and
+// the code is the unchunked kernel's.
+template <bool kFeatureChunks>
+__device__ __forceinline__ void fit_chunk(float* xt, int ld, float* ws, float* acc,
+                                          unsigned* rows_of, float* bsum, const float* Xp,
+                                          const int* yp, const float* wp, size_t part, int b,
+                                          int f, int c, int tile, int k0, int cn, int j0, int fn,
+                                          float* __restrict__ cent, float* __restrict__ bias) {
+  const int tid = threadIdx.x;
+  const int f1 = fn + 1;
+  const int pairs = cn * f1;
+  const bool in_regs = pairs <= static_cast<int>(blockDim.x);
+  if (kFeatureChunks)
+    for (int r = tid; r < ld; r += blockDim.x) xt[fn * ld + r] = 1.0f;
+  if (!in_regs)
+    for (int i = tid; i < pairs; i += blockDim.x) acc[i] = 0.0f;
+  float a = 0.0f, n = 0.0f;  // pair tid's sum and count, when in_regs
+
+  for (int t0 = 0; t0 < b; t0 += tile) {
+    const int rows = min(tile, b - t0);
+    async_load<kFeatureChunks>(xt, ld, Xp + static_cast<size_t>(t0) * f + j0, rows, fn, f,
+                               wp + t0, ws);
+    const int* yt = yp + t0;
+    class_rows(yt, rows, k0, cn, rows_of);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (in_regs) {
+      if (tid < pairs)
+        chain(tid / f1, k0, xt + (tid % f1) * ld, b, rows, ws, yt, rows_of, a, n);
+    } else {
+      for (int i = tid; i < pairs; i += blockDim.x) {
+        float ai = acc[i], ni = 0.0f;
+        chain(i / f1, k0, xt + (i % f1) * ld, b, rows, ws, yt, rows_of, ai, ni);
+        acc[i] = ai;
+      }
+    }
+    // the next tile overwrites the rows; the division below reads the counts
+    if (t0 + tile < b || !in_regs) __syncthreads();
+  }
+
+  // cent = sums / max(counts, 1), kept in acc for the bias (counts stay
+  // in column fn)
+  for (int i = tid; i < pairs; i += blockDim.x) {
+    const int k = i / f1;
+    const int j = i - k * f1;
+    const float s = in_regs ? a : acc[i];
+    if (j < fn) {
+      const float v = __fdiv_rn(s, fmaxf(in_regs ? n : acc[k * f1 + fn], 1.0f));
+      acc[i] = v;
+      cent[(part * c + k0 + k) * f + j0 + j] = v;
+    } else if (in_regs) {
+      acc[i] = s;
+    }
+  }
+  __syncthreads();
+
+  // the bias chain over this chunk's features, carried from the last
+  for (int k = tid; k < cn; k += blockDim.x) {
+    const float* row = acc + k * f1;
+    float s = kFeatureChunks && j0 > 0 ? bsum[k] : 0.0f;
+    for (int j = 0; j < fn; ++j) s = __fmaf_rn(row[j], row[j], s);
+    if (kFeatureChunks && j0 + fn < f)
+      bsum[k] = s;
+    else
+      bias[part * c + k0 + k] = row[fn] > 0.0f ? __fmul_rn(-0.5f, s) : -CUDART_INF_F;
+  }
+}
+
+// kFeatureChunks: the features come in chunks of fc < f (fc is not read
+// without it).
+template <bool kFeatureChunks>
 __global__ void __launch_bounds__(kMaxThreads)
     centroid_fit_kernel(const float* __restrict__ X, const int* __restrict__ y,
                         const float* __restrict__ w, int b, int f, int c, int tile, int cc,
-                        float* __restrict__ cent, float* __restrict__ bias) {
+                        int fc, float* __restrict__ cent, float* __restrict__ bias) {
   extern __shared__ __align__(16) float xt[];
+  const int fs = kFeatureChunks ? fc : f;  // features staged at once
   const int ld = xstride(tile);
-  float* ws = xt + (f + 1) * ld;
+  float* ws = xt + (fs + 1) * ld;
   float* acc = ws + round32(tile);
-  unsigned* rows_of = reinterpret_cast<unsigned*>(acc + cc * (f + 1));
+  unsigned* rows_of = reinterpret_cast<unsigned*>(acc + cc * (fs + 1));
+  float* bsum = reinterpret_cast<float*>(rows_of + cc * ((tile + 31) / 32));  // kFeatureChunks
 
-  const int tid = threadIdx.x;
-  const int f1 = f + 1;
   const size_t part = blockIdx.x;
   const float* Xp = X + part * b * f;
   const int* yp = y + part * b;
   const float* wp = w + part * b;
 
-  for (int r = tid; r < ld; r += blockDim.x) xt[f * ld + r] = 1.0f;
+  if (!kFeatureChunks)
+    for (int r = threadIdx.x; r < ld; r += blockDim.x) xt[f * ld + r] = 1.0f;
   for (int k0 = 0; k0 < c; k0 += cc) {  // a chunk of classes at a time
     const int cn = min(cc, c - k0);
-    const int pairs = cn * f1;
-    const bool in_regs = pairs <= static_cast<int>(blockDim.x);
-    if (!in_regs)
-      for (int i = tid; i < pairs; i += blockDim.x) acc[i] = 0.0f;
-    float a = 0.0f, n = 0.0f;  // pair tid's sum and count, when in_regs
-
-    for (int t0 = 0; t0 < b; t0 += tile) {
-      const int rows = min(tile, b - t0);
-      async_load(xt, ld, Xp + static_cast<size_t>(t0) * f, rows, f, wp + t0, ws);
-      const int* yt = yp + t0;
-      class_rows(yt, rows, k0, cn, rows_of);
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
-      if (in_regs) {
-        if (tid < pairs)
-          chain(tid / f1, k0, xt + (tid % f1) * ld, b, rows, ws, yt, rows_of, a, n);
-      } else {
-        for (int i = tid; i < pairs; i += blockDim.x) {
-          float ai = acc[i], ni = 0.0f;
-          chain(i / f1, k0, xt + (i % f1) * ld, b, rows, ws, yt, rows_of, ai, ni);
-          acc[i] = ai;
-        }
+    if (kFeatureChunks) {
+      for (int j0 = 0; j0 < f; j0 += fc) {  // a chunk of features at a time
+        fit_chunk<true>(xt, ld, ws, acc, rows_of, bsum, Xp, yp, wp, part, b, f, c, tile, k0,
+                        cn, j0, min(fc, f - j0), cent, bias);
+        if (j0 + fc < f) __syncthreads();  // the next chunk rewrites the rows and sums
       }
-      // the next tile overwrites the rows; the division below reads the counts
-      if (t0 + tile < b || !in_regs) __syncthreads();
-    }
-
-    // cent = sums / max(counts, 1), kept in acc for the bias (counts stay
-    // in column F)
-    for (int i = tid; i < pairs; i += blockDim.x) {
-      const int k = i / f1;
-      const int j = i - k * f1;
-      const float s = in_regs ? a : acc[i];
-      if (j < f) {
-        const float v = __fdiv_rn(s, fmaxf(in_regs ? n : acc[k * f1 + f], 1.0f));
-        acc[i] = v;
-        cent[(part * c + k0 + k) * f + j] = v;
-      } else if (in_regs) {
-        acc[i] = s;
-      }
-    }
-    __syncthreads();
-
-    for (int k = tid; k < cn; k += blockDim.x) {
-      const float* row = acc + k * f1;
-      float s = 0.0f;
-      for (int j = 0; j < f; ++j) s = __fmaf_rn(row[j], row[j], s);
-      bias[part * c + k0 + k] = row[f] > 0.0f ? __fmul_rn(-0.5f, s) : -CUDART_INF_F;
+    } else {
+      fit_chunk<false>(xt, ld, ws, acc, rows_of, bsum, Xp, yp, wp, part, b, f, c, tile, k0, cn,
+                       0, f, cent, bias);
     }
     if (k0 + cc < c) __syncthreads();  // the next chunk rewrites the rows and sums
   }
@@ -254,76 +301,117 @@ __global__ void centroid_fit_floor_kernel() {}
 struct Config {
   int tile;
   int cc;  // classes a chunk
+  int fc;  // features a chunk
   int threads;
   size_t smem;
+  int dev;  // the current device, read when smem passes the 48 KB default
 };
 
 std::atomic<int> g_optin[kMaxDevices];  // 0: not read yet
 
 // A thread per (class, feature or count) pair of a chunk, at most 1024.
-void set_threads(int f, Config& cfg) {
-  const int pairs = cfg.cc * (f + 1);
+void set_threads(Config& cfg) {
+  const int pairs = cfg.cc * (cfg.fc + 1);
   cfg.threads = pairs < 32 ? 32 : (pairs > kMaxThreads ? kMaxThreads : (pairs + 31) / 32 * 32);
 }
 
 // K7's launch for P partitions of B rows: the largest row tile (at most
 // kMaxTileRows) whose shared memory fits the card with every class; else
 // classes in chunks — the largest chunk that fits beside the largest tile
-// that holds one class — and a thread per pair of a chunk (at most a
-// block's 1024); above 48 KB, `kernel`'s limit is raised once per (device,
-// size) (`raised` holds the largest size set per device).
-cudaError_t configure(int b, int f, int c, const void* kernel, std::atomic<int>* raised,
-                      Config& cfg) {
+// that holds one class; else, for rows too wide for one class and one
+// row, features in chunks — the most that fit beside the largest tile
+// with every class (classes halved, then the tile, until a chunk of one
+// feature fits) — and a thread per pair of a chunk (at most a block's
+// 1024).
+cudaError_t configure(int b, int f, int c, Config& cfg) {
+  cfg.dev = 0;
   cfg.cc = c;
+  cfg.fc = f;
   cfg.tile = b < 1 ? 1 : (b > kMaxTileRows ? kMaxTileRows : b);
   cfg.smem = 4 * smem_words(f, c, cfg.tile);
   if (cfg.smem <= kDefaultSmem) {
-    set_threads(f, cfg);
+    set_threads(cfg);
     return cudaSuccess;
   }
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&cfg.dev);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int optin = g_optin[dev].load(std::memory_order_relaxed);
+  if (cfg.dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int optin = g_optin[cfg.dev].load(std::memory_order_relaxed);
   if (optin == 0) {
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, cfg.dev);
     if (e != cudaSuccess) return e;
-    g_optin[dev].store(optin, std::memory_order_relaxed);
+    g_optin[cfg.dev].store(optin, std::memory_order_relaxed);
   }
   while (cfg.tile > 1 && 4 * smem_words(f, c, cfg.tile) > static_cast<size_t>(optin))
     cfg.tile /= 2;
-  if (4 * smem_words(f, c, cfg.tile) > static_cast<size_t>(optin)) {
+  const size_t limit = static_cast<size_t>(optin) / 4;
+  if (4 * smem_words(f, c, cfg.tile) > static_cast<size_t>(optin) &&
+      smem_words(f, 1, 1) <= limit) {
     // classes in chunks: each class costs F + 1 sums and a bitmap word a
     // 32-row chunk beside the tile's rows and weights
     cfg.tile = b < 1 ? 1 : (b > kMaxTileRows ? kMaxTileRows : b);
     for (;;) {
       const size_t fixed = smem_words(f, 0, cfg.tile);
       const size_t per_class = smem_words(f, 1, cfg.tile) - fixed;
-      if (4 * (fixed + per_class) <= static_cast<size_t>(optin)) {
-        const size_t fit = (static_cast<size_t>(optin) / 4 - fixed) / per_class;
+      if (fixed + per_class <= limit) {
+        const size_t fit = (limit - fixed) / per_class;
         cfg.cc = fit < static_cast<size_t>(c) ? static_cast<int>(fit) : c;
         break;
       }
-      if (cfg.tile == 1) return cudaErrorInvalidValue;
-      cfg.tile /= 2;
+      cfg.tile /= 2;  // one class fits at one row (checked above)
+    }
+  } else if (smem_words(f, 1, 1) > limit) {
+    // features in chunks: each feature costs a row of the block and a sum a
+    // class beside the tile's weights, bitmaps and bias chains
+    cfg.tile = b < 1 ? 1 : (b > kMaxTileRows ? kMaxTileRows : b);
+    for (;;) {
+      const size_t fixed = smem_words(0, cfg.cc, cfg.tile, true);
+      const size_t per_feature = smem_words(1, cfg.cc, cfg.tile, true) - fixed;
+      if (fixed + per_feature <= limit) {
+        const size_t fit = (limit - fixed) / per_feature;
+        cfg.fc = fit < static_cast<size_t>(f) ? static_cast<int>(fit) : f;
+        break;
+      }
+      if (cfg.cc > 1)
+        cfg.cc = (cfg.cc + 1) / 2;
+      else if (cfg.tile > 1)
+        cfg.tile /= 2;
+      else
+        return cudaErrorInvalidValue;
     }
   }
-  set_threads(f, cfg);
-  cfg.smem = 4 * smem_words(f, cfg.cc, cfg.tile);
-  if (cfg.smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  if (cfg.smem > kDefaultSmem &&
-      static_cast<int>(cfg.smem) > raised[dev].load(std::memory_order_relaxed)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(cfg.smem));
-    if (e != cudaSuccess) return e;
-    raised[dev].store(static_cast<int>(cfg.smem), std::memory_order_relaxed);
-  }
-  return cudaSuccess;
+  set_threads(cfg);
+  cfg.smem = 4 * smem_words(cfg.fc, cfg.cc, cfg.tile, cfg.fc < f);
+  return cfg.smem > static_cast<size_t>(optin) ? cudaErrorInvalidValue : cudaSuccess;
 }
 
-std::atomic<int> g_raised[kMaxDevices];
+// Above 48 KB, `kernel`'s limit is raised to cfg's once per (device, size)
+// (`raised` holds the largest size set per device).
+cudaError_t raise_limit(const void* kernel, std::atomic<int>* raised, const Config& cfg) {
+  if (cfg.smem <= kDefaultSmem ||
+      static_cast<int>(cfg.smem) <= raised[cfg.dev].load(std::memory_order_relaxed))
+    return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(cfg.smem));
+  if (e == cudaSuccess)
+    raised[cfg.dev].store(static_cast<int>(cfg.smem), std::memory_order_relaxed);
+  return e;
+}
+
+std::atomic<int> g_raised[2][kMaxDevices];  // per instantiation: [kFeatureChunks]
 std::atomic<int> g_floor_raised[kMaxDevices];
+
+template <bool kFeatureChunks>
+cudaError_t launch(const float* X, const int* y, const float* w, int p, int b, int f, int c,
+                   float* cent, float* bias, const Config& cfg, cudaStream_t stream) {
+  const cudaError_t e = raise_limit(
+      reinterpret_cast<const void*>(centroid_fit_kernel<kFeatureChunks>),
+      g_raised[kFeatureChunks], cfg);
+  if (e != cudaSuccess) return e;
+  centroid_fit_kernel<kFeatureChunks><<<p, cfg.threads, cfg.smem, stream>>>(
+      X, y, w, b, f, c, cfg.tile, cfg.cc, cfg.fc, cent, bias);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -332,19 +420,20 @@ extern "C" int centroid_fit_launch(const float* X, const int* y, const float* w,
                                    void* stream) {
   if (p == 0) return 0;
   Config cfg;
-  const cudaError_t e = configure(b, f, c, reinterpret_cast<const void*>(centroid_fit_kernel),
-                                  g_raised, cfg);
+  const cudaError_t e = configure(b, f, c, cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
-  centroid_fit_kernel<<<p, cfg.threads, cfg.smem, static_cast<cudaStream_t>(stream)>>>(
-      X, y, w, b, f, c, cfg.tile, cfg.cc, cent, bias);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(cfg.fc < f ? launch<true>(X, y, w, p, b, f, c, cent, bias, cfg, s)
+                                     : launch<false>(X, y, w, p, b, f, c, cent, bias, cfg, s));
 }
 
 extern "C" int centroid_fit_floor_launch(int p, int b, int f, int c, void* stream) {
   if (p == 0) return 0;
   Config cfg;
-  const cudaError_t e = configure(
-      b, f, c, reinterpret_cast<const void*>(centroid_fit_floor_kernel), g_floor_raised, cfg);
+  cudaError_t e = configure(b, f, c, cfg);
+  if (e == cudaSuccess)
+    e = raise_limit(reinterpret_cast<const void*>(centroid_fit_floor_kernel), g_floor_raised,
+                    cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
   centroid_fit_floor_kernel<<<p, cfg.threads, cfg.smem, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());

@@ -40,7 +40,11 @@
 //   beside the rows (2,058 at F = 21) are staged in chunks of `cc`, in
 //   class order, each row's best score and class carried across chunks
 //   in registers; with all classes in one chunk the path is the one-pass
-//   kernel's.
+//   kernel's. A row too wide for one class to fit shared memory (F above
+//   58,108) takes the generic kernel one class at a time, the class's
+//   centroid staged in chunks of `fc` features, each row's score chain
+//   carried from chunk to chunk in a register in feature order — the same
+//   chain, so the same score.
 //
 // Numerics: per (row, class) `acc = 0`, then `acc = fmaf(x[j], c[k][j],
 // acc)` for j = 0..F-1 in order (the padded lanes never enter the chain),
@@ -148,7 +152,8 @@ __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
     const float* __restrict__ table, int ldt, const int* __restrict__ labels,
     const Idx* __restrict__ idx, const float* __restrict__ centroids,
     const float* __restrict__ bias, int n, int c, int f, int cc,
-    float* __restrict__ err, int* __restrict__ pred) {
+    int /*fc: every feature at once here*/, float* __restrict__ err,
+    int* __restrict__ pred) {
   extern __shared__ float4 sm4[];
   float4* xs = sm4;  // [kBlockRows, NV] the block's rows
   float4* cs4 = xs + kBlockRows * NV;       // [cc, NV] a chunk's centroids
@@ -224,12 +229,13 @@ __global__ void __launch_bounds__(kThreads) centroid_predict_err_kernel(
 }
 
 // F above 32: one row per thread, its features read from L1/L2 in the dot
-// loop; the same FMA chain.
+// loop; the same FMA chain. With fc < f (then cc = 1) each class's
+// centroid comes in chunks of fc features and the chain is carried.
 template <typename Idx>
 __global__ void __launch_bounds__(kGenericThreads) centroid_predict_err_generic(
     const float* __restrict__ table, int ldt, const int* __restrict__ labels,
     const Idx* __restrict__ idx, const float* __restrict__ centroids,
-    const float* __restrict__ bias, int n, int c, int f, int cc,
+    const float* __restrict__ bias, int n, int c, int f, int cc, int fc,
     float* __restrict__ err, int* __restrict__ pred) {
   extern __shared__ float4 sm4[];
   const int fp = round4(f);
@@ -243,7 +249,27 @@ __global__ void __launch_bounds__(kGenericThreads) centroid_predict_err_generic(
   const float* x = table + static_cast<size_t>(ri) * ldt;
   float best = -CUDART_INF_F;
   int arg = 0;
-  for (int k0 = 0; k0 < c; k0 += cc) {  // a chunk of classes at a time
+  if (fc < f) {  // a class at a time, its features in chunks
+    for (int k = 0; k < c; ++k) {
+      const float* ck = centroids + (static_cast<size_t>(part) * c + k) * f;
+      float acc = 0.0f;
+      for (int j0 = 0; j0 < f; j0 += fc) {
+        const int fn = min(fc, f - j0);
+        __syncthreads();  // every thread is past the last chunk
+        for (int j = threadIdx.x; j < fn; j += blockDim.x) copy4(cs + j, ck + j0 + j);
+        copies_commit();
+        copies_wait<0>();
+        __syncthreads();
+        for (int j = 0; live && j < fn; ++j) acc = fmaf(__ldg(x + j0 + j), cs[j], acc);
+      }
+      const float score = acc + bias[static_cast<size_t>(part) * c + k];
+      if (live && score > best) {
+        best = score;
+        arg = k;
+      }
+    }
+  }
+  for (int k0 = 0; fc >= f && k0 < c; k0 += cc) {  // a chunk of classes at a time
     const int cn = min(cc, c - k0);
     if (k0 > 0) __syncthreads();  // every thread is past the last chunk
     stage_centroids(centroids, bias, part, c, k0, cn, f, cs, bs);
@@ -269,7 +295,7 @@ __global__ void __launch_bounds__(kGenericThreads) centroid_predict_err_generic(
 template <typename Idx>
 using KernelFn = void (*)(const float*, int, const int*, const Idx*,
                           const float*, const float*, int, int, int, int,
-                          float*, int*);
+                          int, float*, int*);
 
 // Launch one instantiation; above 48 KB of shared memory it first raises
 // the kernel's dynamic shared-memory limit (the wrapper caps the request
@@ -278,7 +304,7 @@ template <typename Idx>
 int run(KernelFn<Idx> kernel, dim3 grid, int threads, size_t smem,
         cudaStream_t stream, const float* table, int ldt, const int* labels,
         const Idx* idx, const float* centroids, const float* bias, int n,
-        int c, int f, int cc, float* err, int* pred) {
+        int c, int f, int cc, int fc, float* err, int* pred) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -287,7 +313,7 @@ int run(KernelFn<Idx> kernel, dim3 grid, int threads, size_t smem,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<grid, threads, smem, stream>>>(table, ldt, labels, idx, centroids,
-                                          bias, n, c, f, cc, err, pred);
+                                          bias, n, c, f, cc, fc, err, pred);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,16 +328,19 @@ int launch(const float* table, int ldt, const int* labels, const void* idx_v,
   const size_t per_class = (static_cast<size_t>(fp) + 1) * sizeof(float);
   const size_t rows_smem = static_cast<size_t>(kBlockRows) * (fp + 2) * sizeof(float);
   const size_t fixed = f <= 32 ? rows_smem : 0;
-  const size_t fit = kMaxSmem < fixed + per_class ? 1 : (kMaxSmem - fixed) / per_class;
-  const int cc = fit < static_cast<size_t>(c) ? static_cast<int>(fit) : c;
-  const size_t smem = cc * per_class;
+  const size_t fit = kMaxSmem < fixed + per_class ? 0 : (kMaxSmem - fixed) / per_class;
+  const int cc = fit == 0 ? 1 : (fit < static_cast<size_t>(c) ? static_cast<int>(fit) : c);
+  // features a chunk: all, unless one class does not fit (then the
+  // generic kernel's chunk of whole float4s)
+  const int fc = fit == 0 ? static_cast<int>(kMaxSmem / sizeof(float)) & ~3 : f;
+  const size_t smem = fit == 0 ? kMaxSmem : cc * per_class;
   const size_t reg_smem = smem + rows_smem;
   const dim3 reg_grid((n + kBlockRows - 1) / kBlockRows, p);
 #define K2_CASE(NV_, TAIL_)                                                   \
   case 4 * (NV_ - 1) + TAIL_:                                                 \
     return run<Idx>(centroid_predict_err_kernel<Idx, NV_, TAIL_>, reg_grid,   \
                     kThreads, reg_smem, stream, table, ldt, labels, idx,      \
-                    centroids, bias, n, c, f, cc, err, pred);
+                    centroids, bias, n, c, f, cc, f, err, pred);
 #define K2_CASES(NV_) \
   K2_CASE(NV_, 1) K2_CASE(NV_, 2) K2_CASE(NV_, 3) K2_CASE(NV_, 4)
   switch (f) {
@@ -331,7 +360,7 @@ int launch(const float* table, int ldt, const int* labels, const void* idx_v,
   const dim3 grid((n + kGenericThreads - 1) / kGenericThreads, p);
   return run<Idx>(centroid_predict_err_generic<Idx>, grid, kGenericThreads,
                   smem, stream, table, ldt, labels, idx, centroids, bias, n,
-                  c, f, cc, err, pred);
+                  c, f, cc, fc, err, pred);
 }
 
 }  // namespace

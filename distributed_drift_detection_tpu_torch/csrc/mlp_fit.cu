@@ -78,6 +78,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <vector>
 
 #include "threefry.cuh"
 
@@ -85,7 +86,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxLayers = 64;  // models/mlp.py MAX_LAYERS
+constexpr int kInlineLayers = 64;  // models/mlp.py INLINE_LAYERS
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
@@ -95,13 +96,43 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 // and 2 at every cluster size on an H100, PERF.md §6).
 constexpr int kUnroll = 4;
 
+// The net as the code reads it: its layers' widths, init factors and
+// output pointers, viewed where they lie — on the host, the launcher's
+// arrays; in the kernel, a __grid_constant__ NetArgs for up to
+// kInlineLayers layers (a kernel's parameters are limited to 4 KB), else a
+// device array the launcher fills (`net_desc_bytes`; the wrapper
+// allocates it). The arithmetic does not depend on which.
 struct Net {
   int layers;
-  int dims[kMaxLayers + 1];
-  float factor[kMaxLayers];
-  float* w[kMaxLayers];
-  float* b[kMaxLayers];
+  const int* dims;      // [layers + 1]
+  const float* factor;  // [layers]
+  float* const* w;      // [layers]
+  float* const* b;      // [layers]
 };
+
+struct NetArgs {
+  int dims[kInlineLayers + 1];
+  float factor[kInlineLayers];
+  float* w[kInlineLayers];
+  float* b[kInlineLayers];
+};
+
+// The device array past kInlineLayers: w [L], b [L] pointers, then dims
+// [L + 1] ints and factor [L] floats.
+__host__ __device__ inline size_t net_desc_bytes(int layers) {
+  return 2 * sizeof(float*) * layers + sizeof(int) * (layers + 1) + sizeof(float) * layers;
+}
+
+// kDesc: the layers in `desc`, else in `args` — a view the compiler
+// resolves to the parameter space, so ≤ kInlineLayers layers are read as
+// the __grid_constant__ struct's fields.
+template <bool kDesc>
+__device__ __forceinline__ Net device_net(int layers, const NetArgs& args, const void* desc) {
+  if (!kDesc) return Net{layers, args.dims, args.factor, args.w, args.b};
+  float* const* w = static_cast<float* const*>(desc);
+  const int* dims = reinterpret_cast<const int*>(w + 2 * layers);
+  return Net{layers, dims, reinterpret_cast<const float*>(dims + layers + 1), w, w + layers};
+}
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -455,7 +486,8 @@ __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster, int 
 }
 
 // kShared: the workspace in shared memory (so the compiler emits shared
-// loads), else in `scratch` with cs = 1.
+// loads), else in `scratch` with cs = 1. kDesc: past kInlineLayers, the
+// layers in the device array `desc` (`device_net`).
 //
 // The exchange: a CTA sends each output another CTA reads into that CTA's
 // workspace once its block has written it (`send_slice`, `push_rows`),
@@ -468,12 +500,14 @@ __device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster, int 
 // value is sent only after the barrier behind its receiver's last read of
 // the value it replaces (tests/test_torch_mlp.py
 // `test_k9_cluster_dataflow_model` checks this schedule).
-template <bool kShared>
+template <bool kShared, bool kDesc>
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_fit_kernel(const uint32_t* keys, const float* X, const int* y, const float* w,
-                   int rows, const __grid_constant__ Net net, int steps, float lr, float mom,
-                   float* scratch, int cluster_ctas) {
+                   int rows, int layers, const __grid_constant__ NetArgs args,
+                   const void* desc, int steps, float lr, float mom, float* scratch,
+                   int cluster_ctas) {
   extern __shared__ float4 smem4[];
+  const Net net = device_net<kDesc>(layers, args, desc);
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = kShared ? cluster_ctas : 1;
   const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
@@ -646,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 __global__ void mlp_fit_floor_kernel() {}
 
 std::atomic<int> g_optin[kMaxDevices];  // 0: not read yet
-std::atomic<int> g_raised[kMaxDevices];
+std::atomic<int> g_raised[2][kMaxDevices];  // mlp_fit_kernel<true, kDesc>: [kDesc]
 std::atomic<int> g_floor_raised[kMaxDevices];
 
 // Shared memory for a launch whose workspace is not global: the layout's
@@ -675,18 +709,45 @@ cudaError_t shared_bytes(const Net& net, int rows, int cs, const void* kernel,
   return cudaSuccess;
 }
 
+// A view of the launcher's host arrays (factors, w_out and b_out may be
+// null where only the widths are read).
 bool make_net(int layers, const int* dims, const float* factors, void* const* w_out,
               void* const* b_out, Net& net) {
-  if (layers < 1 || layers > kMaxLayers) return false;
-  net = Net{};
-  net.layers = layers;
-  for (int l = 0; l <= layers; ++l) net.dims[l] = dims[l];
-  for (int l = 0; l < layers; ++l) {
-    net.factor[l] = factors != nullptr ? factors[l] : 0.0f;
-    net.w[l] = w_out != nullptr ? static_cast<float*>(w_out[l]) : nullptr;
-    net.b[l] = b_out != nullptr ? static_cast<float*>(b_out[l]) : nullptr;
-  }
+  if (layers < 1) return false;
+  net = Net{layers, dims, factors, reinterpret_cast<float* const*>(w_out),
+            reinterpret_cast<float* const*>(b_out)};
   return true;
+}
+
+// The kernel's copy of `net`: the NetArgs for up to kInlineLayers layers;
+// past that the same fields written to the device array `desc` (on the
+// launch's stream; a pageable copy, so `net`'s arrays may go once this
+// returns). Returns a CUDA error code.
+cudaError_t device_args(const Net& net, void* desc, void* stream, NetArgs& args) {
+  args = NetArgs{};
+  const int L = net.layers;
+  if (L <= kInlineLayers) {
+    for (int l = 0; l <= L; ++l) args.dims[l] = net.dims[l];
+    for (int l = 0; l < L; ++l) {
+      args.factor[l] = net.factor[l];
+      args.w[l] = net.w[l];
+      args.b[l] = net.b[l];
+    }
+    return cudaSuccess;
+  }
+  if (desc == nullptr) return cudaErrorInvalidValue;
+  std::vector<unsigned char> host(net_desc_bytes(L));
+  float** w = reinterpret_cast<float**>(host.data());
+  int* dims = reinterpret_cast<int*>(w + 2 * L);
+  float* factor = reinterpret_cast<float*>(dims + L + 1);
+  for (int l = 0; l < L; ++l) {
+    w[l] = net.w[l];
+    w[L + l] = net.b[l];
+    factor[l] = net.factor[l];
+  }
+  for (int l = 0; l <= L; ++l) dims[l] = net.dims[l];
+  return cudaMemcpyAsync(desc, host.data(), host.size(), cudaMemcpyHostToDevice,
+                         static_cast<cudaStream_t>(stream));
 }
 
 bool valid_cs(int cs) { return cs == 1 || cs == 2 || cs == 4 || cs == kMaxCluster; }
@@ -710,34 +771,40 @@ cudaLaunchConfig_t launch_config(int p, int cs, size_t smem, void* stream,
 }  // namespace
 
 // `dims`, `factors`, `w_out` and `b_out` are host arrays (layers + 1,
-// layers, layers, layers); `scratch` is a global workspace of [p, words]
-// floats (cs must be 1), or null to keep the workspace in shared memory;
-// `cs` CTAs a partition, one cluster each (1, 2, 4 or 8). Returns a CUDA
-// error code: a refused cluster launch is returned, never worked around.
+// layers, layers, layers); `desc` a device array of net_desc_bytes(layers)
+// when layers > kInlineLayers, else null; `scratch` is a global workspace
+// of [p, words] floats (cs must be 1), or null to keep the workspace in
+// shared memory; `cs` CTAs a partition, one cluster each (1, 2, 4 or 8).
+// Returns a CUDA error code: a refused cluster launch is returned, never
+// worked around.
 extern "C" int mlp_fit_launch(const int* keys, const float* X, const int* y, const float* w,
                               int p, int rows, int layers, const int* dims, const float* factors,
                               int steps, float lr, float mom, void* const* w_out,
-                              void* const* b_out, float* scratch, int cs, void* stream) {
+                              void* const* b_out, void* desc, float* scratch, int cs,
+                              void* stream) {
   if (p == 0) return 0;
   Net net;
   if (!make_net(layers, dims, factors, w_out, b_out, net) || !valid_cs(cs) ||
       (scratch != nullptr && cs != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  NetArgs args;
+  const cudaError_t ea = device_args(net, desc, stream, args);
+  if (ea != cudaSuccess) return static_cast<int>(ea);
+  const bool deep = layers > kInlineLayers;
+  const auto kernel = scratch == nullptr
+                          ? (deep ? mlp_fit_kernel<true, true> : mlp_fit_kernel<true, false>)
+                          : (deep ? mlp_fit_kernel<false, true> : mlp_fit_kernel<false, false>);
   size_t smem = 0;
   if (scratch == nullptr) {
-    const cudaError_t e = shared_bytes(
-        net, rows, cs, reinterpret_cast<const void*>(mlp_fit_kernel<true>), g_raised, smem);
+    const cudaError_t e = shared_bytes(net, rows, cs, reinterpret_cast<const void*>(kernel),
+                                       g_raised[deep], smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(p, cs, smem, stream, attr);
-  const uint32_t* k32 = reinterpret_cast<const uint32_t*>(keys);
   const cudaError_t e =
-      scratch == nullptr
-          ? cudaLaunchKernelEx(&cfg, mlp_fit_kernel<true>, k32, X, y, w, rows, net, steps, lr,
-                               mom, scratch, cs)
-          : cudaLaunchKernelEx(&cfg, mlp_fit_kernel<false>, k32, X, y, w, rows, net, steps, lr,
-                               mom, scratch, cs);
+      cudaLaunchKernelEx(&cfg, kernel, reinterpret_cast<const uint32_t*>(keys), X, y, w, rows,
+                         layers, args, deep ? desc : nullptr, steps, lr, mom, scratch, cs);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -761,12 +828,14 @@ extern "C" int mlp_fit_max_clusters(int rows, int layers, const int* dims, int c
   if (!make_net(layers, dims, nullptr, nullptr, nullptr, net) || !valid_cs(cs))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
-  cudaError_t e = shared_bytes(
-      net, rows, cs, reinterpret_cast<const void*>(mlp_fit_kernel<true>), g_raised, smem);
+  const bool deep = layers > kInlineLayers;
+  const auto kernel = deep ? mlp_fit_kernel<true, true> : mlp_fit_kernel<true, false>;
+  cudaError_t e = shared_bytes(net, rows, cs, reinterpret_cast<const void*>(kernel),
+                               g_raised[deep], smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(cs, cs, smem, nullptr, attr);
-  e = cudaOccupancyMaxActiveClusters(out, mlp_fit_kernel<true>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
   return static_cast<int>(e);
 }
 

@@ -54,17 +54,20 @@
 //   rows puts the activations (and the gathered rows) in a global
 //   workspace the wrapper allocates (`global_words` floats a CTA), through
 //   the same code.
-// * Layers come in a __grid_constant__ struct of up to kMaxLayers (64)
-//   widths and w / b pointers: a kernel's parameters are limited to 4 KB.
+// * Layers come in a __grid_constant__ struct of up to kInlineLayers (64)
+//   widths and w / b pointers (a kernel's parameters are limited to 4 KB),
+//   past that in a device array the launcher fills; the code reads either
+//   through one view.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <vector>
 
 namespace {
 
-constexpr int kMaxLayers = 64;  // models/mlp.py MAX_LAYERS
+constexpr int kInlineLayers = 64;  // models/mlp.py INLINE_LAYERS
 constexpr int kMaxThreads = 256;
 constexpr int kThreadRows = 8;  // a thread's rows; a tile is a multiple of it
 constexpr int kRingWords = 4096;  // floats a buffer of the streamed weights' ring
@@ -77,12 +80,34 @@ constexpr int kRowChoices[] = {128, 64, 32, 16, 8};
 constexpr int kResidentChoices = 2;
 constexpr int kThreads = 256;
 
+// The net as the code reads it: its widths and parameter pointers, viewed
+// where they lie — on the host, the launcher's arrays; in the kernel, a
+// __grid_constant__ NetArgs for up to kInlineLayers layers, else a device
+// array the launcher fills (`net_desc_bytes`; the wrapper allocates it).
 struct Net {
   int layers;
-  int dims[kMaxLayers + 1];
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
+  const int* dims;         // [layers + 1]
+  const float* const* w;   // [layers]
+  const float* const* b;   // [layers]
 };
+
+struct NetArgs {
+  int dims[kInlineLayers + 1];
+  const float* w[kInlineLayers];
+  const float* b[kInlineLayers];
+};
+
+// The device array past kInlineLayers: w [L] and b [L] pointers, then dims
+// [L + 1] ints.
+__host__ __device__ inline size_t net_desc_bytes(int layers) {
+  return 2 * sizeof(float*) * layers + sizeof(int) * (layers + 1);
+}
+
+__device__ __forceinline__ Net device_net(int layers, const NetArgs& args, const void* desc) {
+  if (desc == nullptr) return Net{layers, args.dims, args.w, args.b};
+  const float* const* w = static_cast<const float* const*>(desc);
+  return Net{layers, reinterpret_cast<const int*>(w + 2 * layers), w, w + layers};
+}
 
 // A launch's plan (`mlp_predict_err_plan`; models/mlp.py `k10_plan`).
 struct Plan {
@@ -217,10 +242,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[8][4], const float* a0, 
 template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
     mlp_predict_err_kernel(const float* T, int ld_t, const int* Ty, const void* idx,
-                           int idx_bytes, int n, const __grid_constant__ Net net,
-                           const __grid_constant__ Plan plan, float* scratch, float* err,
-                           int* pred) {
+                           int idx_bytes, int n, int layers, const __grid_constant__ NetArgs args,
+                           const void* desc, const __grid_constant__ Plan plan, float* scratch,
+                           float* err, int* pred) {
   extern __shared__ float4 smem4[];
+  const Net net = device_net(layers, args, desc);
   float* sm = reinterpret_cast<float*>(smem4);
   const int part = blockIdx.y, g = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -405,19 +431,42 @@ cudaError_t allow_shared(int which, size_t smem, int& dev) {
   return cudaSuccess;
 }
 
+// A view of the launcher's host arrays (w and b may be null where only the
+// widths are read).
 bool make_net(int layers, const int* dims, void* const* w, void* const* b, Net& net) {
-  if (layers < 1 || layers > kMaxLayers) return false;
-  net = Net{};
-  net.layers = layers;
-  for (int l = 0; l <= layers; ++l) {
+  if (layers < 1) return false;
+  for (int l = 0; l <= layers; ++l)
     if (dims[l] < 1) return false;
-    net.dims[l] = dims[l];
-  }
-  for (int l = 0; l < layers; ++l) {
-    net.w[l] = w != nullptr ? static_cast<const float*>(w[l]) : nullptr;
-    net.b[l] = b != nullptr ? static_cast<const float*>(b[l]) : nullptr;
-  }
+  net = Net{layers, dims, reinterpret_cast<const float* const*>(w),
+            reinterpret_cast<const float* const*>(b)};
   return true;
+}
+
+// The kernel's copy of `net`: the NetArgs for up to kInlineLayers layers;
+// past that the same fields written to the device array `desc` (on the
+// launch's stream; a pageable copy, so `net`'s arrays may go once this
+// returns). Returns a CUDA error code.
+cudaError_t device_args(const Net& net, void* desc, cudaStream_t stream, NetArgs& args) {
+  args = NetArgs{};
+  const int L = net.layers;
+  if (L <= kInlineLayers) {
+    for (int l = 0; l <= L; ++l) args.dims[l] = net.dims[l];
+    for (int l = 0; l < L; ++l) {
+      args.w[l] = net.w[l];
+      args.b[l] = net.b[l];
+    }
+    return cudaSuccess;
+  }
+  if (desc == nullptr) return cudaErrorInvalidValue;
+  std::vector<unsigned char> host(net_desc_bytes(L));
+  const float** w = reinterpret_cast<const float**>(host.data());
+  int* dims = reinterpret_cast<int*>(w + 2 * L);
+  for (int l = 0; l < L; ++l) {
+    w[l] = net.w[l];
+    w[L + l] = net.b[l];
+  }
+  for (int l = 0; l <= L; ++l) dims[l] = net.dims[l];
+  return cudaMemcpyAsync(desc, host.data(), host.size(), cudaMemcpyHostToDevice, stream);
 }
 
 // The full plan of a launch at [p, n] on the current device: the shapes'
@@ -457,16 +506,17 @@ cudaError_t full_plan(const Net& net, int p, int n, int rows, int threads, int c
 
 }  // namespace
 
-// `dims` (layers + 1), `w` and `b` (layers each) are host arrays; `scratch`
-// the global workspace, [p · ctas · global_words] floats, or null when the
-// plan has none. `rows`, `threads` and `ctas` (0: the plan's) and `stream`
+// `dims` (layers + 1), `w` and `b` (layers each) are host arrays; `desc` a
+// device array of net_desc_bytes(layers) when layers > kInlineLayers, else
+// null; `scratch` the global workspace, [p · ctas · global_words] floats,
+// or null when the plan has none. `rows`, `threads` and `ctas` (0: the plan's) and `stream`
 // (-1: the plan's, 0: resident weights, 1: streamed) force a plan's fields;
 // a forced plan that does not fit returns cudaErrorInvalidValue.
 extern "C" int mlp_predict_err_launch(const float* T, int ld_t, const int* Ty, const void* idx,
                                       int idx_bytes, int p, int n, int layers, const int* dims,
-                                      void* const* w, void* const* b, float* scratch, int rows,
-                                      int threads, int ctas, int stream, float* err, int* pred,
-                                      void* stream_handle) {
+                                      void* const* w, void* const* b, void* desc, float* scratch,
+                                      int rows, int threads, int ctas, int stream, float* err,
+                                      int* pred, void* stream_handle) {
   if (p == 0 || n == 0) return 0;
   Net net;
   if (!make_net(layers, dims, w, b, net)) return static_cast<int>(cudaErrorInvalidValue);
@@ -478,12 +528,16 @@ extern "C" int mlp_predict_err_launch(const float* T, int ld_t, const int* Ty, c
   const dim3 grid(plan.ctas, p);
   const size_t smem = 4 * static_cast<size_t>(plan.shared_words);
   const cudaStream_t s = static_cast<cudaStream_t>(stream_handle);
+  NetArgs args;
+  const cudaError_t ea = device_args(net, desc, s, args);
+  if (ea != cudaSuccess) return static_cast<int>(ea);
+  const void* kdesc = layers > kInlineLayers ? desc : nullptr;
   if (plan.global)
-    mlp_predict_err_kernel<true><<<grid, plan.threads, smem, s>>>(T, ld_t, Ty, idx, idx_bytes, n,
-                                                                  net, plan, scratch, err, pred);
+    mlp_predict_err_kernel<true><<<grid, plan.threads, smem, s>>>(
+        T, ld_t, Ty, idx, idx_bytes, n, layers, args, kdesc, plan, scratch, err, pred);
   else
-    mlp_predict_err_kernel<false><<<grid, plan.threads, smem, s>>>(T, ld_t, Ty, idx, idx_bytes, n,
-                                                                   net, plan, scratch, err, pred);
+    mlp_predict_err_kernel<false><<<grid, plan.threads, smem, s>>>(
+        T, ld_t, Ty, idx, idx_bytes, n, layers, args, kdesc, plan, scratch, err, pred);
   return static_cast<int>(cudaGetLastError());
 }
 

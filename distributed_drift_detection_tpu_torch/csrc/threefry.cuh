@@ -1,4 +1,5 @@
-// threefry2x32 and jax.random.normal's float32 map, bit for bit, on the card.
+// threefry2x32 and jax.random.normal's and uniform's float32 maps, bit for
+// bit, on the card.
 //
 // The device twin of utils/threefry.py (jax 0.9.0, jax_threefry_partitionable
 // on): a key is two uint32 words; split(key, n)[i] and random_bits(key,
@@ -133,6 +134,15 @@ __device__ __forceinline__ float xla_erfinvf(float x) {
     p = __fmaf_rn(p, t, 2.83297682f);
   }
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(x, p);
+}
+
+// jax.random.uniform(key, shape, float32, minval, maxval) at flat index i:
+// the [0, 1) float of the top 23 bits, then max(unit·(maxval − minval) +
+// minval, minval) with the multiply-add fused, as XLA's CPU lowering fuses
+// it (utils/threefry.py `uniform`).
+__device__ __forceinline__ float uniform(Pair k, uint64_t i, float minval, float maxval) {
+  const float unit = __fadd_rn(__uint_as_float((bits(k, i) >> 9) | 0x3F800000u), -1.0f);
+  return fmaxf(__fmaf_rn(unit, __fsub_rn(maxval, minval), minval), minval);
 }
 
 // erf_inv(u) · factor for the uniform u of normal(key, shape) at flat

@@ -70,7 +70,7 @@ class LoopCarry(NamedTuple):
     """State carried across windows, every leaf with a leading ``[P]``.
 
     ``key`` is the JAX carry's PRNG key as its data: ``[P, 2]`` uint32 on
-    the host (``utils/threefry.py``), for a keyed model (``mlp``); None for
+    the host (``utils/threefry.py``), for a keyed model (``mlp``, ``forest``); None for
     the families that consume none. The engines draw the key chain from it
     on the host, once a run.
     """

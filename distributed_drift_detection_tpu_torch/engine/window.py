@@ -28,7 +28,7 @@ that table once per run with its row stride rounded up to 4 floats
 (``models.base.pad_row_table``). A dense stream (``Batches``) is addressed
 the same way, through a flat row index into its padded feature plane.
 
-A keyed model (``mlp``) fits from the JAX engine's key chain: each
+A keyed model (``mlp``, ``forest``) fits from the JAX engine's key chain: each
 iteration ``key, k_fit, k_shuf = split(key, 3)``, one fit key a level
 (``k_fit`` itself at R = 1, else ``split(k_fit, R)``), and only active
 lanes advance their key. The chain depends on the iteration count alone,

@@ -12,8 +12,11 @@ byte-identical across the packages (``tests/test_torch_stream.py``):
 * :func:`stripe_partitions_packed` is the compressed form the main path
   uploads: row-table gather indices plus a one-byte per-batch permutation.
 
-Only ``synth:`` datasets load; CSV ingest (and its quarantine mask) is not
-ported yet (ROADMAP A10).
+Datasets are ``synth:`` specs or CSVs: :func:`load_csv` (the native parser
+of ``io.native``, with its NumPy fallback) or, under a ``data_policy``,
+``io.sanitize.load_csv_sane`` — whose quarantine mask ``row_ok`` rides the
+stream, is folded into the validity plane by the dense striper, and keeps a
+masked stream off the packed one.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ class StreamData:
         base_X: np.ndarray | None = None,  # [T, F] f32 deduplicated row table
         base_y: np.ndarray | None = None,  # [T] i32
         src: np.ndarray | None = None,  # [N] i32: stream position → table row
+        row_ok: np.ndarray | None = None,  # [N] bool; None = every row valid
+        base_ok: np.ndarray | None = None,  # [T] bool table-row validity
+        quarantine=None,  # io.sanitize.QuarantineReport | None
     ):
         assert (X is not None and y is not None) or src is not None
         self._X = X
@@ -50,6 +56,13 @@ class StreamData:
         self.base_X = base_X
         self.base_y = base_y
         self.src = src
+        # The quarantine mask (io.sanitize): False = the row broke the
+        # stream contract and is carried positionally — zero content,
+        # masked at stripe time like padding. Compressed streams keep the
+        # table rows' mask and expand it lazily, like X/y.
+        self._row_ok = row_ok
+        self.base_ok = base_ok
+        self.quarantine = quarantine
 
     @property
     def X(self) -> np.ndarray:
@@ -64,6 +77,18 @@ class StreamData:
         return self._y
 
     @property
+    def row_ok(self) -> np.ndarray | None:
+        if self._row_ok is None and self.base_ok is not None:
+            self._row_ok = self.base_ok[self.src]
+        return self._row_ok
+
+    @property
+    def has_masked_rows(self) -> bool:
+        """True when any row is quarantine-masked (checked without
+        materializing the per-position mask of a compressed stream)."""
+        return self._row_ok is not None or self.base_ok is not None
+
+    @property
     def num_rows(self) -> int:
         return len(self.src) if self.src is not None else len(self._y)
 
@@ -72,12 +97,59 @@ class StreamData:
         return (self.base_X if self.base_X is not None else self._X).shape[1]
 
 
+def load_csv(path: str, target_column: str = "target") -> tuple[np.ndarray, np.ndarray]:
+    """Load a numeric CSV with a named target column: ``(X [N, F] f32,
+    y [N] i64)``.
+
+    The native parser (``io.native``) when it is available, else NumPy's.
+    A native column count that disagrees with the header is warned about
+    before the NumPy re-parse; if NumPy disagrees too, the load fails with
+    both counts. For the policy-aware loader see
+    ``io.sanitize.load_csv_sane``.
+    """
+    with open(path) as fh:
+        header = fh.readline().strip().split(",")
+    if target_column not in header:
+        raise ValueError(
+            f"{path}: target column {target_column!r} not in header; "
+            f"columns found: {header}"
+        )
+    tcol = header.index(target_column)
+
+    from .native import load_csv_native
+
+    raw = load_csv_native(path)
+    if raw is not None and raw.shape[1] != len(header):
+        import warnings
+
+        warnings.warn(
+            f"{path}: native parser returned {raw.shape[1]} column(s) but "
+            f"the header names {len(header)}; re-parsing with NumPy",
+            stacklevel=2,
+        )
+        raw = None
+    if raw is None:
+        raw = np.loadtxt(
+            path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2
+        )
+        if raw.shape[1] != len(header):
+            raise ValueError(
+                f"{path}: data rows have {raw.shape[1]} column(s) but the "
+                f"header names {len(header)} ({header}); both parsers "
+                "disagree with the header — fix the file or the header"
+            )
+    mask = np.ones(len(header), bool)
+    mask[tcol] = False
+    return raw[:, mask], raw[:, tcol].astype(np.int64)
+
+
 def synthesize_stream(
     X: np.ndarray,
     y: np.ndarray,
     mult_data: float = 1.0,
     seed: int = 0,
     standardize: bool = True,
+    row_ok: np.ndarray | None = None,
 ) -> StreamData:
     """Volume-scale, shuffle, sort-by-target — seeded.
 
@@ -85,32 +157,66 @@ def synthesize_stream(
     over the untouched row table (compressed form; standardization moments
     are the table's, which equal the duplicated stream's). ``mult_data < 1``
     subsamples rows and materializes directly.
+
+    ``row_ok`` (the quarantine mask of ``io.sanitize``) marks rows left out
+    of the stream's statistics but carried positionally: they are
+    canonicalized first (``sanitize.mask_rows``: zero features, the
+    smallest valid label), left out of the standardization moments, and go
+    through the duplicate/shuffle/sort like every other row; the dense
+    striper folds the mask into the validity plane.
     """
     rng = np.random.default_rng(seed)
     n = len(y)
 
-    def _standardize(A):
+    if row_ok is not None:
+        row_ok = np.asarray(row_ok, bool)
+        if row_ok.shape != (n,):
+            raise ValueError(
+                f"row_ok shape {row_ok.shape} does not match {n} stream rows"
+            )
+        if row_ok.all():
+            row_ok = None
+        else:
+            from .sanitize import mask_rows
+
+            X, y = mask_rows(X, y, row_ok)
+
+    def _standardize(A, ok=None):
         A = np.ascontiguousarray(A, np.float32)
         if not standardize:
             return A
-        mu = A.mean(axis=0)
-        sd = A.std(axis=0)
+        sel = A if ok is None else A[ok]
+        mu = sel.mean(axis=0)
+        sd = sel.std(axis=0)
         # Constant (or non-finite) columns standardize to 0, not 0/0.
         sd = np.where((sd > 0) & np.isfinite(sd), sd, np.float32(1.0))
         mu = np.where(np.isfinite(mu), mu, np.float32(0.0))
-        return (A - mu) / sd
+        out = (A - mu) / sd
+        if ok is not None:
+            out[~ok] = 0.0  # masked rows keep the canonical zero fill
+        return out
 
     if mult_data < 1.0:
         take = rng.permutation(n)[: max(1, int(round(n * mult_data)))]
         X, y = X[take], y[take]
+        ok = row_ok[take] if row_ok is not None else None
         order = np.argsort(y, kind="stable")
         X, y = X[order], y[order]
+        if ok is not None:
+            ok = ok[order]
+            if ok.all():
+                ok = None
+            elif not ok.any():
+                raise ValueError(
+                    "subsampling left no valid (unmasked) rows in the stream"
+                )
         classes, y_idx = np.unique(y, return_inverse=True)
         return StreamData(
-            X=_standardize(X),
+            X=_standardize(X, ok),
             y=y_idx.astype(np.int32),
             num_classes=len(classes),
             dist_between_changes=len(y) // len(classes),
+            row_ok=ok,
         )
 
     reps = int(mult_data)
@@ -121,26 +227,47 @@ def synthesize_stream(
     return StreamData(
         num_classes=len(classes),
         dist_between_changes=len(src) // len(classes),
-        base_X=_standardize(X),
+        base_X=_standardize(X, row_ok),
         base_y=y_base.astype(np.int32),
         src=src,
+        base_ok=row_ok,
     )
 
 
 def load_stream(
-    path: str, mult_data: float = 1.0, seed: int = 0, standardize: bool = True
+    path: str,
+    mult_data: float = 1.0,
+    seed: int = 0,
+    standardize: bool = True,
+    data_policy: str | None = None,
+    quarantine_path: str | None = None,
 ) -> StreamData:
-    """Dataset → prepared stream. Only ``synth:`` specs (see
-    ``io.synth.parse_synth``) are supported."""
-    if not path.startswith("synth:"):
-        raise NotImplementedError(
-            f"dataset {path!r}: CSV ingest (io/sanitize.py, data_policy) is "
-            "not ported yet (ROADMAP A10); use a 'synth:' dataset"
-        )
-    from .synth import parse_synth
+    """Dataset → prepared stream: a CSV file, or a ``synth:`` spec (see
+    ``io.synth.parse_synth``).
 
-    X, y = parse_synth(path[len("synth:") :])
-    return synthesize_stream(X, y, mult_data, seed, standardize)
+    ``data_policy`` (None = the trusting :func:`load_csv`) sends a CSV
+    through ``io.sanitize.load_csv_sane``: ``'strict'`` raises a
+    ``StreamContractError`` on any contract violation, ``'quarantine'``
+    masks violating rows and writes them to the ``quarantine_path``
+    sidecar, ``'repair'`` imputes what it can and quarantines the rest.
+    Synthetic specs are clean by construction and skip validation."""
+    row_ok = None
+    report = None
+    if path.startswith("synth:"):
+        from .synth import parse_synth
+
+        X, y = parse_synth(path[len("synth:") :])
+    elif data_policy is not None:
+        from .sanitize import load_csv_sane
+
+        X, y, row_ok, report = load_csv_sane(
+            path, policy=data_policy, quarantine_path=quarantine_path
+        )
+    else:
+        X, y = load_csv(path)
+    stream = synthesize_stream(X, y, mult_data, seed, standardize, row_ok=row_ok)
+    stream.quarantine = report
+    return stream
 
 
 def _pad(arr: np.ndarray, padded: int, fill) -> np.ndarray:
@@ -157,16 +284,30 @@ def stripe_chunk(
     per_batch: int,
     nb: int,
     shuffle_seed: int | None = None,
+    row_valid: np.ndarray | None = None,
 ) -> Batches:
     """Pad + row-stripe one contiguous span of the stream into ``[P, NB, B]``.
 
     Row ``start_row + i`` goes to partition ``(start_row + i) % P``;
     ``shuffle_seed`` applies the per-microbatch shuffle on the host
     (counter-based on the absolute batch slot, so chunking is invariant).
+    ``row_valid`` ([n] bool, the span's quarantine mask) folds into the
+    validity plane: a masked row keeps its position, but its slot carries
+    the padding fill (features 0.0, label 0) and ``valid == False``.
     """
     n = len(y)
     p, b = partitions, per_batch
+    if row_valid is not None:
+        row_valid = np.asarray(row_valid, bool)
+        if row_valid.shape != (n,):
+            raise ValueError(
+                f"row_valid shape {row_valid.shape} != span rows ({n},)"
+            )
+        X = np.where(row_valid[:, None], X, np.asarray(X).dtype.type(0))
+        y = np.where(row_valid, y, 0)
     gmap, rows, valid = _stripe_maps(n, start_row, p, b, nb, shuffle_seed)
+    if row_valid is not None:
+        valid = valid & _pad(row_valid, p * nb * b, False)[gmap]
     return Batches(
         X=_pad(np.asarray(X, np.float32), p * nb * b, 0.0)[gmap],
         y=_pad(np.asarray(y, np.int32), p * nb * b, 0)[gmap],
@@ -229,10 +370,12 @@ def stripe_partitions(
     shuffle_seed: int | None = None,
 ) -> Batches:
     """Row-stripe the whole stream over P partitions: ``X [P, NB, B, F]``,
-    ``y/rows/valid [P, NB, B]``."""
+    ``y/rows/valid [P, NB, B]``; quarantined rows (``stream.row_ok``) fold
+    into the validity plane."""
     _, nb = stripe_geometry(stream.num_rows, partitions, per_batch)
     return stripe_chunk(
-        stream.X, stream.y, 0, partitions, per_batch, nb, shuffle_seed
+        stream.X, stream.y, 0, partitions, per_batch, nb, shuffle_seed,
+        row_valid=stream.row_ok,
     )
 
 
@@ -250,6 +393,13 @@ def stripe_partitions_packed(
         raise ValueError(
             "stream has no compressed form (subsampled or hand-built); "
             "use stripe_partitions"
+        )
+    if stream.has_masked_rows:
+        # the packed form synthesizes `valid` from the geometry alone
+        # (engine.loop.expand_packed); a quarantine mask is data
+        raise ValueError(
+            "stream has quarantine-masked rows; the packed striper cannot "
+            "carry a row mask — use stripe_partitions"
         )
     n = stream.num_rows
     p, b = partitions, per_batch

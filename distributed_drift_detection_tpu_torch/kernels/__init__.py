@@ -11,7 +11,8 @@ counted wrappers that callers use live beside their plain PyTorch versions
 ``centroid_predict_err`` and ``centroid_fit``, ``ops/detectors.py``
 ``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
 ``utils/threefry.py`` ``random_normal``, ``models/mlp.py`` ``mlp_fit``
-and ``mlp_predict_err``).
+and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
+``forest_predict_err``).
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P,  # keys, X, y, w
          _I, _I, _I, _P, _P,  # p, b, layers, host widths [L + 1], host init factors [L]
          _I, _F, _F,  # steps, learning rate, momentum
-         _P, _P, _P,  # host arrays of the output w and b pointers, global workspace
+         _P, _P,  # host arrays of the output w and b pointers
+         _P, _P,  # the layers' device array past 64 layers, global workspace
          _I, _P],  # CTAs a partition (a cluster), stream
     ),
     "mlp_fit_floor": (
@@ -115,7 +117,8 @@ _SIGNATURES = {
         "mlp_predict_err_launch",
         [_P, _I, _P, _P, _I,  # table, its row stride, labels, idx, idx bytes
          _I, _I, _I, _P,  # p, n, layers, host widths [L + 1]
-         _P, _P, _P,  # host arrays of the w and b pointers, global workspace
+         _P, _P,  # host arrays of the w and b pointers
+         _P, _P,  # the layers' device array past 64 layers, global workspace
          _I, _I, _I, _I,  # the plan: rows a tile, threads, CTAs a partition,
                           # streamed weights (0: the plan's; -1 for stream)
          _P, _P, _P],  # err, pred, stream
@@ -128,6 +131,36 @@ _SIGNATURES = {
     "mlp_predict_err_floor": (
         "mlp_predict_err_floor_launch", [_I, _I, _I, _P, _I, _I, _I, _I, _P],
         "mlp_predict_err",
+    ),
+    "forest_fit": (
+        "forest_fit_launch",
+        [_P, _P, _P, _P,  # keys, X, y, w
+         _I, _I, _I, _I, _I, _I, _F,  # p, b, f, c, trees, depth, the normals' factor
+         _P, _P, _P, _P,  # proj, thresh, leaf_class, global workspace (or null)
+         _P],  # stream
+    ),
+    "forest_fit_floor": (
+        "forest_fit_floor_launch", [_I, _I, _I, _I, _I, _P], "forest_fit",
+    ),
+    # K11 at a shape (rows, trees, depth, host int64 out): the floats of a
+    # partition's global workspace, 0 when it fits shared memory
+    "forest_fit_workspace_words": (
+        "forest_fit_workspace_words", [_I, _I, _I, _P], "forest_fit",
+    ),
+    "forest_predict_err": (
+        "forest_predict_err_launch",
+        [_P, _I, _P, _P, _I,  # table, its row stride, labels, idx, idx bytes
+         _P, _P, _P,  # proj, thresh, leaf_class
+         _I, _I, _I, _I, _I,  # p, n, f, trees, depth
+         _P, _P, _P, _P],  # the votes' global workspace (or null), err, pred, stream
+    ),
+    "forest_predict_err_floor": (
+        "forest_predict_err_floor_launch", [_I, _I, _I, _I, _I, _P], "forest_predict_err",
+    ),
+    # K12 at a shape (F, trees, depth, host int64 out): the i32 words a
+    # row's votes take in a global workspace, 0 when they fit shared memory
+    "forest_predict_err_votes_words": (
+        "forest_predict_err_votes_words", [_I, _I, _I, _P], "forest_predict_err",
     ),
 }
 

@@ -31,8 +31,10 @@ COMMON_FLAGS = (
 # Per-kernel extra flags. K1 and the zoo kernels are held bit-identical to
 # their plain versions, so nvcc must not contract a*b+c into FMAs on its
 # own; K7, K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU
-# does. K8 and K9 draw threefry normals bit-identical to JAX's
-# (csrc/threefry.cuh), under the same two flags.
+# does. K8, K9 and K11 draw threefry normals bit-identical to JAX's
+# (csrc/threefry.cuh), under the same two flags; K11 and K12 compute the
+# forest's projections with explicit unfused, unflushed PTX
+# (csrc/forest.cuh).
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
@@ -43,6 +45,8 @@ KERNELS = {
     "random_normal": ("-fmad=false", "-ftz=true"),
     "mlp_fit": ("-fmad=false", "-ftz=true"),
     "mlp_predict_err": (),
+    "forest_fit": ("-fmad=false", "-ftz=true"),
+    "forest_predict_err": ("-fmad=false",),
 }
 
 

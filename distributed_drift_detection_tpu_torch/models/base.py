@@ -18,7 +18,7 @@ partitions; the port's take the ``[P]`` partition axis written out. A
 
 ``key`` is the partitions' threefry keys ``[P, 2]`` (``utils/threefry.py``;
 uint32 words, as int32 bit patterns on the device). A family whose init and
-fit consume it (``mlp``) sets ``keyed``, and the engines then draw the JAX
+fit consume it (``mlp``, ``forest``) sets ``keyed``, and the engines draw the JAX
 package's key chain for it; the others (majority, centroid, gnb, linear)
 ignore ``key`` and get none.
 """

@@ -90,18 +90,11 @@ def centroid_predict_err_reference(centroids, bias, T, Ty, idx):
     return (pred != Ty[i]).float(), pred
 
 
-# Shared memory a block can use on an H100 (227 KB). K2 stages one
-# partition's centroids and bias there — in chunks of classes when they do
-# not fit — and, for F <= 32, its block's K2_BLOCK_ROWS rows with their
-# indices and labels (csrc/centroid_predict_err.cu kBlockRows).
+# Shared memory a block can use on an H100 (227 KB). K2 and K7 stage what
+# fits there and take classes, and past that features, in chunks
+# (csrc/centroid_predict_err.cu, csrc/centroid_fit.cu), so they take any C
+# and F.
 MAX_SHARED_BYTES = 232448
-K2_BLOCK_ROWS = 256
-
-
-def _k2_shared_bytes(c: int, f: int) -> int:
-    """K2's shared memory with ``c`` classes staged at once."""
-    fp = row_stride(f)
-    return 4 * (c * fp + c) + (4 * K2_BLOCK_ROWS * (fp + 2) if f <= 32 else 0)
 
 
 def _check_cuda(name, t, dtypes, shape, device):
@@ -158,12 +151,6 @@ def centroid_predict_err(centroids, bias, T, Ty, idx, return_pred=False):
     _check_cuda("idx", idx, (torch.int16, torch.int32), (p, n), dev)
     if T.data_ptr() % 16:
         raise ValueError("centroid_predict_err: T must start on a 16-byte boundary")
-    smem = _k2_shared_bytes(1, f)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"centroid_predict_err: F={f} needs {smem} B of shared memory at "
-            f"one class a chunk, over the card's {MAX_SHARED_BYTES}"
-        )
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
     pred = torch.empty((p, n), dtype=torch.int32, device=dev) if return_pred else None
     code = kernels.launcher("centroid_predict_err")(
@@ -243,15 +230,6 @@ def centroid_fit_args(X, y, w, cent, bias):
             cent.data_ptr(), bias.data_ptr())
 
 
-def _k7_shared_bytes(c: int, f: int) -> int:
-    """K7's shared memory at its smallest row tile, one 32-row chunk, with
-    ``c`` classes a chunk (csrc/centroid_fit.cu ``smem_words``): the row
-    block feature-major with a row of ones, F + 1 rows of 32 + 4 words, the
-    weights, the [c, F + 1] sums and counts, and a row bitmap word per
-    class."""
-    return 4 * ((f + 1) * 36 + 32 + c * (f + 1) + c)
-
-
 def centroid_fit(X, y, w, c: int) -> CentroidParams:
     """The nearest-centroid fit of ``X [P, B, F]`` f32, labels ``y [P, B]``
     and {0, 1} weights ``w [P, B]``: per class the mean of its rows and
@@ -274,11 +252,6 @@ def centroid_fit(X, y, w, c: int) -> CentroidParams:
         if t.device != dev or tuple(t.shape) != (p, b):
             raise ValueError(f"centroid_fit: {name} must be [{p}, {b}] on {dev}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    if _k7_shared_bytes(1, f) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"centroid_fit: F={f} needs {_k7_shared_bytes(1, f)} B of shared "
-            f"memory at one class a chunk, over the card's {MAX_SHARED_BYTES}"
-        )
     cent = torch.empty((p, c, f), dtype=torch.float32, device=dev)
     bias = torch.empty((p, c), dtype=torch.float32, device=dev)
     code = kernels.launcher("centroid_fit")(
@@ -438,8 +411,9 @@ def make_linear(spec: ModelSpec, *, fit_steps: int = 32, learning_rate: float = 
 
 def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
     """Build a model by config name (``RunConfig.model``); ``cfg`` supplies
-    ``fit_steps``, ``linear``'s ``learning_rate`` and ``mlp``'s
-    ``mlp_hidden`` and ``mlp_learning_rate``."""
+    ``fit_steps``, ``linear``'s ``learning_rate``, ``mlp``'s ``mlp_hidden``
+    and ``mlp_learning_rate``, and ``forest``'s ``forest_trees`` and
+    ``forest_depth``."""
     if name == "majority":
         return make_majority(spec)
     if name == "centroid":
@@ -457,11 +431,16 @@ def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
             return make_mlp(spec)
         return make_mlp(spec, hidden=tuple(cfg.mlp_hidden), fit_steps=cfg.fit_steps,
                         learning_rate=cfg.mlp_learning_rate)
-    if name in ("forest", "rf"):
-        item = {"forest": "A9b", "rf": "A9c"}[name]
+    if name == "forest":
+        from .forest import make_forest
+
+        if cfg is None:
+            return make_forest(spec)
+        return make_forest(spec, trees=cfg.forest_trees, depth=cfg.forest_depth)
+    if name == "rf":
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {item}); the port runs "
-            "majority, centroid, gnb, linear and mlp"
+            "model 'rf' is not ported yet (ROADMAP A9c); the port runs "
+            "majority, centroid, gnb, linear, mlp and forest"
         )
     raise ValueError(
         f"unknown model {name!r}; expected majority|centroid|gnb|linear|mlp|forest|rf"

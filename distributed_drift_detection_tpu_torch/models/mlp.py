@@ -39,10 +39,11 @@ from ..utils import threefry
 from .base import Model, ModelSpec, pad_row_table, row_stride
 from .classifiers import MAX_SHARED_BYTES, _argmax_first
 
-# Layers the kernels take (csrc/mlp_fit.cu, csrc/mlp_predict_err.cu
-# kMaxLayers): a launch passes its layers' widths and pointers in a struct
-# among the kernel's parameters, which are limited to 4 KB.
-MAX_LAYERS = 64
+# Layers a launch passes in a struct among the kernel's parameters, which
+# are limited to 4 KB (csrc/mlp_fit.cu, csrc/mlp_predict_err.cu
+# kInlineLayers); a deeper net's widths and pointers go in a device array
+# (:func:`net_desc`), so the kernels take any depth.
+INLINE_LAYERS = 64
 
 
 class MLPLayer(NamedTuple):
@@ -60,7 +61,7 @@ def init_scales(dims) -> list[float]:
 def _keys(key: torch.Tensor) -> torch.Tensor:
     """Per-partition keys ``[P, 2]`` as int32 bit patterns on their device."""
     if not isinstance(key, torch.Tensor):
-        key = torch.from_numpy(np.asarray(key, np.uint32).view(np.int32))
+        key = torch.from_numpy(np.array(key, np.uint32).view(np.int32))
     return key.int() if key.dtype == torch.int64 else key
 
 
@@ -224,9 +225,21 @@ def _layer_arrays(dims, layers):
     return dim_arr, scale_arr, w_arr, b_arr
 
 
+def net_desc(dims, device) -> torch.Tensor | None:
+    """The device array a launch of the net ``dims`` passes its layers in
+    past :data:`INLINE_LAYERS` (``None`` up to it): room for the w and b
+    pointers, the widths and K9's init factors (csrc ``net_desc_bytes``),
+    which the launcher writes on the launch's stream."""
+    layers = len(dims) - 1
+    if layers <= INLINE_LAYERS:
+        return None
+    return torch.empty((16 * layers + 4 * (layers + 1) + 4 * layers,), dtype=torch.uint8,
+                       device=device)
+
+
 def _check_dims(name, dims):
-    if not 2 <= len(dims) <= MAX_LAYERS + 1:
-        raise ValueError(f"{name}: {len(dims) - 1} layers, the kernel takes 1..{MAX_LAYERS}")
+    if len(dims) < 2:
+        raise ValueError(f"{name}: {len(dims) - 1} layers, the kernels take 1 or more")
     if min(dims) < 1:
         raise ValueError(f"{name}: every layer width must be >= 1, got {dims}")
 
@@ -236,15 +249,18 @@ def mlp_fit_args(key, X, y, w, dims, fit_steps, learning_rate, momentum, out, sc
     """Kernel K9's launch arguments, stream excluded, for checked CUDA
     inputs, preallocated output layers ``out``, the global workspace
     (``None`` when the workspace fits shared memory) and ``cs`` CTAs a
-    partition. Returns the ctypes arrays too, which must outlive the call."""
+    partition. Returns the ctypes arrays (and past :data:`INLINE_LAYERS`
+    the layers' device array) too, which must outlive the call."""
     p, b, _ = X.shape
     dim_arr, scale_arr, w_arr, b_arr = _layer_arrays(dims, out)
+    desc = net_desc(dims, X.device)
     args = (key.data_ptr(), X.data_ptr(), y.data_ptr(), w.data_ptr(), p, b,
             len(dims) - 1, ctypes.addressof(dim_arr), ctypes.addressof(scale_arr),
             int(fit_steps), f32(learning_rate), f32(momentum),
             ctypes.addressof(w_arr), ctypes.addressof(b_arr),
+            None if desc is None else desc.data_ptr(),
             None if scratch is None else scratch.data_ptr(), int(cs))
-    return args, (dim_arr, scale_arr, w_arr, b_arr)
+    return args, (dim_arr, scale_arr, w_arr, b_arr, desc)
 
 
 def mlp_fit(key, X, y, w, dims, fit_steps: int = 32, learning_rate: float = 0.05,
@@ -432,12 +448,14 @@ def mlp_predict_err_args(params, T, Ty, idx, err, pred=None, scratch=None, force
     which must outlive the call."""
     dims = (params[0].w.shape[1], *(layer.w.shape[2] for layer in params))
     dim_arr, _, w_arr, b_arr = _layer_arrays(dims, params)
+    desc = net_desc(dims, idx.device)
     args = (T.data_ptr(), T.shape[1], Ty.data_ptr(), idx.data_ptr(), idx.element_size(),
             idx.shape[0], idx.shape[1], len(params), ctypes.addressof(dim_arr),
             ctypes.addressof(w_arr), ctypes.addressof(b_arr),
+            None if desc is None else desc.data_ptr(),
             None if scratch is None else scratch.data_ptr(), *force,
             err.data_ptr(), None if pred is None else pred.data_ptr())
-    return args, (dim_arr, w_arr, b_arr)
+    return args, (dim_arr, w_arr, b_arr, desc)
 
 
 def mlp_predict_err(params, T, Ty, idx, return_pred=False):

@@ -182,16 +182,32 @@ def test_centroid_predict_err_kernel_class_chunks(dev, f):
     assert int(tie.sum()) < 10
 
 
+# (P, N, C, F): wide rows — F = 1,600 and 2,048 take the generic path
+# with the classes in chunks (28 of them at F = 2,048); F = 60,000 is too
+# wide for one class in shared memory and takes its features in chunks
+K2_WIDE = [(2, 300, 40, 1600), (2, 300, 40, 2048), (2, 70, 5, 60000)]
+
+
 @pytest.mark.cuda
-def test_centroid_predict_err_kernel_refuses_oversized_centroids(dev):
-    """A centroid too wide for the card's 227 KB of shared memory a block
-    even one class at a time raises before any launch."""
-    cent, bias, table, ty, idx = _k2_case(0, 1, 10, 2, 60000, r=20)
+@pytest.mark.parametrize("shape", K2_WIDE)
+def test_centroid_predict_err_kernel_wide_rows(dev, shape):
+    """K2 at any F: predictions equal to the plain version's off the near
+    ties (the two best float64 scores within 1e-4·(1 + |top|)), errors
+    ``pred != label``, one launch."""
+    p, n, c, f = shape
+    cent, bias, table, ty, idx = _k2_case(f, p, n, c, f, r=64)
     args = [torch.from_numpy(a).to(dev) for a in (cent, bias, table, ty)]
+    idx_t = torch.from_numpy(idx).to(dev, torch.int32)
     before = classifiers.centroid_predict_err.launches
-    with pytest.raises(ValueError, match="shared"):
-        classifiers.centroid_predict_err(*args, torch.from_numpy(idx).to(dev, torch.int32))
-    assert classifiers.centroid_predict_err.launches == before
+    err, pred = classifiers.centroid_predict_err(*args, idx_t, return_pred=True)
+    assert classifiers.centroid_predict_err.launches == before + 1
+    _, rpred = classifiers.centroid_predict_err_reference(*args, idx_t)
+    scores = (torch.from_numpy(table[idx]).double() @ torch.from_numpy(cent).double()
+              .transpose(1, 2) + torch.from_numpy(bias).double()[:, None])
+    top2 = scores.topk(2, -1).values
+    tie = ((top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())).to(dev)
+    assert torch.equal(pred[~tie], rpred[~tie])
+    assert torch.equal(err, (pred != args[3][idx_t.long()]).float())
 
 
 # --------------------------------------------------------------------------
@@ -307,15 +323,29 @@ def test_centroid_fit_kernel_class_chunks(dev, shape):
     assert bool(torch.isfinite(got.bias).any()) and bool(torch.isinf(got.bias[:, -1]).all())
 
 
+# (P, B, F, C): rows too wide for shared memory at one class and one row
+# (F above 1,570), their features in chunks: F = 1,600 and 2,048 at the
+# main path's batch, B = 1 (XLA's product), and C = 3,000 (classes halved
+# until a chunk of features fits)
+K7_WIDE = [(2, 100, 1600, 40), (2, 100, 2048, 40), (3, 1, 2048, 40), (1, 64, 1700, 3000)]
+
+
 @pytest.mark.cuda
-def test_centroid_fit_kernel_refuses_oversized(dev):
-    """Rows too wide for the card's 227 KB of shared memory a block even
-    at one class a chunk and one 32-row chunk raise before any launch."""
-    host = _k7_inputs(0, 1, 10, 1700, 4)
+@pytest.mark.parametrize("shape", K7_WIDE)
+def test_centroid_fit_kernel_feature_chunks(dev, shape):
+    """K7 with its features in chunks equals its plain version bit for bit
+    on the card and on the CPU (each sum keeps its row chain; the bias
+    chain is carried across chunks in feature order)."""
+    p, b, f, c = shape
+    host = [torch.from_numpy(a) for a in _k7_inputs(sum(shape), p, b, f, c)]
     before = classifiers.centroid_fit.launches
-    with pytest.raises(ValueError, match="shared"):
-        classifiers.centroid_fit(*(torch.from_numpy(a).to(dev) for a in host), 4)
-    assert classifiers.centroid_fit.launches == before
+    got = classifiers.centroid_fit(*(t.to(dev) for t in host), c)
+    assert classifiers.centroid_fit.launches == before + 1
+    on_card = classifiers.centroid_fit_reference(*(t.to(dev) for t in host), c)
+    on_cpu = classifiers.centroid_fit_reference(*host, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), h.view(torch.int32))
 
 
 # --------------------------------------------------------------------------
@@ -634,6 +664,7 @@ K9_CASES = {
     "narrow": (4, 50, 21, 40, (16, 8), 4),
     "one_hidden": (2, 64, 21, 40, (32,), 8),
     "nine_layers": (2, 64, 21, 40, (32,) * 8, 8),
+    "sixty_five_layers": (2, 64, 21, 40, (16,) * 64, 2),
     "init_only": (16, 100, 21, 40, (128, 64), 0),
 }
 
@@ -811,6 +842,7 @@ K10_CASES = {
     "h512": (4, 2000, 21, 40, (512,)),
     "no_hidden": (3, 777, 21, 40, ()),
     "nine_layers": (2, 500, 21, 40, (32,) * 8),
+    "sixty_five_layers": (2, 500, 21, 40, (16,) * 64),
     "global_workspace": (2, 300, 21, 40, (4096,)),
 }
 
@@ -939,3 +971,102 @@ def test_mlp_predict_err_kernel_matches_pinned_digest(dev):
     assert cs.k10_digest(pred, err) == cs.K10_MAIN_DIGEST
     ferr, fpred = tmlp.mlp_predict_err(*cs.k10_f27_case(torch, tmlp, dev), return_pred=True)
     assert cs.k10_digest(fpred, ferr) == cs.K10_F27_DIGEST
+
+
+# --------------------------------------------------------------------------
+# K11 and K12, the oblique forest's fit and predict + error
+# --------------------------------------------------------------------------
+
+from distributed_drift_detection_tpu_torch.models import forest as tforest  # noqa: E402
+from distributed_drift_detection_tpu_torch.utils import threefry  # noqa: E402
+
+# (P, B, F, C, trees, depth): the main path's shapes; the rialto width;
+# depth 1 and 8; one tree; C = 70 (above 64); a batch too large for
+# shared memory (K11's global workspace); all weights 0; B = 1; and each
+# of K12's layouts past shared memory — rows read from the table (F =
+# 600), projections read from device memory (F = 300 at 32 trees), both
+# (F = 2,048), and the votes in device memory (500 trees, which also take
+# K11's global workspace).
+K11_CASES = {
+    "main_path": (16, 100, 21, 40, 32, 3),
+    "rialto": (3, 64, 27, 10, 4, 2),
+    "depth1": (2, 50, 5, 3, 3, 1),
+    "depth8": (2, 100, 21, 70, 1, 8),
+    "one_tree": (2, 30, 7, 4, 1, 3),
+    "global_workspace": (2, 300, 21, 40, 32, 3),
+    "weights_0": (2, 50, 21, 40, 8, 3),
+    "per_batch_1": (4, 1, 21, 40, 8, 3),
+    "rows_unstaged": (2, 60, 600, 5, 4, 2),
+    "params_unstaged": (2, 100, 300, 10, 32, 3),
+    "wide_rows": (2, 100, 2048, 10, 32, 3),
+    "global_votes": (2, 50, 21, 40, 500, 1),
+}
+
+
+def _forest_batch(case):
+    p, b, f, c, trees, depth = K11_CASES[case]
+    rng = np.random.default_rng(len(case) + b)
+    X = rng.normal(size=(p, b, f)).astype(np.float32)
+    y = rng.integers(0, c, (p, b)).astype(np.int32)
+    w = (rng.random((p, b)) < 0.9).astype(np.float32)
+    if case == "weights_0":
+        w[:] = 0.0
+    key = torch.from_numpy(threefry.split(threefry.key(b), p).view(np.int32).copy())
+    return key, X, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+def test_forest_fit_kernel_bitwise(dev, case):
+    """K11 equals its plain version bit for bit, on the card and on the
+    CPU: projections, thresholds and leaf classes."""
+    p, b, f, c, trees, depth = K11_CASES[case]
+    key, X, y, w = _forest_batch(case)
+    host = [key] + [torch.from_numpy(a) for a in (X, y, w)]
+    before = tforest.forest_fit.launches
+    got = tforest.forest_fit(*(t.to(dev) for t in host), trees, depth, c)
+    assert tforest.forest_fit.launches == before + 1
+    on_card = tforest.forest_fit_reference(*(t.to(dev) for t in host), trees, depth, c)
+    on_cpu = tforest.forest_fit_reference(*host, trees, depth, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        if g.dtype == torch.float32:
+            g, r, h = g.view(torch.int32), r.view(torch.int32), h.view(torch.int32)
+        assert torch.equal(g, r) and torch.equal(g.cpu(), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+def test_forest_predict_err_kernel_bitwise(dev, case, idx_dtype):
+    """K12 on K11's fit: predictions and errors equal to the plain
+    version's, through the padded and the unpadded row table."""
+    p, b, f, c, trees, depth = K11_CASES[case]
+    key, X, y, w = _forest_batch(case)
+    params = tforest.forest_fit(*(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                                  else a.to(dev) for a in (key, X, y, w)), trees, depth, c)
+    rng = np.random.default_rng(b)
+    T = torch.from_numpy(rng.normal(size=(700, f)).astype(np.float32)).to(dev)
+    Ty = torch.from_numpy(rng.integers(0, c, 700).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 700, (p, 1000))).to(dev, idx_dtype)
+    before = tforest.forest_predict_err.launches
+    rerr, rpred = tforest.forest_predict_err_reference(params, T, Ty, idx)
+    for table in (tforest.pad_row_table(T), T):
+        err, pred = tforest.forest_predict_err(params, table, Ty, idx, return_pred=True)
+        assert torch.equal(pred, rpred) and torch.equal(err, rerr)
+    assert tforest.forest_predict_err.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_forest_workspace_counts(dev):
+    """The kernels' own counts put K11's workspace and K12's votes in
+    device memory exactly where shared memory does not hold them."""
+    for case, on_device in (("main_path", False), ("global_workspace", True),
+                            ("global_votes", True)):
+        p, b, _, _, trees, depth = K11_CASES[case]
+        assert (tforest.forest_fit_scratch(p, b, trees, depth, dev) is not None) == on_device
+    for case, on_device in (("main_path", False), ("wide_rows", False), ("global_votes", True)):
+        p, _, f, _, trees, depth = K11_CASES[case]
+        votes = tforest.k12_votes(p, 1000, f, trees, depth, dev)
+        assert (votes is not None) == on_device
+        if on_device:
+            assert tuple(votes.shape) == (trees, p * 1000)

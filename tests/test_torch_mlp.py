@@ -464,11 +464,17 @@ def test_k10_plan_refuses_what_no_plan_fits():
 
 @pytest.mark.parametrize("layers", [1, 9, 64])
 def test_check_dims_takes_up_to_64_layers(layers):
-    """The kernels take 1 to ``MAX_LAYERS`` (64) layers of any width; 65
-    and a zero width raise."""
+    """The kernels take any depth of any width: up to ``INLINE_LAYERS``
+    (64) layers in the launch's parameters, past it (65, 200) in a device
+    array (``net_desc``, none below); no layer and a zero width raise."""
     tmlp._check_dims("k", (21, *(8,) * (layers - 1), 40))
+    assert tmlp.net_desc((21, *(8,) * (layers - 1), 40), "cpu") is None
+    for deep in (tmlp.INLINE_LAYERS + 1, 200):
+        dims = (21, *(8,) * (deep - 1), 40)
+        tmlp._check_dims("k", dims)
+        assert tmlp.net_desc(dims, "cpu").numel() == 24 * deep + 4
     with pytest.raises(ValueError, match="layers"):
-        tmlp._check_dims("k", (21, *(8,) * tmlp.MAX_LAYERS, 40))
+        tmlp._check_dims("k", (21,))
     with pytest.raises(ValueError, match="width"):
         tmlp._check_dims("k", (21, *(8,) * (layers - 1), 0))
 

@@ -137,7 +137,14 @@ def test_port_imports_no_jax():
         "import sys, distributed_drift_detection_tpu_torch as p\n"
         "import distributed_drift_detection_tpu_torch.api, "
         "distributed_drift_detection_tpu_torch.convert, "
-        "distributed_drift_detection_tpu_torch.kernels._build\n"
+        "distributed_drift_detection_tpu_torch.kernels._build, "
+        "distributed_drift_detection_tpu_torch.io.sanitize, "
+        "distributed_drift_detection_tpu_torch.io.native, "
+        "distributed_drift_detection_tpu_torch.io.blocks, "
+        "distributed_drift_detection_tpu_torch.io.datasets, "
+        "distributed_drift_detection_tpu_torch.resilience.faults, "
+        "distributed_drift_detection_tpu_torch.resilience.policy, "
+        "distributed_drift_detection_tpu_torch.models.forest\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.split('.')[0] == 'distributed_drift_detection_tpu']\n"
         "assert not bad, bad\n"
@@ -182,14 +189,14 @@ def test_chip_scripts_refuse_without_a_card(script):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(model="forest", window=1), "A9"),
-        (dict(model="forest"), "A9"),
+        (dict(model="rf", window=1), "A9"),
+        (dict(mesh_tenant_devices=2), "A15"),
         (dict(tenants=2), "A11"),
         (dict(mesh_devices=2), "A15"),
         (dict(model="rf"), "A9"),
         (dict(telemetry_dir="t"), "A15"),
         (dict(validate=True), "A15"),
-        (dict(dataset="data.csv"), "A10"),
+        (dict(profile_dir="p"), "A15"),
     ],
 )
 def test_unported_surfaces_raise(kw, item):
@@ -197,16 +204,33 @@ def test_unported_surfaces_raise(kw, item):
         tpkg.run(_cfg(tconfig, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("model, item", [("forest", "A9b"), ("rf", "A9c")])
+def test_a_missing_csv_raises():
+    """CSV datasets are ported (tests/test_torch_csv.py): a path that does
+    not exist raises FileNotFoundError, as in the JAX package."""
+    for run, mod in ((jpkg.run, jconfig), (lambda c: tpkg.run(c, device="cpu"), tconfig)):
+        with pytest.raises(FileNotFoundError):
+            run(_cfg(mod, dataset="no/such/data.csv"))
+
+
+@pytest.mark.parametrize("model, item", [("rf", "A9c")])
 def test_unported_models_name_their_items(model, item):
-    """forest and rf stay refused, each naming its own ROADMAP item, at
-    ``run`` and at ``build_model``."""
+    """rf stays refused, naming its ROADMAP item, at ``run`` and at
+    ``build_model``."""
     from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
 
     with pytest.raises(NotImplementedError, match=rf"{item}\b"):
         tpkg.run(_cfg(tconfig, model=model), device="cpu")
     with pytest.raises(NotImplementedError, match=rf"{item}\b"):
         build_model(model, ModelSpec(5, 3))
+
+
+def test_forest_builds_where_it_was_refused():
+    """forest is ported (tests/test_torch_forest.py): ``build_model`` and
+    ``run`` take it, with the JAX package's trees and depth."""
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+
+    m = build_model("forest", ModelSpec(5, 3), _cfg(tconfig, forest_trees=2, forest_depth=2))
+    assert m.keyed and m.init(1).leaf_class.shape == (1, 2, 4)
 
 
 @pytest.mark.parametrize("kw", [{}, CONFIGS["dense"], CONFIGS["seq_ddm"]],

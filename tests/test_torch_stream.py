@@ -91,6 +91,18 @@ def test_stripe_packed_and_expand(spec, shuffle):
     _eq(je.valid, te.valid.numpy())
 
 
-def test_csv_datasets_are_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
+def test_csv_datasets_load_like_jax(tmp_path):
+    """CSV ingest is ported (tests/test_torch_csv.py): a CSV written from a
+    synth: spec loads to the planes of the JAX package's load_stream."""
+    from distributed_drift_detection_tpu_torch.io.datasets import _write_schema_csv
+    from distributed_drift_detection_tpu_torch.io.synth import parse_synth
+
+    path = str(tmp_path / "s.csv")
+    _write_schema_csv(*parse_synth("prototypes,seed=2,concepts=3,rows_per_concept=20,features=4"),
+                      path)
+    j = jstream.load_stream(path, 2, seed=1, data_policy="strict")
+    t = tstream.load_stream(path, 2, seed=1, data_policy="strict")
+    _eq(j.base_X, t.base_X)
+    _eq(j.src, t.src)
+    with pytest.raises(FileNotFoundError):
         tstream.load_stream("some.csv")
