@@ -40,6 +40,15 @@ rounds), beside the SHA-256 of its predictions and errors there
 (``digest``) and on ``chip_smoke.k10_f27_case`` (``digest_f27``), which
 must be equal across trees (K10's redesign keeps every chain).
 
+K11 (``forest_fit``) and K12 (``forest_predict_err``) are timed through
+their wrappers on the forest path's shapes (32 trees of depth 3): K11 on
+the main path's first training batch with its fit keys (graphs of 50),
+K12 on K11's parameters over ``chip_smoke.k10_main_inputs`` at [16,
+12,800] (graphs of 10, 3 rounds), each beside the SHA-256 of its outputs
+(``digest``: K11's proj, thresh and leaf_class; K12's predictions and
+errors), which must be equal across trees (K11 and K12 are bit for bit
+their plain versions in every tree).
+
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
 """
@@ -145,6 +154,8 @@ def one(root: str, only: set | None = None) -> dict:
         out.update(k9_runs(torch, cs, prep, dev))
     if only is None or "mlp_predict_err" in only:
         out.update(k10_runs(torch, cs, prep, dev))
+    if only is None or only & {"forest_fit", "forest_predict_err"}:
+        out.update(forest_runs(torch, cs, dev, only))
     return out
 
 
@@ -210,6 +221,51 @@ def k10_runs(torch, cs, prep, dev) -> dict:
     row["ms"] = cs.graph_ms(call, reps=10, rounds=3)
     row["host_us"] = cs.host_us(call)
     return {"mlp_predict_err": row}
+
+
+def forest_runs(torch, cs, dev, only) -> dict:
+    """K11 and K12 of the tree on the forest path (see the docstring)."""
+    import hashlib
+    import inspect
+
+    from distributed_drift_detection_tpu_torch import api, config
+    from distributed_drift_detection_tpu_torch.models import forest
+
+    prep = api.prepare(config.RunConfig(**cs.SMOKE, model="forest"), device=dev)
+    cfg, st = prep.config, prep.stream
+    trees, depth, c = cfg.forest_trees, cfg.forest_depth, st.num_classes
+    p, n = cfg.partitions, cfg.window * cfg.per_batch
+    _, keys = cs.mlp_keys(torch, prep, dev)
+    batch = [torch.from_numpy(a).to(dev) for a in cs.k7_main_batch(prep.batches)]
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    def fit():
+        return forest.forest_fit(keys, *batch, trees, depth, c)
+
+    params = fit()
+    T, Ty, idx = (torch.from_numpy(a).to(dev) for a in cs.k10_main_inputs(st, p, n))
+    Tp = forest.pad_row_table(T)
+    # a tree whose K12 tallies C classes takes C
+    kw = {"classes": c} if "classes" in inspect.signature(forest.forest_predict_err).parameters else {}
+
+    def predict():
+        return forest.forest_predict_err(params, Tp, Ty, idx, **kw)
+
+    out = {}
+    if only is None or "forest_fit" in only:
+        out["forest_fit"] = {"digest": digest(*params), "ms": cs.graph_ms(fit),
+                             "host_us": cs.host_us(fit)}
+    if only is None or "forest_predict_err" in only:
+        err, pred = forest.forest_predict_err(params, Tp, Ty, idx, return_pred=True, **kw)
+        out["forest_predict_err"] = {"digest": digest(pred, err),
+                                     "ms": cs.graph_ms(predict, reps=10, rounds=3),
+                                     "host_us": cs.host_us(predict)}
+    return out
 
 
 def main() -> int:

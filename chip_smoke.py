@@ -108,7 +108,9 @@ without them. Phases, each fatal on failure:
 13. the forest (32 trees of depth 3): K11 and K12 bit for bit against
    their plain versions on the main path's first training batch with its
    fit keys (K12 at [16, 12,800]), on random rows and on
-   ``FOREST_EDGES``; each timed as K7 is, with a ``floor_ms``; then
+   ``FOREST_EDGES``; each timed as K7 is, with a ``floor_ms`` and its
+   layout (K12 also a ``library_ms``: ``torch.bmm`` of the gathered rows
+   by every node's projection, the products alone); then
    ``run`` at SMOKE's full width and depth, counted: detections equal to
    the JAX package's and mean delay within a batch of it
    (``FOREST_EXPECTED``), whether the flags equal the port's CPU run
@@ -1128,33 +1130,59 @@ def k10_library_ms(torch, params, Tp, idx, f):
 # bar is equal detections and a mean delay within a batch.
 FOREST_EXPECTED = (624, 788.6282)
 # K11 and K12 edge cases (P, B, F, C, trees, depth, what): all weights
-# 0, B = 1, depth 1 and 8, one tree, C = 70 (above 64), int32 indices, a
-# batch too large for shared memory (K11's global workspace), the rialto
-# width, and each of K12's layouts past shared memory: rows read from the
-# table, projections read from device memory, both, and the votes in
-# device memory.
+# 0, B = 1, depth 1 and 8, one tree, C = 70 (above 64), int32 indices, B =
+# 300, the rialto width, and K12's layouts past the register kernel: rows
+# read from the table, projections read from device memory, both; T = 500
+# (16-bit counters); trees across a warp's boundary (T = 33, 64); a column
+# select past one lane's registers (B = 1,500, with repeated rows); K12's
+# counters in device memory (C = 2,000, T = 40); a register width with a
+# full last float4 (F = 40); K11's deep-tree layout (depth 12, T = 2: the
+# columns read from device memory, the keys in chunks, the row rule); and
+# repeated rows, so that equal keys test the stable order.
 FOREST_EDGES = [(3, 100, 21, 40, 32, 3, "weights 0"), (4, 1, 21, 40, 8, 3, "B=1"),
                 (2, 50, 5, 3, 3, 1, "depth 1"), (2, 100, 21, 70, 1, 8, "depth 8, C=70"),
                 (2, 30, 7, 4, 1, 3, "one tree"), (3, 100, 21, 40, 32, 3, "int32 idx"),
-                (2, 300, 21, 40, 32, 3, "global workspace"), (3, 64, 27, 10, 4, 2, "rialto width"),
+                (2, 300, 21, 40, 32, 3, "B=300"), (3, 64, 27, 10, 4, 2, "rialto width"),
                 (2, 60, 600, 5, 4, 2, "rows from the table"),
                 (2, 100, 300, 10, 32, 3, "projections from device memory"),
                 (2, 100, 2048, 10, 32, 3, "F=2048: rows and projections from device memory"),
-                (2, 50, 21, 40, 500, 1, "votes in device memory")]
+                (2, 50, 21, 40, 500, 1, "T=500: 16-bit counters"),
+                (2, 100, 21, 40, 33, 3, "T=33"), (2, 100, 21, 40, 64, 3, "T=64"),
+                (2, 1500, 21, 40, 8, 3, "B=1500, repeated rows"),
+                (2, 100, 21, 2000, 40, 3, "C=2000, T=40: counters in device memory"),
+                (2, 100, 40, 10, 32, 3, "F=40"),
+                (2, 100, 21, 40, 2, 12, "depth 12, T=2"),
+                (2, 120, 21, 6, 16, 3, "repeated rows")]
 
 
-def forest_equal(torch, forest, params, T, Ty, idx, what):
+def forest_edge_batch(rng, ep, eb, ef, ec, what):
+    """An edge case's training batch ``(X, y, w)``: rows near ``ec``
+    prototypes, 90 % valid; rows repeated in runs when ``what`` says so."""
+    protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
+    ey = rng.integers(0, ec, (ep, eb)).astype(np.int32)
+    eX = (protos[ey] + 0.5 * rng.normal(size=(ep, eb, ef))).astype(np.float32)
+    ew = (rng.random((ep, eb)) < 0.9).astype(np.float32)
+    if what == "weights 0":
+        ew[:] = 0.0
+    if "repeated rows" in what:  # each run of 5 rows one row, one label
+        src = np.arange(eb) // 5 * 5
+        eX, ey = eX[:, src], ey[:, src]
+    return protos, eX, ey, ew
+
+
+def forest_equal(torch, forest, params, T, Ty, idx, c, what, force=0):
     """K12 on ``params`` equal to its plain version bit for bit."""
-    err, pred = forest.forest_predict_err(params, T, Ty, idx, return_pred=True)
+    err, pred = forest.forest_predict_err(params, T, Ty, idx, return_pred=True, classes=c,
+                                          force=force)
     rerr, rpred = forest.forest_predict_err_reference(params, T, Ty, idx)
     torch.cuda.synchronize()
     check(torch.equal(pred, rpred) and torch.equal(err, rerr),
           f"K12 differs from its plain version ({what})")
 
 
-def forest_fit_equal(torch, forest, key, X, y, w, trees, depth, c, what):
+def forest_fit_equal(torch, forest, key, X, y, w, trees, depth, c, what, force=0):
     """K11 equal to its plain version bit for bit; returns K11's params."""
-    got = forest.forest_fit(key, X, y, w, trees, depth, c)
+    got = forest.forest_fit(key, X, y, w, trees, depth, c, force=force)
     want = forest.forest_fit_reference(key, X, y, w, trees, depth, c)
     torch.cuda.synchronize()
     for g, r in zip(got, want):
@@ -1162,6 +1190,17 @@ def forest_fit_equal(torch, forest, key, X, y, w, trees, depth, c, what):
             g, r = g.view(torch.int32), r.view(torch.int32)
         check(torch.equal(g, r), f"K11 differs from its plain version ({what})")
     return got
+
+
+def k12_library_ms(torch, params, Tp, idx, f):
+    """K12's yardstick: ``torch.bmm`` of the gathered rows by the
+    projections of all T·n nodes, TF32 off — the products of every node,
+    more than K12 computes and nothing else of its work — timed as ``ms``
+    is (graph of 10)."""
+    rows = Tp[idx.long(), :f].contiguous()
+    out = torch.empty((rows.shape[0], rows.shape[1], params.proj.shape[2]), device=rows.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return graph_ms(lambda: torch.bmm(rows, params.proj, out=out), reps=10, rounds=3)
 
 
 def forest_fit_ops(b, f, trees, depth):
@@ -1194,22 +1233,17 @@ def check_k11_k12(torch, kernels, forest, prep, dev):
     forest_fit_equal(torch, forest, fit_keys, *rand, trees, depth, c, "random rows")
     T, Ty, idx = (torch.from_numpy(a).to(dev) for a in k10_main_inputs(stream, p, n))
     Tp = forest.pad_row_table(T)
-    forest_equal(torch, forest, params, Tp, Ty, idx, "main path")
+    forest_equal(torch, forest, params, Tp, Ty, idx, c, "main path")
     for ep, eb, ef, ec, et, ed, what in FOREST_EDGES:
-        protos = rng.normal(size=(ec, ef)).astype(np.float32) * 2
-        ey = rng.integers(0, ec, (ep, eb)).astype(np.int32)
-        eX = (protos[ey] + 0.5 * rng.normal(size=(ep, eb, ef))).astype(np.float32)
-        ew = (rng.random((ep, eb)) < 0.9).astype(np.float32)
-        if what == "weights 0":
-            ew[:] = 0.0
-        batch = [torch.from_numpy(a).to(dev) for a in (eX, ey, ew)]
+        protos, *batch = forest_edge_batch(rng, ep, eb, ef, ec, what)
+        batch = [torch.from_numpy(a).to(dev) for a in batch]
         eparams = forest_fit_equal(torch, forest, fit_keys[:ep].contiguous(), *batch, et, ed,
                                    ec, what)
         eT = (protos[rng.integers(0, ec, 900)] + 0.7 * rng.normal(size=(900, ef))).astype(np.float32)
         eTy = rng.integers(0, ec, 900).astype(np.int32)
         eidx = rng.integers(0, 900, (ep, 777)).astype(np.int32 if what == "int32 idx" else np.int16)
         forest_equal(torch, forest, eparams, *(torch.from_numpy(a).to(dev) for a in (eT, eTy, eidx)),
-                     what)
+                     ec, what)
     print(f"K11 forest_fit and K12 forest_predict_err: bitwise equal to their plain versions on "
           f"the main path's first batch [{p}, {b}] F={f} C={c} T={trees} depth {depth} with its "
           f"fit keys (K12 at [{p}, {n}]), on random rows, and at "
@@ -1218,7 +1252,7 @@ def check_k11_k12(torch, kernels, forest, prep, dev):
 
     fit_fn, pred_fn = kernels.launcher("forest_fit"), kernels.launcher("forest_predict_err")
     out = forest.ForestParams(*(torch.empty_like(t) for t in params))
-    scratch = forest.forest_fit_scratch(p, b, trees, depth, dev)
+    scratch = forest.forest_fit_scratch(p, b, f, c, trees, depth, dev)
     fargs = forest.forest_fit_args(fit_keys, *main, trees, depth, c, out, scratch)
     fit_ms = graph_ms(lambda: kernels.check("forest_fit", fit_fn(*fargs, kernels.stream_handle(dev))))
     fit_host = host_us(lambda: forest.forest_fit(fit_keys, *main, trees, depth, c))
@@ -1226,49 +1260,56 @@ def check_k11_k12(torch, kernels, forest, prep, dev):
                         reps=3, rounds=3)
     floor = kernels.launcher("forest_fit_floor")
     fit_floor = graph_ms(lambda: kernels.check("forest_fit_floor", floor(
-        p, b, trees, depth, int(scratch is not None), kernels.stream_handle(dev))))
+        p, b, f, c, trees, depth, kernels.stream_handle(dev))))
     tn = trees * ((1 << depth) - 1)
     # X, y, w and the keys read once; proj, thresh and leaf_class written once
     fb_ms, fby = bound(p * b * (f + 2) * 4 + p * 8 + p * (f * tn + tn + trees * (1 << depth)) * 4,
                        p * forest_fit_ops(b, f, trees, depth))
+    fplan = forest.k11_plan(b, f, c, trees, depth)
     print(f"K11 forest_fit [{p}, {b}] F={f} C={c} T={trees} depth {depth}: {fit_ms:.5f} ms "
           f"device (graph of 50), {fit_host:.1f} us host a call, {fit_plain:.4f} ms plain, "
           f"bound {fb_ms:.5f} ms ({fby}), floor {fit_floor:.5f} ms (an empty kernel with its "
-          "grid, block and shared memory)")
+          f"grid, block and shared memory); {p * trees} CTAs, layout {fplan._asdict()}")
 
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
-    votes = forest.k12_votes(p, n, f, trees, depth, dev)
-    pargs = forest.forest_predict_err_args(params, Tp, Ty, idx, err, None, votes)
+    work = forest.k12_workspace(p, n, f, trees, depth, c, dev)
+    pargs = forest.forest_predict_err_args(params, Tp, Ty, idx, c, err, None, work)
     pred_ms = graph_ms(lambda: kernels.check("forest_predict_err",
                                              pred_fn(*pargs, kernels.stream_handle(dev))),
                        reps=10, rounds=3)
-    pred_host = host_us(lambda: forest.forest_predict_err(params, Tp, Ty, idx))
+    pred_host = host_us(lambda: forest.forest_predict_err(params, Tp, Ty, idx, classes=c))
     pred_plain = time_ms(lambda: forest.forest_predict_err_reference(params, Tp, Ty, idx),
                          reps=3, rounds=3)
     pfloor = kernels.launcher("forest_predict_err_floor")
     pred_floor = graph_ms(lambda: kernels.check("forest_predict_err_floor", pfloor(
-        p, n, f, trees, depth, kernels.stream_handle(dev))))
+        p, n, f, trees, depth, c, kernels.stream_handle(dev))))
+    pred_lib = k12_library_ms(torch, params, Tp, idx, f)
     # idx i16 + err f32 a row, the row table and labels, the params read
     # once; a product and an add a (row, visited node, feature), and a
     # tally of the T votes a row
     pb_ms, pby = bound(p * n * 6 + Tp.numel() * 4 + Ty.numel() * 4
                        + p * (f * tn + tn + trees * (1 << depth)) * 4,
                        p * n * (2 * trees * depth * f + trees))
+    pplan = forest.k12_plan(dev, p, n, f, trees, depth, c)
     print(f"K12 forest_predict_err [{p}, {n}] F={f} T={trees} depth {depth}: {pred_ms:.5f} ms "
           f"device (graph of 10), {pred_host:.1f} us host a call, {pred_plain:.4f} ms plain, "
           f"bound {pb_ms:.5f} ms ({pby}), floor {pred_floor:.5f} ms (an empty kernel with its "
-          "grid, block and shared memory)")
+          f"grid, block and shared memory), library {pred_lib:.5f} ms (torch.bmm of the "
+          f"gathered rows by all {tn} nodes' projections, TF32 off: the products only); "
+          f"plan {pplan._asdict()}")
     rows = [
         dict(name="forest_fit", route="cuda",
              source="distributed_drift_detection_tpu_torch/csrc/forest_fit.cu",
              replaces="distributed_drift_detection_tpu/models/classifiers.py:391",
              max_abs_err=0.0, ms=fit_ms, host_us=fit_host, plain_ms=fit_plain,
-             bound_ms=fb_ms, bound_by=fby, library_ms=None, floor_ms=fit_floor),
+             bound_ms=fb_ms, bound_by=fby, library_ms=None, floor_ms=fit_floor,
+             plan=fplan._asdict()),
         dict(name="forest_predict_err", route="cuda",
              source="distributed_drift_detection_tpu_torch/csrc/forest_predict_err.cu",
              replaces="distributed_drift_detection_tpu/models/classifiers.py:431",
              max_abs_err=0.0, ms=pred_ms, host_us=pred_host, plain_ms=pred_plain,
-             bound_ms=pb_ms, bound_by=pby, library_ms=None, floor_ms=pred_floor),
+             bound_ms=pb_ms, bound_by=pby, library_ms=pred_lib, floor_ms=pred_floor,
+             plan=pplan._asdict()),
     ]
     return rows
 

@@ -1,4 +1,4 @@
-// K11 — the oblique forest's fit from its key, one CTA a partition.
+// K11 — the oblique forest's fit from its key, one CTA a (partition, tree).
 //
 // Replaces the JAX package's models/classifiers.py `make_forest.fit`
 // (:391-429), XLA-lowered there as threefry hashes and erf_inv for the
@@ -13,15 +13,11 @@
 //    clip(int(uniform(kt, m, 0.1, 0.9) · nv), 0, B − 1), nv = max(Σw, 1);
 // 2. z[r][m], each row's projection onto each node (csrc/forest.cuh);
 // 3. thresh[m] = the idx[m]-th of column m of z in a stable sort of
-//    jnp.sort's keys, the invalid rows (w = 0) as +inf — by a rank count:
-//    a thread per (row, node) counts the rows before it in that order,
-//    and the row whose rank is idx[m] writes its value;
+//    jnp.sort's keys, the invalid rows (w = 0) as +inf;
 // 4. each row walks each tree to its leaf;
-// 5. per (tree, row), the weight of the rows of its label in its leaf,
-//    summed in row order; the row whose (count, −label, −row) is largest
-//    in its leaf writes the leaf's class when its count is positive; every
-//    other leaf keeps the batch's majority class (the first class of
-//    largest weight, summed in row order).
+// 5. a leaf's class is the first class of largest weight among its rows,
+//    a leaf of no weight the batch's majority class (the first class of
+//    largest weight).
 // The plain version is models/forest.py `forest_fit_reference`; the two
 // are equal bit for bit (the projections by the chain of forest.cuh, the
 // draws by threefry.cuh; built with -fmad=false -ftz=true for erf_inv).
@@ -32,18 +28,49 @@
 // operations the function needs a partition, whatever its algorithm —
 // 4,704 normals (≈ 40 f32 operations each in erf_inv, the integer hash
 // aside), 940,800 products and adds of z, a selection of ⌈log2 B⌉ = 7
-// compares a (row, node) (156,800: what a sort of each column takes), and
-// 16,000 for the routing, the leaf counts and the batch's class counts —
-// 1.30 M, 20.8 M over 16 partitions: 0.31 us at 67 TFLOP/s. This design
-// does more than that: its rank count compares B² keys a node (2.22 M a
-// partition) and its leaf counts B² rows a tree (0.64 M), for the sake of
-// flat loops. What bounds it is latency: one CTA a partition
-// on 16 of 132 SMs, each phase a chain of dependent shared loads. The
-// design keeps each phase a flat loop over independent items for 512
-// threads, the partition's z, its sort keys, leaf ids, idx, w and y in
-// shared memory (193 KB at the main path's shapes), or in a global
-// workspace when they do not fit (`work_words`): the kernel's code reads
-// them through one pointer either way.
+// compares a (row, node), and 16,000 for the routing, the leaf counts and
+// the batch's class counts — 20.8 M over 16 partitions: 0.31 us at 67
+// TFLOP/s. What bounds a launch this small is latency: each step is a
+// dependent chain (the hash's 20 rounds, erf_inv, a projection's 21 adds)
+// and the steps wait on each other. The design cuts the chain a CTA runs
+// and runs as many CTAs as the card holds:
+//
+// * A CTA a (partition, tree): P·T CTAs (512 at the main path's
+//   shapes). A tree's normals are proj[j][m] for its own columns m:
+//   counter j·T·n + m, drawn alone; its uniforms, its z, thresholds,
+//   routing and leaf counts touch no other tree. Only nv and the batch's majority class
+//   are shared across a partition; every CTA computes them itself, the
+//   same bits in each: the weights are {0, 1} (the wrapper's contract),
+//   so every sum is an integer below 2^24, exact in any order.
+// * The thresholds by selection: a warp a column finds the idx-th (key,
+//   row) of its B rows by a radix select on the keys, a ballot over each
+//   lane's keys a bit, from the highest bit the keys differ in until one
+//   candidate is left (≈ log2 B passes), then the rank among equal keys
+//   in row order — jnp.sort's stable order. Each key is read once into
+//   registers when B <= 128. The row found writes its projection,
+//   recomputed (the same chain, the same bits), or +inf when it is
+//   invalid.
+// * Leaf counts as counters: [2^d][C] and the batch's [C] integer counts
+//   in shared memory; each row of weight 1 adds one to its (leaf, label)
+//   cell — a warp's rows of one cell at once, by a shared atomic from
+//   their lowest lane (labels outside [0, C) dropped, as JAX's scatter
+//   drops them) — the same numbers as the weights' f32 sums, whose
+//   integer values are exact in any order; a warp a leaf then takes the
+//   first class of largest count. Where the counters do not fit
+//   (deep trees, many classes), the row rule: each row's weight of its
+//   label in its leaf (O(B²) a tree), and the row of largest (count,
+//   −label, −row) in a leaf writes its class.
+// * z a chunk of columns at a time: z of as many of the tree's columns as
+//   fit sits in shared memory, [chunk][B]; the keys are worked out from it
+//   as the selection reads it. When one chunk holds all the tree's columns
+//   (all 7 at the main path's shapes) the routing reads z there, else it
+//   recomputes each visited projection (deep trees). The tree's columns,
+//   the rows and the thresholds sit in shared memory when they fit, else
+//   are read from device memory (the columns and thresholds from the
+//   outputs this CTA wrote); z of rows too many for one column in shared
+//   memory, and the row rule's ids and counts, take a global workspace
+//   (`forest_fit_plan`). `force` puts the row rule and the global layout
+//   within a test's reach at small shapes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -56,161 +83,384 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 4;  // keys a lane holds in registers: B <= 128
+constexpr int kCols = 8;   // columns a thread projects a row onto at once
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on an H100
 constexpr int kMaxDevices = 64;
-
-// The static shared memory beside the workspace, kept free of it.
+// The static shared memory beside the dynamic, kept free of it.
 constexpr size_t kStaticSmem = 1024;
 
-// Words of a partition's workspace: z [B][T·n] f32, the sort keys of z
-// [B][T·n] i32 (then the per-(row, tree) counts), leaf ids [B][T] i32,
-// idx [T·n] i32, w [B] f32, y [B] i32.
-__host__ __device__ inline size_t work_words(int b, int trees, int n) {
-  const size_t tn = static_cast<size_t>(trees) * n;
-  return 2 * static_cast<size_t>(b) * tn + static_cast<size_t>(b) * trees + tn + 2 * b;
+// `force` bits (tests): the row rule; nothing staged (the rows, columns
+// and thresholds read from device memory; z, the ids and counts in the
+// global workspace).
+constexpr int kForceRowRule = 1, kForceGlobal = 2;
+
+struct Args {
+  const uint32_t* keys;
+  const float* X;
+  const int* y;
+  const float* w;
+  int b, f, c, trees, depth;
+  float factor;
+  float* proj;
+  float* thresh;
+  int* leaf_class;
+  float* gwork;
+};
+
+// A launch's layout (`forest_fit_plan`).
+struct Plan {
+  int counters;     // leaf and batch counters in shared memory (else the row rule)
+  int ids_global;   // the row rule's leaf ids and counts [2][B] in the global workspace
+  int th_staged;    // the tree's thresholds [n] in shared memory
+  int cols_staged;  // the tree's columns node-major [n][F] in shared memory
+  int x_staged;     // the rows [B][F] in shared memory
+  int z_global;     // z of a chunk of columns in the global workspace
+  int chunk;        // columns a round of the thresholds
+  int smem;         // bytes of dynamic shared memory
+  long long work_words;  // floats of one CTA's global workspace
+};
+
+__device__ __forceinline__ uint32_t ukey(int key) {
+  return static_cast<uint32_t>(key) ^ 0x80000000u;  // the signed order, unsigned
 }
 
-__global__ void __launch_bounds__(kThreads)
-    forest_fit_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ X,
-                      const int* __restrict__ y, const float* __restrict__ w, int b, int f,
-                      int c, int trees, int depth, float factor, float* proj, float* thresh,
-                      int* __restrict__ leaf_class, float* gwork) {
-  extern __shared__ float smem[];
-  __shared__ float s_nv;
-  __shared__ float s_best[kWarps];
+// Row r's key in a column whose projections are zs: jnp.sort's order of
+// its value, +inf for an invalid row.
+__device__ __forceinline__ uint32_t row_key(const float* zs, const float* w, int r) {
+  return ukey(forest::sort_key(w[r] > 0.0f ? zs[r] : CUDART_INF_F));
+}
+
+// The row at rank k (from 0) in the stable ascending order of the keys of
+// the column zs[0 .. b): the radix select above, for a whole warp (every
+// lane gets it), from the highest bit the keys differ in down to the bit
+// where one candidate is left (≈ log2 B passes for keys of distinct
+// values). S > 0: the keys held in S registers a lane (b <= 32·S).
+template <int S>
+__device__ int select_row(const float* zs, const float* w, int b, int k, int lane) {
+  const int slots = S > 0 ? S : (b + 31) >> 5;
+  uint32_t reg[S > 0 ? S : 1];
+  uint32_t all = 0xFFFFFFFFu, any = 0u;
+#pragma unroll
+  for (int s = 0; s < slots; ++s) {
+    const int r = (s << 5) + lane;
+    const uint32_t v = r < b ? row_key(zs, w, r) : 0u;
+    if (S > 0) reg[S > 0 ? s : 0] = v;
+    if (r < b) {
+      all &= v;
+      any |= v;
+    }
+  }
+  all = __reduce_and_sync(0xFFFFFFFFu, all);
+  any = __reduce_or_sync(0xFFFFFFFFu, any);
+  // `key` holds the bits decided so far (those of `ge`); the candidates
+  // are the keys that match it there, `total` of them, and k is the rank
+  // sought among them
+  uint32_t key = all, ge = 0xFFFFFFFFu;
+  if (all != any) {
+    const int hb = 31 - __clz(all ^ any);  // the highest bit the keys differ in
+    ge = ~(0xFFFFFFFFu >> (31 - hb));
+    key &= ge;
+    int total = b;
+    for (int bit = hb; bit >= 0 && total > 1; --bit) {
+      const uint32_t gb = ge | (1u << bit);
+      int below = 0;  // candidates with a 0 at `bit`
+#pragma unroll
+      for (int s = 0; s < slots; ++s) {
+        const int r = (s << 5) + lane;
+        const uint32_t v = S > 0 ? reg[S > 0 ? s : 0] : (r < b ? row_key(zs, w, r) : 0u);
+        below += __popc(__ballot_sync(0xFFFFFFFFu, r < b && (v & gb) == key));
+      }
+      if (k >= below) {
+        k -= below;
+        key |= 1u << bit;
+        total -= below;
+      } else {
+        total = below;
+      }
+      ge = gb;
+    }
+  }
+  // the k-th candidate in row order: one left, or the keys equal to `key`
+#pragma unroll
+  for (int s = 0; s < slots; ++s) {
+    const int r = (s << 5) + lane;
+    const uint32_t v = S > 0 ? reg[S > 0 ? s : 0] : (r < b ? row_key(zs, w, r) : 0u);
+    const bool eq = r < b && (v & ge) == key;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, eq);
+    const int cnt = __popc(m);
+    if (k < cnt) {
+      const unsigned hit =
+          __ballot_sync(0xFFFFFFFFu, eq && __popc(m & ((1u << lane) - 1u)) == k);
+      return (s << 5) + __ffs(hit) - 1;
+    }
+    k -= cnt;
+  }
+  return 0;  // not reached: k < b
+}
+
+// (s, k) beats (best, at): a larger value, or the same at a lower index.
+__device__ __forceinline__ bool beats(float s, int k, float best, int at) {
+  return s > best || (s == best && k < at);
+}
+
+// The first index of the largest of the counts v[0 .. c), for a whole
+// warp (every lane gets both).
+__device__ __forceinline__ void warp_argmax(const int* v, int c, int lane, int& best, int& at) {
+  best = -1;
+  at = c;
+  for (int k = lane; k < c; k += 32)
+    if (v[k] > best) {
+      best = v[k];
+      at = k;
+    }
+  for (int o = 16; o > 0; o >>= 1) {
+    const int ob = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+    const int oa = __shfl_xor_sync(0xFFFFFFFFu, at, o);
+    if (ob > best || (ob == best && oa < at)) {
+      best = ob;
+      at = oa;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) forest_fit_kernel(const Args a, const Plan pl) {
+  extern __shared__ float4 smem4[];
+  __shared__ float s_part[kWarps];
   __shared__ int s_cls[kWarps];
-  const int n = (1 << depth) - 1, leaves = n + 1, tn = trees * n;
-  const int tid = threadIdx.x;
-  const size_t part = blockIdx.x;
-  float* z = gwork != nullptr ? gwork + part * work_words(b, trees, n) : smem;
-  int* zkey = reinterpret_cast<int*>(z + static_cast<size_t>(b) * tn);
-  int* leaf = zkey + static_cast<size_t>(b) * tn;
-  int* idx = leaf + static_cast<size_t>(b) * trees;
-  float* wv = reinterpret_cast<float*>(idx + tn);
-  int* yv = reinterpret_cast<int*>(wv + b);
-  const float* Xp = X + part * b * f;
-  float* pp = proj + part * f * tn;
-  float* tp = thresh + part * tn;
-  int* lp = leaf_class + part * trees * leaves;
+  __shared__ int s_major;
+  __shared__ uint32_t s_key[4];  // kp, kt
+  const int b = a.b, f = a.f, c = a.c;
+  const int n = (1 << a.depth) - 1, leaves = n + 1, tn = a.trees * n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int part = blockIdx.x / a.trees, tree = blockIdx.x - part * a.trees;
+  const int m0 = tree * n;
+  const float* X = a.X + static_cast<size_t>(part) * b * f;
+  const int* y = a.y + static_cast<size_t>(part) * b;
+  const float* w = a.w + static_cast<size_t>(part) * b;
+  float* pp = a.proj + static_cast<size_t>(part) * f * tn;
+  float* tp = a.thresh + static_cast<size_t>(part) * tn + m0;  // this tree's thresholds
+  int* lp = a.leaf_class + static_cast<size_t>(blockIdx.x) * leaves;
+  float* gw = a.gwork != nullptr ? a.gwork + static_cast<size_t>(blockIdx.x) * pl.work_words
+                                 : nullptr;
 
-  const threefry::Pair key{keys[2 * part], keys[2 * part + 1]};
-  const threefry::Pair kp = threefry::split(key, 0u), kt = threefry::split(key, 1u);
+  float* sp = reinterpret_cast<float*>(smem4);
+  int* cnt = nullptr;  // [leaves][C] then the batch's [C]
+  int* ids = nullptr;    // the row rule: leaf ids [B], then counts [B]
+  float* rc = nullptr;
+  if (pl.counters) {
+    cnt = reinterpret_cast<int*>(sp);
+    sp += static_cast<size_t>(leaves + 1) * c;
+  } else {
+    float* base = pl.ids_global ? gw : sp;
+    ids = reinterpret_cast<int*>(base);
+    rc = base + b;
+    if (pl.ids_global) gw += 2 * static_cast<size_t>(b); else sp += 2 * static_cast<size_t>(b);
+  }
+  float* ths = tp;
+  if (pl.th_staged) {
+    ths = sp;
+    sp += n;
+  }
+  float* cs = nullptr;
+  if (pl.cols_staged) {
+    cs = sp;
+    sp += static_cast<size_t>(n) * f;
+  }
+  float* xs = nullptr;
+  if (pl.x_staged) {
+    xs = sp;
+    sp += static_cast<size_t>(b) * f;
+  }
+  float* zb = pl.z_global ? gw : sp;  // z of a chunk of columns [cn][B]
 
-  // 1. the normals, the rows' weights and labels, nv
-  for (int i = tid; i < f * tn; i += kThreads) pp[i] = threefry::normal(kp, i, factor);
+  // the fit key's two halves, split once by warp 0 (every lane of a warp
+  // issues a split as one instruction stream, so the other warps would
+  // only repeat it)
+  if (warp == 0) {
+    const threefry::Pair half = threefry::split({a.keys[2 * part], a.keys[2 * part + 1]},
+                                                static_cast<uint32_t>(lane & 1));
+    if (lane < 2) {
+      s_key[2 * lane] = half.a;
+      s_key[2 * lane + 1] = half.b;
+    }
+  }
+
+  // 1. zero the counters, stage the rows, sum the weights, draw the
+  // tree's columns of proj
+  if (pl.counters)
+    for (int i = tid; i < (leaves + 1) * c; i += kThreads) cnt[i] = 0;
+  if (pl.x_staged)
+    for (int i = tid; i < b * f; i += kThreads) xs[i] = X[i];
+  float s = 0.0f;
+  for (int r = tid; r < b; r += kThreads) s += w[r];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+  if (lane == 0) s_part[warp] = s;
+  __syncthreads();
+  const threefry::Pair kp{s_key[0], s_key[1]}, kt{s_key[2], s_key[3]};
+  for (int i = tid; i < n * f; i += kThreads) {
+    const int j = i / n, mm = i - j * n;
+    const size_t at = static_cast<size_t>(j) * tn + m0 + mm;
+    const float v = threefry::normal(kp, at, a.factor);
+    pp[at] = v;
+    if (cs != nullptr) cs[mm * f + j] = v;
+  }
+  __syncthreads();
+  if (xs != nullptr) X = xs;
+  // column mm of this tree: element j at cols[mm·sm + j·sj]
+  const float* cols = cs != nullptr ? cs : pp + m0;
+  const int sm = cs != nullptr ? f : 1, sj = cs != nullptr ? 1 : tn;
+  float total = 0.0f;
+  for (int k = 0; k < kWarps; ++k) total += s_part[k];
+  const float nv = fmaxf(total, 1.0f);
+
+  // 2-3. the thresholds, a chunk of columns a round: z of the chunk's
+  // columns [cn][B] — a thread projects a row onto up to kCols columns at
+  // once, each chain forest.cuh's, so a feature read serves kCols
+  // products — then a warp a column
+  for (int c0 = 0; c0 < n; c0 += pl.chunk) {
+    const int cn = min(pl.chunk, n - c0);
+    const int groups = (cn + kCols - 1) / kCols;
+    for (int i = tid; i < groups * b; i += kThreads) {
+      const int g = i / b, r = i - g * b;
+      const int m1 = c0 + g * kCols, mc = min(kCols, c0 + cn - m1);
+      const float* xr = X + static_cast<size_t>(r) * f;
+      float acc[kCols];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+      for (int j = 0; j < f; ++j) {
+        const float xj = xr[j];
+        const float* cj = cols + static_cast<size_t>(m1) * sm + static_cast<size_t>(j) * sj;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q)
+          if (q < mc)
+            acc[q] = forest::add_rn(acc[q], forest::mul_rn(xj, cj[static_cast<size_t>(q) * sm]));
+      }
+#pragma unroll
+      for (int q = 0; q < kCols; ++q)
+        if (q < mc) zb[static_cast<size_t>(m1 - c0 + q) * b + r] = acc[q];
+    }
+    __syncthreads();
+    for (int mm = warp; mm < cn; mm += kWarps) {
+      const int m = c0 + mm;
+      const float u = threefry::uniform(kt, m0 + m, 0.1f, 0.9f);
+      const int k = min(max(__float2int_rz(forest::mul_rn(u, nv)), 0), b - 1);
+      const float* zs = zb + static_cast<size_t>(mm) * b;
+      const int r = b <= 32 * kSlots ? select_row<kSlots>(zs, w, b, k, lane)
+                                     : select_row<0>(zs, w, b, k, lane);
+      if (lane == 0) {
+        const float th = w[r] > 0.0f ? zs[r] : CUDART_INF_F;
+        tp[m] = th;
+        if (pl.th_staged) ths[m] = th;
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. every row to its leaf; its weight to its (leaf, label) and label
+  // counters — the rows of a warp with one (leaf, label) added at once by
+  // their lowest lane (a batch of one class would otherwise serialise on
+  // one counter) — or its leaf id for the row rule
+  for (int r0 = warp * 32; r0 < b; r0 += kThreads) {
+    const int r = r0 + lane;
+    int leaf = 0;
+    if (r < b) {
+      const float* xr = X + static_cast<size_t>(r) * f;
+      int node = 0;
+      for (int d = 0; d < a.depth; ++d) {
+        const float z = pl.chunk == n ? zb[static_cast<size_t>(node) * b + r]
+                                      : forest::project(xr, 1, cols, f, node, sm, sj);
+        node = 2 * node + 1 + (forest::gt(z, ths[node]) ? 1 : 0);
+      }
+      leaf = node - n;
+    }
+    if (pl.counters) {
+      const int cls = r < b ? y[r] : -1;
+      const bool ok = r < b && cls >= 0 && cls < c && w[r] != 0.0f;
+      const unsigned same_leaf = __match_any_sync(0xFFFFFFFFu, ok ? leaf * c + cls : -1);
+      const unsigned same_cls = __match_any_sync(0xFFFFFFFFu, ok ? cls : -1);
+      if (ok && lane == __ffs(same_leaf) - 1)
+        atomicAdd(cnt + static_cast<size_t>(leaf) * c + cls, __popc(same_leaf));
+      if (ok && lane == __ffs(same_cls) - 1)
+        atomicAdd(cnt + static_cast<size_t>(leaves) * c + cls, __popc(same_cls));
+    } else if (r < b) {
+      ids[r] = leaf;
+    }
+  }
+  __syncthreads();
+
+  // 5. the leaf classes
+  if (pl.counters) {
+    int best, major;
+    warp_argmax(cnt + static_cast<size_t>(leaves) * c, c, lane, best, major);
+    for (int l = warp; l < leaves; l += kWarps) {
+      int at;
+      warp_argmax(cnt + static_cast<size_t>(l) * c, c, lane, best, at);
+      if (lane == 0) lp[l] = best > 0 ? at : major;
+    }
+    return;
+  }
+  // the row rule: per row, the weight of its label in its leaf (-1 for a
+  // label of no class) and in the batch; the batch's majority
+  float best = -2.0f;
+  int best_c = 0x7FFFFFFF;
   for (int r = tid; r < b; r += kThreads) {
-    wv[r] = w[part * b + r];
-    yv[r] = y[part * b + r];
-  }
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int r = 0; r < b; ++r) s = forest::add_rn(s, w[part * b + r]);
-    s_nv = fmaxf(s, 1.0f);
-  }
-  __syncthreads();
-  // the order statistic each threshold takes, and z
-  for (int m = tid; m < tn; m += kThreads) {
-    const float u = threefry::uniform(kt, m, 0.1f, 0.9f);
-    idx[m] = min(max(__float2int_rz(forest::mul_rn(u, s_nv)), 0), b - 1);
-  }
-  const int inf_key = forest::sort_key(CUDART_INF_F);
-  for (int i = tid; i < b * tn; i += kThreads) {
-    const int r = i / tn;
-    const float v = forest::project(Xp + static_cast<size_t>(r) * f, 1, pp, f, i - r * tn, 1, tn);
-    z[i] = v;
-    zkey[i] = wv[r] > 0.0f ? forest::sort_key(v) : inf_key;  // invalid rows as +inf
-  }
-  __syncthreads();
-
-  // 3. the thresholds: thread (r, m) ranks row r in column m — the rows
-  // before it in the stable order: those above r with a smaller key, and
-  // those below r with a key no larger
-  for (int i = tid; i < b * tn; i += kThreads) {
-    const int r = i / tn, m = i - r * tn;
-    const int k = zkey[i];
-    int rank = 0;
-    for (int q = 0; q < r; ++q) rank += zkey[q * tn + m] <= k;
-    for (int q = r + 1; q < b; ++q) rank += zkey[q * tn + m] < k;
-    if (rank == idx[m]) tp[m] = wv[r] > 0.0f ? z[i] : CUDART_INF_F;
-  }
-  __syncthreads();
-
-  // 4. every row to its leaf in every tree; the batch's majority class
-  for (int i = tid; i < b * trees; i += kThreads) {
-    const int r = i / trees, t = i - r * trees;
-    const float* zr = z + static_cast<size_t>(r) * tn + t * n;
-    const float* th = tp + t * n;
-    int node = 0;
-    for (int d = 0; d < depth; ++d) node = 2 * node + 1 + (forest::gt(zr[node], th[node]) ? 1 : 0);
-    leaf[i] = node - n;
-  }
-  float best = -1.0f;
-  int best_c = 0;
-  for (int k = tid; k < c; k += kThreads) {  // classes in order: the first max stays
-    float s = 0.0f;
-    for (int r = 0; r < b; ++r)
-      if (yv[r] == k) s = forest::add_rn(s, wv[r]);
-    if (s > best) {
-      best = s;
-      best_c = k;
+    const int lf = ids[r], cls = y[r];
+    float sl = -1.0f, sb = -1.0f;
+    if (cls >= 0 && cls < c) {
+      sl = sb = 0.0f;
+      for (int q = 0; q < b; ++q)
+        if (y[q] == cls) {
+          sb += w[q];
+          if (ids[q] == lf) sl += w[q];
+        }
+    }
+    rc[r] = sl;
+    if (beats(sb, cls, best, best_c)) {
+      best = sb;
+      best_c = cls;
     }
   }
   for (int o = 16; o > 0; o >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, o);
-    const int oc = __shfl_down_sync(0xffffffffu, best_c, o);
-    if (ob > best || (ob == best && oc < best_c)) {
+    const float ob = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+    const int oc = __shfl_xor_sync(0xFFFFFFFFu, best_c, o);
+    if (beats(ob, oc, best, best_c)) {
       best = ob;
       best_c = oc;
     }
   }
-  if ((tid & 31) == 0) {
-    s_best[tid >> 5] = best;
-    s_cls[tid >> 5] = best_c;
+  if (lane == 0) {
+    s_part[warp] = best;
+    s_cls[warp] = best_c;
   }
   __syncthreads();
   if (tid == 0) {
     for (int k = 1; k < kWarps; ++k)
-      if (s_best[k] > best || (s_best[k] == best && s_cls[k] < best_c)) {
-        best = s_best[k];
+      if (beats(s_part[k], s_cls[k], best, best_c)) {
+        best = s_part[k];
         best_c = s_cls[k];
       }
-    s_cls[0] = best_c;
+    s_major = best > 0.0f ? best_c : 0;  // no weight: jnp.argmax of zeros
   }
   __syncthreads();
-
-  // 5. every leaf the batch majority; per (row, tree) the weight of its
-  // label in its leaf (-1 for a label of no class), in the keys' place
-  float* cnt = reinterpret_cast<float*>(zkey);
-  for (int i = tid; i < trees * leaves; i += kThreads) lp[i] = s_cls[0];
-  for (int i = tid; i < b * trees; i += kThreads) {
-    const int r = i / trees, t = i - r * trees;
-    const int lf = leaf[i], cls = yv[r];
-    float s = -1.0f;
-    if (cls >= 0 && cls < c) {
-      s = 0.0f;
-      for (int q = 0; q < b; ++q)
-        if (leaf[q * trees + t] == lf && yv[q] == cls) s = forest::add_rn(s, wv[q]);
-    }
-    cnt[i] = s;
-  }
+  for (int l = tid; l < leaves; l += kThreads) lp[l] = s_major;
   __syncthreads();
   // the row of largest (count, −label, −row) in each leaf writes its class
-  for (int i = tid; i < b * trees; i += kThreads) {
-    const int r = i / trees, t = i - r * trees;
-    const float s = cnt[i];
-    if (!(s > 0.0f)) continue;
-    const int lf = leaf[i], cls = yv[r];
+  for (int r = tid; r < b; r += kThreads) {
+    const float sr = rc[r];
+    if (!(sr > 0.0f)) continue;
+    const int lf = ids[r], cls = y[r];
     bool top = true;
     for (int q = 0; q < b && top; ++q) {
-      if (q == r || leaf[q * trees + t] != lf) continue;
-      const float sq = cnt[q * trees + t];
-      const int cq = yv[q];
-      top = !(sq > s || (sq == s && (cq < cls || (cq == cls && q < r))));
+      if (q == r || ids[q] != lf) continue;
+      const float sq = rc[q];
+      const int cq = y[q];
+      top = !(sq > sr || (sq == sr && (cq < cls || (cq == cls && q < r))));
     }
-    if (top) lp[t * leaves + lf] = cls;
+    if (top) lp[lf] = cls;
   }
 }
 
@@ -218,72 +468,106 @@ __global__ void __launch_bounds__(kThreads)
 // time is the floor under K11's.
 __global__ void forest_fit_floor_kernel() {}
 
+// The layout at a shape: in shared memory, in this order and each where
+// it fits beside the ones before — the counters (else the row rule's ids
+// and counts), the thresholds, the tree's columns, the rows, then the
+// z of as many columns as fit (at least one, else a chunk of kWarps
+// columns in the global workspace).
+bool layout(int b, int f, int c, int trees, int depth, int force, Plan& pl) {
+  if (b < 1 || f < 1 || c < 1 || trees < 1 || depth < 1 || depth > 16) return false;
+  const long long n = (1LL << depth) - 1, leaves = n + 1, tn = trees * n;
+  if (tn * f > INT32_MAX || tn * b > INT32_MAX || static_cast<long long>(b) * f > INT32_MAX ||
+      (leaves + 1) * c > INT32_MAX)
+    return false;
+  pl = Plan{};
+  const long long budget = static_cast<long long>(kMaxSmem - kStaticSmem);
+  const bool global = force & kForceGlobal;
+  long long smem = 0;
+  auto fits = [&](long long bytes) { return !global && smem + bytes <= budget; };
+  const long long counters = 4 * (leaves + 1) * c;
+  pl.counters = !(force & kForceRowRule) && smem + counters <= budget;
+  if (pl.counters) {
+    smem += counters;
+  } else {
+    pl.ids_global = !fits(8LL * b);
+    if (!pl.ids_global) smem += 8LL * b;
+  }
+  if ((pl.th_staged = fits(4 * n))) smem += 4 * n;
+  if ((pl.cols_staged = fits(4 * n * f))) smem += 4 * n * f;
+  if ((pl.x_staged = fits(4LL * b * f))) smem += 4LL * b * f;
+  const long long chunk = global ? 0 : (budget - smem) / (4LL * b);
+  pl.z_global = chunk < 1;
+  pl.chunk = static_cast<int>(pl.z_global ? (n < kWarps ? n : kWarps) : (chunk < n ? chunk : n));
+  if (!pl.z_global) smem += 4LL * pl.chunk * b;
+  pl.smem = static_cast<int>(smem);
+  pl.work_words = (pl.ids_global ? 2LL * b : 0) + (pl.z_global ? static_cast<long long>(pl.chunk) * b : 0);
+  return true;
+}
+
 std::atomic<int> g_raised[kMaxDevices];
 std::atomic<int> g_floor_raised[kMaxDevices];
 
-// Shared memory of a launch: the workspace when it fits (gwork null), else
-// none; above 48 KB `kernel`'s limit is raised once per (device, size).
-cudaError_t shared_bytes(int b, int trees, int n, bool global, const void* kernel,
-                         std::atomic<int>* raised, size_t& smem) {
-  smem = global ? 0 : 4 * work_words(b, trees, n);
-  if (smem > kMaxSmem - kStaticSmem) return cudaErrorInvalidValue;
-  if (smem <= kDefaultSmem) return cudaSuccess;
+// Above 48 KB, raise `kernel`'s limit once per (device, size).
+cudaError_t allow_shared(int smem, const void* kernel, std::atomic<int>* raised) {
+  if (static_cast<size_t>(smem) <= kDefaultSmem) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (static_cast<int>(smem) > raised[dev].load(std::memory_order_relaxed)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  if (smem > raised[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    raised[dev].store(static_cast<int>(smem), std::memory_order_relaxed);
+    raised[dev].store(smem, std::memory_order_relaxed);
   }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// K11 at a shape: the floats of a partition's global workspace, or 0 when
-// the workspace fits the shared memory left beside the static (231,424 B),
-// into *out (models/forest.py `forest_fit_scratch` sizes `gwork` from it).
-extern "C" int forest_fit_workspace_words(int b, int trees, int depth, long long* out) {
-  if (b < 1 || trees < 1 || depth < 1 || depth > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t words = work_words(b, trees, (1 << depth) - 1);
-  *out = 4 * words <= kMaxSmem - kStaticSmem ? 0 : static_cast<long long>(words);
+// K11's layout at a shape, into out[0..8]: counters, ids global,
+// thresholds staged, columns staged, rows staged, z global, columns a
+// chunk, shared bytes, and the floats of a partition's global workspace
+// (trees × a CTA's; 0 when none) — models/forest.py `k11_plan`.
+extern "C" int forest_fit_plan(int b, int f, int c, int trees, int depth, int force,
+                               long long* out) {
+  Plan pl;
+  if (!layout(b, f, c, trees, depth, force, pl)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long vals[9] = {pl.counters,  pl.ids_global, pl.th_staged,
+                             pl.cols_staged, pl.x_staged,  pl.z_global,
+                             pl.chunk,     pl.smem,       pl.work_words * trees};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
   return 0;
 }
 
-// `gwork` is null when the workspace fits shared memory, else P ×
-// work_words floats (`forest_fit_workspace_words`). Returns a CUDA error
-// code (0 on a clean launch).
+// `gwork` is null when the plan has no global workspace, else P × its
+// floats a partition (`forest_fit_plan`). Returns a CUDA error code (0 on
+// a clean launch).
 extern "C" int forest_fit_launch(const int* keys, const float* X, const int* y, const float* w,
                                  int p, int b, int f, int c, int trees, int depth, float factor,
-                                 float* proj, float* thresh, int* leaf_class, float* gwork,
-                                 void* stream) {
+                                 int force, float* proj, float* thresh, int* leaf_class,
+                                 float* gwork, void* stream) {
   if (p == 0) return 0;
-  const long long tn = static_cast<long long>(trees) * ((1 << depth) - 1);
-  if (b < 1 || f < 1 || trees < 1 || depth < 1 || depth > 16 || tn * b > INT32_MAX ||
-      tn * f > INT32_MAX)
+  Plan pl;
+  if (!layout(b, f, c, trees, depth, force, pl) ||
+      static_cast<long long>(p) * trees > INT32_MAX || (pl.work_words > 0) != (gwork != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
-  const cudaError_t e = shared_bytes(b, trees, (1 << depth) - 1, gwork != nullptr,
-                                     reinterpret_cast<const void*>(forest_fit_kernel), g_raised,
-                                     smem);
+  const cudaError_t e =
+      allow_shared(pl.smem, reinterpret_cast<const void*>(forest_fit_kernel), g_raised);
   if (e != cudaSuccess) return static_cast<int>(e);
-  forest_fit_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint32_t*>(keys), X, y, w, b, f, c, trees, depth, factor, proj,
-      thresh, leaf_class, gwork);
+  const Args args{reinterpret_cast<const uint32_t*>(keys), X, y, w, b, f, c, trees, depth,
+                  factor, proj, thresh, leaf_class, gwork};
+  forest_fit_kernel<<<p * trees, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(args, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int forest_fit_floor_launch(int p, int b, int trees, int depth, int global,
+extern "C" int forest_fit_floor_launch(int p, int b, int f, int c, int trees, int depth,
                                        void* stream) {
   if (p == 0) return 0;
-  size_t smem = 0;
-  const cudaError_t e = shared_bytes(b, trees, (1 << depth) - 1, global != 0,
-                                     reinterpret_cast<const void*>(forest_fit_floor_kernel),
-                                     g_floor_raised, smem);
+  Plan pl;
+  if (!layout(b, f, c, trees, depth, 0, pl)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e =
+      allow_shared(pl.smem, reinterpret_cast<const void*>(forest_fit_floor_kernel), g_floor_raised);
   if (e != cudaSuccess) return static_cast<int>(e);
-  forest_fit_floor_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>();
+  forest_fit_floor_kernel<<<p * trees, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

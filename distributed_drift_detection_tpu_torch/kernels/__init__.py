@@ -135,32 +135,33 @@ _SIGNATURES = {
     "forest_fit": (
         "forest_fit_launch",
         [_P, _P, _P, _P,  # keys, X, y, w
-         _I, _I, _I, _I, _I, _I, _F,  # p, b, f, c, trees, depth, the normals' factor
+         _I, _I, _I, _I, _I, _I, _F, _I,  # p, b, f, c, trees, depth, the normals' factor, force
          _P, _P, _P, _P,  # proj, thresh, leaf_class, global workspace (or null)
          _P],  # stream
     ),
     "forest_fit_floor": (
-        "forest_fit_floor_launch", [_I, _I, _I, _I, _I, _P], "forest_fit",
+        "forest_fit_floor_launch", [_I, _I, _I, _I, _I, _I, _P], "forest_fit",
     ),
-    # K11 at a shape (rows, trees, depth, host int64 out): the floats of a
-    # partition's global workspace, 0 when it fits shared memory
-    "forest_fit_workspace_words": (
-        "forest_fit_workspace_words", [_I, _I, _I, _P], "forest_fit",
+    # K11's layout at a shape (rows, F, C, trees, depth, force, host int64
+    # out[9]; the last the floats of a partition's global workspace)
+    "forest_fit_plan": (
+        "forest_fit_plan", [_I, _I, _I, _I, _I, _I, _P], "forest_fit",
     ),
     "forest_predict_err": (
         "forest_predict_err_launch",
         [_P, _I, _P, _P, _I,  # table, its row stride, labels, idx, idx bytes
          _P, _P, _P,  # proj, thresh, leaf_class
-         _I, _I, _I, _I, _I,  # p, n, f, trees, depth
-         _P, _P, _P, _P],  # the votes' global workspace (or null), err, pred, stream
+         _I, _I, _I, _I, _I, _I, _I,  # p, n, f, trees, depth, classes, force
+         _P, _P, _P, _P],  # the tally's global workspace (or null), err, pred, stream
     ),
     "forest_predict_err_floor": (
-        "forest_predict_err_floor_launch", [_I, _I, _I, _I, _I, _P], "forest_predict_err",
+        "forest_predict_err_floor_launch", [_I, _I, _I, _I, _I, _I, _P], "forest_predict_err",
     ),
-    # K12 at a shape (F, trees, depth, host int64 out): the i32 words a
-    # row's votes take in a global workspace, 0 when they fit shared memory
-    "forest_predict_err_votes_words": (
-        "forest_predict_err_votes_words", [_I, _I, _I, _P], "forest_predict_err",
+    # K12's plan at a shape on the current device (p, n, F, trees, depth,
+    # classes, force, host int64 out[11]; out[9] the words of the global
+    # workspace, 0 when the tally sits in shared memory)
+    "forest_predict_err_plan": (
+        "forest_predict_err_plan", [_I, _I, _I, _I, _I, _I, _I, _P], "forest_predict_err",
     ),
 }
 

@@ -38,11 +38,12 @@ thresholds, agree to float32 rounding (ROADMAP C6); ``proj``, ``u`` and
 Two hand-written kernels carry the family on the card, each beside its
 plain version: K11 ``forest_fit`` (``csrc/forest_fit.cu``: the normals
 and uniforms from the key, the projections, the thresholds, the routing
-and the leaf classes, one CTA a partition) and K12 ``forest_predict_err``
-(``csrc/forest_predict_err.cu``: rows gathered from the padded row table,
-the walks computing only the visited projections, the vote and the error
-indicator).
-"""
+and the leaf classes, one CTA a (partition, tree), the thresholds by a
+radix select) and K12 ``forest_predict_err`` (``csrc/forest_predict_err.cu``:
+persistent CTAs, rows gathered from the padded row table into registers,
+two trees walked together computing only the visited projections, an
+O(T) tally of the votes and the error indicator). Their layouts are a
+function of the shapes (:func:`k11_plan`, :func:`k12_plan`)."""
 
 from __future__ import annotations
 
@@ -211,39 +212,54 @@ def _check(name, t, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def forest_fit_args(key, X, y, w, trees, depth, c, out: ForestParams, scratch):
+def forest_fit_args(key, X, y, w, trees, depth, c, out: ForestParams, scratch, force=0):
     """Kernel K11's launch arguments, stream excluded, for checked CUDA
     inputs, preallocated outputs and its global workspace (``None`` when
-    the workspace fits shared memory, :func:`forest_fit_scratch`)."""
+    the layout has none, :func:`forest_fit_scratch`)."""
     p, b, f = X.shape
     return (key.data_ptr(), X.data_ptr(), y.data_ptr(), w.data_ptr(), p, b, f, c, trees,
-            depth, forest_factor(f), out.proj.data_ptr(), out.thresh.data_ptr(),
+            depth, forest_factor(f), force, out.proj.data_ptr(), out.thresh.data_ptr(),
             out.leaf_class.data_ptr(), None if scratch is None else scratch.data_ptr())
 
 
+class K11Plan(NamedTuple):
+    """K11's layout at a shape (``csrc/forest_fit.cu`` ``layout``)."""
+
+    counters: bool  # leaf and batch counters in shared memory, else the row rule
+    ids_global: bool  # the row rule's leaf ids and counts in the global workspace
+    th_staged: bool  # the tree's thresholds in shared memory
+    cols_staged: bool  # the tree's projection columns in shared memory
+    x_staged: bool  # the batch's rows in shared memory
+    z_global: bool  # a chunk's projections z in the global workspace
+    chunk: int  # columns a round of the thresholds
+    shared_bytes: int
+    words: int  # floats of a partition's global workspace (0: none)
+
+
 @functools.cache
-def _workspace_words(name: str, *shape: int) -> int:
-    """A kernel's own count ``name`` of its global workspace at ``shape``:
-    0 when the workspace fits shared memory."""
-    out = ctypes.c_longlong(0)
-    kernels.check(name, kernels.launcher(name)(*shape, ctypes.byref(out)))
-    return out.value
+def k11_plan(b: int, f: int, c: int, trees: int, depth: int, force: int = 0) -> K11Plan:
+    """K11's layout from the kernel's own ``forest_fit_plan``, once per
+    shape (it asks the card nothing)."""
+    out = (ctypes.c_longlong * 9)()
+    kernels.check("forest_fit_plan",
+                  kernels.launcher("forest_fit_plan")(b, f, c, trees, depth, force, out))
+    return K11Plan(*(bool(v) for v in out[:6]), *out[6:])
 
 
-def forest_fit_scratch(p, b, trees, depth, device):
-    """K11's global workspace ``[P, words]`` f32 (the kernel's
-    ``forest_fit_workspace_words``), or ``None`` when it fits shared
-    memory."""
-    words = _workspace_words("forest_fit_workspace_words", b, trees, depth)
+def forest_fit_scratch(p, b, f, c, trees, depth, device, force=0):
+    """K11's global workspace ``[P, words]`` f32 (:func:`k11_plan`), or
+    ``None`` when its layout has none."""
+    words = k11_plan(b, f, c, trees, depth, force).words
     return None if words == 0 else torch.empty((p, words), dtype=torch.float32, device=device)
 
 
-def forest_fit(key, X, y, w, trees: int, depth: int, c: int) -> ForestParams:
+def forest_fit(key, X, y, w, trees: int, depth: int, c: int, force: int = 0) -> ForestParams:
     """The forest's fit of ``X [P, B, F]`` f32, labels ``y [P, B]`` and
     {0, 1} weights ``w [P, B]`` from the fit keys ``key [P, 2]``.
 
     CUDA tensors launch kernel K11 (``csrc/forest_fit.cu``) and add one to
-    ``forest_fit.launches``; CPU tensors run :func:`forest_fit_reference`."""
+    ``forest_fit.launches``; CPU tensors run :func:`forest_fit_reference`.
+    ``force`` (tests) takes K11's row rule (1) or its global layout (2)."""
     check_shape(trees, depth)
     if X.device.type == "cpu":
         return forest_fit_reference(key, X, y, w, trees, depth, c)
@@ -267,7 +283,7 @@ def forest_fit(key, X, y, w, trees: int, depth: int, c: int) -> ForestParams:
         return out
     code = kernels.launcher("forest_fit")(
         *forest_fit_args(key, X, y, w, trees, depth, c, out,
-                         forest_fit_scratch(p, b, trees, depth, dev)),
+                         forest_fit_scratch(p, b, f, c, trees, depth, dev, force), force),
         kernels.stream_handle(dev))
     kernels.check("forest_fit", code)
     forest_fit.launches += 1
@@ -277,40 +293,76 @@ def forest_fit(key, X, y, w, trees: int, depth: int, c: int) -> ForestParams:
 forest_fit.launches = 0
 
 
-def k12_votes(p: int, n: int, f: int, trees: int, depth: int, device) -> torch.Tensor | None:
-    """K12's global workspace of votes ``[words, P·N]`` i32 (the kernel's
-    ``forest_predict_err_votes_words``), or ``None`` when a block's votes
-    fit shared memory."""
-    words = _workspace_words("forest_predict_err_votes_words", f, trees, depth)
-    return None if words == 0 else torch.empty((words, p * n), dtype=torch.int32, device=device)
+class K12Plan(NamedTuple):
+    """K12's plan at a shape on a card (``csrc/forest_predict_err.cu``
+    ``full_plan``)."""
+
+    regs: bool  # the row in registers (F <= 64, parameters in shared memory)
+    rows_staged: bool  # the generic kernel's rows in shared memory
+    params_staged: bool  # node-major projections, thresholds and leaf classes in shared memory
+    tally_global: bool  # the counters (and kept votes) in the global workspace
+    keep_votes: bool  # the counters cleared through the kept votes
+    bits: int  # a counter's width
+    ctas: int  # CTAs a partition
+    threads: int
+    shared_bytes: int
+    words: int  # 32-bit words of the global workspace (0: none)
+    counter_words: int  # a thread's counter words
 
 
-def forest_predict_err_args(params: ForestParams, T, Ty, idx, err, pred=None, votes=None):
+@functools.cache
+def k12_plan(device: torch.device, p: int, n: int, f: int, trees: int, depth: int,
+             classes: int, force: int = 0) -> K12Plan:
+    """K12's plan on ``device`` as the kernel works it out
+    (``forest_predict_err_plan``: the card's SMs and occupancy), once per
+    (device, shape, forced layout)."""
+    out = (ctypes.c_longlong * 11)()
+    with torch.cuda.device(device):
+        kernels.check("forest_predict_err_plan", kernels.launcher("forest_predict_err_plan")(
+            p, n, f, trees, depth, classes, force, out))
+    return K12Plan(*(bool(v) for v in out[:5]), *out[5:])
+
+
+def k12_workspace(p, n, f, trees, depth, classes, device, force=0) -> torch.Tensor | None:
+    """K12's global workspace (:func:`k12_plan`'s words, i32), or ``None``
+    when its tally sits in shared memory."""
+    words = k12_plan(device, p, n, f, trees, depth, classes, force).words
+    return None if words == 0 else torch.empty((words,), dtype=torch.int32, device=device)
+
+
+def forest_predict_err_args(params: ForestParams, T, Ty, idx, classes, err, pred=None,
+                            workspace=None, force=0):
     """Kernel K12's launch arguments, stream excluded, for checked CUDA
     inputs (``T`` padded by :func:`pad_row_table`), preallocated outputs
-    and the votes' workspace (:func:`k12_votes`)."""
+    and the tally's workspace (:func:`k12_workspace`)."""
     f, trees, depth, _ = _dims(params)
     return (T.data_ptr(), T.shape[1], Ty.data_ptr(), idx.data_ptr(), idx.element_size(),
             params.proj.data_ptr(), params.thresh.data_ptr(), params.leaf_class.data_ptr(),
-            idx.shape[0], idx.shape[1], f, trees, depth,
-            None if votes is None else votes.data_ptr(),
+            idx.shape[0], idx.shape[1], f, trees, depth, classes, force,
+            None if workspace is None else workspace.data_ptr(),
             err.data_ptr(), None if pred is None else pred.data_ptr())
 
 
-def forest_predict_err(params: ForestParams, T, Ty, idx, return_pred=False):
+def forest_predict_err(params: ForestParams, T, Ty, idx, return_pred=False, classes=None,
+                       force=0):
     """The forest's predict fused with the error indicator, over the rows
     ``T[idx]`` of the row table ``T`` — ``[R, F]`` or its padded copy
     ``[R, row_stride(F)]`` — with labels ``Ty [R]`` i32 and gather index
     ``idx [P, N]`` int16 or int32: ``err [P, N]`` f32 (and ``pred``).
 
     CUDA tensors launch kernel K12 (``csrc/forest_predict_err.cu``) and add
-    one to ``forest_predict_err.launches``; CPU tensors run
+    one to ``forest_predict_err.launches``; they need ``classes``, the
+    forest's C, and leaf classes in [0, C) (what a fit gives: the kernel
+    tallies C classes). ``force`` (tests) takes one of K12's layouts (the
+    kernel's ``kForce*`` bits). CPU tensors run
     :func:`forest_predict_err_reference`."""
     if idx.device.type == "cpu":
         err, pred = forest_predict_err_reference(params, T, Ty, idx)
         return (err, pred) if return_pred else err
     if idx.device.type != "cuda":
         raise ValueError(f"forest_predict_err: unsupported device {idx.device}")
+    if classes is None or classes < 1:
+        raise ValueError("forest_predict_err: the card's kernel needs the forest's classes")
     dev = idx.device
     f, trees, depth, n = _dims(params)
     if T.shape[1] == f:
@@ -328,8 +380,9 @@ def forest_predict_err(params: ForestParams, T, Ty, idx, return_pred=False):
     pred = torch.empty((p, nrows), dtype=torch.int32, device=dev) if return_pred else None
     if p and nrows:
         code = kernels.launcher("forest_predict_err")(
-            *forest_predict_err_args(params, T, Ty, idx, err, pred,
-                                     k12_votes(p, nrows, f, trees, depth, dev)),
+            *forest_predict_err_args(
+                params, T, Ty, idx, classes, err, pred,
+                k12_workspace(p, nrows, f, trees, depth, classes, dev, force), force),
             kernels.stream_handle(dev))
         kernels.check("forest_predict_err", code)
         forest_predict_err.launches += 1
@@ -362,7 +415,7 @@ def make_forest(spec: ModelSpec, *, trees: int = 32, depth: int = 3) -> Model:
         return forest_predict_reference(params, X)
 
     def predict_err(params, T, Ty, idx):
-        return forest_predict_err(params, T, Ty, idx)
+        return forest_predict_err(params, T, Ty, idx, classes=c)
 
     return Model("forest", init, fit, predict, predict_err, keyed=True)
 

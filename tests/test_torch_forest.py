@@ -40,6 +40,13 @@ CASES = {
     "rialto_width": (3, 64, 27, 10, 4, 2),
     "depth1": (2, 50, 5, 3, 3, 1),
     "one_tree": (2, 30, 7, 4, 1, 3),
+    # the shapes the kernels' layouts branch on: trees across a warp's
+    # boundary, a column of more rows than a warp's registers hold (with
+    # repeated rows, so equal keys meet the stable order), and C = 2,000
+    # (K12's counters in device memory)
+    "trees33": (2, 60, 5, 4, 33, 2),
+    "b1500_repeated": (2, 1500, 5, 6, 4, 2),
+    "c2000": (2, 100, 5, 2000, 4, 2),
 }
 
 
@@ -60,6 +67,9 @@ def _keys(seed, p):
 def _jax_fit(case, seed=0, w_override=None):
     p, b, f, c, trees, depth = CASES[case]
     X, y, w = _batch(seed, p, b, f, c)
+    if "repeated" in case:  # each run of 5 rows one row, one label
+        src = np.arange(b) // 5 * 5
+        X, y = X[:, src], y[:, src]
     if w_override is not None:
         w = w_override
     keys, kd = _keys(seed + 1, p)
@@ -179,6 +189,122 @@ def test_sort_keys_order_like_jnp_sort():
     v = np.array([np.nan, 1.0, -0.0, 0.0, -np.inf, np.inf, -2.5, 0.0, -0.0], np.float32)
     order = torch.sort(tforest.sort_keys(torch.from_numpy(v)), stable=True).indices.numpy()
     np.testing.assert_array_equal(v[order].view(np.int32), np.asarray(jnp.sort(v)).view(np.int32))
+
+
+def _select_row_model(keys, k):
+    """K11's warp select (csrc/forest_fit.cu ``select_row``) in NumPy: the
+    row at rank ``k`` in the stable order of the int32 ``keys``, by a radix
+    select from the highest bit the keys differ in until one candidate is
+    left, then the rank among the candidates in the order of 32-row slots
+    and lanes (row order). Also returns the passes taken."""
+    u = (keys.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000  # the signed order, unsigned
+    b = len(u)
+    all_, any_ = int(np.bitwise_and.reduce(u)), int(np.bitwise_or.reduce(u))
+    key, ge, passes = all_, 0xFFFFFFFF, 0
+    if all_ != any_:
+        hb = (all_ ^ any_).bit_length() - 1
+        ge = ~(0xFFFFFFFF >> (31 - hb)) & 0xFFFFFFFF
+        key &= ge
+        total = b
+        for bit in range(hb, -1, -1):
+            if total <= 1:
+                break
+            gb = ge | (1 << bit)
+            below = int(((u & gb) == key).sum())  # the ballots' popcounts
+            if k >= below:
+                k -= below
+                key |= 1 << bit
+                total -= below
+            else:
+                total = below
+            ge = gb
+            passes += 1
+    for s in range((b + 31) // 32):
+        r = np.arange(s * 32, min(s * 32 + 32, b))
+        eq = r[(u[r] & ge) == key]
+        if k < len(eq):
+            return int(eq[k]), passes
+        k -= len(eq)
+    raise AssertionError("rank past the rows")
+
+
+@pytest.mark.parametrize("b", [1, 2, 31, 100, 128, 129, 1500])
+def test_k11_select_model_is_the_stable_sort(b):
+    """K11's selection finds every rank of jnp.sort's stable order: keys of
+    floats with repeats, ±0, ±inf, NaN and invalid rows (as +inf)."""
+    rng = np.random.default_rng(b)
+    pool = np.array([0.0, -0.0, 1.5, -2.25, np.inf, -np.inf, np.nan, 1e-40, -1e-40],
+                    np.float32)
+    z = np.where(rng.random(b) < 0.3, rng.choice(pool, b),
+                 rng.normal(size=b).astype(np.float32) * 4)
+    z = np.where(rng.random(b) < 0.2, z[rng.integers(0, b, b)], z).astype(np.float32)
+    valid = rng.random(b) < 0.85
+    zs = np.where(valid, z, np.float32(np.inf)).astype(np.float32)
+    keys = tforest.sort_keys(torch.from_numpy(zs)).numpy()
+    order = np.argsort(keys, kind="stable")
+    for k in range(b):
+        assert _select_row_model(keys, k)[0] == order[k]
+    same = np.full(b, 7, np.int32)  # one key: the rank is the row
+    assert [_select_row_model(same, k)[0] for k in range(b)] == list(range(b))
+    # distinct values: a few passes more than log2 B on the mean (as many
+    # as two close keys need to part), not 32
+    keys = tforest.sort_keys(torch.from_numpy(rng.normal(size=b).astype(np.float32))).numpy()
+    passes = [_select_row_model(keys, k)[1] for k in range(b)]
+    assert np.mean(passes) <= b.bit_length() + 8 and max(passes) <= 32
+
+
+def _tally_model(votes, classes):
+    """K12's per-thread tally (csrc/forest_predict_err.cu ``Tally``) in
+    Python: counters of 8, 16 or 32 bits (by T) packed in 32-bit words,
+    the mode kept as the votes come, then the counters cleared — through
+    the kept votes when that is cheaper than every word. Returns the mode
+    and whether every counter was left at zero."""
+    trees = len(votes)
+    bits = 8 if trees < 256 else 16 if trees < 65536 else 32
+    lg_bits = bits.bit_length() - 1
+    lg_cpw = 5 - lg_bits
+    words = -(-classes // (1 << lg_cpw))
+    mask = (1 << bits) - 1
+    cnt = [0] * words
+    best = best_n = 0
+    for v in votes:
+        if not 0 <= v < classes:
+            continue  # jax.nn.one_hot drops it
+        w, sh = v >> lg_cpw, (v & ((1 << lg_cpw) - 1)) << lg_bits
+        cnt[w] = (cnt[w] + (1 << sh)) & 0xFFFFFFFF
+        k = (cnt[w] >> sh) & mask
+        if k > best_n or (k == best_n and v < best):
+            best, best_n = v, k
+    if words > trees:  # cleared through the kept votes
+        for v in votes:
+            if 0 <= v < classes:
+                cnt[v >> lg_cpw] = 0
+    else:
+        cnt = [0] * words
+    return best, not any(cnt)
+
+
+@pytest.mark.parametrize("trees, classes", [(1, 3), (32, 40), (33, 5), (64, 2000),
+                                            (300, 7), (255, 40), (256, 40), (40, 2000)])
+def test_k12_tally_model_is_the_modal_vote(trees, classes):
+    """K12's O(T) tally gives the plain version's modal vote (ties to the
+    lowest class) on votes in [0, C), and jnp.argmax of JAX's one-hot
+    tally when some votes lie outside it; its counters end at zero."""
+    rng = np.random.default_rng(trees * 7 + classes)
+    for _ in range(40):
+        span = min(classes, int(rng.integers(1, 6)))
+        votes = rng.integers(0, span, trees) * max(1, classes // span)
+        got, clean = _tally_model(votes.tolist(), classes)
+        assert clean
+        want = tforest.forest_predict_reference(tforest.ForestParams(
+            torch.zeros((1, 1, trees)), torch.zeros((1, trees)),
+            torch.from_numpy(np.repeat(votes.astype(np.int32)[None, :, None], 2, 2))),
+            torch.zeros((1, 1, 1)))
+        assert got == int(want)
+    votes = rng.integers(-3, classes + 3, trees)
+    got, clean = _tally_model(votes.tolist(), classes)
+    tally = jnp.sum(jax.nn.one_hot(jnp.asarray(votes), classes), axis=0)
+    assert clean and got == int(jnp.argmax(tally))
 
 
 @pytest.mark.parametrize("kw, match", [

@@ -981,12 +981,15 @@ from distributed_drift_detection_tpu_torch.models import forest as tforest  # no
 from distributed_drift_detection_tpu_torch.utils import threefry  # noqa: E402
 
 # (P, B, F, C, trees, depth): the main path's shapes; the rialto width;
-# depth 1 and 8; one tree; C = 70 (above 64); a batch too large for
-# shared memory (K11's global workspace); all weights 0; B = 1; and each
-# of K12's layouts past shared memory — rows read from the table (F =
-# 600), projections read from device memory (F = 300 at 32 trees), both
-# (F = 2,048), and the votes in device memory (500 trees, which also take
-# K11's global workspace).
+# depth 1 and 8; one tree; C = 70 (above 64); B = 300; all weights 0;
+# B = 1; K12's generic layouts — rows read from the table (F = 600),
+# projections read from device memory (F = 300 at 32 trees), both (F =
+# 2,048) — and T = 500 (its 16-bit counters); trees across a warp's
+# boundary (T = 33, 64); K11's column select past one lane's registers
+# (B = 1,500, with repeated rows); K12's counters in device memory (C =
+# 2,000, T = 40); a register width with a full last float4 (F = 40);
+# K11's deep-tree layout (depth 12, T = 2); and repeated rows, whose
+# equal keys test the stable order.
 K11_CASES = {
     "main_path": (16, 100, 21, 40, 32, 3),
     "rialto": (3, 64, 27, 10, 4, 2),
@@ -1000,7 +1003,22 @@ K11_CASES = {
     "params_unstaged": (2, 100, 300, 10, 32, 3),
     "wide_rows": (2, 100, 2048, 10, 32, 3),
     "global_votes": (2, 50, 21, 40, 500, 1),
+    "trees33": (2, 100, 21, 40, 33, 3),
+    "trees64": (2, 100, 21, 40, 64, 3),
+    "b1500_repeated": (2, 1500, 21, 40, 8, 3),
+    "c2000_t40": (2, 100, 21, 2000, 40, 3),
+    "f40": (2, 100, 40, 10, 32, 3),
+    "depth12_t2": (2, 100, 21, 40, 2, 12),
+    "repeated_rows": (2, 120, 21, 6, 16, 3),
 }
+# K11's forced layouts (csrc/forest_fit.cu `force`): the row rule, the
+# global layout, both; K12's (csrc/forest_predict_err.cu `force`): the
+# generic kernel, rows from the table, projections from device memory,
+# the tally in device memory, the votes kept, and mixes of them.
+K11_FORCED = [1, 2, 3]
+K12_FORCED = [1, 3, 4, 5, 8, 16, 24, 29]
+FORCED_CASES = ["main_path", "depth8", "weights_0", "per_batch_1", "b1500_repeated",
+                "trees33", "rialto"]
 
 
 def _forest_batch(case):
@@ -1011,8 +1029,20 @@ def _forest_batch(case):
     w = (rng.random((p, b)) < 0.9).astype(np.float32)
     if case == "weights_0":
         w[:] = 0.0
+    if "repeated" in case:  # each run of 5 rows one row, one label
+        src = np.arange(b) // 5 * 5
+        X, y = X[:, src], y[:, src]
     key = torch.from_numpy(threefry.split(threefry.key(b), p).view(np.int32).copy())
     return key, X, y, w
+
+
+def _fit_equal(got, host, trees, depth, c, dev):
+    on_card = tforest.forest_fit_reference(*(t.to(dev) for t in host), trees, depth, c)
+    on_cpu = tforest.forest_fit_reference(*host, trees, depth, c)
+    for g, r, h in zip(got, on_card, on_cpu):
+        if g.dtype == torch.float32:
+            g, r, h = g.view(torch.int32), r.view(torch.int32), h.view(torch.int32)
+        assert torch.equal(g, r) and torch.equal(g.cpu(), h)
 
 
 @pytest.mark.cuda
@@ -1026,20 +1056,27 @@ def test_forest_fit_kernel_bitwise(dev, case):
     before = tforest.forest_fit.launches
     got = tforest.forest_fit(*(t.to(dev) for t in host), trees, depth, c)
     assert tforest.forest_fit.launches == before + 1
-    on_card = tforest.forest_fit_reference(*(t.to(dev) for t in host), trees, depth, c)
-    on_cpu = tforest.forest_fit_reference(*host, trees, depth, c)
-    for g, r, h in zip(got, on_card, on_cpu):
-        if g.dtype == torch.float32:
-            g, r, h = g.view(torch.int32), r.view(torch.int32), h.view(torch.int32)
-        assert torch.equal(g, r) and torch.equal(g.cpu(), h)
+    _fit_equal(got, host, trees, depth, c, dev)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
-@pytest.mark.parametrize("case", sorted(K11_CASES))
-def test_forest_predict_err_kernel_bitwise(dev, case, idx_dtype):
-    """K12 on K11's fit: predictions and errors equal to the plain
-    version's, through the padded and the unpadded row table."""
+@pytest.mark.parametrize("force", K11_FORCED)
+@pytest.mark.parametrize("case", FORCED_CASES)
+def test_forest_fit_kernel_forced_layouts(dev, case, force):
+    """K11's row rule and global layout, forced at shapes that would not
+    take them, equal its plain version bit for bit."""
+    p, b, f, c, trees, depth = K11_CASES[case]
+    key, X, y, w = _forest_batch(case)
+    host = [key] + [torch.from_numpy(a) for a in (X, y, w)]
+    plan = tforest.k11_plan(b, f, c, trees, depth, force)
+    assert plan.counters == (not force & 1)
+    if force & 2:
+        assert plan.z_global and not (plan.x_staged or plan.cols_staged or plan.th_staged)
+    got = tforest.forest_fit(*(t.to(dev) for t in host), trees, depth, c, force=force)
+    _fit_equal(got, host, trees, depth, c, dev)
+
+
+def _k12_inputs(case, idx_dtype, dev):
     p, b, f, c, trees, depth = K11_CASES[case]
     key, X, y, w = _forest_batch(case)
     params = tforest.forest_fit(*(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
@@ -1048,25 +1085,82 @@ def test_forest_predict_err_kernel_bitwise(dev, case, idx_dtype):
     T = torch.from_numpy(rng.normal(size=(700, f)).astype(np.float32)).to(dev)
     Ty = torch.from_numpy(rng.integers(0, c, 700).astype(np.int32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 700, (p, 1000))).to(dev, idx_dtype)
+    return params, T, Ty, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+def test_forest_predict_err_kernel_bitwise(dev, case, idx_dtype):
+    """K12 on K11's fit: predictions and errors equal to the plain
+    version's, through the padded and the unpadded row table."""
+    c = K11_CASES[case][3]
+    params, T, Ty, idx = _k12_inputs(case, idx_dtype, dev)
     before = tforest.forest_predict_err.launches
     rerr, rpred = tforest.forest_predict_err_reference(params, T, Ty, idx)
     for table in (tforest.pad_row_table(T), T):
-        err, pred = tforest.forest_predict_err(params, table, Ty, idx, return_pred=True)
+        err, pred = tforest.forest_predict_err(params, table, Ty, idx, return_pred=True,
+                                               classes=c)
         assert torch.equal(pred, rpred) and torch.equal(err, rerr)
     assert tforest.forest_predict_err.launches == before + 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("force", K12_FORCED)
+@pytest.mark.parametrize("case", FORCED_CASES)
+def test_forest_predict_err_kernel_forced_layouts(dev, case, force):
+    """Each of K12's layouts, forced at shapes that would not take it,
+    equal to its plain version bit for bit."""
+    p, _, f, c, trees, depth = K11_CASES[case]
+    params, T, Ty, idx = _k12_inputs(case, torch.int16, dev)
+    plan = tforest.k12_plan(dev, p, idx.shape[1], f, trees, depth, c, force)
+    assert plan.regs == (not force & 7) and plan.tally_global == bool(force & 8)
+    if force & 16:
+        assert plan.keep_votes
+    if force & 2:
+        assert not plan.rows_staged
+    if force & 4:
+        assert not plan.params_staged
+    rerr, rpred = tforest.forest_predict_err_reference(params, T, Ty, idx)
+    err, pred = tforest.forest_predict_err(params, T, Ty, idx, return_pred=True, classes=c,
+                                           force=force)
+    assert torch.equal(pred, rpred) and torch.equal(err, rerr)
+
+
+@pytest.mark.cuda
 def test_forest_workspace_counts(dev):
-    """The kernels' own counts put K11's workspace and K12's votes in
-    device memory exactly where shared memory does not hold them."""
-    for case, on_device in (("main_path", False), ("global_workspace", True),
-                            ("global_votes", True)):
-        p, b, _, _, trees, depth = K11_CASES[case]
-        assert (tforest.forest_fit_scratch(p, b, trees, depth, dev) is not None) == on_device
-    for case, on_device in (("main_path", False), ("wide_rows", False), ("global_votes", True)):
-        p, _, f, _, trees, depth = K11_CASES[case]
-        votes = tforest.k12_votes(p, 1000, f, trees, depth, dev)
-        assert (votes is not None) == on_device
-        if on_device:
-            assert tuple(votes.shape) == (trees, p * 1000)
+    """The kernels' own plans put K11's and K12's work in shared memory at
+    the main path's shapes, and in device memory, or in their other
+    layouts, exactly where the shapes ask for it."""
+    def k11(case, force=0):
+        _, b, f, c, trees, depth = K11_CASES[case]
+        return tforest.k11_plan(b, f, c, trees, depth, force)
+
+    main = k11("main_path")
+    assert main.counters and main.th_staged and main.cols_staged and main.x_staged
+    assert not main.z_global and main.chunk == 7 and main.words == 0
+    assert tforest.forest_fit_scratch(16, 100, 21, 40, 32, 3, dev) is None
+    deep = k11("depth12_t2")
+    assert not deep.counters and not deep.cols_staged and 1 <= deep.chunk < 4095
+    assert deep.words == 0
+    forced = k11("main_path", 3)
+    assert forced.ids_global and forced.z_global and forced.words == 32 * (2 * 100 + 7 * 100)
+    assert tuple(tforest.forest_fit_scratch(16, 100, 21, 40, 32, 3, dev, 3).shape) == \
+        (16, forced.words)
+
+    def k12(case, force=0):
+        p, _, f, c, trees, depth = K11_CASES[case]
+        return tforest.k12_plan(dev, p, 1000, f, trees, depth, c, force)
+
+    main = k12("main_path")
+    assert main.regs and main.params_staged and not main.tally_global and main.bits == 8
+    assert main.counter_words == 10 and not main.keep_votes and main.words == 0
+    many = k12("c2000_t40")
+    assert many.regs and many.tally_global and many.keep_votes
+    assert many.words == 2 * many.ctas * (500 + 40) * many.threads
+    work = tforest.k12_workspace(2, 1000, 21, 40, 3, 2000, dev)
+    assert tuple(work.shape) == (many.words,)
+    wide = k12("wide_rows")
+    assert not wide.regs and not wide.rows_staged and not wide.params_staged
+    assert k12("global_votes").bits == 16 and k12("global_votes").regs
+    assert not k12("depth12_t2").regs and not k12("depth12_t2").params_staged
