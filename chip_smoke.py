@@ -119,7 +119,24 @@ without them. Phases, each fatal on failure:
    launch's parameters hold: K9's init bit for bit (no step) and its fit
    within ``K9_ATOL`` of its plain version after 2 steps on the main
    path's first batch, K10 equal to its plain version off the near ties,
-   then a short run on the card, counted.
+   then a short run on the card, counted;
+15. the paper's experiment loop on the card: the CLI (``python -m
+   distributed_drift_detection_tpu_torch`` with the reference's argv on
+   SMOKE's CSV twin, ``outdoorStream.csv``) prints the JAX package's line
+   ``CLI_EXPECTED`` and a results row ``read_results`` reads back, run
+   twice on one fresh ``--compile-cache-dir``, the second loading the
+   first's libraries without a rebuild; ``harness.grid.run_grid`` on the
+   twin (``GRID_MULTS`` x ``GRID_PARTITIONS`` x ``GRID_TRIALS``, warm-up
+   on): 8 trials whose rows equal the same grid's on the CPU but for their
+   times, each trial's Final Time and rows/s printed, then a resume that
+   runs 0 trials and, with the last row torn halfway, 1; ``rf``, without
+   scikit-learn, raises its ``ImportError`` before any allocation on the
+   card (with it, a small run's flags equal the CPU's);
+   ``harness.parity.measure_delay_parity`` of ``PARITY_MODELS`` on
+   ``PARITY_GEOMETRY``: the deterministic families' rows equal the CPU's,
+   the mlp's and the forest's detections equal and their mean delays
+   within a batch, their kernels launched; ``doctor`` exits 0 on the twin
+   and 1 on phase 11's dirty CSV.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1335,6 +1352,18 @@ K2_FEATURE_CHUNKS = (2, 300, 5, 60000)
 # parameters hold), at a small depth.
 DEEP_HIDDEN = (16,) * 64
 DEEP_MULT = 8
+# Phase 15, the paper's experiment loop: the CLI's summary line on SMOKE's
+# CSV twin (the JAX package's, up to final_time); the scaleup grid on that
+# CSV (mults x partitions x trials, centroid + DDM); the parity models on
+# the rialto stand-in (dataset, mult_data, partitions), one seed.
+CLI_EXPECTED = "rows=2048000 detections=624 mean_delay_rows=788.6"
+GRID_MULTS, GRID_PARTITIONS, GRID_TRIALS = (64, 128), (4, 16), 2
+PARITY_MODELS = ("centroid", "gnb", "linear@robust", "mlp", "forest")
+PARITY_FITTED = ("mlp", "forest")  # fits within rounding of the CPU's: a batch
+PARITY_GEOMETRY = ("synth:rialto", 2.0, 4)
+RF_SMALL = dict(dataset="synth:prototypes,seed=0,concepts=6,rows_per_concept=100,features=5",
+                mult_data=3, partitions=4, per_batch=50, results_csv="", model="rf",
+                rf_estimators=5)
 
 
 def write_csv(spec: str, path: str, dirty: bool = False) -> None:
@@ -1789,6 +1818,172 @@ def later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep, final_times
 
 
 
+def run_cli(tmp: str, cache: str) -> tuple[str, float]:
+    """``python -m distributed_drift_detection_tpu_torch`` with the
+    reference's argv on SMOKE's CSV twin in ``tmp``, its kernels built into
+    and loaded from ``cache``: its summary line and wall seconds."""
+    import os
+
+    argv = [sys.executable, "-m", "distributed_drift_detection_tpu_torch",
+            "--compile-cache-dir", cache, "jax://local", "16", "8g", "4",
+            time.strftime("%a_%b_%d_%H:%M:%S_%Y"), "512", "outdoorStream.csv"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True,
+                          timeout=300, check=False)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("rows=")]
+    check(len(lines) == 1, f"the CLI printed no summary line: {proc.stdout[-2000:]}")
+    return lines[0], wall
+
+
+def cache_files(cache: str) -> dict:
+    """Each file of the build directory, by name: (inode, mtime in ns) —
+    a rebuilt library is a new file (``os.replace``)."""
+    import os
+
+    return {e.name: (e.stat().st_ino, e.stat().st_mtime_ns) for e in os.scandir(cache)
+            if e.name.endswith(".so")}
+
+
+def experiment_phase(torch, api, config, dev) -> None:
+    """Phase 15 (module docstring): the CLI, the resumable grid, rf, the
+    delay-parity harness and ``doctor``, all on the card."""
+    import os
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.harness import grid, parity
+    from distributed_drift_detection_tpu_torch.io import sanitize
+    from distributed_drift_detection_tpu_torch.results import read_results
+
+    tmp = tempfile.TemporaryDirectory()
+    twin = os.path.join(tmp.name, "outdoorStream.csv")
+    write_csv(SMOKE["dataset"][len("synth:"):], twin)
+    t_phase = time.perf_counter()
+
+    # (a) the CLI, twice on one fresh build directory: the second run loads
+    # the libraries the first built and runs no nvcc
+    cache = os.path.join(tmp.name, "kernels")
+    line1, wall1 = run_cli(tmp.name, cache)
+    built = cache_files(cache)
+    line2, wall2 = run_cli(tmp.name, cache)
+    for line in (line1, line2):
+        check(line.startswith(CLI_EXPECTED + " final_time="),
+              f"the CLI printed {line!r}, expected {CLI_EXPECTED!r} up to final_time")
+    check(len(built) == 4 and {n.split("-")[0] for n in built} == {
+        "libddm_window", "libcentroid_fit", "libcentroid_predict_err", "libddd_native"},
+        f"the CLI's build directory holds {sorted(built)}")
+    check(cache_files(cache) == built, "the second CLI run rebuilt a library")
+    cli_rows = read_results(os.path.join(tmp.name, "ddm_cluster_runs.csv"))
+    check(len(cli_rows) == 2 and all(r["Detections"] == "624" and r["Instances"] == "16"
+                                     for r in cli_rows),
+          f"the CLI's results rows: {cli_rows}")
+    print(f"CLI (python -m distributed_drift_detection_tpu_torch ... 512 outdoorStream.csv) on "
+          f"the card: {line1}; again on the same --compile-cache-dir: {line2}, its "
+          f"{len(built)} libraries not rebuilt (wall {wall1:.1f} s, then {wall2:.1f} s); "
+          f"both rows read back through read_results")
+
+    # (b) the scaleup grid: 8 recorded trials on the card, each against the
+    # same trial run on the CPU; then the resume
+    on_card = os.path.join(tmp.name, "grid_card.csv")
+    on_cpu = os.path.join(tmp.name, "grid_cpu.csv")
+    shape = dict(mults=list(GRID_MULTS), partitions=list(GRID_PARTITIONS), trials=GRID_TRIALS)
+    msgs = []
+    base = config.RunConfig(dataset=twin, results_csv=on_card)
+    n = grid.run_grid(base, **shape, warmup=True, progress=msgs.append, device=dev)
+    check(n == 8 and not any("off-spec" in m for m in msgs), f"the grid ran {n} trials: {msgs}")
+    t0 = time.perf_counter()
+    grid.run_grid(config.replace(base, results_csv=on_cpu), **shape, progress=lambda *_: None,
+                  device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_rows, cpu_rows = read_results(on_card), read_results(on_cpu)
+    timed = ("Final Time", "Rows Per Sec")
+    for a, b in zip(card_rows, cpu_rows):
+        check({k: v for k, v in a.items() if k not in timed}
+              == {k: v for k, v in b.items() if k not in timed},
+              f"grid trial {a['Spark App']}: the card's row {a} differs from the CPU's {b}")
+    check(len(card_rows) == len(cpu_rows) == 8, "the grid recorded other than 8 trials")
+    for r in card_rows:
+        print(f"grid trial on the card: mult {float(r['Data Multiplier']):g}, "
+              f"{r['Instances']} partitions, {r['Rows']} rows: Final Time {r['Final Time']} s, "
+              f"{float(r['Rows Per Sec']):,.0f} rows/s, {r['Detections']} detections, mean delay "
+              f"{float(r['Average Distance']):.4f} rows (equal to the CPU run)")
+    again = grid.run_grid(base, **shape, progress=lambda *_: None, device=dev)
+    with open(on_card, "rb") as fh:
+        data = fh.read()
+    last = data.rstrip(b"\r\n").rfind(b"\n") + 1
+    with open(on_card, "wb") as fh:
+        fh.write(data[: last + (len(data) - last) // 2])
+    torn = grid.run_grid(base, **shape, progress=lambda *_: None, device=dev)
+    check((again, torn) == (0, 1), f"the grid's resume ran {again}, then {torn} after a torn row")
+    print(f"grid (mults {GRID_MULTS} x partitions {GRID_PARTITIONS} x {GRID_TRIALS} trials, "
+          f"warm-up on): 8 trials equal to their CPU runs ({cpu_s:.1f} s on the CPU); resume "
+          f"ran {again}, then {torn} with the last row torn halfway")
+
+    # (c) rf: the reference's host RandomForest, which needs scikit-learn
+    import importlib.util
+
+    rcfg = config.RunConfig(**RF_SMALL)
+    if importlib.util.find_spec("sklearn") is None:
+        before = torch.cuda.memory_allocated(dev)
+        try:
+            api.run(rcfg, device=dev)
+            fail("rf ran without scikit-learn")
+        except ImportError as e:
+            check("scikit-learn" in str(e), f"rf raised {e!r}")
+            msg = str(e)
+        check(torch.cuda.memory_allocated(dev) == before, "rf allocated on the card before raising")
+        print(f"rf on the card: no scikit-learn here; raises ImportError before any work: {msg}")
+    else:
+        rres, rref = api.run(rcfg, device=dev), api.run(rcfg, device="cpu")
+        check(flags_equal(np, rres, rref), "rf: flags differ between the card and the CPU")
+        print(f"rf on the card (scikit-learn present): {rres.metrics.num_detections} "
+              "detections, flags equal to the CPU run")
+
+    # (d) the delay-parity harness on the card against the CPU
+    ds, mult, parts = PARITY_GEOMETRY
+    pkw = dict(models=PARITY_MODELS, dataset=ds, mult_data=mult, partitions=parts,
+               per_batch=100, seeds=range(1))
+    reset_launches()
+    card = parity.measure_delay_parity(**pkw, device=dev)
+    pl = read_launches()
+    t0 = time.perf_counter()
+    cpu = parity.measure_delay_parity(**pkw, device="cpu")
+    pcpu_s = time.perf_counter() - t0
+    for a, b in zip(card, cpu):
+        if a["model"] in PARITY_FITTED:
+            check(a["detections"] == b["detections"]
+                  and abs(a["mean_delay_rows"] - b["mean_delay_rows"]) <= 100,
+                  f"parity {a['model']}: the card's row {a} is more than a batch from {b}")
+        else:
+            check(json.dumps(a) == json.dumps(b),  # NaN equal to NaN
+                  f"parity {a['model']}: the card's row {a} differs from the CPU's {b}")
+        print(f"parity on the card ({ds} x{mult:g}, {parts} partitions, seed 0): {a['model']} "
+              f"{a['detections']} detections, mean delay {a['mean_delay_rows']} rows (CPU "
+              f"{b['detections']}, {b['mean_delay_rows']}), recall {a['recall']}")
+    for k in ("ddm_window", "centroid_fit", "centroid_predict_err", "random_normal", "mlp_fit",
+              "mlp_predict_err", "forest_fit", "forest_predict_err"):
+        check(pl[k] > 0, f"parity: kernel {k} was not launched")
+    print(f"parity: {len(card)} rows match the CPU's ({pcpu_s:.1f} s on the CPU); "
+          f"launches {pl}")
+
+    # (e) doctor on the twin and on phase 11's dirty CSV
+    dirty = os.path.join(tmp.name, "dirty.csv")
+    write_csv(SMOKE["dataset"][len("synth:"):], dirty, dirty=True)
+    codes = []
+    for path in (twin, dirty):
+        try:
+            sanitize.main([path])
+            codes.append(0)
+        except SystemExit as e:
+            codes.append(e.code)
+    check(codes == [0, 1], f"doctor exited {codes} on the twin and the dirty CSV")
+    print(f"doctor: exit {codes[0]} on the twin, {codes[1]} on the dirty CSV; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -2004,6 +2199,9 @@ def main(device: str = "cuda") -> int:
         if kid:
             row["wide_ms"] = {k: v for k, v in wide_ms.items() if k.startswith(kid)}
     rows += later
+
+    # 15. the paper's experiment loop: CLI, grid, rf, parity, doctor
+    experiment_phase(torch, api, config, dev)
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

@@ -1,0 +1,149 @@
+"""Command-line entry point of the port, mirroring the reference's argv mode.
+
+The port's twin of the JAX package's ``__main__.py``. The reference script
+accepts (commented-out but documented, README.md:11) positional arguments
+``URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA`` (``DDM_Process.py:15-21``),
+which ``run_experiments.sh`` passes. Same contract here — the Spark-only
+knobs are recorded verbatim into the results CSV for table parity — plus
+an optional trailing ``DATASET``:
+
+    python -m distributed_drift_detection_tpu_torch \\
+        jax://local 16 8g 4 "$(date | sed 's/ /_/g')" 512 outdoorStream.csv
+
+With no arguments, runs the module-default config like executing the
+reference script unedited. The run is on the card; it prints the JAX
+package's summary line ``rows=… detections=… mean_delay_rows=…
+final_time=…``. Three flags, anywhere in argv: ``--data-policy
+{strict,quarantine,repair}`` selects the ingest contract policy for dirty
+CSVs (``io.sanitize``), ``--compile-cache-dir DIR`` names the directory the
+hand-written kernels and the native CSV parser are built into and loaded
+from (a second invocation with the same directory runs no nvcc), and
+``--collect {compact,full}`` pins the collect-phase transport.
+
+``doctor`` validates CSV inputs against the ingest contract on the host
+and exits nonzero on violations (``io.sanitize``):
+
+    python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
+
+The JAX package's other subcommands, ``--tenants N`` above 1 and the
+telemetry flags (``--trace-dir``, ``--profile-dir``, ``--telemetry-dir``)
+are not ported yet: each exits nonzero naming its ROADMAP item.
+"""
+
+import sys
+
+_USAGE = (
+    "usage: python -m distributed_drift_detection_tpu_torch "
+    "[--data-policy strict|quarantine|repair] "
+    "[--compile-cache-dir DIR] [--collect compact|full] "
+    "[URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA [DATASET]]\n"
+    "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]"
+)
+
+# The JAX package's subcommands and flags this port does not run yet, by
+# the ROADMAP item that ports them.
+UNPORTED_SUBCOMMANDS = {
+    **dict.fromkeys(
+        ("report", "perf", "watch", "top", "pipeline", "history", "collector",
+         "correlate", "timeline", "explain", "incident", "registry"), "A15"),
+    **dict.fromkeys(("heal", "sched", "sched-worker"), "A16b"),
+    "chunked": "A10b",
+    **dict.fromkeys(("serve", "loadgen", "router"), "A12"),
+}
+UNPORTED_FLAGS = {"--trace-dir": "A15", "--profile-dir": "A15", "--telemetry-dir": "A15"}
+
+
+def _pop_flag(argv: list[str], flag: str) -> str | None:
+    """Extract ``--flag VALUE`` / ``--flag=VALUE`` from argv (mutating it)."""
+    for i, arg in enumerate(argv):
+        if arg == flag:
+            if i + 1 >= len(argv):
+                raise SystemExit(f"{_USAGE}\n({flag} needs a value)")
+            value = argv[i + 1]
+            del argv[i : i + 2]
+            return value
+        if arg.startswith(flag + "="):
+            del argv[i]
+            return arg[len(flag) + 1 :]
+    return None
+
+
+def _choice(argv: list[str], flag: str, choices) -> str | None:
+    value = _pop_flag(argv, flag)
+    if value is not None and value not in choices:
+        raise SystemExit(
+            f"{_USAGE}\n({flag} must be one of {'|'.join(choices)}, got {value!r})"
+        )
+    return value
+
+
+def main(argv: list[str], device="cuda") -> None:
+    """Run the CLI on ``argv``; the run mode runs on ``device`` (the card;
+    the tests pass ``device='cpu'``; the command line has no device flag)."""
+    if argv and argv[0] == "doctor":
+        from .io.sanitize import main as doctor_main
+
+        doctor_main(argv[1:])
+        return
+    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
+        raise SystemExit(
+            f"not ported yet: {argv[0]} (ROADMAP {UNPORTED_SUBCOMMANDS[argv[0]]})"
+        )
+
+    from .config import COLLECT_MODES, DATA_POLICIES
+
+    argv = list(argv)
+    kw = {}
+    for flag, item in UNPORTED_FLAGS.items():
+        if _pop_flag(argv, flag) is not None:
+            raise SystemExit(f"not ported yet: {flag} (ROADMAP {item})")
+    data_policy = _choice(argv, "--data-policy", DATA_POLICIES)
+    if data_policy is not None:
+        kw["data_policy"] = data_policy
+    compile_cache_dir = _pop_flag(argv, "--compile-cache-dir")
+    if compile_cache_dir is not None:
+        kw["compile_cache_dir"] = compile_cache_dir
+    collect = _choice(argv, "--collect", COLLECT_MODES)
+    if collect is not None:
+        kw["collect"] = collect
+    tenants = _pop_flag(argv, "--tenants")
+    if tenants is not None:
+        try:
+            tenants = int(tenants)
+        except ValueError as e:
+            raise SystemExit(f"{_USAGE}\n({e})") from None
+        if tenants < 1:
+            raise SystemExit(f"{_USAGE}\n(--tenants must be >= 1)")
+        if tenants > 1:
+            raise SystemExit("not ported yet: --tenants above 1 (ROADMAP A11)")
+    if argv and len(argv) not in (6, 7):
+        raise SystemExit(_USAGE)
+    if argv:
+        try:
+            kw.update(
+                url=argv[0],
+                partitions=int(argv[1]),  # reference INSTANCES
+                memory=argv[2],
+                cores=int(argv[3]),
+                time_string=argv[4],
+                mult_data=float(argv[5]),
+            )
+        except ValueError as e:
+            raise SystemExit(f"{_USAGE}\n({e})") from None
+        if len(argv) == 7:
+            kw["dataset"] = argv[6]
+
+    from .api import run
+    from .config import RunConfig
+
+    res = run(RunConfig(**kw), device=device)
+    m = res.metrics
+    print(
+        f"rows={res.stream.num_rows} detections={m.num_detections} "
+        f"mean_delay_rows={m.mean_delay_rows:.1f} "
+        f"final_time={res.total_time:.3f}s"
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -3,8 +3,9 @@
 The twin of the JAX package's ``api.prepare`` (:413-472) and ``api.run``
 (:995-1191) for a ``synth:`` stream or a CSV under the stream contract
 (``data_policy``, ``io/sanitize.py``), the deterministic-fit models
-(majority, centroid, gnb, linear) and the ``mlp`` and ``forest`` on JAX's
-threefry keys (``split(key(seed), P)``, ``utils/threefry.py``), every
+(majority, centroid, gnb, linear), the ``mlp`` and ``forest`` on JAX's
+threefry keys (``split(key(seed), P)``, ``utils/threefry.py``) and the
+reference's host RandomForest ``rf`` (scikit-learn, on the host), every
 detector of the zoo, the speculative window engine over the packed indexed
 stream (dense for ``mult_data < 1`` and for a stream with quarantined rows)
 or the sequential ``window=1`` engine over the dense stream, and either
@@ -12,6 +13,11 @@ collect mode. The timed
 span is the reference's Final Time: ``upload`` → ``detect`` (ended by a
 device synchronize) → ``collect`` (flags to the host, drift vote, delay
 metric).
+
+``RunConfig.compile_cache_dir`` names the directory the hand-written
+kernels and the native CSV parser are built into and loaded from
+(``kernels._build.set_build_dir``; empty: ``kernels/_build/``), the
+counterpart of XLA's persistent compilation cache.
 
 Surfaces outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them (:func:`_check_slice`).
@@ -46,6 +52,7 @@ from .io.stream import (
     stripe_partitions,
     stripe_partitions_packed,
 )
+from .kernels import _build
 from .metrics import DelayMetrics, attribution_metrics, delay_metrics, result_row
 from .models import ModelSpec, build_model
 from .ops.detectors import make_detector
@@ -76,7 +83,7 @@ class RunResult(NamedTuple):
     telemetry_path: "str | None" = None  # telemetry is not ported: always None
 
 
-PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp", "forest")
+PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp", "forest", "rf")
 
 
 def _check_slice(cfg: RunConfig) -> None:
@@ -93,9 +100,20 @@ def _check_slice(cfg: RunConfig) -> None:
         raise ValueError(
             f"collect_capacity must be >= 0 (0 = auto), got {cfg.collect_capacity}"
         )
+    if cfg.model not in PORTED_MODELS:  # build_model's refusal, before any work
+        raise ValueError(
+            f"unknown model {cfg.model!r}; expected {'|'.join(PORTED_MODELS)}"
+        )
+    if cfg.model == "rf":
+        if cfg.mesh_devices > 1:  # as the JAX package refuses it
+            raise ValueError(
+                f"model {cfg.model!r} uses a host callback and cannot run on "
+                f"a {cfg.mesh_devices}-device mesh; set mesh_devices=0"
+            )
+        from .models.rf import require_sklearn
+
+        require_sklearn()  # before any work: the card's machine has none
     unported = [
-        (cfg.model not in PORTED_MODELS,
-         f"model={cfg.model!r} (ROADMAP A9c rf)"),
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
@@ -168,6 +186,7 @@ def prepare(
     time stays outside the timed span."""
     _check_slice(cfg)
     dev = resolve_device(device)
+    _build.set_build_dir(cfg.compile_cache_dir)
     if stream is None:
         stream = _load_stream_for(cfg)
     cfg = _resolve_policies(cfg, stream)
@@ -207,9 +226,10 @@ def prepare(
     if dev.type == "cuda":
         from . import kernels
 
-        if cfg.detector in DETECTOR_KERNELS:
-            kernels.launcher(DETECTOR_KERNELS[cfg.detector])
-        for name in MODEL_KERNELS.get(cfg.model, ()):
+        names = [DETECTOR_KERNELS[cfg.detector]] if cfg.detector in DETECTOR_KERNELS else []
+        names += MODEL_KERNELS.get(cfg.model, ())
+        _build.build_all(names)  # one nvcc each, all started together
+        for name in names:
             kernels.launcher(name)
     return PreparedRun(stream, batches, runner, cfg, dev)
 

@@ -17,6 +17,7 @@ from .engine.loop import LoopCarry
 from .models.classifiers import CentroidParams, GNBParams, LinearParams
 from .models.forest import ForestParams
 from .models.mlp import MLPLayer
+from .models.rf import RFParams
 from .ops import detectors
 from .ops.adwin import ADWINState
 from .ops.ddm import DDMState
@@ -77,6 +78,18 @@ def forest_params(params, device="cpu") -> ForestParams:
     )
 
 
+def rf_params(params, device="cpu") -> RFParams:
+    """JAX ``RFParams(X [B, F], y [B], w [B], seed [])`` (numpy leaves),
+    or vmapped with a leading ``[P]``: the training snapshot and its seed."""
+    batched = np.ndim(params.seed) == 1
+    return RFParams(
+        _tensor(params.X, np.float32, device, batched),
+        _tensor(params.y, np.int32, device, batched),
+        _tensor(params.w, np.float32, device, batched),
+        _tensor(params.seed, np.int32, device, batched),
+    )
+
+
 # Each detector's state class, and the leaves held in int32 (the rest f32).
 _STATES = {
     "ddm": (DDMState, {"count"}),
@@ -110,13 +123,13 @@ def ddm_state(state, device="cpu") -> DDMState:
 _MODEL_PARAMS = {
     "centroid": centroid_params, "majority": majority_params,
     "gnb": gnb_params, "linear": linear_params, "mlp": mlp_params,
-    "forest": forest_params,
+    "forest": forest_params, "rf": rf_params,
 }
 
 
 def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCarry:
     """JAX ``LoopCarry`` of a run with ``model`` and ``detector``. For the
-    keyed ``mlp`` and ``forest`` its ``key`` is carried as key data — pass
+    keyed ``mlp``, ``forest`` and ``rf`` its ``key`` is carried as key data — pass
     ``carry._replace(key=jax.random.key_data(carry.key))`` — and kept as
     uint32 numpy ``[P, 2]`` on the host; the other families' key is
     dropped (their fits consume none)."""
@@ -124,7 +137,7 @@ def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCa
     if model not in _MODEL_PARAMS:
         raise NotImplementedError(f"model {model!r} is not ported yet")
     key = None
-    if model in ("mlp", "forest"):
+    if model in ("mlp", "forest", "rf"):
         key = np.array(carry.key, dtype=np.uint32).reshape(-1, 2)
     return LoopCarry(
         params=_MODEL_PARAMS[model](carry.params, device),

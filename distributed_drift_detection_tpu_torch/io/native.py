@@ -5,8 +5,9 @@ library, the same entry points and the same NumPy fallback. Only the build
 differs. The port never runs ``make`` in ``native/`` and never writes
 there: it compiles ``native/ddd_native.cc`` with the host C++ compiler and
 ``native/Makefile``'s flags into its own gitignored build directory,
-``kernels/_build/libddd_native-<digest>.so``, keyed on a hash of the source
-and the flags, under a file lock (a concurrent first load waits for the
+``kernels/_build/libddd_native-<digest>.so`` (or the directory
+``RunConfig.compile_cache_dir`` names, ``kernels._build.set_build_dir``),
+keyed on a hash of the source and the flags, under a file lock (a concurrent first load waits for the
 build and never opens a half-written library). A missing compiler or
 source leaves the NumPy path, as a failed build does in the JAX package;
 a build is tried at most once a process.
@@ -29,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..kernels._build import BUILD_DIR
+from ..kernels import _build
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "ddd_native.cc"
 # native/Makefile's CXXFLAGS, and the shared-library flag of its rule
@@ -52,7 +53,7 @@ def library_path() -> Path:
     """Where the library for the current source and flags lives."""
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(CXXFLAGS).encode())
-    return BUILD_DIR / f"libddd_native-{h.hexdigest()[:16]}.so"
+    return _build.build_dir() / f"libddd_native-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -65,10 +66,10 @@ def build() -> Path:
     cxx = _compiler()
     if cxx is None:
         raise RuntimeError("no C++ compiler (CXX, g++, c++ or clang++) for the native parser")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     import fcntl
 
-    with open(BUILD_DIR / ".native.lock", "w") as lock_fh:
+    with open(out.parent / ".native.lock", "w") as lock_fh:
         fcntl.flock(lock_fh, fcntl.LOCK_EX)
         try:
             if out.exists():  # another process built it while this one waited

@@ -1,8 +1,8 @@
 """Ingest-time stream-contract validation — the data plane's robustness layer.
 
-The port's own copy of the JAX package's ``io/sanitize.py``; its ``doctor``
-CLI (``main``) waits for the port's CLI (ROADMAP A16), and the telemetry of
-``QUARANTINE_METRIC`` for A15.
+The port's own copy of the JAX package's ``io/sanitize.py``, its ``doctor``
+CLI (:func:`main`, ``python -m distributed_drift_detection_tpu_torch
+doctor``) included; the telemetry of ``QUARANTINE_METRIC`` waits for A15.
 
 The reference assumes a pristine numeric CSV (``DDM_Process.py:33-35``): a
 non-numeric cell crashes the load, a ragged row silently falls back to a
@@ -50,8 +50,10 @@ not by hoping for dirty data.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -826,3 +828,77 @@ def load_csv_sane(
         X, yf = mask_rows(X, yf, row_ok)
     return SanitizedCSV(X, yf.astype(np.int64), row_ok, report)
 
+
+def main(argv=None) -> None:
+    """``doctor``: stream-contract check of CSV inputs, on the host.
+
+    Exit 0 = every file satisfies the contract; 1 = violations found
+    (each printed as ``file, data row R, column C (name): reason``);
+    2 = usage / unreadable input. The scriptable pre-flight for sweeps:
+    run it over the dataset before burning accelerator time.
+    """
+    ap = argparse.ArgumentParser(
+        prog="python -m distributed_drift_detection_tpu_torch doctor",
+        description=(
+            "Validate CSV stream inputs against the ingest contract "
+            "(numeric cells, finite values, rectangular rows, label "
+            "domain) without touching the card. Exit 0 = clean, 1 = dirty."
+        ),
+    )
+    ap.add_argument("csv", nargs="+", help="CSV path(s) to validate")
+    ap.add_argument(
+        "--target-column",
+        default="target",
+        help="label column name (default: target)",
+    )
+    ap.add_argument(
+        "--max-report",
+        type=int,
+        default=20,
+        help="violations printed per file (the count is always exact)",
+    )
+    ap.add_argument(
+        "--jobs",
+        type=int,
+        default=1,
+        help="parallel scan blocks per file (line-aligned byte ranges, "
+        "the ingest pipeline's splitter); violation output ordering is "
+        "identical to the serial scan (default: 1)",
+    )
+    args = ap.parse_args(argv)
+
+    dirty = False
+    for path in args.csv:
+        if path.startswith("synth:"):
+            print(f"{path}: synthetic spec, nothing to validate")
+            continue
+        try:
+            issues, n = scan_csv(path, args.target_column, jobs=args.jobs)
+        except StreamContractError as e:
+            print(f"{path}: {e}")
+            dirty = True
+            continue
+        except OSError as e:
+            # exit 2 = environment error, distinct from 1 = dirty data
+            # (the docstring's contract a gating script branches on)
+            print(f"doctor: cannot read {path}: {e}", file=sys.stderr)
+            raise SystemExit(2)
+        if not issues:
+            print(f"{path}: OK ({n} data rows)")
+            continue
+        dirty = True
+        bad_rows = len({i.row for i in issues})
+        print(
+            f"{path}: {len(issues)} violation(s) across {bad_rows} of "
+            f"{n} data rows"
+        )
+        for i in issues[: args.max_report]:
+            col = "" if i.column is None else f", column {i.column}"
+            print(f"  data row {i.row}{col}: {i.reason}")
+        if len(issues) > args.max_report:
+            print(f"  ... {len(issues) - args.max_report} more")
+    raise SystemExit(1 if dirty else 0)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

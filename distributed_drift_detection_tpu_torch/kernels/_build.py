@@ -4,7 +4,11 @@ Each kernel's ``csrc/<name>.cu`` compiles on its own into
 ``kernels/_build/lib<name>-<digest>.so`` (a directory ``.gitignore`` lists)
 at its first use, keyed on a hash of the source, the ``csrc/*.cuh`` headers
 and the flags, so a fresh
-checkout builds on the first call and later calls reuse the library. The
+checkout builds on the first call and later calls reuse the library.
+``RunConfig.compile_cache_dir`` names another directory for the libraries
+(:func:`set_build_dir`, which ``api.prepare`` calls): the counterpart of
+XLA's persistent compilation cache, so a second process given the same
+directory loads what the first built and runs no nvcc. The
 library has a plain C interface and is loaded with ``ctypes``
 (``kernels/__init__.py``); no PyTorch header is compiled, which keeps a
 build to seconds. A failed build raises with nvcc's output.
@@ -22,7 +26,8 @@ from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"  # the default
+_build_dir = BUILD_DIR
 
 COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +53,21 @@ KERNELS = {
     "forest_fit": ("-fmad=false", "-ftz=true"),
     "forest_predict_err": ("-fmad=false",),
 }
+
+
+def set_build_dir(path: str = "") -> Path:
+    """Build and load the libraries in ``path`` from now on (created at the
+    first build); empty restores the default, ``kernels/_build/``. Returns
+    the directory. A library already loaded in this process stays loaded:
+    its name carries the hash of its source, so it is the same build."""
+    global _build_dir
+    _build_dir = Path(path).expanduser().resolve() if path else BUILD_DIR
+    return _build_dir
+
+
+def build_dir() -> Path:
+    """The directory libraries are built into and loaded from."""
+    return _build_dir
 
 
 def nvcc() -> str:
@@ -79,7 +99,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join((*COMMON_FLAGS, *KERNELS[name])).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return _build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -88,7 +108,7 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
         _command(name, tmp), capture_output=True, text=True, check=False
@@ -103,14 +123,18 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all() -> dict[str, float]:
-    """Build every kernel, one nvcc process each, all started together;
-    returns the wall seconds each build took (0 for a cached library)."""
+def build_all(names=None) -> dict[str, float]:
+    """Build the kernels ``names`` (every kernel by default), one nvcc
+    process each, all started together; returns the wall seconds each
+    build took (0 for a cached library)."""
+    names = list(KERNELS if names is None else names)
 
     def timed(name):
         t0 = time.perf_counter()
         build(name)
         return name, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(pool.map(timed, KERNELS))
+    if not names:
+        return {}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(pool.map(timed, names))

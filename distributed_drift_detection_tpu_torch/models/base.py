@@ -17,10 +17,14 @@ partitions; the port's take the ``[P]`` partition axis written out. A
   row_stride(F)]``; columns past F are padding.
 
 ``key`` is the partitions' threefry keys ``[P, 2]`` (``utils/threefry.py``;
-uint32 words, as int32 bit patterns on the device). A family whose init and
-fit consume it (``mlp``, ``forest``) sets ``keyed``, and the engines draw the JAX
-package's key chain for it; the others (majority, centroid, gnb, linear)
-ignore ``key`` and get none.
+uint32 words, as int32 bit patterns on the device). A family whose init or
+fit consumes it (``mlp``, ``forest``, ``rf``) sets ``keyed``, and the engines
+draw the JAX package's key chain for it; the others (majority, centroid,
+gnb, linear) ignore ``key`` and get none.
+
+``host_callback`` marks a family whose predict crosses to the host (``rf``,
+``models/rf.py``): such a model never runs on a device mesh (the JAX
+package's ``models/base.py`` ``require_shardable``).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ class Model(NamedTuple):
     fit: Callable[..., Any]
     predict: Callable[..., Any]
     predict_err: Callable[..., Any]
-    keyed: bool = False  # init and fit consume the partitions' keys
+    keyed: bool = False  # init or fit consumes the partitions' keys
+    host_callback: bool = False  # predict runs on the host
 
 
 class ModelSpec(NamedTuple):

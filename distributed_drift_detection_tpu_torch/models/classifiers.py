@@ -412,8 +412,10 @@ def make_linear(spec: ModelSpec, *, fit_steps: int = 32, learning_rate: float = 
 def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
     """Build a model by config name (``RunConfig.model``); ``cfg`` supplies
     ``fit_steps``, ``linear``'s ``learning_rate``, ``mlp``'s ``mlp_hidden``
-    and ``mlp_learning_rate``, and ``forest``'s ``forest_trees`` and
-    ``forest_depth``."""
+    and ``mlp_learning_rate``, ``forest``'s ``forest_trees`` and
+    ``forest_depth``, and ``rf``'s ``per_batch``, ``rf_estimators``,
+    ``cores`` and ``partitions``; ``rf`` raises :class:`ImportError`
+    without scikit-learn."""
     if name == "majority":
         return make_majority(spec)
     if name == "centroid":
@@ -438,9 +440,17 @@ def build_model(name: str, spec: ModelSpec, cfg=None) -> Model:
             return make_forest(spec)
         return make_forest(spec, trees=cfg.forest_trees, depth=cfg.forest_depth)
     if name == "rf":
-        raise NotImplementedError(
-            "model 'rf' is not ported yet (ROADMAP A9c); the port runs "
-            "majority, centroid, gnb, linear, mlp and forest"
+        from .rf import make_rf
+
+        # the LRU holds at least one live forest a partition, with headroom
+        # for the rotate transition (the JAX package's sizing)
+        parts = cfg.partitions if cfg is not None else 16
+        return make_rf(
+            spec,
+            batch_size=cfg.per_batch if cfg is not None else 100,
+            n_estimators=cfg.rf_estimators if cfg is not None else 100,
+            n_jobs=cfg.cores if cfg is not None else 0,
+            cache_size=max(64, 2 * parts),
         )
     raise ValueError(
         f"unknown model {name!r}; expected majority|centroid|gnb|linear|mlp|forest|rf"

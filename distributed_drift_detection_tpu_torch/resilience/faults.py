@@ -74,8 +74,9 @@ decision hashes ``(seed, site, hit)``, so a given arming fires at the same
 hits in every run). No global RNG, no wall-clock.
 
 Pure stdlib; importing this module never arms anything. Of the sites
-below the port fires ``stream.load`` so far; the others belong to
-surfaces it has not ported yet (ROADMAP A10b, A12, A14, A15, A16).
+below the port fires ``stream.load`` and ``grid.cell`` so far; the others
+belong to surfaces it has not ported yet (ROADMAP A10b, A12, A14, A15,
+A16b).
 """
 
 from __future__ import annotations

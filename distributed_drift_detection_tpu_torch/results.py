@@ -1,5 +1,6 @@
 """Results persistence — the port's own copy of the JAX package's
-``results.append_result`` (reference C11, ``DDM_Process.py:263-273``).
+``results.py``: ``append_result`` (reference C11, ``DDM_Process.py:263-273``)
+and ``read_results``, the reader of the grid's torn-tail-tolerant resume.
 
 Append-one-row-per-run CSV with the reference's column schema (see
 ``metrics.RESULT_COLUMNS``). Fixes quirk #1 of the SURVEY register: the
@@ -89,6 +90,50 @@ def append_result(path: str, row: list) -> None:
         # reach the platter before anyone can observe that promise.
         fh.flush()
         os.fsync(fh.fileno())
+
+
+def read_results(path: str, *, allow_partial_tail: bool = False) -> list[dict]:
+    """Read the results CSV as dict rows.
+
+    ``allow_partial_tail=True`` tolerates exactly one **torn trailing
+    row** — the crash/concurrent-append read path, mirroring
+    ``telemetry.events.read_events``: a row is torn when the file does
+    not end in a newline (the writer appends whole ``row + \\r\\n`` units)
+    or the final row has fewer fields than the header; it is dropped,
+    never a row before it. A short *interior* row is corruption and
+    raises ``ValueError`` in both modes (the strict default also raises
+    on a short trailing row). Overlong rows raise always — no tear can
+    add fields.
+    """
+    with open(path, newline="") as fh:
+        text = fh.read()
+    rows = list(csv.reader(text.splitlines()))
+    if not rows:
+        return []
+    header, body = rows[0], rows[1:]
+    out = []
+    for i, row in enumerate(body):
+        last = i == len(body) - 1
+        if not row and not last:
+            continue  # interior blank line (csv.DictReader parity)
+        if not row and text.endswith("\n"):
+            continue  # trailing blank line after a complete final row
+        torn = len(row) < len(header) or (last and not text.endswith("\n"))
+        if len(row) > len(header) or (torn and not last):
+            raise ValueError(
+                f"{path}: corrupt interior row {i + 2} "
+                f"({len(row)} fields, header has {len(header)})"
+            )
+        if torn:
+            if allow_partial_tail:
+                break  # the one torn trailing row; everything before stands
+            raise ValueError(
+                f"{path}: torn trailing row {i + 2} "
+                f"({len(row)} fields, header has {len(header)}; pass "
+                "allow_partial_tail=True to drop it)"
+            )
+        out.append(dict(zip(header, row)))
+    return out
 
 
 def _fmt(v):

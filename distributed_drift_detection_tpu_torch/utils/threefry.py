@@ -108,7 +108,7 @@ def random_bits(key, shape):
     shape = tuple(int(d) for d in shape)
     b1, b2 = _hash_flat(key, math.prod(shape))
     bits = b1 ^ b2
-    return bits.reshape(*bits.shape[:-1], *shape)
+    return bits.reshape(tuple(bits.shape[:-1]) + shape)
 
 
 def _unit_floats(key, shape) -> torch.Tensor:
@@ -281,3 +281,57 @@ def loop_fit_keys(keys: np.ndarray, steps: int) -> tuple:
     Returns the chain ``[steps + 1, P, 2]`` and the fit keys ``[steps, P,
     2]``, numpy uint32."""
     return fold_chain(keys, steps, 3, 2)
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def _mul32(a, b):
+    """``a · b mod 2^32`` of values in [0, 2^32) held in int64 (numpy or
+    torch), without a product past 2^49: ``a`` in two 16-bit halves."""
+    return (((((a >> 16) * b) & M32) << 16) + (a & 0xFFFF) * b) & M32
+
+
+def _rem(x, span, where):
+    """XLA's unsigned ``rem``: ``x mod span``, and ``x`` where ``span`` is 0."""
+    return where(span == 0, x, x % where(span == 0, 1, span))
+
+
+def randint(key, shape, minval, maxval):
+    """``jax.random.randint(key, shape, minval, maxval)`` at its default
+    dtype int32 (jax 0.9.0 ``_randint``): ``k1, k2 = split(key)``, 32
+    random bits from each, and ``minval + (hi mod span · 2^32 mod span +
+    lo mod span) mod span`` in uint32 arithmetic, with ``span = maxval −
+    minval`` (1 where ``maxval <= minval``, so ``minval`` comes back; one
+    more where ``maxval`` lies past the int32 range). ``key [..., 2]``;
+    ``minval`` and ``maxval`` broadcast against ``shape``. Answers int32
+    ``[..., *shape]`` in the key's form (numpy, or a torch tensor on its
+    device); the uint32 values are held in int64 throughout."""
+    shape = tuple(int(d) for d in shape)
+    if _is_numpy(key):
+        def as_int(v):
+            return np.asarray(v, dtype=np.int64)
+
+        where, out = np.where, (lambda v: v.astype(np.int32))
+    else:
+        def as_int(v):
+            return torch.as_tensor(v, dtype=torch.int64, device=key.device)
+
+        where, out = torch.where, (lambda v: v.to(torch.int32))
+    lo_v, hi_v = as_int(minval), as_int(maxval)
+    out_of_range = hi_v > _I32_MAX
+    lo_v = lo_v.clip(_I32_MIN, _I32_MAX)
+    hi_v = hi_v.clip(_I32_MIN, _I32_MAX)
+    k = split(key, 2)
+    high, low = random_bits(k[..., 0, :], shape), random_bits(k[..., 1, :], shape)
+    if _is_numpy(key):
+        high, low = high.astype(np.int64), low.astype(np.int64)
+    span = (hi_v - lo_v) & M32  # the int32 difference, as uint32
+    span = where(hi_v <= lo_v, 1, span)
+    span = where(out_of_range & (hi_v > lo_v), (span + 1) & M32, span)
+    mult = _rem(as_int(1 << 16) + 0 * span, span, where)
+    mult = _rem(_mul32(mult, mult), span, where)
+    offset = (_mul32(_rem(high, span, where), mult) + _rem(low, span, where)) & M32
+    offset = _rem(offset, span, where)
+    value = (lo_v + offset) & M32  # the int32 sum, wrapped
+    return out(where(value > _I32_MAX, value - (1 << 32), value))

@@ -1,0 +1,200 @@
+"""The port's command line (``__main__.py``, ``doctor``) against the JAX
+package's, and ``RunConfig.compile_cache_dir`` as the port's build
+directory.
+
+``main(argv, device='cpu')`` with the reference's 7 positional arguments
+must print the JAX package's summary line (apart from ``final_time``) and
+append the same results row (apart from its times); partial argv, bad flag
+values and ``doctor`` must give the JAX package's exit codes and messages;
+every subcommand and flag the port does not run yet must exit nonzero
+naming its ROADMAP item.
+"""
+
+import csv
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from distributed_drift_detection_tpu import __main__ as jmain  # noqa: E402
+from distributed_drift_detection_tpu.io import sanitize as jsanitize  # noqa: E402
+from distributed_drift_detection_tpu_torch import __main__ as tmain  # noqa: E402
+from distributed_drift_detection_tpu_torch import api, config as tconfig  # noqa: E402
+from distributed_drift_detection_tpu_torch.io import datasets as tdatasets  # noqa: E402
+from distributed_drift_detection_tpu_torch.io import native as tnative  # noqa: E402
+from distributed_drift_detection_tpu_torch.io import sanitize as tsanitize  # noqa: E402
+from distributed_drift_detection_tpu_torch.io import synth as tsynth  # noqa: E402
+from distributed_drift_detection_tpu_torch.kernels import _build  # noqa: E402
+from distributed_drift_detection_tpu_torch.results import read_results  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPEC = "prototypes,seed=0,concepts=6,rows_per_concept=100,features=5"
+ARGV = ["spark://x:7077", "4", "8g", "2", "stamp-1", "8"]
+
+
+@pytest.fixture(scope="module")
+def csvs(tmp_path_factory):
+    """SPEC's rows as a clean CSV and a dirty copy (data row 100's 4th
+    field NaN, data row 250 ragged)."""
+    d = tmp_path_factory.mktemp("cli")
+    clean = str(d / "stream.csv")
+    tdatasets._write_schema_csv(*tsynth.parse_synth(SPEC), clean)
+    with open(clean) as fh:
+        lines = fh.read().splitlines()
+    f = lines[101].split(",")
+    f[3] = "nan"
+    lines[101] = ",".join(f)
+    lines[251] = ",".join(lines[251].split(",")[:-2])
+    dirty = str(d / "dirty.csv")
+    with open(dirty, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return {"clean": clean, "dirty": dirty}
+
+
+def _summary(out: str) -> str:
+    line = [ln for ln in out.splitlines() if ln.startswith("rows=")][-1]
+    return line[: line.index(" final_time=")]
+
+
+@pytest.mark.parametrize("flags", [[], ["--collect", "full"],
+                                   ["--data-policy", "quarantine"]],
+                         ids=["plain", "collect_full", "quarantine"])
+def test_argv_run_matches_jax(csvs, tmp_path, monkeypatch, capsys, flags):
+    """The reference's argv order (``DDM_Process.py:15-21``): the summary
+    line and the results row of the JAX package, the Spark-only knobs
+    recorded verbatim."""
+    dataset = csvs["dirty"] if "quarantine" in flags else csvs["clean"]
+    rows = {}
+    for name, run_main in (("jax", jmain.main),
+                           ("port", lambda a: tmain.main(a, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        run_main([*flags, *ARGV, dataset])
+        out = capsys.readouterr().out
+        rows[name] = (_summary(out), read_results(str(d / "ddm_cluster_runs.csv")))
+    assert rows["port"][0] == rows["jax"][0]
+    assert "detections=" in rows["port"][0]
+    (jrow,), (trow,) = rows["jax"][1], rows["port"][1]
+    assert list(trow) == list(jrow)
+    timed = {"Final Time", "Rows Per Sec"}
+    assert {k: v for k, v in trow.items() if k not in timed} == \
+        {k: v for k, v in jrow.items() if k not in timed}
+    assert list(trow.values())[1:7] == ["stamp-1", "spark://x:7077", "4", "8.0", "8g", "2"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["only", "three", "args"],
+    ARGV[:5],
+    [*ARGV, "a.csv", "extra"],
+    ["u", "four", "8g", "2", "t", "8"],
+    ["--data-policy", "bogus"],
+    ["--collect", "nope"],
+    ["--tenants", "x"],
+    ["--tenants", "0"],
+    ["--data-policy"],
+])
+def test_usage_errors_match_jax(argv):
+    with pytest.raises(SystemExit) as t:
+        tmain.main(list(argv), device="cpu")
+    with pytest.raises(SystemExit) as j:
+        jmain.main(list(argv))
+    def detail(code):  # the line after the usage block, if any
+        last = str(code).splitlines()[-1]
+        return last if last.startswith("(") else None
+
+    assert str(t.value.code).startswith("usage: python -m distributed_drift_detection_tpu_torch ")
+    assert detail(t.value.code) == detail(j.value.code)
+
+
+@pytest.mark.parametrize("name", sorted(tmain.UNPORTED_SUBCOMMANDS))
+def test_unported_subcommands_name_their_items(name):
+    item = tmain.UNPORTED_SUBCOMMANDS[name]
+    with pytest.raises(SystemExit, match=rf"not ported yet: {name} \(ROADMAP {item}\)") as e:
+        tmain.main([name, "x"], device="cpu")
+    assert e.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--trace-dir", "t", *ARGV], "A15"),
+    (["--profile-dir=p"], "A15"),
+    (["--telemetry-dir", "d"], "A15"),
+    (["--tenants", "2", *ARGV], "A11"),
+])
+def test_unported_flags_name_their_items(argv, item):
+    with pytest.raises(SystemExit, match=rf"not ported yet: .*ROADMAP {item}\)"):
+        tmain.main(argv, device="cpu")
+
+
+def test_unported_subcommands_cover_the_jax_cli():
+    """Every subcommand of the JAX package's CLI is ported (``doctor``) or
+    names its item."""
+    jax_subcommands = {ln.split()[3] for ln in jmain._USAGE.splitlines()[1:]}
+    assert jax_subcommands == set(tmain.UNPORTED_SUBCOMMANDS) | {"doctor"}
+
+
+@pytest.mark.parametrize("which, extra", [("clean", []), ("dirty", []),
+                                          ("dirty", ["--max-report", "1"]),
+                                          ("dirty", ["--jobs", "3"]), ("missing", []),
+                                          ("synth", [])])
+def test_doctor_matches_jax(csvs, capsys, which, extra):
+    path = {"missing": "no/such.csv", "synth": f"synth:{SPEC}"}.get(which) or csvs[which]
+    codes, outs = [], []
+    for main in (tsanitize.main, jsanitize.main):
+        with pytest.raises(SystemExit) as e:
+            main([*extra, path])
+        cap = capsys.readouterr()
+        codes.append(e.value.code)
+        outs.append((cap.out, cap.err))
+    assert codes[0] == codes[1] == {"clean": 0, "dirty": 1, "missing": 2, "synth": 0}[which]
+    assert outs[0] == outs[1]
+
+
+def test_doctor_through_the_module_and_the_cli(csvs):
+    """``python -m distributed_drift_detection_tpu_torch doctor``: exit 0 on
+    the clean CSV, 1 on the dirty one, without touching a card or JAX."""
+    for which, code in (("clean", 0), ("dirty", 1)):
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, runpy; sys.argv = ['x', 'doctor', sys.argv[1]]\n"
+             "try:\n    runpy.run_module('distributed_drift_detection_tpu_torch', "
+             "run_name='__main__')\nexcept SystemExit as e:\n"
+             "    assert 'jax' not in sys.modules; raise\n", csvs[which]],
+            cwd=REPO, capture_output=True, text=True, timeout=120, check=False)
+        assert out.returncode == code, out.stderr
+
+
+def test_compile_cache_dir_names_the_build_directory(tmp_path):
+    """``RunConfig.compile_cache_dir`` is where the kernels and the native
+    parser are built and loaded from; empty keeps ``kernels/_build/``.
+    Resolving it builds nothing."""
+    cache = tmp_path / "cache"
+    cfg = tconfig.RunConfig(dataset=f"synth:{SPEC}", mult_data=1, partitions=2,
+                            per_batch=50, results_csv="", compile_cache_dir=str(cache))
+    try:
+        api.prepare(cfg, device="cpu")
+        assert _build.build_dir() == cache.resolve()
+        assert _build.library_path("ddm_window").parent == cache.resolve()
+        assert tnative.library_path().parent == cache.resolve()
+        assert not cache.exists()  # nothing built on the CPU for a synth: stream
+        api.prepare(tconfig.replace(cfg, compile_cache_dir=""), device="cpu")
+        assert _build.build_dir() == _build.BUILD_DIR
+        assert _build.library_path("centroid_fit").parent == _build.BUILD_DIR
+    finally:
+        _build.set_build_dir("")
+
+
+def test_cli_passes_compile_cache_dir(csvs, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    cache = tmp_path / "kcache"
+    try:
+        tmain.main(["--compile-cache-dir", str(cache), *ARGV, csvs["clean"]], device="cpu")
+        assert _build.build_dir() == cache.resolve()
+    finally:
+        _build.set_build_dir("")
+    assert "detections=" in capsys.readouterr().out
+    with open(tmp_path / "ddm_cluster_runs.csv") as fh:
+        assert len(list(csv.reader(fh))) == 2

@@ -323,8 +323,7 @@ def test_build_model_reads_the_config():
     assert m.keyed and m.name == "forest"
     params = m.init(2)
     assert params.proj.shape == (2, 5, 9) and params.leaf_class.shape == (2, 3, 4)
-    with pytest.raises(NotImplementedError, match=r"A9c\b"):
-        build_model("rf", ModelSpec(5, 3))
+    assert build_model("rf", ModelSpec(5, 3)).keyed  # rf is ported (tests/test_torch_rf.py)
 
 
 BASE = dict(

@@ -412,11 +412,14 @@ def test_loop_carry_converts():
 
 
 def test_unported_models_raise():
-    """mlp and forest are ported (tests/test_torch_mlp.py,
-    tests/test_torch_forest.py); rf still raises, naming its ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match="A9c"):
-        build_model("rf", ModelSpec(F, C))
+    """Every model of the JAX package is ported: mlp and forest
+    (tests/test_torch_mlp.py, tests/test_torch_forest.py) and rf
+    (tests/test_torch_rf.py), which is keyed and predicts on the host; an
+    unknown name raises the JAX package's ValueError."""
+    rf = build_model("rf", ModelSpec(F, C))
+    assert rf.keyed and rf.host_callback
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("bogus", ModelSpec(F, C))
     assert build_model("mlp", ModelSpec(F, C)).keyed
     assert build_model("forest", ModelSpec(F, C)).keyed
 

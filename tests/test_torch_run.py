@@ -144,9 +144,14 @@ def test_port_imports_no_jax():
         "distributed_drift_detection_tpu_torch.io.datasets, "
         "distributed_drift_detection_tpu_torch.resilience.faults, "
         "distributed_drift_detection_tpu_torch.resilience.policy, "
-        "distributed_drift_detection_tpu_torch.models.forest\n"
+        "distributed_drift_detection_tpu_torch.resilience.supervisor, "
+        "distributed_drift_detection_tpu_torch.models.forest, "
+        "distributed_drift_detection_tpu_torch.models.rf, "
+        "distributed_drift_detection_tpu_torch.__main__, "
+        "distributed_drift_detection_tpu_torch.harness.grid, "
+        "distributed_drift_detection_tpu_torch.harness.parity\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m.split('.')[0] == 'distributed_drift_detection_tpu']\n"
+        "or m.split('.')[0] in ('distributed_drift_detection_tpu', 'sklearn')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -189,11 +194,9 @@ def test_chip_scripts_refuse_without_a_card(script):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(model="rf", window=1), "A9"),
         (dict(mesh_tenant_devices=2), "A15"),
         (dict(tenants=2), "A11"),
         (dict(mesh_devices=2), "A15"),
-        (dict(model="rf"), "A9"),
         (dict(telemetry_dir="t"), "A15"),
         (dict(validate=True), "A15"),
         (dict(profile_dir="p"), "A15"),
@@ -210,18 +213,6 @@ def test_a_missing_csv_raises():
     for run, mod in ((jpkg.run, jconfig), (lambda c: tpkg.run(c, device="cpu"), tconfig)):
         with pytest.raises(FileNotFoundError):
             run(_cfg(mod, dataset="no/such/data.csv"))
-
-
-@pytest.mark.parametrize("model, item", [("rf", "A9c")])
-def test_unported_models_name_their_items(model, item):
-    """rf stays refused, naming its ROADMAP item, at ``run`` and at
-    ``build_model``."""
-    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
-
-    with pytest.raises(NotImplementedError, match=rf"{item}\b"):
-        tpkg.run(_cfg(tconfig, model=model), device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"{item}\b"):
-        build_model(model, ModelSpec(5, 3))
 
 
 def test_forest_builds_where_it_was_refused():
