@@ -136,7 +136,24 @@ without them. Phases, each fatal on failure:
    ``PARITY_GEOMETRY``: the deterministic families' rows equal the CPU's,
    the mlp's and the forest's detections equal and their mean delays
    within a batch, their kernels launched; ``doctor`` exits 0 on the twin
-   and 1 on phase 11's dirty CSV.
+   and 1 on phase 11's dirty CSV;
+16. the sweep as a fleet on the card: (a) ``run`` of SMOKE with a
+   ``telemetry_dir``, counted (K1, K2, K7): 624 detections, 788.6282 rows
+   and flags equal to phase 4's untelemetered run, every line of its log
+   valid under ``telemetry.events.validate_event``, ``memory_snapshot``
+   events before and after the detect phase with bytes in use, the
+   registry folded to ``completed``; its Final Time beside phase 4's
+   median and the seconds its telemetry adds outside the span; (b) the
+   ``sched`` scheduler on a 4-cell spec cut from phase 15's grid
+   (``GRID_MULTS`` x ``GRID_PARTITIONS``, one trial), 2 spawned
+   ``sched-worker`` agents on the card sharing one ``--compile-cache-dir``
+   (the directory phase 2 built into): ``audit_exactly_once`` holds and
+   each cell's results row equals phase 15's CPU run of it but for its
+   times; the sweep's wall time and each worker's start-up seconds; (c)
+   crash then heal: ``DDD_FAULTS`` arms ``api.run`` for the second cell of
+   a 2-cell telemetered grid; ``heal`` plans exactly that cell and exits 1,
+   ``heal --execute`` re-runs only it on the card, counted, and the plan is
+   then whole (exit 0).
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1982,6 +1999,221 @@ def experiment_phase(torch, api, config, dev) -> None:
     print(f"doctor: exit {codes[0]} on the twin, {codes[1]} on the dirty CSV; phase 15 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     tmp.cleanup()
+    return cpu_rows
+
+
+def heal_main(argv: list[str], device: str = "cuda") -> int:
+    """``heal`` (``resilience.heal.main``) in this process: its exit code."""
+    from distributed_drift_detection_tpu_torch.resilience import heal
+
+    try:
+        heal.main(argv, device=device)
+    except SystemExit as e:
+        return int(e.code or 0)
+    return 0
+
+
+def worker_startup(tele: str, t_spawn: float) -> dict:
+    """Each spawned worker's start-up, from the scheduler's journal and its
+    first cell's run log: seconds from spawn to its hello (interpreter and
+    package, no torch), from the hello to its first cell's
+    ``run_started`` (torch, ``api``, the supervisor), that cell's prepare
+    phase (stream and kernel libraries loaded from the shared directory),
+    and the sum through prepare: spawn to the first Final Time span."""
+    import os
+
+    from distributed_drift_detection_tpu_torch.telemetry import events, registry
+
+    with open(os.path.join(tele, "sched.journal.jsonl")) as fh:
+        journal = [json.loads(ln) for ln in fh]
+    logs = {rec["log"]: rec for rec in registry.runs(tele).values() if rec.get("log")}
+    out = {}
+    for j in journal:
+        if j["event"] != "worker_joined":
+            continue
+        pid = j["pid"]
+        first = None
+        for name in sorted(logs, key=lambda n: logs[n]["started_ts"]):
+            if f"-{pid}-" in name:
+                first = events.read_events(os.path.join(tele, name))
+                break
+        check(first is not None, f"worker {j['worker']} left no run log")
+        started = first[0]["ts"]
+        prepare = next(e["seconds"] for e in first
+                       if e["type"] == "phase_completed" and e["phase"] == "prepare")
+        out[j["worker"]] = {"hello_s": j["ts"] - t_spawn, "imports_s": started - j["ts"],
+                            "prepare_s": prepare, "startup_s": started + prepare - t_spawn}
+    return out
+
+
+def fleet_phase(torch, api, config, dev, res, final, cpu_rows) -> None:
+    """Phase 16 (module docstring): a telemetered run, the scheduler with
+    two workers on the card, and crash then heal."""
+    import os
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.harness import grid
+    from distributed_drift_detection_tpu_torch.kernels import _build
+    from distributed_drift_detection_tpu_torch.resilience import faults
+    from distributed_drift_detection_tpu_torch.results import read_results
+    from distributed_drift_detection_tpu_torch.sched.leases import audit_exactly_once
+    from distributed_drift_detection_tpu_torch.sched.scheduler import Scheduler
+    from distributed_drift_detection_tpu_torch.telemetry import events, registry
+
+    tmp = tempfile.TemporaryDirectory()
+    t_phase = time.perf_counter()
+    main_path = ("ddm_window", "centroid_predict_err", "centroid_fit")
+
+    # (a) the main path with a telemetry_dir
+    tele_a = os.path.join(tmp.name, "run")
+    cfg = config.RunConfig(**SMOKE)
+    plain_outside, plain_final = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p = api.run(cfg, device=dev)
+        plain_outside.append(time.perf_counter() - t0 - p.timings["prepare"] - p.total_time)
+        plain_final.append(p.total_time)
+    reset_launches()
+    t0 = time.perf_counter()
+    tres = api.run(config.replace(cfg, telemetry_dir=tele_a), device=dev)
+    wall = time.perf_counter() - t0
+    tl = read_launches()
+    m = tres.metrics
+    check(m.num_detections == EXPECTED_DETECTIONS
+          and abs(m.mean_delay_rows - EXPECTED_MEAN_DELAY) < 0.01,
+          f"telemetered run: {m.num_detections} detections, mean delay {m.mean_delay_rows}")
+    check(flags_equal(np, tres, res), "telemetered run: flags differ from phase 4's run")
+    for k in main_path:
+        check(tl[k] > 0, f"telemetered run: kernel {k} was not launched")
+    with open(tres.telemetry_path) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    for ev in lines:
+        events.validate_event(ev)
+    snaps = {e["when"]: e["stats"] for e in lines
+             if e["type"] == "memory_snapshot" and e["source"] == "device"}
+    check(set(snaps) == {"before_detect", "after_detect"}
+          and all(s["bytes_in_use"] > 0 for s in snaps.values()),
+          f"telemetered run: device memory snapshots {snaps}")
+    (rec,) = registry.runs(tele_a).values()
+    check(rec["status"] == "completed" and rec["detections"] == EXPECTED_DETECTIONS,
+          f"telemetered run: registry {rec}")
+    compile_ev = next(e for e in lines if e["type"] == "compile_completed")
+    outside = wall - tres.timings["prepare"] - tres.total_time
+    print(f"telemetered run on the card: {m.num_detections} detections, mean delay "
+          f"{m.mean_delay_rows:.4f} rows, flags equal to phase 4's run; {len(lines)} log lines "
+          f"valid; device bytes in use {snaps['before_detect']['bytes_in_use']:,} before, "
+          f"{snaps['after_detect']['bytes_in_use']:,} after the detect phase (peak "
+          f"{snaps['after_detect']['peak_bytes_in_use']:,}); registry completed; "
+          f"compile_completed cached={compile_ev['cached']} seconds={compile_ev['seconds']:.4f}; "
+          f"launches {tl}")
+    print(f"telemetered run: Final Time {tres.total_time:.4f} s (untelemetered: the two runs "
+          f"just before it {', '.join(f'{x:.4f}' for x in plain_final)} s, phase 4's median of 3 "
+          f"{final:.4f} s); {outside:.4f} s of its {wall:.4f} s wall outside prepare "
+          f"and the span (the bracket, the snapshots, the log and the exports; untelemetered "
+          f"runs: {', '.join(f'{x:.4f}' for x in plain_outside)} s)")
+
+    # (b) the scheduler: 4 cells of phase 15's grid, 2 workers on the card
+    tele_b = os.path.join(tmp.name, "sched")
+    twin = os.path.join(tmp.name, "outdoorStream.csv")
+    write_csv(SMOKE["dataset"][len("synth:"):], twin)
+    sched_csv = os.path.join(tmp.name, "sched.csv")
+    spec = grid.sweep_spec(twin, list(GRID_MULTS), list(GRID_PARTITIONS), trials=1,
+                           results_csv=sched_csv)
+    sched = Scheduler(tele_b, lease_s=120.0)
+    plan = sched.add_spec(spec)
+    check(plan == {"cells_total": 4, "completed": 0, "queued": 4}, f"sched plan {plan}")
+    sched.start()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("DDD_FAULTS", None)
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    procs = sched.spawn_workers(
+        2, extra_args=["--retries", "0", "--compile-cache-dir", str(_build.build_dir())],
+        env=env)
+    try:
+        whole = sched.wait_whole(timeout=300)
+        sweep_s = time.perf_counter() - t0
+        codes = [p.wait(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        summary = sched.stop()
+    check(whole and codes == [0, 0], f"sched: whole={whole}, worker exits {codes}, {summary}")
+    check(summary["whole"] and summary["audit"]["ok"] and summary["completed"] == 4,
+          f"sched summary {summary}")
+    audit = audit_exactly_once(tele_b, sched.queue.expected_digests())
+    check(audit["ok"], f"sched: exactly-once audit {audit}")
+    # phase 15's CPU rows of trial 0, by cell (its twin lay elsewhere, so the
+    # rows' app names and dataset paths differ)
+    cpu_by = {(r["Data Multiplier"], r["Instances"]): r for r in cpu_rows
+              if r["Spark App"].endswith("-t0")}
+    timed = ("Final Time", "Rows Per Sec", "Exp Start Time", "Spark App", "Dataset")
+    sched_rows = read_results(sched_csv)
+    check(len(sched_rows) == 4, f"sched: {len(sched_rows)} results rows")
+    for r in sched_rows:
+        want = cpu_by.get((r["Data Multiplier"], r["Instances"]))
+        check(want is not None and {k: v for k, v in r.items() if k not in timed}
+              == {k: v for k, v in want.items() if k not in timed},
+              f"sched cell {r['Spark App']}: {r} differs from the CPU run {want}")
+        print(f"sched cell on the card: mult {float(r['Data Multiplier']):g}, {r['Instances']} "
+              f"partitions: {r['Detections']} detections, mean delay "
+              f"{float(r['Average Distance']):.4f} rows (equal to the CPU run), Final Time "
+              f"{r['Final Time']} s")
+    startup = worker_startup(tele_b, t_spawn)
+    check(len(startup) == 2, f"sched: {len(startup)} workers joined")
+    print(f"sched (2 workers on the card, one --compile-cache-dir): 4 cells exactly once in "
+          f"{sweep_s:.2f} s wall from spawn; worker start-up "
+          + "; ".join(f"{w}: {v['startup_s']:.2f} s to its first span (hello {v['hello_s']:.2f} s, "
+                      f"torch and api {v['imports_s']:.2f} s, prepare {v['prepare_s']:.2f} s)"
+                      for w, v in startup.items()))
+
+    # (c) crash then heal
+    tele_c = os.path.join(tmp.name, "heal")
+    heal_csv = os.path.join(tmp.name, "heal.csv")
+    spec_path = os.path.join(tmp.name, "heal_spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(grid.sweep_spec(twin, [GRID_MULTS[0]], list(GRID_PARTITIONS), trials=1,
+                                  results_csv=heal_csv), fh)
+    base = config.RunConfig(dataset=twin, results_csv=heal_csv)
+    os.environ["DDD_FAULTS"] = "api.run:at=2"
+    try:
+        grid.run_grid(base, [GRID_MULTS[0]], list(GRID_PARTITIONS), trials=1,
+                      telemetry_dir=tele_c, progress=lambda *_: None, device=dev)
+        fail("the armed api.run fault did not crash the grid")
+    except faults.InjectedFault:
+        pass
+    finally:
+        del os.environ["DDD_FAULTS"]
+        faults.disarm_all()
+    statuses = sorted(r["status"] for r in registry.runs(tele_c).values() if not r.get("kind"))
+    check(statuses == ["completed", "failed"], f"crashed grid: registry {statuses}")
+    plan_path = os.path.join(tmp.name, "plan.json")
+    code = heal_main([spec_path, "--telemetry-dir", tele_c, "--json", plan_path])
+    with open(plan_path) as fh:
+        missing = [c["app_name"] for c in json.load(fh)["missing"]]
+    check(code == 1 and len(missing) == 1 and f"-p{GRID_PARTITIONS[1]}-" in missing[0],
+          f"heal planned {missing}, exit {code}")
+    reset_launches()
+    t0 = time.perf_counter()
+    code_exec = heal_main([spec_path, "--telemetry-dir", tele_c, "--execute", "--retries", "0"])
+    heal_s = time.perf_counter() - t0
+    hl = read_launches()
+    code_after = heal_main([spec_path, "--telemetry-dir", tele_c])
+    done = [r for r in registry.runs(tele_c).values() if not r.get("kind")]
+    (heal_rec,) = [r for r in registry.runs(tele_c).values() if r.get("kind") == "heal"]
+    check(code_exec == 0 and code_after == 0 and heal_rec["trials_run"] == 1
+          and sorted(r["status"] for r in done) == ["completed", "completed", "failed"]
+          and len(read_results(heal_csv)) == 2,
+          f"heal --execute: exit {code_exec}, then {code_after}; {heal_rec}; {done}")
+    for k in main_path:
+        check(hl[k] > 0, f"heal --execute: kernel {k} was not launched")
+    print(f"crash then heal on the card: api.run armed for cell 2 of 2; heal planned exactly "
+          f"{missing[0]} (exit 1); heal --execute re-ran only it ({heal_s:.2f} s, launches "
+          f"{hl}); the plan is whole (exit 0); phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
 
 
 def main(device: str = "cuda") -> int:
@@ -2201,7 +2433,10 @@ def main(device: str = "cuda") -> int:
     rows += later
 
     # 15. the paper's experiment loop: CLI, grid, rf, parity, doctor
-    experiment_phase(torch, api, config, dev)
+    cpu_rows = experiment_phase(torch, api, config, dev)
+
+    # 16. the sweep as a fleet: telemetry, the scheduler, crash then heal
+    fleet_phase(torch, api, config, dev, res, final, cpu_rows)
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

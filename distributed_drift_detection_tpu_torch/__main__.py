@@ -20,24 +20,46 @@ hand-written kernels and the native CSV parser are built into and loaded
 from (a second invocation with the same directory runs no nvcc), and
 ``--collect {compact,full}`` pins the collect-phase transport.
 
-``doctor`` validates CSV inputs against the ingest contract on the host
-and exits nonzero on violations (``io.sanitize``):
+``--telemetry-dir DIR`` persists the run's JSONL run log and metric
+exports and registers the run in DIR's ``index.jsonl`` (the summary line
+is then followed by ``telemetry=<log>``).
+
+Five subcommands work on the host; only ``heal --execute`` and the
+workers ``sched`` spawns run experiments (on the card, or with ``--device
+cpu`` on the plain path), and the others import no torch:
 
     python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
+    python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]
+    python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]
+    python -m distributed_drift_detection_tpu_torch sched-worker --connect HOST:PORT [...]
+    python -m distributed_drift_detection_tpu_torch registry compact DIR [...]
+
+``doctor`` validates CSV inputs against the ingest contract and exits
+nonzero on violations (``io.sanitize``); ``heal`` diffs a sweep spec
+against the registry's completed runs and plans, ``--execute``s or pushes
+to a scheduler the missing trials (``resilience.heal``; exit 0 = sweep
+whole); ``sched`` is the sweep scheduler daemon that leases cells to
+``sched-worker`` agents until every cell completed exactly once
+(``sched``); ``registry compact`` rewrites an ``index.jsonl`` as one
+record per run (``telemetry.registry``).
 
 The JAX package's other subcommands, ``--tenants N`` above 1 and the
-telemetry flags (``--trace-dir``, ``--profile-dir``, ``--telemetry-dir``)
-are not ported yet: each exits nonzero naming its ROADMAP item.
+profiler flags (``--trace-dir``, ``--profile-dir``) are not ported yet:
+each exits nonzero naming its ROADMAP item.
 """
 
 import sys
 
 _USAGE = (
     "usage: python -m distributed_drift_detection_tpu_torch "
-    "[--data-policy strict|quarantine|repair] "
+    "[--telemetry-dir DIR] [--data-policy strict|quarantine|repair] "
     "[--compile-cache-dir DIR] [--collect compact|full] "
     "[URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA [DATASET]]\n"
-    "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]"
+    "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
+    "       python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch sched-worker --connect HOST:PORT [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch registry compact DIR [...]"
 )
 
 # The JAX package's subcommands and flags this port does not run yet, by
@@ -45,12 +67,21 @@ _USAGE = (
 UNPORTED_SUBCOMMANDS = {
     **dict.fromkeys(
         ("report", "perf", "watch", "top", "pipeline", "history", "collector",
-         "correlate", "timeline", "explain", "incident", "registry"), "A15"),
-    **dict.fromkeys(("heal", "sched", "sched-worker"), "A16b"),
+         "correlate", "timeline", "explain", "incident"), "A15"),
     "chunked": "A10b",
     **dict.fromkeys(("serve", "loadgen", "router"), "A12"),
 }
-UNPORTED_FLAGS = {"--trace-dir": "A15", "--profile-dir": "A15", "--telemetry-dir": "A15"}
+UNPORTED_FLAGS = {"--trace-dir": "A15", "--profile-dir": "A15"}
+
+# The host-side subcommands: module, and whether the ``device`` of
+# :func:`main` is its ``--device`` default (those that reach ``api.run``).
+SUBCOMMANDS = {
+    "doctor": (".io.sanitize", False),
+    "heal": (".resilience.heal", True),
+    "sched": (".sched.scheduler", True),
+    "sched-worker": (".sched.worker", True),
+    "registry": (".telemetry.registry", False),
+}
 
 
 def _pop_flag(argv: list[str], flag: str) -> str | None:
@@ -79,11 +110,15 @@ def _choice(argv: list[str], flag: str, choices) -> str | None:
 
 def main(argv: list[str], device="cuda") -> None:
     """Run the CLI on ``argv``; the run mode runs on ``device`` (the card;
-    the tests pass ``device='cpu'``; the command line has no device flag)."""
-    if argv and argv[0] == "doctor":
-        from .io.sanitize import main as doctor_main
+    the tests pass ``device='cpu'``; the run mode has no device flag), and
+    ``device`` is the ``--device`` default of ``heal``, ``sched`` and
+    ``sched-worker``."""
+    if argv and argv[0] in SUBCOMMANDS:
+        import importlib
 
-        doctor_main(argv[1:])
+        module, takes_device = SUBCOMMANDS[argv[0]]
+        kw = {"device": device} if takes_device else {}
+        importlib.import_module(module, __package__).main(argv[1:], **kw)
         return
     if argv and argv[0] in UNPORTED_SUBCOMMANDS:
         raise SystemExit(
@@ -97,6 +132,9 @@ def main(argv: list[str], device="cuda") -> None:
     for flag, item in UNPORTED_FLAGS.items():
         if _pop_flag(argv, flag) is not None:
             raise SystemExit(f"not ported yet: {flag} (ROADMAP {item})")
+    telemetry_dir = _pop_flag(argv, "--telemetry-dir")
+    if telemetry_dir is not None:
+        kw["telemetry_dir"] = telemetry_dir
     data_policy = _choice(argv, "--data-policy", DATA_POLICIES)
     if data_policy is not None:
         kw["data_policy"] = data_policy
@@ -143,6 +181,8 @@ def main(argv: list[str], device="cuda") -> None:
         f"mean_delay_rows={m.mean_delay_rows:.1f} "
         f"final_time={res.total_time:.3f}s"
     )
+    if res.telemetry_path:
+        print(f"telemetry={res.telemetry_path}")
 
 
 if __name__ == "__main__":

@@ -19,13 +19,21 @@ kernels and the native CSV parser are built into and loaded from
 (``kernels._build.set_build_dir``; empty: ``kernels/_build/``), the
 counterpart of XLA's persistent compilation cache.
 
+``RunConfig.telemetry_dir`` (off by default) brackets the run in the run
+registry and writes its JSONL run log and metric exports, as the JAX
+package's ``api.run`` does (:func:`_telemetry_bracket`,
+:func:`_finish_telemetry`): the log is opened before the work and written
+after the Final Time span closes, so nothing touches the timed region.
+
 Surfaces outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them (:func:`_check_slice`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 import time
 from typing import NamedTuple
 
@@ -42,6 +50,7 @@ from .config import (
     replace,
     resolve_quarantine_path,
     resolve_retrain_threshold,
+    telemetry_config_payload,
 )
 from .device import resolve_device, synchronize
 from .engine.loop import Batches, FlagRows, PackedIndexedBatches
@@ -57,6 +66,7 @@ from .metrics import DelayMetrics, attribution_metrics, delay_metrics, result_ro
 from .models import ModelSpec, build_model
 from .ops.detectors import make_detector
 from .parallel.mesh import auto_compact_capacity, host_flags, make_mesh_runner
+from .resilience import faults
 from .results import append_result
 from .utils import threefry
 from .utils.timing import PhaseTimer
@@ -70,6 +80,8 @@ class PreparedRun(NamedTuple):
     runner: object  # (device batches) -> MeshRunResult
     config: RunConfig  # the resolved config (auto policies applied)
     device: torch.device
+    # {"cached": no library was rebuilt, "build_seconds": nvcc wall time}
+    compile_info: dict
 
 
 class RunResult(NamedTuple):
@@ -80,7 +92,9 @@ class RunResult(NamedTuple):
     timings: dict  # per-phase seconds
     stream: StreamData
     config: RunConfig
-    telemetry_path: "str | None" = None  # telemetry is not ported: always None
+    # Path of the persisted JSONL run log — None unless cfg.telemetry_dir
+    # was set.
+    telemetry_path: "str | None" = None
 
 
 PORTED_MODELS = ("majority", "centroid", "gnb", "linear", "mlp", "forest", "rf")
@@ -117,7 +131,6 @@ def _check_slice(cfg: RunConfig) -> None:
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
-        (bool(cfg.telemetry_dir), "telemetry_dir (ROADMAP A15)"),
         (bool(cfg.profile_dir or cfg.trace_dir),
          "profile_dir/trace_dir (ROADMAP A15)"),
         (cfg.validate, "validate=True (ROADMAP A15)"),
@@ -223,15 +236,19 @@ def prepare(
         runner = functools.partial(
             runner, key=threefry.split(threefry.key(cfg.seed), cfg.partitions)
         )
+    compile_info = {"cached": True, "build_seconds": 0.0}
     if dev.type == "cuda":
         from . import kernels
 
         names = [DETECTOR_KERNELS[cfg.detector]] if cfg.detector in DETECTOR_KERNELS else []
         names += MODEL_KERNELS.get(cfg.model, ())
+        cached = all(_build.library_path(name).exists() for name in names)
+        t0 = time.perf_counter()
         _build.build_all(names)  # one nvcc each, all started together
+        compile_info = {"cached": cached, "build_seconds": time.perf_counter() - t0}
         for name in names:
             kernels.launcher(name)
-    return PreparedRun(stream, batches, runner, cfg, dev)
+    return PreparedRun(stream, batches, runner, cfg, dev, compile_info)
 
 
 def upload(batches, device: torch.device):
@@ -251,6 +268,51 @@ def upload(batches, device: torch.device):
     return Batches(*(put(leaf) for leaf in batches))
 
 
+@contextlib.contextmanager
+def _telemetry_bracket(cfg: RunConfig, payload: dict):
+    """The run-lifecycle telemetry bracket (the JAX package's
+    ``api._telemetry_bracket``): with ``cfg.telemetry_dir`` set, open the
+    run log, emit ``run_started`` with ``payload`` + host identity and
+    write the registry's ``running`` record; yield the log (None when
+    telemetry is off — no telemetry code runs at all). On an exception the
+    registry gets a best-effort ``failed`` record (the run's own exception
+    is the one that surfaces) and the log's descriptor is released either
+    way; the partial log is the crash evidence. The ``completed`` record
+    and the final events stay with the caller."""
+    if not cfg.telemetry_dir:
+        yield None
+        return
+    from .parallel.multihost import host_identity
+    from .telemetry import registry as run_registry
+    from .telemetry.events import EventLog
+
+    ident = host_identity()
+    log = EventLog.open_run(
+        cfg.telemetry_dir,
+        name=cfg.resolved_app_name(),
+        process_index=ident["process_index"],
+    )
+    try:
+        log.emit("run_started", run_id=log.run_id, config=payload, **ident)
+        run_registry.record(
+            cfg.telemetry_dir,
+            log.run_id,
+            "running",
+            config_digest=run_registry.config_digest(payload),
+            log=os.path.basename(log.path),
+            **ident,
+        )
+        yield log
+    except BaseException:
+        try:
+            run_registry.record(cfg.telemetry_dir, log.run_id, "failed")
+        except Exception:
+            pass  # the run's own error must surface, not the append's
+        raise
+    finally:
+        log.close()
+
+
 def run(
     cfg: RunConfig, stream: StreamData | None = None, device="cuda"
 ) -> RunResult:
@@ -258,37 +320,174 @@ def run(
     when CUDA is absent — pass ``device='cpu'`` for the plain path)."""
     dev = resolve_device(device)
     timer = PhaseTimer()
-    with timer.phase("prepare"):
-        prep = prepare(cfg, stream, dev)
-    stream, cfg = prep.stream, prep.config
-
-    # --- the reference's Final Time span ---
-    start = time.perf_counter()
-    with timer.phase("upload"):
-        dev_batches = upload(prep.batches, dev)
-    with timer.phase("detect"):
-        out = prep.runner(dev_batches)
-        synchronize(dev)
-    with timer.phase("collect"):
-        flags, _ = host_flags(out)
-        changed = (flags.change_global >= 0).astype(np.float32)
-        vote = changed.sum(axis=0, dtype=np.float32) / np.float32(changed.shape[0])
-        m = delay_metrics(
-            flags.change_global, stream.dist_between_changes, cfg.per_batch
-        )
-    total_time = time.perf_counter() - start
-    # --- span ends ---
-
-    if cfg.results_csv:
-        a = (
-            attribution_metrics(
-                flags.change_global, stream.dist_between_changes, stream.num_rows
+    # The payload is shared with resilience.heal, which recomputes these
+    # digests from a sweep spec (config.telemetry_config_payload).
+    with _telemetry_bracket(cfg, telemetry_config_payload(cfg)) as log:
+        if log is not None:
+            from .telemetry import registry as run_registry
+        # Fault-injection site (no-op unless armed): a whole-run crash
+        # inside the registry bracket, so the failed record and the partial
+        # log land exactly as a real crash would leave them.
+        faults.fire("api.run", run_id=None if log is None else log.run_id)
+        # A telemetered run gets its own quarantine sidecar named after its
+        # log: the sidecar is append-only, and a shared path would
+        # interleave every trial's records. An explicit path still wins.
+        if (
+            log is not None
+            and cfg.data_policy in ("quarantine", "repair")
+            and not cfg.quarantine_path
+        ):
+            cfg = replace(
+                cfg,
+                quarantine_path=os.path.splitext(log.path)[0] + ".quarantine.jsonl",
             )
-            if stream.dist_between_changes > 0
-            else None
+        with timer.phase("prepare"):
+            prep = prepare(cfg, stream, dev)
+        stream, cfg = prep.stream, prep.config
+
+        # The card's memory before the span, and the quarantine evidence:
+        # both between prepare and the span, outside the timed region.
+        pre_mem = None
+        if log is not None:
+            from .telemetry.profile import device_memory_stats
+
+            pre_mem = device_memory_stats(dev)
+            q = stream.quarantine
+            if q is not None and q.rows_quarantined:
+                log.emit(
+                    "rows_quarantined",
+                    rows=q.rows_quarantined,
+                    policy=q.policy,
+                    sidecar=q.sidecar,
+                    repaired=q.rows_repaired,
+                )
+
+        # --- the reference's Final Time span ---
+        start = time.perf_counter()
+        with timer.phase("upload"):
+            dev_batches = upload(prep.batches, dev)
+        with timer.phase("detect"):
+            out = prep.runner(dev_batches)
+            synchronize(dev)
+        with timer.phase("collect"):
+            flags, collect_info = host_flags(out)
+            changed = (flags.change_global >= 0).astype(np.float32)
+            vote = changed.sum(axis=0, dtype=np.float32) / np.float32(changed.shape[0])
+            m = delay_metrics(
+                flags.change_global, stream.dist_between_changes, cfg.per_batch
+            )
+        total_time = time.perf_counter() - start
+        # --- span ends ---
+
+        if cfg.results_csv:
+            a = (
+                attribution_metrics(
+                    flags.change_global, stream.dist_between_changes, stream.num_rows
+                )
+                if stream.dist_between_changes > 0
+                else None
+            )
+            append_result(
+                cfg.results_csv,
+                result_row(cfg, total_time, m, stream.num_rows, attribution=a),
+            )
+
+        telemetry_path = None
+        if log is not None:
+            telemetry_path = _finish_telemetry(
+                log, prep, timer, flags, m, stream, total_time, pre_mem,
+                collect_info=collect_info,
+            )
+            run_registry.record(
+                cfg.telemetry_dir,
+                log.run_id,
+                "completed",
+                rows=stream.num_rows,
+                seconds=total_time,
+                detections=m.num_detections,
+            )
+    return RunResult(
+        flags, vote, m, total_time, timer.as_dict(), stream, cfg, telemetry_path
+    )
+
+
+def _finish_telemetry(
+    log, prep: PreparedRun, timer, flags: FlagRows, m: DelayMetrics,
+    stream: StreamData, total_time: float, pre_mem: "dict | None" = None,
+    collect_info: "dict | None" = None,
+) -> str:
+    """Persist the run's events and metric exports, after the span (the
+    JAX package's ``api._finish_telemetry``). ``compile_completed`` carries
+    ``prepare``'s kernel build: ``cached`` when no library was rebuilt,
+    ``seconds`` the nvcc wall time; the AOT extras stay 0/False. The port
+    has no compiler analysis (``telemetry.profile.compiled_stats``), so no
+    ``cost_analysis`` event and no ``xla_*`` gauge."""
+    from .io.sanitize import QUARANTINE_METRIC, QUARANTINE_METRIC_HELP
+    from .telemetry import profile as _profile
+    from .telemetry.events import emit_flag_events
+    from .telemetry.metrics import MetricsRegistry, write_exports
+
+    cfg = prep.config
+    info = prep.compile_info
+    log.emit(
+        "compile_completed",
+        cached=info["cached"],
+        seconds=info["build_seconds"],
+        window=cfg.window,
+        window_rotations=cfg.window_rotations,
+        aot_seconds=0.0,
+        aot_cached=False,
+    )
+    for name, secs in timer.as_dict().items():
+        log.emit("phase_completed", phase=name, seconds=secs)
+    stats = _profile.compiled_stats(prep.runner)
+    _profile.emit_compiled_events(log, stats, where="detect_runner")
+    post_mem = _profile.device_memory_stats(prep.device)
+    _profile.emit_device_memory_event(log, pre_mem, when="before_detect")
+    _profile.emit_device_memory_event(log, post_mem, when="after_detect")
+    emit_flag_events(
+        log, flags.change_global, flags.forced_retrain, stream.dist_between_changes
+    )
+    # Which path the collect phase shipped, and whether the compacted table
+    # overflowed into the full-plane fallback.
+    collect_extras = {}
+    if collect_info is not None:
+        collect_extras = {
+            "collect_mode": collect_info.get("mode"),
+            "collect_events": collect_info.get("events"),
+            "collect_overflow": bool(collect_info.get("overflow", False)),
+        }
+    log.emit(
+        "run_completed",
+        rows=stream.num_rows,
+        seconds=total_time,
+        detections=m.num_detections,
+        rows_per_sec=stream.num_rows / total_time if total_time > 0 else None,
+        **collect_extras,
+    )
+    log.close()
+
+    reg = MetricsRegistry()
+    det = reg.counter("detections_total", help="Drift detections by stream partition")
+    for q, n in enumerate(np.asarray(m.detections_per_partition)):
+        if n:
+            det.inc(int(n), partition=str(q))
+    reg.counter(
+        "rows_processed_total", help="Stream rows through the detection loop"
+    ).inc(stream.num_rows)
+    if stream.quarantine is not None and stream.quarantine.rows_quarantined:
+        reg.counter(QUARANTINE_METRIC, help=QUARANTINE_METRIC_HELP).inc(
+            stream.quarantine.rows_quarantined
         )
-        append_result(
-            cfg.results_csv,
-            result_row(cfg, total_time, m, stream.num_rows, attribution=a),
-        )
-    return RunResult(flags, vote, m, total_time, timer.as_dict(), stream, cfg)
+    reg.gauge(
+        "compile_seconds", help="Runner build time (0 on runner-cache hit)"
+    ).set(info["build_seconds"])
+    phase_h = reg.histogram("phase_seconds", help="Wall-clock seconds by run phase")
+    for name, secs in timer.as_dict().items():
+        phase_h.observe(secs, phase=name)
+    _profile.record_compiled_gauges(reg, stats)
+    _profile.record_device_memory_gauges(reg, pre_mem, when="before_detect")
+    _profile.record_device_memory_gauges(reg, post_mem, when="after_detect")
+    base, _ = os.path.splitext(log.path)
+    write_exports(reg, base)
+    return log.path

@@ -14,8 +14,10 @@ only runs the missing ones, so re-running after a crash resumes exactly
 The trial keys, the ``Spark App`` names and the results CSV are the JAX
 package's byte for byte, so a CSV written by either package resumes in the
 other. Every trial runs on the card (``run_grid(device=...)`` takes
-another device). The per-trial telemetry and profiles (``telemetry_dir``,
-``profile_dir``) are not ported yet (ROADMAP A15) and raise.
+another device). ``telemetry_dir`` gives every trial its run log and
+registry records, and the sweep a ``kind="sweep"`` bracket, as in the JAX
+package; the per-trial profiles (``profile_dir``) are not ported yet
+(ROADMAP A15) and raise.
 
 Usage::
 
@@ -280,9 +282,15 @@ def run_grid(
     ``run_grid`` also arms any fault sites requested via the ``DDD_FAULTS``
     env var (``resilience.faults.arm_from_env``) — inert unless set.
 
-    ``telemetry_dir`` (per-trial run logs and registry records) and
-    ``profile_dir`` (a profiler capture a trial) are not ported yet
-    (ROADMAP A15) and raise ``NotImplementedError`` before any trial.
+    ``telemetry_dir`` gives every executed trial its own JSONL run log in
+    that directory (the filename embeds the cell's config key) and its
+    ``index.jsonl`` records (``api.run``: running → completed/failed), and
+    the sweep itself writes a bracketing ``kind="sweep"`` record with its
+    trial totals — what ``heal`` diffs a sweep spec against. Warm-up runs
+    stay untelemetered (they are unrecorded by design).
+
+    ``profile_dir`` (a profiler capture a trial) is not ported yet
+    (ROADMAP A15) and raises ``NotImplementedError`` before any trial.
     """
     if spec not in ("warn", "skip", "off"):
         raise ValueError(f"spec must be 'warn', 'skip' or 'off', got {spec!r}")
@@ -290,9 +298,9 @@ def run_grid(
         raise ValueError(
             f"on_error must be 'fail' or 'continue', got {on_error!r}"
         )
-    if telemetry_dir or profile_dir:
+    if profile_dir:
         raise NotImplementedError(
-            "not ported yet: the grid's telemetry_dir/profile_dir (ROADMAP A15)"
+            "not ported yet: the grid's profile_dir (ROADMAP A15)"
         )
 
     from ..api import run  # lazy: keeps the harness importable without torch
@@ -325,43 +333,75 @@ def run_grid(
     progress(f"grid: {len(configs)} trials total, {len(todo)} to run")
 
     failures: list[tuple[str, Exception]] = []
-    warmed = None
-    for i, cfg in enumerate(todo):
-        static_key = (
-            cfg.dataset, cfg.mult_data, cfg.partitions, cfg.model,
-            cfg.detector, cfg.per_batch, cfg.window, cfg.window_rotations,
+    # The sweep's registry bracket: "a sweep is running here, N trials to
+    # go" (per-trial records are api.run's). A crashed sweep reads as
+    # failed next to however many trial records it got through.
+    sweep_id = None
+    if telemetry_dir:
+        import time
+
+        from ..telemetry import registry as run_registry
+
+        sweep_id = f"sweep-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
+        run_registry.record(
+            telemetry_dir, sweep_id, "running", kind="sweep",
+            trials_total=len(configs), trials_to_run=len(todo),
         )
-        key = cfg.resolved_app_name()
-
-        # The fault site lives INSIDE the supervised attempt, so a
-        # positional arming (`at=K`) fires once and the retry heals it —
-        # the deterministic stand-in for a transient crash.
-        def attempt(cfg=cfg, i=i, key=key):
-            faults.fire("grid.cell", index=i, key=key)
-            return run(cfg, device=device)
-
-        try:
-            # The warm-up runs OUTSIDE the supervised attempt: it must not
-            # be charged against the per-attempt timeout budget or repeated
-            # per retry (its whole point is once per config block), and it
-            # records nothing.
-            if warmup and static_key != warmed:
-                run(replace(cfg, results_csv="", time_string="warmup"), device=device)
-                warmed = static_key
-            res = supervise(attempt, policy)
-        except Exception as exc:
-            if on_error != "continue":
-                raise
-            failures.append((key, exc))
-            progress(
-                f"[{i + 1}/{len(todo)}] {key}: FAILED "
-                f"({type(exc).__name__}: {exc}) — continuing"
+    try:
+        warmed = None
+        for i, cfg in enumerate(todo):
+            static_key = (
+                cfg.dataset, cfg.mult_data, cfg.partitions, cfg.model,
+                cfg.detector, cfg.per_batch, cfg.window, cfg.window_rotations,
             )
-            continue
-        progress(
-            f"[{i + 1}/{len(todo)}] {key}: "
-            f"time={res.total_time:.2f}s detections={res.metrics.num_detections} "
-            f"delay={res.metrics.mean_delay_rows:.1f} rows"
+            if telemetry_dir:
+                cfg = replace(cfg, telemetry_dir=telemetry_dir)
+            key = cfg.resolved_app_name()
+
+            # The fault site lives INSIDE the supervised attempt, so a
+            # positional arming (`at=K`) fires once and the retry heals it
+            # — the deterministic stand-in for a transient crash.
+            def attempt(cfg=cfg, i=i, key=key):
+                faults.fire("grid.cell", index=i, key=key)
+                return run(cfg, device=device)
+
+            try:
+                # The warm-up runs OUTSIDE the supervised attempt: it must
+                # not be charged against the per-attempt timeout budget or
+                # repeated per retry (its whole point is once per config
+                # block), and it records nothing: no CSV row, no run log.
+                if warmup and static_key != warmed:
+                    run(replace(cfg, results_csv="", time_string="warmup",
+                                telemetry_dir=None), device=device)
+                    warmed = static_key
+                res = supervise(attempt, policy, telemetry_dir=telemetry_dir, name=key)
+            except Exception as exc:
+                if on_error != "continue":
+                    raise
+                failures.append((key, exc))
+                progress(
+                    f"[{i + 1}/{len(todo)}] {key}: FAILED "
+                    f"({type(exc).__name__}: {exc}) — continuing"
+                )
+                continue
+            progress(
+                f"[{i + 1}/{len(todo)}] {key}: "
+                f"time={res.total_time:.2f}s detections={res.metrics.num_detections} "
+                f"delay={res.metrics.mean_delay_rows:.1f} rows"
+            )
+    except BaseException:
+        if sweep_id is not None:
+            try:
+                run_registry.record(telemetry_dir, sweep_id, "failed", kind="sweep")
+            except Exception:
+                pass  # best-effort: the sweep's own error must surface
+        raise
+    if sweep_id is not None:
+        run_registry.record(
+            telemetry_dir, sweep_id,
+            "failed" if failures else "completed", kind="sweep",
+            trials_run=len(todo) - len(failures),
+            trials_failed=len(failures),
         )
     if failures:
         # The sweep finished its schedule but is not whole: fail loudly
@@ -369,8 +409,8 @@ def run_grid(
         # (on_error='fail' never reaches here).
         raise RuntimeError(
             f"{len(failures)} of {len(todo)} trials failed "
-            f"({', '.join(k for k, _ in failures)}); the CSV has the "
-            "evidence — re-run the grid to finish"
+            f"({', '.join(k for k, _ in failures)}); the registry/CSV have "
+            "the evidence — re-run the grid or `heal --execute` to finish"
         )
     return len(todo)
 
@@ -411,8 +451,8 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--telemetry-dir",
         default="",
-        help="per-trial JSONL run logs into this directory (not ported "
-        "yet: ROADMAP A15)",
+        help="per-trial JSONL run logs and registry records into this "
+        "directory (what `heal` diffs the sweep spec against)",
     )
     ap.add_argument(
         "--compile-cache-dir",

@@ -2,7 +2,7 @@
 
 The port's own copy of the JAX package's ``io/sanitize.py``, its ``doctor``
 CLI (:func:`main`, ``python -m distributed_drift_detection_tpu_torch
-doctor``) included; the telemetry of ``QUARANTINE_METRIC`` waits for A15.
+doctor``) included; ``api.run``'s telemetry exports ``QUARANTINE_METRIC``.
 
 The reference assumes a pristine numeric CSV (``DDM_Process.py:33-35``): a
 non-numeric cell crashes the load, a ragged row silently falls back to a

@@ -1,17 +1,20 @@
-"""Resilience of the port: supervised execution and deterministic, seeded
-fault injection — the port's own copies of the JAX package's
-``resilience/policy.py``, ``supervisor.py`` and ``faults.py``.
+"""Resilience of the port: supervised execution, sweep healing and
+deterministic, seeded fault injection — the port's own copies of the JAX
+package's ``resilience/policy.py``, ``supervisor.py``, ``heal.py`` and
+``faults.py``.
 
 * :mod:`.policy` — :class:`RetryPolicy`: attempts, deterministic seeded
   exponential backoff, per-attempt wall-clock timeout, transient-vs-fatal
   exception classification.
 * :mod:`.supervisor` — :func:`supervise` / :func:`supervised_run`: run a
   callable / ``api.run`` under a policy, outside the Final Time span.
-* :mod:`.faults` — seeded fault injection at named sites, fired so far at
-  ``stream.load`` (``io.sanitize``) and ``grid.cell`` (``harness.grid``).
+* :mod:`.heal` — diff a sweep spec against the run registry and re-run
+  (or plan, or push to the scheduler) exactly the missing trials.
+* :mod:`.faults` — seeded fault injection at named sites, fired at
+  ``stream.load`` (``io.sanitize``), ``grid.cell`` (``harness.grid``),
+  ``api.run``, ``telemetry.emit``, ``sched.lease`` and ``sched.worker``.
 
-``heal`` and the supervisor's registry records wait for the run registry
-(ROADMAP A15, then A16b). Importing this package loads no torch.
+Importing this package loads no torch.
 """
 
 from .faults import InjectedFault, InjectedTimeout

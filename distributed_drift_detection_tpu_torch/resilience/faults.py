@@ -74,9 +74,9 @@ decision hashes ``(seed, site, hit)``, so a given arming fires at the same
 hits in every run). No global RNG, no wall-clock.
 
 Pure stdlib; importing this module never arms anything. Of the sites
-below the port fires ``stream.load`` and ``grid.cell`` so far; the others
-belong to surfaces it has not ported yet (ROADMAP A10b, A12, A14, A15,
-A16b).
+below the port fires ``stream.load``, ``grid.cell``, ``api.run``,
+``telemetry.emit``, ``sched.lease`` and ``sched.worker``; the others belong
+to surfaces it has not ported yet (ROADMAP A10b, A12, A14).
 """
 
 from __future__ import annotations

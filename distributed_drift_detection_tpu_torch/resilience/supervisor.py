@@ -6,13 +6,19 @@ re-submit). :func:`supervise` closes that loop in-process: it runs a
 callable under a policy, classifies each failure transient-vs-fatal, backs
 off deterministically, and re-raises the original exception with a note of
 the attempt count — the same attempts, backoffs and notes as the JAX
-package's. Its observability — each attempt inside the run registry's
-``attempt_scope`` and a ``run_retried`` event a retry — is telemetry, which
-the port does not run yet: with ``telemetry_dir`` set, :func:`supervise`
-raises ``NotImplementedError`` naming ROADMAP A15.
+package's. Every attempt is observable:
+
+* each attempt runs inside ``telemetry.registry.attempt_scope(n)``, so the
+  ``running``/``completed``/``failed`` records it writes into
+  ``index.jsonl`` carry an ``attempt`` field (a healed run reads as
+  ``failed(attempt=1) → completed(attempt=2)``);
+* with ``telemetry_dir`` set, each retry emits a schema-v1 ``run_retried``
+  event into a supervisor log of its own in that directory (opened at the
+  first retry — a run that never retries leaves no extra artifact).
 
 Nothing here touches the reference-parity Final Time span: the supervisor
-wraps ``api.run`` from the outside.
+wraps ``api.run`` from the outside, and its telemetry lands between
+attempts.
 
 The per-attempt wall-clock timeout runs the attempt on a worker thread and
 abandons it on expiry (Python cannot kill a thread): the supervisor, and
@@ -32,7 +38,8 @@ over-counts that trial rather than skipping another). Prefer budgets
 comfortably above the expected attempt time — the timeout is a hung-run
 escape hatch, not a scheduler.
 
-Pure stdlib; :func:`supervised_run` imports ``api`` (and so torch) lazily.
+Pure stdlib and the torch-free telemetry core; :func:`supervised_run`
+imports ``api`` (and so torch) lazily.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import contextvars
 import threading
 import time
 
+from ..telemetry import registry as run_registry
 from .policy import AttemptTimeout, RetryPolicy
 
 
@@ -78,6 +86,7 @@ def supervise(
     policy: RetryPolicy = RetryPolicy(),
     *,
     telemetry_dir: str = "",
+    name: str = "",
     sleep=time.sleep,
     on_retry=None,
 ):
@@ -87,36 +96,52 @@ def supervise(
     with deterministic seeded backoff (``policy.backoff_s``); fatal
     failures and the final exhausted attempt re-raise the *original*
     exception (annotated with the attempt count), so callers keep their
-    exception types. ``sleep`` is injectable for tests;
-    ``on_retry(attempt, exc, backoff_s)`` is an optional observer fired
-    before each backoff. ``telemetry_dir`` (the JAX package's retry log,
-    labelled by its ``name``) is not ported (ROADMAP A15) and raises.
+    exception types. ``telemetry_dir`` enables the retry log described in
+    the module docstring; ``name`` labels it. ``sleep`` is injectable for
+    tests; ``on_retry(attempt, exc, backoff_s)`` is an optional observer
+    fired before each backoff.
     """
     policy.validate()
-    if telemetry_dir:
-        raise NotImplementedError(
-            "not ported yet: the supervisor's telemetry_dir (the run "
-            "registry's attempt records and run_retried events, ROADMAP A15)"
-        )
-    for attempt in range(1, policy.max_attempts + 1):
-        try:
-            return _call_with_timeout(fn, policy.timeout_s)
-        except Exception as exc:
-            kind = policy.classify(exc)
-            if kind == "fatal" or attempt >= policy.max_attempts:
-                exc.add_note(
-                    f"supervisor: attempt {attempt}/{policy.max_attempts} "
-                    + (
-                        "failed fatally (not retried)"
-                        if kind == "fatal"
-                        else "exhausted the retry budget"
-                    )
-                )
-                raise
-            backoff = policy.backoff_s(attempt)
-            if on_retry is not None:
-                on_retry(attempt, exc, backoff)
-            sleep(backoff)
+    log = None
+    try:
+        for attempt in range(1, policy.max_attempts + 1):
+            with run_registry.attempt_scope(attempt):
+                try:
+                    return _call_with_timeout(fn, policy.timeout_s)
+                except Exception as exc:
+                    kind = policy.classify(exc)
+                    if kind == "fatal" or attempt >= policy.max_attempts:
+                        exc.add_note(
+                            f"supervisor: attempt {attempt}/{policy.max_attempts} "
+                            + (
+                                "failed fatally (not retried)"
+                                if kind == "fatal"
+                                else "exhausted the retry budget"
+                            )
+                        )
+                        raise
+                    backoff = policy.backoff_s(attempt)
+                    if telemetry_dir:
+                        if log is None:
+                            from ..telemetry.events import EventLog
+
+                            log = EventLog.open_run(
+                                telemetry_dir, name=(name or "supervised") + "-retries"
+                            )
+                        log.emit(
+                            "run_retried",
+                            attempt=attempt,
+                            max_attempts=policy.max_attempts,
+                            reason=f"{type(exc).__name__}: {exc}",
+                            backoff_s=backoff,
+                            classification=kind,
+                        )
+                    if on_retry is not None:
+                        on_retry(attempt, exc, backoff)
+                    sleep(backoff)
+    finally:
+        if log is not None:
+            log.close()
     raise AssertionError("unreachable: the loop returns or raises")
 
 
@@ -131,7 +156,11 @@ def supervised_run(
 ):
     """``api.run(cfg, stream, device)`` under a retry policy — the
     resilience wrapper for one configured run; returns its ``RunResult``.
-    A stream the caller passed in is not reloaded per attempt — pass
+    With ``cfg.telemetry_dir`` set, every attempt registers itself in the
+    directory's ``index.jsonl`` with its ``attempt`` number (``api.run``'s
+    own registry bracket inside :func:`attempt_scope
+    <..telemetry.registry.attempt_scope>`), and each retry emits a
+    ``run_retried`` event. A stream the caller passed in is not reloaded per attempt — pass
     ``stream=None`` (the default) if the failure under retry may include a
     corrupted in-memory stream."""
     from ..api import run
@@ -140,6 +169,7 @@ def supervised_run(
         lambda: run(cfg, stream, device),
         policy,
         telemetry_dir=cfg.telemetry_dir or "",
+        name=cfg.resolved_app_name(),
         sleep=sleep,
         on_retry=on_retry,
     )

@@ -1,0 +1,48 @@
+"""Run telemetry of the port: the run log, the run registry and the metric
+exports behind ``RunConfig.telemetry_dir`` — the port's own copies of the
+JAX package's ``telemetry`` modules, writing the same artifacts:
+
+* :mod:`.events` — typed, timestamped records (``run_started``,
+  ``phase_completed``, ``drift_detected``, …) appended to a JSONL run log
+  with a versioned schema.
+* :mod:`.registry` — the append-only ``index.jsonl`` per telemetry
+  directory: run id → config digest, status running/completed/failed
+  (written by ``api.run``, the supervisor, the grid, ``heal`` and the
+  scheduler).
+* :mod:`.metrics` — counters, gauges and histograms with JSON and
+  Prometheus-text exporters.
+* :mod:`.profile` — the card's memory statistics mapped onto the event
+  schema and registry gauges.
+* :mod:`.watch` (``staleness_s``), :mod:`.pipeline` (the fleet view) and
+  :mod:`.ops` (the HTTP ops plane) — the parts the sweep scheduler uses.
+
+Telemetry is off by default (``RunConfig.telemetry_dir=None``): every hook
+runs outside the Final Time span, and with the directory unset no telemetry
+code runs. Only :mod:`.profile` touches torch, and only inside its
+functions; the readers (``report``, ``watch``, ``top``, …) wait for ROADMAP
+A15, and the JAX package's read the port's artifacts unchanged.
+"""
+
+from .events import (
+    EVENT_SCHEMA,
+    SCHEMA_VERSION,
+    EventLog,
+    SchemaError,
+    emit_flag_events,
+    read_events,
+    validate_event,
+)
+from .metrics import MetricsRegistry, parse_prometheus_text, write_exports
+
+__all__ = [
+    "EVENT_SCHEMA",
+    "SCHEMA_VERSION",
+    "EventLog",
+    "SchemaError",
+    "emit_flag_events",
+    "read_events",
+    "validate_event",
+    "MetricsRegistry",
+    "parse_prometheus_text",
+    "write_exports",
+]

@@ -7,13 +7,17 @@ must print the JAX package's summary line (apart from ``final_time``) and
 append the same results row (apart from its times); partial argv, bad flag
 values and ``doctor`` must give the JAX package's exit codes and messages;
 every subcommand and flag the port does not run yet must exit nonzero
-naming its ROADMAP item.
+naming its ROADMAP item; ``--telemetry-dir``, ``heal``, ``sched``,
+``sched-worker`` and ``registry`` must give the JAX package's output on
+the same artifacts (and speak its scheduler's protocol).
 """
 
 import csv
+import json
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 
@@ -21,6 +25,9 @@ torch = pytest.importorskip("torch")
 
 from distributed_drift_detection_tpu import __main__ as jmain  # noqa: E402
 from distributed_drift_detection_tpu.io import sanitize as jsanitize  # noqa: E402
+from distributed_drift_detection_tpu.sched import scheduler as jscheduler  # noqa: E402
+from distributed_drift_detection_tpu.telemetry import events as jevents  # noqa: E402
+from distributed_drift_detection_tpu.telemetry import registry as jregistry  # noqa: E402
 from distributed_drift_detection_tpu_torch import __main__ as tmain  # noqa: E402
 from distributed_drift_detection_tpu_torch import api, config as tconfig  # noqa: E402
 from distributed_drift_detection_tpu_torch.io import datasets as tdatasets  # noqa: E402
@@ -28,7 +35,11 @@ from distributed_drift_detection_tpu_torch.io import native as tnative  # noqa: 
 from distributed_drift_detection_tpu_torch.io import sanitize as tsanitize  # noqa: E402
 from distributed_drift_detection_tpu_torch.io import synth as tsynth  # noqa: E402
 from distributed_drift_detection_tpu_torch.kernels import _build  # noqa: E402
+from distributed_drift_detection_tpu_torch.harness import grid as tgrid  # noqa: E402
+from distributed_drift_detection_tpu_torch.resilience import heal as theal  # noqa: E402
 from distributed_drift_detection_tpu_torch.results import read_results  # noqa: E402
+from distributed_drift_detection_tpu_torch.sched import protocol as tprotocol  # noqa: E402
+from distributed_drift_detection_tpu_torch.sched import scheduler as tscheduler  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = "prototypes,seed=0,concepts=6,rows_per_concept=100,features=5"
@@ -121,7 +132,6 @@ def test_unported_subcommands_name_their_items(name):
 @pytest.mark.parametrize("argv, item", [
     (["--trace-dir", "t", *ARGV], "A15"),
     (["--profile-dir=p"], "A15"),
-    (["--telemetry-dir", "d"], "A15"),
     (["--tenants", "2", *ARGV], "A11"),
 ])
 def test_unported_flags_name_their_items(argv, item):
@@ -130,10 +140,11 @@ def test_unported_flags_name_their_items(argv, item):
 
 
 def test_unported_subcommands_cover_the_jax_cli():
-    """Every subcommand of the JAX package's CLI is ported (``doctor``) or
-    names its item."""
+    """Every subcommand of the JAX package's CLI is ported (``doctor``,
+    ``heal``, ``sched``, ``sched-worker``, ``registry``) or names its item."""
     jax_subcommands = {ln.split()[3] for ln in jmain._USAGE.splitlines()[1:]}
-    assert jax_subcommands == set(tmain.UNPORTED_SUBCOMMANDS) | {"doctor"}
+    assert jax_subcommands == set(tmain.UNPORTED_SUBCOMMANDS) | set(tmain.SUBCOMMANDS)
+    assert not set(tmain.UNPORTED_SUBCOMMANDS) & set(tmain.SUBCOMMANDS)
 
 
 @pytest.mark.parametrize("which, extra", [("clean", []), ("dirty", []),
@@ -198,3 +209,114 @@ def test_cli_passes_compile_cache_dir(csvs, tmp_path, monkeypatch, capsys):
     assert "detections=" in capsys.readouterr().out
     with open(tmp_path / "ddm_cluster_runs.csv") as fh:
         assert len(list(csv.reader(fh))) == 2
+
+
+# --- the fleet surface: --telemetry-dir, heal, sched, sched-worker, registry --
+
+
+def _fleet_spec(d, csv_path, mults=(2, 3)):
+    spec = tgrid.sweep_spec(csv_path, list(mults), [2], trials=1, per_batch=50,
+                            results_csv=str(d / "results.csv"), spec="off")
+    path = d / "spec.json"
+    path.write_text(json.dumps(spec))
+    return str(path), spec
+
+
+def _complete(tele, spec, n=None):
+    """Record the first ``n`` cells of ``spec`` completed, as a run would."""
+    for i, cfg in enumerate(theal.spec_configs(spec)[:n]):
+        wire = tprotocol.cell_to_wire(cfg)
+        jregistry.record(tele, f"r{i}", "running", config_digest=wire["digest"])
+        jregistry.record(tele, f"r{i}", "completed")
+
+
+def _exit(fn, argv):
+    with pytest.raises(SystemExit) as e:
+        fn(argv)
+    return e.value.code
+
+
+def test_telemetry_dir_flag_matches_jax(csvs, tmp_path, monkeypatch, capsys):
+    """``--telemetry-dir``: the JAX package's summary line, then a
+    ``telemetry=`` line naming a run log the JAX package's reader takes."""
+    out = {}
+    for name, run_main in (("jax", jmain.main),
+                           ("port", lambda a: tmain.main(a, device="cpu"))):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        run_main(["--telemetry-dir", str(d / "tele"), *ARGV, csvs["clean"]])
+        lines = capsys.readouterr().out.splitlines()
+        log = lines[-1][len("telemetry="):]
+        assert lines[-1].startswith("telemetry=") and os.path.dirname(log) == str(d / "tele")
+        events = jevents.read_events(log)
+        out[name] = (_summary("\n".join(lines)), [e["type"] for e in events
+                                                   if e["type"] != "cost_analysis"
+                                                   and e.get("source") != "memory_analysis"],
+                     [r["status"] for r in jregistry.read_index(str(d / "tele"))])
+    assert out["port"] == out["jax"]
+
+
+@pytest.mark.parametrize("name", ["heal", "registry", "sched", "sched-worker"])
+def test_fleet_subcommands_match_jax(name, csvs, tmp_path, capsys):
+    """Each subcommand on the same artifacts: the JAX package's exit code
+    and output (``sched``: its summary but for the scheduler's id;
+    ``sched-worker``: each package's agent drains from the other's
+    scheduler)."""
+    spec_path, spec = _fleet_spec(tmp_path, csvs["clean"])
+    results = {}
+    for pkg, main in (("jax", jmain.main), ("port", lambda a: tmain.main(a, device="cpu"))):
+        tele = str(tmp_path / pkg)
+        if name == "heal":  # one of two cells done: plan, JSON, exit 1
+            _complete(tele, spec, 1)
+            plan = str(tmp_path / f"{pkg}-plan.json")
+            code = _exit(main, ["heal", spec_path, "--telemetry-dir", tele, "--json", plan])
+            with open(plan) as fh:
+                got = json.load(fh)
+            assert got.pop("telemetry_dir") == tele
+            results[pkg] = (code, capsys.readouterr().out.replace(plan, "PLAN"), got)
+        elif name == "registry":
+            _complete(tele, spec)
+            main(["registry", "compact", tele, "--min-records", "9"])
+            main(["registry", "compact", tele])
+            results[pkg] = (capsys.readouterr().out,
+                            [{k: v for k, v in r.items() if k != "ts"}
+                             for r in jregistry.read_index(tele)])
+        elif name == "sched":  # every cell already completed: whole, exit 0
+            _complete(tele, spec)
+            code = _exit(main, ["sched", spec_path, "--telemetry-dir", tele, "--json"])
+            summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+            results[pkg] = (code, {k: v for k, v in summary.items() if k != "scheduler"})
+        else:  # the other package's scheduler, sweep whole: hello, lease, drain
+            other = jscheduler if pkg == "port" else tscheduler
+            _complete(tele, spec)
+            sched = other.Scheduler(tele, lease_s=30.0)
+            sched.add_spec(theal.load_spec(spec_path))
+            sched.start()
+            try:
+                code = _exit(main, ["sched-worker", "--connect", f"127.0.0.1:{sched.port}"])
+                status = sched.status()
+            finally:
+                summary = sched.stop()
+            results[pkg] = (code, summary["whole"], summary["audit"]["ok"],
+                            [w["alive"] for w in status["workers"]])
+    assert results["port"] == results["jax"]
+    if name == "heal":
+        assert results["port"][0] == 1 and len(results["port"][2]["missing"]) == 1
+    if name in ("sched", "sched-worker"):
+        assert results["port"][0] == 0
+
+
+def test_heal_execute_through_the_cli(csvs, tmp_path, capsys):
+    """``heal --execute`` runs exactly the missing cell (on the CPU here),
+    then the plan is whole under both packages' ``heal``."""
+    spec_path, spec = _fleet_spec(tmp_path, csvs["clean"])
+    tele = str(tmp_path / "tele")
+    _complete(tele, spec, 1)
+    assert _exit(lambda a: tmain.main(a, device="cpu"),
+                 ["heal", spec_path, "--telemetry-dir", tele, "--execute"]) == 0
+    out = capsys.readouterr().out
+    assert "heal [1/1]" in out and "after heal: 2/2 completed, 0 missing" in out
+    for main in (jmain.main, lambda a: tmain.main(a, device="cpu")):
+        assert _exit(main, ["heal", spec_path, "--telemetry-dir", tele]) == 0
+    assert len(read_results(str(tmp_path / "results.csv"))) == 1

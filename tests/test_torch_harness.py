@@ -13,6 +13,8 @@ the JAX package's ``run_grid`` must resume in the port's with no trial run
 
 import csv
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -36,6 +38,7 @@ from distributed_drift_detection_tpu_torch.io import synth as tsynth  # noqa: E4
 from distributed_drift_detection_tpu_torch.resilience import faults as tfaults  # noqa: E402
 from distributed_drift_detection_tpu_torch.resilience import policy as tpolicy  # noqa: E402
 from distributed_drift_detection_tpu_torch.resilience import supervisor as tsupervisor  # noqa: E402
+from distributed_drift_detection_tpu_torch.telemetry import registry as tregistry  # noqa: E402
 
 SPEC = "prototypes,seed=0,concepts=6,rows_per_concept=100,features=5"
 
@@ -228,9 +231,15 @@ def test_grid_main_writes_the_spec_and_refuses_telemetry(outdoor, tmp_path, monk
         trials=2, per_batch=100, results_csv="ddm_cluster_runs.csv", spec="warn",
         data_policy="strict")
     monkeypatch.undo()
-    for kw in (dict(telemetry_dir="t"), dict(profile_dir="p")):
-        with pytest.raises(NotImplementedError, match="A15"):
-            tgrid_run(base_cfg(tconfig, outdoor, tmp_path), [64], [1], trials=1, **kw)
+    # profile_dir is still refused (ROADMAP A15); telemetry_dir is ported
+    # (tests/test_torch_sched.py): a trial's run log and registry records
+    with pytest.raises(NotImplementedError, match="A15"):
+        tgrid_run(base_cfg(tconfig, outdoor, tmp_path), [64], [1], trials=1, profile_dir="p")
+    tele = str(tmp_path / "tele")
+    assert tgrid_run(base_cfg(tconfig, outdoor, tmp_path), [1], [2], trials=1,
+                     telemetry_dir=tele) == 1
+    statuses = sorted((r.get("kind") or "", r["status"]) for r in tregistry.runs(tele).values())
+    assert statuses == [("", "completed"), ("sweep", "completed")]
 
 
 def test_grid_continue_on_error_and_armed_faults(outdoor, tmp_path, monkeypatch):
@@ -346,9 +355,23 @@ def test_supervise_matches_jax(fails, exc, attempts):
     assert outcomes[0] == outcomes[1]
 
 
-def test_supervise_refuses_telemetry():
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsupervisor.supervise(lambda: 1, telemetry_dir="t")
+def test_supervise_refuses_telemetry(tmp_path):
+    """``supervise(telemetry_dir=...)`` was refused until the registry was
+    ported; now a run that needs no retry leaves no retry log, and one that
+    retries leaves one ``run_retried`` event, as in the JAX package."""
+    tele = str(tmp_path / "tele")
+    assert tsupervisor.supervise(lambda: 1, telemetry_dir=tele) == 1
+    assert not os.path.exists(tele)
+    for mod, pmod in ((tsupervisor, tpolicy), (jsupervisor, jpolicy)):
+        fn, _ = _flaky(1, RuntimeError)
+        d = str(tmp_path / mod.__name__.split(".")[0])
+        assert mod.supervise(fn, pmod.RetryPolicy(max_attempts=2, seed=5), telemetry_dir=d,
+                             name="cell", sleep=lambda _s: None) == "done"
+        (log,) = os.listdir(d)
+        assert log.startswith("cell-retries-")
+        with open(os.path.join(d, log)) as fh:
+            (ev,) = [json.loads(ln) for ln in fh]
+        assert (ev["type"], ev["attempt"], ev["max_attempts"]) == ("run_retried", 1, 2)
 
 
 def test_supervised_run_retry_after_a_timeout():

@@ -149,7 +149,22 @@ def test_port_imports_no_jax():
         "distributed_drift_detection_tpu_torch.models.rf, "
         "distributed_drift_detection_tpu_torch.__main__, "
         "distributed_drift_detection_tpu_torch.harness.grid, "
-        "distributed_drift_detection_tpu_torch.harness.parity\n"
+        "distributed_drift_detection_tpu_torch.harness.parity, "
+        "distributed_drift_detection_tpu_torch.telemetry, "
+        "distributed_drift_detection_tpu_torch.telemetry.events, "
+        "distributed_drift_detection_tpu_torch.telemetry.registry, "
+        "distributed_drift_detection_tpu_torch.telemetry.metrics, "
+        "distributed_drift_detection_tpu_torch.telemetry.profile, "
+        "distributed_drift_detection_tpu_torch.telemetry.watch, "
+        "distributed_drift_detection_tpu_torch.telemetry.pipeline, "
+        "distributed_drift_detection_tpu_torch.telemetry.ops, "
+        "distributed_drift_detection_tpu_torch.parallel.multihost, "
+        "distributed_drift_detection_tpu_torch.resilience.heal, "
+        "distributed_drift_detection_tpu_torch.sched, "
+        "distributed_drift_detection_tpu_torch.sched.protocol, "
+        "distributed_drift_detection_tpu_torch.sched.leases, "
+        "distributed_drift_detection_tpu_torch.sched.worker, "
+        "distributed_drift_detection_tpu_torch.sched.scheduler\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.split('.')[0] in ('distributed_drift_detection_tpu', 'sklearn')]\n"
         "assert not bad, bad\n"
@@ -197,7 +212,7 @@ def test_chip_scripts_refuse_without_a_card(script):
         (dict(mesh_tenant_devices=2), "A15"),
         (dict(tenants=2), "A11"),
         (dict(mesh_devices=2), "A15"),
-        (dict(telemetry_dir="t"), "A15"),
+        (dict(trace_dir="t"), "A15"),
         (dict(validate=True), "A15"),
         (dict(profile_dir="p"), "A15"),
     ],
