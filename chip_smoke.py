@@ -6,11 +6,12 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eleven hand-written kernels from ``csrc/`` with nvcc (in
+2. build the twelve hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
    ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
    K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
-   ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``;
+   ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``,
+   K6 ``soak_batch`` (``csrc/soak_gen.cu``);
    and the native CSV parser (``native/ddd_native.cc``, with the host C++
    compiler into ``kernels/_build/``);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -99,7 +100,10 @@ without them. Phases, each fatal on failure:
    masked rows ride the dense striper through K1, K2 and K7, counted:
    detections and mean delay equal to the JAX package's CPU run of the
    same file (``DIRTY_EXPECTED``), flags equal to the port's CPU run, Final
-   Time (median of 3 warm runs) and the dense stream's upload seconds;
+   Time (median of 3 warm runs) and the dense stream's upload seconds; and
+   (ROADMAP C8) the dirty copy under ``quarantine`` through ``ph``,
+   ``hddm_w``, ``adwin``, the ``mlp`` and the ``forest`` at ``C8_MULT``,
+   counted, each run's flags equal field by field to its CPU run;
 12. wide rows: a centroid run on a CSV of F = 2,048 (K7's features in
    chunks; K2 on its generic path), counted, flags equal to the port's CPU
    run, K7 and K2 timed at its shapes (``wide_ms`` in their rows); K2 at
@@ -153,7 +157,28 @@ without them. Phases, each fatal on failure:
    crash then heal: ``DDD_FAULTS`` arms ``api.run`` for the second cell of
    a 2-cell telemetered grid; ``heal`` plans exactly that cell and exits 1,
    ``heal --execute`` re-runs only it on the card, counted, and the plan is
-   then whole (exit 0).
+   then whole (exit 0);
+17. the device-generated soak (``engine/soak.py``) and the capture
+   surfaces: (a) K6 bit for bit against its plain version for each
+   generator at [128, 2000] (F = 8, 3, 10, 10) and on ``K6_EDGES`` (a batch
+   straddling concepts, nonzero concept offsets with partition-local rows,
+   rows next to 2^31 − 1, a window chunk's clamped tail, F = 1), timed as K8
+   is, with a ``floor_ms``; (b) K7 bit for bit and K2 equal off the near
+   ties at per_batch 2000 on a K6 batch, timed; (c) the soak at
+   ``SOAK_CUT`` for each generator and with ``window`` 8, and a 3-leg chain
+   with a checkpoint, counted, flags (the chain: every leg's) equal to the
+   port's CPU run; (d) the chain killed by ``DDD_FAULTS=soak.leg`` and
+   resumed from its checkpoint to the uninterrupted summary; (e) the
+   1e9-row soak at bench.py's geometry (128 partitions x per_batch 2000,
+   a concept every 100,000 rows, prototypes, centroid (8, 8), DDM): a 2-leg
+   chain (``max_leg_rows`` 2^29) and the one-shot runner on the chain's
+   rows find the same detections at the same per-partition positions, as
+   many as ``planted_interior_boundaries``; the median delay; rows/s of the
+   one-shot (median of 3 warm runs) beside the card's name and power limit;
+   K6, K7, K2 and K1 launched (counters reset just before the first timed
+   run); one traced window of 50 steps for the idle share; (g) SMOKE with
+   ``validate=True``, with a ``profile_dir`` and with a ``trace_dir``: phase
+   4's flags, and each Chrome trace names K1, K2 and K7.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1446,6 +1471,7 @@ def threefry_keys(torch, p, dev):
 
 def wrappers():
     """Each kernel's counted wrapper, by kernel name."""
+    from distributed_drift_detection_tpu_torch.engine import soak
     from distributed_drift_detection_tpu_torch.models import classifiers, forest, mlp
     from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors
     from distributed_drift_detection_tpu_torch.utils import threefry
@@ -1460,7 +1486,8 @@ def wrappers():
             "mlp_fit": mlp.mlp_fit,
             "mlp_predict_err": mlp.mlp_predict_err,
             "forest_fit": forest.forest_fit,
-            "forest_predict_err": forest.forest_predict_err}
+            "forest_predict_err": forest.forest_predict_err,
+            "soak_batch": soak.soak_batch}
 
 
 def reset_launches() -> None:
@@ -1642,7 +1669,8 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "mlp_fit": "mlp_fit_kernel",
                   "mlp_predict_err": "mlp_predict_err_kernel",
                   "forest_fit": "forest_fit_kernel",
-                  "forest_predict_err": "forest_predict_err_kernel"}
+                  "forest_predict_err": "forest_predict_err_kernel",
+                  "soak_batch": "soak_batch_kernel"}
 
 
 def in_run_profile(torch, api, prep, dev,
@@ -1725,6 +1753,24 @@ def later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep, final_times
               f"dirty CSV ({policy}): {dm.num_detections} detections, {dm.mean_delay_rows} rows")
         for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
             check(dl[k] > 0, f"dirty CSV ({policy}): kernel {k} was not launched")
+    # ROADMAP C8: the dirty CSV under quarantine through the zoo kernels,
+    # the mlp and the forest (mult_data C8_MULT), flags equal to the CPU's
+    for what, kw in C8_RUNS:
+        qcfg = config.replace(cfg, dataset=dirty, data_policy="quarantine",
+                              quarantine_path=f"{tmp.name}/c8-{what}.jsonl",
+                              mult_data=C8_MULT, **kw)
+        t0 = time.perf_counter()
+        qres, ql = run_equal(api, np, qcfg, dev, f"dirty CSV ({what}, quarantine)")
+        path = ([api.DETECTOR_KERNELS[kw["detector"]]] if "detector" in kw else []) + list(
+            api.MODEL_KERNELS.get(kw.get("model", "centroid"), ()))
+        for k in path:
+            check(ql[k] > 0, f"dirty CSV ({what}, quarantine): kernel {k} was not launched")
+        print(f"dirty CSV ({what}, quarantine, mult_data {C8_MULT}) on the card: "
+              f"{qres.metrics.num_detections} detections, mean delay "
+              f"{qres.metrics.mean_delay_rows:.4f} rows, "
+              f"{qres.stream.quarantine.rows_quarantined} rows quarantined, flags equal to the "
+              f"CPU run ({time.perf_counter() - t0:.1f} s both); launches "
+              f"{ {k: v for k, v in ql.items() if v} }")
 
     # 12. wide rows: a centroid run on a CSV of F = 2,048 (K7's features in
     # chunks), counted; K2 at F = 60,000 (its features in chunks)
@@ -2216,6 +2262,386 @@ def fleet_phase(torch, api, config, dev, res, final, cpu_rows) -> None:
     tmp.cleanup()
 
 
+# --- phase 17: the device-generated soak (A14) and the capture surfaces (A15b)
+
+# bench.py's soak geometry (bench.py:216): 128 partitions x per_batch 2000,
+# a concept every 100,000 rows, centroid ModelSpec(8, 8), prototypes, DDM
+SOAK_P, SOAK_B, SOAK_DE = 128, 2000, 100_000
+SOAK_ROWS, SOAK_LEG_ROWS = 10**9, 2**29
+# each generator with its width and the centroid's classes
+SOAK_GENS = (("prototypes", 8, 8), ("sea", 3, 2), ("hyperplane", 10, 2),
+             ("hyperplane_gradual", 10, 2))
+# the cut depth the card is held to the port's CPU run at
+SOAK_CUT = dict(partitions=16, per_batch=200, num_batches=150, drift_every=4000)
+SOAK_CUT_WINDOW = 8
+SOAK_CHAIN = dict(partitions=16, per_batch=200, total_rows=16 * 180 * 200,
+                  drift_every=4000, max_leg_rows=16 * 60 * 200)
+# K6's edge cases: (what, generator, F, P, B, drift_every, count, t0, last,
+# rows) — rows "global" (the one-shot runner's q·NB·B offsets), "local" (the
+# chain's partition-local rows with concept offsets) or "top" (up to 2^31 - 2)
+K6_EDGES = [
+    ("a batch straddling concept boundaries", "prototypes", 8, 16, 300, 700, 1, 9, 99, "global"),
+    ("nonzero block0, partition-local rows", "hyperplane_gradual", 10, 16, 300, 600, 1, 41,
+     2**31 - 1, "local"),
+    ("rows next to 2^31 - 1", "prototypes", 5, 4, 1000, 777, 1, 99, 99, "top"),
+    ("a window chunk with a clamped tail", "sea", 3, 16, 100, 500, 8, 95, 99, "global"),
+    ("a chunk of hyperplane rows, F = 1", "hyperplane", 1, 4, 64, 100, 3, 0, 10, "local"),
+]
+# ROADMAP C8: the dirty CSV under quarantine through every hand kernel's
+# path, at a cut depth
+C8_RUNS = (("ph", dict(detector="ph")), ("hddm_w", dict(detector="hddm_w")),
+           ("adwin", dict(detector="adwin")), ("mlp", dict(model="mlp")),
+           ("forest", dict(model="forest")))
+C8_MULT = 64
+SOAK_KERNELS = ("soak_batch", "centroid_fit", "centroid_predict_err", "ddm_window")
+
+
+def k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev):
+    """K6's inputs for a case: (keys, t0, count, last, row offsets,
+    concept offsets, keyword arguments)."""
+    from distributed_drift_detection_tpu_torch.engine.loop import device_keys
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    keys = device_keys(threefry.split(threefry.key(p + b), p), dev)
+    nb = last + 1 if rows != "local" else 100
+    part = torch.arange(p, dtype=torch.int64, device=dev)
+    if rows == "global":
+        offs, block0s = part * nb * b, torch.zeros_like(part)
+    elif rows == "local":
+        offs, block0s = torch.zeros_like(part), part * 12_345
+    else:
+        offs, block0s = part * 0 + (2**31 - 1 - 100 * b), part * 3
+    kw = dict(per_batch=b, features=f, drift_every=de, generator=gen)
+    return keys, t0, count, last, offs.int().contiguous(), block0s.int().contiguous(), kw
+
+
+def k6_equal(torch, soak, feed, what):
+    got = soak.soak_batch(*feed[:6], **feed[6])
+    want = soak.soak_batch_reference(*feed[:6], **feed[6])
+    torch.cuda.synchronize()
+    check(torch.equal(got.table.view(torch.int32), want.table.view(torch.int32))
+          and torch.equal(got.labels, want.labels) and torch.equal(got.rows, want.rows),
+          f"K6 differs from its plain version ({what})")
+    return got
+
+
+def k6_ops(gen, f, c, p, b, count, t0, last, row_offs, block0s, de):
+    """The operations K6's function needs for these inputs, at the f32 rate:
+    a threefry hash ≈ 75 integer operations, a normal's map ≈ 40; a
+    partition-batch's key derivations (fold_in and the splits); a row's
+    draws and its label; a concept's weights (F uniforms) or prototypes (C·F
+    normals) once for each concept the batch touches."""
+    hashes = {"sea": 1, "prototypes": 5}.get(gen, 2)
+    rows = p * count * b
+    if gen == "sea":
+        per_row = 3 * (75 + 3) + 3
+    elif gen == "prototypes":
+        per_row = 2 * 75 + f * (75 + 40 + 1)
+    else:
+        per_row = f * (75 + 3 + 2) + f + (f * 25 if gen == "hyperplane_gradual" else 0)
+    concepts = 0
+    for q in range(p):
+        for t in range(t0, t0 + count):
+            t = min(t, last)
+            lo = int(row_offs[q]) + t * b
+            concepts += (lo + b - 1) // de - lo // de + 1
+    per_concept = {"sea": 0, "prototypes": c * f * 115}.get(gen, f * 78)
+    return p * count * hashes * 75 + rows * per_row + concepts * per_concept
+
+
+def check_k6(torch, kernels, soak, dev):
+    """K6 against its plain version on the card, bit for bit: each generator
+    at the soak's [128, 2000] and K6_EDGES; times it on the prototypes batch
+    (the soak's default); returns its kernel row."""
+    for gen, f, _ in SOAK_GENS:
+        feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
+        k6_equal(torch, soak, feed, f"{gen} at [{SOAK_P}, {SOAK_B}], F = {f}")
+    for what, gen, f, p, b, de, count, t0, last, rows in K6_EDGES:
+        feed = k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev)
+        got = k6_equal(torch, soak, feed, what)
+        if count > 1:
+            valid = t0 + torch.arange(count, device=dev) <= last
+            check(bool(((got.rows >= 0) == valid[None, :, None]).all()),
+                  f"K6: row positions of the clamped tail are not -1 ({what})")
+    print(f"K6 soak_batch: bit for bit its plain version at [{SOAK_P}, {SOAK_B}] for "
+          + ", ".join(f"{g} (F = {f})" for g, f, _ in SOAK_GENS) + " and on "
+          + "; ".join(e[0] for e in K6_EDGES))
+
+    gen, f, c = SOAK_GENS[0]
+    feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
+    keys, t0, count, last, offs, block0s, kw = feed
+    out = soak.soak_batch(*feed[:6], **kw)
+    args = soak.soak_batch_args(keys, t0, count, last, offs, block0s, out, per_batch=SOAK_B,
+                                features=f, drift_every=SOAK_DE, generator=3, classes=c,
+                                noise=0.08)
+    fn = kernels.launcher("soak_batch")
+    ms = graph_ms(lambda: kernels.check("soak_batch", fn(*args, kernels.stream_handle(dev))))
+    h_us = host_us(lambda: soak.soak_batch(*feed[:6], out=out, **kw))
+    plain_ms = time_ms(lambda: soak.soak_batch_reference(*feed[:6], **kw), reps=3, rounds=3)
+    floor = kernels.launcher("soak_batch_floor")
+    floor_ms = graph_ms(lambda: kernels.check(
+        "soak_batch_floor", floor(SOAK_P, 1, SOAK_B, kernels.stream_handle(dev))))
+    n = SOAK_P * SOAK_B
+    nbytes = n * (out.table.shape[1] * 4 + 4 + 4) + SOAK_P * 16
+    b_ms, by = bound(nbytes, k6_ops(gen, f, c, SOAK_P, SOAK_B, 1, t0, last, offs.cpu(),
+                                    block0s.cpu(), SOAK_DE))
+    print(f"K6 soak_batch [{SOAK_P}, {SOAK_B}] prototypes F = {f}: {ms:.5f} ms device (graph "
+          f"of 50), {h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms "
+          f"({by}), floor {floor_ms:.5f} ms (an empty kernel with its grid)")
+    return dict(
+        name="soak_batch", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/soak_gen.cu",
+        replaces="distributed_drift_detection_tpu/engine/soak.py:113",
+        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+    )
+
+
+def check_fit_at_2000(torch, classifiers, soak, dev):
+    """K7 and K2 against their plain versions at the soak's per_batch 2000,
+    on a K6 batch of 128 partitions: K7 bit for bit, K2's predictions equal
+    off the near ties and its errors pred != y; both timed."""
+    gen, f, c = SOAK_GENS[0]
+    feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
+    batch = soak.soak_batch(*feed[:6], **feed[6])
+    X = batch.table.view(SOAK_P, SOAK_B, -1)[:, :, :f].contiguous()
+    y = batch.labels.view(SOAK_P, SOAK_B).contiguous()
+    w = torch.ones((SOAK_P, SOAK_B), dtype=torch.float32, device=dev)
+    got = classifiers.centroid_fit(X, y, w, c)
+    want = classifiers.centroid_fit_reference(X, y, w, c)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+              "K7 differs from its plain version at per_batch 2000")
+    idx = torch.arange(SOAK_P * SOAK_B, dtype=torch.int32, device=dev).view(SOAK_P, SOAK_B)
+    T = classifiers.pad_row_table(batch.table[:, :f])
+    err, pred = classifiers.centroid_predict_err(got.centroids, got.bias, T, batch.labels, idx,
+                                                 return_pred=True)
+    _, rpred = classifiers.centroid_predict_err_reference(got.centroids, got.bias, T,
+                                                          batch.labels, idx)
+    scores = torch.bmm(X.double(), got.centroids.double().transpose(1, 2)) + got.bias.double()[:, None]
+    top2 = scores.topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 1e-4 * (1 + top2[..., 0].abs())
+    check(torch.equal(pred[~tie], rpred[~tie]), "K2 differs off the near ties at per_batch 2000")
+    check(torch.equal(err, (pred != y).float()), "K2 errors are not pred != y at per_batch 2000")
+    k7_ms = time_ms(lambda: classifiers.centroid_fit(X, y, w, c))
+    k2_ms = time_ms(lambda: classifiers.centroid_predict_err(got.centroids, got.bias, T,
+                                                             batch.labels, idx))
+    print(f"K7 at [{SOAK_P}, {SOAK_B}] F = {f} C = {c}: bit for bit its plain version, "
+          f"{k7_ms:.5f} ms a call (events, wrapper included); K2 there: predictions equal off "
+          f"{int(tie.sum())} near ties, errors pred != y, {k2_ms:.5f} ms a call")
+    return {"K7 [128, 2000] F=8 C=8": k7_ms, "K2 [128, 2000] F=8 C=8": k2_ms}
+
+
+def soak_flags_equal(np_, a, b) -> bool:
+    return all(np_.array_equal(np_.asarray(getattr(a, f).cpu()), np_.asarray(getattr(b, f).cpu()))
+               for f in a._fields)
+
+
+def soak_cut(torch, soak, build_model, ModelSpec, threefry, dev):
+    """(c) the soak at the cut depth on the card against the port's CPU run,
+    flags leaf by leaf: each generator, the window engine, and a chain with
+    its checkpoint; (d) the chain killed at ``soak.leg`` and resumed.
+    Returns the card's uninterrupted chain summary."""
+    import os
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.resilience import faults
+
+    runs = [(gen, f, c, {}) for gen, f, c in SOAK_GENS]
+    runs.append(SOAK_GENS[0] + (dict(window=SOAK_CUT_WINDOW),))
+    for gen, f, c, kw in runs:
+        model = build_model("centroid", ModelSpec(f, c))
+        t0 = time.perf_counter()
+        ref = soak.make_soak_runner(model, generator=gen, device="cpu", **SOAK_CUT, **kw)(
+            threefry.key(0))
+        cpu_s = time.perf_counter() - t0
+        reset_launches()
+        got = soak.make_soak_runner(model, generator=gen, device=dev, **SOAK_CUT, **kw)(
+            threefry.key(0))
+        torch.cuda.synchronize()
+        sl = read_launches()
+        check(soak_flags_equal(np, ref.flags, got.flags),
+              f"soak {gen} {kw}: the card's flags differ from the CPU's")
+        check(sl["soak_batch"] > 0 and sl["centroid_fit"] > 0 and sl["ddm_window"] > 0,
+              f"soak {gen} {kw}: K6, K7 or K1 not launched")
+        det = int((got.flags.change_global >= 0).sum())
+        print(f"soak {gen} {kw or 'window=1'} at {SOAK_CUT}: flags equal to the CPU run "
+              f"({cpu_s:.1f} s there), {det} detections; launches "
+              f"{ {k: v for k, v in sl.items() if v} }")
+
+    model = build_model("centroid", ModelSpec(8, 8))
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(tmp.name, "chain.ckpt")
+
+    def legs_of(out):
+        return lambda s, flags: out.append(np.asarray(flags.change_global))
+
+    cpu_legs, card_legs = [], []
+    cpu = soak.run_soak_chained(model, device="cpu", on_leg=legs_of(cpu_legs), **SOAK_CHAIN)
+    reset_launches()
+    card = soak.run_soak_chained(model, device=dev, checkpoint_path=ckpt,
+                                 on_leg=legs_of(card_legs), **SOAK_CHAIN)
+    cl = read_launches()
+    check(card.legs == cpu.legs >= 2 and card.detections == cpu.detections
+          and np.array_equal(card.delays, cpu.delays)
+          and all(np.array_equal(a, b) for a, b in zip(card_legs, cpu_legs)),
+          "chained soak: the card's legs differ from the CPU's")
+    check(not os.path.exists(ckpt), "chained soak: the checkpoint outlived the chain")
+    print(f"chained soak {SOAK_CHAIN} with a checkpoint: {card.legs} legs, "
+          f"{card.detections} detections of {card.planted_boundaries} planted, each leg's "
+          f"change_global equal to the CPU run's; launches { {k: v for k, v in cl.items() if v} }")
+
+    os.environ["DDD_FAULTS"] = "soak.leg:at=2"
+    try:
+        faults.arm_from_env()
+        try:
+            soak.run_soak_chained(model, device=dev, checkpoint_path=ckpt, **SOAK_CHAIN)
+        except faults.InjectedFault:
+            pass
+        else:
+            fail("DDD_FAULTS=soak.leg did not kill the chain")
+    finally:
+        del os.environ["DDD_FAULTS"]
+        faults.disarm_all()
+    check(os.path.exists(ckpt), "the killed chain left no checkpoint")
+    resumed_legs = []
+    resumed = soak.run_soak_chained(model, device=dev, checkpoint_path=ckpt,
+                                    on_leg=lambda s, fl: resumed_legs.append(s), **SOAK_CHAIN)
+    check(resumed.detections == card.detections and np.array_equal(resumed.delays, card.delays)
+          and resumed_legs == list(range(1, card.legs)) and not os.path.exists(ckpt),
+          "the resumed chain does not give the uninterrupted summary")
+    print(f"chain killed by DDD_FAULTS=soak.leg:at=2 before leg 1, resumed from its checkpoint "
+          f"at leg 1: legs {resumed_legs} run, summary equal to the uninterrupted chain's")
+    tmp.cleanup()
+    return card
+
+
+def soak_phase(torch, api, config, kernels, classifiers, res, dev):
+    """Phase 17 (module docstring): returns K6's kernel row, K7's and K2's
+    per_batch-2000 times and the 1e9-row soak's numbers."""
+    import os
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.engine import soak
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.utils import threefry
+    from distributed_drift_detection_tpu_torch.utils.timing import trace_files
+
+    t_phase = time.perf_counter()
+    # (a) K6, (b) K7 and K2 at per_batch 2000
+    row = check_k6(torch, kernels, soak, dev)
+    fit_ms = check_fit_at_2000(torch, classifiers, soak, dev)
+    # (c), (d) the cut depth against the CPU, kill and resume
+    soak_cut(torch, soak, build_model, ModelSpec, threefry, dev)
+
+    # (e) the 1e9-row soak at bench.py's geometry: a 2-leg chain, then the
+    # one-shot runner on the chain's rows; per-partition positions equal
+    model = build_model("centroid", ModelSpec(8, 8))
+    chain_pos = [[] for _ in range(SOAK_P)]
+
+    def collect(leg, flags):
+        cg = np.asarray(flags.change_global)
+        for q in range(SOAK_P):
+            hit = cg[q][cg[q] >= 0]
+            if hit.size:
+                chain_pos[q].append(hit.astype(np.int64))
+
+    s = soak.run_soak_chained(model, partitions=SOAK_P, per_batch=SOAK_B,
+                              drift_every=SOAK_DE, total_rows=SOAK_ROWS,
+                              max_leg_rows=SOAK_LEG_ROWS, on_leg=collect, device=dev)
+    nb = s.rows_processed // (SOAK_P * SOAK_B)
+    check(s.legs == 2 and SOAK_P * nb * SOAK_B <= 2**31 - 1,
+          f"the chain ran {s.legs} legs of {nb} batches")
+    run = soak.make_soak_runner(model, partitions=SOAK_P, per_batch=SOAK_B,
+                                num_batches=nb, drift_every=SOAK_DE, device=dev)
+    key = threefry.key(0)
+    run(key).flags.change_global.cpu()  # the first run pays the first launches
+    reset_launches()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        out = run(key)
+        cg = out.flags.change_global.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_launches()
+    rows = out.rows_processed
+    for k in SOAK_KERNELS:
+        check(launches[k] > 0, f"1e9 soak: kernel {k} was not launched")
+    detections = int((cg >= 0).sum())
+    same = s.detections == detections
+    for q in range(SOAK_P):
+        one = np.sort(cg[q][cg[q] >= 0].astype(np.int64) - q * nb * SOAK_B)
+        ch = np.sort(np.concatenate(chain_pos[q])) if chain_pos[q] else np.empty(0, np.int64)
+        same = same and np.array_equal(one, ch)
+    check(same, "the 2-leg chain's per-partition detection positions differ from the one-shot's")
+    planted = soak.planted_interior_boundaries(SOAK_P, nb * SOAK_B, SOAK_DE)
+    delays = cg[cg >= 0].astype(np.int64) % SOAK_DE
+    median = statistics.median(times)
+    check(detections == planted, f"1e9 soak: {detections} detections, {planted} planted")
+    card_line = card()
+    print(f"soak of {rows:,} rows ({SOAK_P} partitions x {nb} batches x {SOAK_B}, prototypes, "
+          f"centroid (8, 8), DDM) on {card_line}: the 2-leg chain (max_leg_rows 2^29, "
+          f"{s.exec_time_s:.3f} s) and the one-shot found the same {detections} detections at "
+          f"the same per-partition positions; planted interior boundaries {planted}; median "
+          f"delay {statistics.median(delays.tolist()) if delays.size else float('nan')} rows; "
+          f"one-shot {median:.4f} s (median of 3 warm runs: "
+          + ", ".join(f"{t:.4f}" for t in times) + f"), {rows / median:,.0f} rows/s; launches "
+          f"{ {k: launches[k] for k in SOAK_KERNELS} }")
+    row["launches"] = launches["soak_batch"]
+
+    # one traced step window: 50 steps of the same geometry
+    short = soak.make_soak_runner(model, partitions=SOAK_P, per_batch=SOAK_B, num_batches=51,
+                                  drift_every=SOAK_DE, device=dev)
+    short(key).flags.change_global.cpu()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        short(key).flags.change_global.cpu()
+        window_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    per = {}
+    for name in SOAK_KERNELS:
+        hits = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+        count = sum(e.count for e in hits)
+        check(count > 0, f"the soak's traced window saw no {name} launch")
+        per[name] = (count, sum(e.self_device_time_total for e in hits) / count)
+    row["in_run_launches"], row["in_run_us"] = per["soak_batch"]
+    idle = 1.0 - busy / window_s
+    print(f"soak traced window (50 steps): {sum(e.count for e in kern)} kernels busy "
+          f"{busy:.4f} s of {window_s:.4f} s, idle share {idle:.3f}; "
+          + ", ".join(f"{k} {c} x {us:.2f} us" for k, (c, us) in per.items()))
+
+    # (g) SMOKE with validate=True, a profile_dir and a trace_dir: phase 4's
+    # flags; each trace names K1, K2 and K7
+    tmp = tempfile.TemporaryDirectory()
+    base = config.RunConfig(**SMOKE)
+    for field, value in (("validate", True), ("profile_dir", os.path.join(tmp.name, "prof")),
+                         ("trace_dir", os.path.join(tmp.name, "trace"))):
+        vres = api.run(config.replace(base, **{field: value}), device=dev)
+        check(flags_equal(np, vres, res), f"{field}: flags differ from phase 4's run")
+        what = f"{field}={value!r}: phase 4's flags, Final Time {vres.total_time:.4f} s"
+        if field != "validate":
+            files = trace_files(value)
+            check(len(files) == 1, f"{field}: {len(files)} trace files")
+            with open(files[0]) as fh:
+                text = fh.read()
+            names = ("ddm_window", "centroid_predict_err", "centroid_fit")
+            missing = [k for k in names if KERNEL_SYMBOLS[k] not in text]
+            check(not missing, f"{field}: the trace names no {missing}")
+            what += (f"; {os.path.basename(files[0])} in {os.path.basename(os.path.dirname(files[0]))}"
+                     f", {os.path.getsize(files[0]):,} bytes, names K1, K2 and K7")
+        print(what)
+    tmp.cleanup()
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return row, fit_ms, dict(rows=rows, seconds=median, rows_per_s=rows / median,
+                             idle_share=idle)
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -2437,6 +2863,14 @@ def main(device: str = "cuda") -> int:
 
     # 16. the sweep as a fleet: telemetry, the scheduler, crash then heal
     fleet_phase(torch, api, config, dev, res, final, cpu_rows)
+
+    # 17. the device-generated soak and the capture surfaces
+    k6_row, fit_ms, _ = soak_phase(torch, api, config, kernels, classifiers, res, dev)
+    for row in rows:
+        kid = {"centroid_fit": "K7", "centroid_predict_err": "K2"}.get(row["name"])
+        if kid:
+            row["soak_ms"] = {k: v for k, v in fit_ms.items() if k.startswith(kid)}
+    rows.append(k6_row)
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

@@ -22,7 +22,11 @@ from (a second invocation with the same directory runs no nvcc), and
 
 ``--telemetry-dir DIR`` persists the run's JSONL run log and metric
 exports and registers the run in DIR's ``index.jsonl`` (the summary line
-is then followed by ``telemetry=<log>``).
+is then followed by ``telemetry=<log>``). ``--profile-dir DIR`` captures
+the whole Final Time span and ``--trace-dir DIR`` the detect phase with
+``torch.profiler``: a Chrome trace in a timestamped session directory
+under DIR (``plugins/profile/<time>/<host>.pt.trace.json``); the two
+together fail before any work.
 
 Five subcommands work on the host; only ``heal --execute`` and the
 workers ``sched`` spawns run experiments (on the card, or with ``--device
@@ -43,16 +47,16 @@ whole); ``sched`` is the sweep scheduler daemon that leases cells to
 (``sched``); ``registry compact`` rewrites an ``index.jsonl`` as one
 record per run (``telemetry.registry``).
 
-The JAX package's other subcommands, ``--tenants N`` above 1 and the
-profiler flags (``--trace-dir``, ``--profile-dir``) are not ported yet:
-each exits nonzero naming its ROADMAP item.
+The JAX package's other subcommands and ``--tenants N`` above 1 are not
+ported yet: each exits nonzero naming its ROADMAP item.
 """
 
 import sys
 
 _USAGE = (
     "usage: python -m distributed_drift_detection_tpu_torch "
-    "[--telemetry-dir DIR] [--data-policy strict|quarantine|repair] "
+    "[--trace-dir DIR] [--profile-dir DIR] [--telemetry-dir DIR] "
+    "[--data-policy strict|quarantine|repair] "
     "[--compile-cache-dir DIR] [--collect compact|full] "
     "[URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA [DATASET]]\n"
     "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
@@ -62,8 +66,8 @@ _USAGE = (
     "       python -m distributed_drift_detection_tpu_torch registry compact DIR [...]"
 )
 
-# The JAX package's subcommands and flags this port does not run yet, by
-# the ROADMAP item that ports them.
+# The JAX package's subcommands this port does not run yet, by the ROADMAP
+# item that ports them.
 UNPORTED_SUBCOMMANDS = {
     **dict.fromkeys(
         ("report", "perf", "watch", "top", "pipeline", "history", "collector",
@@ -71,7 +75,6 @@ UNPORTED_SUBCOMMANDS = {
     "chunked": "A10b",
     **dict.fromkeys(("serve", "loadgen", "router"), "A12"),
 }
-UNPORTED_FLAGS = {"--trace-dir": "A15", "--profile-dir": "A15"}
 
 # The host-side subcommands: module, and whether the ``device`` of
 # :func:`main` is its ``--device`` default (those that reach ``api.run``).
@@ -129,9 +132,12 @@ def main(argv: list[str], device="cuda") -> None:
 
     argv = list(argv)
     kw = {}
-    for flag, item in UNPORTED_FLAGS.items():
-        if _pop_flag(argv, flag) is not None:
-            raise SystemExit(f"not ported yet: {flag} (ROADMAP {item})")
+    trace_dir = _pop_flag(argv, "--trace-dir")
+    if trace_dir is not None:
+        kw["trace_dir"] = trace_dir
+    profile_dir = _pop_flag(argv, "--profile-dir")
+    if profile_dir is not None:
+        kw["profile_dir"] = profile_dir
     telemetry_dir = _pop_flag(argv, "--telemetry-dir")
     if telemetry_dir is not None:
         kw["telemetry_dir"] = telemetry_dir

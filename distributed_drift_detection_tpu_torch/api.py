@@ -25,6 +25,13 @@ package's ``api.run`` does (:func:`_telemetry_bracket`,
 :func:`_finish_telemetry`): the log is opened before the work and written
 after the Final Time span closes, so nothing touches the timed region.
 
+``RunConfig.profile_dir`` captures the whole Final Time span and
+``trace_dir`` the detect phase with ``torch.profiler``
+(``utils.timing.maybe_trace``: one Chrome trace in a timestamped session
+directory); the two together raise before any work. ``validate=True``
+audits the stream in ``prepare`` and the flag table after the span
+(``utils/validate.py``).
+
 Surfaces outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them (:func:`_check_slice`).
 """
@@ -69,7 +76,7 @@ from .parallel.mesh import auto_compact_capacity, host_flags, make_mesh_runner
 from .resilience import faults
 from .results import append_result
 from .utils import threefry
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, maybe_trace
 
 
 class PreparedRun(NamedTuple):
@@ -131,9 +138,6 @@ def _check_slice(cfg: RunConfig) -> None:
         (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
         (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
          "a multi-device mesh (ROADMAP A15)"),
-        (bool(cfg.profile_dir or cfg.trace_dir),
-         "profile_dir/trace_dir (ROADMAP A15)"),
-        (cfg.validate, "validate=True (ROADMAP A15)"),
     ]
     for hit, what in unported:
         if hit:
@@ -202,6 +206,12 @@ def prepare(
     _build.set_build_dir(cfg.compile_cache_dir)
     if stream is None:
         stream = _load_stream_for(cfg)
+    if cfg.validate:
+        # Host-side ingest audit: valid rows finite, labels in 0..C-1 —
+        # before any device work, outside the Final Time span.
+        from .utils.validate import validate_stream
+
+        validate_stream(stream)
     cfg = _resolve_policies(cfg, stream)
     # Duplicated streams ship packed (row table + gather indices + 1-byte
     # shuffle perms) to the window engine; subsampled ones, streams with
@@ -214,9 +224,11 @@ def prepare(
     )
     model = build_model(cfg.model, ModelSpec(stream.num_features, stream.num_classes), cfg)
     _, nb = stripe_geometry(stream.num_rows, cfg.partitions, cfg.per_batch)
+    # 0 (the full-plane collect) for collect='full' and for validate=True,
+    # whose audit wants the plane the device produced, not a reconstruction.
     capacity = (
         cfg.collect_capacity or auto_compact_capacity(cfg.partitions, max(nb - 1, 1))
-        if cfg.collect == "compact"
+        if cfg.collect == "compact" and not cfg.validate
         else 0
     )
     runner = make_mesh_runner(
@@ -320,6 +332,12 @@ def run(
     when CUDA is absent — pass ``device='cpu'`` for the plain path)."""
     dev = resolve_device(device)
     timer = PhaseTimer()
+    if cfg.profile_dir and cfg.trace_dir:
+        raise ValueError(
+            "profile_dir and trace_dir are mutually exclusive (jax rejects "
+            "nested profiler sessions): profile_dir captures the whole "
+            "Final Time span, trace_dir only the detect phase — pick one"
+        )
     # The payload is shared with resilience.heal, which recomputes these
     # digests from a sweep spec (config.telemetry_config_payload).
     with _telemetry_bracket(cfg, telemetry_config_payload(cfg)) as log:
@@ -363,21 +381,35 @@ def run(
                 )
 
         # --- the reference's Final Time span ---
-        start = time.perf_counter()
-        with timer.phase("upload"):
-            dev_batches = upload(prep.batches, dev)
-        with timer.phase("detect"):
-            out = prep.runner(dev_batches)
-            synchronize(dev)
-        with timer.phase("collect"):
-            flags, collect_info = host_flags(out)
-            changed = (flags.change_global >= 0).astype(np.float32)
-            vote = changed.sum(axis=0, dtype=np.float32) / np.float32(changed.shape[0])
-            m = delay_metrics(
-                flags.change_global, stream.dist_between_changes, cfg.per_batch
-            )
-        total_time = time.perf_counter() - start
+        # cfg.profile_dir wraps the whole span in a torch.profiler capture
+        # and cfg.trace_dir the detect phase; the session opens before
+        # `start` and closes after total_time is taken, so its start/stop
+        # stays outside the measured region.
+        cuda = dev.type == "cuda"
+        with maybe_trace(cfg.profile_dir, cuda=cuda):
+            start = time.perf_counter()
+            with timer.phase("upload"):
+                dev_batches = upload(prep.batches, dev)
+            with timer.phase("detect"), maybe_trace(cfg.trace_dir, cuda=cuda):
+                out = prep.runner(dev_batches)
+                synchronize(dev)
+            with timer.phase("collect"):
+                flags, collect_info = host_flags(out)
+                changed = (flags.change_global >= 0).astype(np.float32)
+                vote = changed.sum(axis=0, dtype=np.float32) / np.float32(changed.shape[0])
+                m = delay_metrics(
+                    flags.change_global, stream.dist_between_changes, cfg.per_batch
+                )
+            total_time = time.perf_counter() - start
         # --- span ends ---
+
+        if cfg.validate:
+            from .utils.validate import validate_flag_rows
+
+            # The batch count from the stripe geometry — independent of the
+            # flag table, so the audit catches a dropped or extra boundary.
+            _, nb = stripe_geometry(stream.num_rows, cfg.partitions, cfg.per_batch)
+            validate_flag_rows(flags, nb, cfg.per_batch, stream.num_rows)
 
         if cfg.results_csv:
             a = (

@@ -148,3 +148,19 @@ def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCa
         retrain=_tensor(carry.retrain, np.bool_, device, batched),
         key=key,
     )
+
+
+def soak_chain_state(state, model: str, device="cpu", detector: str = "ddm"):
+    """JAX ``SoakChainState(carry, gen_keys)`` of a chained soak with
+    ``model`` and ``detector``, its keys as key data — pass
+    ``state._replace(carry=state.carry._replace(key=jax.random.key_data(
+    state.carry.key)), gen_keys=jax.random.key_data(state.gen_keys))`` —
+    as the port's, so a chain the JAX package started continues in the port
+    (``engine.soak.make_soak_chain``'s ``next_leg``). The generator keys
+    stay uint32 numpy ``[P, 2]`` on the host."""
+    from .engine.soak import SoakChainState
+
+    return SoakChainState(
+        loop_carry(state.carry, model, device, detector),
+        np.array(state.gen_keys, dtype=np.uint32).reshape(-1, 2),
+    )

@@ -53,6 +53,10 @@ __device__ __forceinline__ Pair hash(Pair k, uint32_t x1, uint32_t x2) {
 // split(key, n)[i] for i < 2^32.
 __device__ __forceinline__ Pair split(Pair k, uint32_t i) { return hash(k, 0u, i); }
 
+// fold_in(key, data): the hash of the counter pair (0, data), as
+// jax.random.fold_in hashes a 32-bit data word.
+__device__ __forceinline__ Pair fold_in(Pair k, uint32_t data) { return hash(k, 0u, data); }
+
 // random_bits(key, shape) at flat index i (32-bit).
 __device__ __forceinline__ uint32_t bits(Pair k, uint64_t i) {
   const Pair h = hash(k, static_cast<uint32_t>(i >> 32), static_cast<uint32_t>(i));
@@ -145,13 +149,30 @@ __device__ __forceinline__ float uniform(Pair k, uint64_t i, float minval, float
   return fmaxf(__fmaf_rn(unit, __fsub_rn(maxval, minval), minval), minval);
 }
 
-// erf_inv(u) · factor for the uniform u of normal(key, shape) at flat
-// index i: jax.random.normal's value at factor = f32(√2).
-__device__ __forceinline__ float normal(Pair k, uint64_t i, float factor) {
+// erf_inv(u) for the uniform u of normal(key, shape) at flat index i: the
+// normal before its factor.
+__device__ __forceinline__ float normal_erfinv(Pair k, uint64_t i) {
   const float unit = __fadd_rn(__uint_as_float((bits(k, i) >> 9) | 0x3F800000u), -1.0f);
   const float lo = __int_as_float(0xBF7FFFFF);  // nextafter(−1, 0)
   const float u = fmaxf(__fadd_rn(__fmul_rn(unit, 2.0f), lo), lo);
-  return __fmul_rn(xla_erfinvf(u), factor);
+  return xla_erfinvf(u);
+}
+
+// erf_inv(u) · factor for the uniform u of normal(key, shape) at flat
+// index i: jax.random.normal's value at factor = f32(√2).
+__device__ __forceinline__ float normal(Pair k, uint64_t i, float factor) {
+  return __fmul_rn(normal_erfinv(k, i), factor);
+}
+
+// jax.random.randint(key, shape, 0, span) at flat index i, for 1 <= span <
+// 2^31: k1, k2 = split(key); 32 bits from each; (hi mod span · (2^32 mod
+// span) + lo mod span) mod span in uint32 arithmetic (utils/threefry.py
+// `randint`).
+__device__ __forceinline__ uint32_t randint(Pair k, uint64_t i, uint32_t span) {
+  const uint32_t high = bits(split(k, 0u), i), low = bits(split(k, 1u), i);
+  uint32_t mult = 65536u % span;
+  mult = (mult * mult) % span;
+  return ((high % span) * mult + low % span) % span;
 }
 
 }  // namespace threefry

@@ -15,9 +15,9 @@ The trial keys, the ``Spark App`` names and the results CSV are the JAX
 package's byte for byte, so a CSV written by either package resumes in the
 other. Every trial runs on the card (``run_grid(device=...)`` takes
 another device). ``telemetry_dir`` gives every trial its run log and
-registry records, and the sweep a ``kind="sweep"`` bracket, as in the JAX
-package; the per-trial profiles (``profile_dir``) are not ported yet
-(ROADMAP A15) and raise.
+registry records, and the sweep a ``kind="sweep"`` bracket, and
+``profile_dir`` a ``torch.profiler`` capture of each trial's Final Time
+span, as in the JAX package.
 
 Usage::
 
@@ -289,18 +289,17 @@ def run_grid(
     trial totals — what ``heal`` diffs a sweep spec against. Warm-up runs
     stay untelemetered (they are unrecorded by design).
 
-    ``profile_dir`` (a profiler capture a trial) is not ported yet
-    (ROADMAP A15) and raises ``NotImplementedError`` before any trial.
+    ``profile_dir`` wraps every executed trial's Final Time span in a
+    ``torch.profiler`` capture under that directory (one timestamped
+    session subdirectory a trial — ``RunConfig.profile_dir``). Profiling
+    perturbs the very Final Times the grid records, so use it on
+    diagnostic sweeps. Warm-ups stay unprofiled, like telemetry.
     """
     if spec not in ("warn", "skip", "off"):
         raise ValueError(f"spec must be 'warn', 'skip' or 'off', got {spec!r}")
     if on_error not in ("fail", "continue"):
         raise ValueError(
             f"on_error must be 'fail' or 'continue', got {on_error!r}"
-        )
-    if profile_dir:
-        raise NotImplementedError(
-            "not ported yet: the grid's profile_dir (ROADMAP A15)"
         )
 
     from ..api import run  # lazy: keeps the harness importable without torch
@@ -356,6 +355,8 @@ def run_grid(
             )
             if telemetry_dir:
                 cfg = replace(cfg, telemetry_dir=telemetry_dir)
+            if profile_dir:
+                cfg = replace(cfg, profile_dir=profile_dir)
             key = cfg.resolved_app_name()
 
             # The fault site lives INSIDE the supervised attempt, so a
@@ -369,10 +370,11 @@ def run_grid(
                 # The warm-up runs OUTSIDE the supervised attempt: it must
                 # not be charged against the per-attempt timeout budget or
                 # repeated per retry (its whole point is once per config
-                # block), and it records nothing: no CSV row, no run log.
+                # block), and it records nothing: no CSV row, no run log,
+                # no profile capture.
                 if warmup and static_key != warmed:
                     run(replace(cfg, results_csv="", time_string="warmup",
-                                telemetry_dir=None), device=device)
+                                telemetry_dir=None, profile_dir=""), device=device)
                     warmed = static_key
                 res = supervise(attempt, policy, telemetry_dir=telemetry_dir, name=key)
             except Exception as exc:
@@ -464,8 +466,8 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--profile-dir",
         default="",
-        help="a profiler capture of each trial's Final Time span (not "
-        "ported yet: ROADMAP A15)",
+        help="a torch.profiler capture of each trial's Final Time span: one "
+        "timestamped session directory of Chrome traces a trial",
     )
     ap.add_argument(
         "--retries",

@@ -12,7 +12,7 @@ counted wrappers that callers use live beside their plain PyTorch versions
 ``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
 ``utils/threefry.py`` ``random_normal``, ``models/mlp.py`` ``mlp_fit``
 and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
-``forest_predict_err``).
+``forest_predict_err``, ``engine/soak.py`` ``soak_batch``).
 """
 
 from __future__ import annotations
@@ -156,6 +156,19 @@ _SIGNATURES = {
     ),
     "forest_predict_err_floor": (
         "forest_predict_err_floor_launch", [_I, _I, _I, _I, _I, _I, _P], "forest_predict_err",
+    ),
+    "soak_batch": (
+        "soak_batch_launch",
+        [_P, _P, _P,  # keys [P, 2], row offsets [P], concept offsets [P]
+         _I, _I, _I, _I,  # p, count, b, f (the generated width)
+         _I, _I, _I, _I, _I,  # t0, last, drift_every, generator id, classes
+         _F, _F, _I, _F,  # the noise's and the prototypes' normal factors,
+                          # rotation period (0: none), its phase scale
+         _P, _P, _P,  # table, labels, rows
+         _P],  # stream
+    ),
+    "soak_batch_floor": (
+        "soak_batch_floor_launch", [_I, _I, _I, _P], "soak_batch",
     ),
     # K12's plan at a shape on the current device (p, n, F, trees, depth,
     # classes, force, host int64 out[11]; out[9] the words of the global

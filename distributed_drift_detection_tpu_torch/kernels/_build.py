@@ -1,10 +1,10 @@
 """nvcc build of the port's CUDA sources into shared libraries.
 
-Each kernel's ``csrc/<name>.cu`` compiles on its own into
-``kernels/_build/lib<name>-<digest>.so`` (a directory ``.gitignore`` lists)
-at its first use, keyed on a hash of the source, the ``csrc/*.cuh`` headers
-and the flags, so a fresh
-checkout builds on the first call and later calls reuse the library.
+Each kernel's ``csrc/<name>.cu`` (``SOURCES`` names the exceptions)
+compiles on its own into ``kernels/_build/lib<name>-<digest>.so`` (a
+directory ``.gitignore`` lists) at its first use, keyed on a hash of the
+source, the ``csrc/*.cuh`` headers and the flags, so a fresh checkout
+builds on the first call and later calls reuse the library.
 ``RunConfig.compile_cache_dir`` names another directory for the libraries
 (:func:`set_build_dir`, which ``api.prepare`` calls): the counterpart of
 XLA's persistent compilation cache, so a second process given the same
@@ -37,9 +37,9 @@ COMMON_FLAGS = (
 # their plain versions, so nvcc must not contract a*b+c into FMAs on its
 # own; K7, K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU
 # does. K8, K9 and K11 draw threefry normals bit-identical to JAX's
-# (csrc/threefry.cuh), under the same two flags; K11 and K12 compute the
-# forest's projections with explicit unfused, unflushed PTX
-# (csrc/forest.cuh).
+# (csrc/threefry.cuh), under the same two flags, as do K6's generators;
+# K11 and K12 compute the forest's projections with explicit unfused,
+# unflushed PTX (csrc/forest.cuh).
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
@@ -52,7 +52,17 @@ KERNELS = {
     "mlp_predict_err": (),
     "forest_fit": ("-fmad=false", "-ftz=true"),
     "forest_predict_err": ("-fmad=false",),
+    "soak_batch": ("-fmad=false", "-ftz=true"),
 }
+
+
+# A kernel whose source is not named after it.
+SOURCES = {"soak_batch": "soak_gen.cu"}
+
+
+def source(name: str) -> Path:
+    """The ``csrc/`` source of kernel ``name``."""
+    return CSRC / SOURCES.get(name, f"{name}.cu")
 
 
 def set_build_dir(path: str = "") -> Path:
@@ -88,14 +98,14 @@ def nvcc() -> str:
 
 def _command(name: str, out: Path) -> list[str]:
     return [nvcc(), *COMMON_FLAGS, *KERNELS[name], "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            str(source(name))]
 
 
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives for the current source and flags."""
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; known: {sorted(KERNELS)}")
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join((*COMMON_FLAGS, *KERNELS[name])).encode())

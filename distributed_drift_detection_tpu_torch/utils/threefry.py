@@ -102,6 +102,41 @@ def split(key, n: int = 2):
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: the hash of the counter pair
+    ``(0, data)`` under ``key`` (``threefry_2x32(key, threefry_seed(data))``
+    for a 32-bit ``data``). ``key [..., 2]`` and ``data`` (an integer, array
+    or tensor of values in [0, 2^32)) broadcast; answers ``[..., 2]`` in the
+    key's form."""
+    k1, k2 = _words(key)
+    if _is_numpy(key):
+        d = np.asarray(data, dtype=np.int64).astype(np.uint32)[..., None]
+        zero = np.zeros_like(d)
+        b1, b2 = threefry2x32(k1, k2, zero, d)
+        return np.stack(np.broadcast_arrays(b1, b2), axis=-1)[..., 0, :]
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device)[..., None] & M32
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    b1, b2 = torch.broadcast_tensors(b1, b2)
+    return torch.stack([b1, b2], dim=-1)[..., 0, :]
+
+
+def bits_at(key, counters):
+    """``random_bits(key, shape)`` at the flat indices ``counters`` (values in
+    [0, 2^32)): ``key [..., 2]`` broadcasts against ``counters [..., n]``;
+    torch int64 values in [0, 2^32)."""
+    k1, k2 = _words(key)
+    c = torch.as_tensor(counters, dtype=torch.int64, device=k1.device) & M32
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(c), c)
+    return b1 ^ b2
+
+
+def unit_floats(bits) -> torch.Tensor:
+    """The ``[0, 1)`` float32 of the top 23 of 32 random ``bits`` (int64
+    values in [0, 2^32)): ``uniform``'s and ``normal``'s first step."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
 def random_bits(key, shape):
     """``jax.random.bits(key, shape)`` (32-bit): ``[..., *shape]`` uint32
     (numpy) or int64 values in [0, 2^32) (torch)."""
@@ -116,8 +151,7 @@ def _unit_floats(key, shape) -> torch.Tensor:
     bits = random_bits(key, shape)
     if _is_numpy(key):
         bits = torch.from_numpy(bits.astype(np.int64))
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return mant.view(torch.float32) - 1.0
+    return unit_floats(bits)
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
@@ -189,13 +223,20 @@ def xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), x * p)
 
 
+def normal_erf_inv(unit: torch.Tensor) -> torch.Tensor:
+    """``erf_inv(u)`` for ``normal``'s ``u = unit·2 + lo`` in (−1, 1), from
+    ``unit`` = the ``[0, 1)`` float of the top 23 bits: the normal before
+    its factor (:func:`normal_map`)."""
+    u = torch.clamp_min(unit * 2.0 + _NORMAL_LO, _NORMAL_LO)  # unit·2 is exact
+    return xla_erf_inv(u)
+
+
 def normal_map(unit: torch.Tensor, factor: float = SQRT2) -> torch.Tensor:
     """``normal``'s float32 value from ``unit`` = the ``[0, 1)`` float of
-    the top 23 bits: ``u = unit·2 + lo`` in (−1, 1), then ``erf_inv(u) ·
-    factor`` — ``factor`` = f32(√2) is ``jax.random.normal``; a jitted
-    ``scale * normal`` is XLA's fold ``factor = f32(√2 · scale)``."""
-    u = torch.clamp_min(unit * 2.0 + _NORMAL_LO, _NORMAL_LO)  # unit·2 is exact
-    return xla_erf_inv(u) * factor
+    the top 23 bits: ``erf_inv(u) · factor`` (:func:`normal_erf_inv`) —
+    ``factor`` = f32(√2) is ``jax.random.normal``; a jitted ``scale *
+    normal`` is XLA's fold ``factor = f32(√2 · scale)``."""
+    return normal_erf_inv(unit) * factor
 
 
 def normal(key, shape) -> torch.Tensor:

@@ -7,7 +7,9 @@ must print the JAX package's summary line (apart from ``final_time``) and
 append the same results row (apart from its times); partial argv, bad flag
 values and ``doctor`` must give the JAX package's exit codes and messages;
 every subcommand and flag the port does not run yet must exit nonzero
-naming its ROADMAP item; ``--telemetry-dir``, ``heal``, ``sched``,
+naming its ROADMAP item; ``--trace-dir`` and ``--profile-dir`` must capture
+a trace and refuse each other as the JAX package's do; ``--telemetry-dir``,
+``heal``, ``sched``,
 ``sched-worker`` and ``registry`` must give the JAX package's output on
 the same artifacts (and speak its scheduler's protocol).
 """
@@ -130,13 +132,33 @@ def test_unported_subcommands_name_their_items(name):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--trace-dir", "t", *ARGV], "A15"),
-    (["--profile-dir=p"], "A15"),
-    (["--tenants", "2", *ARGV], "A11"),
+    pytest.param(["--tenants", "2", *ARGV], "A11", id="argv2-A11"),
 ])
 def test_unported_flags_name_their_items(argv, item):
     with pytest.raises(SystemExit, match=rf"not ported yet: .*ROADMAP {item}\)"):
         tmain.main(argv, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["--trace-dir", "--profile-dir"])
+def test_profiler_flags_match_jax(csvs, tmp_path, monkeypatch, capsys, flag):
+    """``--trace-dir`` / ``--profile-dir DIR`` (either spelling) run as the
+    JAX package's flags do: the summary line, and a capture session under
+    DIR (a Chrome trace); both flags together raise the JAX package's
+    ``ValueError`` before any work."""
+    from distributed_drift_detection_tpu_torch.utils.timing import trace_files
+
+    monkeypatch.chdir(tmp_path)
+    d = str(tmp_path / "prof")
+    tmain.main([f"{flag}={d}", *ARGV, csvs["clean"]], device="cpu")
+    assert capsys.readouterr().out.startswith("rows=")
+    assert len(trace_files(d)) == 1
+    both = ["--trace-dir", "t", "--profile-dir", "p", *ARGV, csvs["clean"]]
+    with pytest.raises(ValueError) as j:
+        jmain.main(list(both))
+    with pytest.raises(ValueError) as t:
+        tmain.main(list(both), device="cpu")
+    assert str(t.value) == str(j.value)
+    assert not os.path.exists("t") and not os.path.exists("p")
 
 
 def test_unported_subcommands_cover_the_jax_cli():

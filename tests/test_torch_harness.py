@@ -231,10 +231,15 @@ def test_grid_main_writes_the_spec_and_refuses_telemetry(outdoor, tmp_path, monk
         trials=2, per_batch=100, results_csv="ddm_cluster_runs.csv", spec="warn",
         data_policy="strict")
     monkeypatch.undo()
-    # profile_dir is still refused (ROADMAP A15); telemetry_dir is ported
-    # (tests/test_torch_sched.py): a trial's run log and registry records
-    with pytest.raises(NotImplementedError, match="A15"):
-        tgrid_run(base_cfg(tconfig, outdoor, tmp_path), [64], [1], trials=1, profile_dir="p")
+    # profile_dir: one capture session a trial, none for the warm-up
+    # (utils.timing.maybe_trace); telemetry_dir (tests/test_torch_sched.py):
+    # a trial's run log and registry records
+    from distributed_drift_detection_tpu_torch.utils.timing import trace_files
+
+    prof = str(tmp_path / "prof")
+    assert tgrid_run(base_cfg(tconfig, outdoor, tmp_path, "prof.csv"), [1], [1, 2],
+                     trials=1, warmup=True, profile_dir=prof) == 2
+    assert len(trace_files(prof)) == 2
     tele = str(tmp_path / "tele")
     assert tgrid_run(base_cfg(tconfig, outdoor, tmp_path), [1], [2], trials=1,
                      telemetry_dir=tele) == 1

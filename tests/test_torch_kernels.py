@@ -1164,3 +1164,82 @@ def test_forest_workspace_counts(dev):
     assert not wide.regs and not wide.rows_staged and not wide.params_staged
     assert k12("global_votes").bits == 16 and k12("global_votes").regs
     assert not k12("depth12_t2").regs and not k12("depth12_t2").params_staged
+
+
+# K6: (generator, F, P, B, drift_every, count, t0, last, rows) with rows
+# "global" (the one-shot runner's offsets q·NB·B, no concept offset),
+# "local" (the chain's partition-local rows with concept offsets block0s)
+# or "top" (rows up to 2^31 - 2, the int32 ceiling)
+K6_CASES = {
+    "prototypes_main": ("prototypes", 8, 128, 2000, 100_000, 1, 7, 4099, "global"),
+    "sea_main": ("sea", 3, 128, 2000, 100_000, 1, 7, 4099, "global"),
+    "hyperplane_main": ("hyperplane", 10, 128, 2000, 100_000, 1, 7, 4099, "global"),
+    "gradual_main": ("hyperplane_gradual", 10, 128, 2000, 100_000, 1, 7, 4099, "global"),
+    "straddles_concepts": ("prototypes", 8, 16, 300, 700, 1, 9, 99, "global"),
+    "chain_block0": ("hyperplane_gradual", 10, 16, 300, 600, 1, 41, 2**31 - 1, "local"),
+    "near_int32_max": ("prototypes", 5, 4, 1000, 777, 1, 99, 99, "top"),
+    "window_tail": ("sea", 3, 16, 100, 500, 8, 95, 99, "global"),
+    "f1_hyperplane": ("hyperplane", 1, 4, 64, 100, 3, 0, 10, "local"),
+}
+
+
+def _k6_inputs(case, dev):
+    from distributed_drift_detection_tpu_torch.engine.loop import device_keys
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    gen, f, p, b, de, count, t0, last, rows = K6_CASES[case]
+    keys = device_keys(threefry.split(threefry.key(p + b), p), dev)
+    nb = 100
+    part = torch.arange(p, dtype=torch.int64, device=dev)
+    if rows == "global":
+        offs, block0s = part * nb * b, torch.zeros_like(part)
+    elif rows == "local":
+        offs, block0s = torch.zeros_like(part), part * 12_345
+    else:
+        offs, block0s = part * 0 + (2**31 - 1 - nb * b), part * 3
+    kw = dict(per_batch=b, features=f, drift_every=de, generator=gen)
+    return keys, t0, count, last, offs.int(), block0s.int(), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_soak_batch_kernel_bitwise(dev, case):
+    """K6 equals its plain version on the card bit for bit: the padded
+    table, the labels and the row positions (−1 past ``last``)."""
+    from distributed_drift_detection_tpu_torch.engine import soak
+
+    keys, t0, count, last, offs, block0s, kw = _k6_inputs(case, dev)
+    before = soak.soak_batch.launches
+    got = soak.soak_batch(keys, t0, count, last, offs, block0s, **kw)
+    torch.cuda.synchronize()
+    assert soak.soak_batch.launches == before + 1
+    want = soak.soak_batch_reference(keys, t0, count, last, offs, block0s, **kw)
+    assert torch.equal(got.table.view(torch.int32), want.table.view(torch.int32))
+    assert torch.equal(got.labels, want.labels)
+    assert torch.equal(got.rows, want.rows)
+    if case == "window_tail":
+        assert bool((got.rows[:, 5:] == -1).all()) and bool((got.rows[:, :5] >= 0).all())
+    again = soak.soak_batch(keys, t0, count, last, offs, block0s, out=got, **kw)
+    assert again is got and torch.equal(again.table.view(torch.int32), want.table.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_soak_runner_on_the_card_matches_the_cpu(dev):
+    """The soak at a small geometry, each generator and a window run: the
+    card's flags equal the CPU's, K6 launched once a batch."""
+    from distributed_drift_detection_tpu_torch.engine import soak
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    geom = dict(partitions=4, per_batch=100, num_batches=30, drift_every=1000)
+    for gen, f, kw in (("prototypes", 8, {}), ("sea", 3, {}), ("hyperplane", 10, {}),
+                       ("hyperplane_gradual", 10, {}), ("prototypes", 8, dict(window=4))):
+        model = build_model("centroid", ModelSpec(f, 8 if gen == "prototypes" else 2))
+        runs = []
+        for d in ("cpu", dev):
+            before = soak.soak_batch.launches
+            runs.append(soak.make_soak_runner(model, generator=gen, device=d, **geom, **kw)(
+                threefry.key(0)))
+        assert soak.soak_batch.launches - before == (30 if not kw else 1 + 4)
+        for name in runs[0].flags._fields:
+            assert torch.equal(getattr(runs[0].flags, name), getattr(runs[1].flags, name).cpu())
