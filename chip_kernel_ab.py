@@ -49,6 +49,19 @@ K12 on K11's parameters over ``chip_smoke.k10_main_inputs`` at [16,
 errors), which must be equal across trees (K11 and K12 are bit for bit
 their plain versions in every tree).
 
+K6 (``soak_batch``) is timed through its wrapper (its output
+preallocated, so the graph holds its kernel alone) at ``chip_smoke.py``'s
+soak shape, [128, 2000] prototypes at F = 8, beside the SHA-256 of its
+table, labels and row positions (``digest``), which must be equal across
+trees (K6 is bit for bit its plain version in every tree).
+
+``mlp_init`` is the MLP(128, 64) init of the main path's 16 partitions
+(``models/mlp.py`` ``mlp_init`` on the init keys, as the engine calls it),
+whatever kernels a tree launches for it: ``busy_us``, the device time of
+its kernels a call and ``kernels``, their number (``torch.profiler`` over
+20 calls); ``host_us``, the host's cost a call; ``digest``, the SHA-256 of
+the parameters' bytes, which must be equal across trees.
+
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
 """
@@ -84,7 +97,10 @@ def one(root: str, only: set | None = None) -> dict:
     if only is None:
         _build.build_all()
     else:
-        for name in only & set(_build.KERNELS):
+        names = only & set(_build.KERNELS)
+        if "mlp_init" in only:
+            names.add("random_normal")  # K8, the init's kernel in every tree
+        for name in names:
             _build.build(name)
     prep = api.prepare(config.RunConfig(**cs.SMOKE), device=dev)
     p, w, b = prep.config.partitions, prep.config.window, prep.config.per_batch
@@ -156,7 +172,67 @@ def one(root: str, only: set | None = None) -> dict:
         out.update(k10_runs(torch, cs, prep, dev))
     if only is None or only & {"forest_fit", "forest_predict_err"}:
         out.update(forest_runs(torch, cs, dev, only))
+    if (only is None or "soak_batch" in only) and "soak_batch" in _build.KERNELS:
+        out.update(k6_runs(torch, cs, dev))
+    if only is None or "mlp_init" in only:
+        out.update(init_runs(torch, cs, prep, dev))
     return out
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k6_runs(torch, cs, dev) -> dict:
+    """K6 of the tree at the soak's [128, 2000] prototypes batch, F = 8."""
+    from distributed_drift_detection_tpu_torch.engine import soak
+
+    gen, f, _ = cs.SOAK_GENS[0]
+    feed = cs.k6_feed(torch, soak, gen, f, cs.SOAK_P, cs.SOAK_B, cs.SOAK_DE, 1, 7, 4099,
+                      "global", dev)
+    kw = feed[6]
+    got = soak.soak_batch(*feed[:6], **kw)
+    row = {"digest": _digest(got.table, got.labels, got.rows)}
+
+    def call():
+        return soak.soak_batch(*feed[:6], out=got, **kw)
+
+    row["ms"] = cs.graph_ms(call)
+    row["host_us"] = cs.host_us(call)
+    return {"soak_batch": row}
+
+
+def init_runs(torch, cs, prep, dev) -> dict:
+    """The tree's MLP init on the main path's init keys (see the docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_drift_detection_tpu_torch.models import mlp
+
+    dims = cs.mlp_dims(prep.stream, prep.config)
+    keys, _ = cs.mlp_keys(torch, prep, dev)
+
+    def call():
+        return mlp.mlp_init(keys, dims)
+
+    params = call()
+    row = {"digest": _digest(*(t for layer in params for t in layer))}
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    row["busy_us"] = sum(e.self_device_time_total for e in kern) / calls
+    row["kernels"] = sum(e.count for e in kern) / calls
+    row["host_us"] = cs.host_us(call)
+    return {"mlp_init": row}
 
 
 def k9_runs(torch, cs, prep, dev) -> dict:
@@ -305,7 +381,8 @@ def main() -> int:
     for label, root in [("this", HERE)] + [(o, o) for o in others]:
         mine = [r for r in runs if r["tree"] == root]
         summary[label] = {
-            k: {m: (statistics.median(r[k][m] for r in mine) if m.endswith(("ms", "us"))
+            k: {m: (statistics.median(r[k][m] for r in mine)
+                    if m.endswith(("ms", "us")) or m == "kernels"
                     else sorted({r[k][m] for r in mine}))
                 for m in mine[0][k]}
             for k in mine[0] if k != "tree"

@@ -67,7 +67,10 @@ without them. Phases, each fatal on failure:
    engine (DDM, and Page–Hinkley) at a smaller depth (``mult_data`` 64):
    flags equal to the port's CPU run, the kernels they use launched;
 9. the ``mlp`` (MLP(128, 64), 32 steps, the threefry key chain): K8
-   against the CPU generator bit for bit at the main path's init, K9
+   bit for bit against its plain version (``split``, then a layer's
+   normals) at the main path's init in one launch and on ``K8_EDGES`` (65
+   layers in two launches), timed as the whole init with its bound at the
+   card's integer rate and a SASS count of a hash's integer operations, K9
    against its plain version (to ``K9_RTOL``/``K9_TIGHT_ATOL`` after 4
    steps, within ``K9_ATOL`` after 32) on the main path's first training
    batch with its fit keys, on random rows and the edge cases (and the
@@ -162,8 +165,11 @@ without them. Phases, each fatal on failure:
    surfaces: (a) K6 bit for bit against its plain version for each
    generator at [128, 2000] (F = 8, 3, 10, 10) and on ``K6_EDGES`` (a batch
    straddling concepts, nonzero concept offsets with partition-local rows,
-   rows next to 2^31 − 1, a window chunk's clamped tail, F = 1), timed as K8
-   is, with a ``floor_ms``; (b) K7 bit for bit and K2 equal off the near
+   rows next to 2^31 − 1, a window chunk's clamped tail, F = 1, a tile
+   reaching 38 concepts, C·F past the staging budget, forced staging past
+   its slots, B one row past a tile), each in its plan's layout and forced
+   to each (``engine/soak.py`` ``k6_plan``), timed in each layout with a
+   ``floor_ms``, its bound at the card's integer rate; (b) K7 bit for bit and K2 equal off the near
    ties at per_batch 2000 on a K6 batch, timed; (c) the soak at
    ``SOAK_CUT`` for each generator and with ``window`` 8, and a 3-leg chain
    with a checkpoint, counted, flags (the chain: every leg's) equal to the
@@ -190,6 +196,7 @@ import ctypes
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -229,6 +236,20 @@ SHALLOW_MULT = 64
 C5_NETS = [(256, 128), (512,)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+# H100 SXM: 64 results of a 32-bit integer add, shift or bitwise operation a
+# clock an SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# The 32-bit integer operations of one threefry2x32 hash and its bits, as
+# nvcc compiles them for sm_90a (cuobjdump -sass of K6 and K8 on an H100):
+# 20 rotates (SHF.L.W), 21 xors (LOP3, the key schedule's included), 27
+# adds (IADD3, some as IMAD.IADD; the key injections merged into 3-input
+# adds) and the bits' xor. `sass_hash_ops` prints the count in each run.
+HASH_INT_OPS = 20 + 21 + 27 + 1
+# f32 operations of erf_inv as XLA's CPU code forms it (csrc/threefry.cuh
+# `xla_erfinvf`: log1p's rational or logf, a nine-term polynomial) and of a
+# uniform's map
+ERFINV_F32_OPS, UNIFORM_F32_OPS = 40, 3
 
 
 def fail(msg: str) -> None:
@@ -311,9 +332,41 @@ def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float, int_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of device memory, ``ops`` f32
+    operations and ``int_ops`` 32-bit integer operations, each at the
+    card's rate, and which bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_hash_ops(library: str, symbol: str) -> "dict | None":
+    """The SASS of kernel ``symbol`` in ``library`` (``cuobjdump -sass``):
+    its threefry hashes (20 rotates each: ``SHF.*.W``, or ``PRMT`` where a
+    rotate is by whole bytes) and its integer adds, funnel shifts, byte
+    permutes and three-input logic ops (IADD3, IMAD.IADD, SHF, PRMT, LOP3) a
+    hash, to hold against ``HASH_INT_OPS`` — an upper count of a hash's own,
+    since addressing and the map's bit work use the same opcodes. None where
+    cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = "\n".join(f for f in funcs[1:] if symbol in f.splitlines()[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)(\.[\w.]+)?", body)
+    # a rotate is a wrapping funnel shift, or a byte permute (by 16 or 24)
+    rotates = sum(1 for op, mod in ops if op == "PRMT" or op == "SHF" and ".W" in (mod or ""))
+    ints = sum(1 for op, mod in ops
+               if op in ("IADD3", "SHF", "LOP3", "PRMT") or op == "IMAD" and mod == ".IADD")
+    hashes = rotates / 20
+    return {"instructions": len(ops), "hashes": hashes,
+            "int_ops_a_hash": ints / hashes if hashes else None}
 
 
 def ddm_inputs(rng, p, w, b):
@@ -756,54 +809,70 @@ def mlp_fit_ops(dims, b, steps):
     return 2 * steps * b * (2 * macs + back)
 
 
+# K8 beyond the main path's init, (P, dims): 65 layers (two launches, the
+# second's split counters from 64), a layer of one normal, 3 partitions
+K8_EDGES = [(2, (7,) * 65 + (2,)), (3, (1, 1, 2)), (3, (5, 16, 8, 3))]
+
+
+def init_ops(p, dims):
+    """(bytes, f32 operations, integer operations) of the MLP init:
+    every weight and bias written once, the keys read; a split a (layer,
+    partition) and a hash and a normal's map a weight."""
+    normals = p * sum(a * c for a, c in zip(dims[:-1], dims[1:]))
+    hashes = p * (len(dims) - 1) + normals
+    nbytes = 4 * (normals + p * sum(dims[1:])) + 8 * p
+    return nbytes, normals * (ERFINV_F32_OPS + UNIFORM_F32_OPS), hashes * HASH_INT_OPS
+
+
 def check_k8(torch, kernels, mlp, threefry, prep, dev):
-    """K8 against the CPU generator, bit for bit, at the main path's init
-    (16 keys, each layer's normals and factor) and a single normal; times
-    the init's largest launch; returns its kernel row."""
+    """K8 against its plain version, bit for bit: the main path's init (16
+    keys, MLP(128, 64)) in one launch, and K8_EDGES; times the init's
+    launch; returns its kernel row."""
     dims = mlp_dims(prep.stream, prep.config)
     init_keys, _ = mlp_keys(torch, prep, dev)
-    layer_keys = threefry.split(init_keys, len(dims) - 1).int()
-    factors = mlp.init_scales(dims)
-    sizes = [a * c for a, c in zip(dims[:-1], dims[1:])]
-    for l, n in enumerate(sizes):
-        keys = layer_keys[:, l].contiguous()
-        got = threefry.random_normal(keys, n, factors[l])
-        want = threefry.random_normal(keys.cpu(), n, factors[l])
-        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
-              f"K8 differs from the CPU generator (layer {l}, {n} normals a key)")
-    one = threefry.random_normal(init_keys[:1], 1)
-    check(torch.equal(one.cpu().view(torch.int32),
-                      threefry.random_normal(init_keys[:1].cpu(), 1).view(torch.int32)),
-          "K8 differs from the CPU generator (one normal)")
-    print(f"K8 random_normal: bitwise equal to the CPU generator at the main path's init "
-          f"({init_keys.shape[0]} keys x {sizes} normals) and one normal")
+    p = init_keys.shape[0]
+    cases = [(init_keys, dims)] + [(init_keys[:q].contiguous(), d) for q, d in K8_EDGES]
+    for keys, d in cases:
+        before = threefry.init_normals.launches
+        got = mlp.mlp_init(keys, d)
+        torch.cuda.synchronize()
+        want = mlp.mlp_init(keys.cpu(), d, normal=threefry.random_normal_reference)
+        check(threefry.init_normals.launches - before == -(-(len(d) - 1) // 64),
+              f"K8: {threefry.init_normals.launches - before} launches for {len(d) - 1} layers")
+        check(all(torch.equal(g.w.cpu().view(torch.int32), r.w.view(torch.int32))
+                  and torch.equal(g.b.cpu(), r.b) for g, r in zip(got, want)),
+              f"K8 differs from its plain version (P = {keys.shape[0]}, {len(d) - 1} layers)")
+    print(f"K8 random_normal: bit for bit its plain version at the main path's init ({p} keys, "
+          f"dims {dims}, one launch) and at " + ", ".join(
+              f"P = {q}, {len(d) - 1} layers" for q, d in K8_EDGES))
 
-    big = max(range(len(sizes)), key=lambda l: sizes[l])
-    n, keys, factor = sizes[big], layer_keys[:, big].contiguous(), factors[big]
-    out = torch.empty((keys.shape[0], n), dtype=torch.float32, device=dev)
-    args = threefry.random_normal_args(keys, out, factor)
-    fn = kernels.launcher("random_normal")
-    ms = graph_ms(lambda: kernels.check("random_normal", fn(*args, kernels.stream_handle(dev))))
-    h_us = host_us(lambda: threefry.random_normal(keys, n, factor))
-    plain_ms = time_ms(lambda: threefry.random_normal_reference(keys, n, factor),
+    counts = [a * c for a, c in zip(dims[:-1], dims[1:])]
+    factors = mlp.init_scales(dims)
+    zeros = p * sum(dims[1:])
+    ms = graph_ms(lambda: threefry.init_normals(init_keys, counts, factors, zeros))
+    h_us = host_us(lambda: mlp.mlp_init(init_keys, dims))
+    plain_ms = time_ms(lambda: threefry.init_normals_reference(init_keys, counts, factors, zeros),
                        reps=5, rounds=3)
     floor = kernels.launcher("random_normal_floor")
-    floor_ms = graph_ms(lambda: kernels.check(
-        "random_normal_floor", floor(keys.shape[0], n, kernels.stream_handle(dev))))
-    # the normals written once (the keys are 8 bytes a row); a hash of 20
-    # rounds of 3 integer operations and its key schedule (≈ 75), the
-    # map's ≈ 40 f32 operations, counted at the f32 rate
-    total = keys.shape[0] * n
-    b_ms, by = bound(total * 4 + keys.numel() * 4, total * 115)
-    print(f"K8 random_normal [{keys.shape[0]} keys x {n}]: {ms:.5f} ms device (graph of 50), "
-          f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}), "
-          f"floor {floor_ms:.5f} ms (an empty kernel with its grid)")
+    c_counts, _ = threefry._layer_table(tuple(counts), tuple(factors))
+    floor_ms = graph_ms(lambda: kernels.check("random_normal_floor", floor(
+        p, len(counts), c_counts, zeros, kernels.stream_handle(dev))))
+    nbytes, f32_ops, int_ops = init_ops(p, dims)
+    b_ms, by = bound(nbytes, f32_ops, int_ops)
+    from distributed_drift_detection_tpu_torch.kernels import _build
+
+    sass = sass_hash_ops(str(_build.library_path("random_normal")), "init_normals_kernel")
+    print(f"K8 random_normal, the whole init [{p} keys x {counts} normals + {zeros} zeros]: "
+          f"{ms:.5f} ms device (graph of 50), {h_us:.1f} us host a mlp_init call, "
+          f"{plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}: {int_ops:,} integer operations "
+          f"at {INT32_OPS_PER_S / 1e12:.2f} T/s), floor {floor_ms:.5f} ms (an empty kernel with "
+          f"its grid); SASS {sass}")
     return dict(
         name="random_normal", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/random_normal.cu",
         replaces="distributed_drift_detection_tpu/models/classifiers.py:266",
         max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms, sass=sass,
     )
 
 
@@ -1482,7 +1551,7 @@ def wrappers():
             "ph_window": detectors.ph_window,
             "hddm_w_window": detectors.hddm_w_window,
             "adwin_window": adwin.adwin_window,
-            "random_normal": threefry.random_normal,
+            "random_normal": threefry.init_normals,
             "mlp_fit": mlp.mlp_fit,
             "mlp_predict_err": mlp.mlp_predict_err,
             "forest_fit": forest.forest_fit,
@@ -1665,31 +1734,49 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "ph_window": "ph_window_kernel",
                   "hddm_w_window": "hddm_w_window_kernel",
                   "adwin_window": "adwin_window_kernel",
-                  "random_normal": "random_normal_kernel",
+                  "random_normal": "init_normals_kernel",
                   "mlp_fit": "mlp_fit_kernel",
                   "mlp_predict_err": "mlp_predict_err_kernel",
                   "forest_fit": "forest_fit_kernel",
                   "forest_predict_err": "forest_predict_err_kernel",
-                  "soak_batch": "soak_batch_kernel"}
+                  "soak_batch": "soak_tile_kernel"}
+
+
+def traced(torch, run) -> tuple[list, float]:
+    """``run()`` twice in one ``torch.profiler`` session: the device events
+    of the second (``key_averages``) and its host seconds. The first is a
+    warm-up the profiler discards: a session's first kernel records can go
+    missing after the earlier sessions of this script (a traced phase lost
+    its first ≈ 20 kernels so, among them the mlp's one K8 launch)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.setdefault("events", p.key_averages())) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        prof.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the schedule's step annotation also lies on the device's timeline
+    return [e for e in got.get("events", ())
+            if e.device_type == cuda and not e.key.startswith("ProfilerStep")], seconds
 
 
 def in_run_profile(torch, api, prep, dev,
                    names=("ddm_window", "centroid_predict_err", "centroid_fit")):
-    """One warm detect phase under ``torch.profiler``: each of the kernels
-    ``names``' (launches, device µs per launch), and the summary of the
-    phase."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One warm detect phase under ``torch.profiler`` (:func:`traced`): each
+    of the kernels ``names``' (launches, device µs per launch), and the
+    summary of the phase."""
     batches = api.upload(prep.batches, dev)
     prep.runner(batches)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prep.runner(batches)
-        torch.cuda.synchronize()
-        detect_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    kern, detect_s = traced(torch, lambda: prep.runner(batches))
     check(bool(kern), "the profiler saw no device kernels in the detect phase")
     busy_us = sum(e.self_device_time_total for e in kern)
     per = {}
@@ -2277,15 +2364,26 @@ SOAK_CUT_WINDOW = 8
 SOAK_CHAIN = dict(partitions=16, per_batch=200, total_rows=16 * 180 * 200,
                   drift_every=4000, max_leg_rows=16 * 60 * 200)
 # K6's edge cases: (what, generator, F, P, B, drift_every, count, t0, last,
-# rows) — rows "global" (the one-shot runner's q·NB·B offsets), "local" (the
-# chain's partition-local rows with concept offsets) or "top" (up to 2^31 - 2)
+# rows, classes) — rows "global" (the one-shot runner's q·NB·B offsets),
+# "local" (the chain's partition-local rows with concept offsets) or "top"
+# (up to 2^31 - 2); each held in the plan's layout and under each `force`
 K6_EDGES = [
-    ("a batch straddling concept boundaries", "prototypes", 8, 16, 300, 700, 1, 9, 99, "global"),
+    ("a batch straddling concept boundaries", "prototypes", 8, 16, 300, 700, 1, 9, 99, "global",
+     8),
     ("nonzero block0, partition-local rows", "hyperplane_gradual", 10, 16, 300, 600, 1, 41,
-     2**31 - 1, "local"),
-    ("rows next to 2^31 - 1", "prototypes", 5, 4, 1000, 777, 1, 99, 99, "top"),
-    ("a window chunk with a clamped tail", "sea", 3, 16, 100, 500, 8, 95, 99, "global"),
-    ("a chunk of hyperplane rows, F = 1", "hyperplane", 1, 4, 64, 100, 3, 0, 10, "local"),
+     2**31 - 1, "local", 2),
+    ("rows next to 2^31 - 1", "prototypes", 5, 4, 1000, 777, 1, 99, 99, "top", 8),
+    ("a window chunk with a clamped tail", "sea", 3, 16, 100, 500, 8, 95, 99, "global", 2),
+    ("a chunk of hyperplane rows, F = 1", "hyperplane", 1, 4, 64, 100, 3, 0, 10, "local", 2),
+    ("drift_every 7, below a tile: 38 concepts a tile (prototypes)", "prototypes", 8, 16, 2000,
+     7, 1, 9, 99, "global", 8),
+    ("drift_every 7 (hyperplane_gradual)", "hyperplane_gradual", 10, 16, 2000, 7, 1, 9, 99,
+     "global", 2),
+    ("C·F past the staging budget: classes 4096 at F = 16", "prototypes", 16, 4, 1000, 100_000,
+     1, 7, 99, "global", 4096),
+    ("forced staging past its slots: classes 512, drift_every 18", "prototypes", 8, 4, 300, 18,
+     1, 3, 99, "global", 512),
+    ("B one row past a tile", "hyperplane", 10, 8, 257, 1000, 1, 3, 99, "global", 2),
 ]
 # ROADMAP C8: the dirty CSV under quarantine through every hand kernel's
 # path, at a cut depth
@@ -2296,7 +2394,7 @@ C8_MULT = 64
 SOAK_KERNELS = ("soak_batch", "centroid_fit", "centroid_predict_err", "ddm_window")
 
 
-def k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev):
+def k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev, classes=8):
     """K6's inputs for a case: (keys, t0, count, last, row offsets,
     concept offsets, keyword arguments)."""
     from distributed_drift_detection_tpu_torch.engine.loop import device_keys
@@ -2312,70 +2410,99 @@ def k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev):
     else:
         offs, block0s = part * 0 + (2**31 - 1 - 100 * b), part * 3
     kw = dict(per_batch=b, features=f, drift_every=de, generator=gen)
+    if gen == "prototypes":
+        kw["classes"] = classes
     return keys, t0, count, last, offs.int().contiguous(), block0s.int().contiguous(), kw
 
 
-def k6_equal(torch, soak, feed, what):
-    got = soak.soak_batch(*feed[:6], **feed[6])
+def k6_equal(torch, soak, feed, what, force=0):
+    got = soak.soak_batch(*feed[:6], force=force, **feed[6])
     want = soak.soak_batch_reference(*feed[:6], **feed[6])
     torch.cuda.synchronize()
     check(torch.equal(got.table.view(torch.int32), want.table.view(torch.int32))
           and torch.equal(got.labels, want.labels) and torch.equal(got.rows, want.rows),
-          f"K6 differs from its plain version ({what})")
+          f"K6 differs from its plain version ({what}, force {force}, "
+          f"{soak.soak_batch.plan.layout})")
     return got
 
 
 def k6_ops(gen, f, c, p, b, count, t0, last, row_offs, block0s, de):
-    """The operations K6's function needs for these inputs, at the f32 rate:
-    a threefry hash ≈ 75 integer operations, a normal's map ≈ 40; a
-    partition-batch's key derivations (fold_in and the splits); a row's
-    draws and its label; a concept's weights (F uniforms) or prototypes (C·F
-    normals) once for each concept the batch touches."""
-    hashes = {"sea": 1, "prototypes": 5}.get(gen, 2)
+    """(f32 operations, 32-bit integer operations) K6's function needs for
+    these inputs: a partition-batch's keys (fold_in and its splits); a
+    row's own draws (sea 3 uniforms, hyperplane F uniforms and, gradual, F
+    double sines at twice the f32 cost, prototypes randint's 2 hashes and
+    its 4 modulos of ≈ 20 integer operations, and F normals) and its label;
+    a concept's weights (F uniforms) or prototypes (C·F normals), with its
+    fold_in, once for each concept a batch's rows reach."""
+    key_hashes = {"sea": 1, "prototypes": 5}.get(gen, 2)
     rows = p * count * b
     if gen == "sea":
-        per_row = 3 * (75 + 3) + 3
+        row_hashes, row_int, row_f32 = 3, 0, 3 * (UNIFORM_F32_OPS + 1) + 1
     elif gen == "prototypes":
-        per_row = 2 * 75 + f * (75 + 40 + 1)
+        row_hashes, row_int, row_f32 = 2 + f, 4 * 20, f * (ERFINV_F32_OPS + 1)
     else:
-        per_row = f * (75 + 3 + 2) + f + (f * 25 if gen == "hyperplane_gradual" else 0)
+        row_hashes, row_int = f, 0
+        row_f32 = f * (UNIFORM_F32_OPS + 2) + f + (f * 2 * 25 if gen == "hyperplane_gradual"
+                                                      else 0)
     concepts = 0
     for q in range(p):
         for t in range(t0, t0 + count):
             t = min(t, last)
             lo = int(row_offs[q]) + t * b
             concepts += (lo + b - 1) // de - lo // de + 1
-    per_concept = {"sea": 0, "prototypes": c * f * 115}.get(gen, f * 78)
-    return p * count * hashes * 75 + rows * per_row + concepts * per_concept
+    per = {"sea": 0, "prototypes": c * f}.get(gen, f)
+    per_f32 = ERFINV_F32_OPS + 1 if gen == "prototypes" else UNIFORM_F32_OPS
+    hashes = p * count * key_hashes + rows * row_hashes + concepts * (1 + per)
+    return (rows * row_f32 + concepts * per * per_f32,
+            hashes * HASH_INT_OPS + rows * row_int)
 
 
 def check_k6(torch, kernels, soak, dev):
     """K6 against its plain version on the card, bit for bit: each generator
-    at the soak's [128, 2000] and K6_EDGES; times it on the prototypes batch
-    (the soak's default); returns its kernel row."""
+    at the soak's [128, 2000] and K6_EDGES, each in the plan's layout and
+    forced to each; times it on the prototypes batch (the soak's default),
+    in each layout; returns its kernel row."""
+    from distributed_drift_detection_tpu_torch.kernels import _build
+
+    staged = 0
     for gen, f, _ in SOAK_GENS:
         feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
-        k6_equal(torch, soak, feed, f"{gen} at [{SOAK_P}, {SOAK_B}], F = {f}")
-    for what, gen, f, p, b, de, count, t0, last, rows in K6_EDGES:
-        feed = k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev)
-        got = k6_equal(torch, soak, feed, what)
-        if count > 1:
-            valid = t0 + torch.arange(count, device=dev) <= last
-            check(bool(((got.rows >= 0) == valid[None, :, None]).all()),
-                  f"K6: row positions of the clamped tail are not -1 ({what})")
+        for force in (0, 1, 2):
+            k6_equal(torch, soak, feed, f"{gen} at [{SOAK_P}, {SOAK_B}], F = {f}", force)
+            staged += soak.soak_batch.plan.slots > 0
+    layouts = []
+    for what, gen, f, p, b, de, count, t0, last, rows, c in K6_EDGES:
+        feed = k6_feed(torch, soak, gen, f, p, b, de, count, t0, last, rows, dev, c)
+        for force in (0, 1, 2):
+            try:
+                got = k6_equal(torch, soak, feed, what, force)
+            except ValueError:
+                plan = soak.k6_plan(p, count, b, f, gen, c, de, 1)
+                check(force == 2 and 8 + 4 * plan.per_concept > soak.K6_MAX_SHARED,
+                      f"K6 refused force {force} ({what})")
+                continue
+            plan = soak.soak_batch.plan
+            if force == 0:
+                layouts.append(f"{what}: {plan.layout} ({plan.slots} slots of {plan.span})")
+            if count > 1:
+                valid = t0 + torch.arange(count, device=dev) <= last
+                check(bool(((got.rows >= 0) == valid[None, :, None]).all()),
+                      f"K6: row positions of the clamped tail are not -1 ({what})")
     print(f"K6 soak_batch: bit for bit its plain version at [{SOAK_P}, {SOAK_B}] for "
-          + ", ".join(f"{g} (F = {f})" for g, f, _ in SOAK_GENS) + " and on "
-          + "; ".join(e[0] for e in K6_EDGES))
+          + ", ".join(f"{g} (F = {f})" for g, f, _ in SOAK_GENS)
+          + f" ({staged} of {3 * len(SOAK_GENS)} launches staged) and on "
+          + "; ".join(layouts) + "; each also forced to each layout")
 
     gen, f, c = SOAK_GENS[0]
     feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
     keys, t0, count, last, offs, block0s, kw = feed
     out = soak.soak_batch(*feed[:6], **kw)
-    args = soak.soak_batch_args(keys, t0, count, last, offs, block0s, out, per_batch=SOAK_B,
-                                features=f, drift_every=SOAK_DE, generator=3, classes=c,
-                                noise=0.08)
-    fn = kernels.launcher("soak_batch")
-    ms = graph_ms(lambda: kernels.check("soak_batch", fn(*args, kernels.stream_handle(dev))))
+    plan = soak.soak_batch.plan
+    by_layout = {}
+    for force, name in ((0, "plan"), (1, "per-row"), (2, "staged")):
+        by_layout[name] = graph_ms(
+            lambda force=force: soak.soak_batch(*feed[:6], out=out, force=force, **kw))
+    ms = by_layout["plan"]
     h_us = host_us(lambda: soak.soak_batch(*feed[:6], out=out, **kw))
     plain_ms = time_ms(lambda: soak.soak_batch_reference(*feed[:6], **kw), reps=3, rounds=3)
     floor = kernels.launcher("soak_batch_floor")
@@ -2383,17 +2510,24 @@ def check_k6(torch, kernels, soak, dev):
         "soak_batch_floor", floor(SOAK_P, 1, SOAK_B, kernels.stream_handle(dev))))
     n = SOAK_P * SOAK_B
     nbytes = n * (out.table.shape[1] * 4 + 4 + 4) + SOAK_P * 16
-    b_ms, by = bound(nbytes, k6_ops(gen, f, c, SOAK_P, SOAK_B, 1, t0, last, offs.cpu(),
-                                    block0s.cpu(), SOAK_DE))
+    f32_ops, int_ops = k6_ops(gen, f, c, SOAK_P, SOAK_B, 1, t0, last, offs.cpu(), block0s.cpu(),
+                              SOAK_DE)
+    b_ms, by = bound(nbytes, f32_ops, int_ops)
+    sass = sass_hash_ops(str(_build.library_path("soak_batch")), "soak_tile_kernelILi3E")
     print(f"K6 soak_batch [{SOAK_P}, {SOAK_B}] prototypes F = {f}: {ms:.5f} ms device (graph "
-          f"of 50), {h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms "
-          f"({by}), floor {floor_ms:.5f} ms (an empty kernel with its grid)")
+          f"of 50; layout {plan.layout}, {plan.slots} slots, {plan.ctas} CTAs; per layout "
+          + ", ".join(f"{k} {v:.5f}" for k, v in by_layout.items())
+          + f"), {h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}: "
+          f"{int_ops:,} integer operations at {INT32_OPS_PER_S / 1e12:.2f} T/s, {f32_ops:,} f32, "
+          f"{nbytes:,} bytes), floor {floor_ms:.5f} ms (an empty kernel with its grid); "
+          f"SASS (prototypes) {sass}")
     return dict(
         name="soak_batch", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/soak_gen.cu",
         replaces="distributed_drift_detection_tpu/engine/soak.py:113",
         max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+        ms_by_layout=by_layout, sass=sass,
     )
 
 
@@ -2595,14 +2729,7 @@ def soak_phase(torch, api, config, kernels, classifiers, res, dev):
     short = soak.make_soak_runner(model, partitions=SOAK_P, per_batch=SOAK_B, num_batches=51,
                                   drift_every=SOAK_DE, device=dev)
     short(key).flags.change_global.cpu()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        short(key).flags.change_global.cpu()
-        window_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    kern, window_s = traced(torch, lambda: short(key).flags.change_global.cpu())
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     per = {}
     for name in SOAK_KERNELS:
@@ -2802,6 +2929,7 @@ def main(device: str = "cuda") -> int:
     check(bool(np.isfinite(mres.drift_vote).all()), "mlp: non-finite drift vote")
     for k in ("random_normal", "mlp_fit", "mlp_predict_err", "ddm_window"):
         check(ml[k] > 0, f"mlp: kernel {k} was not launched on its path")
+    check(ml["random_normal"] == 1, f"mlp: the init took {ml['random_normal']} K8 launches, not 1")
     mtimes = [api.run(mcfg, device=dev) for _ in range(3)]
     final_times["mlp"] = statistics.median(t.total_time for t in mtimes)
     names = ("random_normal", "mlp_fit", "mlp_predict_err")

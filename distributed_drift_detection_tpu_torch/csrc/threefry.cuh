@@ -167,12 +167,18 @@ __device__ __forceinline__ float normal(Pair k, uint64_t i, float factor) {
 // jax.random.randint(key, shape, 0, span) at flat index i, for 1 <= span <
 // 2^31: k1, k2 = split(key); 32 bits from each; (hi mod span · (2^32 mod
 // span) + lo mod span) mod span in uint32 arithmetic (utils/threefry.py
-// `randint`).
-__device__ __forceinline__ uint32_t randint(Pair k, uint64_t i, uint32_t span) {
-  const uint32_t high = bits(split(k, 0u), i), low = bits(split(k, 1u), i);
+// `randint`). randint_split takes the two split keys, for a caller that
+// derives them once for many indices.
+__device__ __forceinline__ uint32_t randint_split(Pair k0, Pair k1, uint64_t i,
+                                                  uint32_t span) {
+  const uint32_t high = bits(k0, i), low = bits(k1, i);
   uint32_t mult = 65536u % span;
   mult = (mult * mult) % span;
   return ((high % span) * mult + low % span) % span;
+}
+
+__device__ __forceinline__ uint32_t randint(Pair k, uint64_t i, uint32_t span) {
+  return randint_split(split(k, 0u), split(k, 1u), i, span);
 }
 
 }  // namespace threefry

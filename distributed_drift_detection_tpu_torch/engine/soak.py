@@ -9,8 +9,10 @@ only transfer is the flag table.
 Generation is kernel K6 (``csrc/soak_gen.cu``, :func:`soak_batch`): it
 writes a batch (or a chunk of batches) straight into the engine's padded
 row table ``[P·count·B, row_stride(F)]`` with its labels and global row
-positions; :func:`soak_batch_reference` is its plain PyTorch version, on the
-per-row generators below, which give the JAX package's bits:
+positions, a CTA a tile of :data:`K6_TILE` rows that stages its concepts'
+prototypes or weights once (:func:`k6_plan`); :func:`soak_batch_reference`
+is its plain PyTorch version, on the per-row generators below, which give
+the JAX package's bits:
 
 * ``'sea'`` (:func:`_sea_batch`) — features ~ U[0,10)³, label ``f0 + f1 <=
   θ`` with θ cycling through the four SEA thresholds every ``drift_every``
@@ -44,6 +46,7 @@ count is known. Entry points run on the card unless ``device='cpu'``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -239,6 +242,78 @@ def soak_batch_reference(
                      torch.where(valid, rows, -1).to(torch.int32))
 
 
+# K6's tile: the rows a CTA generates, one a thread (csrc/soak_gen.cu kTile).
+K6_TILE = 256
+# The plan's shared-memory budget for a tile's concept tables, in floats
+# (16 KB: eight CTAs of an SM hold theirs at once).
+K6_STAGE_FLOATS = 4096
+# The most dynamic shared memory a CTA takes on an H100 (a forced layout).
+K6_MAX_SHARED = 232448
+
+
+class K6Plan(NamedTuple):
+    """Kernel K6's layout at a batch geometry (:func:`k6_plan`)."""
+
+    tiles: int  # CTAs a (partition, batch): ceil(B / K6_TILE)
+    ctas: int  # the grid: P · count · tiles
+    span: int  # the most concepts one tile's rows can reach
+    per_concept: int  # floats of a concept's table: C·F prototypes, F weights, 0 (sea)
+    slots: int  # concepts a tile stages in shared memory; 0: each row computes its own
+    shared_bytes: int  # a CTA's dynamic shared memory: slots · (8 + 4·per_concept)
+
+    @property
+    def layout(self) -> str:
+        return "staged" if self.slots else "per-row"
+
+
+def k6_tile_concepts(row0: int, rows: int, drift_every: int) -> tuple[int, int]:
+    """``(first, span)``: the concept offsets ``row0 // drift_every`` ..
+    ``(row0 + rows − 1) // drift_every`` that a tile of ``rows`` rows from
+    ``row0`` (≥ 0) reaches, as the kernel works them out."""
+    first = int(row0) // int(drift_every)
+    return first, (int(row0) + int(rows) - 1) // int(drift_every) - first + 1
+
+
+def k6_max_span(b: int, drift_every: int) -> int:
+    """The most concepts a tile's rows reach, over every first row: a tile
+    of ``n = min(K6_TILE, B)`` rows starting on a concept's last row."""
+    n = min(K6_TILE, int(b))
+    return (n + int(drift_every) - 2) // int(drift_every) + 1
+
+
+@functools.lru_cache(maxsize=256)
+def k6_plan(p: int, count: int, b: int, f: int, generator: str, classes: int,
+            drift_every: int, force: int = 0) -> K6Plan:
+    """K6's layout, a function of the geometry alone (no offsets: the span
+    is the worst case over every row a tile may start at, so it holds for
+    any ``row_offs``, window tail or chain leg). ``force``: 0 the plan's
+    choice, 1 every row computes its table entries, 2 staged wherever a
+    concept's table fits a CTA's shared memory (else ``ValueError``).
+
+    The plan stages a tile's concept tables when all ``span`` of them fit
+    :data:`K6_STAGE_FLOATS` and, for the prototypes, cost no more normals
+    than the tile's rows would draw inline (``span · C ≤ rows``). SEA draws
+    nothing a concept shares: one layout."""
+    if force not in (0, 1, 2):
+        raise ValueError(f"k6_plan: force must be 0, 1 or 2, got {force}")
+    gid = _generator(generator)[2]
+    f = generated_width(generator, f)
+    tiles = -(-int(b) // K6_TILE)
+    span = k6_max_span(b, drift_every)
+    per = 0 if gid == 0 else int(classes) * f if gid == 3 else f
+    slots = 0
+    if per and force == 2:
+        slots = min(span, K6_MAX_SHARED // (8 + 4 * per))
+        if not slots:
+            raise ValueError(
+                f"k6_plan: a concept's table ({per} floats) does not fit a CTA's shared memory"
+            )
+    elif per and force == 0 and span * per <= K6_STAGE_FLOATS and (
+            gid != 3 or span * int(classes) <= min(K6_TILE, int(b))):
+        slots = span
+    return K6Plan(tiles, int(p) * int(count) * tiles, span, per, slots, slots * (8 + 4 * per))
+
+
 def _check_soak_inputs(gen_keys, row_offs, block0s):
     dev = gen_keys.device
     p = gen_keys.shape[0]
@@ -257,14 +332,16 @@ def soak_batch(
     gen_keys, t0: int, count: int, last: int, row_offs, block0s, *,
     per_batch: int, features: int, drift_every: int, generator: str,
     classes: int = _PROTO_CLASSES, noise: float = _PROTO_NOISE, out: "SoakBatch | None" = None,
+    force: int = 0,
 ) -> SoakBatch:
     """``count`` generated batches of every partition (contract of
     :func:`soak_batch_reference`), written into ``out`` when given.
 
     ``gen_keys [P, 2]`` (int32 bit patterns of the uint32 key words),
     ``row_offs [P]`` and ``block0s [P]`` int32. CUDA tensors launch kernel
-    K6 (``csrc/soak_gen.cu``) and add one to ``soak_batch.launches``; CPU
-    tensors run the plain version."""
+    K6 (``csrc/soak_gen.cu``) in the layout of :func:`k6_plan` (``force``
+    its argument), record it as ``soak_batch.plan`` and add one to
+    ``soak_batch.launches``; CPU tensors run the plain version."""
     if gen_keys.device.type == "cpu":
         got = soak_batch_reference(
             gen_keys, t0, count, last, row_offs, block0s, per_batch=per_batch,
@@ -302,31 +379,37 @@ def soak_batch(
           or tuple(out.rows.shape) != (p, int(count), b)
           or not all(t.is_contiguous() and t.device == dev for t in out)):
         raise ValueError("soak_batch: out does not match the batch geometry")
+    if out.table.data_ptr() % 16:
+        raise ValueError("soak_batch: out.table must be 16-byte aligned (float4 rows)")
+    plan = k6_plan(p, int(count), b, f, generator, int(classes), int(drift_every), int(force))
     code = kernels.launcher("soak_batch")(
         *soak_batch_args(gen_keys, t0, count, last, row_offs, block0s, out, per_batch=b,
                          features=f, drift_every=drift_every, generator=gid,
-                         classes=classes, noise=noise),
+                         classes=classes, noise=noise, slots=plan.slots),
         kernels.stream_handle(dev),
     )
     kernels.check("soak_batch", code)
+    soak_batch.plan = plan
     soak_batch.launches += 1
     return out
 
 
 soak_batch.launches = 0
+soak_batch.plan = None
 
 
 def soak_batch_args(gen_keys, t0, count, last, row_offs, block0s, out, *, per_batch,
-                    features, drift_every, generator: int, classes, noise):
+                    features, drift_every, generator: int, classes, noise, slots: int):
     """Kernel K6's launch arguments, stream excluded (``generator`` is the
-    generator's id, ``features`` the generated width)."""
+    generator's id, ``features`` the generated width, ``slots`` the plan's
+    :attr:`K6Plan.slots`)."""
     rp = max(int(drift_every), 1) if generator == 2 else 0
     return (
         gen_keys.data_ptr(), row_offs.data_ptr(), block0s.data_ptr(),
         gen_keys.shape[0], int(count), int(per_batch), int(features),
         int(t0), int(last), int(drift_every), int(generator), int(classes),
         normal_factor(noise), normal_factor(_PROTO_SCALE),
-        rp, rotation_scale(rp) if rp else 0.0,
+        rp, rotation_scale(rp) if rp else 0.0, int(slots),
         out.table.data_ptr(), out.labels.data_ptr(), out.rows.data_ptr(),
     )
 

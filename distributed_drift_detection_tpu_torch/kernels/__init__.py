@@ -10,7 +10,7 @@ counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
 ``centroid_predict_err`` and ``centroid_fit``, ``ops/detectors.py``
 ``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
-``utils/threefry.py`` ``random_normal``, ``models/mlp.py`` ``mlp_fit``
+``utils/threefry.py`` ``init_normals``, ``models/mlp.py`` ``mlp_fit``
 and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
 ``forest_predict_err``, ``engine/soak.py`` ``soak_batch``).
 """
@@ -25,6 +25,7 @@ import torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 _SIGNATURES = {
     "ddm_window": (
@@ -83,14 +84,15 @@ _SIGNATURES = {
         + [_P],  # stream
     ),
     "random_normal": (
-        "random_normal_launch",
-        [_P, _I, _I, _F, _P,  # keys, key count, normals a key, factor, out
-         _P],  # stream
+        "init_normals_launch",
+        [_P, _I, _I, _I,  # keys [P, 2], p, layers, the first layer's split counter
+         _P, _P, _LL,  # host normal counts and factors [layers], zeros
+         _P, _P],  # out, stream
     ),
     # each kernel's empty twin, launched as the kernel is (same grid,
     # block and shared memory), in its library: the floor under its time
     "random_normal_floor": (
-        "random_normal_floor_launch", [_I, _I, _P], "random_normal",
+        "init_normals_floor_launch", [_I, _I, _P, _LL, _P], "random_normal",
     ),
     "mlp_fit": (
         "mlp_fit_launch",
@@ -164,6 +166,7 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I,  # t0, last, drift_every, generator id, classes
          _F, _F, _I, _F,  # the noise's and the prototypes' normal factors,
                           # rotation period (0: none), its phase scale
+         _I,  # concepts a tile stages (engine/soak.py k6_plan; 0: none)
          _P, _P, _P,  # table, labels, rows
          _P],  # stream
     ),

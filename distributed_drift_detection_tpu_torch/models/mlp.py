@@ -15,7 +15,9 @@ unknown summation order (ROADMAP Queue C, C2), so fitted parameters agree
 with JAX to a tolerance, not to the bit.
 
 Three hand-written kernels carry the family on the card, each beside its
-plain version: K8 ``random_normal`` (``utils/threefry.py``) for ``init``,
+plain version: K8 (``utils/threefry.py`` ``init_normals``,
+``csrc/random_normal.cu``: every layer's weights and the zero biases in one
+launch) for ``init``,
 K9 ``mlp_fit`` (``csrc/mlp_fit.cu``: init from the key and every SGD step
 in one launch, a thread-block cluster a partition, :func:`k9_launch_plan`) and
 K10 ``mlp_predict_err`` (``csrc/mlp_predict_err.cu``: the forward pass
@@ -67,20 +69,31 @@ def _keys(key: torch.Tensor) -> torch.Tensor:
 
 def mlp_init(key, dims, device=None, normal=None) -> tuple:
     """``make_mlp.init`` for every partition: ``key [P, 2]`` (uint32
-    words; numpy or an int tensor) → a tuple of :class:`MLPLayer`. The
-    normals come from ``normal`` — by default kernel K8's wrapper
-    ``threefry.random_normal``."""
-    normal = normal or threefry.random_normal
+    words; numpy or an int tensor) → a tuple of :class:`MLPLayer`. By
+    default the weights and the zero biases are views of one buffer that
+    ``threefry.init_normals`` fills — kernel K8 on the card, every layer in
+    one launch. ``normal(keys, n, factor)`` instead draws layer by layer
+    from ``split(key, L)`` (the composition K8 replaces; the plain versions
+    pass ``threefry.random_normal_reference``)."""
     key = _keys(key)
     if device is not None:
         key = key.to(device)
-    layer_keys = threefry.split(key, len(dims) - 1).int()  # [P, L, 2]
     p = key.shape[0]
-    out = []
-    for l, (din, dout, factor) in enumerate(zip(dims[:-1], dims[1:], init_scales(dims))):
-        w = normal(layer_keys[:, l].contiguous(), din * dout, factor)
-        out.append(MLPLayer(w.view(p, din, dout),
-                            torch.zeros((p, dout), dtype=torch.float32, device=key.device)))
+    pairs = list(zip(dims[:-1], dims[1:]))
+    factors = init_scales(dims)
+    if normal is not None:
+        layer_keys = threefry.split(key, len(pairs)).int()  # [P, L, 2]
+        return tuple(
+            MLPLayer(normal(layer_keys[:, l].contiguous(), din * dout, factors[l]).view(p, din, dout),
+                     torch.zeros((p, dout), dtype=torch.float32, device=key.device))
+            for l, (din, dout) in enumerate(pairs))
+    buf = threefry.init_normals(key, [din * dout for din, dout in pairs], factors,
+                                zeros=p * sum(dims[1:]))
+    out, w_at, b_at = [], 0, p * sum(din * dout for din, dout in pairs)
+    for din, dout in pairs:
+        out.append(MLPLayer(buf[w_at:w_at + p * din * dout].view(p, din, dout),
+                            buf[b_at:b_at + p * dout].view(p, dout)))
+        w_at, b_at = w_at + p * din * dout, b_at + p * dout
     return tuple(out)
 
 

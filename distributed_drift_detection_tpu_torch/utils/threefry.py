@@ -26,6 +26,8 @@ arithmetic on the card.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -245,44 +247,80 @@ def normal(key, shape) -> torch.Tensor:
 
 
 def random_normal_reference(keys, n: int, factor: float = SQRT2) -> torch.Tensor:
-    """Plain PyTorch version of :func:`random_normal` (on the keys' device)."""
+    """``[N, n]`` float32 on the keys' device: row ``k`` is ``normal(keys[k],
+    (n,))`` with the factor of :func:`normal_map` — ``jax.random.normal`` at
+    the default, ``(f32(√2·scale)/√2)·normal`` as XLA folds a jitted
+    ``scale * normal``. ``keys [N, 2]``."""
     return normal_map(_unit_floats(keys, (int(n),)), factor)
 
 
-def random_normal(keys: torch.Tensor, n: int, factor: float = SQRT2) -> torch.Tensor:
-    """``[N, n]`` float32: row ``k`` is ``normal(keys[k], (n,))`` with the
-    factor of :func:`normal_map` — ``jax.random.normal`` at the default,
-    ``(f32(√2·scale)/√2)·normal`` as XLA folds a jitted ``scale * normal``.
+# Layers a K8 launch takes (csrc/random_normal.cu kInlineLayers, models/mlp.py
+# INLINE_LAYERS); a deeper init takes a launch for each 64.
+K8_INLINE_LAYERS = 64
 
-    ``keys [N, 2]`` int32 (uint32 bit patterns) or int64. CUDA tensors
-    launch kernel K8 (``csrc/random_normal.cu``) and add one to
-    ``random_normal.launches``; CPU tensors run
-    :func:`random_normal_reference`."""
+
+def init_normals_reference(keys, counts, factors, zeros: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`init_normals`, on the keys' device:
+    ``split(keys, L)``, then :func:`random_normal_reference` a layer."""
+    layer_keys = split(keys, len(counts))  # [P, L, 2]
+    parts = [random_normal_reference(layer_keys[:, l], n, factor).reshape(-1)
+             for l, (n, factor) in enumerate(zip(counts, factors))]
+    parts.append(torch.zeros(int(zeros), dtype=torch.float32, device=layer_keys.device))
+    return torch.cat(parts)
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_table(counts: tuple, factors: tuple):
+    """A K8 launch's host arrays: the layers' normal counts and factors."""
+    return ((ctypes.c_int * len(counts))(*counts),
+            (ctypes.c_float * len(factors))(*(f32(x) for x in factors)))
+
+
+def init_normals(keys: torch.Tensor, counts, factors, zeros: int = 0) -> torch.Tensor:
+    """The MLP init's draws in one float32 buffer ``[P·Σ counts + zeros]``:
+    layer ``l``'s normals ``[P, counts[l]]`` — row ``p`` the normals of
+    ``split(keys[p], L)[l]`` times ``factors[l]``, the factor of
+    :func:`normal_map` (``f32(√2·scale)`` for a jitted ``scale * normal``)
+    — layer after layer, then ``zeros`` zeros (the biases).
+
+    ``keys [P, 2]`` int32 (uint32 bit patterns) or int64. CUDA tensors
+    launch kernel K8 (``csrc/random_normal.cu``), once for every
+    :data:`K8_INLINE_LAYERS` layers, adding one to
+    ``init_normals.launches`` a launch; CPU tensors run
+    :func:`init_normals_reference`."""
+    counts = tuple(int(n) for n in counts)
+    factors = tuple(float(x) for x in factors)
+    if len(counts) != len(factors) or not counts:
+        raise ValueError(f"init_normals: {len(counts)} counts and {len(factors)} factors")
     if keys.device.type == "cpu":
-        return random_normal_reference(keys, n, factor)
+        return init_normals_reference(keys, counts, factors, zeros)
     if keys.device.type != "cuda":
-        raise ValueError(f"random_normal: unsupported device {keys.device}")
+        raise ValueError(f"init_normals: unsupported device {keys.device}")
     from .. import kernels
 
     keys = keys.int().contiguous()
     if keys.dim() != 2 or keys.shape[1] != 2:
-        raise ValueError(f"random_normal: keys must be [N, 2], got {tuple(keys.shape)}")
-    if not 0 <= int(n) < 2**31 or keys.shape[0] * int(n) >= 2**40:
-        raise ValueError(f"random_normal: {keys.shape[0]} x {n} normals is out of range")
-    out = torch.empty((keys.shape[0], int(n)), dtype=torch.float32, device=keys.device)
-    code = kernels.launcher("random_normal")(
-        *random_normal_args(keys, out, factor), kernels.stream_handle(keys.device))
-    kernels.check("random_normal", code)
-    random_normal.launches += 1
+        raise ValueError(f"init_normals: keys must be [P, 2], got {tuple(keys.shape)}")
+    p = keys.shape[0]
+    total = p * sum(counts) + int(zeros)
+    if not all(0 <= n < 2**31 for n in counts) or int(zeros) < 0 or total >= 2**40:
+        raise ValueError(f"init_normals: {p} x {counts} normals and {zeros} zeros is out of range")
+    out = torch.empty(total, dtype=torch.float32, device=keys.device)
+    fn, stream = kernels.launcher("random_normal"), kernels.stream_handle(keys.device)
+    at = out.data_ptr()
+    for l0 in range(0, len(counts), K8_INLINE_LAYERS):
+        chunk = counts[l0:l0 + K8_INLINE_LAYERS]
+        last = l0 + K8_INLINE_LAYERS >= len(counts)
+        c_counts, c_factors = _layer_table(chunk, factors[l0:l0 + K8_INLINE_LAYERS])
+        code = fn(keys.data_ptr(), p, len(chunk), l0, c_counts, c_factors,
+                  int(zeros) if last else 0, at, stream)
+        kernels.check("random_normal", code)
+        init_normals.launches += 1
+        at += 4 * p * sum(chunk)
     return out
 
 
-random_normal.launches = 0
-
-
-def random_normal_args(keys: torch.Tensor, out: torch.Tensor, factor: float = SQRT2):
-    """Kernel K8's launch arguments, stream excluded."""
-    return keys.data_ptr(), keys.shape[0], out.shape[1], f32(factor), out.data_ptr()
+init_normals.launches = 0
 
 
 def fold_chain(keys: np.ndarray, steps: int, width: int, take: int) -> tuple:

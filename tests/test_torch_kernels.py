@@ -630,14 +630,51 @@ def _keys(seed, p):
 @pytest.mark.parametrize("n", [1, 2560, 2688, 8192])
 @pytest.mark.parametrize("factor", ["sqrt2", "init"])
 def test_random_normal_kernel_bitwise(dev, factor, n):
-    """K8 equals the CPU generator bit for bit (which is jax.random's)."""
+    """K8 equals its plain version bit for bit (which is jax.random's) on
+    one layer of n normals a key, in one launch."""
     f = threefry.SQRT2 if factor == "sqrt2" else tmlp.init_scales((21, 5))[0]
     keys = _keys(n, 16)
-    before = threefry.random_normal.launches
-    got = threefry.random_normal(keys.to(dev), n, f)
-    assert threefry.random_normal.launches == before + 1
-    want = threefry.random_normal(keys, n, f)
+    before = threefry.init_normals.launches
+    got = threefry.init_normals(keys.to(dev), [n], [f])
+    assert threefry.init_normals.launches == before + 1
+    want = threefry.init_normals(keys, [n], [f])
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# K8's inits: (P, dims) — the main path's MLP(128, 64), the narrow nets,
+# a layer of one normal, 65 layers (two launches, split counters past 64)
+K8_INITS = {
+    "main_path": (16, (21, 128, 64, 40)),
+    "three_partitions": (3, (21, 128, 64, 40)),
+    "narrow": (3, (5, 16, 8, 3)),
+    "one_normal": (4, (1, 1, 2)),
+    "no_hidden": (2, (21, 40)),
+    "sixty_five_layers": (2, (7,) * 65 + (2,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K8_INITS))
+def test_mlp_init_kernel_one_launch(dev, case):
+    """The MLP init on the card is one K8 launch (one for each 64 layers),
+    its weights and zero biases bit for bit the per-layer plain
+    composition's (``split``, then a layer's normals) and the plain
+    one-call version's on the card."""
+    p, dims = K8_INITS[case]
+    keys = _keys(p + len(dims), p)
+    before = threefry.init_normals.launches
+    got = tmlp.mlp_init(keys.to(dev), dims)
+    torch.cuda.synchronize()
+    assert threefry.init_normals.launches - before == -(-(len(dims) - 1) // 64)
+    want = tmlp.mlp_init(keys, dims, normal=threefry.random_normal_reference)
+    counts = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    plain = threefry.init_normals_reference(keys.to(dev).long(), counts, tmlp.init_scales(dims),
+                                            p * sum(dims[1:]))
+    flat = torch.cat([t.reshape(-1) for t in (*(g.w for g in got), *(g.b for g in got))])
+    assert torch.equal(flat.view(torch.int32), plain.view(torch.int32))
+    for g, r in zip(got, want):
+        assert torch.equal(g.w.cpu().view(torch.int32), r.w.view(torch.int32))
+        assert torch.equal(g.b.cpu(), r.b)
 
 
 def _mlp_batch(seed, p, b, f, c):
@@ -1166,20 +1203,30 @@ def test_forest_workspace_counts(dev):
     assert not k12("depth12_t2").regs and not k12("depth12_t2").params_staged
 
 
-# K6: (generator, F, P, B, drift_every, count, t0, last, rows) with rows
-# "global" (the one-shot runner's offsets q·NB·B, no concept offset),
-# "local" (the chain's partition-local rows with concept offsets block0s)
-# or "top" (rows up to 2^31 - 2, the int32 ceiling)
+# K6: (generator, F, P, B, drift_every, count, t0, last, rows, classes)
+# with rows "global" (the one-shot runner's offsets q·NB·B, no concept
+# offset), "local" (the chain's partition-local rows with concept offsets
+# block0s) or "top" (rows up to 2^31 - 2, the int32 ceiling)
 K6_CASES = {
-    "prototypes_main": ("prototypes", 8, 128, 2000, 100_000, 1, 7, 4099, "global"),
-    "sea_main": ("sea", 3, 128, 2000, 100_000, 1, 7, 4099, "global"),
-    "hyperplane_main": ("hyperplane", 10, 128, 2000, 100_000, 1, 7, 4099, "global"),
-    "gradual_main": ("hyperplane_gradual", 10, 128, 2000, 100_000, 1, 7, 4099, "global"),
-    "straddles_concepts": ("prototypes", 8, 16, 300, 700, 1, 9, 99, "global"),
-    "chain_block0": ("hyperplane_gradual", 10, 16, 300, 600, 1, 41, 2**31 - 1, "local"),
-    "near_int32_max": ("prototypes", 5, 4, 1000, 777, 1, 99, 99, "top"),
-    "window_tail": ("sea", 3, 16, 100, 500, 8, 95, 99, "global"),
-    "f1_hyperplane": ("hyperplane", 1, 4, 64, 100, 3, 0, 10, "local"),
+    "prototypes_main": ("prototypes", 8, 128, 2000, 100_000, 1, 7, 4099, "global", 8),
+    "sea_main": ("sea", 3, 128, 2000, 100_000, 1, 7, 4099, "global", 2),
+    "hyperplane_main": ("hyperplane", 10, 128, 2000, 100_000, 1, 7, 4099, "global", 2),
+    "gradual_main": ("hyperplane_gradual", 10, 128, 2000, 100_000, 1, 7, 4099, "global", 2),
+    "straddles_concepts": ("prototypes", 8, 16, 300, 700, 1, 9, 99, "global", 8),
+    "chain_block0": ("hyperplane_gradual", 10, 16, 300, 600, 1, 41, 2**31 - 1, "local", 2),
+    "near_int32_max": ("prototypes", 5, 4, 1000, 777, 1, 99, 99, "top", 8),
+    "window_tail": ("sea", 3, 16, 100, 500, 8, 95, 99, "global", 2),
+    "f1_hyperplane": ("hyperplane", 1, 4, 64, 100, 3, 0, 10, "local", 2),
+    # drift_every below a tile: a tile reaches up to 38 concepts
+    "de7_prototypes": ("prototypes", 8, 16, 2000, 7, 1, 9, 99, "global", 8),
+    "de7_gradual": ("hyperplane_gradual", 10, 16, 2000, 7, 1, 9, 99, "global", 2),
+    "de1_hyperplane": ("hyperplane", 6, 4, 600, 1, 2, 3, 99, "top", 2),
+    # C·F past the staging budget (and, forced, past a CTA's shared memory)
+    "classes_4096_f16": ("prototypes", 16, 4, 1000, 100_000, 1, 7, 99, "global", 4096),
+    # forced staging holds 14 of a tile's 16 concepts: tiles of both layouts
+    "classes_512_de18": ("prototypes", 8, 4, 300, 18, 1, 3, 99, "global", 512),
+    "b_past_a_tile": ("hyperplane", 10, 8, 257, 1000, 1, 3, 99, "global", 2),
+    "top_many_concepts": ("prototypes", 8, 4, 1000, 5, 1, 99, 99, "top", 8),
 }
 
 
@@ -1187,7 +1234,7 @@ def _k6_inputs(case, dev):
     from distributed_drift_detection_tpu_torch.engine.loop import device_keys
     from distributed_drift_detection_tpu_torch.utils import threefry
 
-    gen, f, p, b, de, count, t0, last, rows = K6_CASES[case]
+    gen, f, p, b, de, count, t0, last, rows, classes = K6_CASES[case]
     keys = device_keys(threefry.split(threefry.key(p + b), p), dev)
     nb = 100
     part = torch.arange(p, dtype=torch.int64, device=dev)
@@ -1197,29 +1244,42 @@ def _k6_inputs(case, dev):
         offs, block0s = torch.zeros_like(part), part * 12_345
     else:
         offs, block0s = part * 0 + (2**31 - 1 - nb * b), part * 3
-    kw = dict(per_batch=b, features=f, drift_every=de, generator=gen)
+    kw = dict(per_batch=b, features=f, drift_every=de, generator=gen, classes=classes)
     return keys, t0, count, last, offs.int(), block0s.int(), kw
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("force", [0, 1, 2])
 @pytest.mark.parametrize("case", sorted(K6_CASES))
-def test_soak_batch_kernel_bitwise(dev, case):
-    """K6 equals its plain version on the card bit for bit: the padded
-    table, the labels and the row positions (−1 past ``last``)."""
+def test_soak_batch_kernel_bitwise(dev, case, force):
+    """K6 equals its plain version on the card bit for bit — the padded
+    table, the labels and the row positions (−1 past ``last``) — in its
+    plan's layout and forced to each (``k6_plan``): staged concept tables,
+    every row's entries inline, and tiles of both where forced staging
+    holds fewer concepts than a tile reaches."""
     from distributed_drift_detection_tpu_torch.engine import soak
 
     keys, t0, count, last, offs, block0s, kw = _k6_inputs(case, dev)
+    plan = soak.k6_plan(keys.shape[0], count, kw["per_batch"], kw["features"], kw["generator"],
+                        kw["classes"], kw["drift_every"], 1)
+    if force == 2 and 8 + 4 * plan.per_concept > soak.K6_MAX_SHARED:
+        with pytest.raises(ValueError, match="does not fit"):
+            soak.soak_batch(keys, t0, count, last, offs, block0s, force=force, **kw)
+        return
     before = soak.soak_batch.launches
-    got = soak.soak_batch(keys, t0, count, last, offs, block0s, **kw)
+    got = soak.soak_batch(keys, t0, count, last, offs, block0s, force=force, **kw)
     torch.cuda.synchronize()
     assert soak.soak_batch.launches == before + 1
+    assert soak.soak_batch.plan == soak.k6_plan(
+        keys.shape[0], count, kw["per_batch"], kw["features"], kw["generator"], kw["classes"],
+        kw["drift_every"], force)
     want = soak.soak_batch_reference(keys, t0, count, last, offs, block0s, **kw)
     assert torch.equal(got.table.view(torch.int32), want.table.view(torch.int32))
     assert torch.equal(got.labels, want.labels)
     assert torch.equal(got.rows, want.rows)
     if case == "window_tail":
         assert bool((got.rows[:, 5:] == -1).all()) and bool((got.rows[:, :5] >= 0).all())
-    again = soak.soak_batch(keys, t0, count, last, offs, block0s, out=got, **kw)
+    again = soak.soak_batch(keys, t0, count, last, offs, block0s, out=got, force=force, **kw)
     assert again is got and torch.equal(again.table.view(torch.int32), want.table.view(torch.int32))
 
 

@@ -71,6 +71,52 @@ def test_mlp_init_bit_identical_to_jitted_jax(f, c, hidden):
         np.testing.assert_array_equal(b.b.numpy(), np.asarray(a.b))
 
 
+@pytest.mark.parametrize("dims", [(5, 16, 8, 3), (21, 128, 64, 40)])
+def test_init_normals_bit_identical_to_jitted_jax(dims):
+    """K8's plain version, the whole init in one call (``split``, then a
+    layer's normals, then the zero biases, in one buffer): equal bit for
+    bit to JAX's jitted ``make_mlp.init`` at 3 partitions and to the
+    per-layer composition it replaces."""
+    from distributed_drift_detection_tpu_torch.models.mlp import init_scales, mlp_init
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    jm = j_mlp(JSpec(dims[0], dims[-1]), hidden=dims[1:-1], fit_steps=1)
+    jkeys, tkeys = _keys(17, 3)
+    want = jax.jit(jax.vmap(jm.init))(jkeys)
+    counts = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    buf = threefry.init_normals_reference(tkeys, counts, init_scales(dims), 3 * sum(dims[1:]))
+    assert buf.shape == (3 * (sum(counts) + sum(dims[1:])),)
+    got = mlp_init(tkeys, dims)  # views of one such buffer
+    per_layer = mlp_init(tkeys, dims, normal=threefry.random_normal_reference)
+    at = 0
+    for a, g, r, (din, dout) in zip(want, got, per_layer, zip(dims[:-1], dims[1:])):
+        w = np.asarray(a.w).view(np.int32)
+        np.testing.assert_array_equal(g.w.numpy().view(np.int32), w)
+        np.testing.assert_array_equal(r.w.numpy().view(np.int32), w)
+        np.testing.assert_array_equal(buf[at:at + 3 * din * dout].view(3, din, dout)
+                                      .numpy().view(np.int32), w)
+        np.testing.assert_array_equal(g.b.numpy(), np.asarray(a.b))
+        assert g.w.untyped_storage().data_ptr() == got[0].w.untyped_storage().data_ptr()
+        at += 3 * din * dout
+    assert not bool(buf[at:].any())
+
+
+def test_init_normals_arguments():
+    """The one-call init refuses mismatched layer tables; a layer of no
+    normals leaves the zeros alone, and one layer is the normals of
+    ``split(key, 1)[0]``."""
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    keys = _keys(3, 2)[1]
+    with pytest.raises(ValueError, match="counts"):
+        threefry.init_normals(keys, [4, 5], [1.0])
+    got = threefry.init_normals(keys, [0], [1.0], zeros=6)
+    assert torch.equal(got, torch.zeros(6))
+    one = threefry.init_normals(keys, [7], [threefry.SQRT2])
+    assert torch.equal(one.view(2, 7), threefry.random_normal_reference(
+        threefry.split(keys, 1)[:, 0], 7))
+
+
 @pytest.mark.parametrize("case", sorted(FIT_CASES))
 def test_mlp_fit_close_to_jitted_jax(case):
     p, b, f, c, hidden, steps = FIT_CASES[case]

@@ -396,3 +396,171 @@ def test_soak_detector_names_resolve_as_in_jax(name):
                                       (3, 1234, 100), (1, 1000, 1000)])
 def test_planted_interior_boundaries_match_jax(p, r, de):
     assert tsoak.planted_interior_boundaries(p, r, de) == jsoak.planted_interior_boundaries(p, r, de)
+
+
+# --- K6's plan (engine/soak.py k6_plan, k6_tile_concepts): the tile a CTA
+# generates and the concept tables it stages, checked here without a card
+
+
+def _tile_rows(row_off, t, last, b, tile):
+    """The row positions of a K6 tile, as the kernel forms them."""
+    te = min(t, last)
+    i0 = tile * tsoak.K6_TILE
+    n = min(tsoak.K6_TILE, b - i0)
+    return row_off + te * b + i0 + np.arange(n, dtype=np.int64)
+
+
+@pytest.mark.parametrize("de", [1, 7, 255, 256, 700, 100_000])
+@pytest.mark.parametrize("b", [1, 64, 257, 2000])
+def test_k6_tile_concepts_match_blocks(de, b):
+    """A tile's concept span from its first row and length is exactly the
+    set of ``_blocks`` of its rows, on random offsets, clamped window tails
+    and rows up to 2^31 − 1, and never more than ``k6_max_span``."""
+    rng = np.random.default_rng(de * 7919 + b)
+    nb = 50
+    offs = [0, 2**31 - nb * b, *rng.integers(0, 2**31 - nb * b, 6).tolist()]
+    tiles = -(-b // tsoak.K6_TILE)
+    for row_off in offs:
+        for t in (0, 3, nb - 1, nb + 4):  # the last clamped to nb - 1
+            for tile in range(tiles):
+                rows = _tile_rows(row_off, t, nb - 1, b, tile)
+                assert rows[-1] <= 2**31 - 1
+                first, span = tsoak.k6_tile_concepts(rows[0], len(rows), de)
+                blocks = tsoak._blocks(torch.from_numpy(rows), de, 0)
+                assert sorted(set(blocks.tolist())) == list(range(first, first + span))
+                assert span <= tsoak.k6_max_span(b, de)
+    # the worst case is reached: a tile starting on a concept's last row
+    n = min(tsoak.K6_TILE, b)
+    assert tsoak.k6_tile_concepts(de - 1, n, de)[1] == tsoak.k6_max_span(b, de)
+
+
+# (generator, F, B, classes, drift_every, force) -> (slots, per_concept);
+# None: the forced layout is refused
+K6_PLANS = {
+    "prototypes_main": (("prototypes", 8, 2000, 8, 100_000, 0), (2, 64)),
+    "hyperplane_main": (("hyperplane", 10, 2000, 2, 100_000, 0), (2, 10)),
+    "gradual_main": (("hyperplane_gradual", 10, 2000, 2, 100_000, 0), (2, 10)),
+    "sea_one_layout": (("sea", 3, 2000, 2, 100_000, 2), (0, 0)),
+    "forced_per_row": (("prototypes", 8, 2000, 8, 100_000, 1), (0, 64)),
+    # 38 concepts a tile: their prototypes cost more than the rows' own
+    "de7_prototypes": (("prototypes", 8, 2000, 8, 7, 0), (0, 64)),
+    "de7_forced": (("prototypes", 8, 2000, 8, 7, 2), (38, 64)),
+    "de7_hyperplane": (("hyperplane", 10, 2000, 2, 7, 0), (38, 10)),
+    "de1_hyperplane_past_budget": (("hyperplane", 20, 2000, 2, 1, 0), (0, 20)),
+    # C·F past the budget (and past a CTA's shared memory when forced)
+    "classes_4096": (("prototypes", 16, 1000, 4096, 100_000, 0), (0, 65536)),
+    "classes_4096_forced": (("prototypes", 16, 1000, 4096, 100_000, 2), None),
+    "classes_256_cost": (("prototypes", 8, 2000, 256, 100_000, 0), (0, 2048)),
+    "classes_512_forced_slots": (("prototypes", 8, 300, 512, 18, 2), (14, 4096)),
+    "small_batch": (("prototypes", 8, 64, 8, 100_000, 0), (2, 64)),
+    "b1": (("hyperplane", 10, 1, 2, 1, 0), (1, 10)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_PLANS))
+def test_k6_plan_layouts(case):
+    """The plan stages a tile's concept tables when they fit the budget
+    and cost no more hashes than the rows' own draws, else takes the
+    per-row layout; ``force`` reaches each layout (refused only where one
+    concept's table exceeds a CTA's shared memory)."""
+    (gen, f, b, c, de, force), want = K6_PLANS[case]
+    if want is None:
+        with pytest.raises(ValueError, match="does not fit"):
+            tsoak.k6_plan(16, 1, b, f, gen, c, de, force)
+        return
+    plan = tsoak.k6_plan(16, 2, b, f, gen, c, de, force)
+    assert (plan.slots, plan.per_concept) == want
+    assert plan.tiles == -(-b // tsoak.K6_TILE) and plan.ctas == 32 * plan.tiles
+    assert plan.span == tsoak.k6_max_span(b, de)
+    assert plan.shared_bytes == plan.slots * (8 + 4 * plan.per_concept)
+    assert plan.shared_bytes <= tsoak.K6_MAX_SHARED
+    assert plan.layout == ("staged" if plan.slots else "per-row")
+    if force == 0 and plan.slots:
+        assert plan.slots * plan.per_concept <= tsoak.K6_STAGE_FLOATS
+
+
+def test_k6_plan_rejects_an_unknown_force():
+    with pytest.raises(ValueError, match="force"):
+        tsoak.k6_plan(4, 1, 100, 8, "prototypes", 8, 100, 3)
+
+
+def _k6_staged_model(keys, t0, count, last, row_offs, block0s, *, per_batch, features,
+                     drift_every, generator, classes=8, slots):
+    """K6's staged layout in plain PyTorch, tile by tile as a CTA works: the
+    batch's keys once, each reached concept's table (prototypes × the
+    factor, or weight uniforms) once, each row's own draws, the table read
+    at (row // de − first, y·F + f) — or a row's entries inline where the
+    tile reaches more than ``slots`` concepts."""
+    from distributed_drift_detection_tpu_torch.models.base import row_stride
+
+    gid = tsoak._generator(generator)[2]
+    p, b, f, de = keys.shape[0], per_batch, features, drift_every
+    out = torch.zeros((p * count * b, row_stride(f)))
+    labels = torch.zeros(p * count * b, dtype=torch.int32)
+    key11 = torch.as_tensor(threefry.key(11 if gid == 3 else 7)).long()
+    for q in range(p):
+        for c in range(count):
+            te = min(t0 + c, last)
+            kt = threefry.fold_in(keys[q].long(), te)
+            for tile in range(-(-b // tsoak.K6_TILE)):
+                rows = _tile_rows(int(row_offs[q]), t0 + c, last, b, tile)
+                i = torch.arange(tile * tsoak.K6_TILE, tile * tsoak.K6_TILE + len(rows))
+                first, span = tsoak.k6_tile_concepts(rows[0], len(rows), de)
+                staged = span <= slots
+                blocks = int(block0s[q]) + torch.from_numpy(rows) // de
+                ckeys = threefry.fold_in(key11, blocks)  # a row's concept key
+                e = (q * count + c) * b + i
+                if gid == 3:
+                    kc, kn = threefry.split(kt, 2)
+                    y = threefry.randint(kc, (b,), 0, classes)[i]
+                    if staged:
+                        tkeys = threefry.fold_in(key11, int(block0s[q]) + first
+                                                 + torch.arange(span))
+                        table = threefry.normal_erf_inv(threefry.unit_floats(threefry.bits_at(
+                            tkeys, torch.arange(classes * f)))) * tsoak.normal_factor(3.0)
+                        slot = torch.from_numpy(rows) // de - first
+                        proto = table[slot[:, None], y[:, None] * f + torch.arange(f)]
+                    else:
+                        proto = threefry.normal_erf_inv(threefry.unit_floats(threefry.bits_at(
+                            ckeys, y[:, None] * f + torch.arange(f)))) * tsoak.normal_factor(3.0)
+                    noise = threefry.normal_erf_inv(threefry._unit_floats(kn, (b, f)))[i]
+                    out[e, :f] = tsoak.fma(noise, tsoak.normal_factor(0.08), proto)
+                    labels[e] = y.int()
+                else:
+                    kx = threefry.split(kt, 2)[0]
+                    X = threefry.uniform(kx, (b, f))[i]
+                    if staged:
+                        tkeys = threefry.fold_in(key11, int(block0s[q]) + first
+                                                 + torch.arange(span))
+                        w = threefry.uniform(tkeys, (f,))[torch.from_numpy(rows) // de - first]
+                    else:
+                        w = threefry.uniform(ckeys, (f,))
+                    if gid == 2:
+                        period = max(de, 1)
+                        phase = (torch.from_numpy(rows) % period).float() * tsoak.rotation_scale(
+                            period)
+                        arg = phase[:, None] + torch.arange(f, dtype=torch.float32)
+                        w = tsoak.fma(torch.sin(arg.double()).float(), 0.3, w)
+                    out[e, :f] = X
+                    labels[e] = (tsoak.hyperplane_margin(X, w) > 0).int()
+    return out, labels
+
+
+@pytest.mark.parametrize("generator, f, de, slots", [
+    ("prototypes", 8, 7, 38), ("prototypes", 5, 300, 2), ("prototypes", 8, 18, 14),
+    ("hyperplane", 10, 7, 38), ("hyperplane_gradual", 10, 300, 2), ("hyperplane", 1, 100, 0),
+])
+def test_k6_staged_model_matches_the_reference(generator, f, de, slots):
+    """The staged layout's arithmetic — a tile's concept tables indexed by
+    (row // de − first, y·F + f), a tile past its slots computing inline —
+    gives the plain version's bits, on partition-local rows with concept
+    offsets and a clamped tail."""
+    p, b, count, t0, last = 3, 300, 3, 4, 5
+    keys = device_keys(threefry.split(threefry.key(9), p), "cpu")
+    offs = torch.tensor([0, 5_000, 2**31 - 1 - 10 * b], dtype=torch.int32)
+    block0s = torch.tensor([0, 17, 3], dtype=torch.int32)
+    kw = dict(per_batch=b, features=f, drift_every=de, generator=generator)
+    want = tsoak.soak_batch_reference(keys, t0, count, last, offs, block0s, **kw)
+    table, labels = _k6_staged_model(keys, t0, count, last, offs, block0s, slots=slots, **kw)
+    assert torch.equal(table.view(torch.int32), want.table.view(torch.int32))
+    assert torch.equal(labels, want.labels)

@@ -110,15 +110,16 @@ def test_normal_map_exhaustive():
 
 @pytest.mark.parametrize("din", [21, 64, 128])
 def test_random_normal_factor_is_the_jitted_scale(din):
-    """``random_normal(keys, n, f32(√2·scale))`` is XLA's jitted ``scale *
-    normal``: the two constants folded into one factor (the MLP's init)."""
+    """``random_normal_reference(keys, n, f32(√2·scale))`` is XLA's jitted
+    ``scale * normal``: the two constants folded into one factor (the MLP's
+    init)."""
     from distributed_drift_detection_tpu_torch.models.mlp import init_scales
 
     keys = jax.random.split(jax.random.key(9), 3)
     scale = jnp.sqrt(2.0 / din)
     want = np.asarray(jax.jit(jax.vmap(lambda k: scale * jax.random.normal(k, (din * 5,))))(keys))
     factor = init_scales((din, 5))[0]
-    got = threefry.random_normal(_torch_key(_data(keys)), din * 5, factor).numpy()
+    got = threefry.random_normal_reference(_torch_key(_data(keys)), din * 5, factor).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
