@@ -6,12 +6,12 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the twelve hand-written kernels from ``csrc/`` with nvcc (in
+2. build the thirteen hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
    ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
    K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
    ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``,
-   K6 ``soak_batch`` (``csrc/soak_gen.cu``);
+   K6 ``soak_batch`` (``csrc/soak_gen.cu``), K13 ``shuffle_perm``;
    and the native CSV parser (``native/ddd_native.cc``, with the host C++
    compiler into ``kernels/_build/``);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -184,7 +184,29 @@ without them. Phases, each fatal on failure:
    K6, K7, K2 and K1 launched (counters reset just before the first timed
    run); one traced window of 50 steps for the idle share; (g) SMOKE with
    ``validate=True``, with a ``profile_dir`` and with a ``trace_dir``: phase
-   4's flags, and each Chrome trace names K1, K2 and K7.
+   4's flags, and each Chrome trace names K1, K2 and K7;
+18. streaming ingest, the in-loop shuffle and the tenant plane: (a) K13
+   (``ops/shuffle.py`` ``shuffle_planes``) bit for bit against its plain
+   version at every B of ``K13_BS`` (1, the one-round edge 1625, two
+   rounds from 1626, 20,000 on its global path), P = 16, W = 1 (a key a
+   batch) and W = 128 (keys split W ways, each lane's start), int16 and
+   int32 index planes, and with its draws forced to tie on both paths;
+   timed as K7 is at the shuffled window engine's launch [16, 128, 100],
+   with a ``floor_ms`` and ``library_ms`` (``torch.sort(stable=True)`` of
+   the draws: the sort only); (b) SMOKE's stream written as a 2,048,000-row
+   CSV, ``csv_chunks`` → ``prefetch_chunks`` → ``api.prepare_chunked``
+   (W = 128, R = 4, ``CHUNK_BATCHES`` a chunk) with 1 and 4 ingest
+   workers, counted: 624 detections and phase 4's flags field by field,
+   rows/s end to end (parse included) and the stage breakdown; the
+   ``chunked`` CLI on the same CSV, 624 detections with 1 and 4 workers;
+   (c) ``ChunkedDetector(shuffle=True)`` at ``SHUFFLE_MULT`` with window 1
+   and with window 8, R = 2, counted: flags equal to the same run on the
+   CPU, K13 launched; K13's in-run µs from one traced chunk; (d) a
+   checkpoint after chunk 2 restored into a fresh detector: the remaining
+   flags equal the uninterrupted run's; (e) ``run_multi`` of ``TENANTS``
+   tenants at SMOKE, counted: each tenant's flags and vote equal to its
+   solo run (tenant 0's to phase 4's), each tenant's votes and metrics
+   printed, the stacked Final Time and rows/s.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1332,8 +1354,9 @@ def k12_library_ms(torch, params, Tp, idx, f):
 
 
 def forest_fit_ops(b, f, trees, depth):
-    """Operations one partition's fit needs, whatever its algorithm (the
-    integer hash of the draws left out): erf_inv's ≈ 40 a normal, z's
+    """f32 operations one partition's fit needs, whatever its algorithm
+    (the draws' integer hashes are :func:`forest_fit_int_ops`): erf_inv's
+    ≈ 40 a normal, z's
     product and add a (row, node, feature), a selection of ⌈log2 B⌉
     compares a (row, node) — what a sort of each column takes — the
     routing's compare a (row, tree, level), and an add a (row, tree) for
@@ -1341,6 +1364,14 @@ def forest_fit_ops(b, f, trees, depth):
     tn = trees * ((1 << depth) - 1)
     return (40 * f * tn + 2 * b * tn * f + b * math.ceil(math.log2(b)) * tn
             + b * trees * depth + b * trees + b)
+
+
+def forest_fit_int_ops(f, trees, depth):
+    """32-bit integer operations of one partition's draws: a threefry hash
+    (``HASH_INT_OPS``) for each of the F·T·n normals and T·n uniforms, and
+    the two of ``split(key, 2)``."""
+    tn = trees * ((1 << depth) - 1)
+    return HASH_INT_OPS * (f * tn + tn + 2)
 
 
 def check_k11_k12(torch, kernels, forest, prep, dev):
@@ -1390,13 +1421,16 @@ def check_k11_k12(torch, kernels, forest, prep, dev):
     fit_floor = graph_ms(lambda: kernels.check("forest_fit_floor", floor(
         p, b, f, c, trees, depth, kernels.stream_handle(dev))))
     tn = trees * ((1 << depth) - 1)
-    # X, y, w and the keys read once; proj, thresh and leaf_class written once
+    # X, y, w and the keys read once; proj, thresh and leaf_class written
+    # once; the f32 work, and the draws' hashes at the integer rate
+    fit_int = p * forest_fit_int_ops(f, trees, depth)
     fb_ms, fby = bound(p * b * (f + 2) * 4 + p * 8 + p * (f * tn + tn + trees * (1 << depth)) * 4,
-                       p * forest_fit_ops(b, f, trees, depth))
+                       p * forest_fit_ops(b, f, trees, depth), fit_int)
     fplan = forest.k11_plan(b, f, c, trees, depth)
     print(f"K11 forest_fit [{p}, {b}] F={f} C={c} T={trees} depth {depth}: {fit_ms:.5f} ms "
           f"device (graph of 50), {fit_host:.1f} us host a call, {fit_plain:.4f} ms plain, "
-          f"bound {fb_ms:.5f} ms ({fby}), floor {fit_floor:.5f} ms (an empty kernel with its "
+          f"bound {fb_ms:.5f} ms ({fby}; {fit_int:,} integer operations at "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T/s), floor {fit_floor:.5f} ms (an empty kernel with its "
           f"grid, block and shared memory); {p * trees} CTAs, layout {fplan._asdict()}")
 
     err = torch.empty((p, n), dtype=torch.float32, device=dev)
@@ -1542,7 +1576,7 @@ def wrappers():
     """Each kernel's counted wrapper, by kernel name."""
     from distributed_drift_detection_tpu_torch.engine import soak
     from distributed_drift_detection_tpu_torch.models import classifiers, forest, mlp
-    from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors
+    from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors, shuffle
     from distributed_drift_detection_tpu_torch.utils import threefry
 
     return {"ddm_window": ddm.ddm_window,
@@ -1556,7 +1590,8 @@ def wrappers():
             "mlp_predict_err": mlp.mlp_predict_err,
             "forest_fit": forest.forest_fit,
             "forest_predict_err": forest.forest_predict_err,
-            "soak_batch": soak.soak_batch}
+            "soak_batch": soak.soak_batch,
+            "shuffle_perm": shuffle.shuffle_planes}
 
 
 def reset_launches() -> None:
@@ -1739,7 +1774,8 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "mlp_predict_err": "mlp_predict_err_kernel",
                   "forest_fit": "forest_fit_kernel",
                   "forest_predict_err": "forest_predict_err_kernel",
-                  "soak_batch": "soak_tile_kernel"}
+                  "soak_batch": "soak_tile_kernel",
+                  "shuffle_perm": "shuffle_perm_kernel"}
 
 
 def traced(torch, run) -> tuple[list, float]:
@@ -2769,6 +2805,299 @@ def soak_phase(torch, api, config, kernels, classifiers, res, dev):
                              idle_share=idle)
 
 
+# Phase 18: K13's cases (B places a batch; P partitions; W = 1 with a key a
+# batch, the loop engine's, and W = 128 with keys split W ways, the window
+# engine's), the chunked path's geometry and the cut depth of the shuffled
+# runs.
+K13_BS = (1, 2, 100, 1625, 1626, 2000, 20000)
+K13_P = 16
+CHUNK_BATCHES = 256
+SHUFFLE_MULT, SHUFFLE_CB = 64, 32
+TENANTS = 4
+
+
+def k13_planes(torch, p, nb, b, idx_dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, 30000, (p, nb, b), generator=g).to(idx_dtype)
+    rows = torch.randint(-1, 2**31 - 1, (p, nb, b), generator=g).to(torch.int32)
+    valid = torch.rand((p, nb, b), generator=g) < 0.8
+    return idx.to(dev), rows.to(dev), valid.to(dev)
+
+
+def k13_keys(torch, shape, dev, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32)).to(dev)
+
+
+def k13_equal(torch, shuffle, args, kw, what):
+    got = shuffle.shuffle_planes(*args, **kw)
+    ref = shuffle.shuffle_planes_reference(*args, **{k: v for k, v in kw.items() if k != "force"})
+    for g, r in zip(got, ref):
+        check(g.dtype == r.dtype and bool(torch.equal(g, r)),
+              f"K13 differs from its plain version ({what})")
+
+
+def k13_int_ops(p, w, b):
+    """32-bit integer operations of K13's work, whatever its algorithm: a
+    threefry hash (``HASH_INT_OPS``) for each draw and for each round's key
+    split and the batch's key, and ⌈log2 B⌉ compares a place a round (what
+    any comparison sort of B places needs)."""
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    rounds = threefry.permutation_rounds(b)
+    hashes = p * w * (rounds * (b + 2) + 1)
+    return HASH_INT_OPS * hashes + p * w * rounds * b * max(1, math.ceil(math.log2(b)))
+
+
+def check_k13(torch, kernels, dev):
+    """K13 against its plain version on the card, bit for bit, at every B
+    of ``K13_BS`` (the global path at 20,000), W = 1 and 128, int16 and
+    int32 index planes, and with its draws forced to tie (on both paths);
+    then timed at the shuffled window engine's launch (P = 16, W = 128, B =
+    100, a chunk's 256 batches and the window's pad). Returns its row."""
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    cases = 0
+    for b in K13_BS:
+        for w, derive in ((1, False), (128, True)):
+            for dt in (torch.int16, torch.int32):
+                nb = w + 5
+                planes = k13_planes(torch, K13_P, nb, b, dt, dev, b + w)
+                keys = k13_keys(torch, (K13_P, 2) if derive else (K13_P, w, 2), dev, b)
+                start = torch.randint(0, 6, (K13_P,), device=dev) if derive else None
+                k13_equal(torch, shuffle, (keys, *planes, w, start), dict(derive=derive),
+                          f"B={b} W={w} {dt}")
+                cases += 1
+    for b in (100, 1626):
+        planes = k13_planes(torch, K13_P, 130, b, torch.int32, dev, 7)
+        keys = k13_keys(torch, (K13_P, 2), dev, 11)
+        for force in (0, 1):
+            k13_equal(torch, shuffle, (keys, *planes, 128, None),
+                      dict(tie_mask=0x3, force=force), f"ties at B={b}, force {force}")
+            cases += 1
+    print(f"K13 shuffle_perm: bit for bit its plain version in {cases} launches: B = "
+          + ", ".join(map(str, K13_BS)) + f" (P = {K13_P}, W = 1 and 128, int16 and int32 "
+          "index planes; B = 20000 on its global path) and draws forced to tie (mask 0x3, "
+          "B = 100 and 1626, shared and global paths)")
+
+    p, w, b = K13_P, 128, 100
+    nb = CHUNK_BATCHES + w
+    idx, rows, valid = k13_planes(torch, p, nb, b, torch.int32, dev, 1)
+    keys = k13_keys(torch, (p, 2), dev, 3)
+    start = torch.randint(0, CHUNK_BATCHES, (p,), device=dev)
+    outs = [torch.empty((p, w, b), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, torch.bool)]
+    fn = kernels.launcher("shuffle_perm")
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    rounds = threefry.permutation_rounds(b)
+
+    def launch():
+        kernels.check("shuffle_perm", fn(
+            keys.data_ptr(), 1, p, w, idx.data_ptr(), 4, rows.data_ptr(), valid.data_ptr(),
+            start.data_ptr(), nb, b, rounds, 0xFFFFFFFF, 0, *(o.data_ptr() for o in outs),
+            None, kernels.stream_handle(dev)))
+
+    ms = graph_ms(launch)
+    h_us = host_us(lambda: shuffle.shuffle_planes(keys, idx, rows, valid, w, start))
+    plain_ms = time_ms(lambda: shuffle.shuffle_planes_reference(keys, idx, rows, valid, w, start),
+                       reps=3, rounds=3)
+    draws = torch.randint(0, 2**32, (p * w, b), device=dev, dtype=torch.int64)
+    lib_ms = time_ms(lambda: torch.sort(draws, dim=-1, stable=True))
+    floor = kernels.launcher("shuffle_perm_floor")
+    floor_ms = graph_ms(lambda: kernels.check(
+        "shuffle_perm_floor", floor(p, w, b, 0, kernels.stream_handle(dev))))
+    n = p * w * b
+    nbytes = n * (4 + 4 + 1) * 2 + p * (8 + 8)  # planes read and written, keys, starts
+    int_ops = k13_int_ops(p, w, b)
+    b_ms, by = bound(nbytes, 0, int_ops)
+    lay = shuffle.k13_layout(b)
+    print(f"K13 shuffle_perm [{p}, {w}, {b}] (derived keys, each lane's start): {ms:.5f} ms "
+          f"device (graph of 50; {lay['path']} path, {lay['threads']} threads, "
+          f"{lay['shared_bytes']} shared bytes, {p * w} CTAs), {h_us:.1f} us host a call, "
+          f"{plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}: {int_ops:,} integer operations "
+          f"at {INT32_OPS_PER_S / 1e12:.2f} T/s, {nbytes:,} bytes), library {lib_ms:.5f} ms "
+          f"(torch.sort(stable=True) of the [{p * w}, {b}] int64 draws: the sort only), floor "
+          f"{floor_ms:.5f} ms (an empty kernel with its grid)")
+    return dict(
+        name="shuffle_perm", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/shuffle_perm.cu",
+        replaces="distributed_drift_detection_tpu/engine/window.py:211",
+        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=by, library_ms=lib_ms, library="torch.sort(stable=True), the sort only",
+        floor_ms=floor_ms,
+    )
+
+
+def float32_text(v) -> str:
+    """A decimal that strtod, then a cast to float32, parses back to the
+    float32 ``v`` (the native parser's path): the shortest float32
+    repr when it does, else the float64 repr, exact."""
+    s = np.format_float_positional(np.float32(v), unique=True, trim="-")
+    return s if np.float32(float(s)) == np.float32(v) else repr(float(v))
+
+
+def write_stream_csv(stream, path: str) -> int:
+    """The synthesized stream's rows, in stream order, in the reference's
+    CSV schema: every row one of the row table's, its text built once."""
+    base = [",".join(float32_text(v) for v in row) + f",{int(lab)}"
+            for row, lab in zip(stream.base_X, stream.base_y)]
+    f = stream.base_X.shape[1]
+    with open(path, "w") as fh:
+        fh.write(",".join([*map(str, range(f)), "target"]) + "\n")
+        fh.write("\n".join(base[i] for i in stream.src.tolist()) + "\n")
+    return os.path.getsize(path)
+
+
+def chunked_phase(torch, api, config, kernels, cfg, res, dev):
+    """Phase 18 (module docstring): returns K13's kernel row."""
+    import contextlib
+    import io
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.engine.chunked import ChunkedDetector
+    from distributed_drift_detection_tpu_torch.harness import chunked_cli
+    from distributed_drift_detection_tpu_torch.io import feeder
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    # (a) K13 against its plain version, timed
+    row = check_k13(torch, kernels, dev)
+
+    # (b) the chunked path at full width from the stream's CSV
+    tmp = tempfile.TemporaryDirectory()
+    csv_path = f"{tmp.name}/stream.csv"
+    t0 = time.perf_counter()
+    nbytes = write_stream_csv(res.stream, csv_path)
+    print(f"stream CSV: {res.stream.num_rows} rows, {nbytes:,} bytes, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    f, c = res.stream.num_features, res.stream.num_classes
+    p, b = cfg.partitions, cfg.per_batch
+    ccfg = config.replace(cfg, window=128, window_rotations=4)
+    for workers in (1, 4):
+        det, info = api.prepare_chunked(config.replace(ccfg, ingest_workers=workers), f, c,
+                                        chunk_batches=CHUNK_BATCHES, device=dev)
+        reg = MetricsRegistry()
+        reset_launches()
+        t0 = time.perf_counter()
+        chunks = feeder.prefetch_chunks(feeder.csv_chunks(
+            csv_path, p, b, CHUNK_BATCHES, shuffle_seed=config.host_shuffle_seed(cfg),
+            workers=feeder.resolve_ingest_workers(workers), metrics=reg), metrics=reg)
+        flags = det.run(chunks, metrics=reg)
+        span = time.perf_counter() - t0
+        launches = read_launches()
+        detections = int((flags.change_global >= 0).sum())
+        check(detections == EXPECTED_DETECTIONS,
+              f"chunked ({workers} workers): {detections} detections")
+        for name in res.flags._fields:
+            check(np.array_equal(getattr(flags, name), getattr(res.flags, name)),
+                  f"chunked ({workers} workers): flags.{name} differ from phase 4's run")
+        for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+            check(launches[k] > 0, f"chunked: kernel {k} was not launched")
+        rows_in = int(reg.counter("ingest_rows_total").values[()])
+        print(f"chunked on the card ({workers} ingest workers, W=128 R=4, {CHUNK_BATCHES} "
+              f"batches a chunk): {detections} detections, flags equal to phase 4's run; "
+              f"{rows_in} rows in {span:.3f} s end to end (parse included), "
+              f"{rows_in / span:,.0f} rows/s; prepare {info['aot_seconds']:.3f} s; stages "
+              f"{feeder.stage_breakdown(reg)}; launches {launches}")
+    cli = {}
+    for workers in ("1", "4"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            chunked_cli.main([csv_path, "--classes", str(c), "--partitions", str(p),
+                              "--per-batch", str(b), "--chunk-batches", str(CHUNK_BATCHES),
+                              "--window", "128", "--ingest-workers", workers],
+                             device=str(dev))
+        cli[workers] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(cli[workers]["detections"] == EXPECTED_DETECTIONS,
+              f"chunked CLI ({workers} workers): {cli[workers]['detections']} detections")
+    print("chunked CLI on the card: " + "; ".join(
+        f"{w} workers: detections {o['detections']}, rows {o['rows']}, chunks {o['chunks']}, "
+        f"{o['rows_per_sec']:,.0f} rows/s, stages {o['pipeline_s']}" for w, o in cli.items()))
+    tmp.cleanup()
+
+    # (c) shuffle=True on the card at a cut depth, against the CPU
+    scfg = config.replace(cfg, mult_data=SHUFFLE_MULT)
+    stream = api._load_stream_for(scfg)
+    model = build_model("centroid", ModelSpec(f, c))
+
+    def shuffled(device, **kw):
+        det = ChunkedDetector(model, partitions=p, shuffle=True, device=device, **kw)
+        chunks = list(feeder.chunk_stream_arrays(stream.X, stream.y, p, b, SHUFFLE_CB))
+        return det, chunks
+
+    full = {}
+    for name, kw in (("window=1", dict(window=1)), ("window=8 R=2", dict(window=8, rotations=2))):
+        cdet, chunks = shuffled("cpu", **kw)
+        want = cdet.run(chunks)
+        det, chunks = shuffled(dev, **kw)
+        reset_launches()
+        got = det.run(chunks)
+        launches = read_launches()
+        for fld in want._fields:
+            check(np.array_equal(getattr(got, fld), getattr(want, fld)),
+                  f"shuffled {name}: flags.{fld} differ between the card and the CPU")
+        check(launches["shuffle_perm"] > 0, f"shuffled {name}: K13 was not launched")
+        full[name] = (got, launches["shuffle_perm"])
+        print(f"shuffle=True chunked {name} (mult_data {SHUFFLE_MULT}, {SHUFFLE_CB} batches a "
+              f"chunk) on the card: {int((got.change_global >= 0).sum())} detections, flags "
+              f"equal to the CPU run; launches {launches}")
+    row["launches"] = full["window=8 R=2"][1]
+    det, chunks = shuffled(dev, window=8, rotations=2)
+    it = iter(chunks)
+    det.feed(next(it))
+    kern, _ = traced(torch, lambda: det.feed(next(it)))
+    hits = [e for e in kern if KERNEL_SYMBOLS["shuffle_perm"] in e.key]
+    count = sum(e.count for e in hits)
+    check(count > 0, "the profiler saw no K13 launch in a shuffled chunk")
+    row["in_run_launches"] = count
+    row["in_run_us"] = sum(e.self_device_time_total for e in hits) / count
+    print(f"K13 in a shuffled chunk (window 8, R = 2): {count} launches x "
+          f"{row['in_run_us']:.2f} us")
+
+    # (d) a checkpoint mid-stream
+    ckpt = f"{tempfile.mkdtemp()}/chunked.ckpt"
+    a, chunks = shuffled(dev, window=8, rotations=2)
+    head = [a.feed(ch) for ch in chunks[:2]]
+    a.save(ckpt)
+    b_det, _ = shuffled(dev, window=8, rotations=2)
+    b_det.restore(ckpt, example_chunk=chunks[0])
+    tail = [b_det.feed(ch) for ch in chunks[2:]]
+    want = full["window=8 R=2"][0]
+    for i, fld in enumerate(want._fields):
+        got = np.concatenate([fl[i].cpu().numpy() for fl in head + tail], 1)
+        check(np.array_equal(got, getattr(want, fld)),
+              f"resumed chunked run: flags.{fld} differ from the uninterrupted run")
+    os.remove(ckpt)
+    print("checkpoint after chunk 2, restored into a fresh detector: the remaining flags "
+          "equal the uninterrupted run's")
+
+    # (e) the tenant plane: run_multi of TENANTS tenants at SMOKE
+    reset_launches()
+    mr = api.run_multi(config.replace(cfg, tenants=TENANTS), device=dev)
+    ml = read_launches()
+    for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+        check(ml[k] > 0, f"run_multi: kernel {k} was not launched")
+    for t, r in enumerate(mr.results):
+        solo = res if t == 0 else api.run(config.replace(cfg, seed=t), device=dev)
+        for fld in r.flags._fields:
+            check(np.array_equal(getattr(r.flags, fld), getattr(solo.flags, fld)),
+                  f"run_multi: tenant {t}'s flags.{fld} differ from its solo run")
+        check(np.array_equal(r.drift_vote, solo.drift_vote), f"run_multi: tenant {t}'s vote")
+        v = r.drift_vote
+        print(f"tenant {t} of {TENANTS} on the card: {r.metrics.num_detections} detections, "
+              f"mean delay {r.metrics.mean_delay_rows:.4f} rows, vote max {v.max():.4f} at "
+              f"{int((v > 0.5).sum())} steps above 0.5; flags and vote equal to its solo run"
+              + (" (phase 4's)" if t == 0 else ""))
+    print(f"run_multi ({TENANTS} tenants at SMOKE, one stacked run): Final Time "
+          f"{mr.total_time:.4f} s, {mr.agg_rows_per_sec:,.0f} rows/s over {mr.rows} rows; "
+          f"launches {ml}")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -2999,6 +3328,9 @@ def main(device: str = "cuda") -> int:
         if kid:
             row["soak_ms"] = {k: v for k, v in fit_ms.items() if k.startswith(kid)}
     rows.append(k6_row)
+
+    # 18. streaming ingest, the in-loop shuffle (K13) and the tenant plane
+    rows.append(chunked_phase(torch, api, config, kernels, cfg, res, dev))
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

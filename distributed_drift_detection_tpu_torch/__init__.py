@@ -24,4 +24,12 @@ def run(cfg, stream=None, device="cuda"):
     return _run(cfg, stream, device=device)
 
 
-__all__ = ["DDMParams", "RunConfig", "replace", "run", "__version__"]
+def run_multi(cfg, streams=None, device="cuda"):
+    """Execute a stacked multi-tenant run: T tenants' streams through one
+    runner (lazy import, as :func:`run`; ``api.run_multi``)."""
+    from .api import run_multi as _run_multi
+
+    return _run_multi(cfg, streams, device=device)
+
+
+__all__ = ["DDMParams", "RunConfig", "replace", "run", "run_multi", "__version__"]

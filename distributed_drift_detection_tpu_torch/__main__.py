@@ -28,10 +28,16 @@ the whole Final Time span and ``--trace-dir DIR`` the detect phase with
 under DIR (``plugins/profile/<time>/<host>.pt.trace.json``); the two
 together fail before any work.
 
-Five subcommands work on the host; only ``heal --execute`` and the
-workers ``sched`` spawns run experiments (on the card, or with ``--device
-cpu`` on the plain path), and the others import no torch:
+``--tenants N`` above 1 runs N tenants' streams as one stacked run
+(``api.run_multi``) and prints a summary line a tenant, then the
+aggregate.
 
+Six subcommands: ``chunked`` streams a CSV through the chunked engine
+(``harness.chunked_cli``, on the card or with ``--device cpu``); only it,
+``heal --execute`` and the workers ``sched`` spawns run experiments, and
+``doctor`` and ``registry`` import no torch:
+
+    python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]
     python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
     python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]
     python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]
@@ -47,8 +53,8 @@ whole); ``sched`` is the sweep scheduler daemon that leases cells to
 (``sched``); ``registry compact`` rewrites an ``index.jsonl`` as one
 record per run (``telemetry.registry``).
 
-The JAX package's other subcommands and ``--tenants N`` above 1 are not
-ported yet: each exits nonzero naming its ROADMAP item.
+The JAX package's other subcommands are not ported yet: each exits
+nonzero naming its ROADMAP item.
 """
 
 import sys
@@ -58,7 +64,9 @@ _USAGE = (
     "[--trace-dir DIR] [--profile-dir DIR] [--telemetry-dir DIR] "
     "[--data-policy strict|quarantine|repair] "
     "[--compile-cache-dir DIR] [--collect compact|full] "
+    "[--tenants N] "
     "[URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA [DATASET]]\n"
+    "       python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]\n"
     "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
     "       python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]\n"
     "       python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]\n"
@@ -72,13 +80,13 @@ UNPORTED_SUBCOMMANDS = {
     **dict.fromkeys(
         ("report", "perf", "watch", "top", "pipeline", "history", "collector",
          "correlate", "timeline", "explain", "incident"), "A15"),
-    "chunked": "A10b",
     **dict.fromkeys(("serve", "loadgen", "router"), "A12"),
 }
 
 # The host-side subcommands: module, and whether the ``device`` of
-# :func:`main` is its ``--device`` default (those that reach ``api.run``).
+# :func:`main` is its ``--device`` default (those that run experiments).
 SUBCOMMANDS = {
+    "chunked": (".harness.chunked_cli", True),
     "doctor": (".io.sanitize", False),
     "heal": (".resilience.heal", True),
     "sched": (".sched.scheduler", True),
@@ -158,8 +166,7 @@ def main(argv: list[str], device="cuda") -> None:
             raise SystemExit(f"{_USAGE}\n({e})") from None
         if tenants < 1:
             raise SystemExit(f"{_USAGE}\n(--tenants must be >= 1)")
-        if tenants > 1:
-            raise SystemExit("not ported yet: --tenants above 1 (ROADMAP A11)")
+        kw["tenants"] = tenants
     if argv and len(argv) not in (6, 7):
         raise SystemExit(_USAGE)
     if argv:
@@ -177,10 +184,34 @@ def main(argv: list[str], device="cuda") -> None:
         if len(argv) == 7:
             kw["dataset"] = argv[6]
 
-    from .api import run
     from .config import RunConfig
 
-    res = run(RunConfig(**kw), device=device)
+    cfg = RunConfig(**kw)
+    if cfg.tenants > 1:
+        # the stacked tenant plane: a line a tenant (each its solo run's),
+        # then the aggregate
+        from .api import run_multi
+
+        mr = run_multi(cfg, device=device)
+        for t, r in enumerate(mr.results):
+            m = r.metrics
+            print(
+                f"tenant={t} rows={r.stream.num_rows} "
+                f"detections={m.num_detections} "
+                f"mean_delay_rows={m.mean_delay_rows:.1f}"
+            )
+        print(
+            f"tenants={cfg.tenants} rows={mr.rows} "
+            f"final_time={mr.total_time:.3f}s "
+            f"agg_rows_per_sec={mr.agg_rows_per_sec:.1f}"
+        )
+        if mr.telemetry_path:
+            print(f"telemetry={mr.telemetry_path}")
+        return
+
+    from .api import run
+
+    res = run(cfg, device=device)
     m = res.metrics
     print(
         f"rows={res.stream.num_rows} detections={m.num_detections} "

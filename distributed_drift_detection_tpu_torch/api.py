@@ -134,14 +134,8 @@ def _check_slice(cfg: RunConfig) -> None:
         from .models.rf import require_sklearn
 
         require_sklearn()  # before any work: the card's machine has none
-    unported = [
-        (cfg.tenants != 1, f"tenants={cfg.tenants} (ROADMAP A11)"),
-        (cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1,
-         "a multi-device mesh (ROADMAP A15)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1:
+        raise NotImplementedError("not ported yet: a multi-device mesh (ROADMAP A15)")
 
 
 def _resolve_policies(cfg: RunConfig, stream: StreamData) -> RunConfig:
@@ -195,12 +189,70 @@ def _load_stream_for(cfg: RunConfig) -> StreamData:
     )
 
 
+def kernel_names(model: str, detector: str, shuffle: bool = False) -> list:
+    """The hand-written kernels a run of ``model`` with ``detector``
+    launches (with the in-loop shuffle's K13 when ``shuffle``)."""
+    names = [DETECTOR_KERNELS[detector]] if detector in DETECTOR_KERNELS else []
+    names += MODEL_KERNELS.get(model, ())
+    return names + (["shuffle_perm"] if shuffle else [])
+
+
+def build_kernels(names, dev: torch.device) -> dict:
+    """On the card, build the kernels ``names`` (one nvcc each, all started
+    together) and load them: ``{"cached": no library was rebuilt,
+    "build_seconds": nvcc wall time}``; nothing to do on the CPU."""
+    if dev.type != "cuda":
+        return {"cached": True, "build_seconds": 0.0}
+    from . import kernels
+
+    cached = all(_build.library_path(name).exists() for name in names)
+    t0 = time.perf_counter()
+    _build.build_all(names)
+    info = {"cached": cached, "build_seconds": time.perf_counter() - t0}
+    for name in names:
+        kernels.launcher(name)
+    return info
+
+
+def _build_runner(cfg: RunConfig, model, nb: int, packed: bool, dev: torch.device):
+    """The mesh runner of a resolved ``cfg`` over ``nb`` microbatches a
+    partition, and its kernels built (:func:`build_kernels`) — the one
+    copy :func:`prepare` and :func:`prepare_multi` share. The compaction
+    capacity is sized from the geometry unless pinned; 0 (the full-plane
+    collect) for ``collect='full'`` and for ``validate=True``, whose audit
+    wants the plane the device produced, not a reconstruction."""
+    capacity = (
+        cfg.collect_capacity or auto_compact_capacity(cfg.partitions, max(nb - 1, 1))
+        if cfg.collect == "compact" and not cfg.validate
+        else 0
+    )
+    runner = make_mesh_runner(
+        model,
+        cfg.ddm,
+        retrain_error_threshold=cfg.retrain_error_threshold,
+        window=cfg.window,
+        packed=packed,
+        detector=make_detector(
+            cfg.detector, ddm=cfg.ddm, ph=cfg.ph, eddm=cfg.eddm, hddm=cfg.hddm,
+            hddm_w=cfg.hddm_w, adwin=cfg.adwin, kswin=cfg.kswin, stepd=cfg.stepd,
+        ),
+        rotations=cfg.window_rotations,
+        compact_capacity=capacity,
+    )
+    return runner, build_kernels(kernel_names(cfg.model, cfg.detector), dev)
+
+
 def prepare(
     cfg: RunConfig, stream: StreamData | None = None, device="cuda"
 ) -> PreparedRun:
     """Load, stripe and build a run without executing it. On the card this
     also builds the hand-written kernels the run launches, so their nvcc
     time stays outside the timed span."""
+    if cfg.tenants != 1:
+        raise ValueError(
+            f"prepare() is the single-stream path (tenants={cfg.tenants}); "
+            "use prepare_multi/run_multi for the stacked tenant plane"
+        )
     _check_slice(cfg)
     dev = resolve_device(device)
     _build.set_build_dir(cfg.compile_cache_dir)
@@ -224,42 +276,11 @@ def prepare(
     )
     model = build_model(cfg.model, ModelSpec(stream.num_features, stream.num_classes), cfg)
     _, nb = stripe_geometry(stream.num_rows, cfg.partitions, cfg.per_batch)
-    # 0 (the full-plane collect) for collect='full' and for validate=True,
-    # whose audit wants the plane the device produced, not a reconstruction.
-    capacity = (
-        cfg.collect_capacity or auto_compact_capacity(cfg.partitions, max(nb - 1, 1))
-        if cfg.collect == "compact" and not cfg.validate
-        else 0
-    )
-    runner = make_mesh_runner(
-        model,
-        cfg.ddm,
-        retrain_error_threshold=cfg.retrain_error_threshold,
-        window=cfg.window,
-        packed=packed,
-        detector=make_detector(
-            cfg.detector, ddm=cfg.ddm, ph=cfg.ph, eddm=cfg.eddm, hddm=cfg.hddm,
-            hddm_w=cfg.hddm_w, adwin=cfg.adwin, kswin=cfg.kswin, stepd=cfg.stepd,
-        ),
-        rotations=cfg.window_rotations,
-        compact_capacity=capacity,
-    )
+    runner, compile_info = _build_runner(cfg, model, nb, packed, dev)
     if model.keyed:  # the partitions' keys, as the JAX package's prepare draws them
         runner = functools.partial(
             runner, key=threefry.split(threefry.key(cfg.seed), cfg.partitions)
         )
-    compile_info = {"cached": True, "build_seconds": 0.0}
-    if dev.type == "cuda":
-        from . import kernels
-
-        names = [DETECTOR_KERNELS[cfg.detector]] if cfg.detector in DETECTOR_KERNELS else []
-        names += MODEL_KERNELS.get(cfg.model, ())
-        cached = all(_build.library_path(name).exists() for name in names)
-        t0 = time.perf_counter()
-        _build.build_all(names)  # one nvcc each, all started together
-        compile_info = {"cached": cached, "build_seconds": time.perf_counter() - t0}
-        for name in names:
-            kernels.launcher(name)
     return PreparedRun(stream, batches, runner, cfg, dev, compile_info)
 
 
@@ -281,7 +302,7 @@ def upload(batches, device: torch.device):
 
 
 @contextlib.contextmanager
-def _telemetry_bracket(cfg: RunConfig, payload: dict):
+def _telemetry_bracket(cfg: RunConfig, payload: dict, kind: "str | None" = None):
     """The run-lifecycle telemetry bracket (the JAX package's
     ``api._telemetry_bracket``): with ``cfg.telemetry_dir`` set, open the
     run log, emit ``run_started`` with ``payload`` + host identity and
@@ -290,7 +311,8 @@ def _telemetry_bracket(cfg: RunConfig, payload: dict):
     registry gets a best-effort ``failed`` record (the run's own exception
     is the one that surfaces) and the log's descriptor is released either
     way; the partial log is the crash evidence. The ``completed`` record
-    and the final events stay with the caller."""
+    and the final events stay with the caller. ``kind`` rides in the
+    registry record when given (``multi``, ``chunked``)."""
     if not cfg.telemetry_dir:
         yield None
         return
@@ -310,6 +332,7 @@ def _telemetry_bracket(cfg: RunConfig, payload: dict):
             cfg.telemetry_dir,
             log.run_id,
             "running",
+            **({"kind": kind} if kind else {}),
             config_digest=run_registry.config_digest(payload),
             log=os.path.basename(log.path),
             **ident,
@@ -330,6 +353,11 @@ def run(
 ) -> RunResult:
     """One drift-detection run on ``device`` (the card by default; raises
     when CUDA is absent — pass ``device='cpu'`` for the plain path)."""
+    if cfg.tenants != 1:
+        raise ValueError(
+            f"run() is the single-stream path (tenants={cfg.tenants}); the "
+            "multi-tenant result is per-tenant structured — use run_multi"
+        )
     dev = resolve_device(device)
     timer = PhaseTimer()
     if cfg.profile_dir and cfg.trace_dir:
@@ -523,3 +551,329 @@ def _finish_telemetry(
     base, _ = os.path.splitext(log.path)
     write_exports(reg, base)
     return log.path
+
+
+class PreparedMulti(NamedTuple):
+    """A stacked T-tenant run ready to execute (:func:`prepare_multi`):
+    ``batches`` is the ``[T·P, NB_max, B]`` host plane, ``runner`` the
+    runner built against it (its keys bound), ``configs`` the tenants'
+    resolved solo configs, ``config`` the stacked one (``partitions =
+    T·P``), ``nb_list`` each tenant's real microbatch count (its flag width
+    is ``nb_t − 1``)."""
+
+    streams: tuple
+    batches: object
+    runner: object
+    keys: np.ndarray  # [T·P, 2] uint32, the (tenant, partition) keys
+    configs: tuple
+    config: RunConfig
+    nb_list: tuple
+    device: torch.device
+    compile_info: dict
+
+
+def _kernel_identity(cfg: RunConfig) -> tuple:
+    """The config fields that shape the kernels — every tenant of a stacked
+    run must agree on these (streams and seeds may differ)."""
+    return (
+        cfg.model, cfg.fit_steps, cfg.learning_rate, cfg.mlp_hidden,
+        cfg.mlp_learning_rate, cfg.forest_trees, cfg.forest_depth,
+        cfg.per_batch, cfg.partitions, cfg.ddm, cfg.window,
+        cfg.retrain_error_threshold, cfg.detector, cfg.ph, cfg.eddm,
+        cfg.hddm, cfg.hddm_w, cfg.adwin, cfg.kswin, cfg.stepd,
+        cfg.window_rotations, cfg.shuffle_batches, cfg.collect,
+        cfg.collect_capacity, cfg.validate, cfg.backend,
+        cfg.mesh_devices, cfg.mesh_tenant_devices,
+    )
+
+
+def prepare_multi(cfg: "RunConfig | list[RunConfig]", streams=None,
+                  device="cuda") -> PreparedMulti:
+    """Load, stripe, stack and build a T-tenant run (the JAX package's
+    ``prepare_multi``, ``api.py:515``): T independent streams, each with
+    its own detector and classifier state, through one runner whose
+    leading axis is the ``(tenant, partition)`` plane.
+
+    ``cfg`` is a ``tenants = T`` config (``config.tenant_configs``: tenant
+    ``t`` gets ``seed + t`` and a ``{tenant}``-substituted dataset) or a
+    list of solo configs, which may differ in stream identity but must
+    agree on everything that shapes the kernels (:func:`_kernel_identity`).
+    Each tenant loads, resolves its auto policies (the auto knobs pinned to
+    tenant 0's) and stripes as its solo run does — always on the dense
+    striper — then the grids stack (``engine.loop.stack_tenants``: a short
+    tenant gets masked trailing batches). Tenant ``t``'s key block is its
+    solo run's ``split(key(seed_t), P)``, so each tenant's flags are its
+    solo run's."""
+    from .config import tenant_configs
+    from .engine.loop import concat_keys, stack_tenants
+
+    if isinstance(cfg, RunConfig):
+        cfgs = tenant_configs(cfg)
+    else:
+        cfgs = list(cfg)
+        if not cfgs:
+            raise ValueError("prepare_multi needs at least one tenant config")
+        for i, c in enumerate(cfgs):
+            if c.tenants != 1:
+                raise ValueError(
+                    f"tenant config {i} has tenants={c.tenants}; explicit "
+                    "config lists must hold solo (tenants=1) configs"
+                )
+    tenants = len(cfgs)
+    _check_slice(cfgs[0])
+    dev = resolve_device(device)
+    _build.set_build_dir(cfgs[0].compile_cache_dir)
+    if streams is None:
+        streams = [None] * tenants
+    if len(streams) != tenants:
+        raise ValueError(f"{len(streams)} streams for {tenants} tenant configs")
+    resolved, loaded = [], []
+    for c, s in zip(cfgs, streams):
+        if s is None:
+            s = _load_stream_for(c)
+        if c.validate:
+            from .utils.validate import validate_stream
+
+            validate_stream(s)
+        if resolved:
+            # One runner, one policy: the auto knobs (window 0, rotations
+            # 0, PH's λ 0) are pinned to tenant 0's resolution; explicit
+            # per-tenant values reach the identity check untouched.
+            c0 = resolved[0]
+            if not c.window:
+                c = replace(c, window=c0.window)
+            if not c.window_rotations:
+                c = replace(c, window_rotations=c0.window_rotations)
+            if c.detector == "ph" and not c.ph.threshold:
+                c = replace(c, ph=c.ph._replace(threshold=c0.ph.threshold))
+        resolved.append(_resolve_policies(c, s))
+        loaded.append(s)
+    ident0 = _kernel_identity(resolved[0])
+    spec0 = (loaded[0].num_features, loaded[0].num_classes)
+    for t in range(1, tenants):
+        if _kernel_identity(resolved[t]) != ident0:
+            raise ValueError(
+                f"tenant {t}'s resolved config shapes a different kernel "
+                "than tenant 0's (model/detector/geometry/window fields "
+                "must agree across the stacked plane; streams and seeds "
+                "may differ)"
+            )
+        spec_t = (loaded[t].num_features, loaded[t].num_classes)
+        if spec_t != spec0:
+            raise ValueError(
+                f"tenant {t}'s stream geometry {spec_t} (features, classes)"
+                f" disagrees with tenant 0's {spec0}; one kernel, one row "
+                "contract"
+            )
+    cfg0 = resolved[0]
+    p, b = cfg0.partitions, cfg0.per_batch
+    nb_list = tuple(stripe_geometry(s.num_rows, p, b)[1] for s in loaded)
+    batches = stack_tenants([
+        stripe_partitions(s, p, b, shuffle_seed=host_shuffle_seed(c))
+        for c, s in zip(resolved, loaded)
+    ])
+    total = replace(cfg0, partitions=p * tenants, tenants=tenants)
+    model = build_model(total.model, ModelSpec(*spec0), total)
+    runner, compile_info = _build_runner(total, model, int(batches.y.shape[1]), False, dev)
+    keys = concat_keys([threefry.split(threefry.key(c.seed), p) for c in resolved])
+    if model.keyed:
+        runner = functools.partial(runner, key=keys)
+    return PreparedMulti(tuple(loaded), batches, runner, keys, tuple(resolved), total,
+                         nb_list, dev, compile_info)
+
+
+class MultiRunResult(NamedTuple):
+    """One stacked multi-tenant run: ``results[t]`` is tenant ``t``'s
+    :class:`RunResult` (flags, vote and metrics its solo run's; its
+    ``total_time`` the shared span), plus the aggregate."""
+
+    results: tuple
+    total_time: float  # the one stacked Final Time span
+    rows: int  # rows across tenants
+    agg_rows_per_sec: float
+    timings: dict
+    config: RunConfig  # the stacked config (partitions = T·P)
+    telemetry_path: "str | None" = None
+
+
+def run_multi(cfg: "RunConfig | list[RunConfig]", streams=None,
+              device="cuda") -> MultiRunResult:
+    """A stacked T-tenant run on ``device`` (:func:`prepare_multi`; the
+    JAX package's ``run_multi``, ``api.py:677``): one upload, one runner
+    call and one collect for the tenant plane; the flags split per tenant
+    on the host (``parallel.mesh.split_tenant_flags``), and each tenant
+    gets its own drift vote, delay metrics and results-CSV row under its
+    own config. With ``telemetry_dir`` on tenant 0's config the run is
+    bracketed as a solo run is (``kind="multi"``, the payload carrying
+    ``tenants``)."""
+    from .parallel.mesh import split_tenant_flags, tenant_drift_vote
+
+    timer = PhaseTimer()
+    if isinstance(cfg, RunConfig):
+        bracket_cfg, t_count = cfg, max(int(cfg.tenants), 1)
+    else:
+        if not cfg:
+            raise ValueError("run_multi needs at least one tenant config")
+        bracket_cfg, t_count = cfg[0], len(cfg)
+    if bracket_cfg.backend != "jax":
+        raise ValueError(
+            f"unknown backend {bracket_cfg.backend!r}; expected 'jax' "
+            "(backend='spark' is retired — see api.run)"
+        )
+    with _telemetry_bracket(
+        bracket_cfg,
+        telemetry_config_payload(replace(bracket_cfg, tenants=t_count)),
+        kind="multi",
+    ) as log:
+        with timer.phase("prepare"):
+            prep = prepare_multi(cfg, streams, device)
+        tenants = len(prep.configs)
+        dev = prep.device
+        # --- the stacked Final Time span ---
+        start = time.perf_counter()
+        with timer.phase("upload"):
+            dev_batches = upload(prep.batches, dev)
+        with timer.phase("detect"):
+            out = prep.runner(dev_batches)
+            synchronize(dev)
+        with timer.phase("collect"):
+            flags_all, collect_info = host_flags(out)
+            per_tenant = split_tenant_flags(
+                flags_all, tenants, flag_cols=[nb - 1 for nb in prep.nb_list]
+            )
+            votes = [tenant_drift_vote(f) for f in per_tenant]
+            metrics = [
+                delay_metrics(f.change_global, s.dist_between_changes, c.per_batch)
+                for f, s, c in zip(per_tenant, prep.streams, prep.configs)
+            ]
+        total_time = time.perf_counter() - start
+        # --- span ends ---
+
+        rows = sum(s.num_rows for s in prep.streams)
+        results = []
+        for t, (f, v, m, s, c) in enumerate(
+            zip(per_tenant, votes, metrics, prep.streams, prep.configs)
+        ):
+            if c.validate:
+                from .utils.validate import validate_flag_rows
+
+                validate_flag_rows(f, prep.nb_list[t], c.per_batch, s.num_rows)
+            if c.results_csv:
+                a = (
+                    attribution_metrics(f.change_global, s.dist_between_changes, s.num_rows)
+                    if s.dist_between_changes > 0
+                    else None
+                )
+                append_result(
+                    c.results_csv, result_row(c, total_time, m, s.num_rows, attribution=a)
+                )
+            results.append(RunResult(f, v, m, total_time, timer.as_dict(), s, c, None))
+        telemetry_path = None
+        if log is not None:
+            from .telemetry import registry as run_registry
+
+            detections = sum(m.num_detections for m in metrics)
+            log.emit(
+                "run_completed",
+                rows=rows,
+                seconds=total_time,
+                detections=detections,
+                rows_per_sec=rows / total_time if total_time > 0 else None,
+                tenants=tenants,
+                collect_mode=collect_info.get("mode"),
+                collect_overflow=bool(collect_info.get("overflow", False)),
+            )
+            run_registry.record(
+                prep.configs[0].telemetry_dir, log.run_id, "completed",
+                rows=rows, seconds=total_time, detections=detections,
+            )
+            telemetry_path = log.path
+    return MultiRunResult(
+        tuple(results),
+        total_time,
+        rows,
+        rows / total_time if total_time > 0 else 0.0,
+        timer.as_dict(),
+        prep.config,
+        telemetry_path,
+    )
+
+
+def prepare_chunked(
+    cfg: RunConfig,
+    num_features: int,
+    num_classes: int,
+    *,
+    chunk_batches: int = 4,
+    mesh=None,
+    validate: bool = False,
+    tenant_seeds=None,
+    device="cuda",
+):
+    """Streaming twin of :func:`prepare` (the JAX package's
+    ``prepare_chunked``, ``api.py:811``): a RunConfig → a
+    :class:`~.engine.chunked.ChunkedDetector` on ``device`` whose kernels
+    are built and whose path has run once at the serving geometry
+    (``ChunkedDetector.prepare`` on an all-padding chunk of ``[P,
+    chunk_batches, per_batch]``; stacked ``[T·P, ...]`` for ``cfg.tenants
+    > 1``) before the first row arrives. A live stream declares no drift
+    geometry, so ``cfg.window`` must be explicit, and the row geometry
+    (``num_features``, ``num_classes``) is configuration. ``tenant_seeds``
+    overrides the tenants' seeds (default ``seed + t``). Returns
+    ``(detector, info)``: ``cached`` (no kernel library was rebuilt),
+    ``build_seconds``, and ``prepare``'s ``aot_seconds``, ``aot_shapes``
+    and ``aot_failed``. A mesh is not ported yet (ROADMAP A15d)."""
+    from .engine.chunked import ChunkedDetector
+    from .engine.loop import stack_tenants
+    from .io.stream import stripe_chunk
+
+    if cfg.window == 0:
+        raise ValueError(
+            "window=0 (auto) needs stream geometry a serving daemon does "
+            "not have; pass an explicit width (config.auto_window can "
+            "compute one from a known drift spacing)"
+        )
+    if num_features <= 0 or num_classes <= 0:
+        raise ValueError(
+            f"serving geometry must be explicit: num_features="
+            f"{num_features}, num_classes={num_classes} (both must be > 0)"
+        )
+    if chunk_batches <= 0:
+        raise ValueError(f"chunk_batches must be > 0, got {chunk_batches}")
+    if mesh is not None or cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1:
+        raise NotImplementedError(
+            "not ported yet: a device mesh for the chunked engine (ROADMAP A15d)"
+        )
+    dev = resolve_device(device)
+    _build.set_build_dir(cfg.compile_cache_dir)
+    t0 = time.perf_counter()
+    model = build_model(cfg.model, ModelSpec(num_features, num_classes), cfg)
+    det = ChunkedDetector(
+        model,
+        cfg.ddm,
+        partitions=cfg.partitions,
+        shuffle=False,  # streams are shuffled on the host at stripe time
+        retrain_error_threshold=cfg.retrain_error_threshold,
+        seed=cfg.seed,
+        window=cfg.window,
+        detector=make_detector(
+            cfg.detector, ddm=cfg.ddm, ph=cfg.ph, eddm=cfg.eddm, hddm=cfg.hddm,
+            hddm_w=cfg.hddm_w, adwin=cfg.adwin, kswin=cfg.kswin, stepd=cfg.stepd,
+        ),
+        rotations=cfg.window_rotations or 1,
+        validate=validate,
+        tenants=cfg.tenants,
+        tenant_seeds=tenant_seeds,
+        device=dev,
+    )
+    info = build_kernels(kernel_names(cfg.model, cfg.detector), dev)
+    info["build_seconds"] = time.perf_counter() - t0
+    example = stripe_chunk(
+        np.zeros((0, num_features), np.float32), np.zeros((0,), np.int32), 0,
+        cfg.partitions, cfg.per_batch, chunk_batches,
+    )
+    if cfg.tenants > 1:
+        example = stack_tenants([example] * cfg.tenants)
+    if not model.host_callback:
+        info.update(det.prepare(example))
+    return det, info

@@ -127,17 +127,19 @@ _MODEL_PARAMS = {
 }
 
 
-def loop_carry(carry, model: str, device="cpu", detector: str = "ddm") -> LoopCarry:
+def loop_carry(carry, model: str, device="cpu", detector: str = "ddm",
+               keep_key: bool = False) -> LoopCarry:
     """JAX ``LoopCarry`` of a run with ``model`` and ``detector``. For the
-    keyed ``mlp``, ``forest`` and ``rf`` its ``key`` is carried as key data — pass
-    ``carry._replace(key=jax.random.key_data(carry.key))`` — and kept as
-    uint32 numpy ``[P, 2]`` on the host; the other families' key is
-    dropped (their fits consume none)."""
+    keyed ``mlp``, ``forest`` and ``rf`` — and for any model with
+    ``keep_key``, as the chunked engine and ``shuffle=True`` carry it — its
+    ``key`` is carried as key data (pass ``carry._replace(
+    key=jax.random.key_data(carry.key))``) and kept as uint32 numpy ``[P,
+    2]`` on the host; otherwise it is dropped (the fit consumes none)."""
     batched = np.ndim(carry.retrain) == 1
     if model not in _MODEL_PARAMS:
         raise NotImplementedError(f"model {model!r} is not ported yet")
     key = None
-    if model in ("mlp", "forest", "rf"):
+    if keep_key or model in ("mlp", "forest", "rf"):
         key = np.array(carry.key, dtype=np.uint32).reshape(-1, 2)
     return LoopCarry(
         params=_MODEL_PARAMS[model](carry.params, device),

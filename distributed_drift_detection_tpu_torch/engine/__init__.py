@@ -1,6 +1,7 @@
 """The engines and their containers: the window engine, the ``window=1``
-loop and the device-generated soak."""
+loop, the chunked streaming engine and the device-generated soak."""
 
+from .chunked import ChunkedDetector
 from .soak import (
     ChainedSoakSummary,
     SoakChainState,
@@ -13,6 +14,7 @@ from .soak import (
 
 __all__ = [
     "ChainedSoakSummary",
+    "ChunkedDetector",
     "SoakChainState",
     "SoakLegFlags",
     "SoakResult",

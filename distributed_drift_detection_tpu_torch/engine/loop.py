@@ -7,7 +7,8 @@ hold numpy arrays on the host (stripers) and tensors on the device
 what the JAX package vmaps over partitions, the port batches.
 :func:`make_partition_runner` is the ``window=1`` engine — one microbatch
 per step, every partition in step, a Python loop where the JAX package
-has ``lax.scan``.
+has ``lax.scan``. :func:`stack_tenants` and :func:`concat_keys` build the
+tenant plane (T tenants' partitions stacked on the leading axis).
 """
 
 from __future__ import annotations
@@ -70,9 +71,10 @@ class LoopCarry(NamedTuple):
     """State carried across windows, every leaf with a leading ``[P]``.
 
     ``key`` is the JAX carry's PRNG key as its data: ``[P, 2]`` uint32 on
-    the host (``utils/threefry.py``), for a keyed model (``mlp``, ``forest``); None for
-    the families that consume none. The engines draw the key chain from it
-    on the host, once a run.
+    the host (``utils/threefry.py``). A keyed model (``mlp``, ``forest``)
+    and ``shuffle=True`` need it; ``api.run`` leaves it None for the other
+    families, the chunked engine carries it always, as JAX's carry does.
+    The engines draw the key chain from it on the host, once a span.
     """
 
     params: object
@@ -81,7 +83,7 @@ class LoopCarry(NamedTuple):
     a_y: torch.Tensor  # [P, B] i32
     a_w: torch.Tensor  # [P, B] f32 validity weights
     retrain: torch.Tensor  # [P] bool
-    key: "np.ndarray | None" = None  # [P, 2] uint32, keyed models only
+    key: "np.ndarray | None" = None  # [P, 2] uint32; None: the run carries none
 
 
 def expand_packed(packed: PackedIndexedBatches) -> IndexedBatches:
@@ -149,11 +151,26 @@ def _check_retrain_threshold(thr: "float | None") -> None:
         )
 
 
+def dense_table(X, y):
+    """A dense ``Batches``' planes as the models gather them: the row table
+    ``[P·NB·B, row_stride(F)]`` (float32: a bfloat16 transport plane is
+    widened here), its labels ``[P·NB·B]`` and each slot's flat row index
+    ``[P, NB, B]`` int32."""
+    from ..models.base import row_stride
+
+    p, nb, b, f = X.shape
+    dev = X.device
+    table = torch.zeros((p * nb * b, row_stride(f)), dtype=torch.float32, device=dev)
+    table[:, :f] = X.reshape(-1, f)
+    idx = torch.arange(p * nb * b, dtype=torch.int32, device=dev).view(p, nb, b)
+    return table, y.reshape(-1), idx
+
+
 def make_partition_step(
     model,
     ddm_params: DDMParams,
     *,
-    shuffle: bool = False,
+    shuffle: bool = True,
     retrain_error_threshold: float | None = None,
     detector=None,
 ):
@@ -167,33 +184,44 @@ def make_partition_step(
     Train on demand (fit always, apply on a pending retrain), predict the
     error indicators, detect with ``detector`` (DDM from ``ddm_params``
     when None), and on change rotate ``batch_a`` to this batch, reset the
-    detector and set the retrain. A keyed model fits from the step's fit
-    key: ``key, k_shuf, k_fit = split(carry.key, 3)``, as the JAX loop
-    splits (its window engine takes ``k_fit`` second); ``keys`` passes
-    ``(key, k_fit)`` precomputed — the host's next keys and the fit keys
-    on the device — else the step splits ``carry.key`` itself.
-    ``shuffle=True`` (an in-loop permutation from ``k_shuf``) is not
-    ported: the JAX package's ``api.run`` never asks for it, and the
-    port's streams are shuffled on the host at stripe time."""
-    if shuffle:
-        raise NotImplementedError(
-            "in-loop shuffle=True is not ported (ROADMAP A10, with the "
-            "feeders): the threefry PRNG is (utils/threefry.py), but the "
-            "port shuffles on the host at stripe time instead"
-        )
+    detector and set the retrain. The carry's key (``[P, 2]`` uint32 on the
+    host; None when the run carries none) advances as the JAX loop splits
+    it: ``key, k_shuf, k_fit = split(carry.key, 3)``. ``shuffle=True`` (the
+    JAX default) permutes the batch first with ``permutation(k_shuf, B)``
+    (kernel K13, ``ops/shuffle.py``), so ``warning_local`` and
+    ``change_local`` index the shuffled batch, as JAX's do; a keyed model
+    fits from ``k_fit``. ``keys`` passes ``(key, k_fit)`` precomputed — the
+    host's next keys and the fit keys on the device — by a caller that has
+    also permuted the planes already (:func:`run_steps`); else the step
+    splits ``carry.key`` itself. A keyed model or ``shuffle=True`` needs
+    the carry's key."""
     _check_retrain_threshold(retrain_error_threshold)
     det = resolve_detector(ddm_params, detector)
 
     def step(carry: LoopCarry, table, labels, idx, b_rows, b_valid, keys=None):
         p, f = carry.a_X.shape[0], carry.a_X.shape[-1]
+        next_key, k_fit = None, None
+        if keys is not None:
+            next_key, k_fit = keys
+        elif carry.key is not None:
+            split = threefry.split(carry.key, 3)
+            next_key = split[:, 0]
+            if model.keyed:
+                k_fit = device_keys(split[:, 2], b_valid.device)
+            if shuffle:
+                from ..ops.shuffle import shuffle_planes
+
+                sh = shuffle_planes(
+                    device_keys(split[:, 1:2], b_valid.device), idx[:, None],
+                    b_rows[:, None], b_valid[:, None], 1, derive=False,
+                )
+                idx, b_rows, b_valid = (x[:, 0] for x in sh)
+        elif model.keyed or shuffle:
+            raise ValueError(
+                "a keyed model or shuffle=True needs the carry's key (LoopCarry.key)"
+            )
         b_w = b_valid.float()
         nonempty = b_valid.any(1)
-        next_key, k_fit = None, None
-        if model.keyed:
-            if keys is None:
-                split = threefry.split(carry.key, 3)
-                keys = (split[:, 0], device_keys(split[:, 2], b_valid.device))
-            next_key, k_fit = keys
         fitted = model.fit(carry.a_X, carry.a_y, carry.a_w, key=k_fit)
         params = _select(carry.retrain & nonempty, fitted, carry.params)
         errs = model.predict_err(params, table, labels, idx)
@@ -227,24 +255,66 @@ def make_partition_step(
     return step
 
 
+def run_steps(step, model, carry: LoopCarry, table, labels, idx, rows, valid,
+              *, shuffle: bool):
+    """``S`` steps of ``step`` (:func:`make_partition_step`) over the
+    batches ``idx``/``rows``/``valid`` ``[P, S, B]`` from ``carry``: returns
+    the carry after them and the flags, leaves ``[P, S]``. The key chain of
+    the S steps is drawn on the host at once (``threefry.loop_fit_keys``) and, under
+    ``shuffle``, every batch of the span is permuted by one K13 launch
+    before the first step."""
+    p, s = idx.shape[:2]
+    dev = idx.device
+    chain = fit_keys = None
+    if carry.key is not None:
+        # each step: key, k_shuf, k_fit = split(key, 3)
+        chain, k_fit = threefry.loop_fit_keys(carry.key, s)
+        if model.keyed:
+            fit_keys = device_keys(k_fit, dev)
+        if shuffle:
+            from ..ops.shuffle import shuffle_planes
+
+            k_shuf = threefry.split(chain[:-1], 3)[..., 1, :]  # [S, P, 2]
+            idx, rows, valid = shuffle_planes(
+                device_keys(np.swapaxes(k_shuf, 0, 1), dev), idx, rows, valid, s,
+                derive=False,
+            )
+    elif model.keyed or shuffle:
+        raise ValueError("a keyed model or shuffle=True needs the carry's key (LoopCarry.key)")
+
+    def by_step(x):  # [P, S, B] -> [S, P, B]: each step's slice contiguous
+        return x.transpose(0, 1).contiguous()
+
+    idx, rows, valid = by_step(idx), by_step(rows), by_step(valid)
+    out = []
+    for t in range(s):
+        keys = None
+        if chain is not None:
+            keys = (chain[t + 1], None if fit_keys is None else fit_keys[t])
+        carry, flags = step(carry, table, labels, idx[t], rows[t], valid[t], keys)
+        out.append(flags)
+    if not out:
+        empty = torch.empty((p, 0), dtype=torch.int32, device=dev)
+        return carry, FlagRows(empty, empty, empty, empty, empty.bool())
+    return carry, FlagRows(*(torch.stack(leaf, 1) for leaf in zip(*out)))
+
+
 def make_partition_runner(
     model,
     ddm_params: DDMParams,
     *,
-    shuffle: bool = False,
+    shuffle: bool = True,
     retrain_error_threshold: float | None = None,
     detector=None,
 ):
-    """Build ``run(batches: Batches) -> FlagRows`` (leaves ``[P, NB-1]``):
-    batch 0 of each partition seeds ``batch_a``, then one
-    :func:`make_partition_step` per batch. The dense planes become one row
-    table with its row stride padded to 4 floats, built once. A keyed
-    model takes the partitions' keys ``key [P, 2]`` uint32 (``api.prepare``:
-    ``split(key(seed), P)``): ``key, k_init = split(key)`` for its init,
-    then the step chain of :func:`~..utils.threefry.loop_fit_keys`, drawn on
-    the host and uploaded once."""
-    from ..models.base import row_stride
-
+    """Build ``run(batches: Batches, key=None) -> FlagRows`` (leaves ``[P,
+    NB-1]``): batch 0 of each partition seeds ``batch_a``, then one
+    :func:`make_partition_step` per batch (:func:`run_steps`). The dense
+    planes become one row table with its row stride padded to 4 floats,
+    built once. ``key [P, 2]`` uint32 is the partitions' keys (``api.prepare``:
+    ``split(key(seed), P)``), needed by a keyed model and by ``shuffle=True``
+    (the JAX default): ``key, k_init = split(key)``, ``k_init`` for a keyed
+    model's init, then the step chain."""
     det = resolve_detector(ddm_params, detector)
     step = make_partition_step(
         model, ddm_params, shuffle=shuffle,
@@ -252,40 +322,77 @@ def make_partition_runner(
     )
 
     def run(batches: Batches, key=None) -> FlagRows:
-        p, nb, b, f = batches.X.shape
+        p = batches.X.shape[0]
         dev = batches.X.device
-        chain = fit_keys = init_key = None
-        if model.keyed:
+        carry_key = init_key = None
+        if model.keyed or shuffle:
+            if key is None:
+                raise ValueError("a keyed model or shuffle=True needs the partitions' keys")
             pair = threefry.split(np.asarray(key, np.uint32), 2)
-            init_key = device_keys(pair[:, 1], dev)
-            chain, fit_keys = threefry.loop_fit_keys(pair[:, 0], max(nb - 1, 0))
-            fit_keys = device_keys(fit_keys, dev)
-        table = torch.zeros((p * nb * b, row_stride(f)), dtype=torch.float32, device=dev)
-        table[:, :f] = batches.X.reshape(-1, f)
-        labels = batches.y.reshape(-1)
-
-        def by_step(x):  # [P, NB, B] -> [NB, P, B]: each step's slice contiguous
-            return x.transpose(0, 1).contiguous()
-
-        idx = by_step(torch.arange(p * nb * b, dtype=torch.int32, device=dev).view(p, nb, b))
-        b_rows, b_valid = by_step(batches.rows), by_step(batches.valid)
+            carry_key = pair[:, 0]
+            if model.keyed:
+                init_key = device_keys(pair[:, 1], dev)
+        table, labels, idx = dense_table(batches.X, batches.y)
         carry = LoopCarry(
             params=model.init(p, dev, key=init_key),
             ddm=det.init((p,), dev),
-            a_X=batches.X[:, 0].contiguous(),  # as the fit takes them
+            a_X=batches.X[:, 0].float().contiguous(),  # as the fit takes them
             a_y=batches.y[:, 0].contiguous(),
             a_w=batches.valid[:, 0].float(),
             retrain=torch.ones(p, dtype=torch.bool, device=dev),
-            key=None if chain is None else chain[0],
+            key=carry_key,
         )
-        rows = []
-        for s in range(1, nb):
-            keys = None if chain is None else (chain[s], fit_keys[s - 1])
-            carry, flags = step(carry, table, labels, idx[s], b_rows[s], b_valid[s], keys)
-            rows.append(flags)
-        if not rows:
-            empty = torch.empty((p, 0), dtype=torch.int32, device=dev)
-            return FlagRows(empty, empty, empty, empty, empty.bool())
-        return FlagRows(*(torch.stack(leaf, 1) for leaf in zip(*rows)))
+        _, flags = run_steps(
+            step, model, carry, table, labels, idx[:, 1:], batches.rows[:, 1:],
+            batches.valid[:, 1:], shuffle=shuffle,
+        )
+        return flags
 
     return run
+
+
+def concat_keys(key_arrays) -> np.ndarray:
+    """The tenants' key blocks ``[P_t, 2]`` stacked into one ``[ΣP_t, 2]``
+    uint32 array (the JAX package's ``concat_keys`` over key data)."""
+    return np.concatenate([np.asarray(k, np.uint32) for k in key_arrays])
+
+
+def stack_tenants(batches_list) -> Batches:
+    """Stack T tenants' host ``[P, NB_t, B]`` grids into one ``[T·P,
+    NB_max, B]`` plane, tenant-major (``q = t·P + p``), as the JAX
+    package's ``stack_tenants`` does: a tenant shorter than ``NB_max`` is
+    padded with fully masked batches (``valid=False``, ``rows=-1``, zero
+    fill) after its real ones, which leave its flags as its solo run's."""
+    if not batches_list:
+        raise ValueError("stack_tenants needs at least one tenant grid")
+    b0 = batches_list[0]
+    p, b = b0.y.shape[0], b0.y.shape[2]
+    for i, bt in enumerate(batches_list):
+        if bt.y.shape[0] != p or bt.y.shape[2] != b:
+            raise ValueError(
+                f"tenant {i} grid {bt.y.shape} disagrees with tenant 0's "
+                f"partitions/per_batch ({p}, {b}); tenants share one kernel "
+                "geometry — only NB (stream length) may differ"
+            )
+    nb_max = max(bt.y.shape[1] for bt in batches_list)
+
+    def pad(bt: Batches) -> Batches:
+        extra = nb_max - bt.y.shape[1]
+        if not extra:
+            return bt
+        return Batches(
+            X=np.concatenate(
+                [bt.X, np.zeros((p, extra, b, bt.X.shape[3]), bt.X.dtype)], axis=1
+            ),
+            y=np.concatenate([bt.y, np.zeros((p, extra, b), bt.y.dtype)], axis=1),
+            rows=np.concatenate(
+                [bt.rows, np.full((p, extra, b), -1, bt.rows.dtype)], axis=1
+            ),
+            valid=np.concatenate([bt.valid, np.zeros((p, extra, b), bool)], axis=1),
+        )
+
+    padded = [pad(bt) for bt in batches_list]
+    return Batches(
+        *(np.concatenate([getattr(bt, f) for bt in padded], axis=0)
+          for f in Batches._fields)
+    )

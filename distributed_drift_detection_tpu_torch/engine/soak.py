@@ -784,11 +784,9 @@ class ChainedSoakSummary(NamedTuple):
 
 def soak_kernels(model: Model, detector) -> list:
     """The hand-written kernels a soak of ``model`` and ``detector`` launches."""
-    from ..api import DETECTOR_KERNELS, MODEL_KERNELS
+    from ..api import kernel_names
 
-    return (["soak_batch"] + ([DETECTOR_KERNELS[detector.name]]
-                              if detector.name in DETECTOR_KERNELS else [])
-            + list(MODEL_KERNELS.get(model.name, ())))
+    return ["soak_batch"] + kernel_names(model.name, detector.name)
 
 
 def run_soak_chained(

@@ -28,14 +28,19 @@ that table once per run with its row stride rounded up to 4 floats
 (``models.base.pad_row_table``). A dense stream (``Batches``) is addressed
 the same way, through a flat row index into its padded feature plane.
 
-A keyed model (``mlp``, ``forest``) fits from the JAX engine's key chain: each
-iteration ``key, k_fit, k_shuf = split(key, 3)``, one fit key a level
-(``k_fit`` itself at R = 1, else ``split(k_fit, R)``), and only active
-lanes advance their key. The chain depends on the iteration count alone,
-so the span draws it on the host for as many iterations as can run and
-uploads it once (``utils/threefry.py`` ``window_fit_keys``); a lane that
-has finished fits from later keys than JAX's frozen one, but its fit is
-never committed.
+A carried key (a keyed model's, ``mlp`` or ``forest``; or any model's
+under ``shuffle=True``, and always in the chunked engine) follows the JAX
+engine's chain: each iteration ``key, k_fit, k_shuf = split(key, 3)``, one
+fit key a level (``k_fit`` itself at R = 1, else ``split(k_fit, R)``), and
+only active lanes advance their key. The chain depends on the iteration
+count alone, so the span draws it on the host for as many iterations as
+can run and uploads it once (``utils/threefry.py`` ``window_fit_keys``); a
+lane that has finished fits from later keys than JAX's frozen one, but its
+fit is never committed. ``shuffle=True`` permutes window row ``i`` of each
+lane with ``permutation(split(k_shuf, W)[i], B)`` as JAX does: kernel K13
+(``ops/shuffle.py``) gathers the window slice at each lane's pointer and
+permutes it in one launch an iteration, and the replay levels reuse the
+level-0 permutations, as JAX's do.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from ..config import DDMParams
 from ..models.base import Model, pad_row_table, row_stride
+from ..ops.shuffle import shuffle_planes
 from ..utils import threefry
 from .loop import (
     Batches,
@@ -64,13 +70,15 @@ def make_window_span(
     ddm_params: DDMParams,
     *,
     window: int = 16,
+    shuffle: bool = False,
     retrain_error_threshold: float | None = None,
     detector=None,
     rotations: int = 1,
 ):
     """Build ``span(carry: LoopCarry, batches) -> (LoopCarry, FlagRows)``:
     process every batch of ``batches`` (leaves ``[P, NBF, ...]``) from the
-    caller's carry, one flag row per batch."""
+    caller's carry, one flag row per batch. A keyed model and
+    ``shuffle=True`` need the carry's key."""
     w = int(window)
     r_levels = int(rotations)
     if w < 1:
@@ -94,13 +102,13 @@ def make_window_span(
         # rounded up to 4 floats, K2's 16-byte gathers); the refits take
         # their rows from `table`, the first F columns.
         if indexed:
-            table, labels = batches.base_X, batches.base_y
+            table, labels = batches.base_X.float(), batches.base_y  # transport seam
             rows = pad_row_table(table)
             r_idx = pad_tail(batches.idx, 0)  # [P, NBF+W, B]
         else:
             f = batches.X.shape[-1]
             r_X = torch.zeros(  # [P, NBF+W, B, row_stride(F)], zero tail
-                (p, nbf + w, b, row_stride(f)), dtype=batches.X.dtype, device=dev
+                (p, nbf + w, b, row_stride(f)), dtype=torch.float32, device=dev
             )
             r_X[:, :nbf, :, :f] = batches.X
             rows = r_X.view(-1, r_X.shape[-1])
@@ -124,23 +132,35 @@ def make_window_span(
         a_X, a_y, a_w, retrain = (
             carry_in.a_X, carry_in.a_y, carry_in.a_w, carry_in.retrain
         )
-        # A keyed model's fit keys, drawn once on the host for as many
-        # iterations as can run — each advances an active lane by at least
-        # min(R, W) batches or to its end — and uploaded once.
-        chain = fit_keys = None
-        if model.keyed:
+        # The key chain, drawn once on the host for as many iterations as
+        # can run — each advances an active lane by at least min(R, W)
+        # batches or to its end — and its fit and shuffle keys uploaded once.
+        chain = fit_keys = shuf_keys = None
+        if carry_in.key is not None:
             bound = -(-nbf // min(r_levels, w))
-            chain, fit_keys = threefry.window_fit_keys(carry_in.key, bound, r_levels)
-            fit_keys = device_keys(fit_keys, dev)
+            chain, fits = threefry.window_fit_keys(carry_in.key, bound, r_levels)
+            if model.keyed:
+                fit_keys = device_keys(fits, dev)
+            if shuffle:
+                shuf_keys = device_keys(threefry.split(chain[:-1], 3)[..., 2, :], dev)
             lane_iters = torch.zeros(p, dtype=torch.long, device=dev)
+        elif model.keyed or shuffle:
+            raise ValueError(
+                "a keyed model or shuffle=True needs the carry's key (LoopCarry.key)"
+            )
         it = 0
 
         while bool((ptr < nbf).any()):
             active = ptr < nbf
-            cols = ptr[:, None] + rows_w  # [P, W]
-            sl_rows = r_rows[parts[:, None], cols]  # [P, W, B]
-            sl_valid = r_valid[parts[:, None], cols]
-            sl_idx = r_idx[parts[:, None], cols]
+            if shuf_keys is not None:  # the slice at each pointer, permuted (K13)
+                sl_idx, sl_rows, sl_valid = shuffle_planes(
+                    shuf_keys[it], r_idx, r_rows, r_valid, w, start=ptr
+                )
+            else:
+                cols = ptr[:, None] + rows_w  # [P, W]
+                sl_rows = r_rows[parts[:, None], cols]  # [P, W, B]
+                sl_valid = r_valid[parts[:, None], cols]
+                sl_idx = r_idx[parts[:, None], cols]
             flat_idx = sl_idx.reshape(p, w * b)
             remaining = nbf - ptr
 
@@ -256,18 +276,21 @@ def make_window_runner(
     ddm_params: DDMParams,
     *,
     window: int = 16,
+    shuffle: bool = False,
     retrain_error_threshold: float | None = None,
     detector=None,
     rotations: int = 1,
 ):
-    """Build ``run(batches) -> FlagRows`` over all partitions: batch 0 of
-    each partition seeds ``batch_a``, and the flag leaves are
-    ``[P, NB - 1]``."""
+    """Build ``run(batches, key=None) -> FlagRows`` over all partitions:
+    batch 0 of each partition seeds ``batch_a``, and the flag leaves are
+    ``[P, NB - 1]``. ``key [P, 2]`` uint32, the partitions' keys, is
+    needed by a keyed model and by ``shuffle=True``."""
     det = resolve_detector(ddm_params, detector)
     span = make_window_span(
         model,
         ddm_params,
         window=window,
+        shuffle=shuffle,
         retrain_error_threshold=retrain_error_threshold,
         detector=det,
         rotations=rotations,
@@ -277,12 +300,16 @@ def make_window_runner(
         p = batches.valid.shape[0]
         dev = batches.valid.device
         init_key = None
-        if model.keyed:  # key, k_init = split(key), per partition
+        if model.keyed or shuffle:  # key, k_init = split(key), per partition
+            if key is None:
+                raise ValueError("a keyed model or shuffle=True needs the partitions' keys")
             pair = threefry.split(np.asarray(key, np.uint32), 2)
-            key, init_key = pair[:, 0], device_keys(pair[:, 1], dev)
+            key = pair[:, 0]
+            if model.keyed:
+                init_key = device_keys(pair[:, 1], dev)
         if isinstance(batches, IndexedBatches):
             i0 = batches.idx[:, 0].long()
-            a_X, a_y = batches.base_X[i0], batches.base_y[i0]
+            a_X, a_y = batches.base_X[i0].float(), batches.base_y[i0]
             rest = batches._replace(
                 idx=batches.idx[:, 1:],
                 rows=batches.rows[:, 1:],
@@ -290,7 +317,8 @@ def make_window_runner(
             )
         else:
             # contiguous, as the fit takes them
-            a_X, a_y = batches.X[:, 0].contiguous(), batches.y[:, 0].contiguous()
+            a_X = batches.X[:, 0].float().contiguous()
+            a_y = batches.y[:, 0].contiguous()
             rest = Batches(*(leaf[:, 1:] for leaf in batches))
         carry = LoopCarry(
             params=model.init(p, dev, key=init_key),
@@ -299,7 +327,7 @@ def make_window_runner(
             a_y=a_y,
             a_w=batches.valid[:, 0].float(),
             retrain=torch.ones(p, dtype=torch.bool, device=dev),
-            key=key if model.keyed else None,
+            key=key if model.keyed or shuffle else None,
         )
         _, flags = span(carry, rest)
         return flags

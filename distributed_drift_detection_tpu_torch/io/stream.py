@@ -10,7 +10,10 @@ byte-identical across the packages (``tests/test_torch_stream.py``):
 * :func:`stripe_partitions` places row ``i`` on partition ``i % P`` and pads
   each partition to a rectangular ``[P, NB, B]`` grid with a validity plane;
 * :func:`stripe_partitions_packed` is the compressed form the main path
-  uploads: row-table gather indices plus a one-byte per-batch permutation.
+  uploads: row-table gather indices plus a one-byte per-batch permutation;
+* :func:`stripe_chunk` and the pooled :class:`ChunkStriper` stripe one
+  span of a stream at a time (the chunked engine's feed, ``io.feeder``),
+  in float32 or as a bfloat16 transport plane.
 
 Datasets are ``synth:`` specs or CSVs: :func:`load_csv` (the native parser
 of ``io.native``, with its NumPy fallback) or, under a ``data_policy``,
@@ -276,6 +279,39 @@ def _pad(arr: np.ndarray, padded: int, fill) -> np.ndarray:
     return out
 
 
+BFLOAT16 = "bfloat16"
+
+
+def transport_dtype(feature_dtype) -> "np.dtype":
+    """The numpy dtype a feature plane ships in: float32, or — for
+    ``"bfloat16"``, ``torch.bfloat16`` or a numpy bfloat16 type — uint16
+    holding bfloat16 bits (:func:`to_bfloat16_bits`)."""
+    if str(feature_dtype) in (BFLOAT16, "torch.bfloat16"):
+        return np.dtype(np.uint16)
+    dt = np.dtype(feature_dtype)
+    return np.dtype(np.uint16) if dt.name == BFLOAT16 else dt
+
+
+def to_bfloat16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 → the uint16 bits of bfloat16, rounded to nearest even as
+    ``ml_dtypes`` rounds: a NaN becomes the quiet NaN of its sign (0x7FC0 /
+    0xFFC0), everything else ``(bits + 0x7FFF + lsb) >> 16`` in uint32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    lsb = (u >> np.uint32(16)) & np.uint32(1)
+    out = ((u + np.uint32(0x7FFF) + lsb) >> np.uint32(16)).astype(np.uint16)
+    nan = np.isnan(np.asarray(x, np.float32))
+    if nan.any():
+        out[nan] = np.where(u[nan] >> np.uint32(31), 0xFFC0, 0x7FC0).astype(np.uint16)
+    return out
+
+
+def _as_transport(X, dtype: np.dtype) -> np.ndarray:
+    """The feature rows in the transport dtype (bfloat16 bits for uint16)."""
+    if dtype == np.uint16:
+        return to_bfloat16_bits(X)
+    return np.asarray(X, dtype)
+
+
 def stripe_chunk(
     X: np.ndarray,
     y: np.ndarray,
@@ -284,6 +320,7 @@ def stripe_chunk(
     per_batch: int,
     nb: int,
     shuffle_seed: int | None = None,
+    feature_dtype=np.float32,
     row_valid: np.ndarray | None = None,
 ) -> Batches:
     """Pad + row-stripe one contiguous span of the stream into ``[P, NB, B]``.
@@ -291,6 +328,11 @@ def stripe_chunk(
     Row ``start_row + i`` goes to partition ``(start_row + i) % P``;
     ``shuffle_seed`` applies the per-microbatch shuffle on the host
     (counter-based on the absolute batch slot, so chunking is invariant).
+    ``feature_dtype`` is the transport dtype of the feature plane: float32
+    (exact), or ``"bfloat16"`` (``torch.bfloat16``), which ships a uint16
+    plane of bfloat16 bits rounded as ``ml_dtypes`` rounds — half the
+    host→device bytes; the engines view it as ``torch.bfloat16`` on the
+    device and compute in float32 (:func:`to_bfloat16_bits`).
     ``row_valid`` ([n] bool, the span's quarantine mask) folds into the
     validity plane: a masked row keeps its position, but its slot carries
     the padding fill (features 0.0, label 0) and ``valid == False``.
@@ -309,11 +351,83 @@ def stripe_chunk(
     if row_valid is not None:
         valid = valid & _pad(row_valid, p * nb * b, False)[gmap]
     return Batches(
-        X=_pad(np.asarray(X, np.float32), p * nb * b, 0.0)[gmap],
+        X=_pad(_as_transport(X, transport_dtype(feature_dtype)), p * nb * b, 0)[gmap],
         y=_pad(np.asarray(y, np.int32), p * nb * b, 0)[gmap],
         rows=rows,
         valid=valid,
     )
+
+
+class ChunkStriper:
+    """Allocation-pooled twin of :func:`stripe_chunk` for the chunk feed's
+    hot loop (``io.feeder.csv_chunks``): the same placement, shuffle,
+    transport dtype and validity folding — bit-identical output — but the
+    pad staging buffers are reused across chunks and the gather map is
+    cached when the stream is unshuffled (it is start-invariant then).
+    One striper belongs to one pipeline stage (not thread-safe); the
+    returned planes are fresh gather outputs, so handing them downstream
+    while the striper reuses its staging is safe.
+    """
+
+    def __init__(self, partitions: int, per_batch: int, chunk_batches: int,
+                 shuffle_seed: int | None = None, feature_dtype=np.float32):
+        self.p, self.b, self.nb = partitions, per_batch, chunk_batches
+        self.shuffle_seed = shuffle_seed
+        self.feature_dtype = transport_dtype(feature_dtype)
+        self.span = partitions * per_batch * chunk_batches
+        self._gmap: np.ndarray | None = None  # unshuffled: start-invariant
+        self._padX: np.ndarray | None = None  # [span, F] staging, pooled
+        self._pady = np.zeros(self.span, np.int32)
+
+    def _maps(self, n: int, start_row: int):
+        """(gmap, rows, valid) — exactly :func:`_stripe_maps`, with the
+        unshuffled gather map computed once and reused."""
+        if self.shuffle_seed is None:
+            if self._gmap is None:
+                self._gmap = _stripe_gmap(_stripe_perms(self.p, self.b, self.nb, None))
+            gmap = self._gmap
+        else:
+            assert start_row % (self.p * self.b) == 0, (
+                "stripe-time shuffle needs start_row aligned to partitions*per_batch"
+            )
+            gmap = _stripe_gmap(_stripe_perms(
+                self.p, self.b, self.nb, self.shuffle_seed, start_row // (self.p * self.b)
+            ))
+        return gmap, (start_row + gmap).astype(np.int32), gmap < n
+
+    def stripe(self, X: np.ndarray, y: np.ndarray, start_row: int,
+               row_valid: np.ndarray | None = None) -> Batches:
+        """One span → ``[P, NB, B]`` chunk; :func:`stripe_chunk` semantics."""
+        n = len(y)
+        if n > self.span:
+            raise ValueError(f"span of {n} rows exceeds chunk grid {self.span}")
+        if row_valid is None and n == self.span:
+            # A full clean span: no padding, so gather straight from the
+            # caller's arrays when they are in the transport dtype already.
+            Xa, ya = np.asarray(X), np.asarray(y)
+            if Xa.dtype == self.feature_dtype and ya.dtype == np.int32 and Xa.ndim == 2:
+                gmap, rows, valid = self._maps(n, start_row)
+                return Batches(X=Xa[gmap], y=ya[gmap], rows=rows, valid=valid)
+        if row_valid is not None:
+            row_valid = np.asarray(row_valid, bool)
+            if row_valid.shape != (n,):
+                raise ValueError(
+                    f"row_valid shape {row_valid.shape} != span rows ({n},)"
+                )
+            X = np.where(row_valid[:, None], X, np.asarray(X).dtype.type(0))
+            y = np.where(row_valid, y, 0)
+        gmap, rows, valid = self._maps(n, start_row)
+        if row_valid is not None:
+            valid = valid & _pad(row_valid, self.span, False)[gmap]
+        X = np.asarray(X)
+        if self._padX is None or self._padX.shape[1] != X.shape[1]:
+            self._padX = np.zeros((self.span, X.shape[1]), self.feature_dtype)
+        padX, pady = self._padX, self._pady
+        padX[:n] = _as_transport(X, self.feature_dtype)
+        padX[n:] = 0
+        pady[:n] = np.asarray(y, np.int32)
+        pady[n:] = 0
+        return Batches(X=padX[gmap], y=pady[gmap], rows=rows, valid=valid)
 
 
 def _stripe_maps(

@@ -5,6 +5,8 @@ The port's own copy of the four generators the JAX package registers in
 byte-identical ``(X, y)`` in both packages (``tests/test_torch_stream.py``).
 Each returns raw ``X [N, F] f32`` and ``y [N] i32``; ``io.stream``'s
 ``synthesize_stream`` then scales, shuffles and sorts them into a stream.
+:func:`sea_chunk` and :func:`hyperplane_chunk` are the chunk-exact endless
+generators the chunk feeder draws from (``io.feeder.generator_chunks``).
 """
 
 from __future__ import annotations
@@ -181,3 +183,62 @@ def parse_synth(spec: str) -> tuple[np.ndarray, np.ndarray]:
                     ) from None
             kw[k.strip()] = num
     return fn(**kw)
+
+
+# SEA concept thresholds (Street & Kim 2001): label = f0 + f1 <= theta.
+_SEA_THETAS = (8.0, 9.0, 7.0, 9.5)
+
+
+def sea_chunk(seed: int, start: int, stop: int, drift_every: int, noise: float = 0.0):
+    """Rows [start, stop) of an endless SEA stream with abrupt drifts (the
+    JAX package's ``sea_chunk``): features ~ U[0,10)^3, the concept of
+    block ``row // drift_every`` cycles through the four SEA thresholds,
+    ``noise`` flips that fraction of labels. Chunk-exact: the same rows
+    whatever the chunking (``utils.prng.row_uniforms``)."""
+    from ..utils.prng import row_uniforms
+
+    n = stop - start
+    rows = np.arange(start, stop, dtype=np.int64)
+    u = row_uniforms(seed, start, n, per_row=4, stream_id=0)
+    X = (u[:, :3] * 10.0).astype(np.float32)
+    theta = np.asarray(_SEA_THETAS, np.float32)[(rows // drift_every) % len(_SEA_THETAS)]
+    y = (X[:, 0] + X[:, 1] <= theta).astype(np.int32)
+    if noise:
+        y[u[:, 3] < noise] ^= 1
+    return X, y
+
+
+def hyperplane_chunk(
+    seed: int,
+    start: int,
+    stop: int,
+    features: int = 10,
+    drift_every: int = 0,
+    rotate_scale: float = 0.0,
+):
+    """Rows [start, stop) of a rotating-hyperplane stream (the JAX
+    package's ``hyperplane_chunk``): ``label = (w_c · x > 0.5·Σw_c)`` with
+    weights per concept block (``drift_every`` > 0: abrupt redraws) and an
+    optional gradual rotation (``rotate_scale`` > 0). Chunk-exact like
+    :func:`sea_chunk`."""
+    from ..utils.prng import row_uniforms
+
+    n = stop - start
+    rows = np.arange(start, stop, dtype=np.int64)
+    X = row_uniforms(seed, start, n, per_row=features, stream_id=1).astype(np.float32)
+    if drift_every > 0:
+        blocks = rows // drift_every
+        uniq = np.unique(blocks)
+        w = np.stack(
+            [row_uniforms(seed, int(b), 1, features, stream_id=2)[0] for b in uniq]
+        ).astype(np.float32)
+        w_rows = w[np.searchsorted(uniq, blocks)]
+    else:
+        base = row_uniforms(seed, 0, 1, features, stream_id=2)[0].astype(np.float32)
+        w_rows = np.broadcast_to(base, (n, features)).copy()
+    if rotate_scale:
+        phase = (rows[:, None] * rotate_scale).astype(np.float32)
+        w_rows = w_rows + 0.3 * np.sin(phase + np.arange(features, dtype=np.float32))
+    margin = (X * w_rows).sum(1) - 0.5 * w_rows.sum(1)
+    y = (margin > 0).astype(np.int32)
+    return X, y

@@ -12,7 +12,8 @@ counted wrappers that callers use live beside their plain PyTorch versions
 ``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
 ``utils/threefry.py`` ``init_normals``, ``models/mlp.py`` ``mlp_fit``
 and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
-``forest_predict_err``, ``engine/soak.py`` ``soak_batch``).
+``forest_predict_err``, ``engine/soak.py`` ``soak_batch``, ``ops/shuffle.py``
+``shuffle_planes``).
 """
 
 from __future__ import annotations
@@ -176,6 +177,17 @@ _SIGNATURES = {
     # K12's plan at a shape on the current device (p, n, F, trees, depth,
     # classes, force, host int64 out[11]; out[9] the words of the global
     # workspace, 0 when the tally sits in shared memory)
+    "shuffle_perm": (
+        "shuffle_perm_launch",
+        [_P, _I, _I, _I,  # keys, derive, p, width
+         _P, _I, _P, _P, _P,  # idx, its bytes, rows, valid, start (or null)
+         _I, _I, _I, ctypes.c_uint, _I,  # source batches, b, rounds, tie mask, force
+         _P, _P, _P, _P,  # out idx, rows, valid, global scratch (or null)
+         _P],  # stream
+    ),
+    "shuffle_perm_floor": (
+        "shuffle_perm_floor_launch", [_I, _I, _I, _I, _P], "shuffle_perm",
+    ),
     "forest_predict_err_plan": (
         "forest_predict_err_plan", [_I, _I, _I, _I, _I, _I, _I, _P], "forest_predict_err",
     ),

@@ -39,7 +39,7 @@ COMMON_FLAGS = (
 # does. K8, K9 and K11 draw threefry normals bit-identical to JAX's
 # (csrc/threefry.cuh), under the same two flags, as do K6's generators;
 # K11 and K12 compute the forest's projections with explicit unfused,
-# unflushed PTX (csrc/forest.cuh).
+# unflushed PTX (csrc/forest.cuh). K13 does integer work only.
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
@@ -53,6 +53,7 @@ KERNELS = {
     "forest_fit": ("-fmad=false", "-ftz=true"),
     "forest_predict_err": ("-fmad=false",),
     "soak_batch": ("-fmad=false", "-ftz=true"),
+    "shuffle_perm": (),
 }
 
 

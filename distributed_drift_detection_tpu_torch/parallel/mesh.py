@@ -144,6 +144,34 @@ def host_flags(result: MeshRunResult) -> tuple[FlagRows, dict]:
     }
 
 
+def split_tenant_flags(flags: FlagRows, tenants: int, flag_cols=None) -> "list[FlagRows]":
+    """Per-tenant views ``[P, NBF]`` of a stacked ``[T·P, NBF]`` flag plane
+    (``[P, flag_cols[t]]`` when the tenants' flag widths are given: a
+    ragged tenant's padded trailing columns are sentinel and dropped), as
+    the JAX package's ``split_tenant_flags``. Host numpy or tensors."""
+    tp = flags.change_global.shape[0]
+    if tenants < 1 or tp % tenants:
+        raise ValueError(
+            f"stacked flag plane of {tp} rows does not split into {tenants} tenants"
+        )
+    p = tp // tenants
+    out = []
+    for t in range(tenants):
+        sl = FlagRows(*(leaf[t * p:(t + 1) * p] for leaf in flags))
+        if flag_cols is not None:
+            w = int(flag_cols[t])
+            sl = FlagRows(*(leaf[:, :w] for leaf in sl))
+        out.append(sl)
+    return out
+
+
+def tenant_drift_vote(flags: FlagRows) -> np.ndarray:
+    """One tenant's drift vote: the float32 fraction of its partitions
+    flagging a change at each step (``finish_mesh_run``'s arithmetic)."""
+    changed = (np.asarray(flags.change_global) >= 0).astype(np.float32)
+    return changed.sum(axis=0, dtype=np.float32) / np.float32(changed.shape[0])
+
+
 def finish_mesh_run(flags: FlagRows, compact_capacity: int = 0) -> MeshRunResult:
     """Drift vote, packed plane and (``compact_capacity > 0``) the
     compacted table of a finished run."""
@@ -202,6 +230,7 @@ def make_mesh_runner(
         run_one = make_partition_runner(
             model,
             ddm_params,
+            shuffle=False,  # the stream is shuffled on the host at stripe time
             retrain_error_threshold=retrain_error_threshold,
             detector=detector,
         )

@@ -148,6 +148,40 @@ def random_bits(key, shape):
     return bits.reshape(tuple(bits.shape[:-1]) + shape)
 
 
+def permutation_rounds(n: int) -> int:
+    """The sorts ``permutation`` of ``n`` items runs: ``ceil(3·ln(max(1,
+    n)) / ln(2^32 − 1))`` in float64, as jax 0.9.0's ``_shuffle`` counts
+    them — 0 at n = 1, 1 up to n = 1625, 2 from n = 1626."""
+    return int(np.ceil(3 * np.log(max(1, int(n))) / np.log(np.float64(M32))))
+
+
+def permutation(key, n: int, tie_mask: int = M32):
+    """``jax.random.permutation(key, n)`` (jax 0.9.0 ``_shuffle`` of
+    ``arange(n)``): :func:`permutation_rounds` rounds of ``key, sub =
+    split(key)``, 32 random bits of ``sub`` for each of the ``n`` places,
+    and a stable sort of the places by their bits. ``key [..., 2]`` →
+    ``[..., n]``: int64 numpy or, for a tensor key, an int64 tensor on its
+    device (``torch.sort(stable=True)``). ``tie_mask`` ANDs every draw (all
+    ones: JAX's), so a test can force ties."""
+    n = int(n)
+    numpy = _is_numpy(key)
+    if numpy:
+        key = np.asarray(key, np.uint32)
+        x = np.broadcast_to(np.arange(n, dtype=np.int64), key.shape[:-1] + (n,))
+    else:
+        key = key.long() & M32
+        x = torch.arange(n, dtype=torch.int64, device=key.device).expand(*key.shape[:-1], n)
+    for _ in range(permutation_rounds(n)):
+        pair = split(key, 2)
+        key, sub = pair[..., 0, :], pair[..., 1, :]
+        bits = random_bits(sub, (n,)) & tie_mask
+        if numpy:
+            x = np.take_along_axis(x, np.argsort(bits, axis=-1, kind="stable"), axis=-1)
+        else:
+            x = torch.gather(x, -1, torch.sort(bits, dim=-1, stable=True).indices)
+    return x
+
+
 def _unit_floats(key, shape) -> torch.Tensor:
     """``[1, 2)``'s float32 values from the top 23 bits, minus 1."""
     bits = random_bits(key, shape)

@@ -123,8 +123,18 @@ def test_usage_errors_match_jax(argv):
     assert detail(t.value.code) == detail(j.value.code)
 
 
-@pytest.mark.parametrize("name", sorted(tmain.UNPORTED_SUBCOMMANDS))
-def test_unported_subcommands_name_their_items(name):
+@pytest.mark.parametrize("name", sorted([*tmain.UNPORTED_SUBCOMMANDS, "chunked"]))
+def test_unported_subcommands_name_their_items(name, csvs, capsys):
+    """Each subcommand not ported yet exits nonzero naming its item;
+    ``chunked`` (ROADMAP A10b) is ported and runs on the CPU, printing
+    the JAX package's final JSON line (``tests/test_torch_chunked.py``
+    holds its numbers to JAX's)."""
+    if name == "chunked":
+        tmain.main(["chunked", csvs["clean"], "--classes", "6", "--partitions", "4",
+                    "--per-batch", "50", "--chunk-batches", "2"], device="cpu")
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["rows"] == 600 and out["chunks"] == 2
+        return
     item = tmain.UNPORTED_SUBCOMMANDS[name]
     with pytest.raises(SystemExit, match=rf"not ported yet: {name} \(ROADMAP {item}\)") as e:
         tmain.main([name, "x"], device="cpu")
@@ -134,9 +144,19 @@ def test_unported_subcommands_name_their_items(name):
 @pytest.mark.parametrize("argv, item", [
     pytest.param(["--tenants", "2", *ARGV], "A11", id="argv2-A11"),
 ])
-def test_unported_flags_name_their_items(argv, item):
-    with pytest.raises(SystemExit, match=rf"not ported yet: .*ROADMAP {item}\)"):
-        tmain.main(argv, device="cpu")
+def test_unported_flags_name_their_items(argv, item, csvs, tmp_path, monkeypatch, capsys):
+    """``--tenants 2`` (ROADMAP A11, ported) runs the stacked tenant plane
+    on the CPU and prints the JAX package's lines a tenant and the
+    aggregate (apart from the times)."""
+    monkeypatch.chdir(tmp_path)
+    lines = {}
+    for name, run_main in (("jax", jmain.main),
+                           ("port", lambda a: tmain.main(a, device="cpu"))):
+        run_main([*argv, csvs["clean"]])
+        out = capsys.readouterr().out.splitlines()
+        lines[name] = [ln.split(" final_time=")[0] for ln in out]
+    assert lines["port"] == lines["jax"]
+    assert [ln.split()[0] for ln in lines["port"]] == ["tenant=0", "tenant=1", "tenants=2"]
 
 
 @pytest.mark.parametrize("flag", ["--trace-dir", "--profile-dir"])

@@ -1303,3 +1303,64 @@ def test_soak_runner_on_the_card_matches_the_cpu(dev):
         assert soak.soak_batch.launches - before == (30 if not kw else 1 + 4)
         for name in runs[0].flags._fields:
             assert torch.equal(getattr(runs[0].flags, name), getattr(runs[1].flags, name).cpu())
+
+
+# K13 (ops/shuffle.py shuffle_planes): (P, W, B) — B = 1 (no round), the
+# one-round edge 1625, two rounds from 1626, a B past shared memory (the
+# global path), the window engine's main-path launch (16, 128, 100).
+K13_SHAPES = [(16, 1, 1), (16, 128, 2), (16, 128, 100), (3, 7, 1625), (3, 7, 1626),
+              (2, 3, 2000), (16, 1, 20000), (2, 128, 20000)]
+
+
+def _k13_inputs(dev, p, nb, b, idx_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, 30000, (p, nb, b)).astype(np.int64)).to(idx_dtype)
+    rows = torch.from_numpy(rng.integers(-1, 2**31 - 1, (p, nb, b), dtype=np.int64).astype(np.int32))
+    valid = torch.from_numpy(rng.random((p, nb, b)) < 0.8)
+    return idx.to(dev), rows.to(dev), valid.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K13_SHAPES)
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("derive", [True, False])
+def test_shuffle_perm_kernel_bitwise(dev, shape, idx_dtype, derive):
+    """K13 equals its plain version bit for bit: the window engine's keys
+    (one a partition, split W ways) with each lane's start, and the loop
+    engine's (one a batch)."""
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    p, w, b = shape
+    nb = w + 5
+    idx, rows, valid = _k13_inputs(dev, p, nb, b, idx_dtype)
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(
+        rng.integers(0, 2**32, (p, 2) if derive else (p, w, 2), dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(dev)
+    start = torch.from_numpy(rng.integers(0, 6, p)).to(dev) if derive else None
+    before = shuffle.shuffle_planes.launches
+    got = shuffle.shuffle_planes(keys, idx, rows, valid, w, start, derive=derive)
+    assert shuffle.shuffle_planes.launches == before + 1
+    want = shuffle.shuffle_planes_reference(keys, idx, rows, valid, w, start, derive=derive)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie_mask", [0, 0x3, 0xFF00])
+@pytest.mark.parametrize("force", [0, 1])
+def test_shuffle_perm_kernel_ties_and_paths(dev, tie_mask, force):
+    """Draws forced to tie (ANDed with ``tie_mask``): the kernel's order is
+    still the stable sort's; on the shared path and forced to the global
+    one."""
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    for b in (100, 1626):
+        idx, rows, valid = _k13_inputs(dev, 4, 9, b, torch.int32, seed=b)
+        keys = torch.arange(8, dtype=torch.int32, device=dev).view(4, 2) * 7919
+        got = shuffle.shuffle_planes(keys, idx, rows, valid, 9, derive=True,
+                                     tie_mask=tie_mask, force=force)
+        want = shuffle.shuffle_planes_reference(keys, idx, rows, valid, 9, derive=True,
+                                                tie_mask=tie_mask)
+        for g, r in zip(got, want):
+            assert torch.equal(g, r)

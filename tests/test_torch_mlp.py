@@ -311,7 +311,7 @@ def test_mlp_partition_step_continues_a_carried_jax_state():
     jend, jflags = scan(carry, part(mid, nb))
     assert (np.asarray(jflags.change_local) >= 0).any()
 
-    tstep = tloop.make_partition_step(tm, tconfig.DDMParams())
+    tstep = tloop.make_partition_step(tm, tconfig.DDMParams(), shuffle=False)
     X = torch.from_numpy(np.ascontiguousarray(b.X))
     table = pad_row_table(X.reshape(-1, f))
     labels = torch.from_numpy(np.ascontiguousarray(b.y)).reshape(-1)

@@ -166,6 +166,11 @@ def test_port_imports_no_jax():
         "distributed_drift_detection_tpu_torch.sched.worker, "
         "distributed_drift_detection_tpu_torch.sched.scheduler, "
         "distributed_drift_detection_tpu_torch.engine.soak, "
+        "distributed_drift_detection_tpu_torch.engine.chunked, "
+        "distributed_drift_detection_tpu_torch.io.feeder, "
+        "distributed_drift_detection_tpu_torch.io.synth, "
+        "distributed_drift_detection_tpu_torch.harness.chunked_cli, "
+        "distributed_drift_detection_tpu_torch.ops.shuffle, "
         "distributed_drift_detection_tpu_torch.utils.checkpoint, "
         "distributed_drift_detection_tpu_torch.utils.validate, "
         "distributed_drift_detection_tpu_torch.utils.timing\n"
@@ -219,6 +224,14 @@ def test_chip_scripts_refuse_without_a_card(script):
     ],
 )
 def test_unported_surfaces_raise(kw, item):
+    """A mesh is not ported yet (ROADMAP A15). The tenant plane is (A11):
+    ``run`` on a ``tenants=2`` config raises the JAX package's
+    ``ValueError`` naming ``run_multi``."""
+    if item == "A11":
+        for run, mod in ((jpkg.run, jconfig), (lambda c: tpkg.run(c, device="cpu"), tconfig)):
+            with pytest.raises(ValueError, match="use run_multi"):
+                run(_cfg(mod, **kw))
+        return
     with pytest.raises(NotImplementedError, match=item):
         tpkg.run(_cfg(tconfig, **kw), device="cpu")
 
@@ -394,7 +407,7 @@ def test_partition_step_continues_a_carried_jax_state():
     assert (np.asarray(jflags.change_local) >= 0).any()
 
     tstep = tloop.make_partition_step(build_model("gnb", ModelSpec(*spec)), tconfig.DDMParams(),
-                                      detector=tdet("ph", ph=tph))
+                                      shuffle=False, detector=tdet("ph", ph=tph))
     X = torch.from_numpy(np.ascontiguousarray(b.X))
     table = pad_row_table(X.reshape(-1, spec[0]))
     labels = torch.from_numpy(np.ascontiguousarray(b.y)).reshape(-1)
