@@ -93,8 +93,11 @@ without them. Phases, each fatal on failure:
    phase;
 10. the nets of ROADMAP C5, ``mlp_hidden`` (256, 128) and (512,) (``C5_NETS``),
    through ``run`` at SMOKE on the card, counted: 624 detections and a
-   mean delay within a batch of the port's CPU run of the same config,
-   Final Time, K10's plan and one traced detect phase each;
+   mean delay within a batch of the JAX package's SMOKE value (788.6282
+   rows, the CPU run's at this depth), Final Time, K10's plan and one
+   traced detect phase each; the CPU reference at a cut depth
+   (``SHALLOW_MULT``), counted against the card's run of that depth: the
+   same detections and a mean delay within a batch;
 11. CSV ingest: SMOKE's stream written as a CSV in the reference's schema
    and run on the card under ``data_policy='strict'`` — the main path's
    624 detections and 788.6282 rows, flags equal field by field to phase
@@ -206,7 +209,32 @@ without them. Phases, each fatal on failure:
    flags equal the uninterrupted run's; (e) ``run_multi`` of ``TENANTS``
    tenants at SMOKE, counted: each tenant's flags and vote equal to its
    solo run (tenant 0's to phase 4's), each tenant's votes and metrics
-   printed, the stacked Final Time and rows/s.
+   printed, the stacked Final Time and rows/s;
+19. the serving daemon (``serve.runner.ServeRunner`` on the card, W =
+   128, R = 4): (a) SMOKE's stream replayed by ``serve.loadgen.run_loadgen``
+   over loopback as wire v2 frames into a daemon with an ingress port, an
+   ops port and a telemetry dir (forensics and incidents on), ``CHUNK_BATCHES``
+   a chunk, counted: 624 detections, the ``change_global`` table rebuilt
+   from the verdict sidecar and the kept flags equal to phase 4's, one
+   forensics bundle per drift verdict, ``/healthz`` 200, ``/metrics``
+   carrying ``serve_row_latency_seconds_bucket``, K1, K2 and K7 launched
+   while serving and K13 on neither the main path nor the serving path
+   (counters reset just before the replay); printed beside the card's name
+   and power limit: admission rows/s (the client's send), served rows/s
+   (first row sent to the last verdict), p50/p99 row→verdict latency by
+   stage, ``serve_stage_busy_seconds_total`` by stage, the drain's
+   seconds; (b) at ``SHALLOW_MULT`` under ``quarantine``, replayed as v1
+   text with ``SERVE_DIRTY`` rows: flags equal to ``api.run`` on the card
+   with those rows masked, the quarantine sidecar naming exactly them; (c)
+   ``checkpoint_every=1`` and ``serve.flush`` armed to raise at chunk 2,
+   then a fresh daemon resumed from the checkpoint fed the rest: the union
+   of the verdicts equals (a)'s; (d) ``TENANTS`` slots at ``SHALLOW_MULT``:
+   each slot's flags equal its tenant's solo daemon's; ``SAVETENANT`` of
+   slot 1 after two chunks, ``LOADTENANT`` into a fresh daemon: that
+   tenant's flags continue bit for bit; (e) ``python -m
+   distributed_drift_detection_tpu_torch serve`` as a process on the card,
+   fed by the ``loadgen`` CLI, then 7 rows without ``FLUSH`` and SIGTERM:
+   exit 0, the partial microbatch published, the registry ``completed``.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -2394,8 +2422,9 @@ SOAK_ROWS, SOAK_LEG_ROWS = 10**9, 2**29
 # each generator with its width and the centroid's classes
 SOAK_GENS = (("prototypes", 8, 8), ("sea", 3, 2), ("hyperplane", 10, 2),
              ("hyperplane_gradual", 10, 2))
-# the cut depth the card is held to the port's CPU run at
-SOAK_CUT = dict(partitions=16, per_batch=200, num_batches=150, drift_every=4000)
+# the cut depth the card is held to the port's CPU run at (80 batches: 64
+# concepts a run, every generator detecting)
+SOAK_CUT = dict(partitions=16, per_batch=200, num_batches=80, drift_every=4000)
 SOAK_CUT_WINDOW = 8
 SOAK_CHAIN = dict(partitions=16, per_batch=200, total_rows=16 * 180 * 200,
                   drift_every=4000, max_leg_rows=16 * 60 * 200)
@@ -3098,6 +3127,371 @@ def chunked_phase(torch, api, config, kernels, cfg, res, dev):
     return row
 
 
+# Phase 19: the serving daemon on the card. A replay ends with the loadgen's
+# FLUSH, so the linger deadline is long enough that no seal splits a replay
+# (the chunks are then the stripe of the whole stream, as phase 18's are).
+SERVE_LINGER_S = 30.0
+SERVE_SHALLOW_CB = 32  # batches a chunk at SHALLOW_MULT: 5 chunks of 51,200 rows
+SERVE_DIRTY = ("nan_cell:6:3", "bad_label:4:4")
+SERVE_STAGES = ("admission", "queue", "device", "collect", "total")
+
+
+def table_from_verdicts(records, partitions):
+    """The ``change_global`` table a verdict sidecar describes."""
+    total = max(r["flag_base"] + r["cols"] for r in records)
+    cg = np.full((partitions, total), -1, np.int64)
+    for r in records:
+        for p, b, pos in r["changes"]:
+            cg[p, r["flag_base"] + b] = pos
+    return cg
+
+
+def served_equal(got, ref, what):
+    """Served flags equal batch flags field by field; the served columns past
+    the batch run's width (a short last chunk's padding) are sentinels."""
+    w = ref.change_global.shape[1]
+    for fld in ref._fields:
+        check(np.array_equal(np.asarray(getattr(got, fld))[:, :w], getattr(ref, fld)),
+              f"{what}: flags.{fld} differ")
+    check(bool(np.all(np.asarray(got.change_global)[:, w:] == -1)), f"{what}: padding flagged")
+
+
+def ms(seconds) -> str:
+    return "none" if seconds is None else f"{seconds * 1e3:.2f}"
+
+
+def serve_in_main(runner, client):
+    """Run ``client`` on a thread while the serve loop runs on this one (the
+    thread of ``runner.start()``: only it launches kernels); ``client`` ends
+    with ``runner.request_stop()``. Returns (loop exit code, client output,
+    drain seconds from the stop request to the loop's return)."""
+    import threading
+
+    out = {}
+
+    def body():
+        try:
+            client(out)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+        finally:
+            out["t_stop"] = time.perf_counter()
+            runner.request_stop()
+
+    th = threading.Thread(target=body)
+    th.start()
+    code = runner.serve_forever()
+    drain = time.perf_counter() - out["t_stop"]
+    th.join()
+    if "error" in out:
+        raise out["error"]
+    return code, out, drain
+
+
+def admit_spans(admissions, streams, lo, hi, span):
+    """Admit rows ``[lo, hi)`` of each tenant's stream as v2 frames, a span
+    a tenant in turn (balanced seals)."""
+    for base in range(lo, hi, span):
+        for adm, (X, y) in zip(admissions, streams):
+            e = min(base + span, hi)
+            adm.admit_frame(X[base:e], y[base:e])
+
+
+def serve_phase(torch, api, config, cfg, res, rows, main_launches, dev):
+    """Phase 19 (module docstring): the serving daemon on the card."""
+    import glob
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+
+    from distributed_drift_detection_tpu_torch.config import ServeParams
+    from distributed_drift_detection_tpu_torch.io.sanitize import read_quarantine
+    from distributed_drift_detection_tpu_torch.io.stream import StreamData
+    from distributed_drift_detection_tpu_torch.parallel.mesh import split_tenant_flags
+    from distributed_drift_detection_tpu_torch.resilience import faults
+    from distributed_drift_detection_tpu_torch.serve import ServeRunner, loadgen, read_verdicts
+    from distributed_drift_detection_tpu_torch.telemetry import registry
+    from distributed_drift_detection_tpu_torch.telemetry.trace import hist_quantile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    scfg = config.replace(cfg, window=128, window_rotations=4)
+    X, y = np.ascontiguousarray(res.stream.X), np.ascontiguousarray(res.stream.y, np.int32)
+    n, f, c = len(y), res.stream.num_features, res.stream.num_classes
+    p = cfg.partitions
+
+    def params(**kw):
+        kw.setdefault("port", None)
+        kw.setdefault("chunk_batches", CHUNK_BATCHES)
+        kw.setdefault("linger_s", SERVE_LINGER_S)
+        return ServeParams(num_features=f, num_classes=c, **kw)
+
+    # (a) the full replay over loopback as wire v2 frames
+    d = f"{tmp.name}/a"
+    runner = ServeRunner(config.replace(scfg, telemetry_dir=d), params(port=0, ops_port=0),
+                         keep_flags=True, device=dev)
+    t0 = time.perf_counter()
+    banner = runner.start()
+    start_s = time.perf_counter() - t0
+
+    def replay(out):
+        out["t_wall"] = time.time()
+        out["report"] = loadgen.run_loadgen(
+            banner["host"], banner["port"], None, verdicts=banner["verdicts"], timeout=600,
+            wire_version="v2", arrays=(X, y), frame_rows=4096)
+        base = f"http://{banner['host']}:{banner['ops_port']}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            out["healthz"] = r.status
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            out["metrics"] = r.read().decode()
+
+    reset_launches()
+    code, out, drain_s = serve_in_main(runner, replay)
+    sl = read_launches()
+    rep = out["report"]
+    check(code == 0, f"serve (a): the loop returned {code}")
+    check(rep["rows_covered"] == n and not rep["timeout"],
+          f"serve (a): {rep['rows_covered']} of {n} rows covered (timeout {rep['timeout']})")
+    check(runner._detections == EXPECTED_DETECTIONS,
+          f"serve (a): {runner._detections} detections, expected {EXPECTED_DETECTIONS}")
+    recs = read_verdicts(banner["verdicts"])
+    served_cg = table_from_verdicts(recs, p)
+    check(np.array_equal(served_cg, res.flags.change_global),
+          "serve (a): the change_global table of the verdict sidecar differs from phase 4's")
+    served_equal(runner.flags(), res.flags, "serve (a) against phase 4's run")
+    bundles = glob.glob(os.path.splitext(banner["run_log"])[0] + ".forensics/drift-*.json")
+    check(len(bundles) == EXPECTED_DETECTIONS,
+          f"serve (a): {len(bundles)} forensics bundles for {EXPECTED_DETECTIONS} verdicts")
+    check(out["healthz"] == 200, f"serve (a): /healthz answered {out['healthz']}")
+    check("serve_row_latency_seconds_bucket" in out["metrics"],
+          "serve (a): /metrics lacks serve_row_latency_seconds_bucket")
+    for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+        check(sl[k] > 0, f"serve (a): kernel {k} was not launched while serving")
+    check(sl["shuffle_perm"] == 0 and main_launches["shuffle_perm"] == 0,
+          "K13 launched on the main path or the serving path (both stripe on the host)")
+    k13 = next(r for r in rows if r["name"] == "shuffle_perm")
+    k13["main_path_launches"], k13["serve_launches"] = main_launches["shuffle_perm"], sl["shuffle_perm"]
+    served_s = max(r["ts"] for r in recs) - out["t_wall"]
+    lat = {s: (hist_quantile(runner._lat_hist, 0.5, stage=s),
+               hist_quantile(runner._lat_hist, 0.99, stage=s)) for s in SERVE_STAGES}
+    print(f"serve (a) on the card ({card()}): {n} rows as v2 frames over loopback, "
+          f"{runner._published} chunks of {CHUNK_BATCHES} batches, W=128 R=4: "
+          f"{runner._detections} detections; the sidecar's change_global and the kept flags "
+          f"equal phase 4's; {len(bundles)} forensics bundles; /healthz 200; launches {sl}")
+    print(f"serve (a): start (prepare) {start_s:.3f} s; admission {rep['achieved_rows_per_sec']:,.0f} "
+          f"rows/s (the client's send); served {n / served_s:,.0f} rows/s (first row sent to "
+          f"the last verdict, {served_s:.3f} s); row->verdict p50/p99 ms by stage "
+          + ", ".join(f"{s} {ms(a)}/{ms(b)}" for s, (a, b) in lat.items())
+          + f"; the client's p50/p99 {rep['p50_ms']}/{rep['p99_ms']} ms; "
+          f"serve_stage_busy_seconds_total {dict((k, round(v, 4)) for k, v in sorted(runner._stage_clock.busy.items()))}; "
+          f"drain {drain_s:.3f} s")
+
+    # (e)'s daemon (the serve CLI on the card as a process) starts now, so
+    # its start-up overlaps (b)-(d)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    m = [sys.executable, "-m", "distributed_drift_detection_tpu_torch"]
+    tele = f"{tmp.name}/e"
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        m + ["serve", "--features", str(f), "--classes", str(c), "--partitions", str(p),
+             "--per-batch", str(cfg.per_batch), "--chunk-batches", "2", "--window", "8",
+             "--port", "0", "--ops-port", "0", "--linger-s", "600", "--telemetry-dir", tele,
+             *(["--device", str(dev)] if dev.type != "cuda" else [])],
+        stdout=subprocess.PIPE, env=env, text=True, cwd=root)
+    try:
+        # (b) dirty rows over v1 text at SHALLOW_MULT under quarantine
+        bcfg = config.replace(scfg, mult_data=SHALLOW_MULT, data_policy="quarantine")
+        bstream = api._load_stream_for(config.replace(cfg, mult_data=SHALLOW_MULT))
+        t0 = time.perf_counter()
+        lines = loadgen.format_lines(bstream.X, bstream.y)
+        bad = sorted({r for spec in SERVE_DIRTY for r, _ in loadgen.apply_dirty(lines, spec)})
+        fmt_s = time.perf_counter() - t0
+        runner = ServeRunner(config.replace(bcfg, telemetry_dir=f"{tmp.name}/b"),
+                             params(port=0, chunk_batches=SERVE_SHALLOW_CB), keep_flags=True,
+                             device=dev)
+        banner = runner.start()
+
+        def replay_v1(out):
+            out["report"] = loadgen.run_loadgen(banner["host"], banner["port"], lines,
+                                                verdicts=banner["verdicts"], timeout=600)
+
+        reset_launches()
+        code, out, _ = serve_in_main(runner, replay_v1)
+        bl = read_launches()
+        check(code == 0 and out["report"]["rows_covered"] == len(lines),
+              f"serve (b): exit {code}, {out['report']['rows_covered']} rows covered")
+        ok = np.ones(len(lines), bool)
+        ok[bad] = False
+        masked = StreamData(X=bstream.X, y=bstream.y, num_classes=bstream.num_classes,
+                            dist_between_changes=bstream.dist_between_changes, row_ok=ok)
+        ref = api.run(bcfg, stream=masked, device=dev)
+        served_equal(runner.flags(), ref.flags, "serve (b) against api.run with the rows masked")
+        check(ref.metrics.num_detections > 0, "serve (b): no detections to compare")
+        q = read_quarantine(os.path.splitext(banner["run_log"])[0] + ".quarantine.jsonl")
+        check(sorted(r["row"] for r in q) == bad,
+              "serve (b): the quarantine sidecar does not name exactly the corrupted rows")
+        for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+            check(bl[k] > 0, f"serve (b): kernel {k} was not launched")
+        print(f"serve (b): {len(lines)} rows as v1 text (formatted in {fmt_s:.1f} s) with "
+              f"{', '.join(SERVE_DIRTY)}: {runner._detections} detections, flags equal to api.run "
+              f"on the card with the {len(bad)} rows masked ({ref.metrics.num_detections} "
+              f"detections); the sidecar names exactly those rows; admission "
+              f"{out['report']['achieved_rows_per_sec']:,.0f} rows/s")
+
+        # (c) kill at chunk 2 (serve.flush raises), resume from the checkpoint
+        ckpt = f"{tmp.name}/serve.ckpt"
+        frames = 1 << 16
+        ccfg = config.replace(scfg, telemetry_dir=f"{tmp.name}/c")
+        r1 = ServeRunner(ccfg, params(checkpoint=ckpt, checkpoint_every=1), keep_flags=True,
+                         device=dev)
+        r1.start()
+        admit_spans([r1.admission], [(X, y)], 0, n, frames)
+        r1.batcher.flush()
+        r1.request_stop()
+        faults.arm("serve.flush", at=3)
+        try:
+            r1.serve_forever()
+            fail("serve (c): the armed serve.flush fault did not fire")
+        except faults.InjectedFault:
+            pass
+        finally:
+            faults.disarm_all()
+        check(r1._published == 2 and os.path.exists(ckpt),
+              f"serve (c): {r1._published} chunks published before the fault")
+        r2 = ServeRunner(ccfg, params(checkpoint=ckpt, checkpoint_every=1), keep_flags=True,
+                         device=dev)
+        b2 = r2.start()
+        start = int(r2.resumed_meta["rows_admitted"])
+        check(b2["resumed"] and start == 2 * p * CHUNK_BATCHES * cfg.per_batch,
+              f"serve (c): resumed {b2['resumed']} at row {start}")
+        admit_spans([r2.admission], [(X, y)], start, n, frames)
+        r2.batcher.flush()
+        r2.request_stop()
+        check(r2.serve_forever() == 0, "serve (c): the resumed loop failed")
+        union = read_verdicts(r1.verdicts_path) + read_verdicts(r2.verdicts_path)
+        check(np.array_equal(table_from_verdicts(union, p), served_cg),
+              "serve (c): the killed and resumed verdicts differ from (a)'s uninterrupted run")
+        f1, f2 = r1.flags(), r2.flags()
+        served_equal(type(f1)(*(np.concatenate([a, b], 1) for a, b in zip(f1, f2))), res.flags,
+                     "serve (c) against phase 4's run")
+        print(f"serve (c): serve.flush raised at chunk 2 after 2 published chunks; a fresh daemon "
+              f"resumed at row {start}; the union of the verdicts equals (a)'s and phase 4's flags")
+
+        # (d) TENANTS slots at SHALLOW_MULT against solo daemons; SAVETENANT of
+        # slot 1 mid-stream, LOADTENANT into a fresh daemon
+        tcfg = config.replace(scfg, mult_data=SHALLOW_MULT, tenants=TENANTS)
+        tstreams = []
+        for tc in config.tenant_configs(tcfg):
+            s = api._load_stream_for(tc)
+            tstreams.append((np.ascontiguousarray(s.X), np.ascontiguousarray(s.y, np.int32)))
+        tn = len(tstreams[0][1])
+        span = p * SERVE_SHALLOW_CB * cfg.per_batch
+        tparams = params(chunk_batches=SERVE_SHALLOW_CB)
+        plane = ServeRunner(tcfg, tparams, keep_flags=True, device=dev)
+        plane.start()
+        admit_spans(plane.admissions, tstreams, 0, tn, span)
+        plane.batcher.flush()
+        plane.request_stop()
+        reset_launches()
+        check(plane.serve_forever() == 0, "serve (d): the tenant plane's loop failed")
+        dl = read_launches()
+        per = split_tenant_flags(plane.flags(), TENANTS)
+        dets = []
+        for t, tc in enumerate(config.tenant_configs(tcfg)):
+            solo = ServeRunner(config.replace(tc, tenants=1), tparams, keep_flags=True, device=dev)
+            solo.start()
+            admit_spans([solo.admission], [tstreams[t]], 0, tn, span)
+            solo.batcher.flush()
+            solo.request_stop()
+            check(solo.serve_forever() == 0, f"serve (d): tenant {t}'s solo daemon failed")
+            for fld in per[t]._fields:
+                check(np.array_equal(getattr(per[t], fld), getattr(solo.flags(), fld)),
+                      f"serve (d): slot {t}'s flags.{fld} differ from its solo daemon's")
+            dets.append(solo._detections)
+            check(solo._detections > 0, f"serve (d): tenant {t}'s solo daemon detected nothing")
+        ckpt_t = f"{tmp.name}/slot1.ckpt"
+        cut = 2 * span
+        a = ServeRunner(tcfg, tparams, device=dev)
+        a.start()
+        admit_spans(a.admissions, tstreams, 0, cut, span)
+        replies = []
+        a.request_control("SAVETENANT", 1, ckpt_t, replies.append)
+        a.request_stop()
+        check(a.serve_forever() == 0 and replies == [f"OK SAVETENANT 1 {cut}"],
+              f"serve (d): SAVETENANT answered {replies}")
+        bplane = ServeRunner(tcfg, tparams, keep_flags=True, device=dev)
+        bplane.start()
+
+        def land(out):
+            got = []
+            bplane.request_control("LOADTENANT", 1, ckpt_t, got.append)
+            deadline = time.monotonic() + 120
+            while not got and time.monotonic() < deadline:
+                time.sleep(0.01)
+            out["reply"] = got
+            admit_spans(bplane.admissions, tstreams, cut, tn, span)
+            bplane.batcher.flush()
+
+        code, out, _ = serve_in_main(bplane, land)
+        check(code == 0 and out["reply"] == [f"OK LOADTENANT 1 {cut}"],
+              f"serve (d): LOADTENANT answered {out['reply']}")
+        landed = split_tenant_flags(bplane.flags(), TENANTS)[1]
+        col = 2 * SERVE_SHALLOW_CB - 1  # the first chunk's first batch seeds batch_a
+        for fld in landed._fields:
+            check(np.array_equal(getattr(landed, fld), getattr(per[1], fld)[:, col:]),
+                  f"serve (d): the landed tenant's flags.{fld} differ from its uninterrupted slot")
+        for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+            check(dl[k] > 0, f"serve (d): kernel {k} was not launched")
+        print(f"serve (d): {TENANTS} slots at mult_data {SHALLOW_MULT}: each slot's flags equal "
+              f"its solo daemon's (detections {dets}); SAVETENANT of slot 1 after {cut} rows, "
+              f"LOADTENANT into a fresh {TENANTS}-slot daemon: its flags continue bit for bit")
+
+        # (e) fed by the loadgen CLI, then seven rows without FLUSH, then
+        # SIGTERM
+        eb = json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t_spawn
+        lg = subprocess.run(
+            m + ["loadgen", SMOKE["dataset"], "--port", str(eb["port"]), "--wire", "v2",
+                 "--dir", tele, "--timeout", "120"],
+            capture_output=True, text=True, env=env, cwd=root, timeout=300)
+        check(lg.returncode == 0, f"serve (e): loadgen exited {lg.returncode}: {lg.stderr[-2000:]}")
+        lrep = json.loads(lg.stdout.strip().splitlines()[-1])
+        sent = lrep["rows_sent"]
+        check(lrep["rows_covered"] == sent, f"serve (e): {lrep['rows_covered']} of {sent} covered")
+        extra = loadgen.format_lines(X[:7], y[:7])
+        with socket.create_connection((eb["host"], eb["port"]), timeout=30) as sock:
+            sock.sendall(("\n".join(extra) + "\n").encode())
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(f"http://{eb['host']}:{eb['ops_port']}/statusz",
+                                        timeout=30) as r:
+                if json.loads(r.read())["rows"]["admitted"] == sent + 7:
+                    break
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, f"serve (e): the daemon exited {rc} on SIGTERM")
+    last = read_verdicts(eb["verdicts"])[-1]
+    check(last["rows_through"] == sent + 7 and last["short"],
+          f"serve (e): the drain published through row {last['rows_through']}, not {sent + 7}")
+    runs = registry.runs(tele)
+    check([r["status"] for r in runs.values() if r.get("kind") == "serve"] == ["completed"],
+          f"serve (e): registry {[r['status'] for r in runs.values()]}")
+    print(f"serve (e): `serve` on the card spawned before (b), its banner read {up_s:.1f} s "
+          f"later; the loadgen CLI covered {sent} "
+          f"rows (p50/p99 {lrep['p50_ms']}/{lrep['p99_ms']} ms); 7 rows without FLUSH; "
+          f"SIGTERM: exit 0, the partial microbatch published (rows_through "
+          f"{last['rows_through']}, short), the registry completed")
+    tmp.cleanup()
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -3272,13 +3666,16 @@ def main(device: str = "cuda") -> int:
           f"{msum['detect_s']:.4f} s, idle share {msum['idle_share']:.3f}")
 
     # 10. the nets of ROADMAP C5 at SMOKE, end to end, counted: detections
-    # equal to the JAX package's, mean delay within a batch of the port's
-    # CPU run of the same config (K9's products follow C4's tolerance)
+    # equal to the JAX package's, mean delay within a batch of SMOKE's; the
+    # CPU reference at a cut depth against the card's run of that depth
+    # (K9's products follow C4's tolerance)
     for hidden in C5_NETS:
         ccfg = config.replace(mcfg, mlp_hidden=hidden)
+        scfg = config.replace(ccfg, mult_data=SHALLOW_MULT)
         t0 = time.perf_counter()
-        cref = api.run(ccfg, device="cpu")
+        cref = api.run(scfg, device="cpu")
         cpu_s = time.perf_counter() - t0
+        sres = api.run(scfg, device=dev)
         reset_launches()
         cres = api.run(ccfg, device=dev)
         cl = read_launches()
@@ -3289,9 +3686,10 @@ def main(device: str = "cuda") -> int:
         cper, csum = in_run_profile(torch, api, api.prepare(ccfg, device=dev), dev,
                                     ("mlp_fit", "mlp_predict_err"))
         print(f"mlp {hidden} on the card: {cm.num_detections} detections, mean delay "
-              f"{cm.mean_delay_rows:.4f} rows (the port's CPU run: "
-              f"{cref.metrics.num_detections}, {cref.metrics.mean_delay_rows:.4f} rows, "
-              f"{cpu_s:.1f} s); Final Time (median of 3 warm runs) "
+              f"{cm.mean_delay_rows:.4f} rows; at mult_data {SHALLOW_MULT} "
+              f"{sres.metrics.num_detections} detections, {sres.metrics.mean_delay_rows:.4f} "
+              f"rows (the port's CPU run: {cref.metrics.num_detections}, "
+              f"{cref.metrics.mean_delay_rows:.4f} rows, {cpu_s:.1f} s); Final Time (median of 3 warm runs) "
               f"{final_times[f'mlp{hidden}']:.4f} s; K10 plan: {k10_plan_text(cplan)}; "
               f"launches {cl}; in-run "
               + ", ".join(f"{k} {c} launches x {us:.2f} us" for k, (c, us) in cper.items())
@@ -3299,9 +3697,15 @@ def main(device: str = "cuda") -> int:
               f"{csum['detect_s']:.4f} s, idle share {csum['idle_share']:.3f}")
         check(cm.num_detections == EXPECTED_DETECTIONS,
               f"mlp {hidden}: {cm.num_detections} detections, expected {EXPECTED_DETECTIONS}")
-        check(abs(cm.mean_delay_rows - cref.metrics.mean_delay_rows) <= cfg.per_batch,
-              f"mlp {hidden}: mean delay {cm.mean_delay_rows}, more than a batch from the "
-              f"CPU run's {cref.metrics.mean_delay_rows}")
+        check(abs(cm.mean_delay_rows - MLP_EXPECTED[1]) <= cfg.per_batch,
+              f"mlp {hidden}: mean delay {cm.mean_delay_rows}, more than a batch from "
+              f"SMOKE's {MLP_EXPECTED[1]}")
+        check(sres.metrics.num_detections == cref.metrics.num_detections
+              and abs(sres.metrics.mean_delay_rows - cref.metrics.mean_delay_rows)
+              <= cfg.per_batch,
+              f"mlp {hidden} at mult_data {SHALLOW_MULT}: {sres.metrics.num_detections} "
+              f"detections, mean delay {sres.metrics.mean_delay_rows}, against the CPU run's "
+              f"{cref.metrics.num_detections}, {cref.metrics.mean_delay_rows}")
         check(bool(np.isfinite(cres.drift_vote).all()), f"mlp {hidden}: non-finite drift vote")
         for k in ("random_normal", "mlp_fit", "mlp_predict_err"):
             check(cl[k] > 0, f"mlp {hidden}: kernel {k} was not launched on its path")
@@ -3331,6 +3735,9 @@ def main(device: str = "cuda") -> int:
 
     # 18. streaming ingest, the in-loop shuffle (K13) and the tenant plane
     rows.append(chunked_phase(torch, api, config, kernels, cfg, res, dev))
+
+    # 19. the serving daemon on the card
+    serve_phase(torch, api, config, cfg, res, rows, launches, dev)
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

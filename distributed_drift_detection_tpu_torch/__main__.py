@@ -32,12 +32,16 @@ together fail before any work.
 (``api.run_multi``) and prints a summary line a tenant, then the
 aggregate.
 
-Six subcommands: ``chunked`` streams a CSV through the chunked engine
-(``harness.chunked_cli``, on the card or with ``--device cpu``); only it,
-``heal --execute`` and the workers ``sched`` spawns run experiments, and
-``doctor`` and ``registry`` import no torch:
+Eight subcommands: ``chunked`` streams a CSV through the chunked engine
+(``harness.chunked_cli``, on the card or with ``--device cpu``), ``serve``
+runs the serving daemon (``serve.runner``, on the card or with ``--device
+cpu``) and ``loadgen`` replays a stream into it (``serve.loadgen``); only
+those two, ``heal --execute`` and the workers ``sched`` spawns run
+experiments, and ``doctor``, ``registry`` and ``loadgen`` import no torch:
 
     python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]
+    python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]
+    python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]
     python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
     python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]
     python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]
@@ -67,6 +71,8 @@ _USAGE = (
     "[--tenants N] "
     "[URL INSTANCES MEMORY CORES TIME_STRING MULT_DATA [DATASET]]\n"
     "       python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]\n"
     "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
     "       python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]\n"
     "       python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]\n"
@@ -79,14 +85,16 @@ _USAGE = (
 UNPORTED_SUBCOMMANDS = {
     **dict.fromkeys(
         ("report", "perf", "watch", "top", "pipeline", "history", "collector",
-         "correlate", "timeline", "explain", "incident"), "A15"),
-    **dict.fromkeys(("serve", "loadgen", "router"), "A12"),
+         "correlate", "timeline", "explain", "incident"), "A15c"),
+    "router": "A12b",
 }
 
 # The host-side subcommands: module, and whether the ``device`` of
 # :func:`main` is its ``--device`` default (those that run experiments).
 SUBCOMMANDS = {
     "chunked": (".harness.chunked_cli", True),
+    "serve": (".serve.runner", True),
+    "loadgen": (".serve.loadgen", False),
     "doctor": (".io.sanitize", False),
     "heal": (".resilience.heal", True),
     "sched": (".sched.scheduler", True),

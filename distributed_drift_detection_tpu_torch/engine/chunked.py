@@ -24,8 +24,7 @@ engines advance it as JAX's do. ``shuffle=True`` permutes every batch in
 the loop (kernel K13, ``ops/shuffle.py``).
 
 Not ported yet, each refused by name before any work: a device ``mesh``
-(ROADMAP A15d), ``on_drift`` adaptation (A13) and the chunk ``tracer``
-(A12).
+(ROADMAP A15d) and ``on_drift`` adaptation (A13).
 """
 
 from __future__ import annotations
@@ -377,10 +376,11 @@ class ChunkedDetector:
         ``EventLog``) emits ``chunk_completed`` then ``heartbeat`` a chunk;
         ``metrics`` records the memory gauges and the ``upload`` stage's
         busy seconds (``io.feeder.STAGE_BUSY_METRIC``). ``validate``
-        audits the flag table at the end. A ``tracer`` is not ported yet
-        (ROADMAP A12)."""
-        if tracer:
-            raise NotImplementedError("not ported yet: the chunk tracer (ROADMAP A12)")
+        audits the flag table at the end. ``tracer`` (a
+        :class:`..telemetry.tracing.ChunkTracer`, requires ``telemetry``)
+        emits one ``kernel`` span per head-sampled chunk, from the feed to
+        the chunk event's host read of its detection count: the chunk's
+        window on the host clock (no device timestamps are taken)."""
         if not collect_every and telemetry is not None:
             collect_every = DEFAULT_TELEMETRY_COLLECT_EVERY
         start_batches = self.batches_done
@@ -412,6 +412,7 @@ class ChunkedDetector:
         i = 0
         while placed is not None:
             t_feed = time.perf_counter()
+            t_feed_mono = time.monotonic()
             flags = self.feed(placed)
             if c_stage is not None:
                 c_stage.inc(time.perf_counter() - t_feed, stage="upload")
@@ -419,6 +420,13 @@ class ChunkedDetector:
             if telemetry is not None:
                 flags, _ = self.emit_chunk_event(telemetry, i, flags, metrics)
                 self.emit_heartbeat(telemetry)
+                if tracer:
+                    # the chunk event read this chunk's detection count on
+                    # the host, so "now" closes the span
+                    tracer.span(
+                        "kernel", i, t_feed_mono, time.monotonic(),
+                        batches_done=self.batches_done,
+                    )
             elif metrics is not None:
                 self.record_memory_gauges(metrics)
             out.append(flags)

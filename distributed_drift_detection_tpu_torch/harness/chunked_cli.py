@@ -23,8 +23,9 @@ metric exports, and registers as ``kind="chunked"``. The final line on
 stdout is one JSON object with rows/chunks/detections/rows_per_sec and
 the per-stage busy breakdown; any ``--ingest-workers`` gives the same
 detections. ``--compile-cache-dir`` names the directory the kernels are
-built into (``RunConfig.compile_cache_dir``). ``--trace-sample`` above 0
-is not ported yet (ROADMAP A12).
+built into (``RunConfig.compile_cache_dir``). ``--trace-sample RATE``
+head-samples chunks for ``ingest`` and ``kernel`` spans in the run log
+(``telemetry.tracing``; needs ``--telemetry-dir``).
 """
 
 from __future__ import annotations
@@ -87,13 +88,12 @@ def main(argv=None, device="cuda") -> None:
     )
     ap.add_argument(
         "--trace-sample", type=float, default=0.0,
-        help="head-sample chunks for trace spans (not ported yet: "
-        "ROADMAP A12; 0 = off)",
+        help="head-sample chunks at this rate for ingest/kernel trace "
+        "spans in the run log (telemetry.tracing; needs --telemetry-dir; "
+        "0 = off, zero hot-path work)",
     )
     ap.add_argument("--device", default=device, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.trace_sample > 0:
-        raise SystemExit("not ported yet: --trace-sample (ROADMAP A12)")
 
     with open(args.csv) as fh:
         header = fh.readline().strip().split(",")
@@ -155,6 +155,13 @@ def main(argv=None, device="cuda") -> None:
                 if log is not None
                 else args.csv + ".quarantine.jsonl"
             )
+        tracer = None
+        if args.trace_sample > 0 and log is not None:
+            from ..telemetry.tracing import ChunkTracer
+
+            # one tracer for both pipeline halves: the ingest span and
+            # the kernel span of a chunk share one trace
+            tracer = ChunkTracer(log, rate=args.trace_sample, seed=args.seed)
         chunks = prefetch_chunks(
             csv_chunks(
                 args.csv,
@@ -169,12 +176,13 @@ def main(argv=None, device="cuda") -> None:
                 quarantine_path=sidecar,
                 workers=workers,
                 num_classes=args.classes,
+                tracer=tracer,
             ),
             depth=2,
             metrics=reg,
         )
         t0 = time.perf_counter()
-        flags = det.run(chunks, telemetry=log, metrics=reg)
+        flags = det.run(chunks, telemetry=log, metrics=reg, tracer=tracer)
         span = time.perf_counter() - t0
 
         import numpy as np

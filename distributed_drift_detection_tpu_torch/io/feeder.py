@@ -348,12 +348,13 @@ def csv_chunks(
     it — labels are not re-indexed or domain-checked on the trusting/
     strict/quarantine paths, exactly as before.
 
-    ``tracer`` (the JAX package's ``telemetry.tracing.ChunkTracer``) is
-    not ported yet: a truthy one raises ``NotImplementedError`` (ROADMAP
-    A12).
+    ``tracer`` (a :class:`..telemetry.tracing.ChunkTracer`) emits one
+    ``ingest`` span per head-sampled chunk — the host-assembly wall
+    (read/parse/sanitize/stripe) that produced it, the ingest twin of
+    the engine's ``kernel`` span (share one tracer instance and the two
+    stages of one chunk share a trace). Falsy tracers cost one check
+    per chunk.
     """
-    if tracer:
-        raise NotImplementedError("not ported yet: the chunk tracer (ROADMAP A12)")
     workers = resolve_ingest_workers(workers)
     if data_policy is not None:
         from . import sanitize as _s
@@ -362,14 +363,14 @@ def csv_chunks(
     return _csv_chunk_pipeline(
         path, partitions, per_batch, chunk_batches, target_column,
         shuffle_seed, block_bytes, feature_dtype, metrics, data_policy,
-        quarantine_path, workers, num_classes,
+        quarantine_path, workers, num_classes, tracer,
     )
 
 
 def _csv_chunk_pipeline(
     path, partitions, per_batch, chunk_batches, target_column, shuffle_seed,
     block_bytes, feature_dtype, metrics, data_policy, quarantine_path, workers,
-    num_classes,
+    num_classes, tracer=None,
 ) -> Iterator[Batches]:
     """Generator body of :func:`csv_chunks` (split out so argument
     validation happens at call time, not first ``next()``)."""
@@ -492,6 +493,8 @@ def _csv_chunk_pipeline(
         ok_parts: list["np.ndarray | None"] = []
         buffered = 0
         start_row = 0
+        chunk_idx = 0  # emitted chunks (the tracer's span key)
+        t_chunk_mono = time.monotonic()  # assembly start of the next chunk
 
         def emit(start, n_take):
             data = np.concatenate(parts) if len(parts) > 1 else parts[0]
@@ -572,7 +575,14 @@ def _csv_chunk_pipeline(
                 t0 = time.perf_counter()
                 chunk, rest, ok_rest = emit(start_row, rows_per_chunk)
                 clock.add("stripe", time.perf_counter() - t0)
+                if tracer:
+                    tracer.span(
+                        "ingest", chunk_idx, t_chunk_mono, time.monotonic(),
+                        rows=rows_per_chunk,
+                    )
                 yield chunk
+                chunk_idx += 1
+                t_chunk_mono = time.monotonic()
                 start_row += rows_per_chunk
                 parts = [rest] if len(rest) else []
                 ok_parts = [ok_rest] if len(rest) else []
@@ -581,6 +591,11 @@ def _csv_chunk_pipeline(
             t0 = time.perf_counter()
             chunk, _, _ = emit(start_row, buffered)
             clock.add("stripe", time.perf_counter() - t0)
+            if tracer:
+                tracer.span(
+                    "ingest", chunk_idx, t_chunk_mono, time.monotonic(),
+                    rows=buffered,
+                )
             yield chunk
         # Degenerate-stream guard, matching the whole-file path
         # (apply_policy raises the same on a fully-dirty file): a

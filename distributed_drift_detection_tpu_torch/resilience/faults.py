@@ -73,10 +73,8 @@ consecutive invocations — or seeded-Bernoulli (``rate`` + ``seed``: the
 decision hashes ``(seed, site, hit)``, so a given arming fires at the same
 hits in every run). No global RNG, no wall-clock.
 
-Pure stdlib; importing this module never arms anything. Of the sites
-below the port fires ``stream.load``, ``grid.cell``, ``api.run``,
-``telemetry.emit``, ``sched.lease`` and ``sched.worker``; the others belong
-to surfaces it has not ported yet (ROADMAP A10b, A12, A14).
+Pure stdlib; importing this module never arms anything. The port fires
+every site below.
 """
 
 from __future__ import annotations

@@ -13,14 +13,23 @@ JAX package's ``telemetry`` modules, writing the same artifacts:
   Prometheus-text exporters.
 * :mod:`.profile` — the card's memory statistics mapped onto the event
   schema and registry gauges.
-* :mod:`.watch` (``staleness_s``), :mod:`.pipeline` (the fleet view) and
-  :mod:`.ops` (the HTTP ops plane) — the parts the sweep scheduler uses.
+* :mod:`.watch` (``staleness_s``), :mod:`.pipeline` (the serve-stage
+  attribution and the fleet view) and :mod:`.ops` (the HTTP ops plane and
+  the crash flight recorder) — the parts the serving daemon and the sweep
+  scheduler use.
+* the serving daemon's planes: :mod:`.trace` (row→verdict latency
+  histograms), :mod:`.tracing` (trace contexts and ``span`` events),
+  :mod:`.spans`, :mod:`.slo` (alert rules and their evaluator),
+  :mod:`.forensics` (drift evidence bundles), :mod:`.incident` (alert and
+  crash evidence bundles) and :mod:`.history` (the series store the
+  incident plane extracts from).
 
 Telemetry is off by default (``RunConfig.telemetry_dir=None``): every hook
 runs outside the Final Time span, and with the directory unset no telemetry
 code runs. Only :mod:`.profile` touches torch, and only inside its
-functions; the readers (``report``, ``watch``, ``top``, …) wait for ROADMAP
-A15, and the JAX package's read the port's artifacts unchanged.
+functions; the readers (``report``, ``watch``, ``top``, ``timeline``,
+``explain``, ``incident``, …) wait for ROADMAP A15c, and the JAX package's
+read the port's artifacts unchanged.
 """
 
 from .events import (

@@ -1,9 +1,145 @@
-"""The merged fleet view of an aggregator — the part of the JAX package's
-``telemetry/pipeline.py`` the sweep scheduler serves (``/fleetz`` and the
-``fleet_*`` series of its ``/metrics``). The serve-pipeline attribution and
-its CLI wait for ROADMAP A15 (and the serving daemon, A12)."""
+"""Serve-pipeline attribution and the merged fleet view — the parts of the
+JAX package's ``telemetry/pipeline.py`` the serving daemon and the sweep
+scheduler use:
+
+* :class:`ServeStageClock` — per-stage busy seconds of the serve loop,
+  mirrored into ``serve_stage_busy_seconds_total{stage=...}``;
+* :func:`attribute` — the attribution record (``/statusz``'s pipeline
+  section): per-stage share, utilization, rows/s ceiling, dominant stage;
+* :func:`aggregate_fleet` / :func:`fleet_metrics_lines` — an aggregator's
+  ``/fleetz`` and its ``fleet_*`` series.
+
+On the card the window engine reads its pointer on the host each
+iteration, so ``ChunkedDetector.feed`` returns after the chunk's detect:
+the ``feed`` stage holds upload and detect, and ``device`` only the wait
+for the flags' copy to the host. The ``pipeline`` CLI and its report
+readers wait for ROADMAP A15c. Stdlib only.
+"""
 
 from __future__ import annotations
+
+#: Serve-loop stages in publish order. ``seal_wait`` is the loop blocking
+#: in ``batcher.get`` (idle-for-input, accounted so utilization is
+#: honest); ``feed`` is place()+feed() (on the card the upload and the
+#: chunk's detect: the window engine syncs on the host each iteration);
+#: ``device`` is the blocking host copy pulling flags back; ``collect`` is
+#: host flag scan + verdict-record assembly; ``publish`` is the sidecar
+#: write+flush; ``forensics``/``adapt`` are the post-publish hooks.
+SERVE_STAGES = (
+    "seal_wait",
+    "feed",
+    "device",
+    "collect",
+    "publish",
+    "forensics",
+    "adapt",
+)
+
+SERVE_STAGE_BUSY_METRIC = "serve_stage_busy_seconds_total"
+SERVE_STAGE_BUSY_HELP = (
+    "Cumulative busy seconds per serve-loop stage (single-threaded loop: "
+    "the sum over stages never exceeds serve-loop wall-clock)"
+)
+#: Serve-loop wall-clock gauge: seconds since the loop's first iteration,
+#: refreshed on every publish — what makes a scraped ``.prom`` file
+#: self-sufficient for utilization (busy/wall) without the daemon.
+SERVE_WALL_METRIC = "serve_loop_wall_seconds"
+SERVE_WALL_HELP = "Serve-loop wall-clock seconds since the first iteration"
+SERVE_ROWS_METRIC = "serve_rows_published"
+SERVE_ROWS_HELP = "Stream rows published to the verdict sidecar"
+
+
+class ServeStageClock:
+    """Per-stage busy-seconds accounting for the serve publish path.
+
+    Accumulates locally (``.busy`` — ``/statusz`` and bench read it
+    directly) and, when a metrics registry is given, mirrors into the
+    ``serve_stage_busy_seconds_total{stage=...}`` counter. Single-writer
+    by construction: only the serve loop thread calls :meth:`add`.
+    """
+
+    def __init__(self, metrics=None):
+        self.busy: dict[str, float] = {}
+        self._c = (
+            metrics.counter(SERVE_STAGE_BUSY_METRIC, help=SERVE_STAGE_BUSY_HELP)
+            if metrics is not None
+            else None
+        )
+
+    def add(self, stage: str, seconds: float) -> None:
+        if seconds < 0:  # clock skew paranoia; counters reject negatives
+            return
+        self.busy[stage] = self.busy.get(stage, 0.0) + seconds
+        if self._c is not None:
+            self._c.inc(seconds, stage=stage)
+
+
+def serve_stage_breakdown(metrics, ndigits: int = 4) -> dict[str, float]:
+    """The per-stage busy-seconds map a registry accumulated
+    (``SERVE_STAGE_BUSY_METRIC`` samples → ``{stage: seconds}``) — the
+    ONE extraction bench.py's serve rider and the ``pipeline`` CLI
+    share, mirroring ``io.feeder.stage_breakdown``."""
+    c = metrics.counter(SERVE_STAGE_BUSY_METRIC)
+    return {
+        dict(key)["stage"]: round(v, ndigits)
+        for key, v in sorted(c.values.items())
+    }
+
+
+def dominant_stage(busy: dict) -> "str | None":
+    """The stage holding the most busy time, ``seal_wait`` excluded —
+    seal-wait is waiting *for input*, so it names an under-driven loop,
+    not a pipeline bottleneck. Only when nothing else measured any time
+    at all does seal_wait get named (an idle loop's honest answer)."""
+    work = {s: t for s, t in busy.items() if s != "seal_wait" and t > 0}
+    if work:
+        return max(sorted(work), key=lambda s: work[s])
+    if busy.get("seal_wait", 0.0) > 0:
+        return "seal_wait"
+    return None
+
+
+def attribute(
+    busy: dict,
+    wall_s: "float | None" = None,
+    rows: "float | None" = None,
+    ndigits: int = 4,
+) -> dict:
+    """Fold a ``{stage: busy seconds}`` map into the attribution record
+    every renderer shares.
+
+    ``share`` is each stage's fraction of total measured busy time;
+    ``utilization`` is busy/wall (needs ``wall_s``); ``ceiling_rows_per_sec``
+    is rows/busy — the throughput the pipeline would reach if that stage
+    were the only cost (needs ``rows``). ``coverage`` (busy sum / wall)
+    is the instrumentation-honesty ratio the acceptance bar pins near 1.
+    """
+    busy = {s: float(t) for s, t in busy.items() if float(t) >= 0}
+    total = sum(busy.values())
+    stages = {}
+    for stage in sorted(busy, key=lambda s: (-busy[s], s)):
+        t = busy[stage]
+        cell = {"busy_s": round(t, ndigits)}
+        cell["share"] = round(t / total, ndigits) if total > 0 else 0.0
+        if wall_s and wall_s > 0:
+            cell["utilization"] = round(t / wall_s, ndigits)
+        if rows and t > 0:
+            cell["ceiling_rows_per_sec"] = round(rows / t, 1)
+        stages[stage] = cell
+    out = {
+        "stages": stages,
+        "busy_total_s": round(total, ndigits),
+        "dominant_stage": dominant_stage(busy),
+    }
+    if wall_s is not None:
+        out["wall_s"] = round(float(wall_s), ndigits)
+        if wall_s > 0:
+            out["coverage"] = round(total / wall_s, ndigits)
+    if rows is not None:
+        out["rows"] = int(rows)
+    return out
+
+
 
 
 def aggregate_fleet(backends: list[dict]) -> dict:

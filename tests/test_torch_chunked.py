@@ -351,8 +351,8 @@ def test_prepare_chunked_and_its_refusals():
         TCD(m, partitions=P, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         TCD(m, partitions=P, on_drift="refit", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TCD(m, partitions=P, device="cpu").run([], tracer=object())
+    # the chunk tracer is ported: an empty drain takes one and emits nothing
+    assert TCD(m, partitions=P, device="cpu").run([], tracer=object()).change_global.shape == (P, 0)
     with pytest.raises(ValueError, match="rotations"):
         TCD(m, partitions=P, rotations=2, device="cpu")
 
@@ -385,5 +385,11 @@ def test_chunked_cli_matches_jax(csvs, capsys, tmp_path, extra):
         assert t["ingest_workers"] == int(workers)
         outs[workers] = t["detections"]
     assert outs["1"] == outs["4"]
-    with pytest.raises(SystemExit, match="A12"):
-        tcli.main([csvs["clean"], "--classes", "6", "--trace-sample", "0.5"], device="cpu")
+    # --trace-sample is ported (its spans: tests/test_torch_serve_planes.py);
+    # untelemetered it samples nothing and the counts stay JAX's
+    tcli.main([dataset, "--classes", classes, "--partitions", str(P), "--per-batch", str(B),
+               "--chunk-batches", str(CB), "--trace-sample", "0.5", *extra,
+               *(["--quarantine-path", str(tmp_path / "qt.jsonl")] if extra else [])],
+              device="cpu")
+    t = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {k: t[k] for k in keys} == {k: j[k] for k in keys}

@@ -123,12 +123,29 @@ def test_usage_errors_match_jax(argv):
     assert detail(t.value.code) == detail(j.value.code)
 
 
-@pytest.mark.parametrize("name", sorted([*tmain.UNPORTED_SUBCOMMANDS, "chunked"]))
-def test_unported_subcommands_name_their_items(name, csvs, capsys):
+@pytest.mark.parametrize("name", sorted([*tmain.UNPORTED_SUBCOMMANDS, "chunked", "serve",
+                                         "loadgen"]))
+def test_unported_subcommands_name_their_items(name, csvs, capsys, tmp_path, monkeypatch):
     """Each subcommand not ported yet exits nonzero naming its item;
     ``chunked`` (ROADMAP A10b) is ported and runs on the CPU, printing
     the JAX package's final JSON line (``tests/test_torch_chunked.py``
-    holds its numbers to JAX's)."""
+    holds its numbers to JAX's). ``serve`` (A12a) starts on the CPU,
+    prints its banner and drains (``--max-chunks 0``); ``loadgen`` (A12a)
+    refuses ``--router`` naming A12b (``tests/test_torch_serve.py`` and
+    ``tests/test_torch_wire.py`` drive both)."""
+    if name == "serve":
+        monkeypatch.chdir(tmp_path)
+        with pytest.raises(SystemExit) as e:
+            tmain.main(["serve", "--features", "5", "--classes", "6", "--max-chunks", "0"],
+                       device="cpu")
+        assert e.value.code == 0
+        banner = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+        assert banner["serving"] and banner["port"] > 0 and banner["wire"] == ["v1", "v2"]
+        return
+    if name == "loadgen":
+        with pytest.raises(SystemExit, match=r"not ported yet: loadgen --router \(ROADMAP A12b\)"):
+            tmain.main(["loadgen", csvs["clean"], "--port", "1", "--router", "--dir", "x"])
+        return
     if name == "chunked":
         tmain.main(["chunked", csvs["clean"], "--classes", "6", "--partitions", "4",
                     "--per-batch", "50", "--chunk-batches", "2"], device="cpu")

@@ -133,50 +133,20 @@ def test_results_csv_row(tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, found by walking the package, imports
+    without JAX, the JAX package or scikit-learn, and none touches CUDA
+    at import."""
     code = (
-        "import sys, distributed_drift_detection_tpu_torch as p\n"
-        "import distributed_drift_detection_tpu_torch.api, "
-        "distributed_drift_detection_tpu_torch.convert, "
-        "distributed_drift_detection_tpu_torch.kernels._build, "
-        "distributed_drift_detection_tpu_torch.io.sanitize, "
-        "distributed_drift_detection_tpu_torch.io.native, "
-        "distributed_drift_detection_tpu_torch.io.blocks, "
-        "distributed_drift_detection_tpu_torch.io.datasets, "
-        "distributed_drift_detection_tpu_torch.resilience.faults, "
-        "distributed_drift_detection_tpu_torch.resilience.policy, "
-        "distributed_drift_detection_tpu_torch.resilience.supervisor, "
-        "distributed_drift_detection_tpu_torch.models.forest, "
-        "distributed_drift_detection_tpu_torch.models.rf, "
-        "distributed_drift_detection_tpu_torch.__main__, "
-        "distributed_drift_detection_tpu_torch.harness.grid, "
-        "distributed_drift_detection_tpu_torch.harness.parity, "
-        "distributed_drift_detection_tpu_torch.telemetry, "
-        "distributed_drift_detection_tpu_torch.telemetry.events, "
-        "distributed_drift_detection_tpu_torch.telemetry.registry, "
-        "distributed_drift_detection_tpu_torch.telemetry.metrics, "
-        "distributed_drift_detection_tpu_torch.telemetry.profile, "
-        "distributed_drift_detection_tpu_torch.telemetry.watch, "
-        "distributed_drift_detection_tpu_torch.telemetry.pipeline, "
-        "distributed_drift_detection_tpu_torch.telemetry.ops, "
-        "distributed_drift_detection_tpu_torch.parallel.multihost, "
-        "distributed_drift_detection_tpu_torch.resilience.heal, "
-        "distributed_drift_detection_tpu_torch.sched, "
-        "distributed_drift_detection_tpu_torch.sched.protocol, "
-        "distributed_drift_detection_tpu_torch.sched.leases, "
-        "distributed_drift_detection_tpu_torch.sched.worker, "
-        "distributed_drift_detection_tpu_torch.sched.scheduler, "
-        "distributed_drift_detection_tpu_torch.engine.soak, "
-        "distributed_drift_detection_tpu_torch.engine.chunked, "
-        "distributed_drift_detection_tpu_torch.io.feeder, "
-        "distributed_drift_detection_tpu_torch.io.synth, "
-        "distributed_drift_detection_tpu_torch.harness.chunked_cli, "
-        "distributed_drift_detection_tpu_torch.ops.shuffle, "
-        "distributed_drift_detection_tpu_torch.utils.checkpoint, "
-        "distributed_drift_detection_tpu_torch.utils.validate, "
-        "distributed_drift_detection_tpu_torch.utils.timing\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import distributed_drift_detection_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert len(mods) > 60, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.split('.')[0] in ('distributed_drift_detection_tpu', 'sklearn')]\n"
         "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print('ok')\n"
     )
     out = subprocess.run(
