@@ -11,7 +11,8 @@ without them. Phases, each fatal on failure:
    ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
    K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
    ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``,
-   K6 ``soak_batch`` (``csrc/soak_gen.cu``), K13 ``shuffle_perm``;
+   K6 ``soak_batch`` (``csrc/soak_gen.cu``, ``csrc/xla_sinf.cuh``), K13
+   ``shuffle_perm``;
    and the native CSV parser (``native/ddd_native.cc``, with the host C++
    compiler into ``kernels/_build/``);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -88,9 +89,9 @@ without them. Phases, each fatal on failure:
    ``library_ms`` (the layers' ``torch.bmm`` alone); each timed as K7 is,
    with a ``floor_ms``; then ``run`` at SMOKE's full width and depth,
    counted: detections equal to the JAX package's and mean delay within a
-   batch of it (pinned below), whether the flags equal the port's CPU run
-   bit for bit (printed, not required), Final Time and one traced detect
-   phase;
+   batch of it (pinned below), Final Time and one traced detect phase;
+   and at a cut depth (``SHALLOW_MULT``) whether the card's flags equal the
+   port's CPU run bit for bit (printed, not required);
 10. the nets of ROADMAP C5, ``mlp_hidden`` (256, 128) and (512,) (``C5_NETS``),
    through ``run`` at SMOKE on the card, counted: 624 detections and a
    mean delay within a batch of the JAX package's SMOKE value (788.6282
@@ -171,8 +172,10 @@ without them. Phases, each fatal on failure:
    rows next to 2^31 − 1, a window chunk's clamped tail, F = 1, a tile
    reaching 38 concepts, C·F past the staging budget, forced staging past
    its slots, B one row past a tile), each in its plan's layout and forced
-   to each (``engine/soak.py`` ``k6_plan``), timed in each layout with a
-   ``floor_ms``, its bound at the card's integer rate; (b) K7 bit for bit and K2 equal off the near
+   to each (``engine/soak.py`` ``k6_plan``), the gradual batch equal to its
+   pinned digest (``K6_GRADUAL_DIGEST``), timed in each layout with a
+   ``floor_ms``, its bound at the card's integer rate, and each generator
+   timed at [128, 2000]; (b) K7 bit for bit and K2 equal off the near
    ties at per_batch 2000 on a K6 batch, timed; (c) the soak at
    ``SOAK_CUT`` for each generator and with ``window`` 8, and a 3-leg chain
    with a checkpoint, counted, flags (the chain: every leg's) equal to the
@@ -234,7 +237,29 @@ without them. Phases, each fatal on failure:
    tenant's flags continue bit for bit; (e) ``python -m
    distributed_drift_detection_tpu_torch serve`` as a process on the card,
    fed by the ``loadgen`` CLI, then 7 rows without ``FLUSH`` and SIGTERM:
-   exit 0, the partial microbatch published, the registry ``completed``.
+   exit 0, the partial microbatch published, the registry ``completed``;
+20. drift adaptation and the tenant router: (a) SMOKE served as in 19 (a)
+   with ``--on-drift retrain,window_rows=12800``, counted: an adaptation
+   applied, every refit's K7 output bit for bit the plain version's fit of
+   the same window on the card, the ``adaptation`` events, the snapshot and
+   ``adaptations_total`` in agreement, the verdicts through the first
+   applied adaptation's chunk equal to 19 (a)'s, K7 and K2 launched by the
+   adaptation itself (counters read around each ``on_chunk``); printed
+   beside the card's name and power limit: the adaptations applied, the
+   ``adapt`` stage's busy seconds, K7 at [1, 12800, 21] and K2 at [32,
+   12800] (µs a launch, graphs of 50, with their bounds) and served rows/s
+   against 19 (a)'s; (b) ``shadow,window_rows=12800,margin=0.0`` at
+   ``SHALLOW_MULT``, 8 batches a chunk, a promotion and a demotion in the
+   stream: verdicts, adaptation events and recovery rows equal to the
+   port's CPU daemon; (c) ``FLEET_TENANTS`` tenants placed by
+   ``plan_fleet`` over two ``serve`` processes on the card with
+   ``FLEET_SPARES`` vacant slots each, fed by ``run_loadgen`` through the
+   router (``--router``: global ids, v2 frames) in three cuts: a graceful
+   ``migrate_tenant`` after the first, ``SIGKILL`` of one daemon after the
+   second (its tenant fails over from its ``--tenant-checkpoints``
+   checkpoint); each tenant's verdict entries equal the unmoved plane's,
+   lost rows 0 in the router's journal; the router's rows/s by cut, the
+   migration's pause and the failover's seconds printed.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -2495,7 +2520,7 @@ def k6_ops(gen, f, c, p, b, count, t0, last, row_offs, block0s, de):
     """(f32 operations, 32-bit integer operations) K6's function needs for
     these inputs: a partition-batch's keys (fold_in and its splits); a
     row's own draws (sea 3 uniforms, hyperplane F uniforms and, gradual, F
-    double sines at twice the f32 cost, prototypes randint's 2 hashes and
+    sines: glibc's sinf, 10 float64 operations at twice the f32 cost, prototypes randint's 2 hashes and
     its 4 modulos of ≈ 20 integer operations, and F normals) and its label;
     a concept's weights (F uniforms) or prototypes (C·F normals), with its
     fold_in, once for each concept a batch's rows reach."""
@@ -2507,7 +2532,7 @@ def k6_ops(gen, f, c, p, b, count, t0, last, row_offs, block0s, de):
         row_hashes, row_int, row_f32 = 2 + f, 4 * 20, f * (ERFINV_F32_OPS + 1)
     else:
         row_hashes, row_int = f, 0
-        row_f32 = f * (UNIFORM_F32_OPS + 2) + f + (f * 2 * 25 if gen == "hyperplane_gradual"
+        row_f32 = f * (UNIFORM_F32_OPS + 2) + f + (f * 2 * 10 if gen == "hyperplane_gradual"
                                                       else 0)
     concepts = 0
     for q in range(p):
@@ -2520,6 +2545,21 @@ def k6_ops(gen, f, c, p, b, count, t0, last, row_offs, block0s, de):
     hashes = p * count * key_hashes + rows * row_hashes + concepts * (1 + per)
     return (rows * row_f32 + concepts * per * per_f32,
             hashes * HASH_INT_OPS + rows * row_int)
+
+
+# SHA-256 of K6's table, labels and row positions on the gradual batch at
+# [128, 2000], F = 10, rows q·4100·2000 + 7·2000 (``k6_feed``), from the plain
+# version on the CPU (glibc's sinf, as XLA's CPU sin)
+K6_GRADUAL_DIGEST = "f0ad4baa101667386204240ff0b47767a50942091f4d4b24455f728a9cb98c86"
+
+
+def k6_digest(out) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (out.table, out.labels, out.rows):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def check_k6(torch, kernels, soak, dev):
@@ -2553,6 +2593,23 @@ def check_k6(torch, kernels, soak, dev):
                 valid = t0 + torch.arange(count, device=dev) <= last
                 check(bool(((got.rows >= 0) == valid[None, :, None]).all()),
                       f"K6: row positions of the clamped tail are not -1 ({what})")
+    # the gradual batch's bits, pinned from the plain version (which holds
+    # JAX's generator bit for bit: tests/test_torch_soak.py), re-pinned when
+    # its sine became the C library's sinf
+    gfeed = k6_feed(torch, soak, "hyperplane_gradual", 10, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099,
+                    "global", dev)
+    gout = soak.soak_batch(*gfeed[:6], **gfeed[6])
+    check(k6_digest(gout) == K6_GRADUAL_DIGEST,
+          "K6: the gradual batch at [128, 2000] differs from its pinned digest")
+    by_gen = {}
+    for gen, f, _ in SOAK_GENS:
+        feed = k6_feed(torch, soak, gen, f, SOAK_P, SOAK_B, SOAK_DE, 1, 7, 4099, "global", dev)
+        out = soak.soak_batch(*feed[:6], **feed[6])
+        by_gen[gen] = graph_ms(lambda feed=feed, out=out: soak.soak_batch(*feed[:6], out=out,
+                                                                          **feed[6]))
+    print(f"K6 soak_batch: the gradual batch equals its pinned digest; device ms by generator "
+          f"at [{SOAK_P}, {SOAK_B}] (graphs of 50): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in by_gen.items()))
     print(f"K6 soak_batch: bit for bit its plain version at [{SOAK_P}, {SOAK_B}] for "
           + ", ".join(f"{g} (F = {f})" for g, f, _ in SOAK_GENS)
           + f" ({staged} of {3 * len(SOAK_GENS)} launches staged) and on "
@@ -2592,7 +2649,7 @@ def check_k6(torch, kernels, soak, dev):
         replaces="distributed_drift_detection_tpu/engine/soak.py:113",
         max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=by, library_ms=None, floor_ms=floor_ms,
-        ms_by_layout=by_layout, sass=sass,
+        ms_by_layout=by_layout, ms_by_generator=by_gen, sass=sass,
     )
 
 
@@ -3490,6 +3547,417 @@ def serve_phase(torch, api, config, cfg, res, rows, main_launches, dev):
           f"{last['rows_through']}, short), the registry completed")
     tmp.cleanup()
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return {"records": recs, "rows_per_s": n / served_s}
+
+
+# Phase 20: drift adaptation (A13) and the tenant router (A12b).
+# (a) SMOKE served with a refit of ADAPT_WINDOW post-drift rows after each
+# drift verdict (K7 at [1, 12800, 21], the pair scorer K2 at [2·16, 12800]);
+# (b) a shadow plane at SHALLOW_MULT whose stream holds a promotion and a
+# demotion (8 batches a chunk: a chunk's span is the window); (c) FLEET_TENANTS
+# tenants over two daemons behind the router, each daemon a process on the
+# card with FLEET_SPARES vacant slots, the replay cut at FLEET_CUTS: a
+# graceful migration after the first cut, a daemon killed after the second.
+ADAPT_WINDOW = 12_800
+ADAPT_SPEC = f"retrain,window_rows={ADAPT_WINDOW}"
+SHADOW_CB = 8
+SHADOW_SPEC = "shadow,window_rows=12800,margin=0.0"
+FLEET_TENANTS, FLEET_SPARES, FLEET_CB, FLEET_WINDOW = 4, 2, 32, 8
+# a tenant's dealt share of the SHALLOW_MULT stream is 64,000 rows, 1,600 a
+# concept: 4 partitions of 25 rows a batch see 16 batches of each concept
+FLEET_PARTITIONS, FLEET_PER_BATCH = 4, 25
+FLEET_CUTS = (0.4, 0.7)
+FLEET_INTERLEAVE = 64  # loadgen's dealing: round-robin blocks of 64 rows
+_ADAPT_KEYS = ("tenant", "trigger_chunk", "policy", "rows_refit", "err_before", "err_after",
+               "promoted", "applied_chunk", "rows_to_apply", "pre_drift_err", "window_rows",
+               "demoted")
+
+
+def adaptation_events(log_path):
+    """A run log's ``adaptation`` events, but for times and ids."""
+    from distributed_drift_detection_tpu_torch.telemetry.events import read_events
+
+    return [{k: e.get(k) for k in _ADAPT_KEYS} for e in read_events(log_path)
+            if e["type"] == "adaptation"]
+
+
+def verdict_rows(records):
+    """A verdict sidecar but for its wall clocks."""
+    return [{k: v for k, v in r.items() if k not in ("ts", "lat_ms")} for r in records]
+
+
+def deal(n_rows, tenants, interleave=FLEET_INTERLEAVE):
+    """loadgen's dealing of a replay: each tenant's row indices."""
+    streams = [[] for _ in range(tenants)]
+    for base in range(0, n_rows, interleave):
+        streams[(base // interleave) % tenants].extend(
+            range(base, min(base + interleave, n_rows)))
+    return streams
+
+
+def tenant_entries(paths, gid):
+    """Global tenant ``gid``'s verdict entries across a fleet's sidecars,
+    in rows_through order."""
+    from distributed_drift_detection_tpu_torch.serve import read_verdicts
+
+    out = []
+    for path in paths:
+        if path and os.path.exists(path):
+            out += [e for r in read_verdicts(path) for e in r.get("tenants") or []
+                    if int(e.get("id", e["tenant"])) == gid and e["rows"]]
+    return sorted(out, key=lambda e: int(e["rows_through"]))
+
+
+def entries_equal(got, ref, what):
+    check(len(got) == len(ref), f"{what}: {len(got)} verdict entries, the solo daemon's {len(ref)}")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for k in ("rows", "rows_through", "start_row", "detections"):
+            check(int(g[k]) == int(r[k]), f"{what}: entry {i} {k} {g[k]} != {r[k]}")
+        check([tuple(x) for x in g["changes"]] == [tuple(x) for x in r["changes"]],
+              f"{what}: entry {i}'s changes differ")
+
+
+def adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev):
+    """Phase 20 (module docstring): drift adaptation and the tenant router.
+    Returns the window-shape times of K7 and K2 ({"K7": ms, "K2": ms})."""
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.config import ServeParams
+    from distributed_drift_detection_tpu_torch.serve import ServeRunner, loadgen, read_verdicts
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    scfg = config.replace(cfg, window=128, window_rotations=4)
+    stream = api._load_stream_for(cfg)
+    X, y = np.ascontiguousarray(stream.X), np.ascontiguousarray(stream.y, np.int32)
+    n, f, c, p = len(y), stream.num_features, stream.num_classes, cfg.partitions
+    on_card = dev.type == "cuda"
+
+    def params(**kw):
+        kw.setdefault("port", None)
+        kw.setdefault("chunk_batches", CHUNK_BATCHES)
+        kw.setdefault("linger_s", SERVE_LINGER_S)
+        return ServeParams(num_features=f, num_classes=c, **kw)
+
+    # (a) the full replay as v2 frames with a refit after each drift verdict
+    runner = ServeRunner(config.replace(scfg, telemetry_dir=f"{tmp.name}/a"),
+                         params(port=0, ops_port=0, on_drift=(ADAPT_SPEC,)),
+                         keep_flags=True, device=dev)
+    banner = runner.start()
+    ctl = runner._adapt
+    fits, adapt_launches = [], {"centroid_fit": 0, "centroid_predict_err": 0}
+    fit_window, on_chunk = ctl._fit_window, ctl.on_chunk
+
+    def recording_fit(key, Xw, yw, ww):
+        out = fit_window(key, Xw, yw, ww)
+        fits.append((Xw.copy(), yw.copy(), ww.copy(), out.centroids[0].clone(),
+                     out.bias[0].clone()))
+        return out
+
+    def counting_on_chunk(meta, flags, chunk):
+        before = read_launches()
+        on_chunk(meta, flags, chunk)
+        after = read_launches()
+        for k in adapt_launches:
+            adapt_launches[k] += after[k] - before[k]
+
+    ctl._fit_window, ctl.on_chunk = recording_fit, counting_on_chunk
+
+    def replay(out):
+        out["t_wall"] = time.time()
+        out["report"] = loadgen.run_loadgen(
+            banner["host"], banner["port"], None, verdicts=banner["verdicts"], timeout=600,
+            wire_version="v2", arrays=(X, y), frame_rows=4096)
+
+    reset_launches()
+    code, out, _ = serve_in_main(runner, replay)
+    al = read_launches()
+    rep = out["report"]
+    check(code == 0 and rep["rows_covered"] == n and not rep["timeout"],
+          f"adapt (a): exit {code}, {rep['rows_covered']} of {n} rows covered")
+    events = adaptation_events(banner["run_log"])
+    applied = [e for e in events if e["promoted"]]
+    check(bool(applied), "adapt (a): no adaptation was applied")
+    check(all(e["policy"] == "retrain" and e["rows_refit"] == ADAPT_WINDOW for e in applied),
+          "adapt (a): an applied refit is not a full retrain window")
+    prom = runner._metrics.to_prometheus_text()
+    counted = sum(float(line.rsplit(" ", 1)[1]) for line in prom.splitlines()
+                  if line.startswith("adaptations_total{"))
+    check(counted == len(events) == ctl.snapshot()["adaptations"],
+          f"adapt (a): adaptations_total {counted}, {len(events)} events, snapshot "
+          f"{ctl.snapshot()['adaptations']}")
+    check(len(fits) == len(events), f"adapt (a): {len(fits)} refits for {len(events)} events")
+    # each refit's K7 output against the plain version's fit of its window,
+    # on the same device, the windows stacked as partitions
+    Xw, yw, ww = (torch.from_numpy(np.stack([fit[i] for fit in fits])).to(dev) for i in range(3))
+    ref = classifiers.centroid_fit_reference(Xw, yw, ww, c)
+    got_c = torch.stack([fit[3] for fit in fits])
+    got_b = torch.stack([fit[4] for fit in fits])
+    check(torch.equal(got_c.view(torch.int32), ref.centroids.view(torch.int32))
+          and torch.equal(got_b.view(torch.int32), ref.bias.view(torch.int32)),
+          "adapt (a): a refit's K7 output differs from the plain version's fit of its window")
+    # the counters count launches on the card only (the CPU runs the plain
+    # versions)
+    check(not on_card or (adapt_launches["centroid_fit"] >= len(fits)
+                          and adapt_launches["centroid_predict_err"] >= len(fits)),
+          f"adapt (a): the adaptation's own launches {adapt_launches} for {len(fits)} refits")
+    for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+        check(not on_card or al[k] > 0, f"adapt (a): kernel {k} was not launched while serving")
+    recs = read_verdicts(banner["verdicts"])
+    first = min(e["applied_chunk"] for e in applied)
+    if p19 is not None:
+        mine = [r for r in verdict_rows(recs) if r["chunk"] <= first]
+        theirs = [r for r in verdict_rows(p19["records"]) if r["chunk"] <= first]
+        check(mine == theirs, f"adapt (a): the verdicts through chunk {first} (the first "
+              "applied adaptation) differ from phase 19's")
+    served_s = max(r["ts"] for r in recs) - out["t_wall"]
+    busy = runner._stage_clock.busy
+    times = {"K7": None, "K2": None}
+    if on_card:
+        # K7 at the window's shape [1, 12800, F] and the pair scorer's K2 at
+        # [2·P, 12800]: one launch each, graphs of 50
+        fn7 = kernels.launcher("centroid_fit")
+        X1, y1, w1 = (t[:1].contiguous() for t in (Xw, yw, ww))
+        cent = torch.empty((1, c, f), dtype=torch.float32, device=dev)
+        bias = torch.empty((1, c), dtype=torch.float32, device=dev)
+        a7 = classifiers.centroid_fit_args(X1, y1, w1, cent, bias)
+        times["K7"] = graph_ms(lambda: kernels.check("centroid_fit",
+                                                     fn7(*a7, kernels.stream_handle(dev))))
+        cent2 = cent.expand(2 * p, c, f).contiguous()
+        bias2 = bias.expand(2 * p, c).contiguous()
+        T = classifiers.pad_row_table(X1[0])
+        idx = torch.arange(ADAPT_WINDOW, dtype=torch.int32, device=dev).expand(
+            2 * p, ADAPT_WINDOW).contiguous()
+        err = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+        a2 = classifiers.centroid_predict_err_args(cent2, bias2, T, y1[0], idx, err)
+        fn2 = kernels.launcher("centroid_predict_err")
+        times["K2"] = graph_ms(lambda: kernels.check("centroid_predict_err",
+                                                     fn2(*a2, kernels.stream_handle(dev))))
+        b7, by7 = bound(ADAPT_WINDOW * (f + 2) * 4 + c * (f + 1) * 4,
+                        ADAPT_WINDOW * (f + 1) + 2 * c * f)
+        rows2 = 2 * p * ADAPT_WINDOW
+        b2, by2 = bound(rows2 * 8 + ADAPT_WINDOW * (T.shape[1] + 1) * 4 + 2 * p * c * (f + 1) * 4,
+                        rows2 * c * 2 * f)
+        print(f"adapt (a) kernels at the window's shape ({card()}): K7 centroid_fit "
+              f"[1, {ADAPT_WINDOW}, {f}] {times['K7'] * 1e3:.2f} us a launch (bound "
+              f"{b7 * 1e3:.3f} us, {by7}); K2 centroid_predict_err [{2 * p}, {ADAPT_WINDOW}] "
+              f"{times['K2'] * 1e3:.2f} us a launch (bound {b2 * 1e3:.3f} us, {by2}); graphs of 50")
+        # the keyed refits' kernels take a window's B too: K9 (the mlp) and
+        # K11 (the forest) on the first window, against their plain versions
+        from distributed_drift_detection_tpu_torch.engine.loop import device_keys
+        from distributed_drift_detection_tpu_torch.models import forest, mlp
+        from distributed_drift_detection_tpu_torch.utils import threefry
+
+        wkey = device_keys(threefry.key(7)[None], dev)
+        dims = (f, 128, 64, c)
+        check_k9_close(torch, mlp, wkey, (X1, y1, w1), dims, K9_TIGHT_STEPS, 0.05,
+                       f"a window [1, {ADAPT_WINDOW}]")
+        cs9, ws9 = mlp.k9_launch_plan(dev, dims, ADAPT_WINDOW, 1)
+        t9 = time_ms(lambda: mlp.mlp_fit(wkey, X1, y1, w1, dims, 32, 0.05), reps=10, rounds=3)
+        got = forest.forest_fit(wkey, X1, y1, w1, 32, 3, c)
+        want = forest.forest_fit_reference(wkey, X1, y1, w1, 32, 3, c)
+        check(all(torch.equal(g, r) for g, r in zip(got, want)),
+              "K11 differs from its plain version at the window's shape")
+        plan11 = forest.k11_plan(ADAPT_WINDOW, f, c, 32, 3)
+        t11 = time_ms(lambda: forest.forest_fit(wkey, X1, y1, w1, 32, 3, c), reps=10, rounds=3)
+        print(f"adapt (a): at a window's B = {ADAPT_WINDOW}, K9 (mlp {dims}) within rtol "
+              f"{K9_RTOL} / atol {K9_TIGHT_ATOL} of its plain version after {K9_TIGHT_STEPS} "
+              f"steps ({cs9} CTA(s) a partition, workspace {'global' if ws9 else 'shared'}), "
+              f"{t9 * 1e3:.1f} us a 32-step fit; K11 (32 trees of depth 3) bit for bit its "
+              f"plain version (layout {plan11._asdict()}), {t11 * 1e3:.1f} us a fit; each "
+              "with its allocations, CUDA events around 10 calls")
+    rate = n / served_s
+    print(f"adapt (a) on the card ({card()}): SMOKE served as v2 frames with --on-drift "
+          f"{ADAPT_SPEC}: {len(applied)} adaptations applied of {len(events)} decisions "
+          f"(adaptations_total {counted:.0f}), every refit's K7 output bit for bit the plain "
+          f"version's fit of its window; {runner._detections} detections; the verdicts through "
+          f"chunk {first} equal phase 19's; the adaptation's own launches {adapt_launches}; "
+          f"the adapt stage busy {busy.get('adapt', 0.0):.4f} s of "
+          f"{sum(busy.values()):.4f} s; served {rate:,.0f} rows/s"
+          + (f" (phase 19: {p19['rows_per_s']:,.0f})" if p19 else "")
+          + f"; recovery {ctl.recovery_rows()} rows")
+
+    # (b) shadow at SHALLOW_MULT: the card's daemon against the port's CPU
+    # daemon on the same stream
+    bcfg = config.replace(scfg, mult_data=SHALLOW_MULT)
+    bstream = api._load_stream_for(config.replace(cfg, mult_data=SHALLOW_MULT))
+    bX, by = np.ascontiguousarray(bstream.X), np.ascontiguousarray(bstream.y, np.int32)
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        r = ServeRunner(config.replace(bcfg, telemetry_dir=f"{tmp.name}/b_{where.type}"),
+                        params(chunk_batches=SHADOW_CB, on_drift=(SHADOW_SPEC,)),
+                        keep_flags=True, device=where)
+        r.start()
+        admit_spans([r.admission], [(bX, by)], 0, len(by), 1 << 16)
+        r.batcher.flush()
+        r.request_stop()
+        check(r.serve_forever() == 0, f"adapt (b): the {where.type} daemon failed")
+        got[where.type] = (verdict_rows(read_verdicts(r.verdicts_path)),
+                           adaptation_events(r._log.path), r._adapt.recovery_rows(),
+                           r._detections)
+    card_b, cpu_b = got[dev.type], got["cpu"]
+    check(card_b[0] == cpu_b[0], "adapt (b): the served verdicts differ from the CPU daemon's")
+    check(card_b[1] == cpu_b[1], "adapt (b): the adaptation events differ from the CPU daemon's")
+    check(card_b[2] == cpu_b[2], f"adapt (b): recovery {card_b[2]} rows, the CPU's {cpu_b[2]}")
+    check(any(e["promoted"] for e in card_b[1]) and any(e["demoted"] for e in card_b[1]),
+          f"adapt (b): no promotion and demotion in the stream: {card_b[1]}")
+    print(f"adapt (b): {SHADOW_SPEC} at mult_data {SHALLOW_MULT}, {SHADOW_CB} batches a chunk: "
+          f"{sum(1 for e in card_b[1] if e['promoted'])} promotion(s), "
+          f"{sum(1 for e in card_b[1] if e['demoted'])} demotion(s), recovery {card_b[2]} rows, "
+          f"{card_b[3]} detections; verdicts, adaptation events and recovery equal to the "
+          "port's CPU daemon")
+
+    # (c) the fleet: two daemons (processes) behind the router
+    fleet_phase_20(torch, config, cfg, tmp.name, bX, by, f, c, dev)
+    tmp.cleanup()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
+def fleet_phase_20(torch, config, cfg, tmp, X, y, f, c, dev):
+    """Phase 20 (c): FLEET_TENANTS tenants over two serve processes placed
+    by plan_fleet, fed by loadgen --router over v2 in three cuts; a graceful
+    migration after the first, a kill after the second."""
+    import json as _json
+    import signal
+
+    from distributed_drift_detection_tpu_torch.config import ServeParams
+    from distributed_drift_detection_tpu_torch.serve import ServeRunner, loadgen
+    from distributed_drift_detection_tpu_torch.serve.router import (
+        BackendSpec,
+        TenantRouter,
+        plan_fleet,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    m = [sys.executable, "-m", "distributed_drift_detection_tpu_torch"]
+    p, b = FLEET_PARTITIONS, FLEET_PER_BATCH
+    assign = plan_fleet(FLEET_TENANTS, ["A", "B"], spares=FLEET_SPARES)
+    procs, banners = {}, {}
+    t_spawn = time.perf_counter()
+    try:
+        for name, ids in assign.items():
+            procs[name] = subprocess.Popen(
+                m + ["serve", "--features", str(f), "--classes", str(c), "--partitions", str(p),
+                     "--per-batch", str(b), "--chunk-batches", str(FLEET_CB), "--window",
+                     str(FLEET_WINDOW), "--tenants", str(len(ids)), "--tenant-ids",
+                     ",".join(map(str, ids)), "--name", name, "--port", "0", "--ops-port", "0",
+                     "--linger-s", str(SERVE_LINGER_S), "--telemetry-dir", f"{tmp}/tele{name}",
+                     "--checkpoint", f"{tmp}/{name}.ckpt", "--tenant-checkpoints",
+                     *(["--device", str(dev)] if dev.type != "cuda" else [])],
+                stdout=subprocess.PIPE, env=env, text=True, cwd=root)
+        for name, proc in procs.items():
+            banners[name] = _json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t_spawn
+        specs = [BackendSpec(f"127.0.0.1:{banners[k]['port']}:{banners[k]['ops_port']}")
+                 for k in ("A", "B")]
+        router = TenantRouter(specs, telemetry_dir=f"{tmp}/teleR", health_interval_s=0.5,
+                              health_fails=2, ops_port=0)
+        rb = router.start()
+        dirs = [f"{tmp}/teleA", f"{tmp}/teleB"]
+        cuts = [0, *(int(len(y) * q) for q in FLEET_CUTS), len(y)]
+        reports = []
+
+        def replay(k, stop=False):
+            t0 = time.time()
+            r = loadgen.run_loadgen(rb["host"], rb["port"], None, rate=0.0, timeout=600,
+                                    stop=stop, tenants=FLEET_TENANTS, wire_version="v2",
+                                    arrays=(X[cuts[k]:cuts[k + 1]], y[cuts[k]:cuts[k + 1]]),
+                                    fleet_dirs=dirs)
+            check(not r["timeout"] and r["rows_covered"] == r["rows_sent"],
+                  f"fleet (c): cut {k}: {r['rows_covered']} of {r['rows_sent']} rows covered")
+            r["served_rows_per_s"] = r["rows_sent"] / (time.time() - t0)
+            reports.append(r)
+
+        replay(0)
+        g_mig = assign["A"][0]
+        t0 = time.perf_counter()
+        check(router.migrate_tenant(g_mig, "B"), f"fleet (c): migrating tenant {g_mig} failed")
+        pause_s = time.perf_counter() - t0
+        replay(1)
+        g_fo = assign["A"][1]
+        t_kill = time.perf_counter()
+        procs["A"].send_signal(signal.SIGKILL)
+        procs["A"].wait(timeout=60)
+        deadline = time.monotonic() + 120
+        while True:
+            st = router.status()
+            place = st["placements"][str(g_fo)]
+            if place["state"] == "active" and place["backend"] == "B":
+                break
+            check(time.monotonic() < deadline, f"fleet (c): tenant {g_fo} never failed over: {st}")
+            time.sleep(0.05)
+        failover_s = time.perf_counter() - t_kill
+        replay(2, stop=True)
+        check(procs["B"].wait(timeout=300) == 0, "fleet (c): daemon B did not drain on STOP")
+        status = router.status()
+        router.stop()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(status["migrations"] == 1 and status["failovers"] >= 1 and status["rows_lost"] == 0,
+          f"fleet (c): migrations {status['migrations']}, failovers {status['failovers']}, "
+          f"rows lost {status['rows_lost']}")
+    journal = [_json.loads(line) for line in open(f"{tmp}/teleR/router.journal.jsonl")]
+    fo = [e for e in journal if e["event"] == "failover"]
+    check(bool(fo) and all(int(e.get("lost_rows", 0)) == 0 for e in fo),
+          f"fleet (c): the journal's failovers {fo}")
+    # each tenant against the unmoved plane: one daemon of FLEET_TENANTS slots
+    # (tenant g in slot g, its solo identity), fed the same three cuts by
+    # run_loadgen over loopback without the router (its rows/s the router's
+    # yardstick)
+    plane = ServeRunner(config.RunConfig(partitions=p, per_batch=b, tenants=FLEET_TENANTS,
+                                         window=FLEET_WINDOW, seed=0, results_csv="",
+                                         telemetry_dir=f"{tmp}/teleRef"),
+                        ServeParams(num_features=f, num_classes=c, port=0,
+                                    chunk_batches=FLEET_CB, linger_s=SERVE_LINGER_S),
+                        device=dev)
+    pb = plane.start()
+
+    def direct(out):
+        out["rates"] = []
+        for k in range(3):
+            t0 = time.time()
+            r = loadgen.run_loadgen(pb["host"], pb["port"], None, rate=0.0, timeout=600,
+                                    tenants=FLEET_TENANTS, wire_version="v2",
+                                    arrays=(X[cuts[k]:cuts[k + 1]], y[cuts[k]:cuts[k + 1]]),
+                                    verdicts=pb["verdicts"])
+            check(not r["timeout"] and r["rows_covered"] == r["rows_sent"],
+                  f"fleet (c): the unmoved plane covered {r['rows_covered']} of {r['rows_sent']}")
+            out["rates"].append((r["achieved_rows_per_sec"], r["rows_sent"] / (time.time() - t0)))
+
+    code, out, _ = serve_in_main(plane, direct)
+    check(code == 0, "fleet (c): the unmoved plane failed")
+    sidecars = glob_verdicts(f"{tmp}/teleA") + glob_verdicts(f"{tmp}/teleB")
+    dets = []
+    for g in range(FLEET_TENANTS):
+        ref = tenant_entries([plane.verdicts_path], g)
+        got = tenant_entries(sidecars, g)
+        entries_equal(got, ref, f"fleet (c): tenant {g}")
+        sent = sum(len(deal(cuts[k + 1] - cuts[k], FLEET_TENANTS)[g]) for k in range(3))
+        check(int(got[-1]["rows_through"]) == sent,
+              f"fleet (c): tenant {g}'s verdicts cover {got[-1]['rows_through']} of {sent} rows")
+        dets.append(sum(int(e["detections"]) for e in ref))
+    check(sum(dets) > 0, "fleet (c): no detections to compare")
+    rates = ", ".join(f"{r['achieved_rows_per_sec']:,.0f} sent / {r['served_rows_per_s']:,.0f} "
+                      f"served (without the router {a:,.0f} / {v:,.0f})"
+                      for r, (a, v) in zip(reports, out["rates"]))
+    print(f"fleet (c) on the card ({card()}): {FLEET_TENANTS} tenants over 2 serve processes "
+          f"{assign} (up in {up_s:.1f} s) behind the router, loadgen --router over v2 in 3 cuts "
+          f"of {len(y)} rows: each tenant's verdict entries equal the unmoved "
+          f"{FLEET_TENANTS}-slot plane's, whose slots are their solo daemons' (phase 19 (d)) "
+          f"(detections {dets}); tenant {g_mig} migrated A -> B after cut 1, paused "
+          f"{pause_s:.3f} s; A killed after cut 2, tenant {g_fo} failed over from its checkpoint "
+          f"in {failover_s:.3f} s, lost rows 0 (journal); the router's rows/s by cut: {rates}")
+
+
+def glob_verdicts(d):
+    import glob
+
+    return sorted(glob.glob(os.path.join(d, "*.verdicts.jsonl")))
 
 
 def main(device: str = "cuda") -> int:
@@ -3632,20 +4100,25 @@ def main(device: str = "cuda") -> int:
     k9_row, fitted = check_k9(torch, kernels, mlp, mprep, dev)
     rows.append(k9_row)
     rows.append(check_k10(torch, kernels, mlp, mprep, fitted, dev))
+    # the CPU reference at a cut depth (SHALLOW_MULT), against the card's run
+    # of that depth: its flags compared, printed
+    scut = config.replace(mcfg, mult_data=SHALLOW_MULT)
     t0 = time.perf_counter()
-    mref = api.run(mcfg, device="cpu")
+    mref = api.run(scut, device="cpu")
     cpu_s = time.perf_counter() - t0
+    mcut = api.run(scut, device=dev)
     reset_launches()
     mres = api.run(mcfg, device=dev)
     ml = read_launches()
     mm, want_n, want_delay = mres.metrics, *MLP_EXPECTED
-    same = all(np.array_equal(getattr(mres.flags, f), getattr(mref.flags, f))
-               for f in mres.flags._fields)
+    same = all(np.array_equal(getattr(mcut.flags, f), getattr(mref.flags, f))
+               for f in mcut.flags._fields)
     print(f"mlp on the card: {mm.num_detections} detections, mean delay "
           f"{mm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay:.4f}); "
-          f"flags {'equal' if same else 'NOT equal'} bit for bit to the port's CPU run "
-          f"({mref.metrics.num_detections} detections, {mref.metrics.mean_delay_rows:.4f} "
-          f"rows, {cpu_s:.1f} s); launches {ml}")
+          f"launches {ml}; at mult_data {SHALLOW_MULT} {mcut.metrics.num_detections} "
+          f"detections, flags {'equal' if same else 'NOT equal'} bit for bit to the port's "
+          f"CPU run ({mref.metrics.num_detections} detections, "
+          f"{mref.metrics.mean_delay_rows:.4f} rows, {cpu_s:.1f} s)")
     check(mm.num_detections == want_n, f"mlp: {mm.num_detections} detections, expected {want_n}")
     check(abs(mm.mean_delay_rows - want_delay) <= cfg.per_batch,
           f"mlp: mean delay {mm.mean_delay_rows}, more than a batch from {want_delay}")
@@ -3737,7 +4210,14 @@ def main(device: str = "cuda") -> int:
     rows.append(chunked_phase(torch, api, config, kernels, cfg, res, dev))
 
     # 19. the serving daemon on the card
-    serve_phase(torch, api, config, cfg, res, rows, launches, dev)
+    p19 = serve_phase(torch, api, config, cfg, res, rows, launches, dev)
+
+    # 20. drift adaptation and the tenant router
+    adapt_ms = adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev)
+    for row in rows:
+        kid = {"centroid_fit": "K7", "centroid_predict_err": "K2"}.get(row["name"])
+        if kid:
+            row["adapt_window_ms"] = adapt_ms[kid]
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

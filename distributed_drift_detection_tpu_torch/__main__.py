@@ -32,16 +32,19 @@ together fail before any work.
 (``api.run_multi``) and prints a summary line a tenant, then the
 aggregate.
 
-Eight subcommands: ``chunked`` streams a CSV through the chunked engine
+Nine subcommands: ``chunked`` streams a CSV through the chunked engine
 (``harness.chunked_cli``, on the card or with ``--device cpu``), ``serve``
 runs the serving daemon (``serve.runner``, on the card or with ``--device
-cpu``) and ``loadgen`` replays a stream into it (``serve.loadgen``); only
-those two, ``heal --execute`` and the workers ``sched`` spawns run
-experiments, and ``doctor``, ``registry`` and ``loadgen`` import no torch:
+cpu``; ``--on-drift retrain|shadow`` adapts a tenant after a drift),
+``loadgen`` replays a stream into it (``serve.loadgen``) and ``router``
+fronts a fleet of daemons (``serve.router``); only ``chunked``, ``serve``,
+``heal --execute`` and the workers ``sched`` spawns run experiments, and
+``doctor``, ``registry``, ``loadgen`` and ``router`` import no torch:
 
     python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]
     python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]
     python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]
+    python -m distributed_drift_detection_tpu_torch router --backend HOST:PORT:OPS [...]
     python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
     python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]
     python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]
@@ -73,6 +76,7 @@ _USAGE = (
     "       python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]\n"
     "       python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]\n"
     "       python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch router --backend HOST:PORT:OPS [...]\n"
     "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
     "       python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]\n"
     "       python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]\n"
@@ -86,7 +90,6 @@ UNPORTED_SUBCOMMANDS = {
     **dict.fromkeys(
         ("report", "perf", "watch", "top", "pipeline", "history", "collector",
          "correlate", "timeline", "explain", "incident"), "A15c"),
-    "router": "A12b",
 }
 
 # The host-side subcommands: module, and whether the ``device`` of
@@ -95,6 +98,7 @@ SUBCOMMANDS = {
     "chunked": (".harness.chunked_cli", True),
     "serve": (".serve.runner", True),
     "loadgen": (".serve.loadgen", False),
+    "router": (".serve.router", False),
     "doctor": (".io.sanitize", False),
     "heal": (".resilience.heal", True),
     "sched": (".sched.scheduler", True),

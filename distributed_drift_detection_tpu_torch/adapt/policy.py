@@ -1,8 +1,6 @@
 """Per-tenant adaptation policy: what a drift verdict *does*.
 
-The port's own copy of the JAX package's ``adapt/policy.py``. An active
-policy (``retrain``, ``shadow``) is not ported yet: the daemon refuses it
-by name (ROADMAP A13) before any work.
+The port's own copy of the JAX package's ``adapt/policy.py``.
 
 The reference's algorithmic contract is react-to-drift — train on batch
 *a*, predict *b*, and on a DDM signal set *a ← b*, reset the detector

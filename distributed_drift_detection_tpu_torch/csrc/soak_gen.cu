@@ -20,7 +20,8 @@
 // * hyperplane (1), hyperplane_gradual (2): F uniforms of split(key)[0] at
 //   i·F + f; the concept's weights are the uniforms of fold_in(key(7),
 //   block); the gradual rotation adds 0.3·sin((row mod period)·scale + f)
-//   with the multiply-add fused and the sine correctly rounded to float32;
+//   with the multiply-add fused and the sine XLA's CPU sine, the C library's
+//   sinf (csrc/xla_sinf.cuh);
 //   the margin is fma(x0, w0, x1·w1), then fma(x_f, w_f, ·) in feature
 //   order, minus 0.5·Σw (a chain of adds), as XLA's CPU code forms it.
 // * prototypes (3): y = randint(split(key)[0], i, classes); the class's
@@ -71,6 +72,7 @@
 #include <stdint.h>
 
 #include "threefry.cuh"
+#include "xla_sinf.cuh"
 
 namespace {
 
@@ -113,8 +115,7 @@ __device__ __forceinline__ float rotate(float w, int f, int rotate_period, float
                                         int row) {
   const float phase = __fmul_rn(static_cast<float>(row % rotate_period), rot_scale);
   const float arg = __fadd_rn(phase, static_cast<float>(f));
-  const float s = __double2float_rn(sin(static_cast<double>(arg)));
-  return __fmaf_rn(s, 0.3f, w);
+  return __fmaf_rn(xla_sinf(arg), 0.3f, w);
 }
 
 __device__ __forceinline__ void store4(float* out, int g, const float (&v)[4]) {

@@ -23,8 +23,10 @@ the carry always holds the key (``[T·P, 2]`` uint32 on the host), and the
 engines advance it as JAX's do. ``shuffle=True`` permutes every batch in
 the loop (kernel K13, ``ops/shuffle.py``).
 
-Not ported yet, each refused by name before any work: a device ``mesh``
-(ROADMAP A15d) and ``on_drift`` adaptation (A13).
+``on_drift`` routes each drained chunk through the adaptation plane
+(``adapt/refit.py`` :class:`~..adapt.refit.AdaptationController`, the
+serving daemon's ``--on-drift``). Not ported yet, refused by name before any
+work: a device ``mesh`` (ROADMAP A15d).
 """
 
 from __future__ import annotations
@@ -155,8 +157,6 @@ class ChunkedDetector:
             raise NotImplementedError(
                 "not ported yet: a device mesh for the chunked engine (ROADMAP A15d)"
             )
-        if on_drift is not None:
-            raise NotImplementedError("not ported yet: on_drift adaptation (ROADMAP A13)")
         if retrain_error_threshold is not None and retrain_error_threshold < 0.0:
             retrain_error_threshold = (
                 AUTO_RETRAIN_THRESHOLD if model.name in GUARDED_MODELS else None
@@ -216,6 +216,12 @@ class ChunkedDetector:
         self._upload_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        # Adaptation hook (adapt/): a policy spec string, a list of specs,
+        # or a ready AdaptationController; resolved on the first drained
+        # chunk (the controller needs the chunk geometry). None: no
+        # adaptation code runs.
+        self._on_drift = on_drift
+        self.adapt = None  # the resolved AdaptationController (or None)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -408,15 +414,34 @@ class ChunkedDetector:
             return placed
 
         it = iter(chunks)
-        placed = place_timed(next(it, None))
+        host_chunk = next(it, None)  # the host copy (adaptation window rows)
+        placed = place_timed(host_chunk)
         i = 0
         while placed is not None:
+            cur_host = host_chunk
             t_feed = time.perf_counter()
             t_feed_mono = time.monotonic()
             flags = self.feed(placed)
             if c_stage is not None:
                 c_stage.inc(time.perf_counter() - t_feed, stage="upload")
-            placed = place_timed(next(it, None))  # overlaps this chunk's detect
+            host_chunk = next(it, None)
+            placed = place_timed(host_chunk)  # overlaps this chunk's detect
+            if self._on_drift is not None:
+                self._ensure_adapt(cur_host, telemetry)
+            if self.adapt is not None and self.adapt.active:
+                # the hook reads host flags, so this chunk's flags come to
+                # the host here rather than at the group boundary
+                flags = to_host(flags)
+                per_tenant_rows = self.rows_done // self.tenants
+                self.adapt.on_chunk(
+                    {
+                        "chunk": i,
+                        "rows_through": self.rows_done,
+                        "t_rows_through": [per_tenant_rows] * self.tenants,
+                    },
+                    flags,
+                    cur_host,
+                )
             if telemetry is not None:
                 flags, _ = self.emit_chunk_event(telemetry, i, flags, metrics)
                 self.emit_heartbeat(telemetry)
@@ -451,6 +476,31 @@ class ChunkedDetector:
                 flags, self.batches_done - start_batches + 1, self._per_batch, self.rows_done
             )
         return flags
+
+    def _ensure_adapt(self, chunk, telemetry) -> None:
+        """Resolve the ``on_drift`` hook into a live controller on the
+        first drained chunk (policy specs need the chunk geometry).
+        Idempotent."""
+        if self.adapt is not None or self._on_drift is None:
+            return
+        from ..adapt.refit import AdaptationController
+
+        if isinstance(self._on_drift, AdaptationController):
+            self.adapt = self._on_drift
+            return
+        from ..adapt.policy import resolve_policies
+
+        specs = [self._on_drift] if isinstance(self._on_drift, str) else list(self._on_drift)
+        cb, per_batch = int(chunk.y.shape[1]), int(chunk.y.shape[2])
+        self.adapt = AdaptationController(
+            self,
+            resolve_policies(specs, self.tenants),
+            per_batch=per_batch,
+            num_features=int(chunk.X.shape[3]),
+            rows_per_chunk=self.tenant_partitions * cb * per_batch,
+            log=telemetry,
+            seed=self._seed,
+        )
 
     # -- tenant plane --------------------------------------------------------
 

@@ -23,11 +23,9 @@ the JAX package's bits:
   generator's program (one rounded product, then fused multiply-adds in
   feature order: ``fma(x0, w0, x1·w1)``, ``fma(x2, w2, ·)``, …);
 * ``'hyperplane_gradual'`` — the same with a per-row rotation ``w +
-  0.3·sin(2π·(row mod period)/period + f)`` (fused as XLA fuses it). XLA's
-  CPU ``sin`` is the C library's ``sinf``; the port takes the correctly
-  rounded float32 sine, so a weight can differ from JAX's by an ulp and a
-  label only where the margin lies within a few roundings of 0 (ROADMAP
-  Queue C, C9);
+  0.3·sin(2π·(row mod period)/period + f)`` (fused as XLA fuses it), the
+  sine XLA's CPU ``sin``, the C library's ``sinf`` (``ops/prefix.py``
+  ``xla_sin``, ``csrc/xla_sinf.cuh``); bit for bit;
 * ``'prototypes'`` (default, :func:`_prototype_batch`) — Gaussian class
   blobs redrawn every concept: ``y = randint(kc, (B,), 0, 8)``, ``x =
   fma(erf_inv(u_n), f32(√2·0.08), erf_inv(u_p)·f32(√2·3))`` (XLA folds
@@ -56,7 +54,7 @@ import torch
 from ..config import DDMParams
 from ..device import resolve_device
 from ..models.base import Model, row_stride
-from ..ops.prefix import f32, fma
+from ..ops.prefix import f32, fma, xla_sin
 from ..utils import threefry
 from .loop import (
     FlagRows,
@@ -143,8 +141,7 @@ def _hyperplane_batch(key, rows, drift_every, features, rotate_period=0, block0=
     if rotate_period:
         phase = (rows.long() % int(rotate_period)).float() * rotation_scale(rotate_period)
         arg = phase[..., None] + torch.arange(f, dtype=torch.float32, device=rows.device)
-        # the correctly rounded float32 sine (XLA's is the C library's sinf)
-        w = fma(torch.sin(arg.double()).float(), _ROTATE_AMPLITUDE, w)
+        w = fma(xla_sin(arg), _ROTATE_AMPLITUDE, w)
     y = (hyperplane_margin(X, w) > 0).to(torch.int32)
     return X, y
 

@@ -17,9 +17,13 @@ JAX package's ``serve`` package, on the port's engines.
   sidecar + schema-v1 telemetry, checkpointed state, graceful SIGTERM
   drain;
 * :mod:`.loadgen` — stream replay at a target rows/s with seeded dirty
-  injection and the p50/p99 row→verdict latency SLO report.
+  injection and the p50/p99 row→verdict latency SLO report, to one daemon
+  or, with global tenant ids, through a router;
+* :mod:`.router` — the tenant router: consistent-hash placement of
+  global tenants across N daemons, tenant-routing rewrites of v1 lines and
+  v2 frames, live migration and failover on the daemons'
+  ``SAVETENANT``/``LOADTENANT`` surface (torch-free).
 
-The tenant router (``serve/router.py``) is not ported yet (ROADMAP A12b).
 Lazy exports (PEP 562): importing the package pulls no torch — the CLIs
 decide what they need.
 """
@@ -36,6 +40,11 @@ _EXPORTS = {
     "find_verdicts": ".runner",
     "read_verdicts": ".runner",
     "run_loadgen": ".loadgen",
+    # fleet layer (tenant router over N daemons)
+    "TenantRouter": ".router",
+    "BackendSpec": ".router",
+    "HashRing": ".router",
+    "plan_fleet": ".router",
     # wire protocol v2 (binary columnar frames)
     "WireError": ".wire",
     "encode_frame": ".wire",

@@ -1,7 +1,7 @@
 """Load generator + latency SLO probe for the serving daemon.
 
 The port's own copy of the JAX package's ``serve/loadgen.py``; it drives
-the daemon of either package. ``--router`` waits for ROADMAP A12b.
+the daemon of either package, or a fleet through either package's router.
 
     python -m distributed_drift_detection_tpu_torch loadgen synth:rialto,seed=0 \\
         --port 7007 --rows 4000 --rate 2000 --dir runs/live [...]
@@ -264,6 +264,31 @@ def adapt_attribution(
     }
 
 
+class _FleetVerdictTail:
+    """Verdict tailing over a FLEET: every ``*.verdicts.jsonl`` under
+    each given telemetry directory (one per backend daemon), discovered
+    live — a failover's landing daemon may open its sidecar mid-replay.
+    Merged per poll; per-tenant attribution joins on each record's
+    GLOBAL tenant id, so one summary covers the whole fleet (``loadgen
+    --router``)."""
+
+    def __init__(self, dirs):
+        self.dirs = list(dirs)
+        self._tails: "dict[str, _VerdictTail]" = {}
+
+    def poll(self) -> list[dict]:
+        import glob as _glob
+
+        out: list[dict] = []
+        for d in self.dirs:
+            for path in _glob.glob(os.path.join(d, "*.verdicts.jsonl")):
+                tail = self._tails.get(path)
+                if tail is None:
+                    tail = self._tails[path] = _VerdictTail(path)
+                out.extend(tail.poll())
+        return out
+
+
 class _VerdictTail:
     """Incremental verdict-sidecar reader (torn-tail tolerant: the offset
     only advances past complete lines, like ``telemetry.watch.LogTail``)."""
@@ -422,6 +447,7 @@ def _run_loadgen_tenants(
     label_lag: int = 0,
     wire_version: str = "v1",
     arrays=None,
+    fleet_dirs=None,
     weights=None,
 ) -> dict:
     """Multi-tenant replay: the stream is dealt round-robin (blocks of
@@ -436,12 +462,22 @@ def _run_loadgen_tenants(
     header routes instead of a TENANT line) — identical dealing, so
     per-tenant streams match the v1 replay row for row.
 
+    ``fleet_dirs`` is the router posture (``loadgen --router``): the
+    replay's TENANT ids are GLOBAL (the router rewrites them to backend
+    slots), verdict tailing merges every sidecar under each backend's
+    telemetry directory (:class:`_FleetVerdictTail`), and attribution
+    joins on each record entry's global ``id`` — a migrated tenant's
+    verdicts continue its ``rows_through`` sequence from the landing
+    daemon's sidecar, so one summary covers the whole fleet with the
+    per-tenant latency math unchanged.
+
     ``weights`` (len T, positive) skews the dealing: blocks go to
     tenants by smooth weighted round-robin — fully deterministic (same
     weights → same dealing, so parity runs stay reproducible), with
     tenant t receiving a ``weights[t]/sum(weights)`` share of blocks.
     The Zipf-ish traffic split the history plane's hotness ranking is
     validated against. ``None`` = the uniform round-robin of old."""
+    global_ids = fleet_dirs is not None
     if weights is not None:
         if len(weights) != tenants or any(w <= 0 for w in weights):
             raise ValueError(
@@ -450,7 +486,11 @@ def _run_loadgen_tenants(
             )
 
     def _key(ent) -> int:
-        return int(ent["tenant"])
+        # fleet join key: the record entry's GLOBAL tenant id (== the
+        # slot index off-fleet; vacant spares carry id -1 → filtered)
+        return int(ent.get("id", ent["tenant"])) if global_ids else int(
+            ent["tenant"]
+        )
     n_rows = len(arrays[1]) if wire_version == "v2" else len(lines)
     # Deal rows into tenant streams (round-robin blocks) and build the
     # wire segments: (tenant, [row indices]) in send order.
@@ -472,7 +512,11 @@ def _run_loadgen_tenants(
         idx = list(range(base, min(base + interleave, n_rows)))
         streams[t].extend(idx)
         segments.append((t, idx))
-    tail = _VerdictTail(verdicts) if verdicts else None
+    tail = (
+        _FleetVerdictTail(fleet_dirs)
+        if fleet_dirs
+        else _VerdictTail(verdicts) if verdicts else None
+    )
     baselines = [0] * tenants
     if tail is not None:
         for rec in tail.poll():
@@ -651,12 +695,10 @@ def run_loadgen(
     frames of ``frame_rows`` rows (``serve.wire``): ``arrays=(X, y)``
     supplies the row data (``lines`` may be None), verdict attribution
     is unchanged (``rows_through`` keys both protocols identically).
-    ``fleet_dirs`` (``--router``, a replay through a tenant router) is not
-    ported yet (ROADMAP A12b): the port refuses it."""
-    if fleet_dirs is not None:
-        raise NotImplementedError(
-            "not ported yet: loadgen through a tenant router (ROADMAP A12b)"
-        )
+    ``fleet_dirs`` (``--router``) replays through a router endpoint:
+    TENANT ids are GLOBAL, verdicts are tailed from EVERY sidecar under
+    each backend's telemetry directory and attribution joins on the
+    records' global tenant ids — one summary for the whole fleet."""
     if wire_version not in ("v1", "v2"):
         raise ValueError(f"wire_version must be 'v1' or 'v2', got {wire_version!r}")
     if wire_version == "v2":
@@ -682,9 +724,13 @@ def run_loadgen(
             expect_rows=expect_rows, trace_ctx=trace_ctx,
             trace_log=trace_log, label_lag=label_lag,
             wire_version=wire_version, arrays=arrays,
-            weights=tenant_weights,
+            fleet_dirs=fleet_dirs, weights=tenant_weights,
         )
-    tail = _VerdictTail(verdicts) if verdicts else None
+    tail = (
+        _FleetVerdictTail(fleet_dirs)
+        if fleet_dirs
+        else _VerdictTail(verdicts) if verdicts else None
+    )
     baseline = 0
     if tail is not None:
         # Rows already verdicted by earlier traffic (a warm daemon):
@@ -815,7 +861,12 @@ def main(argv=None) -> None:
                     "(NaN cells / out-of-domain labels)")
     ap.add_argument("--router", action="store_true",
                     help="the endpoint is a tenant ROUTER (fleet front "
-                    "daemon); not ported yet (ROADMAP A12b)")
+                    "daemon): --tenants deals GLOBAL tenant ids, --dir "
+                    "(repeatable, one per backend daemon) names the "
+                    "fleet's telemetry directories — every verdict "
+                    "sidecar under them is tailed and per-tenant "
+                    "rows_through attribution joins on global ids, so "
+                    "one summary JSON covers the whole fleet")
     ap.add_argument("--verdicts", default=None,
                     help="verdict sidecar path (row→verdict latency source)")
     ap.add_argument("--dir", dest="telemetry_dir", action="append",
@@ -843,8 +894,6 @@ def main(argv=None) -> None:
                     "trace sets)")
     ap.add_argument("--target-column", default="target")
     args = ap.parse_args(argv)
-    if args.router:
-        raise SystemExit("not ported yet: loadgen --router (ROADMAP A12b)")
 
     X, y, num_classes = load_source(args.source, args.target_column)
     if args.rows is not None:
@@ -866,10 +915,16 @@ def main(argv=None) -> None:
         for spec in args.dirty:
             dirty_rows += len(apply_dirty(lines, spec))
     dirs = list(args.telemetry_dir or [])
-    if len(dirs) > 1:
+    if args.router:
+        if not dirs:
+            ap.error("--router needs --dir (one per backend daemon)")
+        if args.verdicts:
+            ap.error("--router tails every sidecar under --dir; "
+                     "drop --verdicts")
+    elif len(dirs) > 1:
         ap.error("multiple --dir needs --router (fleet verdict tailing)")
     verdicts = args.verdicts
-    if verdicts is None and dirs:
+    if verdicts is None and dirs and not args.router:
         from .runner import find_verdicts
 
         verdicts = find_verdicts(dirs[0])
@@ -921,6 +976,7 @@ def main(argv=None) -> None:
         wire_version=args.wire,
         arrays=(X, y) if args.wire == "v2" else None,
         frame_rows=args.frame_rows,
+        fleet_dirs=dirs if args.router else None,
         tenant_weights=tenant_weights,
     )
     report.update(
@@ -930,6 +986,9 @@ def main(argv=None) -> None:
         classes=num_classes,
         dirty_rows=dirty_rows,
     )
+    if args.router:
+        report["router"] = True
+        report["fleet_dirs"] = dirs
     if args.delayed_labels:
         report["label_lag_rows"] = args.delayed_labels
     if dirs:

@@ -48,8 +48,10 @@ One :class:`ServeRunner` owns the whole lifecycle:
 The ``serve.flush`` fault site fires at verdict publication —
 ``kind='raise'`` kills the daemon after a chunk's state advanced but
 before its verdict/checkpoint landed; ``torn_write`` tears the verdict
-sidecar's trailing line. An active ``--on-drift`` policy is not ported
-yet (ROADMAP A13) and is refused before any work.
+sidecar's trailing line. ``--on-drift retrain|shadow`` routes each
+published verdict through the adaptation plane (``adapt/refit.py``) after
+forensics, on the serve loop's thread: a tenant is refit on the device
+after a drift and the fit swapped into the carry at a chunk boundary.
 """
 
 from __future__ import annotations
@@ -151,15 +153,7 @@ class ServeRunner:
                 "ServeParams.num_features/num_classes must be explicit "
                 f"(> 0), got {params.num_features}/{params.num_classes}"
             )
-        from ..adapt.policy import resolve_policies
-
         self.tenants = max(int(cfg.tenants), 1)
-        # Adaptation plane: the default alert_only builds nothing; an
-        # active policy is refused before any work.
-        if any(p.active for p in resolve_policies(params.on_drift, self.tenants)):
-            raise NotImplementedError(
-                "not ported yet: --on-drift retrain/shadow adaptation (ROADMAP A13)"
-            )
         self.cfg = replace(cfg, app_name=cfg.app_name or "serve")
         self.params = params
         self.device = device
@@ -235,6 +229,7 @@ class ServeRunner:
         self._sampler = None  # daemon-side head sampler (trace plane)
         self._rows_traced = 0  # rows whose serving span chain was emitted
         self._forensics = None  # telemetry.forensics.ForensicsExtractor
+        self._adapt = None  # adapt.refit.AdaptationController
         self._flag_base = 0  # flag columns published == batches published
         self._published = 0  # chunks published this process
         self._ckpt_at = 0
@@ -529,6 +524,33 @@ class ServeRunner:
                 metrics=self._metrics,
             )
             self.admissions = [self.admission]
+        # Adaptation plane (adapt/ subsystem): consume drift verdicts per
+        # the per-tenant --on-drift policy. No spec (or all alert_only)
+        # builds nothing at all — the policy-free daemon is byte-identical
+        # to one that never imported the package.
+        from ..adapt.policy import resolve_policies
+
+        policies = resolve_policies(params.on_drift, self.tenants)
+        if any(p.active for p in policies):
+            from ..adapt.refit import ADAPT_STATE_SUFFIX, AdaptationController
+
+            self._adapt = AdaptationController(
+                self.det,
+                policies,
+                per_batch=cfg.per_batch,
+                num_features=params.num_features,
+                rows_per_chunk=self.batcher.rows_per_chunk,
+                log=self._log,
+                metrics=self._metrics,
+                seed=cfg.seed,
+            )
+            if params.checkpoint and resume is not None:
+                # mid-adaptation state (window buffers, probation
+                # champions) resumes next to the detector carry
+                self._adapt.restore(params.checkpoint + ADAPT_STATE_SUFFIX)
+            # run every adaptation op once before traffic (kernels built,
+            # launch plans chosen outside the serve loop)
+            self._adapt.prepare(params.chunk_batches)
         if self._log is not None:
             from ..telemetry import registry as run_registry
 
@@ -658,7 +680,11 @@ class ServeRunner:
             "verdicts": self.verdicts_path,
             "checkpoint": params.checkpoint or None,
             "resumed": resume is not None,
-            "on_drift": None,  # an active policy is refused (ROADMAP A13)
+            "on_drift": (
+                [p.on_drift for p in policies]
+                if self._adapt is not None
+                else None
+            ),
         }
 
     def request_stop(self) -> None:
@@ -1059,7 +1085,9 @@ class ServeRunner:
                     else 0
                 ),
             },
-            "adaptation": None,
+            "adaptation": (
+                self._adapt.snapshot() if self._adapt is not None else None
+            ),
             # Incident autopsy plane: bundle count + open alerts; None
             # when the plane is off (--no-incidents or no run log). The
             # collector lifts "count" into the fleet history store.
@@ -1130,8 +1158,14 @@ class ServeRunner:
                             item.meta,
                             entry,
                             # the chunk's numpy-backed host copy, kept only
-                            # while forensics needs its context rows
-                            item.chunk if self._forensics is not None else None,
+                            # while forensics needs its context rows or the
+                            # adaptation plane its post-drift window rows
+                            (
+                                item.chunk
+                                if self._forensics is not None
+                                or self._adapt is not None
+                                else None
+                            ),
                         )
                     )
                 self._inflight_n = len(inflight)
@@ -1363,9 +1397,11 @@ class ServeRunner:
                 trace_ids=trace_ids,
             )
         forensics_done = time.monotonic()
-        # the reaction arm (ROADMAP A13) is not ported: the adapt stage
-        # stays in the accounting, empty, as the JAX package's does with
-        # the default alert_only policy
+        self._loop_stage = ("adapt", forensics_done)
+        if self._adapt is not None:
+            # the reaction arm: route this verdict through the per-tenant
+            # policy — forensics above explains the drift, this acts on it
+            self._adapt.on_chunk(meta, host, chunk)
         adapt_done = time.monotonic()
         if self._log is not None:
             from ..telemetry.events import emit_flag_events
@@ -1428,6 +1464,12 @@ class ServeRunner:
                     int(r) for r in meta["t_rows_through"]
                 ],
             }
+        if self._adapt is not None:
+            from ..adapt.refit import ADAPT_STATE_SUFFIX
+
+            # adaptation state (window buffers, probation champions)
+            # rides next to the carry — the mid-adaptation resume contract
+            self._adapt.save(self.params.checkpoint + ADAPT_STATE_SUFFIX)
         if self.params.tenant_checkpoints:
             # Solo-shaped per-slot checkpoints next to the plane — the
             # migration currency (ChunkedDetector.save_tenant): a router
@@ -1718,8 +1760,7 @@ def main(argv=None, device="cuda") -> None:
                     "hot-swap at a chunk boundary), shadow "
                     "(champion/challenger: swap gated on measured "
                     "shadow-slice error). Prefix T= targets one tenant; "
-                    "knobs: window_rows, cooldown_rows, margin, epsilon; "
-                    "retrain and shadow are not ported yet, ROADMAP A13")
+                    "knobs: window_rows, cooldown_rows, margin, epsilon")
     ap.add_argument("--device", default=device, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -1728,13 +1769,9 @@ def main(argv=None, device="cuda") -> None:
     from ..adapt.policy import resolve_policies as _resolve_policies
 
     try:
-        policies = _resolve_policies(args.on_drift, args.tenants)
+        _resolve_policies(args.on_drift, args.tenants)
     except ValueError as e:
         ap.error(str(e))
-    if any(p.active for p in policies):
-        raise SystemExit(
-            "not ported yet: --on-drift retrain/shadow adaptation (ROADMAP A13)"
-        )
     if args.tenant_checkpoints and not args.checkpoint:
         ap.error("--tenant-checkpoints needs --checkpoint (the plane stem)")
     tenant_ids: tuple = ()

@@ -6,7 +6,8 @@ scheduler use:
   mirrored into ``serve_stage_busy_seconds_total{stage=...}``;
 * :func:`attribute` — the attribution record (``/statusz``'s pipeline
   section): per-stage share, utilization, rows/s ceiling, dominant stage;
-* :func:`aggregate_fleet` / :func:`fleet_metrics_lines` — an aggregator's
+* :func:`backend_snapshot`, :func:`aggregate_fleet` and
+  :func:`fleet_metrics_lines` — an aggregator's (the tenant router's)
   ``/fleetz`` and its ``fleet_*`` series.
 
 On the card the window engine reads its pointer on the host each
@@ -140,6 +141,67 @@ def attribute(
     return out
 
 
+
+
+def _samples_from_prom(text: str) -> "tuple[dict, float | None, float | None]":
+    """Extract (busy map, wall, rows) from Prometheus exposition text."""
+    from .metrics import parse_prometheus_text
+
+    samples = parse_prometheus_text(text)
+    busy: dict[str, float] = {}
+    wall = rows = None
+    for (name, labels), value in samples.items():
+        if name == SERVE_STAGE_BUSY_METRIC:
+            busy[dict(labels).get("stage", "")] = value
+        elif name == SERVE_WALL_METRIC:
+            wall = value
+        elif name == SERVE_ROWS_METRIC:
+            rows = value
+    busy.pop("", None)
+    return busy, wall, rows
+
+
+def backend_snapshot(
+    name: str,
+    statusz: "dict | None",
+    metrics_text: "str | None" = None,
+    ops: "str | None" = None,
+) -> dict:
+    """One backend's row in the ``/fleetz`` envelope, from its scraped
+    ``/statusz`` (``None`` statusz = unreachable backend). When the
+    statusz carries no ``pipeline`` section but a ``/metrics`` scrape is
+    given, the busy map is recovered from the exposition text instead.
+    ``ops`` (the backend's ``host:ops_port``) rides along verbatim."""
+    if not statusz:
+        return {
+            "name": name,
+            "alive": False,
+            **({"ops": ops} if ops else {}),
+        }
+    pipe = statusz.get("pipeline") or {}
+    busy = pipe.get("busy_s") or {}
+    wall = pipe.get("wall_s")
+    if not busy and metrics_text:
+        busy, wall, _ = _samples_from_prom(metrics_text)
+    attr = attribute(busy, wall) if busy else {}
+    rows = (statusz.get("rows") or {}).get("published", 0)
+    out = {
+        "name": name,
+        "alive": True,
+        "rows": rows,
+        "rows_per_sec": statusz.get("rows_per_sec", 0.0),
+        # live SLO alert count from the backend's own engine
+        "alerts": len(statusz.get("alerts") or []),
+        # captured incident bundles (statusz `incidents` section)
+        "incidents": int((statusz.get("incidents") or {}).get("count") or 0),
+        "bottleneck": attr.get("dominant_stage"),
+        "busy_share": {
+            s: c["share"] for s, c in attr.get("stages", {}).items()
+        },
+    }
+    if ops:
+        out["ops"] = ops
+    return out
 
 
 def aggregate_fleet(backends: list[dict]) -> dict:

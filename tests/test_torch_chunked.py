@@ -349,8 +349,15 @@ def test_prepare_chunked_and_its_refusals():
     m = build_model("centroid", ModelSpec(5, 6))
     with pytest.raises(NotImplementedError, match="A15d"):
         TCD(m, partitions=P, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        TCD(m, partitions=P, on_drift="refit", device="cpu")
+    # on_drift is ported (tests/test_torch_adapt.py): as in the JAX package,
+    # a bad policy spec is refused when the first drained chunk resolves it
+    rng = np.random.default_rng(0)
+    chunk = tstream.stripe_chunk(rng.standard_normal((P * B * CB, 5)).astype(np.float32),
+                                 rng.integers(0, 6, P * B * CB).astype(np.int32), 0, P, B, CB)
+    for det in (TCD(m, partitions=P, on_drift="refit", device="cpu"),
+                JCD(jbuild("centroid", JSpec(5, 6)), partitions=P, on_drift="refit")):
+        with pytest.raises(ValueError, match="unknown on_drift policy"):
+            det.run([chunk])
     # the chunk tracer is ported: an empty drain takes one and emits nothing
     assert TCD(m, partitions=P, device="cpu").run([], tracer=object()).change_global.shape == (P, 0)
     with pytest.raises(ValueError, match="rotations"):

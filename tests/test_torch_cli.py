@@ -124,15 +124,18 @@ def test_usage_errors_match_jax(argv):
 
 
 @pytest.mark.parametrize("name", sorted([*tmain.UNPORTED_SUBCOMMANDS, "chunked", "serve",
-                                         "loadgen"]))
+                                         "loadgen", "router"]))
 def test_unported_subcommands_name_their_items(name, csvs, capsys, tmp_path, monkeypatch):
     """Each subcommand not ported yet exits nonzero naming its item;
     ``chunked`` (ROADMAP A10b) is ported and runs on the CPU, printing
     the JAX package's final JSON line (``tests/test_torch_chunked.py``
     holds its numbers to JAX's). ``serve`` (A12a) starts on the CPU,
     prints its banner and drains (``--max-chunks 0``); ``loadgen`` (A12a)
-    refuses ``--router`` naming A12b (``tests/test_torch_serve.py`` and
-    ``tests/test_torch_wire.py`` drive both)."""
+    and ``router`` (A12b) are ported: ``loadgen --router`` without the
+    fleet's ``--dir`` and ``router`` without a ``--backend`` are usage
+    errors, as in the JAX package (``tests/test_torch_serve.py``,
+    ``tests/test_torch_wire.py`` and ``tests/test_torch_fleet.py`` drive
+    them)."""
     if name == "serve":
         monkeypatch.chdir(tmp_path)
         with pytest.raises(SystemExit) as e:
@@ -142,9 +145,14 @@ def test_unported_subcommands_name_their_items(name, csvs, capsys, tmp_path, mon
         banner = json.loads(capsys.readouterr().out.strip().splitlines()[0])
         assert banner["serving"] and banner["port"] > 0 and banner["wire"] == ["v1", "v2"]
         return
-    if name == "loadgen":
-        with pytest.raises(SystemExit, match=r"not ported yet: loadgen --router \(ROADMAP A12b\)"):
-            tmain.main(["loadgen", csvs["clean"], "--port", "1", "--router", "--dir", "x"])
+    if name in ("loadgen", "router"):
+        argv = (["loadgen", csvs["clean"], "--port", "1", "--router"] if name == "loadgen"
+                else ["router", "--port", "0"])
+        with pytest.raises(SystemExit) as e:
+            tmain.main(argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert ("--router needs --dir" in err) if name == "loadgen" else ("--backend" in err)
         return
     if name == "chunked":
         tmain.main(["chunked", csvs["clean"], "--classes", "6", "--partitions", "4",

@@ -273,21 +273,37 @@ def test_chunk_tracer_spans_equal_jax(where, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("how", ["runner", "cli"])
 def test_active_on_drift_refused(how, tmp_path, monkeypatch):
-    """``--on-drift retrain`` (ROADMAP A13) is refused by name before any
-    work: no telemetry, no socket, no detector."""
+    """An active ``--on-drift`` spec the plane cannot take (a tenant it does
+    not have, an unknown knob) is refused: by the ``serve`` CLI at argv time,
+    before any work (no telemetry, no socket, no detector); by
+    ``ServeRunner.start`` before it serves, as in the JAX package. A valid
+    spec builds the adaptation plane (``tests/test_torch_adapt.py`` drives
+    it)."""
     monkeypatch.chdir(tmp_path)
     tele = str(tmp_path / "tele")
     if how == "runner":
-        with pytest.raises(NotImplementedError, match="A13"):
-            ServeRunner(RunConfig(**_kw(tele)),
-                        ServeParams(num_features=5, num_classes=3, on_drift=("retrain",)),
-                        device="cpu")
+        for pkg, runner, cfg, sp in (("port", ServeRunner, RunConfig, ServeParams),
+                                     ("jax", JServeRunner, JRunConfig, JServeParams)):
+            kw = dict(device="cpu") if pkg == "port" else {}
+            r = runner(cfg(**_kw(None)),
+                       sp(num_features=5, num_classes=3, on_drift=("3=retrain",), port=None),
+                       **kw)
+            with pytest.raises(ValueError, match="targets tenant"):
+                r.start()
+        r = ServeRunner(RunConfig(**_kw(None)),
+                        ServeParams(num_features=5, num_classes=3, on_drift=("retrain",),
+                                    port=None), device="cpu")
+        r.start()
+        assert r._adapt is not None and r._adapt.active
+        r.request_stop()
+        assert r.serve_forever() == 0
     else:
         from distributed_drift_detection_tpu_torch.__main__ import main
 
-        with pytest.raises(SystemExit, match="A13"):
+        with pytest.raises(SystemExit) as e:
             main(["serve", "--features", "5", "--classes", "3", "--telemetry-dir", tele,
-                  "--on-drift", "shadow"], device="cpu")
+                  "--on-drift", "shadow,bogus=1"], device="cpu")
+        assert e.value.code == 2
     assert not os.path.exists(tele)
 
 

@@ -2,10 +2,10 @@
 version) against the JAX package's ``engine/soak.py``, on the CPU.
 
 The generators' plain versions give JAX's bits (``sea``, ``hyperplane``
-and ``prototypes`` bit for bit; ``hyperplane_gradual``'s features bit for
-bit and its labels equal off margins within a few roundings of 0, the
-limit ROADMAP C9 records: the port's sine is correctly rounded, XLA's is
-the C library's ``sinf``). The runners give JAX's flags leaf by leaf:
+and ``prototypes`` bit for bit; ``hyperplane_gradual``'s rotated weights
+and labels too: its sine is ``ops/prefix.py`` ``xla_sin``, the C library's
+``sinf`` that XLA's CPU ``sin`` calls, held bit for bit against
+``jax.jit(jnp.sin)``). The runners give JAX's flags leaf by leaf:
 ``window=1``, ``window>1`` at rotations 1 and 2, ``tenants=2``, a zoo
 detector by name with Page–Hinkley's auto λ, SEA; the chain equals the
 one-shot run modulo the partition row offset, and the driver's summary is
@@ -115,11 +115,39 @@ GEN_CASES = [
 ]
 
 
+def _gradual_args(rows, f, period):
+    """The gradual rotation's sine arguments ``[B, F]`` at ``rows``."""
+    phase = (torch.as_tensor(rows).long() % period).float() * tsoak.rotation_scale(period)
+    return phase[:, None] + torch.arange(f, dtype=torch.float32)
+
+
+def test_xla_sin_matches_jax():
+    """``xla_sin`` against ``jax.jit(jnp.sin)`` bit for bit on 2^20 seeded
+    float32 arguments across the soak's range [0, 2π + F − 1] (F up to
+    2,048: glibc's reduction past 120 included), negatives and tiny values,
+    and on every argument the gradual cases of this file and of
+    ``tests/test_torch_kernels.py``'s K6 reach."""
+    from distributed_drift_detection_tpu_torch.ops.prefix import xla_sin
+
+    rng = np.random.default_rng(20)
+    n = 1 << 20
+    parts = [rng.uniform(0.0, 2 * np.pi + 9, n // 2), rng.uniform(0.0, 2 * np.pi + 2047, n // 4),
+             rng.uniform(-200.0, 200.0, n // 8), rng.uniform(-1.0, 1.0, n // 16),
+             rng.uniform(-2.0**-10, 2.0**-10, n // 16)]
+    # a period's rows reach every argument of its gradual cases (the phase
+    # is row mod period): this file's (700, 300) and the card's K6 cases'
+    for period in (700, 300, 600, 7, 100_000):
+        parts.append(_gradual_args(np.arange(period), 10, period).numpy().ravel())
+    x = np.concatenate(parts).astype(np.float32)
+    got = xla_sin(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jnp.sin)(x))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("gen, f, row0, block0", GEN_CASES)
 def test_generators_match_jax(gen, f, row0, block0):
-    """X bit for bit for every generator, labels bit for bit but for
-    ``hyperplane_gradual``'s, which must agree off |margin| within 4·F
-    roundings of its terms (ROADMAP C9)."""
+    """X and labels bit for bit for every generator; ``hyperplane_gradual``'s
+    rotated weights too, against the JAX package's expression jitted."""
     b, de = 2_000, 700
     rows = np.arange(b, dtype=np.int32) + np.int32(row0)
     jgen = jsoak._GENERATORS[gen][0]
@@ -127,21 +155,23 @@ def test_generators_match_jax(gen, f, row0, block0):
         lambda k, r: jgen(k, r, de, f, block0=block0))(_jkey(2), jnp.asarray(rows)))
     X, y = tsoak._GENERATORS[gen][0](_tkey(2), torch.from_numpy(rows), de, f, block0=block0)
     np.testing.assert_array_equal(X.numpy().view(np.int32), Xj.view(np.int32))
+    np.testing.assert_array_equal(y.numpy(), yj)
     if gen != "hyperplane_gradual":
-        np.testing.assert_array_equal(y.numpy(), yj)
         return
-    X64 = X.double()
-    rp = de
-    phase = (torch.from_numpy(rows).long() % rp).float() * tsoak.rotation_scale(rp)
-    arg = phase[:, None] + torch.arange(f, dtype=torch.float32)
+
+    def jweights(r):  # engine/soak.py _hyperplane_batch's weights, rotated
+        blocks = block0 + r // de
+        w = jax.vmap(lambda k: jax.random.uniform(k, (f,)))(
+            jax.vmap(lambda bl: jax.random.fold_in(jax.random.key(7), bl))(blocks))
+        frac = (r % de).astype(jnp.float32) / de
+        phase = (2.0 * jnp.pi) * frac[:, None]
+        return w + 0.3 * jnp.sin(phase + jnp.arange(f, dtype=jnp.float32))
+
+    wj = np.asarray(jax.jit(jweights)(jnp.asarray(rows)))
     wk = threefry.fold_in(torch.tensor(threefry.key(7), dtype=torch.int64),
                           block0 + torch.from_numpy(rows).long() // de)
-    w = threefry.uniform(wk, (f,)).double() + 0.3 * torch.sin(arg.double())
-    margin = (X64 * w).sum(1) - 0.5 * w.sum(1)
-    scale = (X64 * w).abs().sum(1) + 0.5 * w.abs().sum(1)
-    off = margin.abs() > 4 * f * 2.0**-23 * scale
-    assert bool(off.all()) or off.float().mean() > 0.99
-    np.testing.assert_array_equal(y.numpy()[off.numpy()], yj[off.numpy()])
+    w = tsoak.fma(tsoak.xla_sin(_gradual_args(rows, f, de)), 0.3, threefry.uniform(wk, (f,)))
+    np.testing.assert_array_equal(w.numpy().view(np.int32), wj.view(np.int32))
 
 
 def test_soak_batch_reference_layout():
@@ -540,7 +570,7 @@ def _k6_staged_model(keys, t0, count, last, row_offs, block0s, *, per_batch, fea
                         phase = (torch.from_numpy(rows) % period).float() * tsoak.rotation_scale(
                             period)
                         arg = phase[:, None] + torch.arange(f, dtype=torch.float32)
-                        w = tsoak.fma(torch.sin(arg.double()).float(), 0.3, w)
+                        w = tsoak.fma(tsoak.xla_sin(arg), 0.3, w)
                     out[e, :f] = X
                     labels[e] = (tsoak.hyperplane_margin(X, w) > 0).int()
     return out, labels
