@@ -6,10 +6,12 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the thirteen hand-written kernels from ``csrc/`` with nvcc (in
+2. build the seventeen hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
-   ``centroid_fit``, K5-ph ``ph_window``, K5-hddm_w ``hddm_w_window``,
-   K5-adwin ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
+   ``centroid_fit``, K5-ph ``ph_window``, K5-eddm ``eddm_window``, K5-hddm
+   ``hddm_window``, K5-hddm_w ``hddm_w_window``, K5-kswin
+   ``kswin_window``, K5-stepd ``stepd_window``, K5-adwin
+   ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
    ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``,
    K6 ``soak_batch`` (``csrc/soak_gen.cu``, ``csrc/xla_sinf.cuh``), K13
    ``shuffle_perm``;
@@ -52,21 +54,27 @@ without them. Phases, each fatal on failure:
    each kernel's in-run launches and device µs per launch, and the
    device's idle share over the phase;
 6. hold each zoo kernel (K5) against its plain version at the main path's
-   shape [16, 128·100] and on its design's edge cases — Page–Hinkley and
-   HDDM-W bit for bit (each on its cluster path at P = 16 and P = 1 and
-   with clusters of one CTA at P = 80, and on its global-scratch path),
-   ADWIN's int32 state and flags exactly — and time it
-   as K1 and K2 are timed; for ADWIN also the flushes of the timed
-   launch's longest row (its dependent chain) and the µs a flush;
-7. drive ``detector='ph'``, ``'hddm_w'`` and ``'adwin'`` through ``run`` at
-   the same geometry, each kernel's launch counter reset just before its
-   run and read just after: flags equal to the port's CPU run, detections
-   and mean delay equal to the JAX package's (pinned below); Final Time
-   (median of 3 warm runs) and one traced detect phase each;
-8. drive the plain-PyTorch members (``eddm``, ``hddm``, ``kswin``,
-   ``stepd``), the ``gnb`` and ``linear`` models and the ``window=1``
-   engine (DDM, and Page–Hinkley) at a smaller depth (``mult_data`` 64):
-   flags equal to the port's CPU run, the kernels they use launched;
+   shape [16, 128·100] and on its design's edge cases, from fresh and
+   carried states — Page–Hinkley and HDDM-W bit for bit (each on its
+   cluster path at P = 16 and P = 1 and with clusters of one CTA at P =
+   80, and on its global-scratch path), EDDM, HDDM-A, KSWIN and STEPD bit
+   for bit (all-padding rows; KSWIN's and STEPD's rows shorter than their
+   ring buffers and a prefix row in the global scratch; EDDM's sums past
+   2^24 from a fresh and a carried state), ADWIN's int32 state and flags
+   exactly — and time it as K1 and K2 are timed; for ADWIN also the
+   flushes of the timed launch's longest row (its dependent chain) and
+   the µs a flush;
+7. drive ``detector='ph'``, ``'hddm_w'``, ``'adwin'``, ``'eddm'``,
+   ``'hddm'``, ``'kswin'`` and ``'stepd'`` through ``run`` at the same
+   geometry, each kernel's launch counter reset just before its run and
+   read just after: flags equal to the port's CPU run, detections and mean
+   delay equal to the JAX package's (pinned below); Final Time (median of
+   3 warm runs) and one traced detect phase each, with the member's
+   kernel's own in-run line;
+8. drive the ``gnb`` and ``linear`` models and the ``window=1`` engine
+   (DDM, Page–Hinkley and EDDM: the kernels at [P, 1, B]) at a smaller
+   depth (``mult_data`` 64): flags equal to the port's CPU run, the
+   kernels they use launched;
 9. the ``mlp`` (MLP(128, 64), 32 steps, the threefry key chain): K8
    bit for bit against its plain version (``split``, then a layer's
    normals) at the main path's init in one launch and on ``K8_EDGES`` (65
@@ -288,22 +296,25 @@ EXPECTED_MEAN_DELAY = 788.63  # rows, the JAX package's run of SMOKE
 # The JAX package's run of SMOKE with each zoo kernel's detector:
 # (detections, mean delay in rows).
 ZOO_EXPECTED = {"ph": (624, 820.8077), "hddm_w": (624, 781.6282),
-                "adwin": (624, 792.7051)}
+                "adwin": (624, 792.7051), "eddm": (624, 803.3974), "hddm": (624, 770.6795),
+                "kswin": (624, 809.1154), "stepd": (624, 788.6282)}
+# The zoo's paths at SMOKE width: (detector, its kernel).
+ZOO_PATHS = [("ph", "ph_window"), ("hddm_w", "hddm_w_window"), ("adwin", "adwin_window"),
+             ("eddm", "eddm_window"), ("hddm", "hddm_window"), ("kswin", "kswin_window"),
+             ("stepd", "stepd_window")]
 # The JAX package's run of SMOKE with model='mlp' (MLP(128, 64), 32 steps,
 # ddm): (detections, mean delay in rows). Its fits cannot match XLA's to
 # the bit, so the bar is equal detections and a mean delay within a batch.
 MLP_EXPECTED = (624, 788.6282051282051)
 # Runs at a smaller depth: (name, RunConfig overrides, kernels launched).
 SHALLOW = [
-    ("eddm", dict(detector="eddm"), ("centroid_predict_err", "centroid_fit")),
-    ("hddm", dict(detector="hddm"), ("centroid_predict_err", "centroid_fit")),
-    ("kswin", dict(detector="kswin"), ("centroid_predict_err", "centroid_fit")),
-    ("stepd", dict(detector="stepd"), ("centroid_predict_err", "centroid_fit")),
     ("gnb", dict(model="gnb"), ("ddm_window",)),
     ("linear", dict(model="linear"), ("ddm_window", "centroid_predict_err")),
     ("window=1 ddm", dict(window=1), ("ddm_window", "centroid_predict_err", "centroid_fit")),
     ("window=1 ph", dict(window=1, detector="ph"),
      ("ph_window", "centroid_predict_err", "centroid_fit")),
+    ("window=1 eddm", dict(window=1, detector="eddm"),
+     ("eddm_window", "centroid_predict_err", "centroid_fit")),
 ]
 SHALLOW_MULT = 64
 # The mlp's nets of ROADMAP C5, run end to end at SMOKE beside the main
@@ -1618,6 +1629,7 @@ def flags_equal(np_, a, b) -> bool:
     return all(np_.array_equal(getattr(a.flags, f), getattr(b.flags, f)) for f in a.flags._fields)
 
 
+
 def threefry_keys(torch, p, dev):
     from distributed_drift_detection_tpu_torch.engine.loop import device_keys
     from distributed_drift_detection_tpu_torch.utils import threefry
@@ -1636,7 +1648,11 @@ def wrappers():
             "centroid_predict_err": classifiers.centroid_predict_err,
             "centroid_fit": classifiers.centroid_fit,
             "ph_window": detectors.ph_window,
+            "eddm_window": detectors.eddm_window,
+            "hddm_window": detectors.hddm_window,
             "hddm_w_window": detectors.hddm_w_window,
+            "kswin_window": detectors.kswin_window,
+            "stepd_window": detectors.stepd_window,
             "adwin_window": adwin.adwin_window,
             "random_normal": threefry.init_normals,
             "mlp_fit": mlp.mlp_fit,
@@ -1657,8 +1673,8 @@ def read_launches() -> dict:
 
 
 def zoo_table(config):
-    """Per zoo kernel: (JAX source line, plain version, init, the timed
-    params, every params set checked, global-scratch words per row)."""
+    """Per zoo kernel: its JAX source line, plain version, init, parameter
+    sets (the first timed) and element operations (for the bound)."""
     from distributed_drift_detection_tpu_torch.ops import adwin, detectors
 
     return {
@@ -1687,6 +1703,42 @@ def zoo_table(config):
             params=[config.ADWINParams(), config.ADWINParams(clock=1),
                     config.ADWINParams(max_levels=3, clock=4)],
             ops_per_element=4),
+        "eddm_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:382",
+            reference=detectors.eddm_window_reference,
+            init=lambda prm, p, dev: detectors.eddm_init((p,), dev),
+            params=[config.EDDMParams(),
+                    config.EDDMParams(paper_exact=True, min_num_errors=5)],
+            # the count and error tests, d and d² (a conversion, a
+            # product), two chain adds and the tree's, the two sums' carried
+            # adds; at an event the moments (2 divisions, an fma, a square
+            # root, 2 more) and the max and ratio tests
+            ops_per_element=20),
+        "hddm_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:548",
+            reference=detectors.hddm_window_reference,
+            init=lambda prm, p, dev: detectors.hddm_init((p,), dev),
+            params=[config.HDDMParams(), config.HDDMParams(drift_confidence=0.01)],
+            # the prefixes, the mean (a division), ε (a product, a
+            # division, a square root), the key, the min, the cut's mean
+            # (a division) and two bounds of 7 ops each, the compares
+            ops_per_element=26),
+        "kswin_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:973",
+            reference=detectors.kswin_window_reference,
+            init=lambda prm, p, dev: detectors.kswin_init(prm, (p,), dev),
+            params=[config.KSWINParams(), config.KSWINParams(window_size=20, stat_size=5)],
+            # the prefixes and the prefix row's write, 3 differences, 2
+            # products, the gap's difference and abs, 2 compares
+            ops_per_element=11),
+        "stepd_window": dict(
+            replaces="distributed_drift_detection_tpu/ops/detectors.py:1135",
+            reference=detectors.stepd_window_reference,
+            init=lambda prm, p, dev: detectors.stepd_init(prm, (p,), dev),
+            params=[config.STEPDParams(), config.STEPDParams(window_size=5)],
+            # the prefixes, the recent sum, the total, the z statistic (3
+            # divisions, a square root, 11 more) and 4 compares
+            ops_per_element=22),
     }
 
 
@@ -1700,6 +1752,16 @@ K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
 # two long rows above).
 K5_CLUSTER_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
 CLUSTER_KERNELS = ("ph_window", "hddm_w_window")
+# and for K5-kswin and K5-stepd: rows shorter than their ring buffers (7, 20
+# and 60 elements against 100 and 30, 20 and 5; k5_inputs' partition 1 is
+# all padding), and a row of 60,000 elements whose prefix row leaves shared
+# memory for the global scratch
+K5_RING_EDGES = [(3, 1, 7), (6, 2, 10), (3, 60, 1), (2, 600, 100)]
+RING_KERNELS = ("kswin_window", "stepd_window")
+# EDDM's squared distances past 2^24 (ROADMAP C11): rows with an error
+# every 700–1,299 elements, in windows of this shape, from a fresh state and
+# from a carried d2_sum past 2^24
+K5_EDDM_PROBE = (3, 600, 100)
 
 
 def k5_inputs(rng, p, w, b, first_change=False):
@@ -1713,6 +1775,15 @@ def k5_inputs(rng, p, w, b, first_change=False):
         errs[:, 0, 0] = 1.0
         valid[:, 0, 0] = True
     return errs, valid
+
+
+def eddm_probe_rows(p, n):
+    """``p`` rows of ``n`` 0/1 errors, one every 700–1,299 elements."""
+    rows = np.zeros((p, n), np.float32)
+    for seed in range(p):
+        pos = np.cumsum(np.random.default_rng(seed).integers(700, 1300, n // 700 + 1))
+        rows[seed, pos[pos < n]] = 1.0
+    return rows
 
 
 def check_k5_equal(torch, got, want, what):
@@ -1732,7 +1803,8 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     info = zoo_table(config)[name]
     window = wrappers()[name]
     rng = np.random.default_rng(5)
-    edges = K5_EDGES + (K5_CLUSTER_EDGES if name in CLUSTER_KERNELS else [])
+    edges = (K5_EDGES + (K5_CLUSTER_EDGES if name in CLUSTER_KERNELS else [])
+             + (K5_RING_EDGES if name in RING_KERNELS else []))
     for shape in [(p, w, b)] + edges:
         for prm in info["params"]:
             if getattr(prm, "clock", 32) == 1 and shape[1] * shape[2] > 2000:
@@ -1747,9 +1819,23 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
                     check_k5_equal(torch, window(state, e1, v1, prm),
                                    info["reference"](state, e1, v1, prm),
                                    f"{name} {shape} {prm}")
+    extra = ""
+    if name == "eddm_window":
+        ep, ew, eb = K5_EDDM_PROBE
+        e1 = torch.from_numpy(eddm_probe_rows(ep, ew * eb).reshape(ep, ew, eb)).to(dev)
+        v1 = torch.ones_like(e1, dtype=torch.bool)
+        for prm in info["params"]:
+            fresh = info["init"](prm, ep, dev)
+            carried, _ = info["reference"](fresh, e1, v1, prm)
+            check(float(carried.d2_sum.min()) > 2.0**24, "the EDDM probe's d2_sum")
+            for state in (fresh, carried):
+                check_k5_equal(torch, window(state, e1, v1, prm),
+                               info["reference"](state, e1, v1, prm), f"{name} probe {prm}")
+        extra = (f"; the sums past 2^24 at [{ep}, {ew}x{eb}] (an error every 700-1,299 "
+                 f"elements, carried d2_sum up to {float(carried.d2_sum.max()):,.0f})")
     print(f"K5 {name}: equal to its plain version at [{p}, {w}x{b}] and "
           + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in edges)
-          + f", {len(info['params'])} parameter sets, fresh and carried states")
+          + f", {len(info['params'])} parameter sets, fresh and carried states" + extra)
 
     prm = info["params"][0]
     e1, v1 = (torch.from_numpy(a).to(dev) for a in k5_inputs(np.random.default_rng(1), p, w, b))
@@ -1761,6 +1847,14 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     if name == "adwin_window":
         scratch = adwin.adwin_scratch(p, w * b, prm, dev)
         args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
+    elif name == "eddm_window":
+        scratch = torch.empty((p, detectors.eddm_tree_words(w * b)), device=dev)
+        args = detectors.eddm_window_args(state, e1, v1, prm, fw, fc, end, scratch)
+    elif name == "hddm_window":
+        args = detectors.hddm_window_args(state, e1, v1, prm, fw, fc, end)
+    elif name in RING_KERNELS:
+        scratch = detectors.ring_scratch(p, w * b, prm.window_size, dev)
+        args = getattr(detectors, f"{name}_args")(state, e1, v1, prm, fw, fc, end, scratch)
     else:
         ctas = detectors.cluster_ctas(p, w * b, torch.cuda.get_device_properties(
             dev).multi_processor_count)
@@ -1820,7 +1914,11 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "centroid_predict_err": "centroid_predict_err_kernel",
                   "centroid_fit": "centroid_fit_kernel",
                   "ph_window": "ph_window_kernel",
+                  "eddm_window": "eddm_window_kernel",
+                  "hddm_window": "hddm_window_kernel",
                   "hddm_w_window": "hddm_w_window_kernel",
+                  "kswin_window": "kswin_window_kernel",
+                  "stepd_window": "stepd_window_kernel",
                   "adwin_window": "adwin_window_kernel",
                   "random_normal": "init_normals_kernel",
                   "mlp_fit": "mlp_fit_kernel",
@@ -1829,6 +1927,16 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "forest_predict_err": "forest_predict_err_kernel",
                   "soak_batch": "soak_tile_kernel",
                   "shuffle_perm": "shuffle_perm_kernel"}
+
+
+def kernel_hits(kern, name) -> list:
+    """The profiler's events of kernel ``name``: its symbol at the start of
+    a name (``ddm_window_kernel`` is inside ``eddm_window_kernel``; K5-ph's
+    cluster path is ``ph_window_kernel_cluster``)."""
+    import re
+
+    pat = re.compile(rf"(?<![A-Za-z0-9_]){KERNEL_SYMBOLS[name]}")
+    return [e for e in kern if pat.search(e.key)]
 
 
 def traced(torch, run) -> tuple[list, float]:
@@ -1870,7 +1978,7 @@ def in_run_profile(torch, api, prep, dev,
     busy_us = sum(e.self_device_time_total for e in kern)
     per = {}
     for name in names:
-        hits = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+        hits = kernel_hits(kern, name)
         count = sum(e.count for e in hits)
         check(count > 0, f"the profiler saw no {name} launch in the detect phase")
         per[name] = (count, sum(e.self_device_time_total for e in hits) / count)
@@ -2855,7 +2963,7 @@ def soak_phase(torch, api, config, kernels, classifiers, res, dev):
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     per = {}
     for name in SOAK_KERNELS:
-        hits = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+        hits = kernel_hits(kern, name)
         count = sum(e.count for e in hits)
         check(count > 0, f"the soak's traced window saw no {name} launch")
         per[name] = (count, sum(e.self_device_time_total for e in hits) / count)
@@ -3135,7 +3243,7 @@ def chunked_phase(torch, api, config, kernels, cfg, res, dev):
     it = iter(chunks)
     det.feed(next(it))
     kern, _ = traced(torch, lambda: det.feed(next(it)))
-    hits = [e for e in kern if KERNEL_SYMBOLS["shuffle_perm"] in e.key]
+    hits = kernel_hits(kern, "shuffle_perm")
     count = sum(e.count for e in hits)
     check(count > 0, "the profiler saw no K13 launch in a shuffled chunk")
     row["in_run_launches"] = count
@@ -4045,13 +4153,13 @@ def main(device: str = "cuda") -> int:
         row["in_run_launches"], row["in_run_us"] = per[row["name"]]
 
     # 6. the zoo kernels against their plain versions
-    for name in ("ph_window", "hddm_w_window", "adwin_window"):
+    for _, name in ZOO_PATHS:
         rows.append(check_k5(torch, kernels, config, name, p, w, b, dev))
 
     # 7. the zoo kernels' paths at SMOKE width, counted
     final_times = {"ddm": final}
-    for det, kname in (("ph", "ph_window"), ("hddm_w", "hddm_w_window"),
-                       ("adwin", "adwin_window")):
+    t_phase = time.perf_counter()
+    for det, kname in ZOO_PATHS:
         zcfg = config.replace(cfg, detector=det)
         zres, zl = run_equal(api, np, zcfg, dev, det)
         want_n, want_delay = ZOO_EXPECTED[det]
@@ -4075,8 +4183,9 @@ def main(device: str = "cuda") -> int:
               f"in-run {kname} {zper[kname][0]} launches x {zper[kname][1]:.2f} us; "
               f"{zsum['kernels']} kernels busy {zsum['busy_s']:.4f} s of "
               f"{zsum['detect_s']:.4f} s, idle share {zsum['idle_share']:.3f}")
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
-    # 8. the plain members, gnb, linear and window=1 at a smaller depth
+    # 8. gnb, linear and window=1 at a smaller depth
     for what, kw, used in SHALLOW:
         scfg = config.replace(cfg, mult_data=SHALLOW_MULT, **kw)
         sres, sl = run_equal(api, np, scfg, dev, what)

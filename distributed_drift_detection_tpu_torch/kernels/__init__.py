@@ -75,6 +75,39 @@ _SIGNATURES = {
         + [_P] * 8  # 8 end leaves
         + [_P],  # stream
     ),
+    "eddm_window": (
+        "eddm_window_launch",
+        [_P, _P] + [_P] * 6  # errs, live, 6 state leaves
+        + [_I, _I, _I, _I, _I,  # p, w, b, paper_exact, min_num_errors
+           _F, _F, _P, _P, _P]  # warning_alpha, change_beta, scratch, first warning/change
+        + [_P] * 6  # 6 end leaves
+        + [_P],  # stream
+    ),
+    "hddm_window": (
+        "hddm_window_launch",
+        [_P, _P] + [_P] * 4  # errs, live, 4 state leaves
+        + [_I, _I, _I,  # p, w, b
+           _F, _F, _F,  # f32 ln(1/δ) of the drift confidence, ln(2/δ) of each bound's
+           _P, _P]  # first warning/change
+        + [_P] * 4  # 4 end leaves
+        + [_P],  # stream
+    ),
+    "kswin_window": (
+        "kswin_window_launch",
+        [_P, _P, _P, _P,  # errs, live, t, buf
+         _I, _I, _I, _I, _I,  # p, w, b, window_size, stat_size
+         _F, _F, _F,  # f32(1/r), f32(1/(window_size − r)), the critical value
+         _P, _P, _P, _P, _P,  # scratch, first warning/change, end t, end buf
+         _P],  # stream
+    ),
+    "stepd_window": (
+        "stepd_window_launch",
+        [_P, _P, _P, _P, _P,  # errs, live, t, total, buf
+         _I, _I, _I, _I,  # p, w, b, window_size
+         _F, _F, _F,  # f32(1/window_size), the drift and warning critical values
+         _P, _P, _P, _P, _P, _P,  # scratch, first warning/change, 3 end leaves
+         _P],  # stream
+    ),
     "adwin_window": (
         "adwin_window_launch",
         [_P, _P] + [_P] * 6  # errs, live, 6 state leaves

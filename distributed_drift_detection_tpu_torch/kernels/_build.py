@@ -35,9 +35,10 @@ COMMON_FLAGS = (
 )
 # Per-kernel extra flags. K1 and the zoo kernels are held bit-identical to
 # their plain versions, so nvcc must not contract a*b+c into FMAs on its
-# own; K7, K5-ph and K5-hddm_w also flush subnormals, as XLA on the CPU
-# does. K8, K9 and K11 draw threefry normals bit-identical to JAX's
-# (csrc/threefry.cuh), under the same two flags, as do K6's generators;
+# own; K7, K5-ph, K5-hddm_w and K5-eddm (its variance's fused
+# multiply-add) also flush subnormals, as XLA on the CPU does. K8, K9 and
+# K11 draw threefry normals bit-identical to JAX's (csrc/threefry.cuh),
+# under the same two flags, as do K6's generators;
 # K11 and K12 compute the forest's projections with explicit unfused,
 # unflushed PTX (csrc/forest.cuh). K13 does integer work only.
 KERNELS = {
@@ -46,6 +47,10 @@ KERNELS = {
     "centroid_fit": ("-fmad=false", "-ftz=true"),
     "ph_window": ("-fmad=false", "-ftz=true"),
     "hddm_w_window": ("-fmad=false", "-ftz=true"),
+    "eddm_window": ("-fmad=false", "-ftz=true"),
+    "hddm_window": ("-fmad=false",),
+    "kswin_window": ("-fmad=false",),
+    "stepd_window": ("-fmad=false",),
     "adwin_window": ("-fmad=false",),
     "random_normal": ("-fmad=false", "-ftz=true"),
     "mlp_fit": ("-fmad=false", "-ftz=true"),

@@ -38,7 +38,7 @@ import torch
 from ..config import ADWINParams
 from .ddm import DDMWindowResult, batch_from_window, check_window_inputs, launch_window
 from .detectors import _window
-from .prefix import f32, fma, rdiv, xla_log
+from .prefix import f32, fma, rdiv, sqrt, xla_log
 
 # --- opt-in indicator debug guard -------------------------------------------
 #
@@ -197,7 +197,7 @@ def _flush_chunk(sums, counts, n, total, chunk_sum, live, params: ADWINParams):
     var_w = (p * (1.0 - p))[:, None]
     lg = (f32(math.log(2.0 / float(params.delta))) + log_n(n))[:, None]
     inv_m = rdiv(1.0, n0f) + rdiv(1.0, n1f)
-    eps_cut = fma(f32(2.0 / 3.0) * inv_m, lg, torch.sqrt(2.0 * inv_m * var_w * lg))
+    eps_cut = fma(f32(2.0 / 3.0) * inv_m, lg, sqrt(2.0 * inv_m * var_w * lg))
     testable = slot_ok.flatten(1) & (n0 >= params.min_side) & (n1 >= params.min_side)
     viol = testable & ((mu0 - mu1).abs() >= eps_cut)
     fired = live & (n >= params.min_window) & viol.any(1)

@@ -38,7 +38,7 @@ import torch
 from ..config import DDMParams
 from .. import kernels
 from .prefix import f32 as _f32
-from .prefix import fma
+from .prefix import fma, sqrt
 
 
 class DDMState(NamedTuple):
@@ -100,7 +100,7 @@ def _threshold(p_min: torch.Tensor, level: float, s_band: torch.Tensor):
 def _stats(cnt: torch.Tensor, esum: torch.Tensor):
     cnt_f = cnt.clamp_min(1).float()
     p = esum / cnt_f
-    s = torch.sqrt(torch.clamp_min(p * (1.0 - p), 0.0) / cnt_f)
+    s = sqrt(torch.clamp_min(p * (1.0 - p), 0.0) / cnt_f)
     return p, s, p + s
 
 
@@ -189,7 +189,7 @@ def ddm_window_reference(
     e = errs.reshape(p_, w * b)
     v = valid.reshape(p_, w * b).bool()
     cnt = state.count[:, None] + torch.cumsum(v.int(), 1, dtype=torch.int32)
-    esum = state.err_sum[:, None] + torch.cumsum(e * v.float(), 1)
+    esum = state.err_sum[:, None] + torch.cumsum(e * v.float(), 1)  # 0/1 terms: exact
     p, s, ps = _stats(cnt, esum)
     check = v & ((cnt + 1) >= params.min_num_instances)
     ps_masked = torch.where(check, ps, torch.full_like(ps, float("inf")))

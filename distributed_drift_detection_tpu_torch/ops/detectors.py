@@ -20,13 +20,14 @@ the mathematics. The float32 arithmetic is held bit for bit against it
 (:mod:`.prefix`: the same scan tree, fused multiply-adds and constant
 divisions as XLA on the CPU).
 
-Page–Hinkley and HDDM-W have hand-written CUDA kernels for their window
-statistic (K5-ph ``csrc/ph_window.cu``, K5-hddm_w ``csrc/hddm_w_window.cu``;
-ADWIN's, K5-adwin, is in :mod:`.adwin`): on a CUDA tensor :func:`ph_window`
-and :func:`hddm_w_window` launch them (both as a thread-block cluster per
-partition where the row fits, :func:`cluster_ctas`), on a CPU tensor they
-run the plain version. EDDM, HDDM-A, KSWIN and STEPD are plain PyTorch on
-either device.
+Every member has a hand-written CUDA kernel for its window statistic
+(K5-ph ``csrc/ph_window.cu``, K5-eddm ``csrc/eddm_window.cu``, K5-hddm
+``csrc/hddm_window.cu``, K5-hddm_w ``csrc/hddm_w_window.cu``, K5-kswin
+``csrc/kswin_window.cu``, K5-stepd ``csrc/stepd_window.cu``; ADWIN's,
+K5-adwin, is in :mod:`.adwin`): on a CUDA tensor each ``*_window`` launches
+its kernel (K5-ph and K5-hddm_w as a thread-block cluster per partition
+where the row fits, :func:`cluster_ctas`; the others one CTA a partition),
+on a CPU tensor it runs its plain version, ``*_window_reference``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from .ddm import (
     launch_window,
     summarise_window,
 )
-from .prefix import associative_scan, div_const, f32, fma, ftz, rdiv
+from .prefix import _SCAN_BASE, associative_scan, cumsum_f32, div_const, f32, fma, ftz, rdiv, sqrt
 
 _INF = float("inf")
 # Finite stand-in for "no clamp" in the Page–Hinkley compose (the JAX
@@ -159,6 +160,7 @@ def _ph_masks(state: PHState, errs, valid, params: PHParams):
     thr, wthr = ph_thresholds(params)
     v = valid.bool()
     cnt = state.count[:, None] + torch.cumsum(v.int(), 1, dtype=torch.int32)
+    # a sum of 0/1 indicators: exact below 2^24 terms in any order
     xsum = state.x_sum[:, None] + torch.cumsum(errs * v.float(), 1)
     mean = xsum / cnt.clamp_min(1).float()
     c = errs - mean - f32(params.delta)
@@ -295,7 +297,7 @@ def _eddm_stats(d_sum, d2_sum, k):
     k_f = k.clamp_min(1).float()
     mean = d_sum / k_f
     var = torch.clamp_min(fma(-mean, mean, d2_sum / k_f), 0.0)
-    return mean + 2.0 * torch.sqrt(var)
+    return mean + 2.0 * sqrt(var)
 
 
 def eddm_step(state: EDDMState, err, params: EDDMParams = EDDMParams()):
@@ -331,8 +333,10 @@ def _eddm_masks(state: EDDMState, errs, valid, params: EDDMParams):
     contributes = is_err & (prev_t > 0) if params.paper_exact else is_err
     k = state.num_errors[:, None] + torch.cumsum(contributes.int(), 1, dtype=torch.int32)
     d_mask = torch.where(contributes, (t - prev_t).float(), 0.0)
-    d_sum = state.d_sum[:, None] + torch.cumsum(d_mask, 1)
-    d2_sum = state.d2_sum[:, None] + torch.cumsum(d_mask * d_mask, 1)
+    # distances and their squares pass 2^24 within a row: JAX's float32
+    # chain, from 0, then the carried sum added with one rounding
+    d_sum = state.d_sum[:, None] + cumsum_f32(d_mask, 1)
+    d2_sum = state.d2_sum[:, None] + cumsum_f32(d_mask * d_mask, 1)
     m2s = _eddm_stats(d_sum, d2_sum, k)
     # running max over contributing events; an event is tested against the
     # max excluding itself
@@ -354,8 +358,65 @@ def _eddm_masks(state: EDDMState, errs, valid, params: EDDMParams):
     return end, warning, change
 
 
-def eddm_window(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()):
+def eddm_window_reference(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()):
+    """Plain PyTorch version of :func:`eddm_window`."""
     return _window(lambda s, e, v: _eddm_masks(s, e, v, params), state, errs, valid)
+
+
+_EDDM_DTYPES = dict(count=torch.int32, num_errors=torch.int32, d_sum=torch.float32,
+                    d2_sum=torch.float32, last_err_t=torch.int32, m2s_max=torch.float32)
+
+
+def eddm_tree_words(n: int) -> int:
+    """Floats of K5-eddm's global scratch per row of ``n`` elements: the
+    levels of :func:`.prefix.cumsum_f32`'s tree above the elements (``n/16 +
+    n/256 + …`` block values while a level holds more than 16), for the
+    sums of d and of d² (``csrc/eddm_window.cu`` ``tree_levels``)."""
+    total, cur = 0, int(n)
+    while cur > _SCAN_BASE:
+        cur = -(-cur // _SCAN_BASE)
+        total += cur
+    return 2 * total
+
+
+def eddm_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
+    """Kernel K5-eddm's launch arguments, stream excluded."""
+    p, w, b = errs.shape
+    return (
+        errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
+        p, w, b, int(bool(params.paper_exact)), int(params.min_num_errors),
+        f32(params.warning_alpha), f32(params.change_beta), scratch.data_ptr(),
+        first_warning.data_ptr(), first_change.data_ptr(),
+        *(leaf.data_ptr() for leaf in end),
+    )
+
+
+def eddm_window(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()):
+    """The EDDM window statistic (contract of :func:`.ddm.ddm_window`).
+
+    CUDA tensors launch kernel K5-eddm (``csrc/eddm_window.cu``, one CTA a
+    partition; the sums' tree in shared memory, or in a global scratch for
+    very long rows) and add one to ``eddm_window.launches``; a refused
+    launch raises. CPU tensors run the plain version."""
+    if errs.device.type == "cpu":
+        return eddm_window_reference(state, errs, valid, params)
+    if errs.device.type != "cuda":
+        raise ValueError(f"eddm_window: unsupported device {errs.device}")
+    check_window_inputs("eddm_window", state, errs, valid, _EDDM_DTYPES)
+    dev = errs.device
+    p, w, b = errs.shape
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = EDDMState(*(torch.empty_like(leaf) for leaf in state))
+    scratch = torch.empty((p, eddm_tree_words(w * b)), dtype=torch.float32, device=dev)
+    launch_window(
+        "eddm_window", eddm_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+    )
+    eddm_window.launches += 1
+    return end, DDMWindowResult(fw, fc)
+
+
+eddm_window.launches = 0
 
 
 def eddm_batch(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()):
@@ -389,7 +450,7 @@ def _validate_hddm(params: HDDMParams) -> None:
 
 def _hddm_eps(n_f, confidence: float):
     """Hoeffding deviation bound ε(n, δ) = sqrt(ln(1/δ) / 2n)."""
-    return torch.sqrt(rdiv(math.log(1.0 / confidence), 2.0 * n_f))
+    return sqrt(rdiv(math.log(1.0 / confidence), 2.0 * n_f))
 
 
 def _hddm_bound(n, n_min, confidence: float):
@@ -397,7 +458,7 @@ def _hddm_bound(n, n_min, confidence: float):
     n_f = n.clamp_min(1).float()
     nm_f = n_min.clamp_min(1).float()
     m = (n_f - nm_f) / (nm_f * n_f)
-    return torch.sqrt(m.clamp_min(0.0) * 0.5 * f32(math.log(2.0 / confidence)))
+    return sqrt(m.clamp_min(0.0) * 0.5 * f32(math.log(2.0 / confidence)))
 
 
 def _hddm_carried_key(state: HDDMState, confidence: float):
@@ -435,7 +496,7 @@ def _hddm_masks(state: HDDMState, errs, valid, params: HDDMParams):
     min-with-payload, later ties winning)."""
     v = valid.bool()
     n = state.count[:, None] + torch.cumsum(v.int(), 1, dtype=torch.int32)
-    c = state.err_sum[:, None] + torch.cumsum(errs * v.float(), 1)
+    c = state.err_sum[:, None] + torch.cumsum(errs * v.float(), 1)  # 0/1 terms: exact
     n_f = n.clamp_min(1).float()
     mean = c / n_f
     key = torch.where(v, mean + _hddm_eps(n_f, params.drift_confidence), _INF)
@@ -449,8 +510,53 @@ def _hddm_masks(state: HDDMState, errs, valid, params: HDDMParams):
     return HDDMState(n[:, -1], c[:, -1], n_min[:, -1], c_min[:, -1]), warning, change
 
 
-def hddm_window(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()):
+def hddm_window_reference(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()):
+    """Plain PyTorch version of :func:`hddm_window`."""
     return _window(lambda s, e, v: _hddm_masks(s, e, v, params), state, errs, valid)
+
+
+_HDDM_DTYPES = dict(count=torch.int32, err_sum=torch.float32, n_min=torch.int32,
+                    c_min=torch.float32)
+
+
+def hddm_window_args(state, errs, valid, params, first_warning, first_change, end):
+    """Kernel K5-hddm's launch arguments, stream excluded: the f32 logs of
+    ε's ``1/δ`` (drift) and of each bound's ``2/δ``."""
+    _validate_hddm(params)
+    p, w, b = errs.shape
+    return (
+        errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
+        p, w, b, f32(math.log(1.0 / params.drift_confidence)),
+        f32(math.log(2.0 / params.drift_confidence)),
+        f32(math.log(2.0 / params.warning_confidence)),
+        first_warning.data_ptr(), first_change.data_ptr(),
+        *(leaf.data_ptr() for leaf in end),
+    )
+
+
+def hddm_window(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()):
+    """The HDDM-A window statistic (contract of :func:`.ddm.ddm_window`).
+
+    CUDA tensors launch kernel K5-hddm (``csrc/hddm_window.cu``, one CTA a
+    partition) and add one to ``hddm_window.launches``; a refused launch
+    raises. CPU tensors run the plain version."""
+    if errs.device.type == "cpu":
+        return hddm_window_reference(state, errs, valid, params)
+    if errs.device.type != "cuda":
+        raise ValueError(f"hddm_window: unsupported device {errs.device}")
+    _validate_hddm(params)
+    check_window_inputs("hddm_window", state, errs, valid, _HDDM_DTYPES)
+    dev = errs.device
+    p, w, b = errs.shape
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = HDDMState(*(torch.empty_like(leaf) for leaf in state))
+    launch_window("hddm_window", hddm_window_args(state, errs, valid, params, fw, fc, end), dev)
+    hddm_window.launches += 1
+    return end, DDMWindowResult(fw, fc)
+
+
+hddm_window.launches = 0
 
 
 def hddm_batch(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()):
@@ -507,7 +613,7 @@ def hddm_w_constants(params: HDDMWParams) -> dict:
 
 def _hddm_w_eps(v, log_conf: float):
     """ε(v, δ) = sqrt(v · ln(1/δ) / 2)."""
-    return torch.sqrt(v * log_conf * 0.5)
+    return sqrt(v * log_conf * 0.5)
 
 
 def hddm_w_step(state: HDDMWState, err, params: HDDMWParams = HDDMWParams()):
@@ -732,6 +838,7 @@ def _ring_compact(buf, errs, valid):
     compact = torch.zeros((p, n_el + 1), dtype=torch.float32, device=errs.device)
     compact.scatter_(1, slot, errs.float() * valid.float())
     full = torch.cat([buf, compact[:, :n_el]], 1)
+    # the window's and the batch's 0/1 indicators: exact below 2^24 terms
     ps = torch.cat([torch.zeros_like(full[:, :1]), torch.cumsum(full, 1)], 1)
     j = (vcnt - 1).clamp(0, n_el - 1).long()
     at = vcnt[:, -1:].long() + torch.arange(w, device=errs.device)
@@ -753,8 +860,66 @@ def _kswin_masks(state: KSWINState, errs, valid, params: KSWINParams):
     return KSWINState(state.t + vcnt[:, -1], end_buf), torch.zeros_like(change), change
 
 
-def kswin_window(state: KSWINState, errs, valid, params: KSWINParams = KSWINParams()):
+def kswin_window_reference(state: KSWINState, errs, valid, params: KSWINParams = KSWINParams()):
+    """Plain PyTorch version of :func:`kswin_window`."""
     return _window(lambda s, e, v: _kswin_masks(s, e, v, params), state, errs, valid)
+
+
+def ring_scratch(p: int, n: int, window_size: int, device):
+    """K5-kswin's and K5-stepd's global scratch: a row's zero-led prefix
+    sums of the carried window and the compacted elements (``window_size
+    + n + 1`` floats), used only where they do not fit in shared memory."""
+    return torch.empty((p, int(window_size) + n + 1), dtype=torch.float32, device=device)
+
+
+def _check_ring(kernel: str, state, window_size: int) -> None:
+    if state.buf.shape[-1] != int(window_size):
+        raise ValueError(f"{kernel}: state.buf must be [P, {window_size}], "
+                         f"got {tuple(state.buf.shape)}")
+
+
+def kswin_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
+    """Kernel K5-kswin's launch arguments, stream excluded."""
+    _validate_kswin(params)
+    p, w, b = errs.shape
+    ws, r = int(params.window_size), int(params.stat_size)
+    return (
+        errs.data_ptr(), valid.data_ptr(), state.t.data_ptr(), state.buf.data_ptr(),
+        p, w, b, ws, r, f32(1.0 / r), f32(1.0 / (ws - r)), f32(_kswin_crit(params)),
+        scratch.data_ptr(), first_warning.data_ptr(), first_change.data_ptr(),
+        end.t.data_ptr(), end.buf.data_ptr(),
+    )
+
+
+def kswin_window(state: KSWINState, errs, valid, params: KSWINParams = KSWINParams()):
+    """The KSWIN window statistic (contract of :func:`.ddm.ddm_window`).
+
+    CUDA tensors launch kernel K5-kswin (``csrc/kswin_window.cu``, one CTA a
+    partition; the prefix row in shared memory, or in a global scratch for
+    long rows) and add one to ``kswin_window.launches``; a refused launch
+    raises. CPU tensors run the plain version."""
+    if errs.device.type == "cpu":
+        return kswin_window_reference(state, errs, valid, params)
+    if errs.device.type != "cuda":
+        raise ValueError(f"kswin_window: unsupported device {errs.device}")
+    _validate_kswin(params)
+    check_window_inputs("kswin_window", state, errs, valid,
+                        dict(t=torch.int32, buf=torch.float32))
+    _check_ring("kswin_window", state, params.window_size)
+    dev = errs.device
+    p, w, b = errs.shape
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = KSWINState(*(torch.empty_like(leaf) for leaf in state))
+    scratch = ring_scratch(p, w * b, params.window_size, dev)
+    launch_window(
+        "kswin_window", kswin_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+    )
+    kswin_window.launches += 1
+    return end, DDMWindowResult(fw, fc)
+
+
+kswin_window.launches = 0
 
 
 def kswin_batch(state: KSWINState, errs, valid, params: KSWINParams = KSWINParams()):
@@ -810,7 +975,7 @@ def _stepd_signal(t, total, recent_sum, params: STEPDParams):
     p_hat = total / t.clamp_min(1).float()
     inv = rdiv(1.0, n_of) + f32(1.0 / w)
     num = (p_o - p_r).abs() - 0.5 * inv
-    den = torch.sqrt((p_hat * (1.0 - p_hat) * inv).clamp_min(f32(1e-30)))
+    den = sqrt((p_hat * (1.0 - p_hat) * inv).clamp_min(f32(1e-30)))
     z = num / den
     gate = (t >= 2 * w) & (p_r > p_o)
     change = gate & (z > f32(_z_crit(params.alpha_drift)))
@@ -834,7 +999,7 @@ def _stepd_masks(state: STEPDState, errs, valid, params: STEPDParams):
     w = int(params.window_size)
     v = valid.bool()
     ps, j, vcnt, end_buf = _ring_compact(state.buf, errs, v)
-    ev = errs.float() * v.float()
+    ev = errs.float() * v.float()  # 0/1 terms: its cumsum below is exact
     recent = torch.gather(ps, 1, w + j + 1) - torch.gather(ps, 1, j + 1)
     warning, change = _stepd_signal(
         state.t[:, None] + vcnt, state.total[:, None] + torch.cumsum(ev, 1), recent, params
@@ -843,8 +1008,55 @@ def _stepd_masks(state: STEPDState, errs, valid, params: STEPDParams):
     return end, warning & v, change & v
 
 
-def stepd_window(state: STEPDState, errs, valid, params: STEPDParams = STEPDParams()):
+def stepd_window_reference(state: STEPDState, errs, valid, params: STEPDParams = STEPDParams()):
+    """Plain PyTorch version of :func:`stepd_window`."""
     return _window(lambda s, e, v: _stepd_masks(s, e, v, params), state, errs, valid)
+
+
+def stepd_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
+    """Kernel K5-stepd's launch arguments, stream excluded: the critical
+    values from :func:`_z_crit` on the host."""
+    _validate_stepd(params)
+    p, w, b = errs.shape
+    ws = int(params.window_size)
+    return (
+        errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
+        p, w, b, ws, f32(1.0 / ws), f32(_z_crit(params.alpha_drift)),
+        f32(_z_crit(params.alpha_warning)), scratch.data_ptr(),
+        first_warning.data_ptr(), first_change.data_ptr(),
+        *(leaf.data_ptr() for leaf in end),
+    )
+
+
+def stepd_window(state: STEPDState, errs, valid, params: STEPDParams = STEPDParams()):
+    """The STEPD window statistic (contract of :func:`.ddm.ddm_window`).
+
+    CUDA tensors launch kernel K5-stepd (``csrc/stepd_window.cu``, one CTA a
+    partition; the prefix row in shared memory, or in a global scratch for
+    long rows) and add one to ``stepd_window.launches``; a refused launch
+    raises. CPU tensors run the plain version."""
+    if errs.device.type == "cpu":
+        return stepd_window_reference(state, errs, valid, params)
+    if errs.device.type != "cuda":
+        raise ValueError(f"stepd_window: unsupported device {errs.device}")
+    _validate_stepd(params)
+    check_window_inputs("stepd_window", state, errs, valid,
+                        dict(t=torch.int32, total=torch.float32, buf=torch.float32))
+    _check_ring("stepd_window", state, params.window_size)
+    dev = errs.device
+    p, w, b = errs.shape
+    fw = torch.empty((p, w), dtype=torch.int32, device=dev)
+    fc = torch.empty_like(fw)
+    end = STEPDState(*(torch.empty_like(leaf) for leaf in state))
+    scratch = ring_scratch(p, w * b, params.window_size, dev)
+    launch_window(
+        "stepd_window", stepd_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+    )
+    stepd_window.launches += 1
+    return end, DDMWindowResult(fw, fc)
+
+
+stepd_window.launches = 0
 
 
 def stepd_batch(state: STEPDState, errs, valid, params: STEPDParams = STEPDParams()):

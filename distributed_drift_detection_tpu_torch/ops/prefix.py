@@ -19,7 +19,15 @@ so their plain versions reproduce these facts about XLA on the CPU
 * XLA on the CPU flushes subnormal results to zero: :func:`ftz`, applied
   where a product can underflow (a scan's running product of forgetting
   factors, ``α^k`` or ``(1−λ)^k``, underflows after some hundreds of
-  elements) and in :func:`fma`.
+  elements) and in :func:`fma`;
+* ``jnp.cumsum`` of float32 is a tree of float32 chains over blocks of
+  16 (``reduce_window``, rewritten), where ``torch.cumsum`` accumulates in
+  float64 on the CPU and in another order on the card: :func:`cumsum_f32`.
+  A prefix of 0/1 indicators is exact below 2^24 terms in any order, so
+  only sums of larger terms need it.
+
+``torch.sqrt`` of float32 on the CPU (its vectorised path) is not
+correctly rounded for about one input in 160, where XLA's is: :func:`sqrt`.
 
 A Python scalar divided by a tensor must not be written ``s / t``:
 ``Tensor.__rtruediv__`` is a reciprocal times ``s``. :func:`rdiv` divides.
@@ -229,6 +237,52 @@ def xla_sin(x: torch.Tensor) -> torch.Tensor:
     xr = red * sgn
     out = _sinf_poly(xr, red * red, (n & 1) == 1, (q & 2) == 2).float()
     return torch.where(top <= 0x397, x, out)
+
+
+# XLA's CPU pipeline rewrites a cumulative reduce_window longer than this
+# into a tree of windows of this length (ReduceWindowRewriter's base length)
+_SCAN_BASE = 16
+
+
+def _chain(x: torch.Tensor) -> torch.Tensor:
+    """The float32 chain ``s_i = RN(s_{i-1} + x_i)``, ``s_0 = x_0``, along
+    the last axis (each add rounded on its own)."""
+    out = torch.empty_like(x)
+    s = x[..., 0]
+    out[..., 0] = s
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+        out[..., i] = s
+    return out
+
+
+def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.cumsum`` of float32 ``x`` along ``dim`` as XLA computes it on
+    the CPU (measured against its outputs): a row of at most 16 elements is
+    the left-to-right float32 chain; a longer one is padded with zeros to
+    blocks of 16, each block chained from its first element, the blocks'
+    last values scanned the same way (recursively), and each element's
+    block chain added to the previous block's scanned value (0 for the
+    first block) with one rounding. On either device."""
+    xm = x.movedim(dim, -1).float()
+    n = xm.shape[-1]
+    if n <= _SCAN_BASE:
+        out = _chain(xm) if n else xm.clone()
+    else:
+        m = -(-n // _SCAN_BASE)
+        pad = torch.zeros((*xm.shape[:-1], m * _SCAN_BASE - n), dtype=xm.dtype, device=xm.device)
+        inb = _chain(torch.cat([xm, pad], -1).unflatten(-1, (m, _SCAN_BASE)))
+        top = cumsum_f32(inb[..., -1], -1)
+        excl = torch.cat([torch.zeros_like(top[..., :1]), top[..., :-1]], -1)
+        out = (excl[..., None] + inb).flatten(-2)[..., :n]
+    return out.movedim(-1, dim)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """IEEE float32 square root, correctly rounded on either device: the
+    float64 root rounded once to float32 (a double rounding that is exact
+    for square roots, 53 >= 2·24 + 2)."""
+    return torch.sqrt(x.double()).float()
 
 
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:

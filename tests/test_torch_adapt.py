@@ -223,6 +223,45 @@ def test_refit_keys_and_window_fit_match_jax(model, f, c):
                 np.testing.assert_array_equal(a.numpy(), b)
 
 
+def test_c1_refit_window_fit_past_384_rows(tmp_path):
+    """ROADMAP C1 past 384 rows: the refit's window fit of the centroid on
+    800 rows (F = 12, C = 8), where XLA no longer sums the rows in one
+    chain, equals JAX's within ``rtol`` 1e-4; and a daemon whose refit
+    window is 400 rows serves JAX's flags, verdicts, adaptation events,
+    ``snapshot()`` and ``recovery_rows()`` (a drift in the first chunks,
+    refit on 400 rows)."""
+    f, c = 12, 8
+    pol = ["retrain,window_rows=800", "retrain,window_rows=800"]
+    jd = JCD(jbuild("centroid", JSpec(f, c), JRunConfig()), partitions=P, seed=5, window=1,
+             tenants=2)
+    td = TCD(build_model("centroid", ModelSpec(f, c)), partitions=P, seed=5, window=1,
+             tenants=2, device="cpu")
+    kw = dict(per_batch=B, num_features=f, rows_per_chunk=SPAN, seed=5)
+    jc = JAC(jd, jpolicy.resolve_policies(pol, 2), **kw)
+    tc = TAC(td, tpolicy.resolve_policies(pol, 2), **kw)
+    X, y = recurring_drift_xy(seed=2, concepts=2, rows_per_concept=400, features=f, classes=c)
+    w = np.ones(800, np.float32)
+    key = tc._next_key(0, tc.states[0])
+    want = jax.tree.map(np.asarray, jc._fit_window(jc._next_key(0, jc.states[0]), X, y, w))
+    got = tc._fit_window(key, X, y, w)
+    for a, b in zip(tckpt._flatten(got), jax.tree.leaves(want)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4)
+
+    lines = format_lines(STREAM[0][:600], STREAM[1][:600])  # a drift and its refit
+    runs = [_drive(_runner(pkg, tmp_path / pkg,
+                           _pkw(STREAM[0].shape[1], 8, on_drift=("retrain,window_rows=400",)),
+                           keep_flags=True), lines) for pkg in ("jax", "port")]
+    _flags_equal(runs[1].flags(), runs[0].flags())
+    assert (_strip(read_verdicts(runs[1].verdicts_path))
+            == _strip(read_verdicts(runs[0].verdicts_path)))
+    ev = _adapt_events(tmp_path / "port")
+    assert ev == _adapt_events(tmp_path / "jax")
+    assert any(e["promoted"] and e["rows_refit"] > 384 for e in ev)
+    assert runs[1]._adapt.snapshot() == runs[0]._adapt.snapshot()
+    assert runs[1]._adapt.recovery_rows() == runs[0]._adapt.recovery_rows()
+
+
 # -- the daemon: retrain and shadow against the JAX daemon ------------------
 
 

@@ -647,12 +647,157 @@ def test_unknown_detector_raises():
 
 
 def test_zoo_windows_dispatch_to_plain_on_cpu():
-    """On CPU tensors the three kernel wrappers run their plain versions
-    and launch nothing."""
+    """On CPU tensors every zoo member's window wrapper runs its plain
+    version (``*_window_reference``: the same bits) and launches nothing."""
     errs, valid = (torch.from_numpy(x) for x in _inputs(5))
-    before = (tdet.ph_window.launches, tdet.hddm_w_window.launches, tadwin.adwin_window.launches)
-    for member in ("ph", "hddm_w", "adwin"):
+    wrappers = {"ph": tdet.ph_window, "eddm": tdet.eddm_window, "hddm": tdet.hddm_window,
+                "hddm_w": tdet.hddm_w_window, "kswin": tdet.kswin_window,
+                "stepd": tdet.stepd_window, "adwin": tadwin.adwin_window}
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    for member in ("ph", "eddm", "eddm_exact", "hddm", "hddm_w", "kswin", "stepd", "adwin"):
+        name, _, tp = _params(member)
         det = _tdetector(member)
-        det.window(det.init((4,), "cpu"), errs, valid)
-    assert (tdet.ph_window.launches, tdet.hddm_w_window.launches,
-            tadwin.adwin_window.launches) == before
+        state = det.init((4,), "cpu")
+        reference = (tadwin.adwin_window_reference if name == "adwin"
+                     else getattr(tdet, f"{name}_window_reference"))
+        got = det.window(state, errs, valid)
+        want = reference(state, errs, valid, tp)
+        for g, r in zip(got[0] + got[1], want[0] + want[1]):
+            np.testing.assert_array_equal(_bits(g.numpy()), _bits(r.numpy()))
+    assert {k: fn.launches for k, fn in wrappers.items()} == before
+
+
+def _zoo_args(name, p=2, w=4, b=5):
+    """K5-eddm's, K5-hddm's, K5-kswin's or K5-stepd's launch arguments on CPU
+    tensors (their wrappers' allocations), with the state they were built
+    from."""
+    params = {"eddm": tconfig.EDDMParams(paper_exact=True), "hddm": tconfig.HDDMParams(),
+              "kswin": tconfig.KSWINParams(), "stepd": tconfig.STEPDParams()}[name]
+    init = {"kswin": lambda: tdet.kswin_init(params, (p,)),
+            "stepd": lambda: tdet.stepd_init(params, (p,))}.get(
+        name, lambda: getattr(tdet, f"{name}_init")((p,)))
+    state = init()
+    errs = torch.zeros((p, w, b), dtype=torch.float32)
+    valid = torch.ones((p, w, b), dtype=torch.bool)
+    fw = torch.empty((p, w), dtype=torch.int32)
+    end = type(state)(*(torch.empty_like(leaf) for leaf in state))
+    rest = (fw, fw, end)
+    if name == "eddm":
+        scratch = torch.empty((p, tdet.eddm_tree_words(w * b)))
+        args = tdet.eddm_window_args(state, errs, valid, params, *rest, scratch)
+    elif name == "hddm":
+        args = tdet.hddm_window_args(state, errs, valid, params, *rest)
+    else:
+        scratch = tdet.ring_scratch(p, w * b, params.window_size, "cpu")
+        args = getattr(tdet, f"{name}_window_args")(state, errs, valid, params, *rest, scratch)
+    return args, state, params
+
+
+@pytest.mark.parametrize("name", ["eddm", "hddm", "kswin", "stepd"])
+def test_zoo_window_args_match_launch_signature(name):
+    """K5-eddm's, K5-hddm's, K5-kswin's and K5-stepd's launch arguments fit
+    their ctypes signatures (kernels/__init__.py) one for one, in C type,
+    with the shape where the launcher reads it and each float a float32."""
+    from distributed_drift_detection_tpu_torch import kernels
+
+    args, state, _ = _zoo_args(name)
+    types = kernels._SIGNATURES[f"{name}_window"][1]
+    assert len(args) + 1 == len(types)  # the stream last
+    kinds = {kernels._I: int, kernels._F: float}
+    for arg, ctype in zip(args, types):
+        if ctype is kernels._P:
+            assert isinstance(arg, int)
+        else:
+            assert type(arg) is kinds[ctype]
+            if ctype is kernels._F:
+                assert float(np.float32(arg)) == arg
+    assert args[2 + len(state):5 + len(state)] == (2, 4, 5)  # p, w, b after the state
+
+
+@pytest.mark.parametrize("n, words", [(1, 0), (16, 0), (17, 2 * 2), (256, 2 * 16),
+                                      (257, 2 * (17 + 2)), (12800, 2 * (800 + 50 + 4))])
+def test_eddm_tree_words(n, words):
+    """K5-eddm's scratch holds the levels of cumsum_f32's tree above the
+    elements, for d and d²: ceil(n/16), then ceil(·/16) while a level holds
+    more than 16."""
+    assert tdet.eddm_tree_words(n) == words
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 300, 4097, 12800])
+def test_cumsum_f32_matches_jax_bitwise(n):
+    """``prefix.cumsum_f32`` is ``jnp.cumsum`` of float32 on the CPU bit for
+    bit — blocks of 16 chained, the blocks' values scanned the same way —
+    on real values of both signs and on EDDM-like squared distances, which
+    pass 2^24 (a left-to-right chain and ``torch.cumsum`` both differ)."""
+    rng = np.random.default_rng(n)
+    real = (rng.standard_normal((3, n)) * 1e3).astype(np.float32)
+    sq = np.where(rng.random((3, n)) < 0.05, rng.integers(1, 5000, (3, n)) ** 2, 0.0)
+    for x in (real, sq.astype(np.float32)):
+        want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(jnp.asarray(x)))
+        got = prefix.cumsum_f32(torch.from_numpy(x), 1).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _eddm_probe_row(seed, n=60_000):
+    """0/1 errors with one error every 700–1,299 elements: the squared
+    distances' prefix passes 2^24 after some 16 errors."""
+    rng = np.random.default_rng(seed)
+    pos = np.cumsum(rng.integers(700, 1300, 200))
+    row = np.zeros(n, np.float32)
+    row[pos[pos < n]] = 1.0
+    return row
+
+
+@pytest.mark.parametrize("member", ["eddm", "eddm_exact"])
+def test_eddm_prefix_past_2_24_matches_jax(member):
+    """EDDM's distance sums past 2^24 (ROADMAP C11): three 60,000-element
+    rows through the JAX package's ``_eddm_masks`` and the port's — the
+    probe row from a fresh state (the JAX package: ``d2_sum`` 61,944,784,
+    ``m2s_max`` 1379.99707), a second row from a carried ``d2_sum`` already
+    past 2^24, and a row whose errors thicken halfway (it signals). Every
+    end-state leaf bit for bit, both masks equal."""
+    _, jp, tp = _params(member)
+    late = _eddm_probe_row(2)
+    late[30_000::97] = 1.0
+    errs = np.stack([_eddm_probe_row(0), _eddm_probe_row(1), late])
+    valid = np.ones_like(errs, dtype=bool)
+    jmasks = jax.jit(jax.vmap(lambda s, e, v: jdet._eddm_masks(s, e, v, jp)))
+    fresh = jax.tree.map(lambda x: jnp.stack([x] * 3), jdet.eddm_init())
+    first, _, _ = jmasks(fresh, jnp.asarray(errs[:1].repeat(3, 0)), jnp.asarray(valid))
+    state = jax.tree.map(lambda f, c: f.at[1].set(c[1]), fresh, first)
+    assert float(state.d2_sum[1]) > 2.0**24
+    jend, jw, jc = jmasks(state, jnp.asarray(errs), jnp.asarray(valid))
+    tend, tw, tc = tdet._eddm_masks(convert.detector_state("eddm", state),
+                                    torch.from_numpy(errs), torch.from_numpy(valid), tp)
+    _assert_same_state(jend, tend)
+    np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    assert bool(np.asarray(jc).any())
+    if member == "eddm":
+        assert float(tend.d2_sum[0]) == 61_944_784.0
+        assert float(tend.m2s_max[0]) == float(np.float32(1379.99707))
+
+
+def test_sqrt_is_correctly_rounded():
+    """``prefix.sqrt`` is the correctly rounded float32 root (numpy's and
+    XLA's ``jnp.sqrt``) on a million values, and the zoo's bounds built on
+    it — HDDM-A's ε and bound, HDDM-W's ε — equal the JAX package's bit for
+    bit over long vectors, where ``torch.sqrt``'s vectorised CPU path can
+    misround (ROADMAP C12)."""
+    x = (np.random.default_rng(0).random(1_000_000) * 100).astype(np.float32)
+    got = prefix.sqrt(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(np.sqrt(x)))
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(jax.jit(jnp.sqrt)(x))))
+    n = np.arange(1, 200_001, dtype=np.int32)
+    n_min = np.maximum(n // 3, 1).astype(np.int32)
+    nf = n.astype(np.float32)
+    pairs = [
+        (jax.jit(lambda a: jdet._hddm_eps(a, 0.001))(nf),
+         tdet._hddm_eps(torch.from_numpy(nf), 0.001)),
+        (jax.jit(lambda a, m: jdet._hddm_bound(a, m, 0.005))(n, n_min),
+         tdet._hddm_bound(torch.from_numpy(n), torch.from_numpy(n_min), 0.005)),
+        (jax.jit(lambda v: jdet._hddm_w_eps(v, 0.001))(x[:200_000] / 50),
+         tdet._hddm_w_eps(torch.from_numpy(x[:200_000] / 50), prefix.f32(np.log(1 / 0.001)))),
+    ]
+    for want, have in pairs:
+        np.testing.assert_array_equal(_bits(have.numpy()), _bits(np.asarray(want)))

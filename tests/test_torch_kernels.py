@@ -349,7 +349,8 @@ def test_centroid_fit_kernel_feature_chunks(dev, shape):
 
 
 # --------------------------------------------------------------------------
-# the zoo kernels K5-ph, K5-hddm_w, K5-adwin
+# the zoo kernels K5-ph, K5-eddm, K5-hddm, K5-hddm_w, K5-kswin, K5-stepd,
+# K5-adwin
 # --------------------------------------------------------------------------
 
 from distributed_drift_detection_tpu_torch import config as tconfig  # noqa: E402
@@ -387,12 +388,26 @@ ZOO = {
         tconfig.ADWINParams(), tconfig.ADWINParams(clock=1),
         tconfig.ADWINParams(max_levels=3, clock=4),
     ]),
+    "eddm": (tdet.eddm_window, tdet.eddm_window_reference, tdet.eddm_init, [
+        tconfig.EDDMParams(), tconfig.EDDMParams(paper_exact=True, min_num_errors=5),
+    ]),
+    "hddm": (tdet.hddm_window, tdet.hddm_window_reference, tdet.hddm_init, [
+        tconfig.HDDMParams(), tconfig.HDDMParams(drift_confidence=0.01),
+    ]),
+    "kswin": (tdet.kswin_window, tdet.kswin_window_reference, None, [
+        tconfig.KSWINParams(), tconfig.KSWINParams(window_size=20, stat_size=5),
+    ]),
+    "stepd": (tdet.stepd_window, tdet.stepd_window_reference, None, [
+        tconfig.STEPDParams(), tconfig.STEPDParams(window_size=5),
+    ]),
 }
 
 
 def _zoo_init(name, params, p, dev):
     if name == "adwin":
         return tadwin.adwin_init(params, (p,), dev)
+    if name in ("kswin", "stepd"):
+        return getattr(tdet, f"{name}_init")(params, (p,), dev)
     return ZOO[name][2]((p,), dev)
 
 
@@ -411,7 +426,8 @@ def test_zoo_window_kernels_bitwise(dev, name, shape):
     output — float leaves bit for bit, ADWIN's int32 state exactly — from
     a fresh state (empty prefixes), from a carried one, with all-padding
     rows, an error in the first element, HDDM-W key ties, PH at alpha = 0
-    with padding, ADWIN at clock = 1 and forgetting at capacity."""
+    with padding, ADWIN at clock = 1 and forgetting at capacity, EDDM's
+    paper_exact mode, KSWIN's and STEPD's smaller windows."""
     window, reference, _, cases = ZOO[name]
     p, w, b = shape
     for k, params in enumerate(cases):
@@ -429,6 +445,96 @@ def test_zoo_window_kernels_bitwise(dev, name, shape):
                 want = reference(state, e1, v1, params)
                 assert window.launches == launches + 1
                 _same(got, want)
+
+
+# Rows of the ring-buffer members (P, W, B) shorter than their window
+# (``window_size`` 100 and 30, 20 and 5): 7 to 60 elements, every third row
+# all padding; and the global-scratch paths of the prefix row (K5-kswin,
+# K5-stepd) and of K5-eddm's sums' tree: a row of 60,000 elements, and a
+# W of 28,000 batches of one, whose first flags leave shared memory too
+# small for the tree.
+RING_SHORT = [(3, 1, 7), (6, 2, 10), (4, 3, 20), (3, 60, 1)]
+SCRATCH_PATHS = [(1, 600, 100), (1, 28000, 1)]
+
+
+def _short_inputs(seed, p, w, b):
+    errs, valid = zoo_inputs(seed, p, w, b)
+    valid[::3] = False
+    return errs, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RING_SHORT)
+@pytest.mark.parametrize("name", ["kswin", "stepd"])
+def test_ring_kernels_short_and_padded_rows(dev, name, shape):
+    """K5-kswin and K5-stepd equal their plain versions bit for bit on rows
+    with fewer valid elements than the ring buffer holds and on all-padding
+    rows, from a fresh buffer, a carried one and one carried through three
+    short windows (the buffer partly old, partly new)."""
+    window, reference, _, cases = ZOO[name]
+    p, w, b = shape
+    for k, params in enumerate(cases):
+        state = _zoo_init(name, params, p, dev)
+        e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(60 + k, p, 3, 40))
+        carried, _ = reference(state, e0, v0, params)
+        for start in (state, carried):
+            s = start
+            for step in range(3):
+                e1, v1 = (torch.from_numpy(a).to(dev)
+                          for a in _short_inputs(70 + 10 * k + step, p, w, b))
+                launches = window.launches
+                got = window(s, e1, v1, params)
+                want = reference(s, e1, v1, params)
+                assert window.launches == launches + 1
+                _same(got, want)
+                s = want[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCRATCH_PATHS)
+@pytest.mark.parametrize("name", ["eddm", "kswin", "stepd"])
+def test_zoo_kernels_global_scratch_paths(dev, name, shape):
+    """K5-eddm, K5-kswin and K5-stepd on rows whose sums' tree or prefix row
+    does not fit in shared memory (the wrapper's global scratch), from fresh
+    and carried states, bit for bit their plain versions."""
+    window, reference, _, cases = ZOO[name]
+    p, w, b = shape
+    for k, params in enumerate(cases):
+        e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(80 + k, p, 3, 40))
+        e1, v1 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(90 + k, p, w, b, True))
+        fresh = _zoo_init(name, params, p, dev)
+        carried, _ = reference(fresh, e0, v0, params)
+        for state in (fresh, carried):
+            _same(window(state, e1, v1, params), reference(state, e1, v1, params))
+
+
+def _eddm_probe_rows(p, n=60_000):
+    rows = []
+    for seed in range(p):
+        pos = np.cumsum(np.random.default_rng(seed).integers(700, 1300, 200))
+        row = np.zeros(n, np.float32)
+        row[pos[pos < n]] = 1.0
+        rows.append(row)
+    return np.stack(rows)
+
+
+@pytest.mark.cuda
+def test_eddm_kernel_sums_past_2_24(dev):
+    """K5-eddm's sums of squared distances past 2^24 (ROADMAP C11): rows of
+    60,000 elements with an error every 700–1,299, from a fresh state and
+    from the end state of the first pass (``d2_sum`` past 2^24), in windows
+    of [3, 600, 100] and [3, 120, 500], bit for bit the plain version."""
+    errs = torch.from_numpy(_eddm_probe_rows(3)).to(dev)
+    valid = torch.ones_like(errs, dtype=torch.bool)
+    for params in ZOO["eddm"][3]:
+        for w, b in ((600, 100), (120, 500)):
+            e, v = errs.view(3, w, b), valid.view(3, w, b)
+            fresh = tdet.eddm_init((3,), dev)
+            carried, _ = tdet.eddm_window_reference(fresh, e, v, params)
+            assert float(carried.d2_sum.min()) > 2.0**24
+            for state in (fresh, carried):
+                _same(tdet.eddm_window(state, e, v, params),
+                      tdet.eddm_window_reference(state, e, v, params))
 
 
 # The paths of K5-ph and K5-hddm_w (one shape rule, ``cluster_ctas``), (P,
