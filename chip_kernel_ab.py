@@ -9,8 +9,10 @@ in order, this tree twice, then the TREEs in reverse order, each in a
 process of its own, so all are compared on one card with the drift between
 runs visible. Each run builds that tree's kernels and times K1
 (``ddm_window``), K2 (``centroid_predict_err``), K7 (``centroid_fit``) and
-the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``) and
-K5-adwin (``adwin_window``), K9 (``mlp_fit``) and K10
+the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``),
+K5-adwin (``adwin_window``), K5-eddm (``eddm_window``), K5-hddm
+(``hddm_window``), K5-kswin (``kswin_window``) and K5-stepd
+(``stepd_window``), K9 (``mlp_fit``) and K10
 (``mlp_predict_err``) at ``chip_smoke.py``'s main-path shapes on the same
 inputs (K7 on the main path's first training batch, and as
 ``centroid_fit_random_rows`` on a batch of random rows; K9 on the main
@@ -24,7 +26,11 @@ the named kernels alone:
   so the graph holds 50 kernel launches), replays timed with CUDA events,
   median of 5 rounds (``chip_smoke.graph_ms``);
 * ``host_us``: the wrapper's host cost per call (``chip_smoke.host_us``,
-  the median of 5 rounds of 200 calls).
+  the median of 5 rounds of 200 calls);
+* ``floor_ms`` (K5-eddm, K5-hddm, K5-kswin and K5-stepd, where the tree
+  has their empty twins): an empty kernel launched as the kernel is, timed
+  as ``ms`` is, beside ``ctas``, the CTAs a row of K5-eddm's and K5-hddm's
+  launch (0: one CTA a row).
 
 K9 is timed as ``chip_smoke.py`` times it: ``ms`` over graphs of 10
 launches (3 rounds), ``host_us`` over 3 rounds of 20 calls, and
@@ -148,17 +154,23 @@ def one(root: str, only: set | None = None) -> dict:
     if adwin is not None:
         ze, zv = (torch.from_numpy(a).to(dev)
                   for a in cs.ddm_inputs(np.random.default_rng(1), p, w, b))
+        kswin_prm, stepd_prm = config.KSWINParams(), config.STEPDParams()
         zoo = {
-            "ph_window": (detectors.ph_window, detectors.ph_init((p,), dev),
-                          config.PHParams(threshold=32.0)),
-            "hddm_w_window": (detectors.hddm_w_window, detectors.hddm_w_init((p,), dev),
-                              config.HDDMWParams()),
-            "adwin_window": (adwin.adwin_window,
-                             adwin.adwin_init(config.ADWINParams(), (p,), dev),
+            "ph_window": (lambda: detectors.ph_init((p,), dev), config.PHParams(threshold=32.0)),
+            "hddm_w_window": (lambda: detectors.hddm_w_init((p,), dev), config.HDDMWParams()),
+            "adwin_window": (lambda: adwin.adwin_init(config.ADWINParams(), (p,), dev),
                              config.ADWINParams()),
+            "eddm_window": (lambda: detectors.eddm_init((p,), dev), config.EDDMParams()),
+            "hddm_window": (lambda: detectors.hddm_init((p,), dev), config.HDDMParams()),
+            "kswin_window": (lambda: detectors.kswin_init(kswin_prm, (p,), dev), kswin_prm),
+            "stepd_window": (lambda: detectors.stepd_init(stepd_prm, (p,), dev), stepd_prm),
         }
-        for name, (fn, zstate, prm) in zoo.items():
-            def call(fn=fn, zstate=zstate, prm=prm):
+        for name, (init, prm) in zoo.items():
+            fn = getattr(adwin if name == "adwin_window" else detectors, name, None)
+            if fn is None:
+                continue  # a tree without this kernel
+
+            def call(fn=fn, zstate=init(), prm=prm):
                 return fn(zstate, ze, zv, prm)
 
             calls[name] = call
@@ -166,6 +178,7 @@ def one(root: str, only: set | None = None) -> dict:
     for name, call in calls.items():
         if only is None or name in only:
             out[name] = {"ms": cs.graph_ms(call), "host_us": cs.host_us(call)}
+    out.update(zoo_floors(torch, cs, dev, p, w, b, out))
     if only is None or "mlp_fit" in only:
         out.update(k9_runs(torch, cs, prep, dev))
     if only is None or "mlp_predict_err" in only:
@@ -177,6 +190,34 @@ def one(root: str, only: set | None = None) -> dict:
     if only is None or "mlp_init" in only:
         out.update(init_runs(torch, cs, prep, dev))
     return out
+
+
+def zoo_floors(torch, cs, dev, p, w, b, out) -> dict:
+    """``floor_ms`` of K5-eddm, K5-hddm, K5-kswin and K5-stepd where the
+    tree has their empty twins: each launched as its kernel is at [p, w·b]
+    (the same grid, cluster, block and dynamic shared memory; the ring
+    members at their default window_size), timed as ``ms`` is, beside the
+    CTAs a row the tree's launcher takes (0: one CTA)."""
+    from distributed_drift_detection_tpu_torch import config, kernels
+    from distributed_drift_detection_tpu_torch.ops import detectors
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("eddm_window", "hddm_window", "kswin_window", "stepd_window"):
+        floor_name = f"{name}_floor"
+        if name not in out or floor_name not in kernels._SIGNATURES:
+            continue
+        if name in ("kswin_window", "stepd_window"):
+            last = (config.KSWINParams() if name == "kswin_window"
+                    else config.STEPDParams()).window_size
+        else:
+            last = detectors.cluster_ctas(p, w * b, sms)
+            rows[name] = {"ctas": last}
+        fn = kernels.launcher(floor_name)
+        ms = cs.graph_ms(lambda fn=fn, last=last, floor_name=floor_name: kernels.check(
+            floor_name, fn(p, w, b, last, kernels.stream_handle(dev))))
+        rows.setdefault(name, {})["floor_ms"] = ms
+    return {k: {**out[k], **v} for k, v in rows.items()}
 
 
 def _digest(*tensors) -> str:

@@ -55,15 +55,17 @@ without them. Phases, each fatal on failure:
    device's idle share over the phase;
 6. hold each zoo kernel (K5) against its plain version at the main path's
    shape [16, 128·100] and on its design's edge cases, from fresh and
-   carried states — Page–Hinkley and HDDM-W bit for bit (each on its
-   cluster path at P = 16 and P = 1 and with clusters of one CTA at P =
-   80, and on its global-scratch path), EDDM, HDDM-A, KSWIN and STEPD bit
-   for bit (all-padding rows; KSWIN's and STEPD's rows shorter than their
-   ring buffers and a prefix row in the global scratch; EDDM's sums past
-   2^24 from a fresh and a carried state), ADWIN's int32 state and flags
-   exactly — and time it as K1 and K2 are timed; for ADWIN also the
-   flushes of the timed launch's longest row (its dependent chain) and
-   the µs a flush;
+   carried states — Page–Hinkley, HDDM-W, EDDM and HDDM-A bit for bit
+   (each on its cluster path at P = 16 and P = 1 and with clusters of one
+   CTA at P = 80, and on its one-CTA path), KSWIN and STEPD bit for bit
+   (all-padding rows; rows shorter than their ring buffers and a prefix
+   row in the global scratch; EDDM's sums past 2^24 from a fresh and a
+   carried state on both of its paths), ADWIN's int32 state and flags
+   exactly — and time it as K1 and K2 are timed (K5-eddm, K5-hddm,
+   K5-kswin and K5-stepd with a ``floor_ms``, an empty kernel launched with
+   the kernel's grid, cluster, block and dynamic shared memory); for ADWIN
+   also the flushes of the timed launch's longest row (its dependent
+   chain) and the µs a flush;
 7. drive ``detector='ph'``, ``'hddm_w'``, ``'adwin'``, ``'eddm'``,
    ``'hddm'``, ``'kswin'`` and ``'stepd'`` through ``run`` at the same
    geometry, each kernel's launch counter reset just before its run and
@@ -1746,12 +1748,12 @@ def zoo_table(config):
 # and rows of 26,000 and 16,000 elements whose scan levels overflow shared
 # memory into the global scratch.
 K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
-# and for the two paths of K5-ph and K5-hddm_w: the cluster path at P = 1
-# (7 CTAs), with clusters of one CTA at P = 80, a full cluster of 8 CTAs,
-# batches that straddle CTAs; the global-scratch path at P = 80 (with the
-# two long rows above).
+# and for the two paths of K5-ph, K5-hddm_w, K5-eddm and K5-hddm: the
+# cluster path at P = 1 (7 CTAs), with clusters of one CTA at P = 80, a
+# full cluster of 8 CTAs, batches that straddle CTAs; the one-CTA
+# (global-scratch) path at P = 80 (with the 26,000-element rows above).
 K5_CLUSTER_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
-CLUSTER_KERNELS = ("ph_window", "hddm_w_window")
+CLUSTER_KERNELS = ("ph_window", "hddm_w_window", "eddm_window", "hddm_window")
 # and for K5-kswin and K5-stepd: rows shorter than their ring buffers (7, 20
 # and 60 elements against 100 and 30, 20 and 5; k5_inputs' partition 1 is
 # all padding), and a row of 60,000 elements whose prefix row leaves shared
@@ -1760,8 +1762,10 @@ K5_RING_EDGES = [(3, 1, 7), (6, 2, 10), (3, 60, 1), (2, 600, 100)]
 RING_KERNELS = ("kswin_window", "stepd_window")
 # EDDM's squared distances past 2^24 (ROADMAP C11): rows with an error
 # every 700–1,299 elements, in windows of this shape, from a fresh state and
-# from a carried d2_sum past 2^24
+# from a carried d2_sum past 2^24 (on the one-CTA path), and the probe rows'
+# first 16,000 elements on the cluster path (8 CTAs)
 K5_EDDM_PROBE = (3, 600, 100)
+K5_EDDM_CLUSTER_PROBE = (3, 160, 100)
 
 
 def k5_inputs(rng, p, w, b, first_change=False):
@@ -1824,6 +1828,12 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
         ep, ew, eb = K5_EDDM_PROBE
         e1 = torch.from_numpy(eddm_probe_rows(ep, ew * eb).reshape(ep, ew, eb)).to(dev)
         v1 = torch.ones_like(e1, dtype=torch.bool)
+        cp, cw, cb = K5_EDDM_CLUSTER_PROBE
+        e2 = e1.view(ep, -1)[:, : cw * cb].reshape(cp, cw, cb).contiguous()
+        v2 = torch.ones_like(e2, dtype=torch.bool)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        check(detectors.cluster_ctas(ep, ew * eb, sms) == 0
+              and detectors.cluster_ctas(cp, cw * cb, sms) > 0, "the EDDM probes' paths")
         for prm in info["params"]:
             fresh = info["init"](prm, ep, dev)
             carried, _ = info["reference"](fresh, e1, v1, prm)
@@ -1831,8 +1841,12 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
             for state in (fresh, carried):
                 check_k5_equal(torch, window(state, e1, v1, prm),
                                info["reference"](state, e1, v1, prm), f"{name} probe {prm}")
-        extra = (f"; the sums past 2^24 at [{ep}, {ew}x{eb}] (an error every 700-1,299 "
-                 f"elements, carried d2_sum up to {float(carried.d2_sum.max()):,.0f})")
+                check_k5_equal(torch, window(state, e2, v2, prm),
+                               info["reference"](state, e2, v2, prm),
+                               f"{name} cluster probe {prm}")
+        extra = (f"; the sums past 2^24 at [{ep}, {ew}x{eb}] (one-CTA path) and [{cp}, "
+                 f"{cw}x{cb}] (cluster path; an error every 700-1,299 elements, carried "
+                 f"d2_sum up to {float(carried.d2_sum.max()):,.0f})")
     print(f"K5 {name}: equal to its plain version at [{p}, {w}x{b}] and "
           + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in edges)
           + f", {len(info['params'])} parameter sets, fresh and carried states" + extra)
@@ -1844,29 +1858,40 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = type(state)(*(torch.empty_like(leaf) for leaf in state))
+    floor_args = None
     if name == "adwin_window":
         scratch = adwin.adwin_scratch(p, w * b, prm, dev)
         args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
-    elif name == "eddm_window":
-        scratch = torch.empty((p, detectors.eddm_tree_words(w * b)), device=dev)
-        args = detectors.eddm_window_args(state, e1, v1, prm, fw, fc, end, scratch)
-    elif name == "hddm_window":
-        args = detectors.hddm_window_args(state, e1, v1, prm, fw, fc, end)
     elif name in RING_KERNELS:
         scratch = detectors.ring_scratch(p, w * b, prm.window_size, dev)
         args = getattr(detectors, f"{name}_args")(state, e1, v1, prm, fw, fc, end, scratch)
+        floor_args = (p, w, b, prm.window_size)
     else:
         ctas = detectors.cluster_ctas(p, w * b, torch.cuda.get_device_properties(
             dev).multi_processor_count)
-        scratch_of, args_of = {
-            "ph_window": (detectors.ph_scratch, detectors.ph_window_args),
-            "hddm_w_window": (detectors.hddm_w_scratch, detectors.hddm_w_window_args),
-        }[name]
-        args = args_of(state, e1, v1, prm, fw, fc, end, scratch_of(p, w * b, ctas, dev), ctas)
-        print(f"K5 {name}: timed on its {'cluster' if ctas else 'global-scratch'} path, "
+        if name == "hddm_window":
+            args = detectors.hddm_window_args(state, e1, v1, prm, fw, fc, end, ctas)
+        elif name == "eddm_window":
+            args = detectors.eddm_window_args(state, e1, v1, prm, fw, fc, end,
+                                              detectors.eddm_scratch(p, w, b, ctas, dev), ctas)
+        else:
+            scratch_of, args_of = {
+                "ph_window": (detectors.ph_scratch, detectors.ph_window_args),
+                "hddm_w_window": (detectors.hddm_w_scratch, detectors.hddm_w_window_args),
+            }[name]
+            args = args_of(state, e1, v1, prm, fw, fc, end, scratch_of(p, w * b, ctas, dev),
+                           ctas)
+        if name in ("eddm_window", "hddm_window"):
+            floor_args = (p, w, b, ctas)
+        print(f"K5 {name}: timed on its {'cluster' if ctas else 'one-CTA'} path, "
               f"{ctas} CTAs a row")
     fn = kernels.launcher(name)
     ms = graph_ms(lambda: kernels.check(name, fn(*args, kernels.stream_handle(dev))))
+    floor_ms = None
+    if floor_args is not None:
+        floor = kernels.launcher(f"{name}_floor")
+        floor_ms = graph_ms(lambda: kernels.check(
+            f"{name}_floor", floor(*floor_args, kernels.stream_handle(dev))))
     h_us = host_us(lambda: window(state, e1, v1, prm))
     plain_ms = time_ms(lambda: info["reference"](state, e1, v1, prm), reps=10, rounds=3)
     n = p * w * b
@@ -1876,13 +1901,17 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
     b_ms, by = bound(n * 5 + 2 * state_bytes + p * w * 8, n * info["ops_per_element"])
     print(f"K5 {name} [{p}, {w}x{b}]: {ms:.5f} ms device (graph of 50), "
           f"{h_us:.1f} us host a call, {plain_ms:.4f} ms plain, bound "
-          f"{b_ms:.5f} ms ({by})")
+          f"{b_ms:.5f} ms ({by})"
+          + ("" if floor_ms is None else f", floor {floor_ms:.5f} ms (an empty kernel with "
+             "its grid, cluster, block and dynamic shared memory)"))
     row = dict(
         name=name, route="cuda",
         source=f"distributed_drift_detection_tpu_torch/csrc/{name}.cu",
         replaces=info["replaces"], max_abs_err=0.0, ms=ms, host_us=h_us,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
     )
+    if floor_ms is not None:
+        row["floor_ms"] = floor_ms
     if name == "adwin_window":
         # the rows' flush chains run side by side, one CTA each: the
         # longest one is the launch's chain

@@ -24,9 +24,10 @@
 // A tuple type is given by a traits struct Tr: `Tr::T` (trivially copyable,
 // a whole number of 32-bit words), `Tr::compose(f, g)` (f, then g) and
 // `Tr::identity()` (a filler for lanes past the last block; never used).
-// Also here: the segment's vectorised load and the per-batch first-change /
+// Also here, for every zoo kernel's cluster path (K5-eddm's and K5-hddm's
+// too): the segment's vectorised load, the per-batch first-change /
 // first-warning marks, which go by shared-memory atomics (one a thread and
-// batch) to the CTA that holds the batch's first element.
+// batch) to the CTA that holds the batch's first element, and the launch.
 
 #pragma once
 

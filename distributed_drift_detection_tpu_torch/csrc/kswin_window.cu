@@ -81,6 +81,8 @@ __global__ void __launch_bounds__(kThreads) kswin_window_kernel(
                    first_change + static_cast<size_t>(row) * w);
 }
 
+__global__ void kswin_window_floor_kernel() {}
+
 }  // namespace
 
 // One CTA per partition row of w·b elements; `wr` the window_size, `r` the
@@ -100,4 +102,16 @@ extern "C" int kswin_window_launch(
       errs, live, t_in, buf_in, w, b, wr, r, inv_r, inv_m, crit, in_smem, scratch,
       first_warning, first_change, t_out, buf_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched as kswin_window_launch launches K5-kswin at this
+// shape (the same grid, block and dynamic shared memory): the floor under
+// its time.
+extern "C" int kswin_window_floor_launch(int p, int w, int b, int wr, void* stream) {
+  size_t smem = 0;
+  int in_smem = 0;
+  const cudaError_t e =
+      ring::ring_smem(kswin_window_kernel, w, wr, static_cast<long long>(w) * b, smem, in_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return zoo::launch_floor(kswin_window_floor_kernel, p, smem, stream);
 }

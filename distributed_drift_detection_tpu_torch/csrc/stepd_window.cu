@@ -110,6 +110,8 @@ __global__ void __launch_bounds__(kThreads) stepd_window_kernel(
                    first_change + static_cast<size_t>(row) * w);
 }
 
+__global__ void stepd_window_floor_kernel() {}
+
 }  // namespace
 
 // One CTA per partition row of w·b elements; `wr` the window_size, inv_w =
@@ -130,4 +132,16 @@ extern "C" int stepd_window_launch(
       errs, live, t_in, total_in, buf_in, w, b, wr, inv_w, z_drift, z_warning, in_smem, scratch,
       first_warning, first_change, t_out, total_out, buf_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched as stepd_window_launch launches K5-stepd at this
+// shape (the same grid, block and dynamic shared memory): the floor under
+// its time.
+extern "C" int stepd_window_floor_launch(int p, int w, int b, int wr, void* stream) {
+  size_t smem = 0;
+  int in_smem = 0;
+  const cudaError_t e =
+      ring::ring_smem(stepd_window_kernel, w, wr, static_cast<long long>(w) * b, smem, in_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return zoo::launch_floor(stepd_window_floor_kernel, p, smem, stream);
 }

@@ -169,4 +169,19 @@ inline cudaError_t dynamic_smem(Kernel kernel, int w, long long level_bytes,
   return cudaSuccess;
 }
 
+// Launches the empty kernel `floor` as a one-CTA zoo kernel is launched: p
+// CTAs of kThreads with `bytes` of dynamic shared memory (the kernel's
+// dynamic_smem). The floor under that kernel's time. Returns a CUDA error
+// code.
+template <class Kernel>
+inline int launch_floor(Kernel floor, int p, size_t bytes, void* stream) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        floor, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  floor<<<p, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace zoo

@@ -78,19 +78,40 @@ _SIGNATURES = {
     "eddm_window": (
         "eddm_window_launch",
         [_P, _P] + [_P] * 6  # errs, live, 6 state leaves
-        + [_I, _I, _I, _I, _I,  # p, w, b, paper_exact, min_num_errors
-           _F, _F, _P, _P, _P]  # warning_alpha, change_beta, scratch, first warning/change
+        + [_I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA)
+           _I, _I,  # paper_exact, min_num_errors
+           _F, _F, _P, _P, _P]  # warning_alpha, change_beta, scratch (or null),
+                                # first warning/change
         + [_P] * 6  # 6 end leaves
         + [_P],  # stream
+    ),
+    # whether K5-eddm's one-CTA path at (w, b) keeps its sums' tree in
+    # shared memory on the current device (host int out)
+    "eddm_window_tree_in_smem": (
+        "eddm_window_tree_in_smem", [_I, _I, _P], "eddm_window",
     ),
     "hddm_window": (
         "hddm_window_launch",
         [_P, _P] + [_P] * 4  # errs, live, 4 state leaves
-        + [_I, _I, _I,  # p, w, b
+        + [_I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA)
            _F, _F, _F,  # f32 ln(1/δ) of the drift confidence, ln(2/δ) of each bound's
            _P, _P]  # first warning/change
         + [_P] * 4  # 4 end leaves
         + [_P],  # stream
+    ),
+    # each zoo kernel's empty twin, launched as the kernel is at (p, w, b)
+    # on its path (CTAs a row, or the ring's window_size): the floor
+    "eddm_window_floor": (
+        "eddm_window_floor_launch", [_I, _I, _I, _I, _P], "eddm_window",
+    ),
+    "hddm_window_floor": (
+        "hddm_window_floor_launch", [_I, _I, _I, _I, _P], "hddm_window",
+    ),
+    "kswin_window_floor": (
+        "kswin_window_floor_launch", [_I, _I, _I, _I, _P], "kswin_window",
+    ),
+    "stepd_window_floor": (
+        "stepd_window_floor_launch", [_I, _I, _I, _I, _P], "stepd_window",
     ),
     "kswin_window": (
         "kswin_window_launch",

@@ -25,18 +25,21 @@ Every member has a hand-written CUDA kernel for its window statistic
 ``csrc/hddm_window.cu``, K5-hddm_w ``csrc/hddm_w_window.cu``, K5-kswin
 ``csrc/kswin_window.cu``, K5-stepd ``csrc/stepd_window.cu``; ADWIN's,
 K5-adwin, is in :mod:`.adwin`): on a CUDA tensor each ``*_window`` launches
-its kernel (K5-ph and K5-hddm_w as a thread-block cluster per partition
-where the row fits, :func:`cluster_ctas`; the others one CTA a partition),
+its kernel (K5-ph, K5-hddm_w, K5-eddm and K5-hddm as a thread-block
+cluster per partition where the row fits, :func:`cluster_ctas`; the others
+one CTA a partition),
 on a CPU tensor it runs its plain version, ``*_window_reference``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import (
     ADWINParams,
     DDMParams,
@@ -215,11 +218,12 @@ CLUSTER_SEGMENT = 2048
 
 
 def cluster_ctas(p: int, n: int, sms: int = 132) -> int:
-    """CTAs a row of K5-ph's and K5-hddm_w's cluster paths: ``ceil(n /
-    2048)`` when that is at most K1's cluster size for ``p`` partitions on
-    ``sms`` multiprocessors (:func:`.ddm.cluster_size`: 8 at P = 16, so rows
-    of up to 16,384 elements); else 0, the global-scratch path (one CTA a
-    row). The path follows from the shape alone."""
+    """CTAs a row of the zoo kernels' cluster paths (K5-ph, K5-hddm_w,
+    K5-eddm, K5-hddm): ``ceil(n / 2048)`` when that is at most K1's cluster
+    size for ``p`` partitions on ``sms`` multiprocessors
+    (:func:`.ddm.cluster_size`: 8 at P = 16, so rows of up to 16,384
+    elements); else 0, the one-CTA path with its global scratch. The path
+    follows from the shape alone."""
     need = -(-int(n) // CLUSTER_SEGMENT)
     return need if 0 < need <= cluster_size(p, sms) else 0
 
@@ -379,25 +383,45 @@ def eddm_tree_words(n: int) -> int:
     return 2 * total
 
 
-def eddm_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
-    """Kernel K5-eddm's launch arguments, stream excluded."""
+def eddm_window_args(state, errs, valid, params, first_warning, first_change, end, scratch,
+                     ctas):
+    """Kernel K5-eddm's launch arguments, stream excluded: ``ctas`` from
+    :func:`cluster_ctas`, ``scratch`` from :func:`eddm_scratch` (None but
+    on the one-CTA path of very long rows)."""
     p, w, b = errs.shape
     return (
         errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
-        p, w, b, int(bool(params.paper_exact)), int(params.min_num_errors),
-        f32(params.warning_alpha), f32(params.change_beta), scratch.data_ptr(),
+        p, w, b, ctas, int(bool(params.paper_exact)), int(params.min_num_errors),
+        f32(params.warning_alpha), f32(params.change_beta),
+        None if scratch is None else scratch.data_ptr(),
         first_warning.data_ptr(), first_change.data_ptr(),
         *(leaf.data_ptr() for leaf in end),
     )
 
 
+def eddm_scratch(p: int, w: int, b: int, ctas: int, device):
+    """K5-eddm's global scratch: on the one-CTA path (``ctas`` 0), where
+    the sums' tree does not fit in shared memory on the card
+    (``csrc/eddm_window.cu`` ``eddm_window_tree_in_smem``), each row's
+    :func:`eddm_tree_words`; else None."""
+    if ctas:
+        return None
+    in_smem = ctypes.c_int(0)
+    kernels.check("eddm_window_tree_in_smem", kernels.launcher("eddm_window_tree_in_smem")(
+        w, b, ctypes.addressof(in_smem)))
+    if in_smem.value:
+        return None
+    return torch.empty((p, eddm_tree_words(w * b)), dtype=torch.float32, device=device)
+
+
 def eddm_window(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()):
     """The EDDM window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-eddm (``csrc/eddm_window.cu``, one CTA a
-    partition; the sums' tree in shared memory, or in a global scratch for
-    very long rows) and add one to ``eddm_window.launches``; a refused
-    launch raises. CPU tensors run the plain version."""
+    CUDA tensors launch kernel K5-eddm (``csrc/eddm_window.cu``: a
+    thread-block cluster of :func:`cluster_ctas` CTAs a partition, or one
+    CTA for longer rows, its sums' tree in shared memory or in a global
+    scratch) and add one to ``eddm_window.launches``; a refused launch
+    raises. CPU tensors run the plain version."""
     if errs.device.type == "cpu":
         return eddm_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -408,9 +432,11 @@ def eddm_window(state: EDDMState, errs, valid, params: EDDMParams = EDDMParams()
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = EDDMState(*(torch.empty_like(leaf) for leaf in state))
-    scratch = torch.empty((p, eddm_tree_words(w * b)), dtype=torch.float32, device=dev)
+    ctas = _device_ctas(dev, p, w * b)
+    scratch = eddm_scratch(p, w, b, ctas, dev)
     launch_window(
-        "eddm_window", eddm_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+        "eddm_window",
+        eddm_window_args(state, errs, valid, params, fw, fc, end, scratch, ctas), dev,
     )
     eddm_window.launches += 1
     return end, DDMWindowResult(fw, fc)
@@ -519,14 +545,15 @@ _HDDM_DTYPES = dict(count=torch.int32, err_sum=torch.float32, n_min=torch.int32,
                     c_min=torch.float32)
 
 
-def hddm_window_args(state, errs, valid, params, first_warning, first_change, end):
-    """Kernel K5-hddm's launch arguments, stream excluded: the f32 logs of
-    ε's ``1/δ`` (drift) and of each bound's ``2/δ``."""
+def hddm_window_args(state, errs, valid, params, first_warning, first_change, end, ctas):
+    """Kernel K5-hddm's launch arguments, stream excluded: ``ctas`` from
+    :func:`cluster_ctas`, the f32 logs of ε's ``1/δ`` (drift) and of each
+    bound's ``2/δ``."""
     _validate_hddm(params)
     p, w, b = errs.shape
     return (
         errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
-        p, w, b, f32(math.log(1.0 / params.drift_confidence)),
+        p, w, b, ctas, f32(math.log(1.0 / params.drift_confidence)),
         f32(math.log(2.0 / params.drift_confidence)),
         f32(math.log(2.0 / params.warning_confidence)),
         first_warning.data_ptr(), first_change.data_ptr(),
@@ -537,9 +564,10 @@ def hddm_window_args(state, errs, valid, params, first_warning, first_change, en
 def hddm_window(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()):
     """The HDDM-A window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-hddm (``csrc/hddm_window.cu``, one CTA a
-    partition) and add one to ``hddm_window.launches``; a refused launch
-    raises. CPU tensors run the plain version."""
+    CUDA tensors launch kernel K5-hddm (``csrc/hddm_window.cu``: a
+    thread-block cluster of :func:`cluster_ctas` CTAs a partition, or one
+    CTA for longer rows) and add one to ``hddm_window.launches``; a refused
+    launch raises. CPU tensors run the plain version."""
     if errs.device.type == "cpu":
         return hddm_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -551,7 +579,10 @@ def hddm_window(state: HDDMState, errs, valid, params: HDDMParams = HDDMParams()
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = HDDMState(*(torch.empty_like(leaf) for leaf in state))
-    launch_window("hddm_window", hddm_window_args(state, errs, valid, params, fw, fc, end), dev)
+    ctas = _device_ctas(dev, p, w * b)
+    launch_window(
+        "hddm_window", hddm_window_args(state, errs, valid, params, fw, fc, end, ctas), dev
+    )
     hddm_window.launches += 1
     return end, DDMWindowResult(fw, fc)
 

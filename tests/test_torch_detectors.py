@@ -469,6 +469,28 @@ def test_hddm_w_path_choice(p, n, ctas):
     assert tdet.cluster_ctas(p, n, 132) == ctas
 
 
+@pytest.mark.parametrize("p, n, ctas", [
+    (16, 12800, 7), (1, 12800, 7), (80, 21, 1), (80, 12800, 0), (3, 16000, 8),
+    (3, 60000, 0), (16, 16384, 8), (16, 16385, 0), (16, 2048, 1), (16, 2049, 2),
+])
+@pytest.mark.parametrize("name", ["eddm", "hddm"])
+def test_eddm_hddm_path_choice(name, p, n, ctas):
+    """K5-eddm and K5-hddm take K5-ph's shape rule (``cluster_ctas`` on 132
+    SMs): the SMOKE shape [16, 12,800] on a cluster of 7 CTAs, P = 1 too,
+    clusters of one CTA at P = 80 and the one-CTA path for its long rows,
+    EDDM's probe rows of 60,000 on the one-CTA path and of 16,000 on a full
+    cluster, and 16,384 against 16,385. The launch arguments built for the
+    path carry its CTAs a row where the launcher reads them, and K5-eddm's
+    cluster path no scratch."""
+    assert tdet.cluster_ctas(p, n, 132) == ctas
+    args, state, _ = _zoo_args(name, 2, 1, 5, ctas=ctas)
+    assert args[5 + len(state)] == ctas
+    if name == "eddm":
+        assert (args[10 + len(state)] is None) == (ctas > 0)  # the scratch
+        if ctas:
+            assert tdet.eddm_scratch(p, 1, n, ctas, "cpu") is None
+
+
 @pytest.mark.parametrize("ctas", [7, 0])
 @pytest.mark.parametrize("name", ["ph", "hddm_w"])
 def test_cluster_window_args_match_launch_signature(name, ctas):
@@ -667,10 +689,11 @@ def test_zoo_windows_dispatch_to_plain_on_cpu():
     assert {k: fn.launches for k, fn in wrappers.items()} == before
 
 
-def _zoo_args(name, p=2, w=4, b=5):
+def _zoo_args(name, p=2, w=4, b=5, ctas=0):
     """K5-eddm's, K5-hddm's, K5-kswin's or K5-stepd's launch arguments on CPU
-    tensors (their wrappers' allocations), with the state they were built
-    from."""
+    tensors (their wrappers' allocations; K5-eddm's and K5-hddm's on the
+    path ``ctas`` names, K5-eddm's one-CTA path with a global scratch), with
+    the state they were built from."""
     params = {"eddm": tconfig.EDDMParams(paper_exact=True), "hddm": tconfig.HDDMParams(),
               "kswin": tconfig.KSWINParams(), "stepd": tconfig.STEPDParams()}[name]
     init = {"kswin": lambda: tdet.kswin_init(params, (p,)),
@@ -683,10 +706,10 @@ def _zoo_args(name, p=2, w=4, b=5):
     end = type(state)(*(torch.empty_like(leaf) for leaf in state))
     rest = (fw, fw, end)
     if name == "eddm":
-        scratch = torch.empty((p, tdet.eddm_tree_words(w * b)))
-        args = tdet.eddm_window_args(state, errs, valid, params, *rest, scratch)
+        scratch = None if ctas else torch.empty((p, tdet.eddm_tree_words(w * b)))
+        args = tdet.eddm_window_args(state, errs, valid, params, *rest, scratch, ctas)
     elif name == "hddm":
-        args = tdet.hddm_window_args(state, errs, valid, params, *rest)
+        args = tdet.hddm_window_args(state, errs, valid, params, *rest, ctas)
     else:
         scratch = tdet.ring_scratch(p, w * b, params.window_size, "cpu")
         args = getattr(tdet, f"{name}_window_args")(state, errs, valid, params, *rest, scratch)
@@ -697,21 +720,29 @@ def _zoo_args(name, p=2, w=4, b=5):
 def test_zoo_window_args_match_launch_signature(name):
     """K5-eddm's, K5-hddm's, K5-kswin's and K5-stepd's launch arguments fit
     their ctypes signatures (kernels/__init__.py) one for one, in C type,
-    with the shape where the launcher reads it and each float a float32."""
+    with the shape where the launcher reads it and each float a float32;
+    K5-eddm's and K5-hddm's on both paths, the CTAs a row after the shape
+    and K5-eddm's scratch null on the cluster path."""
     from distributed_drift_detection_tpu_torch import kernels
 
-    args, state, _ = _zoo_args(name)
     types = kernels._SIGNATURES[f"{name}_window"][1]
-    assert len(args) + 1 == len(types)  # the stream last
-    kinds = {kernels._I: int, kernels._F: float}
-    for arg, ctype in zip(args, types):
-        if ctype is kernels._P:
-            assert isinstance(arg, int)
-        else:
-            assert type(arg) is kinds[ctype]
-            if ctype is kernels._F:
-                assert float(np.float32(arg)) == arg
-    assert args[2 + len(state):5 + len(state)] == (2, 4, 5)  # p, w, b after the state
+    for ctas in (7, 0) if name in ("eddm", "hddm") else (None,):
+        args, state, _ = _zoo_args(name, ctas=ctas or 0)
+        assert len(args) + 1 == len(types)  # the stream last
+        kinds = {kernels._I: int, kernels._F: float}
+        for arg, ctype in zip(args, types):
+            if ctype is kernels._P:
+                assert arg is None or isinstance(arg, int)
+            else:
+                assert type(arg) is kinds[ctype]
+                if ctype is kernels._F:
+                    assert float(np.float32(arg)) == arg
+        shape = args[2 + len(state):5 + len(state)]
+        assert shape == (2, 4, 5)  # p, w, b after the state
+        if ctas is not None:
+            assert args[5 + len(state)] == ctas
+            nulls = [a is None for a in args]
+            assert any(nulls) == (name == "eddm" and ctas > 0)  # the scratch alone
 
 
 @pytest.mark.parametrize("n, words", [(1, 0), (16, 0), (17, 2 * 2), (256, 2 * 16),
@@ -736,6 +767,74 @@ def test_cumsum_f32_matches_jax_bitwise(n):
         want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(jnp.asarray(x)))
         got = prefix.cumsum_f32(torch.from_numpy(x), 1).numpy()
         np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _chains16(x):
+    """Left-to-right float32 chains over the aligned blocks of 16 along the
+    last axis of ``x`` (a multiple of 16 long): [..., blocks, 16]."""
+    blocks = x.reshape(*x.shape[:-1], -1, 16)
+    out = np.empty_like(blocks)
+    s = np.zeros(blocks.shape[:-1], np.float32)
+    for r in range(16):
+        s = s + blocks[..., r]
+        out[..., r] = s
+    return out
+
+
+def _eddm_cluster_cumsum(x):
+    """The cumsum of non-negative float32 ``x`` [n] (n <= 16,384) as
+    K5-eddm's cluster path builds it (csrc/eddm_window.cu): the row cut into
+    aligned segments of 2048 (a CTA each, zeros past n); in each, the
+    chains of the blocks of 16 elements (a lane pair) and, per warp, the
+    chain of its 16 block values, whose last is the warp's level-2 value;
+    the levels from 256 elements up rebuilt from every segment's level-2
+    values (chains over blocks of 16 of them, the chain of those blocks'
+    last values); then each element's block chain added to the scanned
+    value before its block with one rounding."""
+    n = x.shape[0]
+    ctas = -(-n // 2048)
+    xs = np.zeros(ctas * 2048, np.float32)
+    xs[:n] = x
+    ch0 = _chains16(xs)  # [blocks, 16]
+    ch1 = _chains16(ch0[:, -1])  # [warps, 16]
+    t2 = ch1[:, -1]  # the warps' level-2 values: 8 a segment
+    g_n = t2.shape[0]
+    tops = np.zeros(-(-g_n // 16) * 16, np.float32)
+    tops[:g_n] = t2
+    ch2 = _chains16(tops)  # [level-3 blocks, 16]
+    e3 = np.zeros(ch2.shape[0], np.float32)
+    for h in range(1, ch2.shape[0]):
+        e3[h] = e3[h - 1] + ch2[h - 1, -1]
+    s2 = (e3[:, None] + ch2).reshape(-1)[:g_n]
+    zero = np.zeros(1, np.float32)
+    s2x = np.concatenate([zero, zero, s2])  # s2x[g + 1] = S2[g - 1], 0 before the row
+    base = np.zeros(ch0.shape[0], np.float32)
+    for k1 in range(ch0.shape[0]):
+        g, i = divmod(k1, 16)
+        if i > 0:
+            base[k1] = s2x[g + 1] + ch1[g, i - 1]
+        elif g > 0:
+            base[k1] = s2x[g] + t2[g - 1]
+    return (base[:, None] + ch0).reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("n", [17, 2048, 2049, 12800, 16384])
+def test_eddm_cluster_tree_is_cumsum_f32(n):
+    """The rule K5-eddm's cluster path rests on: ``cumsum_f32``'s tree (XLA's
+    base-16 tree on the CPU) cut at aligned 2048-element segments, the
+    levels from 256 elements up rebuilt from all segments' level-2 values,
+    equals ``cumsum_f32`` and ``jnp.cumsum`` bit for bit on non-negative
+    terms — EDDM's distances and their squares, past 2^24 — and on dense
+    non-negative reals."""
+    rng = np.random.default_rng(n)
+    d = np.where(rng.random((3, n)) < 0.05, rng.integers(1, 5000, (3, n)), 0)
+    dense = np.abs(rng.standard_normal((3, n)) * 1e3)
+    for x in (d.astype(np.float32), (d * d).astype(np.float32), dense.astype(np.float32)):
+        want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(jnp.asarray(x)))
+        mine = prefix.cumsum_f32(torch.from_numpy(x), 1).numpy()
+        np.testing.assert_array_equal(_bits(mine), _bits(want))
+        for row, w_row in zip(x, want):
+            np.testing.assert_array_equal(_bits(_eddm_cluster_cumsum(row)), _bits(w_row))
 
 
 def _eddm_probe_row(seed, n=60_000):

@@ -523,9 +523,13 @@ def test_eddm_kernel_sums_past_2_24(dev):
     """K5-eddm's sums of squared distances past 2^24 (ROADMAP C11): rows of
     60,000 elements with an error every 700–1,299, from a fresh state and
     from the end state of the first pass (``d2_sum`` past 2^24), in windows
-    of [3, 600, 100] and [3, 120, 500], bit for bit the plain version."""
+    of [3, 600, 100] and [3, 120, 500] (the one-CTA path), and the rows'
+    first 16,000 elements as [3, 160, 100] (the cluster path, 8 CTAs), bit
+    for bit the plain version."""
     errs = torch.from_numpy(_eddm_probe_rows(3)).to(dev)
     valid = torch.ones_like(errs, dtype=torch.bool)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tdet.cluster_ctas(3, 60_000, sms) == 0 and tdet.cluster_ctas(3, 16_000, sms) == 8
     for params in ZOO["eddm"][3]:
         for w, b in ((600, 100), (120, 500)):
             e, v = errs.view(3, w, b), valid.view(3, w, b)
@@ -535,15 +539,23 @@ def test_eddm_kernel_sums_past_2_24(dev):
             for state in (fresh, carried):
                 _same(tdet.eddm_window(state, e, v, params),
                       tdet.eddm_window_reference(state, e, v, params))
+        e = errs[:, :16_000].reshape(3, 160, 100).contiguous()
+        v = torch.ones_like(e, dtype=torch.bool)
+        for state in (tdet.eddm_init((3,), dev), carried):
+            _same(tdet.eddm_window(state, e, v, params),
+                  tdet.eddm_window_reference(state, e, v, params))
 
 
-# The paths of K5-ph and K5-hddm_w (one shape rule, ``cluster_ctas``), (P,
-# W, B) and whether a row takes the cluster path: ragged rows of 21
-# elements and of 12,800 (7 CTAs, the last a quarter full) at P = 1, 16 and
+# The paths of K5-ph, K5-hddm_w, K5-eddm and K5-hddm (one shape rule,
+# ``cluster_ctas``), (P, W, B) and whether a row takes the cluster path:
+# ragged rows of 21 elements and of 12,800 (7 CTAs, the last a quarter full;
+# row 0's batches 32-63 padding, so CTA 2's whole segment) at P = 1, 16 and
 # 80 (clusters of 8, 8 and 1 CTAs at most: the longer rows at P = 80 take
-# the global-scratch path); a full cluster of 8 (16,384 elements) and one
-# element more (global scratch); batches that straddle CTAs (B = 129), one
-# batch over every CTA (B = 16,384) and batches of one element.
+# the one-CTA path); a full cluster of 8 (16,384 elements) and one element
+# more (one CTA); batches that straddle CTAs (B = 129), one batch over every
+# CTA (B = 16,384) and batches of one element; last segments of 10
+# elements (shorter than EDDM's blocks of 16) and of 17 (not a multiple of
+# 16), and rows of exactly 3 segments.
 CLUSTER_PATHS = {
     "p1_ragged_21": ((1, 3, 7), True), "p16_ragged_21": ((16, 3, 7), True),
     "p80_ragged_21": ((80, 3, 7), True), "p1_12800": ((1, 128, 100), True),
@@ -551,19 +563,21 @@ CLUSTER_PATHS = {
     "full_cluster": ((2, 128, 128), True), "one_more": ((2, 16385, 1), False),
     "straddling_batches": ((3, 127, 129), True), "one_batch": ((2, 1, 16384), True),
     "batches_of_one": ((2, 4000, 1), True),
+    "last_segment_10": ((2, 2, 1029), True), "last_segment_17": ((3, 101, 61), True),
+    "three_whole_segments": ((2, 48, 128), True),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CLUSTER_PATHS))
-@pytest.mark.parametrize("name", ["hddm_w", "ph"])
+@pytest.mark.parametrize("name", ["eddm", "hddm", "hddm_w", "ph"])
 def test_cluster_kernel_paths(dev, name, case):
-    """K5-ph and K5-hddm_w equal their plain versions bit for bit on their
-    cluster paths (clusters of 1 to 8 CTAs, state in registers) and their
-    global-scratch paths, from fresh and carried states, with an error in
-    each row's first element, HDDM-W key ties and every Page–Hinkley
-    parameter set (alpha = 0 among them); each case checks the path it
-    names."""
+    """K5-ph, K5-hddm_w, K5-eddm and K5-hddm equal their plain versions bit
+    for bit on their cluster paths (clusters of 1 to 8 CTAs, state in
+    registers) and their one-CTA paths, from fresh and carried states, with
+    an error in each row's first element, HDDM-W key ties, every
+    Page–Hinkley parameter set (alpha = 0 among them) and EDDM's
+    paper_exact mode; each case checks the path it names."""
     window, reference, init, cases = ZOO[name]
     (p, w, b), cluster = CLUSTER_PATHS[case]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -580,6 +594,85 @@ def test_cluster_kernel_paths(dev, name, case):
             want = reference(state, e1, v1, params)
             assert window.launches == launches + 1
             _same(got, want)
+
+
+def _late_errors(seed, p, n, starts):
+    """All-live rows of ``n`` elements whose first error is at ``starts[i]``
+    (errors at rate 0.2 from there on)."""
+    rng = np.random.default_rng(seed)
+    errs = (rng.random((p, n)) < 0.2).astype(np.float32)
+    for i, start in enumerate(starts):
+        errs[i, :start] = 0.0
+        errs[i, start] = 1.0
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["p16_12800", "full_cluster", "p80_12800"])
+def test_eddm_kernel_first_error_in_a_later_cta(dev, case):
+    """EDDM's first error of a row in a later CTA than the first — the first
+    element of CTA 1, inside CTA 2, the row's last element, none at all —
+    from a fresh state and from a carried one with no error (count > 0,
+    ``last_err_t`` 0), in both modes: under ``paper_exact`` that error does
+    not contribute, wherever it lies. Bit for bit the plain version on both
+    paths."""
+    (p, w, b), cluster = CLUSTER_PATHS[case]
+    n = w * b
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (tdet.cluster_ctas(p, n, sms) > 0) == cluster
+    starts = [2048, 5000, n - 1][:p] + [n - 1] * max(0, p - 3)
+    errs = _late_errors(60, p, n, starts)
+    if p > 3:
+        errs[3] = 0.0  # no error in the row
+    e1 = torch.from_numpy(errs.reshape(p, w, b)).to(dev)
+    v1 = torch.ones_like(e1, dtype=torch.bool)
+    quiet = torch.zeros((p, 3, 40), dtype=torch.float32, device=dev)
+    for params in ZOO["eddm"][3]:
+        fresh = tdet.eddm_init((p,), dev)
+        carried, _ = tdet.eddm_window_reference(fresh, quiet, torch.ones_like(
+            quiet, dtype=torch.bool), params)
+        assert bool((carried.count == 120).all()) and bool((carried.last_err_t == 0).all())
+        for state in (fresh, carried):
+            _same(tdet.eddm_window(state, e1, v1, params),
+                  tdet.eddm_window_reference(state, e1, v1, params))
+
+
+def _hddm_tie_count(j, confidence, start):
+    """A carried count c0 from ``start`` on at which HDDM-A's keys with no
+    error, ε(n) at n = c0 + j and c0 + j + 1 (elements j - 1 and j of an
+    all-live, error-free row), are equal in float32."""
+    n = torch.arange(start + j, start + j + 4096, dtype=torch.int32)
+    key = tdet._hddm_eps(n.float(), confidence)
+    tie = torch.nonzero(key[:-1] == key[1:])[0, 0]
+    return int(n[tie]) - j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2049, 4097, 12289])
+def test_hddm_kernel_key_ties_straddle_segments(dev, n):
+    """HDDM-A's running minimum takes the later of equal keys: error-free
+    rows carried past 20,000,000 elements (each key ε(n), equal in float32
+    for neighbouring n), so that the last two elements — one each side of
+    a CTA boundary at 2048, 4096 or 12,288 — tie, and the stored cut is the
+    later one's count. Bit for bit the plain version, from a state with no
+    cut and from one with a cut."""
+    params = ZOO["hddm"][3][0]
+    counts = [_hddm_tie_count(n - 1, params.drift_confidence, start)
+              for start in (20_000_000, 30_000_000)]
+    p = len(counts)
+    e1 = torch.zeros((p, 1, n), dtype=torch.float32, device=dev)
+    v1 = torch.ones_like(e1, dtype=torch.bool)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tdet.cluster_ctas(p, n, sms) == -(-n // 2048)
+    count = torch.tensor(counts, dtype=torch.int32, device=dev)
+    zero_f = torch.zeros(p, dtype=torch.float32, device=dev)
+    no_cut = tdet.HDDMState(count, zero_f, torch.zeros_like(count), zero_f)
+    cut = tdet.HDDMState(count, zero_f, count // 2, zero_f)
+    end, _ = tdet.hddm_window_reference(no_cut, e1, v1, params)
+    assert bool((end.n_min == count + n).all())  # the later of the tie
+    for state in (no_cut, cut):
+        _same(tdet.hddm_window(state, e1, v1, params),
+              tdet.hddm_window_reference(state, e1, v1, params))
 
 
 @pytest.mark.cuda
