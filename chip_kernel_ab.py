@@ -29,8 +29,8 @@ the named kernels alone:
   the median of 5 rounds of 200 calls);
 * ``floor_ms`` (K5-eddm, K5-hddm, K5-kswin and K5-stepd, where the tree
   has their empty twins): an empty kernel launched as the kernel is, timed
-  as ``ms`` is, beside ``ctas``, the CTAs a row of K5-eddm's and K5-hddm's
-  launch (0: one CTA a row).
+  as ``ms`` is, beside ``ctas``, the CTAs a row of the kernel's launch (0:
+  one CTA a row).
 
 K9 is timed as ``chip_smoke.py`` times it: ``ms`` over graphs of 10
 launches (3 rounds), ``host_us`` over 3 rounds of 20 calls, and
@@ -195,9 +195,10 @@ def one(root: str, only: set | None = None) -> dict:
 def zoo_floors(torch, cs, dev, p, w, b, out) -> dict:
     """``floor_ms`` of K5-eddm, K5-hddm, K5-kswin and K5-stepd where the
     tree has their empty twins: each launched as its kernel is at [p, w·b]
-    (the same grid, cluster, block and dynamic shared memory; the ring
-    members at their default window_size), timed as ``ms`` is, beside the
-    CTAs a row the tree's launcher takes (0: one CTA)."""
+    on the path its launcher takes there (the same grid, cluster, block and
+    dynamic shared memory; the ring members at their default window_size,
+    on their cluster path in a tree with ``ring_ctas``, else one CTA),
+    timed as ``ms`` is, beside the CTAs a row of that path (0: one CTA)."""
     from distributed_drift_detection_tpu_torch import config, kernels
     from distributed_drift_detection_tpu_torch.ops import detectors
 
@@ -208,14 +209,18 @@ def zoo_floors(torch, cs, dev, p, w, b, out) -> dict:
         if name not in out or floor_name not in kernels._SIGNATURES:
             continue
         if name in ("kswin_window", "stepd_window"):
-            last = (config.KSWINParams() if name == "kswin_window"
-                    else config.STEPDParams()).window_size
+            ws = (config.KSWINParams() if name == "kswin_window"
+                  else config.STEPDParams()).window_size
+            ctas = detectors.ring_ctas(p, w * b, ws, sms) if hasattr(detectors, "ring_ctas") else 0
+            # a tree with the cluster path takes its CTAs a row after the window
+            last = (ws, ctas) if len(kernels._SIGNATURES[floor_name][1]) == 6 else (ws,)
         else:
-            last = detectors.cluster_ctas(p, w * b, sms)
-            rows[name] = {"ctas": last}
+            ctas = detectors.cluster_ctas(p, w * b, sms)
+            last = (ctas,)
+        rows[name] = {"ctas": ctas}
         fn = kernels.launcher(floor_name)
         ms = cs.graph_ms(lambda fn=fn, last=last, floor_name=floor_name: kernels.check(
-            floor_name, fn(p, w, b, last, kernels.stream_handle(dev))))
+            floor_name, fn(p, w, b, *last, kernels.stream_handle(dev))))
         rows.setdefault(name, {})["floor_ms"] = ms
     return {k: {**out[k], **v} for k, v in rows.items()}
 

@@ -55,12 +55,14 @@ without them. Phases, each fatal on failure:
    device's idle share over the phase;
 6. hold each zoo kernel (K5) against its plain version at the main path's
    shape [16, 128·100] and on its design's edge cases, from fresh and
-   carried states — Page–Hinkley, HDDM-W, EDDM and HDDM-A bit for bit
-   (each on its cluster path at P = 16 and P = 1 and with clusters of one
-   CTA at P = 80, and on its one-CTA path), KSWIN and STEPD bit for bit
-   (all-padding rows; rows shorter than their ring buffers and a prefix
-   row in the global scratch; EDDM's sums past 2^24 from a fresh and a
-   carried state on both of its paths), ADWIN's int32 state and flags
+   carried states — Page–Hinkley, HDDM-W, EDDM, HDDM-A, KSWIN and STEPD
+   bit for bit (each on its cluster path at P = 16 and P = 1 and with
+   clusters of one CTA at P = 80, and on its one-CTA path; for KSWIN and
+   STEPD also all-padding rows, rows shorter than their ring buffers, a
+   prefix row in the global scratch, and windows of 2,500 that reach back
+   over a padding segment into several CTAs and, from a row whose first
+   segment is padding, into the carried window; EDDM's sums past 2^24 from
+   a fresh and a carried state on both of its paths), ADWIN's int32 state and flags
    exactly — and time it as K1 and K2 are timed (K5-eddm, K5-hddm,
    K5-kswin and K5-stepd with a ``floor_ms``, an empty kernel launched with
    the kernel's grid, cluster, block and dynamic shared memory); for ADWIN
@@ -1753,13 +1755,20 @@ K5_EDGES = [(3, 7, 33), (1, 5, 30), (17, 4, 50), (2, 200, 130), (1, 160, 100)]
 # full cluster of 8 CTAs, batches that straddle CTAs; the one-CTA
 # (global-scratch) path at P = 80 (with the 26,000-element rows above).
 K5_CLUSTER_EDGES = [(1, 128, 100), (80, 3, 7), (80, 128, 100), (1, 128, 128), (3, 127, 129)]
-CLUSTER_KERNELS = ("ph_window", "hddm_w_window", "eddm_window", "hddm_window")
+CLUSTER_KERNELS = ("ph_window", "hddm_w_window", "eddm_window", "hddm_window", "kswin_window",
+                   "stepd_window")
 # and for K5-kswin and K5-stepd: rows shorter than their ring buffers (7, 20
 # and 60 elements against 100 and 30, 20 and 5; k5_inputs' partition 1 is
 # all padding), and a row of 60,000 elements whose prefix row leaves shared
 # memory for the global scratch
 K5_RING_EDGES = [(3, 1, 7), (6, 2, 10), (3, 60, 1), (2, 600, 100)]
 RING_KERNELS = ("kswin_window", "stepd_window")
+# and their look-backs across the CTAs of a cluster (7 at this shape):
+# windows of 2,500 (KSWIN's stat_size 700) over rows whose second segment
+# is padding (CTA 2's windows reach back over it into CTA 0), whose first
+# segment is padding (later windows reach into the carried window), and
+# with fewer valid elements than the window (k5_ring_lookback_inputs)
+K5_RING_LOOKBACK = (4, 128, 100)
 # EDDM's squared distances past 2^24 (ROADMAP C11): rows with an error
 # every 700–1,299 elements, in windows of this shape, from a fresh state and
 # from a carried d2_sum past 2^24 (on the one-CTA path), and the probe rows'
@@ -1778,6 +1787,20 @@ def k5_inputs(rng, p, w, b, first_change=False):
     if first_change:
         errs[:, 0, 0] = 1.0
         valid[:, 0, 0] = True
+    return errs, valid
+
+
+def k5_ring_lookback_inputs(rng, p, n, wr):
+    """Rows for the ring members' look-backs across CTAs: error rate 0.05,
+    then 0.6 from a third of the row; row 0's second 2048-element segment
+    padding, row 1's first, row 2 with ``wr // 2`` valid elements, the rest
+    all valid."""
+    errs = (rng.random((p, n)) < np.where(np.arange(n) < n // 3, 0.05, 0.6)).astype(np.float32)
+    valid = np.ones((p, n), bool)
+    valid[0, 2048:4096] = False
+    valid[1, :2048] = False
+    valid[2] = False
+    valid[2, rng.choice(n, wr // 2, replace=False)] = True
     return errs, valid
 
 
@@ -1847,6 +1870,25 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
         extra = (f"; the sums past 2^24 at [{ep}, {ew}x{eb}] (one-CTA path) and [{cp}, "
                  f"{cw}x{cb}] (cluster path; an error every 700-1,299 elements, carried "
                  f"d2_sum up to {float(carried.d2_sum.max()):,.0f})")
+    if name in RING_KERNELS:
+        lp, lw, lb = K5_RING_LOOKBACK
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        long_prm = (config.KSWINParams(window_size=2500, stat_size=700) if name == "kswin_window"
+                    else config.STEPDParams(window_size=2500))
+        check(detectors.ring_ctas(lp, lw * lb, 2500, sms) == 7, "the ring look-back's path")
+        e1, v1 = (torch.from_numpy(a.reshape(lp, lw, lb)).to(dev)
+                  for a in k5_ring_lookback_inputs(rng, lp, lw * lb, 2500))
+        for prm in info["params"] + [long_prm]:
+            fresh = info["init"](prm, lp, dev)
+            e0, v0 = (torch.from_numpy(a).to(dev) for a in k5_inputs(rng, lp, 3, 40))
+            carried, _ = info["reference"](fresh, e0, v0, prm)
+            for state in (fresh, carried):
+                check_k5_equal(torch, window(state, e1, v1, prm),
+                               info["reference"](state, e1, v1, prm), f"{name} look-back {prm}")
+        extra = (f"; look-backs across the CTAs at [{lp}, {lw}x{lb}] (7 CTAs; a padding "
+                 "segment, a padded first segment, fewer valid elements than the window; "
+                 f"window_size {info['params'][0].window_size}, "
+                 f"{info['params'][1].window_size} and 2500)")
     print(f"K5 {name}: equal to its plain version at [{p}, {w}x{b}] and "
           + ", ".join(f"[{a}, {c}x{d}]" for a, c, d in edges)
           + f", {len(info['params'])} parameter sets, fresh and carried states" + extra)
@@ -1863,9 +1905,14 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
         scratch = adwin.adwin_scratch(p, w * b, prm, dev)
         args = adwin.adwin_window_args(state, e1, v1, prm, fw, fc, end, scratch)
     elif name in RING_KERNELS:
-        scratch = detectors.ring_scratch(p, w * b, prm.window_size, dev)
-        args = getattr(detectors, f"{name}_args")(state, e1, v1, prm, fw, fc, end, scratch)
-        floor_args = (p, w, b, prm.window_size)
+        ctas = detectors.ring_ctas(p, w * b, prm.window_size, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        scratch = detectors.ring_scratch(name, p, w, b, prm.window_size, ctas, dev)
+        args = getattr(detectors, f"{name}_args")(state, e1, v1, prm, fw, fc, end, scratch,
+                                                  ctas)
+        floor_args = (p, w, b, prm.window_size, ctas)
+        print(f"K5 {name}: timed on its {'cluster' if ctas else 'one-CTA'} path, "
+              f"{ctas} CTAs a row")
     else:
         ctas = detectors.cluster_ctas(p, w * b, torch.cuda.get_device_properties(
             dev).multi_processor_count)
@@ -4107,7 +4154,7 @@ def main(device: str = "cuda") -> int:
     from distributed_drift_detection_tpu_torch import api, config, kernels
     from distributed_drift_detection_tpu_torch.kernels import _build
     from distributed_drift_detection_tpu_torch.models import classifiers
-    from distributed_drift_detection_tpu_torch.ops import ddm
+    from distributed_drift_detection_tpu_torch.ops import ddm, detectors
 
     dev = torch.device(device)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
@@ -4200,6 +4247,13 @@ def main(device: str = "cuda") -> int:
               f"{det}: mean delay {zm.mean_delay_rows}, expected {want_delay}")
         check(zl[kname] > 0 and zl["centroid_predict_err"] > 0 and zl["centroid_fit"] > 0,
               f"{det}: kernel {kname}, K2 or K7 was not launched on its path")
+        if kname in RING_KERNELS:
+            ws = getattr(zcfg, det).window_size
+            zctas = detectors.ring_ctas(p, w * b, ws, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            check(zctas > 0, f"{det}: its kernel takes the one-CTA path at SMOKE")
+            print(f"{det}: its {zl[kname]} launches on the cluster path, {zctas} CTAs a row "
+                  f"(window_size {ws})")
         zrow = next(r for r in rows if r["name"] == kname)
         zrow["launches"] = zl[kname]
         zprep = api.prepare(zcfg, device=dev)

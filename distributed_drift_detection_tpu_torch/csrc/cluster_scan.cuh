@@ -1,8 +1,9 @@
 // Order-free scans across a thread block and a thread-block cluster, for
 // kernels that split one partition row over the CTAs of a cluster (the
-// cluster paths of K5-ph, K5-hddm_w, K5-eddm and K5-hddm): integer counts,
-// minima, maxima and "latest record" scans, whose results do not depend on
-// the order of their combines. The lax-tree scans, whose results do, are in cluster_tree.cuh.
+// cluster paths of K5-ph, K5-hddm_w, K5-eddm, K5-hddm, K5-kswin and
+// K5-stepd): integer counts, minima, maxima and "latest record" scans,
+// whose results do not depend on the order of their combines. The
+// lax-tree scans, whose results do, are in cluster_tree.cuh.
 //
 // * shfl_up / shfl_down / shfl_idx: a warp shuffle of any trivially
 //   copyable value whose size is a multiple of 4 bytes, word by word;

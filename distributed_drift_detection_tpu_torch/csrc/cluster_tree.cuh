@@ -24,10 +24,11 @@
 // A tuple type is given by a traits struct Tr: `Tr::T` (trivially copyable,
 // a whole number of 32-bit words), `Tr::compose(f, g)` (f, then g) and
 // `Tr::identity()` (a filler for lanes past the last block; never used).
-// Also here, for every zoo kernel's cluster path (K5-eddm's and K5-hddm's
-// too): the segment's vectorised load, the per-batch first-change /
-// first-warning marks, which go by shared-memory atomics (one a thread and
-// batch) to the CTA that holds the batch's first element, and the launch.
+// Also here, for every zoo kernel's cluster path (K5-eddm's, K5-hddm's,
+// K5-kswin's and K5-stepd's too): the segment's vectorised load, the
+// per-batch first-change / first-warning marks, which go by shared-memory
+// atomics (one a thread and batch) to the CTA that holds the batch's first
+// element, and the launch.
 
 #pragma once
 
@@ -167,13 +168,17 @@ __device__ __forceinline__ void tree_prefixes(cg::cluster_group& cluster,
   out[7] = next;
 }
 
-// A thread's elements [a, a + ne) of a row: the errors (0 past ne) and a
-// bit per live element. Two float4 and one uint2 loads where the 8 are
-// there and aligned.
+// A thread's elements [a, a + 8) of a row of n: the errors (0 past n) and
+// a bit per live element. Two float4 and one uint2 loads where the 8 are
+// there and aligned. Keep that choice the plain compare a + 8 <= n: written
+// as max(0, min(8, n − a)) == 8, nvcc 12.9 compiled it in K5-kswin's
+// cluster kernel to a VIMNMX whose predicate sent a thread holding 1–7
+// elements down the 8-element load, which then counted the next row's
+// leading elements.
 __device__ __forceinline__ unsigned load_elements(const float* e, const uint8_t* lv, int a,
-                                                  int ne, float (&x)[kEpt]) {
+                                                  int n, float (&x)[kEpt]) {
   unsigned ok = 0;
-  if (ne == kEpt && (reinterpret_cast<uintptr_t>(e + a) & 15) == 0 &&
+  if (a + kEpt <= n && (reinterpret_cast<uintptr_t>(e + a) & 15) == 0 &&
       (reinterpret_cast<uintptr_t>(lv + a) & 7) == 0) {
     const float4 x0 = __ldg(reinterpret_cast<const float4*>(e + a));
     const float4 x1 = __ldg(reinterpret_cast<const float4*>(e + a) + 1);
@@ -186,8 +191,9 @@ __device__ __forceinline__ unsigned load_elements(const float* e, const uint8_t*
   } else {
 #pragma unroll
     for (int q = 0; q < kEpt; ++q) {
-      x[q] = q < ne ? e[a + q] : 0.0f;
-      if (q < ne && lv[a + q] != 0) ok |= 1u << q;
+      const bool in = a + q < n;
+      x[q] = in ? e[a + q] : 0.0f;
+      if (in && lv[a + q] != 0) ok |= 1u << q;
     }
   }
   return ok;
@@ -267,14 +273,21 @@ __device__ __forceinline__ void store_marks(const int* marks, int rank, int n, i
 }
 
 // Launches `kernel` as one cluster of `ctas` CTAs for each of `p` rows, with
-// the marks' shared memory. Returns the CUDA error code: a refused cluster
-// launch is returned, never worked around.
+// `smem` bytes of dynamic shared memory (raising the kernel's limit past
+// 48 KiB). Returns the CUDA error code: a refused cluster launch is
+// returned, never worked around.
 template <class Kernel, class... Args>
-inline int launch_clusters(Kernel kernel, int p, int ctas, int b, void* stream, Args... args) {
+inline int launch_clusters_smem(Kernel kernel, int p, int ctas, size_t smem, void* stream,
+                                Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(p) * ctas);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = marks_bytes(b);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -286,6 +299,12 @@ inline int launch_clusters(Kernel kernel, int p, int ctas, int b, void* stream, 
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_clusters_smem with the marks' shared memory alone.
+template <class Kernel, class... Args>
+inline int launch_clusters(Kernel kernel, int p, int ctas, int b, void* stream, Args... args) {
+  return launch_clusters_smem(kernel, p, ctas, marks_bytes(b), stream, args...);
 }
 
 }  // namespace ct

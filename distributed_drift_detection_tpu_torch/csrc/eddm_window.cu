@@ -354,7 +354,7 @@ __global__ void __launch_bounds__(ct::kThreads, 1) eddm_window_kernel_cluster(
   ct::init_marks(marks, rank, n, b);
   float x[kEpt];
   const unsigned ok = ct::load_elements(errs + static_cast<size_t>(row) * n,
-                                        live + static_cast<size_t>(row) * n, a, ne, x);
+                                        live + static_cast<size_t>(row) * n, a, n, x);
   auto fmax_ = [](float p, float q) { return p > q ? p : q; };
 
   // 1. the valid count, the errors and the latest error before the thread

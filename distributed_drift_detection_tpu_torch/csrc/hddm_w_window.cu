@@ -327,7 +327,7 @@ __global__ void __launch_bounds__(ct::kThreads, 1) hddm_w_window_kernel_cluster(
   ct::init_marks(marks, rank, n, b);
   float x[kEpt];
   const unsigned ok = ct::load_elements(errs + static_cast<size_t>(row) * n,
-                                        live + static_cast<size_t>(row) * n, a, ne, x);
+                                        live + static_cast<size_t>(row) * n, a, n, x);
   auto add = [](int p, int q) { return p + q; };
 
   // 1. running count before the thread's first element

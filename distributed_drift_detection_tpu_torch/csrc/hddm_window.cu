@@ -210,7 +210,7 @@ __global__ void __launch_bounds__(ct::kThreads, 1) hddm_window_kernel_cluster(
   ct::init_marks(marks, rank, n_el, b);
   float x[kEpt];
   const unsigned ok = ct::load_elements(errs + static_cast<size_t>(row) * n_el,
-                                        live + static_cast<size_t>(row) * n_el, a, ne, x);
+                                        live + static_cast<size_t>(row) * n_el, a, n_el, x);
 
   // 1. the count and error sum before the thread's first element
   auto add = [](const Counts& p, const Counts& q) {

@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(ct::kThreads, 1) ph_window_kernel_cluster(
   ct::init_marks(marks, rank, n, b);
   float x[kEpt];
   const unsigned ok = ct::load_elements(errs + static_cast<size_t>(row) * n,
-                                        live + static_cast<size_t>(row) * n, a, ne, x);
+                                        live + static_cast<size_t>(row) * n, a, n, x);
 
   // 1. the count and input sum before the thread's first element (integers
   //    in f32: any order of adds is exact)

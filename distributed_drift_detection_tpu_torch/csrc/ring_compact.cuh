@@ -1,5 +1,6 @@
-// The ring-buffer members' shared skeleton (K5-kswin, K5-stepd), one CTA
-// per partition row of kThreads threads, each a contiguous chunk: the
+// The ring-buffer members' one-CTA skeleton (K5-kswin, K5-stepd; their
+// cluster path is ring_cluster.cuh), one CTA per partition row of kThreads
+// threads, each a contiguous chunk: the
 // plain versions' `ops/detectors.py` `_ring_compact` (JAX :944). The row's
 // valid elements are compacted behind the carried right-aligned window
 // buf[wr]; `pre` receives the zero-led prefix sums of that [wr + nv] row,

@@ -1,4 +1,4 @@
-// K5-stepd — the STEPD window statistic, one partition row per CTA.
+// K5-stepd — the STEPD window statistic.
 //
 // Replaces the JAX package's ops/detectors.py `_stepd_masks` (:1135) with
 // `_stepd_signal` (:1088), `_ring_compact` (:944) and `summarise_window`
@@ -8,7 +8,7 @@
 //
 // 1. the valid elements compacted behind the carried window of the last
 //    `window_size` stream elements, and the zero-led prefix sums of that
-//    row (csrc/ring_compact.cuh);
+//    row;
 // 2. at each valid element, the error sum of its last `window_size` stream
 //    elements (a difference of the prefix row) against the older rest: the
 //    pooled z statistic with continuity correction, gated on t ≥ 2·w and a
@@ -18,9 +18,14 @@
 //    count, the error total and the last `window_size` stream elements.
 //
 // Bound on an H100: the inputs are 5 B an element — 1 MB per call at
-// [16, 12800] — so bytes bound it (≈ 0.3 µs); the prefix row lives in
-// shared memory (or a global scratch), a launch is two passes over the
-// row's chunk and one block scan.
+// [16, 12800] — so bytes bound it (≈ 0.3 µs). Two paths, as K5-kswin's
+// (csrc/kswin_window.cu; ops/detectors.py `ring_ctas`): the cluster path,
+// ceil(N / 2048) CTAs a row of 256 threads with 8 elements each in
+// registers, the test's divisions and root spread over the cluster's SMs
+// (a thread's 8 tests side by side) and its one look-back a read of the
+// CTA's shared memory (csrc/ring_cluster.cuh); and the one-CTA path for
+// longer rows or windows (csrc/ring_compact.cuh), the prefix row in shared
+// memory or a global scratch.
 //
 // Exactness: counts are int32 and the sums 0/1 indicators, exact in any
 // order. The test is the plain version's float32 expression (ops/detectors.py
@@ -29,12 +34,16 @@
 // clamp of the variance term at f32(1e-30); the critical values come from
 // the host.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "ring_cluster.cuh"
 #include "ring_compact.cuh"
 #include "zoo_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -110,24 +119,77 @@ __global__ void __launch_bounds__(kThreads) stepd_window_kernel(
                    first_change + static_cast<size_t>(row) * w);
 }
 
+__global__ void __launch_bounds__(ct::kThreads, 1) stepd_window_kernel_cluster(
+    const float* __restrict__ errs, const uint8_t* __restrict__ live,
+    const int* __restrict__ t_in, const float* __restrict__ total_in,
+    const float* __restrict__ buf_in, int w, int b, int cs, int wr, float inv_w, float z_drift,
+    float z_warning, int* __restrict__ first_warning, int* __restrict__ first_change,
+    int* __restrict__ t_out, float* __restrict__ total_out, float* __restrict__ buf_out) {
+  __shared__ ring::ClusterShared sh;
+  extern __shared__ __align__(16) int dyn[];  // ring::cluster_smem
+  cg::cluster_group cluster = cg::this_cluster();
+  const int row = blockIdx.x / cs;
+  const int n = w * b;
+  const int t0 = t_in[row];
+  const float total0 = total_in[row];
+  const ring::RowTotals tot = ring::cluster_row(
+      cluster, sh, dyn, errs + static_cast<size_t>(row) * n, live + static_cast<size_t>(row) * n,
+      buf_in + static_cast<size_t>(row) * wr, buf_out + static_cast<size_t>(row) * wr, n, b,
+      wr, cs, first_warning + static_cast<size_t>(row) * w,
+      first_change + static_cast<size_t>(row) * w,
+      [&](int q1, float own, float inc, auto& ps) {
+        const Test s = stepd_test(t0 + q1, __fadd_rn(total0, inc), __fsub_rn(own, ps(q1)), wr,
+                                  inv_w, z_drift, z_warning);
+        return ring::Flags{s.warning, s.change};
+      });
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    t_out[row] = t0 + tot.nv;
+    total_out[row] = __fadd_rn(total0, tot.errors);
+  }
+}
+
 __global__ void stepd_window_floor_kernel() {}
+
+// The one-CTA path's shared memory at w batches of b and window wr: the
+// bytes to request, and whether the prefix row sits there.
+inline cudaError_t one_cta_smem(int w, int b, int wr, size_t& smem, int& in_smem) {
+  return ring::ring_smem(stepd_window_kernel, w, wr, static_cast<long long>(w) * b, smem,
+                         in_smem);
+}
 
 }  // namespace
 
-// One CTA per partition row of w·b elements; `wr` the window_size, inv_w =
-// f32(1/wr), `z_*` the f32 critical values. `scratch` holds p rows of
-// wr + w·b + 1 floats, used where they do not fit in shared memory. Returns
-// a CUDA error code.
+// Whether the one-CTA path's prefix row sits in shared memory at w batches
+// of b and window wr on the current device (*in_smem 1), or in the
+// scratch (0). Returns a CUDA error code.
+extern "C" int stepd_window_pre_in_smem(int w, int b, int wr, int* in_smem) {
+  size_t smem = 0;
+  return static_cast<int>(one_cta_smem(w, b, wr, smem, *in_smem));
+}
+
+// `ctas` > 0: the cluster path, one cluster of `ctas` CTAs per partition row
+// (ctas = ceil(w·b / 2048) <= 8, wr <= ring::kWindowCap; `scratch` unused).
+// `ctas` = 0: the one-CTA path, `scratch` holding p rows of wr + w·b + 1
+// floats (null where they fit in shared memory). `wr` the window_size,
+// inv_w = f32(1/wr), `z_*` the f32 critical values. Returns a CUDA error
+// code: a refused cluster launch is returned, never worked around.
 extern "C" int stepd_window_launch(
     const float* errs, const uint8_t* live, const int* t_in, const float* total_in,
-    const float* buf_in, int p, int w, int b, int wr, float inv_w, float z_drift,
+    const float* buf_in, int p, int w, int b, int ctas, int wr, float inv_w, float z_drift,
     float z_warning, float* scratch, int* first_warning, int* first_change, int* t_out,
     float* total_out, float* buf_out, void* stream) {
+  if (ctas > 0) {
+    if (wr > ring::kWindowCap) return static_cast<int>(cudaErrorInvalidValue);
+    return ct::launch_clusters_smem(stepd_window_kernel_cluster, p, ctas,
+                                    ring::cluster_smem(b, wr), stream, errs, live, t_in,
+                                    total_in, buf_in, w, b, ctas, wr, inv_w, z_drift, z_warning,
+                                    first_warning, first_change, t_out, total_out, buf_out);
+  }
   size_t smem = 0;
   int in_smem = 0;
-  const cudaError_t e =
-      ring::ring_smem(stepd_window_kernel, w, wr, static_cast<long long>(w) * b, smem, in_smem);
+  const cudaError_t e = one_cta_smem(w, b, wr, smem, in_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (!in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   stepd_window_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       errs, live, t_in, total_in, buf_in, w, b, wr, inv_w, z_drift, z_warning, in_smem, scratch,
       first_warning, first_change, t_out, total_out, buf_out);
@@ -135,13 +197,15 @@ extern "C" int stepd_window_launch(
 }
 
 // An empty kernel launched as stepd_window_launch launches K5-stepd at this
-// shape (the same grid, block and dynamic shared memory): the floor under
-// its time.
-extern "C" int stepd_window_floor_launch(int p, int w, int b, int wr, void* stream) {
+// shape and path (the same grid, cluster, block and dynamic shared memory):
+// the floor under its time.
+extern "C" int stepd_window_floor_launch(int p, int w, int b, int wr, int ctas, void* stream) {
+  if (ctas > 0)
+    return ct::launch_clusters_smem(stepd_window_floor_kernel, p, ctas,
+                                    ring::cluster_smem(b, wr), stream);
   size_t smem = 0;
   int in_smem = 0;
-  const cudaError_t e =
-      ring::ring_smem(stepd_window_kernel, w, wr, static_cast<long long>(w) * b, smem, in_smem);
+  const cudaError_t e = one_cta_smem(w, b, wr, smem, in_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   return zoo::launch_floor(stepd_window_floor_kernel, p, smem, stream);
 }

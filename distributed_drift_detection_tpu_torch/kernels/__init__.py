@@ -9,7 +9,8 @@ launch on a card without clusters, raises there. The checked,
 counted wrappers that callers use live beside their plain PyTorch versions
 (``ops/ddm.py`` ``ddm_window``, ``models/classifiers.py``
 ``centroid_predict_err`` and ``centroid_fit``, ``ops/detectors.py``
-``ph_window`` and ``hddm_w_window``, ``ops/adwin.py`` ``adwin_window``,
+``ph_window``, ``hddm_w_window``, ``eddm_window``, ``hddm_window``,
+``kswin_window`` and ``stepd_window``, ``ops/adwin.py`` ``adwin_window``,
 ``utils/threefry.py`` ``init_normals``, ``models/mlp.py`` ``mlp_fit``
 and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
 ``forest_predict_err``, ``engine/soak.py`` ``soak_batch``, ``ops/shuffle.py``
@@ -100,7 +101,8 @@ _SIGNATURES = {
         + [_P],  # stream
     ),
     # each zoo kernel's empty twin, launched as the kernel is at (p, w, b)
-    # on its path (CTAs a row, or the ring's window_size): the floor
+    # on its path (CTAs a row; the ring members' window_size, then CTAs a
+    # row): the floor
     "eddm_window_floor": (
         "eddm_window_floor_launch", [_I, _I, _I, _I, _P], "eddm_window",
     ),
@@ -108,26 +110,37 @@ _SIGNATURES = {
         "hddm_window_floor_launch", [_I, _I, _I, _I, _P], "hddm_window",
     ),
     "kswin_window_floor": (
-        "kswin_window_floor_launch", [_I, _I, _I, _I, _P], "kswin_window",
+        "kswin_window_floor_launch", [_I, _I, _I, _I, _I, _P], "kswin_window",
     ),
     "stepd_window_floor": (
-        "stepd_window_floor_launch", [_I, _I, _I, _I, _P], "stepd_window",
+        "stepd_window_floor_launch", [_I, _I, _I, _I, _I, _P], "stepd_window",
     ),
     "kswin_window": (
         "kswin_window_launch",
         [_P, _P, _P, _P,  # errs, live, t, buf
-         _I, _I, _I, _I, _I,  # p, w, b, window_size, stat_size
+         _I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA)
+         _I, _I,  # window_size, stat_size
          _F, _F, _F,  # f32(1/r), f32(1/(window_size − r)), the critical value
-         _P, _P, _P, _P, _P,  # scratch, first warning/change, end t, end buf
+         _P, _P, _P, _P, _P,  # scratch (or null), first warning/change, end t, end buf
          _P],  # stream
     ),
     "stepd_window": (
         "stepd_window_launch",
         [_P, _P, _P, _P, _P,  # errs, live, t, total, buf
-         _I, _I, _I, _I,  # p, w, b, window_size
+         _I, _I, _I, _I,  # p, w, b, CTAs a row (0: one CTA)
+         _I,  # window_size
          _F, _F, _F,  # f32(1/window_size), the drift and warning critical values
-         _P, _P, _P, _P, _P, _P,  # scratch, first warning/change, 3 end leaves
+         _P, _P, _P, _P, _P, _P,  # scratch (or null), first warning/change, 3 end leaves
          _P],  # stream
+    ),
+    # whether K5-kswin's or K5-stepd's one-CTA path at (w, b, window_size)
+    # keeps its prefix row in shared memory on the current device (host
+    # int out)
+    "kswin_window_pre_in_smem": (
+        "kswin_window_pre_in_smem", [_I, _I, _I, _P], "kswin_window",
+    ),
+    "stepd_window_pre_in_smem": (
+        "stepd_window_pre_in_smem", [_I, _I, _I, _P], "stepd_window",
     ),
     "adwin_window": (
         "adwin_window_launch",

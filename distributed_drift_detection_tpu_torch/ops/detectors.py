@@ -25,15 +25,17 @@ Every member has a hand-written CUDA kernel for its window statistic
 ``csrc/hddm_window.cu``, K5-hddm_w ``csrc/hddm_w_window.cu``, K5-kswin
 ``csrc/kswin_window.cu``, K5-stepd ``csrc/stepd_window.cu``; ADWIN's,
 K5-adwin, is in :mod:`.adwin`): on a CUDA tensor each ``*_window`` launches
-its kernel (K5-ph, K5-hddm_w, K5-eddm and K5-hddm as a thread-block
-cluster per partition where the row fits, :func:`cluster_ctas`; the others
-one CTA a partition),
-on a CPU tensor it runs its plain version, ``*_window_reference``.
+its kernel (K5-ph, K5-hddm_w, K5-eddm, K5-hddm, K5-kswin and K5-stepd as a
+thread-block cluster per partition where the row fits, :func:`cluster_ctas`
+and, for the ring members, :func:`ring_ctas`; K5-adwin one CTA a
+partition), on a CPU tensor it runs its plain version,
+``*_window_reference``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -228,10 +230,31 @@ def cluster_ctas(p: int, n: int, sms: int = 132) -> int:
     return need if 0 < need <= cluster_size(p, sms) else 0
 
 
+def _device_sms(dev) -> int:
+    idx = dev.index
+    return _sm_count(torch.cuda.current_device() if idx is None else idx)
+
+
 def _device_ctas(dev, p: int, n: int) -> int:
     """:func:`cluster_ctas` on the card ``dev``."""
-    idx = dev.index
-    return cluster_ctas(p, n, _sm_count(torch.cuda.current_device() if idx is None else idx))
+    return cluster_ctas(p, n, _device_sms(dev))
+
+
+# The longest window_size on the ring members' cluster path (K5-kswin,
+# K5-stepd; csrc/ring_cluster.cuh kWindowCap): every CTA holds the carried
+# window's prefix and the window_size values its windows read below its
+# own elements, 2·window_size + 1 floats, in its shared memory beside the
+# marks and its compacted prefixes.
+RING_WINDOW_CAP = 16384
+
+
+def ring_ctas(p: int, n: int, window_size: int, sms: int = 132) -> int:
+    """CTAs a row of K5-kswin's and K5-stepd's cluster path:
+    :func:`cluster_ctas` where ``window_size`` is at most
+    :data:`RING_WINDOW_CAP`, else 0 — the one-CTA path (its prefix row in
+    shared memory or a global scratch). The path follows from ``(p, n,
+    window_size)`` alone."""
+    return cluster_ctas(p, n, sms) if int(window_size) <= RING_WINDOW_CAP else 0
 
 
 def ph_scratch(p: int, n: int, ctas: int, device):
@@ -830,9 +853,11 @@ def _validate_kswin(params: KSWINParams) -> None:
         )
 
 
+@functools.cache
 def _kswin_crit(params: KSWINParams) -> float:
     """Two-sample KS critical value c(α)·sqrt((n₁+n₂)/(n₁·n₂)),
-    c(α) = sqrt(−ln(α/2)/2), n₁ = stat_size, n₂ = window_size − stat_size."""
+    c(α) = sqrt(−ln(α/2)/2), n₁ = stat_size, n₂ = window_size − stat_size;
+    computed once a parameter value."""
     r = int(params.stat_size)
     m = int(params.window_size) - r
     c = math.sqrt(-math.log(float(params.alpha) / 2.0) / 2.0)
@@ -896,11 +921,29 @@ def kswin_window_reference(state: KSWINState, errs, valid, params: KSWINParams =
     return _window(lambda s, e, v: _kswin_masks(s, e, v, params), state, errs, valid)
 
 
-def ring_scratch(p: int, n: int, window_size: int, device):
-    """K5-kswin's and K5-stepd's global scratch: a row's zero-led prefix
-    sums of the carried window and the compacted elements (``window_size
-    + n + 1`` floats), used only where they do not fit in shared memory."""
-    return torch.empty((p, int(window_size) + n + 1), dtype=torch.float32, device=device)
+def ring_scratch(kernel: str, p: int, w: int, b: int, window_size: int, ctas: int, device):
+    """K5-kswin's or K5-stepd's (``kernel``) global scratch: on the one-CTA
+    path (``ctas`` 0), where a row's zero-led prefix sums of the carried
+    window and the compacted elements (``window_size + w·b + 1`` floats) do
+    not fit in shared memory on the card (``csrc/<kernel>.cu``
+    ``<kernel>_pre_in_smem``), those rows; else None."""
+    if ctas:
+        return None
+    in_smem = ctypes.c_int(0)
+    query = f"{kernel}_pre_in_smem"
+    kernels.check(query, kernels.launcher(query)(w, b, int(window_size),
+                                                 ctypes.addressof(in_smem)))
+    if in_smem.value:
+        return None
+    return torch.empty((p, int(window_size) + w * b + 1), dtype=torch.float32, device=device)
+
+
+def _ring_launch_plan(kernel: str, errs, window_size: int):
+    """The path of a ring member's launch on the card: (CTAs a row from
+    :func:`ring_ctas`, the scratch from :func:`ring_scratch`)."""
+    p, w, b = errs.shape
+    ctas = ring_ctas(p, w * b, window_size, _device_sms(errs.device))
+    return ctas, ring_scratch(kernel, p, w, b, window_size, ctas, errs.device)
 
 
 def _check_ring(kernel: str, state, window_size: int) -> None:
@@ -909,15 +952,26 @@ def _check_ring(kernel: str, state, window_size: int) -> None:
                          f"got {tuple(state.buf.shape)}")
 
 
-def kswin_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
-    """Kernel K5-kswin's launch arguments, stream excluded."""
+@functools.cache
+def _kswin_consts(params: KSWINParams) -> tuple:
+    """K5-kswin's launch constants of ``params``: window_size, stat_size,
+    f32(1/r), f32(1/(window_size − r)) and the f32 critical value."""
+    ws, r = int(params.window_size), int(params.stat_size)
+    return ws, r, f32(1.0 / r), f32(1.0 / (ws - r)), f32(_kswin_crit(params))
+
+
+def kswin_window_args(state, errs, valid, params, first_warning, first_change, end, scratch,
+                      ctas):
+    """Kernel K5-kswin's launch arguments, stream excluded: ``ctas`` from
+    :func:`ring_ctas`, ``scratch`` from :func:`ring_scratch` (None but on the
+    one-CTA path of rows too long for shared memory)."""
     _validate_kswin(params)
     p, w, b = errs.shape
-    ws, r = int(params.window_size), int(params.stat_size)
     return (
         errs.data_ptr(), valid.data_ptr(), state.t.data_ptr(), state.buf.data_ptr(),
-        p, w, b, ws, r, f32(1.0 / r), f32(1.0 / (ws - r)), f32(_kswin_crit(params)),
-        scratch.data_ptr(), first_warning.data_ptr(), first_change.data_ptr(),
+        p, w, b, ctas, *_kswin_consts(params),
+        None if scratch is None else scratch.data_ptr(),
+        first_warning.data_ptr(), first_change.data_ptr(),
         end.t.data_ptr(), end.buf.data_ptr(),
     )
 
@@ -925,10 +979,11 @@ def kswin_window_args(state, errs, valid, params, first_warning, first_change, e
 def kswin_window(state: KSWINState, errs, valid, params: KSWINParams = KSWINParams()):
     """The KSWIN window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-kswin (``csrc/kswin_window.cu``, one CTA a
-    partition; the prefix row in shared memory, or in a global scratch for
-    long rows) and add one to ``kswin_window.launches``; a refused launch
-    raises. CPU tensors run the plain version."""
+    CUDA tensors launch kernel K5-kswin (``csrc/kswin_window.cu``: a
+    thread-block cluster of :func:`ring_ctas` CTAs a partition, or one CTA
+    for longer rows or windows, its prefix row in shared memory or in a
+    global scratch) and add one to ``kswin_window.launches``; a refused
+    launch raises. CPU tensors run the plain version."""
     if errs.device.type == "cpu":
         return kswin_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -942,9 +997,10 @@ def kswin_window(state: KSWINState, errs, valid, params: KSWINParams = KSWINPara
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = KSWINState(*(torch.empty_like(leaf) for leaf in state))
-    scratch = ring_scratch(p, w * b, params.window_size, dev)
+    ctas, scratch = _ring_launch_plan("kswin_window", errs, params.window_size)
     launch_window(
-        "kswin_window", kswin_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+        "kswin_window",
+        kswin_window_args(state, errs, valid, params, fw, fc, end, scratch, ctas), dev,
     )
     kswin_window.launches += 1
     return end, DDMWindowResult(fw, fc)
@@ -981,9 +1037,10 @@ def _validate_stepd(params: STEPDParams) -> None:
         raise ValueError(f"STEPDParams.window_size must be >= 2, got {params.window_size}")
 
 
+@functools.cache
 def _z_crit(alpha: float) -> float:
     """Upper critical value of the standard normal at two-sided level α,
-    by bisection on ``erf`` (80 iterations)."""
+    by bisection on ``erf`` (80 iterations); computed once a value."""
     target = 1.0 - alpha / 2.0
     lo, hi = 0.0, 10.0
     for _ in range(80):
@@ -1009,8 +1066,8 @@ def _stepd_signal(t, total, recent_sum, params: STEPDParams):
     den = sqrt((p_hat * (1.0 - p_hat) * inv).clamp_min(f32(1e-30)))
     z = num / den
     gate = (t >= 2 * w) & (p_r > p_o)
-    change = gate & (z > f32(_z_crit(params.alpha_drift)))
-    warning = gate & ~change & (z > f32(_z_crit(params.alpha_warning)))
+    change = gate & (z > f32(_z_crit(float(params.alpha_drift))))
+    warning = gate & ~change & (z > f32(_z_crit(float(params.alpha_warning))))
     return warning, change
 
 
@@ -1044,16 +1101,27 @@ def stepd_window_reference(state: STEPDState, errs, valid, params: STEPDParams =
     return _window(lambda s, e, v: _stepd_masks(s, e, v, params), state, errs, valid)
 
 
-def stepd_window_args(state, errs, valid, params, first_warning, first_change, end, scratch):
-    """Kernel K5-stepd's launch arguments, stream excluded: the critical
-    values from :func:`_z_crit` on the host."""
+@functools.cache
+def _stepd_consts(params: STEPDParams) -> tuple:
+    """K5-stepd's launch constants of ``params``: window_size, f32(1/w) and
+    the f32 drift and warning critical values (:func:`_z_crit`)."""
+    ws = int(params.window_size)
+    return (ws, f32(1.0 / ws), f32(_z_crit(float(params.alpha_drift))),
+            f32(_z_crit(float(params.alpha_warning))))
+
+
+def stepd_window_args(state, errs, valid, params, first_warning, first_change, end, scratch,
+                      ctas):
+    """Kernel K5-stepd's launch arguments, stream excluded: ``ctas`` from
+    :func:`ring_ctas`, ``scratch`` from :func:`ring_scratch` (None but on the
+    one-CTA path of rows too long for shared memory), the critical values
+    from :func:`_z_crit` on the host."""
     _validate_stepd(params)
     p, w, b = errs.shape
-    ws = int(params.window_size)
     return (
         errs.data_ptr(), valid.data_ptr(), *(leaf.data_ptr() for leaf in state),
-        p, w, b, ws, f32(1.0 / ws), f32(_z_crit(params.alpha_drift)),
-        f32(_z_crit(params.alpha_warning)), scratch.data_ptr(),
+        p, w, b, ctas, *_stepd_consts(params),
+        None if scratch is None else scratch.data_ptr(),
         first_warning.data_ptr(), first_change.data_ptr(),
         *(leaf.data_ptr() for leaf in end),
     )
@@ -1062,10 +1130,10 @@ def stepd_window_args(state, errs, valid, params, first_warning, first_change, e
 def stepd_window(state: STEPDState, errs, valid, params: STEPDParams = STEPDParams()):
     """The STEPD window statistic (contract of :func:`.ddm.ddm_window`).
 
-    CUDA tensors launch kernel K5-stepd (``csrc/stepd_window.cu``, one CTA a
-    partition; the prefix row in shared memory, or in a global scratch for
-    long rows) and add one to ``stepd_window.launches``; a refused launch
-    raises. CPU tensors run the plain version."""
+    CUDA tensors launch kernel K5-stepd (``csrc/stepd_window.cu``: as
+    K5-kswin, a cluster of :func:`ring_ctas` CTAs a partition or one CTA)
+    and add one to ``stepd_window.launches``; a refused launch raises. CPU
+    tensors run the plain version."""
     if errs.device.type == "cpu":
         return stepd_window_reference(state, errs, valid, params)
     if errs.device.type != "cuda":
@@ -1079,9 +1147,10 @@ def stepd_window(state: STEPDState, errs, valid, params: STEPDParams = STEPDPara
     fw = torch.empty((p, w), dtype=torch.int32, device=dev)
     fc = torch.empty_like(fw)
     end = STEPDState(*(torch.empty_like(leaf) for leaf in state))
-    scratch = ring_scratch(p, w * b, params.window_size, dev)
+    ctas, scratch = _ring_launch_plan("stepd_window", errs, params.window_size)
     launch_window(
-        "stepd_window", stepd_window_args(state, errs, valid, params, fw, fc, end, scratch), dev
+        "stepd_window",
+        stepd_window_args(state, errs, valid, params, fw, fc, end, scratch, ctas), dev,
     )
     stepd_window.launches += 1
     return end, DDMWindowResult(fw, fc)

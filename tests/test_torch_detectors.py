@@ -17,6 +17,7 @@ import functools
 import json
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -491,6 +492,36 @@ def test_eddm_hddm_path_choice(name, p, n, ctas):
             assert tdet.eddm_scratch(p, 1, n, ctas, "cpu") is None
 
 
+@pytest.mark.parametrize("p, n, window_size, ctas", [
+    (16, 12800, 100, 7), (16, 12800, 30, 7), (1, 12800, 2500, 7), (16, 12800, 2500, 7),
+    (80, 21, 100, 1), (80, 12800, 100, 0), (16, 16384, 100, 8), (16, 16385, 100, 0),
+    (67, 2048, 100, 1), (67, 2049, 100, 0), (2, 60000, 100, 0),
+    (16, 12800, tdet.RING_WINDOW_CAP, 7), (16, 12800, tdet.RING_WINDOW_CAP + 1, 0),
+])
+@pytest.mark.parametrize("name", ["kswin", "stepd"])
+def test_ring_path_choice(name, p, n, window_size, ctas):
+    """K5-kswin and K5-stepd take K5-ph's shape rule (``cluster_ctas`` on 132
+    SMs) while ``window_size`` is at most RING_WINDOW_CAP (16,384, the
+    kernels' ``kWindowCap``: the carried window's prefix and a window's
+    values below the CTA in every CTA's shared memory), else the one-CTA
+    path: a function of ``(p, n, window_size)`` alone. The launch arguments built for the path carry
+    its CTAs a row where the launcher reads them, and no scratch on the
+    cluster path."""
+    import re
+
+    header = (Path(tdet.__file__).resolve().parent.parent / "csrc" / "ring_cluster.cuh")
+    cap = re.search(r"constexpr int kWindowCap = (\d+);", header.read_text())
+    assert cap and int(cap.group(1)) == tdet.RING_WINDOW_CAP == 16384
+    assert tdet.ring_ctas(p, n, window_size, 132) == ctas
+    if window_size <= tdet.RING_WINDOW_CAP:
+        assert tdet.ring_ctas(p, n, window_size, 132) == tdet.cluster_ctas(p, n, 132)
+    args, state, _ = _zoo_args(name, 2, 1, 5, ctas=ctas)
+    assert args[5 + len(state)] == ctas
+    assert (args[-5 if name == "kswin" else -6] is None) == (ctas > 0)  # the scratch
+    if ctas:
+        assert tdet.ring_scratch(f"{name}_window", p, 1, n, window_size, ctas, "cpu") is None
+
+
 @pytest.mark.parametrize("ctas", [7, 0])
 @pytest.mark.parametrize("name", ["ph", "hddm_w"])
 def test_cluster_window_args_match_launch_signature(name, ctas):
@@ -691,9 +722,9 @@ def test_zoo_windows_dispatch_to_plain_on_cpu():
 
 def _zoo_args(name, p=2, w=4, b=5, ctas=0):
     """K5-eddm's, K5-hddm's, K5-kswin's or K5-stepd's launch arguments on CPU
-    tensors (their wrappers' allocations; K5-eddm's and K5-hddm's on the
-    path ``ctas`` names, K5-eddm's one-CTA path with a global scratch), with
-    the state they were built from."""
+    tensors (their wrappers' allocations, on the path ``ctas`` names; the
+    one-CTA paths of K5-eddm, K5-kswin and K5-stepd with a global scratch),
+    with the state they were built from."""
     params = {"eddm": tconfig.EDDMParams(paper_exact=True), "hddm": tconfig.HDDMParams(),
               "kswin": tconfig.KSWINParams(), "stepd": tconfig.STEPDParams()}[name]
     init = {"kswin": lambda: tdet.kswin_init(params, (p,)),
@@ -711,8 +742,10 @@ def _zoo_args(name, p=2, w=4, b=5, ctas=0):
     elif name == "hddm":
         args = tdet.hddm_window_args(state, errs, valid, params, *rest, ctas)
     else:
-        scratch = tdet.ring_scratch(p, w * b, params.window_size, "cpu")
-        args = getattr(tdet, f"{name}_window_args")(state, errs, valid, params, *rest, scratch)
+        scratch = (tdet.ring_scratch(f"{name}_window", p, w, b, params.window_size, ctas, "cpu")
+                   if ctas else torch.empty((p, params.window_size + w * b + 1)))
+        args = getattr(tdet, f"{name}_window_args")(state, errs, valid, params, *rest, scratch,
+                                                    ctas)
     return args, state, params
 
 
@@ -721,13 +754,13 @@ def test_zoo_window_args_match_launch_signature(name):
     """K5-eddm's, K5-hddm's, K5-kswin's and K5-stepd's launch arguments fit
     their ctypes signatures (kernels/__init__.py) one for one, in C type,
     with the shape where the launcher reads it and each float a float32;
-    K5-eddm's and K5-hddm's on both paths, the CTAs a row after the shape
-    and K5-eddm's scratch null on the cluster path."""
+    on both paths, the CTAs a row after the shape and the scratch (K5-eddm,
+    K5-kswin, K5-stepd) null on the cluster path."""
     from distributed_drift_detection_tpu_torch import kernels
 
     types = kernels._SIGNATURES[f"{name}_window"][1]
-    for ctas in (7, 0) if name in ("eddm", "hddm") else (None,):
-        args, state, _ = _zoo_args(name, ctas=ctas or 0)
+    for ctas in (7, 0):
+        args, state, _ = _zoo_args(name, ctas=ctas)
         assert len(args) + 1 == len(types)  # the stream last
         kinds = {kernels._I: int, kernels._F: float}
         for arg, ctype in zip(args, types):
@@ -739,10 +772,9 @@ def test_zoo_window_args_match_launch_signature(name):
                     assert float(np.float32(arg)) == arg
         shape = args[2 + len(state):5 + len(state)]
         assert shape == (2, 4, 5)  # p, w, b after the state
-        if ctas is not None:
-            assert args[5 + len(state)] == ctas
-            nulls = [a is None for a in args]
-            assert any(nulls) == (name == "eddm" and ctas > 0)  # the scratch alone
+        assert args[5 + len(state)] == ctas
+        nulls = [a is None for a in args]
+        assert any(nulls) == (name != "hddm" and ctas > 0)  # the scratch alone
 
 
 @pytest.mark.parametrize("n, words", [(1, 0), (16, 0), (17, 2 * 2), (256, 2 * 16),
@@ -835,6 +867,147 @@ def test_eddm_cluster_tree_is_cumsum_f32(n):
         np.testing.assert_array_equal(_bits(mine), _bits(want))
         for row, w_row in zip(x, want):
             np.testing.assert_array_equal(_bits(_eddm_cluster_cumsum(row)), _bits(w_row))
+
+
+def _ring_cluster_model(buf, errs, valid):
+    """The look-back of K5-kswin's and K5-stepd's cluster path
+    (csrc/ring_cluster.cuh) in NumPy, one row: CTA r's ``loc``, the
+    inclusive error counts at its valid elements in compaction order; every
+    rank's valid and error bases; the carried window's prefix cp; and each
+    CTA's ``ext``, ext[t] = ps[base_n + 1 + t] for t < wr, gathered from cp
+    (k <= wr) or from the owner o of i = k − wr − 1, the last rank whose base
+    is at most i (C + base_c[o] + loc_o[i − base_n[o]]). Returns ``ps(k,
+    rank)`` — what an element of CTA ``rank`` reads at k: C + its CTA's base
+    and ``loc`` where i is at least its CTA's base, else ``ext`` — and the
+    next carried window (each element whose compaction index is at least
+    nv − wr writes its place, rank 0 copies the rest of the old window)."""
+    seg = tdet.CLUSTER_SEGMENT
+    wr, n = buf.shape[0], errs.shape[0]
+    cs = max(1, -(-n // seg))
+    f = np.float32
+    locs = np.zeros((cs, seg), f)
+    cnt = np.zeros(cs, np.int64)
+    err = np.zeros(cs, f)
+    for r in range(cs):
+        kept = errs[r * seg:(r + 1) * seg][valid[r * seg:(r + 1) * seg]]
+        cnt[r] = kept.size
+        c = f(0)
+        for m, x in enumerate(kept):
+            c = f(c + x)
+            locs[r, m] = c
+        err[r] = c
+    base_n = np.concatenate([[0], np.cumsum(cnt)])
+    base_c = np.zeros(cs + 1, f)
+    for r in range(cs):
+        base_c[r + 1] = f(base_c[r] + err[r])
+    cp = np.zeros(wr + 1, f)
+    for i in range(wr):
+        cp[i + 1] = f(cp[i] + buf[i])
+    carried, nv = cp[wr], int(base_n[cs])
+
+    def gather(k):  # the ext rule, k > base_n of the reading CTA
+        out = cp[np.minimum(k, wr)].copy()
+        above = k > wr
+        i = k[above] - wr - 1
+        o = (base_n[1:cs][None, :] <= i[:, None]).sum(1)
+        assert (cnt[o] > 0).all()  # a rank of padding only owns no index
+        at = i - base_n[o]
+        assert ((at >= 0) & (at < cnt[o])).all()
+        out[above] = carried + (base_c[o] + locs[o, at])
+        return out
+
+    ext = np.stack([gather(base_n[r] + 1 + np.arange(wr)) for r in range(cs)])
+
+    def ps(k, rank):
+        i = k - wr - 1
+        my = base_n[rank]
+        own = i >= my
+        out = np.empty(k.shape, f)
+        out[own] = carried + (base_c[rank[own]] + locs[rank[own], (i - my)[own]])
+        t = (k - my - 1)[~own]
+        assert ((t >= 0) & (t < wr)).all()  # a window stays within ext
+        out[~own] = ext[rank[~own], t]
+        return out
+
+    end = np.zeros(wr, f)
+    q = 0
+    for x in errs[valid]:
+        if q - nv + wr >= 0:
+            end[q - nv + wr] = x
+        q += 1
+    end[: max(0, wr - nv)] = buf[nv:nv + max(0, wr - nv)]
+    return ps, end
+
+
+def _ring_rows(seed, n, wr):
+    """0/1 rows of ``n`` with (0) the second segment all padding (the
+    third's windows reach two CTAs back), (1) the first segment all padding
+    (later windows reach into the carried window), (2) fewer valid
+    elements than the window, (3) all valid; and a carried window."""
+    rng = np.random.default_rng(seed)
+    seg = tdet.CLUSTER_SEGMENT
+    errs = (rng.random((4, n)) < 0.3).astype(np.float32)
+    valid = rng.random((4, n)) < 0.9
+    valid[0, seg:2 * seg] = False
+    valid[1, :seg] = False
+    valid[2] = False
+    valid[2, rng.choice(n, min(n, max(1, wr // 2)), replace=False)] = True
+    valid[3] = True
+    buf = (rng.random((4, wr)) < 0.4).astype(np.float32)
+    return buf, errs, valid
+
+
+@pytest.mark.parametrize("wr", [5, 30, 100, 2500])
+@pytest.mark.parametrize("n", [7, 2048, 2049, 12800, 16384])
+def test_ring_cluster_lookback_is_ring_compact(n, wr):
+    """The rule K5-kswin's and K5-stepd's cluster path rests on: per-segment
+    compacted prefixes, and each CTA's window of wr values below its own
+    elements gathered through the owner rank's bases, equal the plain
+    ``_ring_compact``'s ``ps`` bit for bit at every index an element reads — its own prefix, STEPD's and KSWIN's lower end q + 1 and
+    KSWIN's middle at stat sizes 1, wr/3 and wr − 1 — and its end window,
+    on rows with a segment of padding, a first segment of padding, fewer
+    valid elements than the window and none padded, from a carried
+    window."""
+    buf, errs, valid = _ring_rows(n * 7 + wr, n, wr)
+    ps_plain, _, vcnt, end_plain = tdet._ring_compact(
+        torch.from_numpy(buf), torch.from_numpy(errs), torch.from_numpy(valid))
+    for row in range(4):
+        ps, end = _ring_cluster_model(buf[row], errs[row], valid[row])
+        nv = int(vcnt[row, -1])
+        q1 = np.arange(1, nv + 1)
+        rank = np.nonzero(valid[row])[0] // tdet.CLUSTER_SEGMENT  # each element's CTA
+        reads = [wr + q1, q1] + [wr + q1 - r for r in sorted({1, max(1, wr // 3), wr - 1})]
+        for k in reads:
+            np.testing.assert_array_equal(_bits(ps(k, rank)), _bits(ps_plain[row].numpy()[k]))
+        np.testing.assert_array_equal(_bits(end), _bits(end_plain[row].numpy()))
+
+
+def test_ring_critical_values_are_cached_bit_for_bit():
+    """KSWIN's and STEPD's critical values are computed once a parameter
+    value (``functools.cache``) and are the JAX package's values, so the
+    same float32 bits as before; the launch constants built from them
+    too."""
+    for kw in (dict(), dict(window_size=20, stat_size=5), dict(alpha=0.01, stat_size=7)):
+        jp, tp = jconfig.KSWINParams(**kw), tconfig.KSWINParams(**kw)
+        assert tdet._kswin_crit(tp) == jdet._kswin_crit(jp)
+        hits = tdet._kswin_crit.cache_info().hits
+        assert tdet._kswin_crit(tp) == jdet._kswin_crit(jp)
+        assert tdet._kswin_crit.cache_info().hits == hits + 1
+        consts = tdet._kswin_consts(tp)
+        assert consts[-1] == prefix.f32(jdet._kswin_crit(jp))
+        assert _bits(np.float32(consts[-1])) == _bits(np.float32(jdet._kswin_crit(jp)))
+    for kw in (dict(), dict(alpha_drift=0.01, alpha_warning=0.1), dict(window_size=5)):
+        jp, tp = jconfig.STEPDParams(**kw), tconfig.STEPDParams(**kw)
+        for a, ja in ((tp.alpha_drift, jp.alpha_drift), (tp.alpha_warning, jp.alpha_warning)):
+            assert tdet._z_crit(float(a)) == jdet._z_crit(float(ja))
+            assert tdet._z_crit(float(a)) == tdet._z_crit.__wrapped__(float(a))
+        hits = tdet._z_crit.cache_info().hits
+        consts = tdet._stepd_consts(tp)
+        assert consts == (int(jp.window_size), prefix.f32(1.0 / jp.window_size),
+                          prefix.f32(jdet._z_crit(jp.alpha_drift)),
+                          prefix.f32(jdet._z_crit(jp.alpha_warning)))
+        tdet._stepd_signal(torch.tensor([0]), torch.tensor([0.0]), torch.tensor([0.0]), tp)
+        assert tdet._z_crit.cache_info().hits >= hits + 2
 
 
 def _eddm_probe_row(seed, n=60_000):

@@ -546,8 +546,10 @@ def test_eddm_kernel_sums_past_2_24(dev):
                   tdet.eddm_window_reference(state, e, v, params))
 
 
-# The paths of K5-ph, K5-hddm_w, K5-eddm and K5-hddm (one shape rule,
-# ``cluster_ctas``), (P, W, B) and whether a row takes the cluster path:
+# The paths of K5-ph, K5-hddm_w, K5-eddm, K5-hddm, K5-kswin and K5-stepd
+# (one shape rule, ``cluster_ctas``; ``ring_ctas`` for the last two, the
+# same at their windows here), (P, W, B) and whether a row takes the
+# cluster path:
 # ragged rows of 21 elements and of 12,800 (7 CTAs, the last a quarter full;
 # row 0's batches 32-63 padding, so CTA 2's whole segment) at P = 1, 16 and
 # 80 (clusters of 8, 8 and 1 CTAs at most: the longer rows at P = 80 take
@@ -568,27 +570,133 @@ CLUSTER_PATHS = {
 }
 
 
+def _zoo_ctas(name, params, p, n, sms):
+    """The CTAs a row of zoo kernel ``name``'s launch (0: one CTA)."""
+    if name in ("kswin", "stepd"):
+        return tdet.ring_ctas(p, n, params.window_size, sms)
+    return tdet.cluster_ctas(p, n, sms)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CLUSTER_PATHS))
-@pytest.mark.parametrize("name", ["eddm", "hddm", "hddm_w", "ph"])
+@pytest.mark.parametrize("name", ["eddm", "hddm", "hddm_w", "kswin", "ph", "stepd"])
 def test_cluster_kernel_paths(dev, name, case):
-    """K5-ph, K5-hddm_w, K5-eddm and K5-hddm equal their plain versions bit
-    for bit on their cluster paths (clusters of 1 to 8 CTAs, state in
-    registers) and their one-CTA paths, from fresh and carried states, with
-    an error in each row's first element, HDDM-W key ties, every
-    Page–Hinkley parameter set (alpha = 0 among them) and EDDM's
-    paper_exact mode; each case checks the path it names."""
-    window, reference, init, cases = ZOO[name]
+    """K5-ph, K5-hddm_w, K5-eddm, K5-hddm, K5-kswin and K5-stepd equal their
+    plain versions bit for bit on their cluster paths (clusters of 1 to 8
+    CTAs, state in registers) and their one-CTA paths, from fresh and
+    carried states, with an error in each row's first element, HDDM-W key
+    ties, every Page–Hinkley parameter set (alpha = 0 among them), EDDM's
+    paper_exact mode and both window sizes of KSWIN and STEPD; each case
+    checks the path it names."""
+    window, reference, _, cases = ZOO[name]
     (p, w, b), cluster = CLUSTER_PATHS[case]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (tdet.cluster_ctas(p, w * b, sms) > 0) == cluster
     for k, params in enumerate(cases):
+        assert (_zoo_ctas(name, params, p, w * b, sms) > 0) == cluster
         e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(30 + k, p, 3, 40))
         e1, v1 = (torch.from_numpy(a).to(dev)
                   for a in zoo_inputs(40 + k, p, w, b, first_change=True))
-        fresh = init((p,), dev)
+        fresh = _zoo_init(name, params, p, dev)
         carried, _ = reference(fresh, e0, v0, params)
         for state in (fresh, carried):
+            launches = window.launches
+            got = window(state, e1, v1, params)
+            want = reference(state, e1, v1, params)
+            assert window.launches == launches + 1
+            _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 60, 1), (3, 3, 20), (4, 3, 7), (3, 101, 61)])
+@pytest.mark.parametrize("name", ["eddm", "hddm", "hddm_w", "kswin", "ph", "stepd"])
+def test_cluster_kernels_ragged_rows_before_live_ones(dev, name, shape):
+    """All-live rows whose length is not a multiple of 8, each followed in
+    memory by live elements: a thread holding the last 1-7 elements of an
+    aligned row loads them one by one and counts none of the next row's
+    (cluster_tree.cuh ``load_elements``; a miscompiled bound there once
+    counted them in K5-kswin and K5-stepd). Bit for bit the plain version,
+    from fresh and carried states."""
+    window, reference, _, cases = ZOO[name]
+    p, w, b = shape
+    rng = np.random.default_rng(120)
+    e1 = torch.from_numpy((rng.random((p, w, b)) < 0.4).astype(np.float32)).to(dev)
+    v1 = torch.ones_like(e1, dtype=torch.bool)
+    for k, params in enumerate(cases):
+        e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(130 + k, p, 3, 40))
+        fresh = _zoo_init(name, params, p, dev)
+        carried, _ = reference(fresh, e0, v0, params)
+        for state in (fresh, carried):
+            _same(window(state, e1, v1, params), reference(state, e1, v1, params))
+
+
+def _ring_lookback_rows(seed, p, n, wr):
+    """Rows of ``n`` elements for the ring members' look-backs across CTAs,
+    error rate 0.05 then 0.6 from a third of the row (so windows fire): row
+    0's second segment all padding (the third's first windows reach two
+    CTAs back), row 1's first segment all padding (later windows reach into
+    the carried window), row 2 with ``wr // 2`` valid elements (fewer than
+    the window: the next window part old, part new), the rest all valid."""
+    rng = np.random.default_rng(seed)
+    seg = tdet.CLUSTER_SEGMENT
+    rate = np.where(np.arange(n) < n // 3, 0.05, 0.6)
+    errs = (rng.random((p, n)) < rate).astype(np.float32)
+    valid = np.ones((p, n), bool)
+    valid[0, seg:2 * seg] = False
+    valid[1, :seg] = False
+    valid[2] = False
+    valid[2, rng.choice(n, min(n, max(1, wr // 2)), replace=False)] = True
+    return errs, valid
+
+
+# The ring members' look-backs across CTAs on the cluster path: the
+# parameters (KSWIN's windows of 100 and 30, STEPD's of 30; windows longer
+# than a segment, 2,500 with KSWIN's stat_size 700, reaching into several
+# CTAs; STEPD's t >= 2w gate crossed in CTA 2 at window 2,500 and in CTA 1
+# at 1,500, from a fresh state), on rows of 7 CTAs and of a full cluster
+# of 8.
+RING_LOOKBACKS = {
+    "kswin": ((4, 128, 100), [tconfig.KSWINParams(), tconfig.KSWINParams(window_size=30,
+                                                                         stat_size=10),
+                              tconfig.KSWINParams(window_size=2500, stat_size=700)]),
+    "stepd": ((4, 128, 100), [tconfig.STEPDParams(), tconfig.STEPDParams(window_size=2500),
+                              tconfig.STEPDParams(window_size=1500)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 128, 100), (4, 128, 128)])
+@pytest.mark.parametrize("name", ["kswin", "stepd"])
+def test_ring_cluster_lookbacks_across_ctas(dev, name, shape):
+    """K5-kswin and K5-stepd on their cluster paths, bit for bit their plain
+    versions in every output, where windows reach back across CTAs: over a
+    whole segment of padding, into several CTAs (windows longer than a
+    segment), into the carried window from a row whose first segment is
+    padding, with fewer valid elements than the window (the next window
+    part old, part new) and with STEPD's t >= 2·w gate crossed in a later
+    CTA — from a fresh state, a carried one and one carried through a
+    whole row."""
+    window, reference = ZOO[name][:2]
+    p, w, b = shape
+    n = w * b
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k, params in enumerate(RING_LOOKBACKS[name][1]):
+        assert tdet.ring_ctas(p, n, params.window_size, sms) == -(-n // 2048)
+        e1, v1 = (torch.from_numpy(a.reshape(p, w, b)).to(dev)
+                  for a in _ring_lookback_rows(100 + k, p, n, params.window_size))
+        e0, v0 = (torch.from_numpy(a).to(dev) for a in zoo_inputs(110 + k, p, 3, 40))
+        fresh = _zoo_init(name, params, p, dev)
+        carried, _ = reference(fresh, e0, v0, params)
+        full = torch.ones_like(v1)
+        long_carried, _ = reference(fresh, e1, full, params)
+        if name == "stepd" and params.window_size > 100:
+            # from a fresh state the all-valid row 3 opens its gate at t = 2w
+            # (element 2w - 1), past CTA 0, and fires from there on
+            fc = reference(fresh, e1, v1, params)[1].first_change[3]
+            hit = torch.nonzero(fc >= 0)
+            assert hit.numel() > 0
+            t_first = int(hit[0, 0]) * b + int(fc[hit[0, 0]]) + 1
+            assert t_first >= 2 * params.window_size > 2048
+        for state in (fresh, carried, long_carried):
             launches = window.launches
             got = window(state, e1, v1, params)
             want = reference(state, e1, v1, params)
