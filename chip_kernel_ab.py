@@ -12,7 +12,7 @@ runs visible. Each run builds that tree's kernels and times K1
 the zoo kernels K5-ph (``ph_window``), K5-hddm_w (``hddm_w_window``),
 K5-adwin (``adwin_window``), K5-eddm (``eddm_window``), K5-hddm
 (``hddm_window``), K5-kswin (``kswin_window``) and K5-stepd
-(``stepd_window``), K9 (``mlp_fit``) and K10
+(``stepd_window``), K13 (``shuffle_perm``), K9 (``mlp_fit``) and K10
 (``mlp_predict_err``) at ``chip_smoke.py``'s main-path shapes on the same
 inputs (K7 on the main path's first training batch, and as
 ``centroid_fit_random_rows`` on a batch of random rows; K9 on the main
@@ -67,6 +67,23 @@ whatever kernels a tree launches for it: ``busy_us``, the device time of
 its kernels a call and ``kernels``, their number (``torch.profiler`` over
 20 calls); ``host_us``, the host's cost a call; ``digest``, the SHA-256 of
 the parameters' bytes, which must be equal across trees.
+
+K13 (``shuffle_perm``) is timed through its wrapper at ``chip_smoke.py``'s
+``K13_TIMED`` shapes with derived keys and each lane's start: [16, 128,
+100] (``shuffle_perm``, the shuffled window engine's launch), [16, 8, 100]
+(``shuffle_perm_w8``, the window-8 run's) and [16, 1, 100]
+(``shuffle_perm_w1``, the ``window=1`` step's), each with ``floor_ms``
+(its empty twin launched as the tree's launch is) and the SHA-256 of its
+three output planes (``digest``), which must be equal across trees (K13
+is bit for bit its plain version in every tree). Its other paths are
+timed the same way at ``K13_PATH_SHAPES`` (``shuffle_perm_PxWxB``): the
+warp path's widest batch [16, 128, 1024], the CTA path's [3, 128, 1025]
+(one round), [3, 128, 2000] (two rounds), [3, 128, 4000], [2, 32, 8192]
+(16 composites a thread) and [2, 9, 16384] (32), and the
+global path's [2, 128, 20000]; each row names the tree's path
+(``k13_layout``) and its bound (``chip_smoke.bound``). ``local_ops``
+counts the local-memory loads and stores (``LDL``, ``STL``: register
+spills) in the SASS of the tree's K13 library.
 
 It prints the card's name and power limit, one JSON line per run, and a
 last JSON line with each tree's medians. Exits 2 without a card.
@@ -189,7 +206,67 @@ def one(root: str, only: set | None = None) -> dict:
         out.update(k6_runs(torch, cs, dev))
     if only is None or "mlp_init" in only:
         out.update(init_runs(torch, cs, prep, dev))
+    if (only is None or "shuffle_perm" in only) and "shuffle_perm" in _build.KERNELS:
+        out.update(k13_runs(torch, cs, dev))
     return out
+
+
+# K13's other paths: the warp path's widest batch, the CTA path at one
+# round, two rounds, its widest batches of 16 composites a thread and its
+# widest batch (32 a thread), the global path.
+K13_PATH_SHAPES = ((16, 128, 1024), (3, 128, 1025), (3, 128, 2000), (3, 128, 4000),
+                   (2, 32, 8192), (2, 9, 16384), (2, 128, 20000))
+
+
+def k13_local_ops(library: str) -> "int | None":
+    """Local-memory loads and stores (``LDL``, ``STL``) in the SASS of
+    ``library`` (``cuobjdump -sass``); None where cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          timeout=120).stdout
+    return len(re.findall(r"\b(?:LDL|STL)\b", sass))
+
+
+def k13_runs(torch, cs, dev) -> dict:
+    """K13 of the tree through its wrapper at ``chip_smoke.K13_TIMED`` and
+    ``K13_PATH_SHAPES`` (derived keys, each lane's start; see the
+    docstring)."""
+    import numpy as np
+
+    from distributed_drift_detection_tpu_torch import kernels
+    from distributed_drift_detection_tpu_torch.kernels import _build
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    rows = {}
+    floor = kernels.launcher("shuffle_perm_floor")
+    for p, w, b in cs.K13_TIMED + K13_PATH_SHAPES:
+        nb = cs.CHUNK_BATCHES + w
+        planes = cs.k13_planes(torch, p, nb, b, torch.int32, dev, 1)
+        keys = cs.k13_keys(torch, (p, 2), dev, 3)
+        start = torch.from_numpy(np.random.default_rng(5).integers(0, cs.CHUNK_BATCHES, p)).to(dev)
+
+        def call(keys=keys, planes=planes, w=w, start=start):
+            return shuffle.shuffle_planes(keys, *planes, w, start)
+
+        if (p, w, b) in cs.K13_TIMED:
+            name = "shuffle_perm" if w == 128 else f"shuffle_perm_w{w}"
+        else:
+            name = f"shuffle_perm_{p}x{w}x{b}"
+        nbytes = p * w * b * (4 + 4 + 1) * 2 + p * (8 + 8)  # as chip_smoke.k13_timed
+        rows[name] = {
+            "digest": _digest(*call()), "ms": cs.graph_ms(call), "host_us": cs.host_us(call),
+            "floor_ms": cs.graph_ms(lambda p=p, w=w, b=b: kernels.check(
+                "shuffle_perm_floor", floor(p, w, b, 0, kernels.stream_handle(dev)))),
+            "bound_ms": cs.bound(nbytes, 0, cs.k13_int_ops(p, w, b))[0],
+            "path": shuffle.k13_layout(b)["path"],
+        }
+    rows["shuffle_perm"]["local_ops"] = k13_local_ops(str(_build.library_path("shuffle_perm")))
+    return rows
 
 
 def zoo_floors(torch, cs, dev, p, w, b, out) -> dict:

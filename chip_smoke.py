@@ -205,13 +205,21 @@ without them. Phases, each fatal on failure:
    4's flags, and each Chrome trace names K1, K2 and K7;
 18. streaming ingest, the in-loop shuffle and the tenant plane: (a) K13
    (``ops/shuffle.py`` ``shuffle_planes``) bit for bit against its plain
-   version at every B of ``K13_BS`` (1, the one-round edge 1625, two
-   rounds from 1626, 20,000 on its global path), P = 16, W = 1 (a key a
-   batch) and W = 128 (keys split W ways, each lane's start), int16 and
-   int32 index planes, and with its draws forced to tie on both paths;
-   timed as K7 is at the shuffled window engine's launch [16, 128, 100],
-   with a ``floor_ms`` and ``library_ms`` (``torch.sort(stable=True)`` of
-   the draws: the sort only); (b) SMOKE's stream written as a 2,048,000-row
+   version at every B of ``K13_BS`` (each path's edges: the warp path to
+   1024 with its 32-place floor, the CTA path to 16,384 with the one-round
+   edge 1625 and its step to 32 composites a thread at 4097, the global
+   path above), P = 16, W = 1 (a key a batch) and W
+   = 128 (keys split W ways, each lane's start), int16 and int32 index
+   planes, on a 15-batch grid (P = 3, W = 5), and with its draws forced to
+   tie on the warp and CTA paths and forced to the global one; the
+   library's layout (``shuffle_perm_path``) equal to ``k13_layout`` at
+   every B; timed as K7 is at ``K13_TIMED`` — the shuffled window engine's
+   launch [16, 128, 100], the window-8 run's [16, 8, 100] and the
+   ``window=1`` step's [16, 1, 100] — each with a ``floor_ms`` and its
+   bound, the first with
+   ``library_ms`` (``torch.sort(stable=True)`` of the draws: the sort
+   only); the K13 line names the path and batches a CTA that
+   ``k13_layout`` gives; (b) SMOKE's stream written as a 2,048,000-row
    CSV, ``csv_chunks`` → ``prefetch_chunks`` → ``api.prepare_chunked``
    (W = 128, R = 4, ``CHUNK_BATCHES`` a chunk) with 1 and 4 ingest
    workers, counted: 624 detections and phase 4's flags field by field,
@@ -3075,23 +3083,30 @@ def soak_phase(torch, api, config, kernels, classifiers, res, dev):
                              idle_share=idle)
 
 
-# Phase 18: K13's cases (B places a batch; P partitions; W = 1 with a key a
-# batch, the loop engine's, and W = 128 with keys split W ways, the window
-# engine's), the chunked path's geometry and the cut depth of the shuffled
-# runs.
-K13_BS = (1, 2, 100, 1625, 1626, 2000, 20000)
+# Phase 18: K13's cases (B places a batch: every path's edges — the warp
+# path's 32-place floor and its last B, 1024, the CTA path's one-round edge
+# 1625, its step from 16 composites a thread to 32 (4096, 4097) and its
+# last B, 16384, the global path above; P partitions; W = 1
+# with a key a batch, the loop engine's, and W = 128 with keys split W
+# ways, the window engine's), the shapes it is timed at, the chunked path's
+# geometry and the cut depth of the shuffled runs.
+K13_BS = (1, 2, 16, 17, 32, 33, 100, 1024, 1025, 1625, 1626, 2000, 4096, 4097, 16384, 16385,
+          20000)
 K13_P = 16
+K13_TIE_BS = (17, 100, 1025, 1626, 4097)  # forced ties: warp and CTA paths, 1 and 2 rounds
+K13_TIMED = ((16, 128, 100), (16, 8, 100), (16, 1, 100))  # window 128, window 8, window=1
 CHUNK_BATCHES = 256
 SHUFFLE_MULT, SHUFFLE_CB = 64, 32
 TENANTS = 4
 
 
 def k13_planes(torch, p, nb, b, idx_dtype, dev, seed):
-    g = torch.Generator().manual_seed(seed)
-    idx = torch.randint(0, 30000, (p, nb, b), generator=g).to(idx_dtype)
-    rows = torch.randint(-1, 2**31 - 1, (p, nb, b), generator=g).to(torch.int32)
-    valid = torch.rand((p, nb, b), generator=g) < 0.8
-    return idx.to(dev), rows.to(dev), valid.to(dev)
+    """Random planes ``[p, nb, b]`` made on ``dev`` from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, 30000, (p, nb, b), generator=g, device=dev).to(idx_dtype)
+    rows = torch.randint(-1, 2**31 - 1, (p, nb, b), generator=g, device=dev).to(torch.int32)
+    valid = torch.rand((p, nb, b), generator=g, device=dev) < 0.8
+    return idx, rows, valid
 
 
 def k13_keys(torch, shape, dev, seed):
@@ -3120,16 +3135,71 @@ def k13_int_ops(p, w, b):
     return HASH_INT_OPS * hashes + p * w * rounds * b * max(1, math.ceil(math.log2(b)))
 
 
-def check_k13(torch, kernels, dev):
-    """K13 against its plain version on the card, bit for bit, at every B
-    of ``K13_BS`` (the global path at 20,000), W = 1 and 128, int16 and
-    int32 index planes, and with its draws forced to tie (on both paths);
-    then timed at the shuffled window engine's launch (P = 16, W = 128, B =
-    100, a chunk's 256 batches and the window's pad). Returns its row."""
+def k13_kernel_layout(kernels, b, force):
+    """The layout K13's library takes for batches of ``b`` places
+    (``shuffle_perm_path``), as ``ops/shuffle.py`` ``k13_layout`` names it."""
+    import ctypes
+
     from distributed_drift_detection_tpu_torch.ops import shuffle
 
+    out = (ctypes.c_int * 6)()
+    kernels.check("shuffle_perm_path", kernels.launcher("shuffle_perm_path")(b, force, out))
+    lay = dict(zip(("path", "npow2", "per_thread", "threads", "warps", "shared_bytes"), out))
+    lay["path"] = shuffle.K13_PATHS[lay["path"]]
+    return lay
+
+
+def k13_timed(torch, kernels, shuffle, p, w, b, dev):
+    """K13 at [p, w, b] with derived keys and each lane's start (a chunk's
+    256 batches and the window's pad as the source): device ms (graph of
+    50), floor ms, host µs and bound."""
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    nb = CHUNK_BATCHES + w
+    idx, rows, valid = k13_planes(torch, p, nb, b, torch.int32, dev, 1)
+    keys = k13_keys(torch, (p, 2), dev, 3)
+    start = torch.randint(0, CHUNK_BATCHES, (p,), device=dev)
+    outs = [torch.empty((p, w, b), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.int32, torch.bool)]
+    fn = kernels.launcher("shuffle_perm")
+    rounds = threefry.permutation_rounds(b)
+
+    def launch():
+        kernels.check("shuffle_perm", fn(
+            keys.data_ptr(), 1, p, w, idx.data_ptr(), 4, rows.data_ptr(), valid.data_ptr(),
+            start.data_ptr(), nb, b, rounds, 0xFFFFFFFF, 0,
+            *(o.data_ptr() for o in outs), None, kernels.stream_handle(dev)))
+
+    floor = kernels.launcher("shuffle_perm_floor")
+    n = p * w * b
+    nbytes = n * (4 + 4 + 1) * 2 + p * (8 + 8)  # planes read and written, keys, starts
+    int_ops = k13_int_ops(p, w, b)
+    b_ms, by = bound(nbytes, 0, int_ops)
+    return dict(
+        shape=[p, w, b], ms=graph_ms(launch),
+        floor_ms=graph_ms(lambda: kernels.check(
+            "shuffle_perm_floor", floor(p, w, b, 0, kernels.stream_handle(dev)))),
+        host_us=host_us(lambda: shuffle.shuffle_planes(keys, idx, rows, valid, w, start)),
+        bound_ms=b_ms, bound_by=by, nbytes=nbytes, int_ops=int_ops,
+        planes=(keys, idx, rows, valid, start))
+
+
+def check_k13(torch, kernels, dev):
+    """K13 against its plain version on the card, bit for bit, at every B
+    of ``K13_BS`` (each path's edges), W = 1 and 128, int16 and int32 index
+    planes, on a grid of P = 3, W = 5 (15 batches: not a multiple of the
+    warp path's batches a CTA), with its draws forced to tie (on the warp
+    and CTA paths and forced to the global one); the library's own layout
+    against ``k13_layout`` at every B and at ``force`` 1; then timed at
+    ``K13_TIMED`` (each with its floor and bound). Returns its row."""
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    t0 = time.perf_counter()
     cases = 0
     for b in K13_BS:
+        for force in (0, 1):
+            check(k13_kernel_layout(kernels, b, force) == shuffle.k13_layout(b, force),
+                  f"K13's layout at B={b}, force {force} differs from k13_layout")
         for w, derive in ((1, False), (128, True)):
             for dt in (torch.int16, torch.int32):
                 nb = w + 5
@@ -3139,7 +3209,12 @@ def check_k13(torch, kernels, dev):
                 k13_equal(torch, shuffle, (keys, *planes, w, start), dict(derive=derive),
                           f"B={b} W={w} {dt}")
                 cases += 1
-    for b in (100, 1626):
+    for b in (17, 100, 1025):
+        planes = k13_planes(torch, 3, 9, b, torch.int16, dev, b)
+        k13_equal(torch, shuffle, (k13_keys(torch, (3, 2), dev, b), *planes, 5,
+                                   torch.tensor([0, 4, 2], device=dev)), {}, f"P=3 W=5 B={b}")
+        cases += 1
+    for b in K13_TIE_BS:
         planes = k13_planes(torch, K13_P, 130, b, torch.int32, dev, 7)
         keys = k13_keys(torch, (K13_P, 2), dev, 11)
         for force in (0, 1):
@@ -3148,55 +3223,45 @@ def check_k13(torch, kernels, dev):
             cases += 1
     print(f"K13 shuffle_perm: bit for bit its plain version in {cases} launches: B = "
           + ", ".join(map(str, K13_BS)) + f" (P = {K13_P}, W = 1 and 128, int16 and int32 "
-          "index planes; B = 20000 on its global path) and draws forced to tie (mask 0x3, "
-          "B = 100 and 1626, shared and global paths)")
+          "index planes; paths " + ", ".join(
+              f"{b}: {shuffle.k13_layout(b)['path']}" for b in (1024, 1025, 16384, 16385))
+          + "), P = 3 W = 5 at B = 17, 100, 1025, and draws forced to tie (mask 0x3, B = "
+          + ", ".join(map(str, K13_TIE_BS)) + ", on its own path and forced to the global "
+          f"one); the library's layout equals k13_layout at every B and force "
+          f"({time.perf_counter() - t0:.1f} s)")
 
-    p, w, b = K13_P, 128, 100
-    nb = CHUNK_BATCHES + w
-    idx, rows, valid = k13_planes(torch, p, nb, b, torch.int32, dev, 1)
-    keys = k13_keys(torch, (p, 2), dev, 3)
-    start = torch.randint(0, CHUNK_BATCHES, (p,), device=dev)
-    outs = [torch.empty((p, w, b), dtype=dt, device=dev)
-            for dt in (torch.int32, torch.int32, torch.bool)]
-    fn = kernels.launcher("shuffle_perm")
-    from distributed_drift_detection_tpu_torch.utils import threefry
-
-    rounds = threefry.permutation_rounds(b)
-
-    def launch():
-        kernels.check("shuffle_perm", fn(
-            keys.data_ptr(), 1, p, w, idx.data_ptr(), 4, rows.data_ptr(), valid.data_ptr(),
-            start.data_ptr(), nb, b, rounds, 0xFFFFFFFF, 0, *(o.data_ptr() for o in outs),
-            None, kernels.stream_handle(dev)))
-
-    ms = graph_ms(launch)
-    h_us = host_us(lambda: shuffle.shuffle_planes(keys, idx, rows, valid, w, start))
+    timed = [k13_timed(torch, kernels, shuffle, p, w, b, dev) for p, w, b in K13_TIMED]
+    main = timed[0]
+    p, w, b = main["shape"]
+    keys, idx, rows, valid, start = main["planes"]
     plain_ms = time_ms(lambda: shuffle.shuffle_planes_reference(keys, idx, rows, valid, w, start),
                        reps=3, rounds=3)
     draws = torch.randint(0, 2**32, (p * w, b), device=dev, dtype=torch.int64)
     lib_ms = time_ms(lambda: torch.sort(draws, dim=-1, stable=True))
-    floor = kernels.launcher("shuffle_perm_floor")
-    floor_ms = graph_ms(lambda: kernels.check(
-        "shuffle_perm_floor", floor(p, w, b, 0, kernels.stream_handle(dev))))
-    n = p * w * b
-    nbytes = n * (4 + 4 + 1) * 2 + p * (8 + 8)  # planes read and written, keys, starts
-    int_ops = k13_int_ops(p, w, b)
-    b_ms, by = bound(nbytes, 0, int_ops)
     lay = shuffle.k13_layout(b)
-    print(f"K13 shuffle_perm [{p}, {w}, {b}] (derived keys, each lane's start): {ms:.5f} ms "
-          f"device (graph of 50; {lay['path']} path, {lay['threads']} threads, "
-          f"{lay['shared_bytes']} shared bytes, {p * w} CTAs), {h_us:.1f} us host a call, "
-          f"{plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({by}: {int_ops:,} integer operations "
-          f"at {INT32_OPS_PER_S / 1e12:.2f} T/s, {nbytes:,} bytes), library {lib_ms:.5f} ms "
-          f"(torch.sort(stable=True) of the [{p * w}, {b}] int64 draws: the sort only), floor "
-          f"{floor_ms:.5f} ms (an empty kernel with its grid)")
+    print(f"K13 shuffle_perm [{p}, {w}, {b}] (derived keys, each lane's start): {main['ms']:.5f} "
+          f"ms device (graph of 50; {lay['path']} path, {lay['warps']} batches a CTA, "
+          f"{lay['threads']} threads, {lay['per_thread']} composites a lane, "
+          f"{lay['shared_bytes']} shared bytes, {-(-p * w // lay['warps'])} CTAs), "
+          f"{main['host_us']:.1f} us host a call, {plain_ms:.4f} ms plain, bound "
+          f"{main['bound_ms']:.5f} ms ({main['bound_by']}: {main['int_ops']:,} integer operations "
+          f"at {INT32_OPS_PER_S / 1e12:.2f} T/s, {main['nbytes']:,} bytes), library {lib_ms:.5f} "
+          f"ms (torch.sort(stable=True) of the [{p * w}, {b}] int64 draws: the sort only), floor "
+          f"{main['floor_ms']:.5f} ms (an empty kernel with its grid)")
+    for t in timed:
+        print(f"K13 shuffle_perm {t['shape']}: {t['ms']:.5f} ms device, floor {t['floor_ms']:.5f} "
+              f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}), {t['host_us']:.1f} us host a "
+              "call")
     return dict(
         name="shuffle_perm", route="cuda",
         source="distributed_drift_detection_tpu_torch/csrc/shuffle_perm.cu",
         replaces="distributed_drift_detection_tpu/engine/window.py:211",
-        max_abs_err=0.0, ms=ms, host_us=h_us, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=by, library_ms=lib_ms, library="torch.sort(stable=True), the sort only",
-        floor_ms=floor_ms,
+        max_abs_err=0.0, ms=main["ms"], host_us=main["host_us"], plain_ms=plain_ms,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=lib_ms,
+        library="torch.sort(stable=True), the sort only", floor_ms=main["floor_ms"],
+        layout=lay,
+        by_shape=[{k: t[k] for k in ("shape", "ms", "floor_ms", "host_us", "bound_ms")}
+                  for t in timed],
     )
 
 
@@ -3230,6 +3295,7 @@ def chunked_phase(torch, api, config, kernels, cfg, res, dev):
     from distributed_drift_detection_tpu_torch.harness import chunked_cli
     from distributed_drift_detection_tpu_torch.io import feeder
     from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.ops import shuffle
     from distributed_drift_detection_tpu_torch.telemetry.metrics import MetricsRegistry
 
     t_phase = time.perf_counter()
@@ -3313,7 +3379,8 @@ def chunked_phase(torch, api, config, kernels, cfg, res, dev):
         full[name] = (got, launches["shuffle_perm"])
         print(f"shuffle=True chunked {name} (mult_data {SHUFFLE_MULT}, {SHUFFLE_CB} batches a "
               f"chunk) on the card: {int((got.change_global >= 0).sum())} detections, flags "
-              f"equal to the CPU run; launches {launches}")
+              f"equal to the CPU run; launches {launches} (K13 on its "
+              f"{shuffle.k13_layout(b)['path']} path)")
     row["launches"] = full["window=8 R=2"][1]
     det, chunks = shuffled(dev, window=8, rotations=2)
     it = iter(chunks)
@@ -4158,6 +4225,13 @@ def main(device: str = "cuda") -> int:
 
     dev = torch.device(device)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    spent = {}  # seconds by phase, from the last mark
+    mark = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        spent[phase] = round(now - mark[0], 1)
+        mark[0] = now
 
     # 1. the card
     print(card())
@@ -4172,6 +4246,7 @@ def main(device: str = "cuda") -> int:
 
     t0 = time.perf_counter()
     print(f"native CSV parser: {native.build()} ({time.perf_counter() - t0:.1f} s)")
+    done("1-2")
 
     # 3. each kernel against its plain version at the main path's shapes
     cfg = config.RunConfig(**SMOKE)
@@ -4185,6 +4260,7 @@ def main(device: str = "cuda") -> int:
     rows = [check_k1(torch, ddm, kernels, config, p, w, b, dev),
             check_k2(torch, classifiers, kernels, prep.stream, p, w, b, dev),
             check_k7(torch, classifiers, kernels, prep, p, b, dev)]
+    done("3")
 
     # 4. the main path, counted
     t0 = time.perf_counter()
@@ -4218,6 +4294,7 @@ def main(device: str = "cuda") -> int:
     print(f"Final Time (median of 3 warm runs): {final:.4f} s, "
           f"{prep.stream.num_rows / final:,.0f} rows/s; phases "
           + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items()))
+    done("4")
 
     # 5. the kernels inside the run
     per, summary = in_run_profile(torch, api, prep, dev)
@@ -4227,10 +4304,12 @@ def main(device: str = "cuda") -> int:
           f"{summary['detect_s']:.4f} s, idle share {summary['idle_share']:.3f}")
     for row in rows:
         row["in_run_launches"], row["in_run_us"] = per[row["name"]]
+    done("5")
 
     # 6. the zoo kernels against their plain versions
     for _, name in ZOO_PATHS:
         rows.append(check_k5(torch, kernels, config, name, p, w, b, dev))
+    done("6")
 
     # 7. the zoo kernels' paths at SMOKE width, counted
     final_times = {"ddm": final}
@@ -4267,6 +4346,7 @@ def main(device: str = "cuda") -> int:
               f"{zsum['kernels']} kernels busy {zsum['busy_s']:.4f} s of "
               f"{zsum['detect_s']:.4f} s, idle share {zsum['idle_share']:.3f}")
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    done("7")
 
     # 8. gnb, linear and window=1 at a smaller depth
     for what, kw, used in SHALLOW:
@@ -4277,6 +4357,7 @@ def main(device: str = "cuda") -> int:
         print(f"{what} (mult_data {SHALLOW_MULT}) on the card: "
               f"{sres.metrics.num_detections} detections, flags equal to the "
               f"CPU run, launches {sl}")
+    done("8")
 
     # 9. the mlp: K8, K9 and K10 against their plain versions, then its path
     # at SMOKE's full width and depth, counted
@@ -4329,6 +4410,7 @@ def main(device: str = "cuda") -> int:
           + ", ".join(f"{k} {mper[k][0]} launches x {mper[k][1]:.2f} us" for k in names)
           + f"; {msum['kernels']} kernels busy {msum['busy_s']:.4f} s of "
           f"{msum['detect_s']:.4f} s, idle share {msum['idle_share']:.3f}")
+    done("9")
 
     # 10. the nets of ROADMAP C5 at SMOKE, end to end, counted: detections
     # equal to the JAX package's, mean delay within a batch of SMOKE's; the
@@ -4374,6 +4456,7 @@ def main(device: str = "cuda") -> int:
         check(bool(np.isfinite(cres.drift_vote).all()), f"mlp {hidden}: non-finite drift vote")
         for k in ("random_normal", "mlp_fit", "mlp_predict_err"):
             check(cl[k] > 0, f"mlp {hidden}: kernel {k} was not launched on its path")
+    done("10")
 
     # 11.-14. CSV ingest, wide rows, the forest, the deep mlp
     later, wide_ms = later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep,
@@ -4383,12 +4466,15 @@ def main(device: str = "cuda") -> int:
         if kid:
             row["wide_ms"] = {k: v for k, v in wide_ms.items() if k.startswith(kid)}
     rows += later
+    done("11-14")
 
     # 15. the paper's experiment loop: CLI, grid, rf, parity, doctor
     cpu_rows = experiment_phase(torch, api, config, dev)
+    done("15")
 
     # 16. the sweep as a fleet: telemetry, the scheduler, crash then heal
     fleet_phase(torch, api, config, dev, res, final, cpu_rows)
+    done("16")
 
     # 17. the device-generated soak and the capture surfaces
     k6_row, fit_ms, _ = soak_phase(torch, api, config, kernels, classifiers, res, dev)
@@ -4397,12 +4483,15 @@ def main(device: str = "cuda") -> int:
         if kid:
             row["soak_ms"] = {k: v for k, v in fit_ms.items() if k.startswith(kid)}
     rows.append(k6_row)
+    done("17")
 
     # 18. streaming ingest, the in-loop shuffle (K13) and the tenant plane
     rows.append(chunked_phase(torch, api, config, kernels, cfg, res, dev))
+    done("18")
 
     # 19. the serving daemon on the card
     p19 = serve_phase(torch, api, config, cfg, res, rows, launches, dev)
+    done("19")
 
     # 20. drift adaptation and the tenant router
     adapt_ms = adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev)
@@ -4410,6 +4499,8 @@ def main(device: str = "cuda") -> int:
         kid = {"centroid_fit": "K7", "centroid_predict_err": "K2"}.get(row["name"])
         if kid:
             row["adapt_window_ms"] = adapt_ms[kid]
+    done("20")
+    print(f"seconds by phase: {spent} ({sum(spent.values()):.1f} s in all)")
 
     print("Final Time at SMOKE by path: "
           + ", ".join(f"{k} {v:.4f} s" for k, v in final_times.items()))

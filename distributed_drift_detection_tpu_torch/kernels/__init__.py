@@ -241,9 +241,6 @@ _SIGNATURES = {
     "soak_batch_floor": (
         "soak_batch_floor_launch", [_I, _I, _I, _P], "soak_batch",
     ),
-    # K12's plan at a shape on the current device (p, n, F, trees, depth,
-    # classes, force, host int64 out[11]; out[9] the words of the global
-    # workspace, 0 when the tally sits in shared memory)
     "shuffle_perm": (
         "shuffle_perm_launch",
         [_P, _I, _I, _I,  # keys, derive, p, width
@@ -255,6 +252,15 @@ _SIGNATURES = {
     "shuffle_perm_floor": (
         "shuffle_perm_floor_launch", [_I, _I, _I, _I, _P], "shuffle_perm",
     ),
+    # K13's layout for batches of b places (b, force, host int out[6]: path,
+    # network width, composites a thread, threads a CTA, batches a CTA,
+    # dynamic shared bytes)
+    "shuffle_perm_path": (
+        "shuffle_perm_path", [_I, _I, _P], "shuffle_perm",
+    ),
+    # K12's plan at a shape on the current device (p, n, F, trees, depth,
+    # classes, force, host int64 out[11]; out[9] the words of the global
+    # workspace, 0 when the tally sits in shared memory)
     "forest_predict_err_plan": (
         "forest_predict_err_plan", [_I, _I, _I, _I, _I, _I, _I, _P], "forest_predict_err",
     ),

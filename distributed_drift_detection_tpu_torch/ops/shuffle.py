@@ -23,25 +23,40 @@ import torch
 
 from ..utils import threefry
 
-# Composites a CTA sorts in shared memory (csrc/shuffle_perm.cu
-# kSharedItems): B up to this sorts there, a larger B in global scratch.
+# csrc/shuffle_perm.cu's constants: B up to K13_WARP_ITEMS sorts a batch a
+# warp (K13_WARPS batches a CTA), up to K13_SHARED_ITEMS a batch a CTA of
+# 16 composites a thread to a network width of K13_CTA_WIDE and 32 beyond,
+# a larger B in global scratch.
+K13_WARP_ITEMS = 1024
+K13_WARPS = 4
 K13_SHARED_ITEMS = 16384
+K13_CTA_WIDE = 4096
 K13_MAX_THREADS = 1024
 
 
 def k13_layout(b: int, force: int = 0) -> dict:
-    """Kernel K13's layout for batches of ``b`` places, as the launch
-    picks it: the network's width (``b`` rounded up to a power of two), the
-    path (``shared`` or ``global``; ``force`` 1 takes the global one),
-    threads a CTA and its dynamic shared bytes."""
-    n2 = 1 << max(0, (int(b) - 1).bit_length())
-    shared = not force and n2 <= K13_SHARED_ITEMS
-    return {
-        "npow2": n2,
-        "path": "shared" if shared else "global",
-        "threads": min(K13_MAX_THREADS, max(32, n2 // 2)),
-        "shared_bytes": 8 * n2 + 4 * int(b) if shared else 0,
-    }
+    """Kernel K13's layout for batches of ``b`` places, the mirror of the
+    kernel's own choice (``shuffle_perm_path``): the path (``warp``,
+    ``cta`` or ``global``; ``force`` 1 takes the global one), the network's
+    width (``b`` rounded up to a power of two, at least 32 on the warp
+    path), composites a thread, threads a CTA, batches a CTA and its
+    dynamic shared bytes."""
+    b = int(b)
+    n2 = 1 << max(0, (b - 1).bit_length())
+    if not force and n2 <= K13_WARP_ITEMS:
+        n2 = max(32, n2)
+        k = n2 // 32
+        return {"path": "warp", "npow2": n2, "per_thread": k, "threads": 32 * K13_WARPS,
+                "warps": K13_WARPS, "shared_bytes": K13_WARPS * 105 * k * 4}
+    if not force and n2 <= K13_SHARED_ITEMS:
+        k = 16 if n2 <= K13_CTA_WIDE else 32
+        return {"path": "cta", "npow2": n2, "per_thread": k, "threads": n2 // k, "warps": 1,
+                "shared_bytes": 8 * (n2 + n2 // 32) + 4 * (b + b // 32 + 1)}
+    return {"path": "global", "npow2": n2, "per_thread": 0,
+            "threads": min(K13_MAX_THREADS, max(32, n2 // 2)), "warps": 1, "shared_bytes": 0}
+
+
+K13_PATHS = ("warp", "cta", "global")  # shuffle_perm_path's path codes 0, 1, 2
 
 
 def _keys_of(keys: torch.Tensor, p: int, width: int, derive: bool) -> torch.Tensor:
@@ -89,8 +104,10 @@ def shuffle_planes(
     ``tie_mask`` ANDs every 32-bit draw (all ones: JAX's), so a test can
     force ties.
 
-    CUDA tensors launch kernel K13 (``csrc/shuffle_perm.cu``; ``force`` 1
-    takes its global-memory path at any B) and add one to
+    CUDA tensors launch kernel K13 (``csrc/shuffle_perm.cu``: a warp a
+    batch up to ``K13_WARP_ITEMS`` places, a CTA a batch up to
+    ``K13_SHARED_ITEMS``, global scratch above; ``force`` 1 takes the
+    global path at any B, see :func:`k13_layout`) and add one to
     ``shuffle_planes.launches``; CPU tensors run
     :func:`shuffle_planes_reference`."""
     if idx.device.type == "cpu":

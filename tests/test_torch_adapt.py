@@ -98,9 +98,14 @@ def _drive(runner, lines, block=100):
 
 
 def _logs(tmp):
-    return [os.path.join(tmp, n) for n in sorted(os.listdir(tmp))
-            if n.endswith(".jsonl") and ".verdicts" not in n and ".quarantine" not in n
-            and n != "index.jsonl"]
+    """The run logs in ``tmp`` in the order their runs started: by the
+    process-local run counter that ends each name (``telemetry/events.py``;
+    a plain sort of the names puts run 10 before run 9)."""
+    names = [n for n in os.listdir(tmp)
+             if n.endswith(".jsonl") and ".verdicts" not in n and ".quarantine" not in n
+             and n != "index.jsonl"]
+    return [os.path.join(tmp, n)
+            for n in sorted(names, key=lambda n: int(n[: -len(".jsonl")].rsplit("-", 1)[1]))]
 
 
 def _adapt_events(tmp):

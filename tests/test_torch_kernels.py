@@ -1614,9 +1614,17 @@ def test_soak_runner_on_the_card_matches_the_cpu(dev):
 
 # K13 (ops/shuffle.py shuffle_planes): (P, W, B) — B = 1 (no round), the
 # one-round edge 1625, two rounds from 1626, a B past shared memory (the
-# global path), the window engine's main-path launch (16, 128, 100).
+# global path), the window engine's main-path launch (16, 128, 100); each
+# path's edges (ops/shuffle.py k13_layout): the warp path's 32-place floor
+# (16, 17, 32, 33) and its last B (1024), the CTA path's first (1025) and
+# last (16384), the global path's first (16385); grids of 15 batches, not a
+# multiple of the warp path's batches a CTA (P = 3, W = 5).
 K13_SHAPES = [(16, 1, 1), (16, 128, 2), (16, 128, 100), (3, 7, 1625), (3, 7, 1626),
-              (2, 3, 2000), (16, 1, 20000), (2, 128, 20000)]
+              (2, 3, 2000), (16, 1, 20000), (2, 128, 20000),
+              (3, 5, 16), (3, 5, 17), (16, 128, 32), (16, 128, 33), (16, 128, 1024),
+              (3, 5, 1025), (2, 9, 16384), (2, 3, 16385), (2, 5, 4096), (2, 5, 4097), (2, 5, 8192), (2, 5, 8193)]
+K13_EDGE_BS = (1, 2, 16, 17, 32, 33, 100, 1024, 1025, 1625, 1626, 4096, 4097, 8192, 8193,
+               16384, 16385, 20000)
 
 
 def _k13_inputs(dev, p, nb, b, idx_dtype, seed=0):
@@ -1658,11 +1666,12 @@ def test_shuffle_perm_kernel_bitwise(dev, shape, idx_dtype, derive):
 @pytest.mark.parametrize("force", [0, 1])
 def test_shuffle_perm_kernel_ties_and_paths(dev, tie_mask, force):
     """Draws forced to tie (ANDed with ``tie_mask``): the kernel's order is
-    still the stable sort's; on the shared path and forced to the global
-    one."""
+    still the stable sort's; on the warp path (17, 100), the CTA path with
+    one round (1025), two (1626) and 32 composites a thread (4097), and
+    forced to the global one."""
     from distributed_drift_detection_tpu_torch.ops import shuffle
 
-    for b in (100, 1626):
+    for b in (17, 100, 1025, 1626, 4097):
         idx, rows, valid = _k13_inputs(dev, 4, 9, b, torch.int32, seed=b)
         keys = torch.arange(8, dtype=torch.int32, device=dev).view(4, 2) * 7919
         got = shuffle.shuffle_planes(keys, idx, rows, valid, 9, derive=True,
@@ -1671,3 +1680,24 @@ def test_shuffle_perm_kernel_ties_and_paths(dev, tie_mask, force):
                                                 tie_mask=tie_mask)
         for g, r in zip(got, want):
             assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", [0, 1])
+def test_shuffle_perm_path_is_k13_layout(dev, force):
+    """The layout K13's library takes (``shuffle_perm_path``: path, network
+    width, composites a thread, threads and batches a CTA, shared bytes)
+    is ``k13_layout``'s at every path edge, on its own and forced to the
+    global path."""
+    import ctypes
+
+    from distributed_drift_detection_tpu_torch import kernels
+    from distributed_drift_detection_tpu_torch.ops import shuffle
+
+    fn = kernels.launcher("shuffle_perm_path")
+    for b in K13_EDGE_BS:
+        out = (ctypes.c_int * 6)()
+        assert fn(b, force, out) == 0
+        got = dict(zip(("path", "npow2", "per_thread", "threads", "warps", "shared_bytes"), out))
+        got["path"] = shuffle.K13_PATHS[got["path"]]
+        assert got == shuffle.k13_layout(b, force), b

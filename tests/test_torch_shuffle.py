@@ -110,6 +110,132 @@ def test_shuffle_planes_is_the_permutation_of_each_batch(derive, idx_dtype):
     assert got[0].dtype == torch.int32
 
 
+# (B, path, network width, composites a thread, threads a CTA): each path's
+# edges (csrc/shuffle_perm.cu; ops/shuffle.py k13_layout mirrors it): the
+# warp path rounds B up to 32 places, K = width / 32 a lane, 4 warps (batches)
+# a CTA; the CTA path takes 16 composites a thread to width 4096, 32
+# beyond; the global path half a place a thread, at most 1024.
+K13_EDGES = [(1, "warp", 32, 1, 128), (2, "warp", 32, 1, 128), (16, "warp", 32, 1, 128),
+             (17, "warp", 32, 1, 128), (32, "warp", 32, 1, 128), (33, "warp", 64, 2, 128),
+             (100, "warp", 128, 4, 128), (1024, "warp", 1024, 32, 128),
+             (1025, "cta", 2048, 16, 128), (1625, "cta", 2048, 16, 128),
+             (1626, "cta", 2048, 16, 128), (4096, "cta", 4096, 16, 256),
+             (4097, "cta", 8192, 32, 256), (8192, "cta", 8192, 32, 256),
+             (8193, "cta", 16384, 32, 512),
+             (16384, "cta", 16384, 32, 512),
+             (16385, "global", 32768, 0, 1024), (20000, "global", 32768, 0, 1024)]
+
+
+@pytest.mark.parametrize("b, path, width, per_thread, threads", K13_EDGES)
+def test_k13_layout_paths(b, path, width, per_thread, threads):
+    """``k13_layout``'s path, network width and threads at every path edge;
+    its shared bytes fit a CTA (227 KB); ``force`` 1 takes the global path
+    at any B."""
+    lay = shuffle.k13_layout(b)
+    assert (lay["path"], lay["npow2"], lay["per_thread"], lay["threads"]) == \
+        (path, width, per_thread, threads)
+    assert lay["warps"] == (shuffle.K13_WARPS if path == "warp" else 1)
+    assert lay["shared_bytes"] <= 232448
+    if path == "warp":  # a warp's permutation (33·K ints) and source row (64·K ints, 32·K bytes)
+        assert lay["shared_bytes"] == lay["warps"] * (4 * 33 * per_thread + 9 * 32 * per_thread)
+    forced = shuffle.k13_layout(b, force=1)
+    assert forced["path"] == "global" and forced["shared_bytes"] == 0
+    assert forced["npow2"] == 1 << (b - 1).bit_length()
+
+
+def _bitonic_blocked(v):
+    """K13's network on composites ``v [T, K]`` in its blocked layout —
+    thread (lane) t holds places t·K .. t·K + K − 1: a stage of stride j < K
+    compare-exchanges a thread's own columns r and r | j, one of stride j ≥
+    K takes thread t ^ (j / K) (a lane of the warp while j < 32·K, across
+    warps on the CTA path beyond); place e keeps the smaller of itself and
+    its partner when (e & j == 0) == (e & k == 0). Returns the sorted [T,
+    K] and the largest lane xor a stage took."""
+    v = v.copy()
+    t_n, k_n = v.shape
+    n = t_n * k_n
+    e = np.arange(n).reshape(t_n, k_n)
+    widest = 0
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            up = (e & k) == 0
+            if j < k_n:
+                lo = [r for r in range(k_n) if not r & j]
+                hi = [r | j for r in lo]
+                x, y = v[:, lo], v[:, hi]
+                swap = (x > y) == up[:, lo]
+                v[:, lo], v[:, hi] = np.where(swap, y, x), np.where(swap, x, y)
+            else:
+                o = v[np.arange(t_n) ^ (j // k_n)]
+                widest = max(widest, j // k_n)
+                keep_min = ((e & j) == 0) == up
+                v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            j //= 2
+        k *= 2
+    return v, widest
+
+
+def _k13_model_permutation(key, b, tie_mask):
+    """The permutation K13 computes for ``b`` places under ``key`` (numpy
+    ``[2]`` uint32), on the layout ``k13_layout`` gives: each round's
+    composites (bits << 32) | place, sentinels in the padding, sorted by
+    :func:`_bitonic_blocked`; the sorted low words compose with the
+    permutation so far."""
+    lay = shuffle.k13_layout(b)
+    width, k_n = lay["npow2"], lay["per_thread"]
+    perm = np.arange(b)
+    for _ in range(threefry.permutation_rounds(b)):
+        pair = threefry.split(key, 2)
+        key, sub = pair[0], pair[1]
+        comp = np.full(width, np.uint64(2**64 - 1), np.uint64)
+        bits = threefry.random_bits(sub, (b,)).astype(np.uint64) & np.uint64(tie_mask)
+        comp[:b] = (bits << np.uint64(32)) | np.arange(b, dtype=np.uint64)
+        out, widest = _bitonic_blocked(comp.reshape(width // k_n, k_n))
+        assert widest < 32 or lay["path"] == "cta"  # the warp path's xors stay in the warp
+        perm = perm[(out.reshape(-1)[:b] & np.uint64(threefry.M32)).astype(np.int64)]
+    return perm
+
+
+@pytest.mark.parametrize("width", [32, 64, 128, 256, 512, 1024])
+def test_warp_network_sorts(width):
+    """The warp path's index rule (32 lanes of K = width / 32) sorts random
+    distinct composites as ``np.sort`` does, lane xors below 32."""
+    rng = np.random.default_rng(width)
+    comp = rng.choice(2**62, width, replace=False).astype(np.uint64)
+    got, widest = _bitonic_blocked(comp.reshape(32, width // 32))
+    np.testing.assert_array_equal(got.reshape(-1), np.sort(comp))
+    assert widest == 16
+
+
+@pytest.mark.parametrize("tie_mask", [0, 0x3, 0xFF00, threefry.M32])
+@pytest.mark.parametrize("b", [2, 17, 33, 100, 1024])
+def test_warp_network_is_the_permutation(b, tie_mask):
+    """With draws forced to tie, the warp path's network over composites
+    gives ``threefry.permutation`` (the stable sort): the place breaks
+    every tie."""
+    kd = threefry.key(b)
+    np.testing.assert_array_equal(_k13_model_permutation(kd, b, tie_mask),
+                                  threefry.permutation(kd, b, tie_mask))
+
+
+@pytest.mark.parametrize("tie_mask", [0x3, threefry.M32])
+@pytest.mark.parametrize("b", [1025, 1626, 2000, 4096, 4097, 16384])
+def test_cta_network_is_the_permutation(b, tie_mask):
+    """The CTA path's rule — K composites a thread (16 to width 4096, 32
+    beyond), the stages that cross warps on thread t ^ (j / K), one or two
+    rounds composed — gives
+    ``threefry.permutation``, with and without forced ties; at full draws
+    JAX's too."""
+    kd = threefry.key(b + 1)
+    got = _k13_model_permutation(kd, b, tie_mask)
+    np.testing.assert_array_equal(got, threefry.permutation(kd, b, tie_mask))
+    if tie_mask == threefry.M32:
+        np.testing.assert_array_equal(got, np.asarray(jax.random.permutation(
+            jax.random.wrap_key_data(jnp.asarray(kd)), b)))
+
+
 def _models(name):
     spec = jstream.load_stream(DATASET, 3, seed=0)
     s = (spec.num_features, spec.num_classes)
