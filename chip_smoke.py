@@ -65,9 +65,10 @@ without them. Phases, each fatal on failure:
    a fresh and a carried state on both of its paths), ADWIN's int32 state and flags
    exactly — and time it as K1 and K2 are timed (K5-eddm, K5-hddm,
    K5-kswin and K5-stepd with a ``floor_ms``, an empty kernel launched with
-   the kernel's grid, cluster, block and dynamic shared memory); for ADWIN
-   also the flushes of the timed launch's longest row (its dependent
-   chain) and the µs a flush;
+   the kernel's grid, cluster, block and dynamic shared memory; ADWIN's
+   ``plain_ms`` over 6 calls, its plain version's flushes run in a Python
+   loop); for ADWIN also the flushes of the timed launch's longest row (its
+   dependent chain) and the µs a flush; each kernel's seconds printed;
 7. drive ``detector='ph'``, ``'hddm_w'``, ``'adwin'``, ``'eddm'``,
    ``'hddm'``, ``'kswin'`` and ``'stepd'`` through ``run`` at the same
    geometry, each kernel's launch counter reset just before its run and
@@ -136,8 +137,9 @@ without them. Phases, each fatal on failure:
    by every node's projection, the products alone); then
    ``run`` at SMOKE's full width and depth, counted: detections equal to
    the JAX package's and mean delay within a batch of it
-   (``FOREST_EXPECTED``), whether the flags equal the port's CPU run
-   (printed), Final Time and one traced detect phase;
+   (``FOREST_EXPECTED``), Final Time and one traced detect phase; and
+   at a cut depth (``SHALLOW_MULT``) whether the card's flags equal the
+   port's CPU run bit for bit (printed, not required);
 14. the deep mlp: a net of 65 layers (64 hidden of 16), past the 64 a
    launch's parameters hold: K9's init bit for bit (no step) and its fit
    within ``K9_ATOL`` of its plain version after 2 steps on the main
@@ -279,7 +281,30 @@ without them. Phases, each fatal on failure:
    second (its tenant fails over from its ``--tenant-checkpoints``
    checkpoint); each tenant's verdict entries equal the unmoved plane's,
    lost rows 0 in the router's journal; the router's rows/s by cut, the
-   migration's pause and the failover's seconds printed.
+   migration's pause and the failover's seconds printed; the two daemons
+   are launched as processes 0 and 1 of two (``SLURM_PROCID``,
+   ``SLURM_NTASKS``), so their run logs are one deployment's;
+21. the readers on the card's artifacts, each ``python -m
+   distributed_drift_detection_tpu_torch <reader>`` in a fresh interpreter
+   that must import neither torch nor JAX: (a) ``report`` on 19 (a)'s run
+   log, its detections equal to the log's drift events (624), and ``watch
+   --once`` on it, exit 0; (b) ``explain`` on 19 (a)'s forensics
+   directory, one rendering a bundle (624), one bundle's partition and
+   stream position equal to its entry in the verdicts' ``change_global``
+   table; (c) ``pipeline --json`` on the ``/metrics`` text 19 (a)
+   captured: a dominant stage named, the stage shares summing to at most
+   1 (each rounded to 4 digits); (d) a daemon on the card at
+   ``SHALLOW_MULT`` with an ops port, replayed over v2, then ``top --once``
+   against it, ``collector --count 2`` into a store and ``history range``
+   and ``rate`` on that store: series present, the published-rows counter
+   in the store equal to the daemon's ``/metrics``; (e) a daemon on the
+   card with ``serve.flush`` stalled 1.5 s under ``stall_s=0.4``: ``incident
+   list`` shows one resolved bundle and ``incident diagnose`` ranks
+   ``publish-bound`` first; (f) ``correlate`` and ``timeline`` over 20
+   (c)'s two daemons' run logs: two process logs, the merged event count
+   equal to the logs' sum; (g) ``perf`` on the repo's two newest
+   ``BENCH_r0*.json``: exit 0 and a table of cells. The phase prints each
+   reader's seconds and its own.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1948,7 +1973,9 @@ def check_k5(torch, kernels, config, name, p, w, b, dev):
         floor_ms = graph_ms(lambda: kernels.check(
             f"{name}_floor", floor(*floor_args, kernels.stream_handle(dev))))
     h_us = host_us(lambda: window(state, e1, v1, prm))
-    plain_ms = time_ms(lambda: info["reference"](state, e1, v1, prm), reps=10, rounds=3)
+    # ADWIN's plain version flushes in a Python loop: ≈ 0.85 s a call
+    plain_ms = time_ms(lambda: info["reference"](state, e1, v1, prm),
+                       reps=2 if name == "adwin_window" else 10, rounds=3)
     n = p * w * b
     state_bytes = sum(leaf.numel() * leaf.element_size() for leaf in state)
     # errs f32 + live u8 per element, the state read and written, [P, W]
@@ -2188,16 +2215,21 @@ def later_phases(torch, api, config, kernels, cfg, res, mcfg, mprep, final_times
            fprep.config.window_rotations, fprep.config.retrain_error_threshold) == (32, 3, 128, 4, 0.3),
           f"the forest path resolved to {fprep.config}")
     rows = check_k11_k12(torch, kernels, forest, fprep, dev)
+    # the CPU reference at a cut depth (SHALLOW_MULT), against the card's run
+    # of that depth: its flags compared, printed
+    fcut = config.replace(fcfg, mult_data=SHALLOW_MULT)
     t0 = time.perf_counter()
-    fref = api.run(fcfg, device="cpu")
+    fref = api.run(fcut, device="cpu")
     cpu_s = time.perf_counter() - t0
+    fcres = api.run(fcut, device=dev)
     reset_launches()
     fres = api.run(fcfg, device=dev)
     fl = read_launches()
     fm, want_n, want_delay = fres.metrics, *FOREST_EXPECTED
     print(f"forest on the card: {fm.num_detections} detections, mean delay "
-          f"{fm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay:.4f}); flags "
-          f"{'equal' if flags_equal(np, fres, fref) else 'NOT equal'} bit for bit to the port's "
+          f"{fm.mean_delay_rows:.4f} rows (the JAX package: {want_n}, {want_delay:.4f}); at "
+          f"mult_data {SHALLOW_MULT} {fcres.metrics.num_detections} detections, flags "
+          f"{'equal' if flags_equal(np, fcres, fref) else 'NOT equal'} bit for bit to the port's "
           f"CPU run ({fref.metrics.num_detections} detections, "
           f"{fref.metrics.mean_delay_rows:.4f} rows, {cpu_s:.1f} s); launches {fl}")
     check(fm.num_detections == want_n, f"forest: {fm.num_detections} detections, expected {want_n}")
@@ -3565,6 +3597,7 @@ def serve_phase(torch, api, config, cfg, res, rows, main_launches, dev):
           f"serve (a): {runner._detections} detections, expected {EXPECTED_DETECTIONS}")
     recs = read_verdicts(banner["verdicts"])
     served_cg = table_from_verdicts(recs, p)
+    a_log, a_metrics, a_detections = banner["run_log"], out["metrics"], runner._detections
     check(np.array_equal(served_cg, res.flags.change_global),
           "serve (a): the change_global table of the verdict sidecar differs from phase 4's")
     served_equal(runner.flags(), res.flags, "serve (a) against phase 4's run")
@@ -3796,9 +3829,11 @@ def serve_phase(torch, api, config, cfg, res, rows, main_launches, dev):
           f"rows (p50/p99 {lrep['p50_ms']}/{lrep['p99_ms']} ms); 7 rows without FLUSH; "
           f"SIGTERM: exit 0, the partial microbatch published (rows_through "
           f"{last['rows_through']}, short), the registry completed")
-    tmp.cleanup()
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
-    return {"records": recs, "rows_per_s": n / served_s}
+    # (a)'s telemetry stays for phase 21's readers, which clean it up
+    return {"records": recs, "rows_per_s": n / served_s, "tmp": tmp, "run_log": a_log,
+            "forensics": os.path.splitext(a_log)[0] + ".forensics", "metrics": a_metrics,
+            "detections": a_detections}
 
 
 # Phase 20: drift adaptation (A13) and the tenant router (A12b).
@@ -3870,7 +3905,9 @@ def entries_equal(got, ref, what):
 
 def adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev):
     """Phase 20 (module docstring): drift adaptation and the tenant router.
-    Returns the window-shape times of K7 and K2 ({"K7": ms, "K2": ms})."""
+    Returns the window-shape times of K7 and K2 ({"K7": ms, "K2": ms}) and
+    (c)'s daemons' telemetry dirs with the directory that holds them, which
+    phase 21 reads and cleans up."""
     import tempfile
 
     from distributed_drift_detection_tpu_torch.config import ServeParams
@@ -4060,9 +4097,8 @@ def adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev):
 
     # (c) the fleet: two daemons (processes) behind the router
     fleet_phase_20(torch, config, cfg, tmp.name, bX, by, f, c, dev)
-    tmp.cleanup()
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return times
+    return times, {"tmp": tmp, "fleet": [f"{tmp.name}/teleA", f"{tmp.name}/teleB"]}
 
 
 def fleet_phase_20(torch, config, cfg, tmp, X, y, f, c, dev):
@@ -4088,7 +4124,10 @@ def fleet_phase_20(torch, config, cfg, tmp, X, y, f, c, dev):
     procs, banners = {}, {}
     t_spawn = time.perf_counter()
     try:
-        for name, ids in assign.items():
+        for rank, (name, ids) in enumerate(assign.items()):
+            # processes 0 and 1 of one deployment of two, so their run logs
+            # are one run's (phase 21's correlate)
+            penv = {**env, "SLURM_PROCID": str(rank), "SLURM_NTASKS": str(len(assign))}
             procs[name] = subprocess.Popen(
                 m + ["serve", "--features", str(f), "--classes", str(c), "--partitions", str(p),
                      "--per-batch", str(b), "--chunk-batches", str(FLEET_CB), "--window",
@@ -4097,7 +4136,7 @@ def fleet_phase_20(torch, config, cfg, tmp, X, y, f, c, dev):
                      "--linger-s", str(SERVE_LINGER_S), "--telemetry-dir", f"{tmp}/tele{name}",
                      "--checkpoint", f"{tmp}/{name}.ckpt", "--tenant-checkpoints",
                      *(["--device", str(dev)] if dev.type != "cuda" else [])],
-                stdout=subprocess.PIPE, env=env, text=True, cwd=root)
+                stdout=subprocess.PIPE, env=penv, text=True, cwd=root)
         for name, proc in procs.items():
             banners[name] = _json.loads(proc.stdout.readline())
         up_s = time.perf_counter() - t_spawn
@@ -4211,6 +4250,215 @@ def glob_verdicts(d):
     return sorted(glob.glob(os.path.join(d, "*.verdicts.jsonl")))
 
 
+# Phase 21: the readers (A15c) on the card's artifacts. Each reader runs as
+# `python -m distributed_drift_detection_tpu_torch <reader>` in a fresh
+# interpreter, which reports on its last line of standard error the CLI's
+# exit code and every torch or JAX module it imported.
+READER_GUARD = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['distributed_drift_detection_tpu_torch', *sys.argv[1:]]\n"
+    "try:\n"
+    "    runpy.run_module('distributed_drift_detection_tpu_torch', run_name='__main__')\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = 0 if e.code is None else e.code\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+    "             ('torch', 'jax', 'jaxlib', 'distributed_drift_detection_tpu'))\n"
+    "print('READER ' + json.dumps([rc, bad]), file=sys.stderr)\n"
+)
+STALL_SLO, STALL_S = "stall_s=0.4", 1.5  # tests/test_torch_serve_planes.py's plant
+
+
+def run_reader(argv, what, want=0, timeout=120):
+    """One reader through the port's CLI in a fresh interpreter: its
+    standard output, once its exit code is ``want`` and it imported
+    neither torch nor JAX."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    p = subprocess.run([sys.executable, "-c", READER_GUARD, *argv], capture_output=True,
+                       text=True, cwd=root, env=env, timeout=timeout)
+    tail = p.stderr.strip().splitlines()
+    check(p.returncode == 0 and bool(tail) and tail[-1].startswith("READER "),
+          f"{what}: the reader's process failed ({p.returncode}): {p.stderr[-2000:]}")
+    rc, bad = json.loads(tail[-1][len("READER "):])
+    check(not bad, f"{what}: the reader imported {bad}")
+    check(rc == want, f"{what}: exit {rc!r}, expected {want!r}: {p.stderr[-2000:]}")
+    return p.stdout
+
+
+def readers_phase(api, config, cfg, p19, p20, dev):
+    """Phase 21 (module docstring): the readers on the card's artifacts."""
+    import glob
+    import tempfile
+    import urllib.request
+
+    from distributed_drift_detection_tpu_torch.config import ServeParams
+    from distributed_drift_detection_tpu_torch.resilience import faults
+    from distributed_drift_detection_tpu_torch.serve import ServeRunner, loadgen
+    from distributed_drift_detection_tpu_torch.telemetry import registry
+    from distributed_drift_detection_tpu_torch.telemetry.events import read_events
+    from distributed_drift_detection_tpu_torch.telemetry.metrics import parse_prometheus_text
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    secs = {}
+
+    def reader(argv, what, want=0):
+        t0 = time.perf_counter()
+        out = run_reader(argv, what, want)
+        secs[argv[0]] = round(secs.get(argv[0], 0.0) + time.perf_counter() - t0, 2)
+        return out
+
+    # (a) report and watch on 19 (a)'s run log
+    log = p19["run_log"]
+    drifts = sum(e["type"] == "drift_detected" for e in read_events(log))
+    out = reader(["report", log], "report (a)")
+    n = [int(ln.split()[1]) for ln in out.splitlines() if ln.startswith("detections ")]
+    check(n == [drifts] and drifts == p19["detections"],
+          f"report (a): detections {n}, the log's drift events {drifts}, the daemon's "
+          f"{p19['detections']}")
+    out = reader(["watch", log, "--once"], "watch (a)")
+    check("completed:" in out, f"watch (a): no completed run in {out[-500:]!r}")
+
+    # (b) explain on 19 (a)'s forensics bundles
+    bundles = sorted(glob.glob(os.path.join(p19["forensics"], "drift-*.json")))
+    out = reader(["explain", p19["forensics"], "--limit", str(len(bundles))], "explain (b)")
+    heads = [ln for ln in out.splitlines() if ln.startswith("drift @ row ")]
+    check(len(heads) == len(bundles) == p19["detections"]
+          and out.strip().endswith(f"{len(bundles)} bundle(s)"),
+          f"explain (b): {len(heads)} renderings of {len(bundles)} bundles, "
+          f"{p19['detections']} detections")
+    with open(bundles[0]) as fh:
+        b = json.load(fh)
+    rec = next(r for r in p19["records"] if r["chunk"] == b["chunk"])
+    cg = table_from_verdicts(p19["records"], cfg.partitions)
+    check(cg[b["partition"], rec["flag_base"] + b["batch"]] == b["global_pos"],
+          f"explain (b): {os.path.basename(bundles[0])} at partition {b['partition']}, row "
+          f"{b['global_pos']}; the flag table there holds "
+          f"{cg[b['partition'], rec['flag_base'] + b['batch']]}")
+    head = (f"drift @ row {b['global_pos']}  — chunk {b['chunk']} batch {b['batch']} "
+            f"partition {b['partition']}")
+    check(head in heads, f"explain (b): no rendering {head!r}")
+
+    # (c) pipeline on 19 (a)'s /metrics text
+    prom = f"{tmp.name}/a.prom"
+    with open(prom, "w") as fh:
+        fh.write(p19["metrics"])
+    att = json.loads(reader(["pipeline", prom, "--json"], "pipeline (c)"))
+    shares = [st["share"] for st in att["stages"].values()]
+    check(bool(att["dominant_stage"]) and att["dominant_stage"] in att["stages"]
+          and sum(shares) <= 1 + 0.5e-4 * len(shares),
+          f"pipeline (c): dominant {att['dominant_stage']!r}, shares {shares}")
+
+    # (d) top, collector and history against a live daemon on the card
+    scfg = config.replace(cfg, window=128, window_rotations=4)
+    stream = api._load_stream_for(config.replace(cfg, mult_data=SHALLOW_MULT))
+    X, y = np.ascontiguousarray(stream.X), np.ascontiguousarray(stream.y, np.int32)
+    params = ServeParams(num_features=stream.num_features, num_classes=stream.num_classes,
+                         port=0, ops_port=0, chunk_batches=SERVE_SHALLOW_CB,
+                         linger_s=SERVE_LINGER_S)
+    runner = ServeRunner(config.replace(scfg, mult_data=SHALLOW_MULT,
+                                        telemetry_dir=f"{tmp.name}/d"), params, device=dev)
+    banner = runner.start()
+    ops = f"{banner['host']}:{banner['ops_port']}"
+    store = f"{tmp.name}/store"
+
+    def live(out):
+        rep = loadgen.run_loadgen(banner["host"], banner["port"], None,
+                                  verdicts=banner["verdicts"], timeout=600, wire_version="v2",
+                                  arrays=(X, y), frame_rows=4096)
+        check(rep["rows_covered"] == len(y) and not rep["timeout"],
+              f"live (d): {rep['rows_covered']} of {len(y)} rows covered")
+        out["top"] = reader(["top", "--once", "--statusz", ops], "top (d)")
+        out["collector"] = reader(["collector", "--store", store, "--statusz", ops, "--count",
+                                   "2", "--interval", "0.5"], "collector (d)")
+        with urllib.request.urlopen(f"http://{ops}/metrics", timeout=30) as r:
+            out["metrics"] = parse_prometheus_text(r.read().decode())
+
+    code, out, _ = serve_in_main(runner, live)
+    check(code == 0, f"live (d): the daemon's loop returned {code}")
+    published = [v for (name, _), v in out["metrics"].items() if name == "serve_rows_published"]
+    row = [ln for ln in out["top"].splitlines() if runner._log.run_id in ln]
+    check(len(published) == 1 and len(row) == 1 and f"{int(published[0]):,}" in row[0],
+          f"top (d): no row of {runner._log.run_id} with its {published} published rows in "
+          f"{out['top'][-800:]!r}")
+    cycles = [json.loads(ln) for ln in out["collector"].splitlines()[1:]]
+    check(len(cycles) == 2 and all(c["up"] == 1 and c["errors"] == 0 for c in cycles),
+          f"collector (d): {cycles}")
+    ranged = json.loads(reader(["history", "range", store, "serve_rows_published", "--window",
+                                "3600", "--json"], "history range (d)"))
+    got = [v for pts in ranged.values() for _, v in pts]
+    check(got == published * 2,
+          f"history range (d): the store's serve_rows_published {got}, /metrics {published}")
+    rates = json.loads(reader(["history", "rate", store, "up", "--window", "3600", "--json"],
+                              "history rate (d)"))
+    check(list(rates.values()) == [0.0], f"history rate (d): up's rate {rates}")
+
+    # (e) incident list and diagnose on a planted serve.flush stall
+    small = config.replace(cfg, window=1, telemetry_dir=f"{tmp.name}/e")
+    sparams = ServeParams(num_features=stream.num_features, num_classes=stream.num_classes,
+                          port=None, ops_port=0, chunk_batches=2, linger_s=0.05,
+                          heartbeat_s=0.1, slo=(STALL_SLO,), slo_interval_s=0.05)
+    faults.arm("serve.flush", kind="stall", at=1, seconds=STALL_S)
+    try:
+        srunner = ServeRunner(small, sparams, device=dev)
+        srunner.start()
+
+        def stalled(out):
+            srunner.admission.admit_lines(loadgen.format_lines(X[:1000], y[:1000]))
+            srunner.batcher.flush()
+            deadline = time.monotonic() + 60
+            while not srunner._incidents.count() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(STALL_S + 0.1)  # publish resumes and the alert resolves
+
+        code, _, _ = serve_in_main(srunner, stalled)
+    finally:
+        faults.disarm_all()
+    check(code == 0, f"incident (e): the daemon's loop returned {code}")
+    listed = reader(["incident", "list", small.telemetry_dir], "incident list (e)")
+    rows = listed.strip().splitlines()[1:]
+    check(len(rows) == 1 and "stall_s" in rows[0] and "resolved" in rows[0],
+          f"incident list (e): {listed!r}")
+    diag = json.loads(reader(["incident", "diagnose", small.telemetry_dir, "--json"],
+                             "incident diagnose (e)"))
+    check(diag["causes"] and diag["causes"][0]["cause"] == "publish-bound",
+          f"incident diagnose (e): {diag['causes'][:2]}")
+
+    # (f) correlate and timeline over 20 (c)'s two daemons
+    logs = [registry.newest_run_log(d) for d in p20["fleet"]]
+    counts = [len(read_events(p, allow_partial_tail=True)) for p in logs]
+    out = reader(["correlate", *logs], "correlate (f)")
+    lines = out.splitlines()
+    hidden = [int(ln.split()[1]) for ln in lines if ln.startswith("  ... ")]
+    merged = sum(ln.startswith("  +") for ln in lines) + sum(hidden)
+    check(lines[0].startswith("correlated 2 process log(s)") and merged == sum(counts),
+          f"correlate (f): {lines[0]!r}, {merged} merged events, the logs hold {counts}")
+    trace = f"{tmp.name}/fleet.trace.json"
+    out = reader(["timeline", *logs, "-o", trace], "timeline (f)")
+    want = f"timeline: 2 log(s) -> {trace} ({sum(counts)} events, "
+    check(out.startswith(want), f"timeline (f): {out!r}, expected {want!r}")
+
+    # (g) perf on the repo's two newest bench artifacts
+    root = os.path.dirname(os.path.abspath(__file__))
+    benches = sorted(glob.glob(os.path.join(root, "BENCH_r0*.json")))[-2:]
+    out = reader(["perf", *benches], "perf (g)")
+    check(len(benches) == 2 and len(out.strip().splitlines()) > 3,
+          f"perf (g): {benches}: {out!r}")
+
+    tmp.cleanup()
+    p19["tmp"].cleanup()
+    p20["tmp"].cleanup()
+    print(f"readers on the card's host ({card()}): report and watch on 19 (a)'s log "
+          f"({drifts} drift events); explain {len(heads)} bundles; pipeline on 19 (a)'s "
+          f"/metrics: dominant {att['dominant_stage']}; top, collector (2 cycles) and history "
+          f"on a live daemon at mult_data {SHALLOW_MULT} ({published[0]:.0f} rows published); "
+          f"incident diagnose: {diag['causes'][0]['cause']}; correlate and timeline over 20 "
+          f"(c)'s 2 daemons ({sum(counts)} events); perf on {[os.path.basename(b) for b in benches]}; "
+          f"none imported torch or JAX; seconds by reader {secs}")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -4307,8 +4555,12 @@ def main(device: str = "cuda") -> int:
     done("5")
 
     # 6. the zoo kernels against their plain versions
+    k5_s = {}
     for _, name in ZOO_PATHS:
+        t0 = time.perf_counter()
         rows.append(check_k5(torch, kernels, config, name, p, w, b, dev))
+        k5_s[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase 6 seconds by kernel: {k5_s}")
     done("6")
 
     # 7. the zoo kernels' paths at SMOKE width, counted
@@ -4494,12 +4746,16 @@ def main(device: str = "cuda") -> int:
     done("19")
 
     # 20. drift adaptation and the tenant router
-    adapt_ms = adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev)
+    adapt_ms, p20 = adapt_phase(torch, api, config, kernels, classifiers, cfg, p19, dev)
     for row in rows:
         kid = {"centroid_fit": "K7", "centroid_predict_err": "K2"}.get(row["name"])
         if kid:
             row["adapt_window_ms"] = adapt_ms[kid]
     done("20")
+
+    # 21. the readers on the card's artifacts
+    readers_phase(api, config, cfg, p19, p20, dev)
+    done("21")
     print(f"seconds by phase: {spent} ({sum(spent.values()):.1f} s in all)")
 
     print("Final Time at SMOKE by path: "

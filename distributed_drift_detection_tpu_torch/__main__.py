@@ -32,36 +32,49 @@ together fail before any work.
 (``api.run_multi``) and prints a summary line a tenant, then the
 aggregate.
 
-Nine subcommands: ``chunked`` streams a CSV through the chunked engine
+Twenty subcommands: ``chunked`` streams a CSV through the chunked engine
 (``harness.chunked_cli``, on the card or with ``--device cpu``), ``serve``
 runs the serving daemon (``serve.runner``, on the card or with ``--device
 cpu``; ``--on-drift retrain|shadow`` adapts a tenant after a drift),
 ``loadgen`` replays a stream into it (``serve.loadgen``) and ``router``
 fronts a fleet of daemons (``serve.router``); only ``chunked``, ``serve``,
 ``heal --execute`` and the workers ``sched`` spawns run experiments, and
-``doctor``, ``registry``, ``loadgen`` and ``router`` import no torch:
+the rest import no torch:
 
     python -m distributed_drift_detection_tpu_torch chunked CSV --classes C [...]
     python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]
     python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]
     python -m distributed_drift_detection_tpu_torch router --backend HOST:PORT:OPS [...]
+    python -m distributed_drift_detection_tpu_torch report <run.jsonl | --dir DIR>
+    python -m distributed_drift_detection_tpu_torch perf BENCH_r*.json [...]
+    python -m distributed_drift_detection_tpu_torch watch <run.jsonl | DIR> [...]
+    python -m distributed_drift_detection_tpu_torch top <run.jsonl | DIR>... [--statusz URL]
+    python -m distributed_drift_detection_tpu_torch pipeline <.prom | run.jsonl | URL>
+    python -m distributed_drift_detection_tpu_torch history <range|rate|quantile|top-tenants> STORE [...]
+    python -m distributed_drift_detection_tpu_torch collector --store DIR [--statusz URL | --fleetz URL | --registry DIR]
+    python -m distributed_drift_detection_tpu_torch correlate <DIR | logs...>
+    python -m distributed_drift_detection_tpu_torch timeline <DIR | logs...> [-o OUT]
+    python -m distributed_drift_detection_tpu_torch explain <DIR | run.jsonl | bundle>
+    python -m distributed_drift_detection_tpu_torch incident <list|show|diagnose> <DIR | run.jsonl | bundle>
     python -m distributed_drift_detection_tpu_torch doctor CSV [CSV ...]
     python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]
     python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]
     python -m distributed_drift_detection_tpu_torch sched-worker --connect HOST:PORT [...]
     python -m distributed_drift_detection_tpu_torch registry compact DIR [...]
 
-``doctor`` validates CSV inputs against the ingest contract and exits
-nonzero on violations (``io.sanitize``); ``heal`` diffs a sweep spec
-against the registry's completed runs and plans, ``--execute``s or pushes
-to a scheduler the missing trials (``resilience.heal``; exit 0 = sweep
-whole); ``sched`` is the sweep scheduler daemon that leases cells to
-``sched-worker`` agents until every cell completed exactly once
-(``sched``); ``registry compact`` rewrites an ``index.jsonl`` as one
-record per run (``telemetry.registry``).
-
-The JAX package's other subcommands are not ported yet: each exits
-nonzero naming its ROADMAP item.
+The eleven readers (``report`` to ``incident``, ``telemetry/``) read the
+artifacts a run, a sweep or a serving daemon of either package wrote —
+run logs, metric exports, history stores, forensics and incident bundles,
+bench JSON — and print what the JAX package's readers print on them, with
+their exit codes; they import neither torch nor JAX, so they run on the
+card's host as anywhere else. ``doctor`` validates CSV inputs against the
+ingest contract and exits nonzero on violations (``io.sanitize``);
+``heal`` diffs a sweep spec against the registry's completed runs and
+plans, ``--execute``s or pushes to a scheduler the missing trials
+(``resilience.heal``; exit 0 = sweep whole); ``sched`` is the sweep
+scheduler daemon that leases cells to ``sched-worker`` agents until every
+cell completed exactly once (``sched``); ``registry compact`` rewrites an
+``index.jsonl`` as one record per run (``telemetry.registry``).
 """
 
 import sys
@@ -77,6 +90,17 @@ _USAGE = (
     "       python -m distributed_drift_detection_tpu_torch serve --features F --classes C [...]\n"
     "       python -m distributed_drift_detection_tpu_torch loadgen STREAM --port PORT [...]\n"
     "       python -m distributed_drift_detection_tpu_torch router --backend HOST:PORT:OPS [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch report RUN_JSONL [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch perf BENCH_JSON [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch watch RUN_JSONL_OR_DIR\n"
+    "       python -m distributed_drift_detection_tpu_torch top DIR_OR_LOGS [--statusz URL]\n"
+    "       python -m distributed_drift_detection_tpu_torch pipeline PROM_OR_LOG_OR_URL [--json]\n"
+    "       python -m distributed_drift_detection_tpu_torch history QUERY STORE [SERIES] [...]\n"
+    "       python -m distributed_drift_detection_tpu_torch collector --store DIR [--statusz URL ...]\n"
+    "       python -m distributed_drift_detection_tpu_torch correlate DIR_OR_LOGS\n"
+    "       python -m distributed_drift_detection_tpu_torch timeline DIR_OR_LOGS [-o OUT]\n"
+    "       python -m distributed_drift_detection_tpu_torch explain DIR_OR_LOG_OR_BUNDLE\n"
+    "       python -m distributed_drift_detection_tpu_torch incident list|show|diagnose DIR_OR_LOG_OR_BUNDLE [...]\n"
     "       python -m distributed_drift_detection_tpu_torch doctor [--jobs N] CSV [CSV ...]\n"
     "       python -m distributed_drift_detection_tpu_torch heal SPEC --telemetry-dir DIR [...]\n"
     "       python -m distributed_drift_detection_tpu_torch sched [SPEC] --telemetry-dir DIR [...]\n"
@@ -84,16 +108,9 @@ _USAGE = (
     "       python -m distributed_drift_detection_tpu_torch registry compact DIR [...]"
 )
 
-# The JAX package's subcommands this port does not run yet, by the ROADMAP
-# item that ports them.
-UNPORTED_SUBCOMMANDS = {
-    **dict.fromkeys(
-        ("report", "perf", "watch", "top", "pipeline", "history", "collector",
-         "correlate", "timeline", "explain", "incident"), "A15c"),
-}
-
-# The host-side subcommands: module, and whether the ``device`` of
-# :func:`main` is its ``--device`` default (those that run experiments).
+# The host-side subcommands, the JAX package's twenty: module, and whether
+# the ``device`` of :func:`main` is its ``--device`` default (those that run
+# experiments). A subcommand whose ``main`` returns a code exits with it.
 SUBCOMMANDS = {
     "chunked": (".harness.chunked_cli", True),
     "serve": (".serve.runner", True),
@@ -104,6 +121,17 @@ SUBCOMMANDS = {
     "sched": (".sched.scheduler", True),
     "sched-worker": (".sched.worker", True),
     "registry": (".telemetry.registry", False),
+    "report": (".telemetry.report", False),
+    "perf": (".telemetry.perf", False),
+    "watch": (".telemetry.watch", False),
+    "top": (".telemetry.top", False),
+    "pipeline": (".telemetry.pipeline", False),
+    "history": (".telemetry.history", False),
+    "collector": (".telemetry.collector", False),
+    "correlate": (".telemetry.correlate", False),
+    "timeline": (".telemetry.timeline", False),
+    "explain": (".telemetry.forensics", False),
+    "incident": (".telemetry.incident", False),
 }
 
 
@@ -141,12 +169,10 @@ def main(argv: list[str], device="cuda") -> None:
 
         module, takes_device = SUBCOMMANDS[argv[0]]
         kw = {"device": device} if takes_device else {}
-        importlib.import_module(module, __package__).main(argv[1:], **kw)
+        rc = importlib.import_module(module, __package__).main(argv[1:], **kw)
+        if rc is not None:
+            raise SystemExit(rc)
         return
-    if argv and argv[0] in UNPORTED_SUBCOMMANDS:
-        raise SystemExit(
-            f"not ported yet: {argv[0]} (ROADMAP {UNPORTED_SUBCOMMANDS[argv[0]]})"
-        )
 
     from .config import COLLECT_MODES, DATA_POLICIES
 

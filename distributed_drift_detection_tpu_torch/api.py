@@ -135,7 +135,7 @@ def _check_slice(cfg: RunConfig) -> None:
 
         require_sklearn()  # before any work: the card's machine has none
     if cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1:
-        raise NotImplementedError("not ported yet: a multi-device mesh (ROADMAP A15)")
+        raise NotImplementedError("not ported yet: a multi-device mesh (ROADMAP A15d)")
 
 
 def _resolve_policies(cfg: RunConfig, stream: StreamData) -> RunConfig:

@@ -6,7 +6,7 @@ finishes with the cross-partition drift vote, the packed five-leaf flag
 plane and — for ``collect='compact'`` — the device-side compaction of the
 flagged slots into a small table, so the collect phase copies
 O(detections) bytes to the host instead of the plane. The multi-card mesh
-is ROADMAP A15.
+is ROADMAP A15d.
 """
 
 from __future__ import annotations

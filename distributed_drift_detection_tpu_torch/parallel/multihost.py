@@ -1,7 +1,7 @@
 """Fleet identity of a process — the part of the JAX package's
 ``parallel/multihost.py`` the run log and the sweep scheduler read
 (:func:`host_identity`, :func:`fleet_worker_identity`). The multi-host
-mesh itself waits for ROADMAP A15.
+mesh itself waits for ROADMAP A15d.
 
 The JAX package asks its distributed runtime first and its backend next;
 the port has no backend to probe. It reads the launcher's environment in

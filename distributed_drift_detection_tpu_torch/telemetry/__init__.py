@@ -13,23 +13,31 @@ JAX package's ``telemetry`` modules, writing the same artifacts:
   Prometheus-text exporters.
 * :mod:`.profile` — the card's memory statistics mapped onto the event
   schema and registry gauges.
-* :mod:`.watch` (``staleness_s``), :mod:`.pipeline` (the serve-stage
-  attribution and the fleet view) and :mod:`.ops` (the HTTP ops plane and
-  the crash flight recorder) — the parts the serving daemon and the sweep
-  scheduler use.
-* the serving daemon's planes: :mod:`.trace` (row→verdict latency
+* the serving daemon's planes: :mod:`.pipeline` (the serve-stage
+  attribution and the fleet view), :mod:`.ops` (the HTTP ops plane and
+  the crash flight recorder), :mod:`.trace` (row→verdict latency
   histograms), :mod:`.tracing` (trace contexts and ``span`` events),
   :mod:`.spans`, :mod:`.slo` (alert rules and their evaluator),
   :mod:`.forensics` (drift evidence bundles), :mod:`.incident` (alert and
-  crash evidence bundles) and :mod:`.history` (the series store the
-  incident plane extracts from).
+  crash evidence bundles) and :mod:`.history` (the durable series store
+  the incident plane extracts from).
+* the eleven readers, each the JAX package's output and exit code on an
+  artifact of either package: :mod:`.report` (a run log's summary),
+  :mod:`.perf` (bench artifacts diffed across rounds), :mod:`.watch` (a
+  live run's progress and the stall contract, exit 3), :mod:`.top` (the
+  fleet dashboard, ``--record``/``--replay``), :mod:`.pipeline` (the
+  serve bottleneck report), :mod:`.history` (range/rate/quantile/
+  top-tenants queries of a store), :mod:`.collector` (the scraper that
+  builds a store, with burn-rate SLO rules), :mod:`.correlate` and
+  :mod:`.timeline` (several processes' logs merged, the latter into a
+  Chrome trace), ``explain`` (:mod:`.forensics`) and ``incident``
+  (:mod:`.incident`: list, show, diagnose).
 
 Telemetry is off by default (``RunConfig.telemetry_dir=None``): every hook
 runs outside the Final Time span, and with the directory unset no telemetry
 code runs. Only :mod:`.profile` touches torch, and only inside its
-functions; the readers (``report``, ``watch``, ``top``, ``timeline``,
-``explain``, ``incident``, …) wait for ROADMAP A15c, and the JAX package's
-read the port's artifacts unchanged.
+functions; the readers import neither torch nor JAX, so they run wherever
+the artifacts land — the card's host included.
 """
 
 from .events import (

@@ -1,8 +1,6 @@
-"""Drift forensics: evidence bundles for every drift verdict — the
-port's own copy of the extractor half of the JAX package's
-``telemetry/forensics.py``. The ``explain`` reader is not ported yet
-(ROADMAP A15c); the JAX package's reads the bundles written here, which
-keep its schema.
+"""Drift forensics: evidence bundles for every drift verdict.
+
+    python -m distributed_drift_detection_tpu_torch explain <dir | run.jsonl | bundle>
 
 A drift flag as published today is a *position*: partition p, stream row
 r. It carries no evidence of what the detector saw when it fired — the
@@ -12,7 +10,7 @@ evidence **host-side**, at verdict-publication time, from material the
 serving loop already holds: the collected flag table, the sealed chunk's
 host copy (features/labels/positions/validity), and a cheap per-chunk
 snapshot of the detector carry taken as each chunk enters the kernel.
-Nothing is added to the device loop and nothing extra crosses the
+Nothing is added to jitted code and nothing extra crosses the
 device→host link beyond a few scalars per partition per chunk.
 
 One bundle = one JSON file under ``<run-log stem>.forensics/``:
@@ -35,16 +33,24 @@ One bundle = one JSON file under ``<run-log stem>.forensics/``:
 
 Every bundle is announced by a schema-v1 ``drift_forensics`` event and
 counted in ``forensics_bundles_total`` (surfaced in ``/statusz``). The
-``explain`` CLI renders bundles human-readably. No torch imports — the
-snapshot capture is handed in as host (numpy) arrays by the serve loop.
+``explain`` CLI renders bundles human-readably. No jax imports — the
+snapshot capture is handed in as host arrays by the serve loop; the
+CLI runs wherever the artifacts land.
 """
+
+# The port's own copy of the JAX package's ``telemetry/forensics.py``; its CLI's
+# ``--help`` prints the docstring above, so that is the JAX module's, but
+# for the program name.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import glob
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -306,3 +312,214 @@ class ForensicsExtractor:
                     ),
                 )
         return written
+
+
+# -- reading + rendering (the `explain` CLI) --------------------------------
+
+
+def find_bundles(path: str) -> "list[str]":
+    """Resolve bundles from a path: a bundle file, a ``.forensics``
+    directory, a run log (its sibling ``.forensics`` dir), or a
+    telemetry directory (every ``*.forensics/`` under it)."""
+    if os.path.isfile(path) and path.endswith(".json"):
+        return [path]
+    if os.path.isdir(path) and path.endswith(FORENSICS_SUFFIX):
+        return sorted(glob.glob(os.path.join(path, "drift-*.json")))
+    if os.path.isfile(path):  # a run log: its own forensics dir
+        d = os.path.splitext(path)[0] + FORENSICS_SUFFIX
+        return sorted(glob.glob(os.path.join(d, "drift-*.json")))
+    if os.path.isdir(path):  # a telemetry dir: every run's bundles
+        return sorted(
+            glob.glob(
+                os.path.join(path, "*" + FORENSICS_SUFFIX, "drift-*.json")
+            )
+        )
+    return []
+
+
+def adaptation_index(bundle_path: str) -> "dict[tuple, list[dict]]":
+    """The ``adaptation`` events matching a bundle's run, indexed by
+    ``(tenant, trigger_chunk)`` — the join key between a drift's
+    *cause* (the forensics bundle) and its *reaction* (the adapt
+    subsystem's event). The run log is the bundle directory's sibling
+    (``X.forensics/`` ↔ ``X.jsonl``); a missing or partial log (a live
+    daemon) yields what is readable, never an error — explain must
+    render wherever the artifacts land."""
+    d = os.path.dirname(os.path.abspath(bundle_path))
+    if not d.endswith(FORENSICS_SUFFIX):
+        return {}
+    log = d[: -len(FORENSICS_SUFFIX)] + ".jsonl"
+    if not os.path.isfile(log):
+        return {}
+    from .events import SchemaError, read_events
+
+    try:
+        events = read_events(log, allow_partial_tail=True)
+    except SchemaError:
+        return {}
+    out: dict = {}
+    for e in events:
+        if e.get("type") != "adaptation":
+            continue
+        key = (int(e.get("tenant", 0)), int(e["trigger_chunk"]))
+        out.setdefault(key, []).append(e)
+    return out
+
+
+def render_adaptation(events: "list[dict] | None") -> "list[str]":
+    """The reaction lines rendered under a bundle: one per matching
+    ``adaptation`` event, or the explicit "no reaction" line — one
+    command shows cause AND reaction."""
+    if not events:
+        return ["  reaction       none recorded (on_drift=alert_only?)"]
+    out = []
+    for e in events:
+        verdict = (
+            "demoted"
+            if e.get("demoted")
+            else ("promoted" if e.get("promoted") else "held (champion kept)")
+        )
+        errs = (
+            f"err {_fmt(e.get('err_before'), 3)} -> "
+            f"{_fmt(e.get('err_after'), 3)}"
+        )
+        out.append(
+            f"  reaction       policy={e['policy']}  {verdict}  {errs}  "
+            f"refit on {e['rows_refit']} row(s)"
+            + (
+                f"  applied +{e['rows_to_apply']} rows "
+                f"(chunk {e.get('applied_chunk')})"
+                if e.get("rows_to_apply") is not None
+                else ""
+            )
+        )
+    return out
+
+
+def read_bundle(path: str) -> dict:
+    with open(path) as fh:
+        bundle = json.load(fh)
+    if not isinstance(bundle, dict) or bundle.get("kind") != "drift_forensics":
+        raise ValueError(f"{path}: not a drift_forensics bundle")
+    return bundle
+
+
+def _fmt(v, nd=6) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.{nd}g}"
+    return str(v)
+
+
+def render_bundle(bundle: dict, adaptation: "list[dict] | None" = None) -> str:
+    """Human-readable rendering of one evidence bundle; ``adaptation``
+    (the matching ``adaptation`` events, see :func:`adaptation_index`)
+    appends the reaction lines so cause and reaction read together."""
+    out = []
+    tenant = (
+        f" tenant {bundle['tenant']} (local p{bundle['tenant_partition']})"
+        if bundle.get("tenant") is not None
+        else ""
+    )
+    out.append(
+        f"drift @ row {bundle['global_pos']}  — chunk {bundle['chunk']} "
+        f"batch {bundle['batch']} partition {bundle['partition']}{tenant}"
+    )
+    if bundle.get("warning"):
+        out.append(
+            f"  first warning  row {bundle['warning']['global_pos']} "
+            f"(batch-local {bundle['warning']['local']})"
+        )
+    det = bundle.get("detector") or {}
+    if det:
+        out.append(
+            "  detector       "
+            + "  ".join(f"{k}={_fmt(v)}" for k, v in sorted(det.items()))
+        )
+    w = bundle.get("window") or {}
+    if w:
+        out.append(
+            "  window stats   "
+            + "  ".join(f"{k}={_fmt(v)}" for k, v in sorted(w.items()))
+        )
+    th = bundle.get("thresholds") or {}
+    if th:
+        out.append(
+            f"  thresholds     warn>{_fmt(th.get('warn'))}  "
+            f"drift>{_fmt(th.get('drift'))}  (p+s vs p_min+level·s_band)"
+        )
+    traj = bundle.get("trajectory") or []
+    if traj:
+        rates = [
+            _fmt(t.get("error_rate"), 3) for t in traj
+        ]
+        out.append(
+            f"  error rate     {' -> '.join(rates)}   "
+            f"(last {len(traj)} chunk boundaries)"
+        )
+    ctx = bundle.get("context") or {}
+    pre, post = ctx.get("pre") or [], ctx.get("post") or []
+    if pre or post:
+        out.append(
+            f"  context        {len(pre)} row(s) before, "
+            f"{len(post)} after the firing point:"
+        )
+        for r in pre + post:
+            marker = ">>" if r["pos"] == bundle["global_pos"] else "  "
+            flag = "" if r["valid"] else "  [masked]"
+            xs = " ".join(f"{v:.3g}" for v in r["x"][:6])
+            more = " ..." if len(r["x"]) > 6 else ""
+            out.append(
+                f"   {marker} row {r['pos']:>9}  y={r['y']}  "
+                f"x=[{xs}{more}]{flag}"
+            )
+    if bundle.get("trace_ids"):
+        out.append(
+            "  traces         " + " ".join(bundle["trace_ids"][:4])
+            + (" ..." if len(bundle["trace_ids"]) > 4 else "")
+        )
+    if adaptation is not None:
+        out.extend(render_adaptation(adaptation))
+    return "\n".join(out)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="python -m distributed_drift_detection_tpu_torch explain",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    ap.add_argument(
+        "path",
+        help="a bundle .json, a <run>.forensics/ directory, a run log, or "
+        "a telemetry directory",
+    )
+    ap.add_argument(
+        "--limit", type=int, default=20,
+        help="max bundles rendered (default 20; newest-position last)",
+    )
+    args = ap.parse_args(argv)
+    bundles = find_bundles(args.path)
+    if not bundles:
+        raise SystemExit(f"explain: no forensics bundles under {args.path}")
+    shown = bundles[: args.limit]
+    adapt_cache: dict = {}  # bundle dir -> adaptation index (one log read)
+    for i, p in enumerate(shown):
+        if i:
+            print()
+        bundle = read_bundle(p)
+        d = os.path.dirname(os.path.abspath(p))
+        if d not in adapt_cache:
+            adapt_cache[d] = adaptation_index(p)
+        key = (int(bundle.get("tenant") or 0), int(bundle["chunk"]))
+        print(render_bundle(bundle, adaptation=adapt_cache[d].get(key, [])))
+    hidden = len(bundles) - len(shown)
+    print(
+        f"\n{len(bundles)} bundle(s)"
+        + (f" ({hidden} not shown; --limit)" if hidden > 0 else "")
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

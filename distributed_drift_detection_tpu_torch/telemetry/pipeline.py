@@ -1,23 +1,51 @@
-"""Serve-pipeline attribution and the merged fleet view — the parts of the
-JAX package's ``telemetry/pipeline.py`` the serving daemon and the sweep
-scheduler use:
+"""Serve-pipeline observatory: stage busy accounting + bottleneck report —
+the port's own copy of the JAX package's ``telemetry/pipeline.py``.
 
-* :class:`ServeStageClock` — per-stage busy seconds of the serve loop,
-  mirrored into ``serve_stage_busy_seconds_total{stage=...}``;
-* :func:`attribute` — the attribution record (``/statusz``'s pipeline
-  section): per-stage share, utilization, rows/s ceiling, dominant stage;
-* :func:`backend_snapshot`, :func:`aggregate_fleet` and
-  :func:`fleet_metrics_lines` — an aggregator's (the tenant router's)
-  ``/fleetz`` and its ``fleet_*`` series.
+The serving daemon publishes verdicts through a fixed sequence of host
+stages — seal-wait, feed/h2d, device compute, collect, sidecar publish,
+forensics, adapt — and until now nothing measured where the wall-clock
+went between an admitted row and its published verdict. This module is
+the jax-free measurement vocabulary and the report that reads it:
+
+* :class:`ServeStageClock` — the serve twin of ``io.feeder.StageClock``
+  (the ingest pattern): per-stage busy seconds accumulated locally
+  and mirrored into ``serve_stage_busy_seconds_total{stage=...}``. The
+  serve loop is single-threaded, so unlike the ingest clock the stage
+  busy sum can never exceed serve-loop wall-clock — the conservation
+  property tests pin.
+* :func:`attribute` — the one attribution computation every renderer
+  shares (``/statusz`` pipeline section, the ``pipeline`` CLI, bench's
+  ``serve_pipeline_s`` rider, the router's fleet plane): per-stage busy
+  share, utilization against wall, implied per-stage rows/s ceiling,
+  and the named dominant stage.
+* :func:`main` — the ``pipeline`` CLI: reads a ``.prom`` / run-log
+  sibling / live ``/statusz`` URL and renders the bottleneck report
+  ROADMAP item 1's perf work is judged against. ``--window S`` points
+  it at a history store (:mod:`.history`) instead and attributes the
+  busy-counter *deltas* over the last S seconds
+  (:func:`load_window_report`) — where the recent wall went, not
+  cumulative-since-boot.
+* :func:`aggregate_fleet` — folds per-backend snapshots into the
+  ``/fleetz`` envelope the router and scheduler publish (summed rows/s,
+  max per-stage busy share, per-backend bottleneck).
 
 On the card the window engine reads its pointer on the host each
 iteration, so ``ChunkedDetector.feed`` returns after the chunk's detect:
 the ``feed`` stage holds upload and detect, and ``device`` only the wait
-for the flags' copy to the host. The ``pipeline`` CLI and its report
-readers wait for ROADMAP A15c. Stdlib only.
+for the flags' copy to the host.
+
+No torch, no jax anywhere here; stdlib + the sibling telemetry modules
+only.
 """
 
 from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import urllib.parse
+import urllib.request
 
 #: Serve-loop stages in publish order. ``seal_wait`` is the loop blocking
 #: in ``batcher.get`` (idle-for-input, accounted so utilization is
@@ -141,6 +169,7 @@ def attribute(
     return out
 
 
+# -- report sources ----------------------------------------------------------
 
 
 def _samples_from_prom(text: str) -> "tuple[dict, float | None, float | None]":
@@ -161,6 +190,203 @@ def _samples_from_prom(text: str) -> "tuple[dict, float | None, float | None]":
     return busy, wall, rows
 
 
+def _load_statusz(obj: dict) -> dict:
+    """Attribution from a ``/statusz`` snapshot's ``pipeline`` section."""
+    pipe = obj.get("pipeline") or {}
+    busy = pipe.get("busy_s") or {}
+    if not busy:
+        raise ValueError(
+            "statusz has no pipeline section (daemon started with "
+            "--no-pipeline-metrics, or predates the observatory)"
+        )
+    rows = (obj.get("rows") or {}).get("published")
+    return attribute(busy, pipe.get("wall_s"), rows)
+
+
+def load_report(source: str, timeout: float = 5.0) -> dict:
+    """Build the attribution record from any supported source:
+
+    * ``http(s)://…`` — a live daemon; ``/statusz`` is fetched (the path
+      is appended unless the URL already names one).
+    * ``*.prom`` — a scraped/exported exposition file.
+    * ``*.metrics.json`` — the JSON exporter twin.
+    * a run log (``*.jsonl``) — its ``<stem>.prom`` export sibling.
+    """
+    if source.startswith(("http://", "https://")):
+        url = source
+        if not urllib.parse.urlparse(url).path.strip("/"):
+            url = url.rstrip("/") + "/statusz"
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            obj = json.loads(resp.read().decode())
+        report = _load_statusz(obj)
+        report["source"] = url
+        return report
+    path = source
+    if path.endswith(".jsonl"):
+        sibling = os.path.splitext(path)[0] + ".prom"
+        if not os.path.exists(sibling):
+            raise FileNotFoundError(
+                f"run log has no metrics export sibling: {sibling}"
+            )
+        path = sibling
+    if path.endswith(".metrics.json"):
+        with open(path) as fh:
+            exported = json.load(fh)
+
+        def _val(name):
+            m = exported.get(name) or {}
+            return {
+                tuple(sorted((s.get("labels") or {}).items())): s["value"]
+                for s in m.get("samples", ())
+            }
+
+        busy = {
+            dict(k).get("stage", ""): v
+            for k, v in _val(SERVE_STAGE_BUSY_METRIC).items()
+        }
+        busy.pop("", None)
+        wall = next(iter(_val(SERVE_WALL_METRIC).values()), None)
+        rows = next(iter(_val(SERVE_ROWS_METRIC).values()), None)
+    else:
+        with open(path) as fh:
+            busy, wall, rows = _samples_from_prom(fh.read())
+    if not busy:
+        raise ValueError(
+            f"{path}: no {SERVE_STAGE_BUSY_METRIC} samples — not a serve "
+            "export, or the daemon ran with --no-pipeline-metrics"
+        )
+    report = attribute(busy, wall, rows)
+    report["source"] = source
+    return report
+
+
+def load_window_report(
+    store_dir: str,
+    window_s: float,
+    *,
+    instance: "str | None" = None,
+    at: "float | None" = None,
+) -> dict:
+    """Attribution over a TIME RANGE from a history store
+    (``pipeline --window``): per-stage busy deltas between the window's
+    edge samples of ``serve_stage_busy_seconds_total``, wall from the
+    daemon's own ``serve_loop_wall_seconds`` delta (falling back to the
+    scrape timestamps), rows from the ``serve_rows_published`` delta —
+    "where did the last N minutes go", not cumulative-since-boot. The
+    same :func:`attribute` fold as every other renderer, so live and
+    windowed reports are directly comparable."""
+    import time as _time
+
+    from .history import read_samples
+
+    if at is None:
+        at = _time.time()
+    labels = {"instance": instance} if instance else None
+    recs = read_samples(
+        store_dir,
+        name=SERVE_STAGE_BUSY_METRIC,
+        labels=labels,
+        start=at - window_s,
+        end=at,
+    )
+    if not recs:
+        raise ValueError(
+            f"{store_dir}: no {SERVE_STAGE_BUSY_METRIC} samples in the "
+            f"last {window_s:g}s"
+            + (f" for instance {instance!r}" if instance else "")
+            + " (collector not scraping, or daemon ran with "
+            "--no-pipeline-metrics)"
+        )
+    instances = sorted(
+        {(r.get("labels") or {}).get("instance", "") for r in recs}
+    )
+    if instance is None and len(instances) > 1:
+        raise ValueError(
+            f"store holds {len(instances)} instances "
+            f"({', '.join(instances)}); pick one with --instance"
+        )
+    # per-stage counter delta between the window's edge samples
+    by_stage: dict[str, list] = {}
+    for r in recs:
+        stage = (r.get("labels") or {}).get("stage")
+        if stage:
+            by_stage.setdefault(stage, []).append(r)
+    busy: dict[str, float] = {}
+    edges: "tuple | None" = None
+    for stage, srecs in by_stage.items():
+        srecs.sort(key=lambda r: float(r["ts"]))
+        first, last = srecs[0], srecs[-1]
+        # counter semantics: a restarted daemon resets to 0 — a negative
+        # delta means the window spans the restart; count from zero then
+        d = float(last["value"]) - float(first["value"])
+        busy[stage] = d if d >= 0 else float(last["value"])
+        if edges is None or float(last["ts"]) - float(first["ts"]) > (
+            float(edges[1]["ts"]) - float(edges[0]["ts"])
+        ):
+            edges = (first, last)
+
+    def _series_delta(name: str) -> "float | None":
+        srecs = read_samples(
+            store_dir, name=name, labels=labels, start=at - window_s, end=at
+        )
+        if len(srecs) < 2:
+            return None
+        srecs.sort(key=lambda r: float(r["ts"]))
+        d = float(srecs[-1]["value"]) - float(srecs[0]["value"])
+        return d if d >= 0 else float(srecs[-1]["value"])
+
+    wall = _series_delta(SERVE_WALL_METRIC)
+    if wall is None and edges is not None:
+        wall = float(edges[1]["ts"]) - float(edges[0]["ts"])
+    rows = _series_delta(SERVE_ROWS_METRIC)
+    report = attribute(busy, wall, rows)
+    report["window_s"] = float(window_s)
+    if instance:
+        report["instance"] = instance
+    return report
+
+
+def render_report(report: dict) -> str:
+    """The human table: one row per stage, busy-ordered, dominant first."""
+    lines = []
+    src = report.get("source", "")
+    lines.append(f"serve pipeline — {src}" if src else "serve pipeline")
+    wall = report.get("wall_s")
+    head = f"  busy total {report.get('busy_total_s', 0.0):.3f}s"
+    if wall is not None:
+        head += f" / wall {wall:.3f}s"
+        cov = report.get("coverage")
+        if cov is not None:
+            head += f" (coverage {cov * 100:.1f}%)"
+    lines.append(head)
+    rows = report.get("rows")
+    if rows is not None:
+        lines.append(f"  rows published {rows}")
+    lines.append("")
+    lines.append(
+        f"  {'STAGE':<10} {'BUSY_S':>10} {'SHARE':>7} {'UTIL':>7} "
+        f"{'CEIL_ROWS/S':>12}"
+    )
+    for stage, cell in report.get("stages", {}).items():
+        util = cell.get("utilization")
+        ceil = cell.get("ceiling_rows_per_sec")
+        lines.append(
+            f"  {stage:<10} {cell['busy_s']:>10.4f} "
+            f"{cell['share'] * 100:>6.1f}% "
+            f"{(f'{util * 100:.1f}%' if util is not None else '-'):>7} "
+            f"{(f'{ceil:,.0f}' if ceil is not None else '-'):>12}"
+        )
+    lines.append("")
+    dom = report.get("dominant_stage")
+    lines.append(
+        f"  dominant stage: {dom}" if dom else "  dominant stage: (no busy time)"
+    )
+    return "\n".join(lines)
+
+
+# -- fleet aggregation -------------------------------------------------------
+
+
 def backend_snapshot(
     name: str,
     statusz: "dict | None",
@@ -171,7 +397,9 @@ def backend_snapshot(
     ``/statusz`` (``None`` statusz = unreachable backend). When the
     statusz carries no ``pipeline`` section but a ``/metrics`` scrape is
     given, the busy map is recovered from the exposition text instead.
-    ``ops`` (the backend's ``host:ops_port``) rides along verbatim."""
+    ``ops`` (the backend's ``host:ops_port``) rides along verbatim — the
+    history collector's ``--fleetz`` discovery resolves scrape targets
+    from it."""
     if not statusz:
         return {
             "name": name,
@@ -190,9 +418,11 @@ def backend_snapshot(
         "alive": True,
         "rows": rows,
         "rows_per_sec": statusz.get("rows_per_sec", 0.0),
-        # live SLO alert count from the backend's own engine
+        # live SLO alert count from the backend's own engine — summed
+        # into the fleet row so `top` can show fleet-wide alert state
         "alerts": len(statusz.get("alerts") or []),
-        # captured incident bundles (statusz `incidents` section)
+        # captured incident bundles (statusz `incidents` section; 0 for
+        # pre-incident daemons) — the fleet incident index's per-backend cell
         "incidents": int((statusz.get("incidents") or {}).get("count") or 0),
         "bottleneck": attr.get("dominant_stage"),
         "busy_share": {
@@ -280,3 +510,67 @@ def fleet_metrics_lines(fleetz: dict) -> list[str]:
                 f'stage="{bottlenecks[name]}"}} 1'
             )
     return lines
+
+
+# -- CLI ---------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    """``pipeline``: render the serve bottleneck-attribution report."""
+    ap = argparse.ArgumentParser(
+        prog="python -m distributed_drift_detection_tpu_torch pipeline",
+        description=(
+            "Serve-pipeline bottleneck report: per-stage busy share, "
+            "utilization, implied rows/s ceiling, dominant stage. Reads "
+            "a .prom/.metrics.json export, a run log's export sibling, "
+            "or a live daemon's /statusz URL."
+        ),
+    )
+    ap.add_argument(
+        "source",
+        help="metrics export (.prom/.metrics.json), run log (.jsonl), "
+        "http://host:ops_port of a live daemon, or — with --window — a "
+        "history store directory",
+    )
+    ap.add_argument(
+        "--json", action="store_true", help="emit the attribution record as JSON"
+    )
+    ap.add_argument("--timeout", type=float, default=5.0)
+    ap.add_argument(
+        "--window", type=float, default=None, metavar="S",
+        help="windowed mode: source is a telemetry.history store; "
+        "attribute stage busy-counter DELTAS over the last S seconds "
+        "(where the recent wall-clock went, not since boot)",
+    )
+    ap.add_argument(
+        "--instance", default=None, metavar="NAME",
+        help="with --window: the store instance label to attribute "
+        "(required when the store holds several)",
+    )
+    ap.add_argument(
+        "--at", type=float, default=None, metavar="TS",
+        help="with --window: window end as unix seconds (default: now)",
+    )
+    args = ap.parse_args(argv)
+    if (args.instance or args.at is not None) and args.window is None:
+        ap.error("--instance/--at only apply to --window mode")
+    try:
+        if args.window is not None:
+            report = load_window_report(
+                args.source, args.window, instance=args.instance, at=args.at
+            )
+            report["source"] = args.source
+        else:
+            report = load_report(args.source, timeout=args.timeout)
+    except (OSError, ValueError) as e:
+        print(f"pipeline: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(render_report(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

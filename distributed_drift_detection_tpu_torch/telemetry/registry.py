@@ -25,6 +25,7 @@ and the *latest* record per ``run_id`` is its current state:
 Append-only JSONL, flushed per record, same crash posture as the event
 sink — and the same torn-tail tolerance on read (a record lost mid-write
 costs one status transition, never the index). Pure stdlib, no torch: the
+readers (``watch``, ``report``, ``correlate``, ``collector``), the
 scheduler and ``heal``'s plan mode read it wherever the artifacts land.
 """
 

@@ -6,8 +6,9 @@ directory.
 must print the JAX package's summary line (apart from ``final_time``) and
 append the same results row (apart from its times); partial argv, bad flag
 values and ``doctor`` must give the JAX package's exit codes and messages;
-every subcommand and flag the port does not run yet must exit nonzero
-naming its ROADMAP item; ``--trace-dir`` and ``--profile-dir`` must capture
+the port's subcommands must be the JAX package's (the readers' output is
+held to JAX's in ``tests/test_torch_readers.py``); ``--trace-dir`` and
+``--profile-dir`` must capture
 a trace and refuse each other as the JAX package's do; ``--telemetry-dir``,
 ``heal``, ``sched``,
 ``sched-worker`` and ``registry`` must give the JAX package's output on
@@ -123,11 +124,10 @@ def test_usage_errors_match_jax(argv):
     assert detail(t.value.code) == detail(j.value.code)
 
 
-@pytest.mark.parametrize("name", sorted([*tmain.UNPORTED_SUBCOMMANDS, "chunked", "serve",
-                                         "loadgen", "router"]))
+@pytest.mark.parametrize("name", ["chunked", "loadgen", "router", "serve"])
 def test_unported_subcommands_name_their_items(name, csvs, capsys, tmp_path, monkeypatch):
-    """Each subcommand not ported yet exits nonzero naming its item;
-    ``chunked`` (ROADMAP A10b) is ported and runs on the CPU, printing
+    """The subcommands that run or serve experiments, through the port's
+    CLI on the CPU. ``chunked`` (ROADMAP A10b) runs, printing
     the JAX package's final JSON line (``tests/test_torch_chunked.py``
     holds its numbers to JAX's). ``serve`` (A12a) starts on the CPU,
     prints its banner and drains (``--max-chunks 0``); ``loadgen`` (A12a)
@@ -159,11 +159,6 @@ def test_unported_subcommands_name_their_items(name, csvs, capsys, tmp_path, mon
                     "--per-batch", "50", "--chunk-batches", "2"], device="cpu")
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["rows"] == 600 and out["chunks"] == 2
-        return
-    item = tmain.UNPORTED_SUBCOMMANDS[name]
-    with pytest.raises(SystemExit, match=rf"not ported yet: {name} \(ROADMAP {item}\)") as e:
-        tmain.main([name, "x"], device="cpu")
-    assert e.value.code not in (0, None)
 
 
 @pytest.mark.parametrize("argv, item", [
@@ -207,11 +202,11 @@ def test_profiler_flags_match_jax(csvs, tmp_path, monkeypatch, capsys, flag):
 
 
 def test_unported_subcommands_cover_the_jax_cli():
-    """Every subcommand of the JAX package's CLI is ported (``doctor``,
-    ``heal``, ``sched``, ``sched-worker``, ``registry``) or names its item."""
+    """Every subcommand of the JAX package's CLI is a subcommand of the
+    port's, and the port has no other; its usage text names each."""
     jax_subcommands = {ln.split()[3] for ln in jmain._USAGE.splitlines()[1:]}
-    assert jax_subcommands == set(tmain.UNPORTED_SUBCOMMANDS) | set(tmain.SUBCOMMANDS)
-    assert not set(tmain.UNPORTED_SUBCOMMANDS) & set(tmain.SUBCOMMANDS)
+    assert set(tmain.SUBCOMMANDS) == jax_subcommands
+    assert {ln.split()[3] for ln in tmain._USAGE.splitlines()[1:]} == jax_subcommands
 
 
 @pytest.mark.parametrize("which, extra", [("clean", []), ("dirty", []),
