@@ -6,7 +6,7 @@ It needs one CUDA card and nvcc, and exits non-zero (printing no result)
 without them. Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the seventeen hand-written kernels from ``csrc/`` with nvcc (in
+2. build the eighteen hand-written kernels from ``csrc/`` with nvcc (in
    parallel): K1 ``ddm_window``, K2 ``centroid_predict_err``, K7
    ``centroid_fit``, K5-ph ``ph_window``, K5-eddm ``eddm_window``, K5-hddm
    ``hddm_window``, K5-hddm_w ``hddm_w_window``, K5-kswin
@@ -14,7 +14,7 @@ without them. Phases, each fatal on failure:
    ``adwin_window``, K8 ``random_normal``, K9 ``mlp_fit``, K10
    ``mlp_predict_err``, K11 ``forest_fit``, K12 ``forest_predict_err``,
    K6 ``soak_batch`` (``csrc/soak_gen.cu``, ``csrc/xla_sinf.cuh``), K13
-   ``shuffle_perm``;
+   ``shuffle_perm``, K4 ``flag_compact``;
    and the native CSV parser (``native/ddd_native.cc``, with the host C++
    compiler into ``kernels/_build/``);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -305,6 +305,28 @@ without them. Phases, each fatal on failure:
    equal to the logs' sum; (g) ``perf`` on the repo's two newest
    ``BENCH_r0*.json``: exit 0 and a table of cells. The phase prints each
    reader's seconds and its own.
+22. the device mesh and multi-process runs on the card: K4
+   (``flag_compact``) byte for byte its plain version on phase 4's flag
+   plane whole and as its four shards at the global capacity and on
+   ``K4_EDGES`` (overflow, nothing and everything flagged, K = 1, K past
+   the slots, a plane of 313 tiles), timed with its floor and bound; (a)
+   SMOKE with ``mesh_devices=4`` on ``device="cuda"``, clamped by the JAX
+   package's rule to the cards there are: phase 4's flags, vote and
+   metrics; (b) SMOKE on ``["cuda:0"] * 4``: phase 4's flags and vote
+   bytes, the merged compacted table's bytes equal to the unsharded
+   table's, K1, K2 and K7 launched and K4 once a shard, its Final Time
+   beside phase 4's; (c) ``run_multi`` of ``TENANTS`` tenants at
+   ``SHALLOW_MULT`` on ``["cuda:0"] * 2`` with ``mesh_tenant_devices=2``:
+   each tenant's flags and vote its solo run's; (d) ``ChunkedDetector`` at
+   ``SHALLOW_MULT`` on two shards against one device, a checkpoint of the
+   sharded detector restored into a one-device detector, and the chained
+   soak on two shards, its delays' digest the unsharded soak's; (e) two
+   processes of this script (``mesh-worker``) launched with
+   ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``, each running
+   its half of SMOKE's partitions on the card through ``initialize`` →
+   ``global_mesh`` → ``host_partition_slice`` → ``local_stripe`` →
+   ``shard_batches_global`` → the runner: each its vote and compacted
+   table equal to the single run's, its packed rows equal to phase 4's.
 
 The line before the last is a JSON object listing each kernel's launches,
 error, times and bound; the last line is the device JSON.
@@ -1679,6 +1701,7 @@ def wrappers():
     from distributed_drift_detection_tpu_torch.engine import soak
     from distributed_drift_detection_tpu_torch.models import classifiers, forest, mlp
     from distributed_drift_detection_tpu_torch.ops import adwin, ddm, detectors, shuffle
+    from distributed_drift_detection_tpu_torch.parallel import mesh
     from distributed_drift_detection_tpu_torch.utils import threefry
 
     return {"ddm_window": ddm.ddm_window,
@@ -1697,7 +1720,8 @@ def wrappers():
             "forest_fit": forest.forest_fit,
             "forest_predict_err": forest.forest_predict_err,
             "soak_batch": soak.soak_batch,
-            "shuffle_perm": shuffle.shuffle_planes}
+            "shuffle_perm": shuffle.shuffle_planes,
+            "flag_compact": mesh.compact_flag_table}
 
 
 def reset_launches() -> None:
@@ -2037,7 +2061,8 @@ KERNEL_SYMBOLS = {"ddm_window": "ddm_window_kernel",
                   "forest_fit": "forest_fit_kernel",
                   "forest_predict_err": "forest_predict_err_kernel",
                   "soak_batch": "soak_tile_kernel",
-                  "shuffle_perm": "shuffle_perm_kernel"}
+                  "shuffle_perm": "shuffle_perm_kernel",
+                  "flag_compact": "flag_compact_kernel"}
 
 
 def kernel_hits(kern, name) -> list:
@@ -2334,8 +2359,9 @@ def experiment_phase(torch, api, config, dev) -> None:
     for line in (line1, line2):
         check(line.startswith(CLI_EXPECTED + " final_time="),
               f"the CLI printed {line!r}, expected {CLI_EXPECTED!r} up to final_time")
-    check(len(built) == 4 and {n.split("-")[0] for n in built} == {
-        "libddm_window", "libcentroid_fit", "libcentroid_predict_err", "libddd_native"},
+    check(len(built) == 5 and {n.split("-")[0] for n in built} == {
+        "libddm_window", "libcentroid_fit", "libcentroid_predict_err", "libflag_compact",
+        "libddd_native"},
         f"the CLI's build directory holds {sorted(built)}")
     check(cache_files(cache) == built, "the second CLI run rebuilt a library")
     cli_rows = read_results(os.path.join(tmp.name, "ddm_cluster_runs.csv"))
@@ -4459,6 +4485,289 @@ def readers_phase(api, config, cfg, p19, p20, dev):
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
 
 
+
+# Phase 22: the device mesh and multi-process runs on the card. K4's edge
+# cases: (P, NBF, flagged share, capacity, partition offset) — the main
+# path's shard, overflow, nothing and everything flagged, K = 1, K at and
+# past the slot count, one slot, no batch column, one tile exactly and a
+# plane of hundreds of tiles (the look-back chain).
+K4_EDGES = [(4, 1279, 0.03, 2558, 12), (16, 1279, 0.5, 2558, 0), (16, 1279, 0.0, 2558, 0),
+            (16, 1279, 1.0, 2558, 0), (16, 1279, 1.0, 100, 3), (8, 100, 0.2, 1, 0),
+            (8, 100, 0.2, 800, 0), (8, 100, 1.0, 900, 5), (1, 1, 1.0, 1, 7), (5, 0, 0.5, 64, 0),
+            (2, 1024, 0.1, 64, 0), (128, 5000, 0.02, 80000, 0), (128, 5000, 0.3, 80000, 0)]
+MESH_SHARDS = 4
+MESH_CB = 32  # batches a chunk of phase 22's chunked run, at SHALLOW_MULT
+
+
+def k4_plane(torch, p, nbf, share, seed, dev):
+    """A packed [5, P, NBF] flag plane with warnings, changes and forced
+    retrains at ``share`` of its slots."""
+    g = torch.Generator().manual_seed(seed)
+    hit = torch.rand((p, nbf), generator=g) < share
+    kind = torch.randint(0, 3, (p, nbf), generator=g)
+    val = torch.randint(0, 5000, (p, nbf), generator=g, dtype=torch.int32)
+    warn = torch.where(hit & (kind == 0), val, -1)
+    change = torch.where(hit & (kind == 1), val, -1)
+    return torch.stack([warn, warn * 3, change, change * 3,
+                        (hit & (kind == 2)).int()]).int().to(dev)
+
+
+def check_k4(torch, kernels, res, launches, dev):
+    """K4 against its plain version, byte for byte, on the main path's flag
+    plane (phase 4's) whole and as its MESH_SHARDS shards at the global
+    capacity, and on ``K4_EDGES``; timed on both. Returns its row."""
+    from distributed_drift_detection_tpu_torch.parallel import mesh
+
+    packed = torch.from_numpy(np.stack([np.asarray(leaf).astype(np.int32)
+                                        for leaf in res.flags])).to(dev)
+    _, p, nbf = packed.shape
+    k = mesh.auto_compact_capacity(p, nbf)
+    per = p // MESH_SHARDS
+    cases = [(packed, k, 0, f"the main path's plane [5, {p}, {nbf}], K = {k}")]
+    cases += [(packed[:, s * per:(s + 1) * per].contiguous(), k, s * per,
+               f"shard {s} of {MESH_SHARDS}") for s in range(MESH_SHARDS)]
+    cases += [(k4_plane(torch, ep, en, sh, ep * en + ek, dev), ek, eo,
+               f"P={ep} NBF={en} share {sh} K={ek} offset {eo}")
+              for ep, en, sh, ek, eo in K4_EDGES]
+    for plane, kk, off, what in cases:
+        got = mesh.compact_flag_table(plane, kk, off)
+        want = mesh.compact_flag_table_reference(plane, kk, off)
+        check(got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes(),
+              f"K4 flag_compact: differs from its plain version at {what}")
+    n = int(mesh.compact_flag_table_reference(packed, k)[-1, 0])
+    print(f"K4 flag_compact: byte for byte its plain version at {len(cases)} planes: the main "
+          f"path's ({n} flagged slots of {p * nbf}), its {MESH_SHARDS} shards at the global "
+          f"capacity, and {len(K4_EDGES)} edge cases (overflow, none and all flagged, K = 1, "
+          "K past the slots, no batch column, one tile, 313 tiles)")
+    fn, floor = kernels.launcher("flag_compact"), kernels.launcher("flag_compact_floor")
+
+    def timed(plane, kk, off):
+        pp, nn = plane.shape[1], plane.shape[2]
+        buf = torch.empty(mesh.k4_words(pp, nn, kk), dtype=torch.int32, device=dev)
+        ms = graph_ms(lambda: kernels.check("flag_compact", fn(
+            plane.data_ptr(), pp, nn, kk, off, buf.data_ptr(), kernels.stream_handle(dev))))
+        fl = graph_ms(lambda: kernels.check("flag_compact_floor", floor(
+            pp, nn, kernels.stream_handle(dev))))
+        hits = int(mesh.compact_flag_table_reference(plane, kk, off)[-1, 0])
+        nbytes = 12 * pp * nn + 8 * min(hits, kk) + 28 * (kk + 1)
+        return ms, fl, nbytes, hits
+
+    ms, floor_ms, nbytes, _ = timed(packed, k, 0)
+    shard = packed[:, :per].contiguous()
+    ms_shard, floor_shard, nbytes_shard, _ = timed(shard, k, 0)
+    b_ms, by = bound(nbytes, 0)
+    hus = host_us(lambda: mesh.compact_flag_table(packed, k))
+    plain = time_ms(lambda: mesh.compact_flag_table_reference(packed, k), reps=20, rounds=3)
+    print(f"K4 flag_compact [5, {p}, {nbf}] K = {k}: {ms:.5f} ms device (graph of 50; "
+          f"the memset of its buffer and one launch of {-(-p * nbf // mesh.K4_TILE)} CTAs of "
+          f"256 threads), {hus:.1f} us host a call, {plain:.4f} ms plain, bound {b_ms:.5f} "
+          f"ms ({by}: {nbytes:,} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), floor "
+          f"{floor_ms:.5f} ms (an empty kernel with its grid), library none (no single "
+          "PyTorch call: torch.nonzero gives positions only and synchronizes with the host); "
+          f"a shard [5, {per}, {nbf}]: {ms_shard:.5f} ms, floor {floor_shard:.5f} ms")
+    return dict(
+        name="flag_compact", route="cuda",
+        source="distributed_drift_detection_tpu_torch/csrc/flag_compact.cu",
+        replaces="distributed_drift_detection_tpu/parallel/mesh.py:251",
+        launches=launches["flag_compact"], max_abs_err=0.0, ms=ms, host_us=hus,
+        plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
+        library="none (no single PyTorch call)", floor_ms=floor_ms,
+        shard_ms=ms_shard, shard_floor_ms=floor_shard,
+        shard_bound_ms=bound(nbytes_shard, 0)[0],
+    )
+
+
+def results_equal(a, b) -> bool:
+    """Two runs' flags, vote bytes and metrics equal."""
+    return (flags_equal(np, a, b) and a.drift_vote.tobytes() == b.drift_vote.tobytes()
+            and a.metrics.num_detections == b.metrics.num_detections
+            and a.metrics.mean_delay_rows == b.metrics.mean_delay_rows)
+
+
+def mesh_worker(out_dir: str) -> int:
+    """Phase 22 (e)'s worker: one of the processes torchrun's variables
+    name, running its half of SMOKE's partitions on its card through
+    ``initialize`` → ``global_mesh`` → ``host_partition_slice`` →
+    ``local_stripe`` → ``shard_batches_global`` → the runner; it saves its
+    vote, compacted table and its rows of the packed plane."""
+    import torch
+
+    from distributed_drift_detection_tpu_torch import api, config
+    from distributed_drift_detection_tpu_torch.parallel import multihost
+
+    multihost.initialize()
+    rank, world = multihost.process_index(), multihost.process_count()
+    mesh = multihost.global_mesh()
+    cfg = config.RunConfig(**SMOKE)
+    prep = api.prepare(cfg, mesh=mesh)
+    sl = multihost.host_partition_slice(prep.config.partitions, mesh)
+    local, _ = multihost.local_stripe(prep.batches, None, sl)
+    db, _ = multihost.shard_batches_global(local, None, mesh, prep.config.partitions)
+    reset_launches()
+    out = prep.runner(db)
+    torch.cuda.synchronize()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), vote=out.drift_vote.cpu().numpy(),
+             compact=out.compact.cpu().numpy(), packed=out.packed.cpu().numpy(),
+             lo=sl.start, hi=sl.stop, world=world, shards=mesh.size,
+             k4=read_launches()["flag_compact"])
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, api, config, kernels, cfg, prep, res, launches, final, dev):
+    """Phase 22 (module docstring): returns K4's kernel row."""
+    import socket
+    import tempfile
+
+    from distributed_drift_detection_tpu_torch.engine import soak
+    from distributed_drift_detection_tpu_torch.engine.chunked import ChunkedDetector
+    from distributed_drift_detection_tpu_torch.io import feeder
+    from distributed_drift_detection_tpu_torch.models import ModelSpec, build_model
+    from distributed_drift_detection_tpu_torch.utils import threefry
+
+    t_phase = time.perf_counter()
+    row = check_k4(torch, kernels, res, launches, dev)
+    one = str(torch.device(dev.type, 0))
+
+    # (a) mesh_devices=4 on device="cuda": JAX's rule clamps it to the cards
+    acfg = config.replace(cfg, mesh_devices=MESH_SHARDS)
+    aprep = api.prepare(acfg, device=dev.type)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    width = 1 if aprep.mesh is None else aprep.mesh.size
+    check(width == min(MESH_SHARDS, cards) or (width == 1 and cards == 1),
+          f"mesh_devices={MESH_SHARDS} on {cards} card(s) resolved to {width} devices")
+    ares = api.run(acfg, device=dev.type)
+    check(results_equal(ares, res) and ares.metrics.num_detections == EXPECTED_DETECTIONS,
+          f"mesh_devices={MESH_SHARDS} on device='cuda': not phase 4's run")
+    print(f"mesh_devices={MESH_SHARDS} on device='cuda' ({cards} card(s)): {width} device(s) "
+          f"after the JAX rule; {ares.metrics.num_detections} detections, flags, vote and "
+          "metrics equal to phase 4's")
+
+    # (b) SMOKE on [cuda:0] * MESH_SHARDS: four shards on the one card
+    shards = [one] * MESH_SHARDS
+    reset_launches()
+    bres = api.run(cfg, device=shards)
+    bl = read_launches()
+    check(results_equal(bres, res), f"{MESH_SHARDS} shards: not phase 4's run")
+    for k in ("ddm_window", "centroid_predict_err", "centroid_fit"):
+        check(bl[k] > 0, f"{MESH_SHARDS} shards: kernel {k} was not launched")
+    check(bl["flag_compact"] == MESH_SHARDS,
+          f"{MESH_SHARDS} shards: K4 launched {bl['flag_compact']} times, not once a shard")
+    bprep = api.prepare(cfg, device=shards)
+    out4 = bprep.runner(api.upload(bprep.batches, bprep.mesh))
+    out1 = prep.runner(api.upload(prep.batches, prep.device))
+    check(out4.compact.cpu().numpy().tobytes() == out1.compact.cpu().numpy().tobytes(),
+          f"{MESH_SHARDS} shards: the merged compacted table is not the whole plane's")
+    check(out4.drift_vote.cpu().numpy().tobytes() == out1.drift_vote.cpu().numpy().tobytes()
+          and torch.equal(out4.packed, out1.packed),
+          f"{MESH_SHARDS} shards: the device vote or packed plane differs")
+    times = [api.run(cfg, device=shards).total_time for _ in range(3)]
+    print(f"SMOKE on {MESH_SHARDS} shards of {one}: {bres.metrics.num_detections} detections, "
+          f"flags, vote bytes and the compacted table's bytes equal to the unsharded run's; "
+          f"launches { {k: v for k, v in bl.items() if v} }; Final Time (median of 3 warm runs) {statistics.median(times):.4f} s "
+          f"against phase 4's {final:.4f} s ({card()}); the window engine syncs once an "
+          "iteration a shard, and the shards run one after another")
+
+    # (c) run_multi of TENANTS tenants on a 2-D (tenants, partitions) mesh
+    scfg = config.replace(cfg, mult_data=SHALLOW_MULT)
+    mr = api.run_multi(config.replace(scfg, tenants=TENANTS, mesh_tenant_devices=2),
+                       device=[one] * 2)
+    for t, r in enumerate(mr.results):
+        solo = api.run(config.replace(scfg, seed=scfg.seed + t), device=dev)
+        check(flags_equal(np, r, solo) and r.drift_vote.tobytes() == solo.drift_vote.tobytes(),
+              f"run_multi on a tenant mesh: tenant {t} differs from its solo run")
+    print(f"run_multi of {TENANTS} tenants (mult_data {SHALLOW_MULT}) on a 2 x 1 (tenants, "
+          f"partitions) mesh of {one}: each tenant's flags and vote equal to its solo run "
+          f"({', '.join(str(r.metrics.num_detections) for r in mr.results)} detections)")
+
+    # (d) the chunked engine on 2 shards, a checkpoint into one device; the
+    # chained soak on 2 shards
+    stream = api._load_stream_for(scfg)
+    p, b = cfg.partitions, cfg.per_batch
+    model = build_model("centroid", ModelSpec(stream.num_features, stream.num_classes))
+    chunks = list(feeder.chunk_stream_arrays(stream.X, stream.y, p, b, MESH_CB,
+                                             shuffle_seed=config.host_shuffle_seed(scfg)))
+
+    def detector(device):
+        return ChunkedDetector(model, partitions=p, window=8, rotations=2, device=device)
+
+    want = detector(dev).run(chunks)
+    reset_launches()
+    got = detector([one] * 2).run(chunks)
+    cl = read_launches()
+    check(all(np.array_equal(getattr(got, f), getattr(want, f)) for f in want._fields),
+          "chunked on 2 shards: flags differ from one device's")
+    check(cl["ddm_window"] > 0 and cl["centroid_fit"] > 0, "chunked on 2 shards: K1/K7 idle")
+    ckpt = os.path.join(tempfile.mkdtemp(), "mesh.ckpt")
+    a = detector([one] * 2)
+    head = [a.feed(ch) for ch in chunks[:2]]
+    a.save(ckpt)
+    b1 = detector(dev)
+    b1.restore(ckpt, example_chunk=chunks[0])
+    tail = [b1.feed(ch) for ch in chunks[2:]]
+    for i, fld in enumerate(want._fields):
+        joined = np.concatenate([fl[i].cpu().numpy() for fl in head + tail], 1)
+        check(np.array_equal(joined, getattr(want, fld)),
+              f"chunked: a 2-shard checkpoint restored into one device: flags.{fld} differ")
+    os.remove(ckpt)
+    smodel = build_model("centroid", ModelSpec(8, 8))
+    s1 = soak.run_soak_chained(smodel, device=dev, **SOAK_CHAIN)
+    s2 = soak.run_soak_chained(smodel, device=[one] * 2, **SOAK_CHAIN)
+    digest = hashlib.sha256(s2.delays.tobytes()).hexdigest()[:16]
+    check(s2.detections == s1.detections and s2.delays.tobytes() == s1.delays.tobytes(),
+          "chained soak on 2 shards: its digest differs from the unsharded soak's")
+    print(f"chunked (mult_data {SHALLOW_MULT}, {MESH_CB} batches a chunk, W=8 R=2) on 2 shards: "
+          f"{int((got.change_global >= 0).sum())} detections, flags equal to one device's; a "
+          f"checkpoint after chunk 2 restored into one device gives the same flags; launches "
+          f"{ {k: v for k, v in cl.items() if v} }; chained soak {SOAK_CHAIN} on 2 shards: "
+          f"{s2.legs} legs, {s2.detections} detections, delays digest {digest}, equal to the "
+          "unsharded soak's")
+
+    # (e) two processes on this host, each its half of SMOKE on the card
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "mesh-worker", out_dir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=240)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for rank, pr in enumerate(procs):
+        check(pr.returncode == 0, f"mesh worker {rank} exited {pr.returncode}:\n{logs[rank][-3000:]}")
+    whole = out1.packed.cpu().numpy()
+    for rank in range(2):
+        w = np.load(os.path.join(out_dir, f"rank{rank}.npz"))
+        lo, hi = int(w["lo"]), int(w["hi"])
+        check(int(w["world"]) == 2 and int(w["shards"]) == 2 and (lo, hi) == (8 * rank, 8 * rank + 8),
+              f"mesh worker {rank}: world {w['world']}, {w['shards']} shards, rows {lo}:{hi}")
+        check(w["vote"].tobytes() == out1.drift_vote.cpu().numpy().tobytes(),
+              f"mesh worker {rank}: its vote is not the single run's")
+        check(w["compact"].tobytes() == out1.compact.cpu().numpy().tobytes(),
+              f"mesh worker {rank}: its compacted table is not the single run's")
+        check(np.array_equal(w["packed"], whole[:, lo:hi]),
+              f"mesh worker {rank}: its rows of the flag plane are not phase 4's")
+        check(int(w["k4"]) == 1, f"mesh worker {rank}: K4 launched {int(w['k4'])} times")
+    print(f"2 processes (gloo, MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE) on {one}, 8 of SMOKE's "
+          f"partitions each: each its vote and compacted table equal to the single run's, its "
+          f"packed rows equal to phase 4's, K4 once each ({time.perf_counter() - t0:.1f} s from "
+          "spawn)")
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main(device: str = "cuda") -> int:
     import torch
 
@@ -4532,6 +4841,8 @@ def main(device: str = "cuda") -> int:
     check(bool(np.isfinite(res.drift_vote).all()), "non-finite drift vote")
     for name in ("ddm_window", "centroid_predict_err", "centroid_fit"):
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    check(launches["flag_compact"] == 1,
+          f"K4 launched {launches['flag_compact']} times on the main path, not once")
     for row in rows:
         row["launches"] = launches[row["name"]]
 
@@ -4545,7 +4856,9 @@ def main(device: str = "cuda") -> int:
     done("4")
 
     # 5. the kernels inside the run
-    per, summary = in_run_profile(torch, api, prep, dev)
+    per, summary = in_run_profile(torch, api, prep, dev, names=(
+        "ddm_window", "centroid_predict_err", "centroid_fit", "flag_compact"))
+    k4_in_run = per["flag_compact"]  # K4's row comes with phase 22
     print("in-run (one traced detect phase): "
           + ", ".join(f"{k} {c} launches x {us:.2f} us" for k, (c, us) in per.items())
           + f"; {summary['kernels']} kernels busy {summary['busy_s']:.4f} s of "
@@ -4756,6 +5069,11 @@ def main(device: str = "cuda") -> int:
     # 21. the readers on the card's artifacts
     readers_phase(api, config, cfg, p19, p20, dev)
     done("21")
+
+    # 22. the device mesh and multi-process runs on the card
+    rows.append(mesh_phase(torch, api, config, kernels, cfg, prep, res, launches, final, dev))
+    rows[-1]["in_run_launches"], rows[-1]["in_run_us"] = k4_in_run
+    done("22")
     print(f"seconds by phase: {spent} ({sum(spent.values()):.1f} s in all)")
 
     print("Final Time at SMOKE by path: "
@@ -4778,4 +5096,6 @@ def card() -> str:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

@@ -320,16 +320,17 @@ class AdaptationController:
             w = np.zeros(w_rows, np.float32)
             params_t = self._fit_window(self._base_key, X, y, w)
             self._score_pair(stack_sides(params_t, params_t), X, y, w)
-            if self.det.carry is not None:
+            if self.det.has_carry:
                 aX = np.zeros((self.per_batch, f), np.float32)
                 ay = np.zeros(self.per_batch, np.int32)
                 aw = np.zeros(self.per_batch, np.float32)
-                self._swap_full(self.det.carry, params_t, aX, ay, aw, 0)
-                self._swap_params(self.det.carry, params_t, 0)
-        if chunk_batches and self.det.carry is not None:
+                rows = self.det.carry_rows(0, p_per)
+                self._swap_full(rows, params_t, aX, ay, aw, 0)
+                self._swap_params(rows, params_t, 0)
+        if chunk_batches and self.det.has_carry:
             shape = (p_per, int(chunk_batches), self.per_batch)
             self._chunk_err(
-                self.det.carry.params,
+                self.det.carry_rows(0, p_per, "params"),
                 np.zeros(shape + (f,), np.float32),
                 np.zeros(shape, np.int32),
                 np.zeros(shape, bool),
@@ -407,11 +408,11 @@ class AdaptationController:
             return None
         p_per = self.det.tenant_partitions
         err, n = self._chunk_err(
-            self.det.carry.params,
+            self.det.carry_rows(lo, lo + p_per, "params"),
             chunk.X[lo : lo + p_per],
             chunk.y[lo : lo + p_per],
             chunk.valid[lo : lo + p_per],
-            lo,
+            0,
         )
         if float(n.cpu()) <= 0.0:
             return None
@@ -420,7 +421,7 @@ class AdaptationController:
     def _tenant_params(self, lo: int):
         """Tenant slice ``[lo, lo+P)`` of the carry's params, copied."""
         hi = lo + self.det.tenant_partitions
-        return _tree_map(lambda l: l[lo:hi].clone(), self.det.carry.params)
+        return _tree_map(lambda l: l.clone(), self.det.carry_rows(lo, hi, "params"))
 
     def _next_key(self, t: int, st: _TenantState) -> np.ndarray:
         st.adaptations += 1
@@ -458,9 +459,10 @@ class AdaptationController:
         )
         if promote:
             aX, ay, aw = self._window_tail(st)
-            self.det.carry = self._swap_full(
-                self.det.carry, challenger, aX, ay, aw, lo
-            )
+            hi = lo + self.det.tenant_partitions
+            self.det.set_carry_rows(lo, self._swap_full(
+                self.det.carry_rows(lo, hi), challenger, aX, ay, aw, 0
+            ))
             st.applied_rows = rows_through
             st.watch_recovery = st.pre_err is not None
             if st.policy.on_drift == "shadow":
@@ -500,7 +502,10 @@ class AdaptationController:
         )
         demote = should_demote(err_champ, err_chall, st.policy.margin)
         if demote:
-            self.det.carry = self._swap_params(self.det.carry, champ, lo)
+            hi = lo + self.det.tenant_partitions
+            self.det.set_carry_rows(
+                lo, self._swap_params(self.det.carry_rows(lo, hi), champ, 0)
+            )
             st.adaptations += 1  # snapshot/statusz must match the events
             self._emit(
                 t, st, meta,
@@ -665,7 +670,7 @@ class AdaptationController:
                             data[f"t{t}_bufX"], data[f"t{t}_bufy"]
                         )
                 if m["champion"]:
-                    assert self.det.carry is not None, (
+                    assert self.det.has_carry, (
                         "adapt restore with a retained champion needs the "
                         "detector carry restored first"
                     )

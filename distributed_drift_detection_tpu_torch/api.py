@@ -32,8 +32,14 @@ directory); the two together raise before any work. ``validate=True``
 audits the stream in ``prepare`` and the flag table after the span
 (``utils/validate.py``).
 
-Surfaces outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item that ports them (:func:`_check_slice`).
+``device`` is one device or a sequence of devices (``device.py``
+``resolve_devices``; ``"cuda"`` is every visible card). The run shards its
+plane over a :class:`~.parallel.mesh.Mesh` of them by the JAX package's
+rule (:func:`_resolve_mesh`): ``mesh_devices`` (0: all), at most the
+devices there are, one for a host-callback model, stepped down until it
+divides the partitions, with ``mesh_tenant_devices`` rows for a tenant
+plane; a width of 1 runs unsharded on the first device. The flags, vote and
+metrics are the unsharded run's at every width.
 """
 
 from __future__ import annotations
@@ -59,8 +65,8 @@ from .config import (
     resolve_retrain_threshold,
     telemetry_config_payload,
 )
-from .device import resolve_device, synchronize
-from .engine.loop import Batches, FlagRows, PackedIndexedBatches
+from .device import is_device_sequence, resolve_devices, synchronize
+from .engine.loop import FlagRows
 from .io.stream import (
     StreamData,
     load_stream,
@@ -72,7 +78,14 @@ from .kernels import _build
 from .metrics import DelayMetrics, attribution_metrics, delay_metrics, result_row
 from .models import ModelSpec, build_model
 from .ops.detectors import make_detector
-from .parallel.mesh import auto_compact_capacity, host_flags, make_mesh_runner
+from .parallel.mesh import (
+    Mesh,
+    auto_compact_capacity,
+    host_flags,
+    make_mesh_runner,
+    resolve_mesh,
+    shard_batches,
+)
 from .resilience import faults
 from .results import append_result
 from .utils import threefry
@@ -86,9 +99,10 @@ class PreparedRun(NamedTuple):
     batches: object  # host Batches | PackedIndexedBatches, partition-major
     runner: object  # (device batches) -> MeshRunResult
     config: RunConfig  # the resolved config (auto policies applied)
-    device: torch.device
+    device: torch.device  # the mesh's first device
     # {"cached": no library was rebuilt, "build_seconds": nvcc wall time}
     compile_info: dict
+    mesh: "Mesh | None" = None  # None: unsharded on ``device``
 
 
 class RunResult(NamedTuple):
@@ -134,8 +148,6 @@ def _check_slice(cfg: RunConfig) -> None:
         from .models.rf import require_sklearn
 
         require_sklearn()  # before any work: the card's machine has none
-    if cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1:
-        raise NotImplementedError("not ported yet: a multi-device mesh (ROADMAP A15d)")
 
 
 def _resolve_policies(cfg: RunConfig, stream: StreamData) -> RunConfig:
@@ -214,13 +226,32 @@ def build_kernels(names, dev: torch.device) -> dict:
     return info
 
 
-def _build_runner(cfg: RunConfig, model, nb: int, packed: bool, dev: torch.device):
-    """The mesh runner of a resolved ``cfg`` over ``nb`` microbatches a
-    partition, and its kernels built (:func:`build_kernels`) — the one
-    copy :func:`prepare` and :func:`prepare_multi` share. The compaction
-    capacity is sized from the geometry unless pinned; 0 (the full-plane
-    collect) for ``collect='full'`` and for ``validate=True``, whose audit
-    wants the plane the device produced, not a reconstruction."""
+def _resolve_mesh(cfg: RunConfig, model, devices) -> "Mesh | None":
+    """The mesh a resolved ``cfg`` runs on over ``devices``
+    (:func:`~.parallel.mesh.resolve_mesh`, the JAX package's
+    ``_build_runner`` rule)."""
+    return resolve_mesh(
+        devices, cfg.partitions, mesh_devices=cfg.mesh_devices,
+        tenant_devices=cfg.mesh_tenant_devices, tenants=cfg.tenants, model=model,
+    )
+
+
+def _build_runner(cfg: RunConfig, model, nb: int, packed: bool, devices, mesh=None):
+    """The runner of a resolved ``cfg`` over ``nb`` microbatches a
+    partition on its mesh (:func:`_resolve_mesh`), and its kernels built
+    (:func:`build_kernels`) — the one copy :func:`prepare` and
+    :func:`prepare_multi` share. Returns ``(runner, compile_info, mesh)``.
+    The compaction capacity is sized from the whole plane's geometry unless
+    pinned; 0 (the full-plane collect) for ``collect='full'`` and for
+    ``validate=True``, whose audit wants the plane the device produced, not
+    a reconstruction. A given ``mesh`` (one across processes,
+    ``multihost.global_mesh``) is taken as it is."""
+    if mesh is None:
+        mesh = _resolve_mesh(cfg, model, devices)
+    else:
+        from .models.base import require_shardable
+
+        require_shardable(model, mesh)
     capacity = (
         cfg.collect_capacity or auto_compact_capacity(cfg.partitions, max(nb - 1, 1))
         if cfg.collect == "compact" and not cfg.validate
@@ -229,6 +260,7 @@ def _build_runner(cfg: RunConfig, model, nb: int, packed: bool, dev: torch.devic
     runner = make_mesh_runner(
         model,
         cfg.ddm,
+        mesh,
         retrain_error_threshold=cfg.retrain_error_threshold,
         window=cfg.window,
         packed=packed,
@@ -239,22 +271,29 @@ def _build_runner(cfg: RunConfig, model, nb: int, packed: bool, dev: torch.devic
         rotations=cfg.window_rotations,
         compact_capacity=capacity,
     )
-    return runner, build_kernels(kernel_names(cfg.model, cfg.detector), dev)
+    # K4 compacts the flags in the timed span: built here with the others
+    names = kernel_names(cfg.model, cfg.detector) + (["flag_compact"] if capacity else [])
+    info = build_kernels(names, devices[0])
+    return runner, info, mesh
 
 
 def prepare(
-    cfg: RunConfig, stream: StreamData | None = None, device="cuda"
+    cfg: RunConfig, stream: StreamData | None = None, device="cuda", mesh=None
 ) -> PreparedRun:
     """Load, stripe and build a run without executing it. On the card this
     also builds the hand-written kernels the run launches, so their nvcc
-    time stays outside the timed span."""
+    time stays outside the timed span. ``mesh`` overrides the mesh the
+    config and ``device`` resolve to: a multi-process run passes
+    ``multihost.global_mesh()`` and places its own stripe
+    (``multihost.shard_batches_global``)."""
     if cfg.tenants != 1:
         raise ValueError(
             f"prepare() is the single-stream path (tenants={cfg.tenants}); "
             "use prepare_multi/run_multi for the stacked tenant plane"
         )
     _check_slice(cfg)
-    dev = resolve_device(device)
+    devices = mesh.local_devices() if mesh is not None else resolve_devices(device)
+    dev = devices[0]
     _build.set_build_dir(cfg.compile_cache_dir)
     if stream is None:
         stream = _load_stream_for(cfg)
@@ -276,29 +315,28 @@ def prepare(
     )
     model = build_model(cfg.model, ModelSpec(stream.num_features, stream.num_classes), cfg)
     _, nb = stripe_geometry(stream.num_rows, cfg.partitions, cfg.per_batch)
-    runner, compile_info = _build_runner(cfg, model, nb, packed, dev)
-    if model.keyed:  # the partitions' keys, as the JAX package's prepare draws them
+    runner, compile_info, mesh = _build_runner(cfg, model, nb, packed, devices, mesh)
+    if model.keyed:  # the partitions' keys, as the JAX package's prepare draws
+        # them: the whole plane's, a shard taking its rows
         runner = functools.partial(
             runner, key=threefry.split(threefry.key(cfg.seed), cfg.partitions)
         )
-    return PreparedRun(stream, batches, runner, cfg, dev, compile_info)
+    return PreparedRun(stream, batches, runner, cfg, dev, compile_info, mesh)
 
 
-def upload(batches, device: torch.device):
-    """Host→device copy of the striped stream (the reference's upload)."""
+def upload(batches, device: "torch.device | Mesh"):
+    """Host→device copy of the striped stream (the reference's upload): to
+    ``device`` whole, or cut to the shards of a :class:`Mesh`, a shared row
+    table copied once per distinct device (``parallel.mesh.shard_batches``)."""
+    if isinstance(device, Mesh):
+        return shard_batches(batches, None, device)[0]
+    return shard_batches(batches, None, None, device)[0]
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    if isinstance(batches, PackedIndexedBatches):
-        return PackedIndexedBatches(
-            base_X=put(batches.base_X),
-            base_y=put(batches.base_y),
-            idx=put(batches.idx),
-            perm=put(batches.perm),
-            n_rows=int(batches.n_rows),
-        )
-    return Batches(*(put(leaf) for leaf in batches))
+def _synchronize(prep) -> None:
+    """Wait for the run's queued work on every device of its mesh."""
+    for d in prep.mesh.local_devices() if prep.mesh is not None else [prep.device]:
+        synchronize(d)
 
 
 @contextlib.contextmanager
@@ -358,7 +396,7 @@ def run(
             f"run() is the single-stream path (tenants={cfg.tenants}); the "
             "multi-tenant result is per-tenant structured — use run_multi"
         )
-    dev = resolve_device(device)
+    dev = resolve_devices(device)[0]
     timer = PhaseTimer()
     if cfg.profile_dir and cfg.trace_dir:
         raise ValueError(
@@ -388,7 +426,7 @@ def run(
                 quarantine_path=os.path.splitext(log.path)[0] + ".quarantine.jsonl",
             )
         with timer.phase("prepare"):
-            prep = prepare(cfg, stream, dev)
+            prep = prepare(cfg, stream, device)
         stream, cfg = prep.stream, prep.config
 
         # The card's memory before the span, and the quarantine evidence:
@@ -417,10 +455,10 @@ def run(
         with maybe_trace(cfg.profile_dir, cuda=cuda):
             start = time.perf_counter()
             with timer.phase("upload"):
-                dev_batches = upload(prep.batches, dev)
+                dev_batches = upload(prep.batches, prep.mesh or dev)
             with timer.phase("detect"), maybe_trace(cfg.trace_dir, cuda=cuda):
                 out = prep.runner(dev_batches)
-                synchronize(dev)
+                _synchronize(prep)
             with timer.phase("collect"):
                 flags, collect_info = host_flags(out)
                 changed = (flags.change_global >= 0).astype(np.float32)
@@ -568,8 +606,9 @@ class PreparedMulti(NamedTuple):
     configs: tuple
     config: RunConfig
     nb_list: tuple
-    device: torch.device
+    device: torch.device  # the mesh's first device
     compile_info: dict
+    mesh: "Mesh | None" = None
 
 
 def _kernel_identity(cfg: RunConfig) -> tuple:
@@ -621,7 +660,8 @@ def prepare_multi(cfg: "RunConfig | list[RunConfig]", streams=None,
                 )
     tenants = len(cfgs)
     _check_slice(cfgs[0])
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
+    dev = devices[0]
     _build.set_build_dir(cfgs[0].compile_cache_dir)
     if streams is None:
         streams = [None] * tenants
@@ -674,12 +714,13 @@ def prepare_multi(cfg: "RunConfig | list[RunConfig]", streams=None,
     ])
     total = replace(cfg0, partitions=p * tenants, tenants=tenants)
     model = build_model(total.model, ModelSpec(*spec0), total)
-    runner, compile_info = _build_runner(total, model, int(batches.y.shape[1]), False, dev)
+    runner, compile_info, mesh = _build_runner(
+        total, model, int(batches.y.shape[1]), False, devices)
     keys = concat_keys([threefry.split(threefry.key(c.seed), p) for c in resolved])
     if model.keyed:
         runner = functools.partial(runner, key=keys)
     return PreparedMulti(tuple(loaded), batches, runner, keys, tuple(resolved), total,
-                         nb_list, dev, compile_info)
+                         nb_list, dev, compile_info, mesh)
 
 
 class MultiRunResult(NamedTuple):
@@ -732,10 +773,10 @@ def run_multi(cfg: "RunConfig | list[RunConfig]", streams=None,
         # --- the stacked Final Time span ---
         start = time.perf_counter()
         with timer.phase("upload"):
-            dev_batches = upload(prep.batches, dev)
+            dev_batches = upload(prep.batches, prep.mesh or dev)
         with timer.phase("detect"):
             out = prep.runner(dev_batches)
-            synchronize(dev)
+            _synchronize(prep)
         with timer.phase("collect"):
             flags_all, collect_info = host_flags(out)
             per_tenant = split_tenant_flags(
@@ -822,7 +863,14 @@ def prepare_chunked(
     overrides the tenants' seeds (default ``seed + t``). Returns
     ``(detector, info)``: ``cached`` (no kernel library was rebuilt),
     ``build_seconds``, and ``prepare``'s ``aot_seconds``, ``aot_shapes``
-    and ``aot_failed``. A mesh is not ported yet (ROADMAP A15d)."""
+    and ``aot_failed``.
+
+    ``mesh`` shards the detector's plane (``ChunkedDetector``); without
+    one, ``cfg.mesh_tenant_devices > 1`` builds the 2-D tenant mesh over
+    ``device``'s devices, as the JAX package does, and a sequence of
+    devices shards over them — both by :func:`run`'s rule
+    (:func:`~.parallel.mesh.resolve_mesh` over the plane's tenant ·
+    partition rows)."""
     from .engine.chunked import ChunkedDetector
     from .engine.loop import stack_tenants
     from .io.stream import stripe_chunk
@@ -840,14 +888,15 @@ def prepare_chunked(
         )
     if chunk_batches <= 0:
         raise ValueError(f"chunk_batches must be > 0, got {chunk_batches}")
-    if mesh is not None or cfg.mesh_devices > 1 or cfg.mesh_tenant_devices > 1:
-        raise NotImplementedError(
-            "not ported yet: a device mesh for the chunked engine (ROADMAP A15d)"
-        )
-    dev = resolve_device(device)
     _build.set_build_dir(cfg.compile_cache_dir)
     t0 = time.perf_counter()
     model = build_model(cfg.model, ModelSpec(num_features, num_classes), cfg)
+    if mesh is None and (cfg.mesh_tenant_devices > 1 or is_device_sequence(device)):
+        mesh = resolve_mesh(
+            resolve_devices(device), cfg.partitions * cfg.tenants,
+            mesh_devices=cfg.mesh_devices, tenant_devices=cfg.mesh_tenant_devices,
+            tenants=None, model=model,
+        )
     det = ChunkedDetector(
         model,
         cfg.ddm,
@@ -864,9 +913,10 @@ def prepare_chunked(
         validate=validate,
         tenants=cfg.tenants,
         tenant_seeds=tenant_seeds,
-        device=dev,
+        mesh=mesh,
+        device=device,
     )
-    info = build_kernels(kernel_names(cfg.model, cfg.detector), dev)
+    info = build_kernels(kernel_names(cfg.model, cfg.detector), det.device)
     info["build_seconds"] = time.perf_counter() - t0
     example = stripe_chunk(
         np.zeros((0, num_features), np.float32), np.zeros((0,), np.int32), 0,

@@ -25,8 +25,19 @@ the loop (kernel K13, ``ops/shuffle.py``).
 
 ``on_drift`` routes each drained chunk through the adaptation plane
 (``adapt/refit.py`` :class:`~..adapt.refit.AdaptationController`, the
-serving daemon's ``--on-drift``). Not ported yet, refused by name before any
-work: a device ``mesh`` (ROADMAP A15d).
+serving daemon's ``--on-drift``).
+
+``mesh`` (a ``parallel.mesh.Mesh``, or ``device`` given as a sequence of
+devices, made a mesh by ``parallel.mesh.resolve_mesh``) splits the plane
+into the mesh's contiguous shards, as the JAX package's ``NamedSharding``
+does: each shard's carry lives on its device (placed by
+``parallel.mesh.plane_shardings``), each chunk is cut to the shards, and a
+chunk's flags are joined on the mesh's first device. What names a
+partition or a tenant (``SAVETENANT``/``LOADTENANT``, the ``on_drift``
+refits, forensics) reads and writes only its rows of the carry
+(``carry_rows``, ``set_carry_rows``); the ``carry`` attribute reads and
+writes the whole carry, so a checkpoint moves between a mesh and one
+device either way.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import numpy as np
 import torch
 
 from ..config import AUTO_RETRAIN_THRESHOLD, GUARDED_MODELS, RETRAIN_AUTO, DDMParams
-from ..device import resolve_device, synchronize
+from ..device import is_device_sequence, resolve_device, resolve_devices, synchronize
 from ..models.base import Model
 from ..utils import threefry
 from .loop import (
@@ -56,9 +67,10 @@ from .loop import (
 
 class PlacedChunk(NamedTuple):
     """A chunk on the card: its planes, and the event the upload stream
-    recorded after copying them (None when the copy is already ordered)."""
+    recorded after copying them (None when the copy is already ordered).
+    On a mesh ``batches`` is a tuple of the shards' planes."""
 
-    batches: Batches
+    batches: object  # Batches | tuple of Batches, one a shard
     ready: object  # torch.cuda.Event | None
 
 
@@ -153,10 +165,12 @@ class ChunkedDetector:
         on_drift=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: a device mesh for the chunked engine (ROADMAP A15d)"
-            )
+        if mesh is None and is_device_sequence(device):
+            from ..parallel.mesh import resolve_mesh
+
+            devices = resolve_devices(device)
+            mesh = resolve_mesh(devices, partitions * tenants, model=model)
+            device = devices[0]
         if retrain_error_threshold is not None and retrain_error_threshold < 0.0:
             retrain_error_threshold = (
                 AUTO_RETRAIN_THRESHOLD if model.name in GUARDED_MODELS else None
@@ -175,7 +189,24 @@ class ChunkedDetector:
             else tuple(seed + t for t in range(tenants))
         )
         self.partitions = partitions * tenants
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._shards = None  # [(lo, hi, device)] of this process's shards
+        if mesh is not None:
+            from ..models.base import require_shardable
+            from ..parallel.mesh import TENANT_AXIS, shard_bounds
+
+            require_shardable(model, mesh)
+            if TENANT_AXIS in mesh.axis_names:
+                t_rows = mesh.devices.shape[0]
+                if tenants % t_rows:
+                    raise ValueError(
+                        f"{tenants} tenant(s) do not split over the "
+                        f"{t_rows}-row tenant mesh axis"
+                    )
+            self._shards = [(lo, hi, d) for _, lo, hi, d in shard_bounds(mesh, self.partitions)]
+            self.device = self._shards[0][2]
+        else:
+            self.device = resolve_device(device)
         self.shuffle = bool(shuffle)
         self.window = int(window)
         self._detector = resolve_detector(ddm_params, detector)
@@ -205,7 +236,7 @@ class ChunkedDetector:
         self._prepared: set = set()
         self._per_batch: int | None = None
         self._seed = seed
-        self.carry: LoopCarry | None = None
+        self._carry: LoopCarry | None = None  # one device's; on a mesh a list a shard
         self.batches_done = 0
         # rows fed (padding included: a progress beacon) and a monotonic
         # feed-start stamp, for the heartbeat event
@@ -225,21 +256,103 @@ class ChunkedDetector:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _init_carry(self, first: Batches) -> LoopCarry:
+    @property
+    def has_carry(self) -> bool:
+        """Whether the detector holds state (fed, or restored)."""
+        return self._carry is not None
+
+    @property
+    def carry(self) -> "LoopCarry | None":
+        """The whole loop carry (on a mesh, the shards' joined on the first
+        device; a copy, so write it back by assignment). A reader of a few
+        rows or of one field takes :meth:`carry_rows`."""
+        if self.mesh is None or self._carry is None:
+            return self._carry
+        from ..parallel.mesh import gather_tree
+
+        return gather_tree(self._carry, self.mesh, self.device)
+
+    def carry_rows(self, lo: int = 0, hi: "int | None" = None, field: "str | None" = None):
+        """Rows ``[lo, hi)`` of the carry (all by default), or of its field
+        ``field`` (``"params"``, ``"ddm"``, ...): views of the carry on one
+        device; on a mesh only those rows of the shards that hold them,
+        joined on the first device. None before any state."""
+        if self._carry is None:
+            return None
+        hi = self.partitions if hi is None else hi
+        if self.mesh is None:
+            tree = self._carry if field is None else getattr(self._carry, field)
+            return _tree_map(lambda x: x[lo:hi], tree)
+        from ..parallel.mesh import tree_rows
+
+        shards = self._carry if field is None else [getattr(c, field) for c in self._carry]
+        return tree_rows(shards, [(a, b) for a, b, _ in self._shards], self.mesh, lo, hi,
+                         self.device)
+
+    def set_carry_rows(self, lo: int, rows: LoopCarry) -> None:
+        """Set rows ``[lo, lo + n)`` of the carry to ``rows`` (a carry of
+        ``n`` rows, :meth:`carry_rows`' shape): the shards that hold them
+        get new leaves; the carry's own leaves are never written."""
+        assert self._carry is not None, "no state yet (feed or restore first)"
+        if self.mesh is None:
+            def scatter(leaf, sub):
+                leaf = leaf.clone() if isinstance(leaf, torch.Tensor) else np.array(leaf)
+                leaf[lo:lo + sub.shape[0]] = sub
+                return leaf
+
+            self._carry = _tree_map(scatter, self._carry, rows)
+            return
+        from ..parallel.mesh import set_tree_rows
+
+        self._carry = set_tree_rows(self._carry, [(a, b) for a, b, _ in self._shards],
+                                    self.mesh, lo, rows)
+
+    @carry.setter
+    def carry(self, value) -> None:
+        if self.mesh is None or value is None:
+            self._carry = value
+            return
+        from ..parallel.mesh import split_tree
+
+        self._carry = split_tree(value, self.mesh)
+
+    def _init_carry(self, first: Batches, lo: int = 0, hi: "int | None" = None) -> LoopCarry:
+        """The fresh carry of plane rows ``[lo, hi)`` (all by default) from
+        the first chunk's planes of those rows."""
         p = self.tenant_partitions
+        hi = self.partitions if hi is None else hi
         dev = first.y.device
         keys = concat_keys([threefry.split(threefry.key(s), p) for s in self.tenant_seeds])
-        init_keys = threefry.split(keys, 2)  # [T·P, 2, 2]
+        init_keys = threefry.split(keys, 2)[lo:hi]  # [rows, 2, 2]
         init_key = device_keys(init_keys[:, 1], dev) if self.model.keyed else None
         return LoopCarry(
-            params=self.model.init(self.partitions, dev, key=init_key),
-            ddm=self._detector.init((self.partitions,), dev),
+            params=self.model.init(hi - lo, dev, key=init_key),
+            ddm=self._detector.init((hi - lo,), dev),
             a_X=first.X[:, 0].float().contiguous(),  # the transport-dtype seam
             a_y=first.y[:, 0].contiguous(),
             a_w=first.valid[:, 0].float(),
-            retrain=torch.ones(self.partitions, dtype=torch.bool, device=dev),
+            retrain=torch.ones(hi - lo, dtype=torch.bool, device=dev),
             key=init_keys[:, 0],
         )
+
+    def _fresh(self, batches):
+        """The fresh carry of a placed chunk's planes: one device's, or a
+        list a shard on a mesh."""
+        if self.mesh is None:
+            return self._init_carry(batches)
+        from ..parallel.mesh import run_shards
+
+        return run_shards([d for _, _, d in self._shards], self._init_carry, batches,
+                          [lo for lo, _, _ in self._shards], [hi for _, hi, _ in self._shards])
+
+    def _fresh_whole(self, batches) -> LoopCarry:
+        """:meth:`_fresh` as one whole carry (a template)."""
+        fresh = self._fresh(batches)
+        if self.mesh is None:
+            return fresh
+        from ..parallel.mesh import gather_tree
+
+        return gather_tree(fresh, self.mesh, self.device)
 
     def place(self, chunk) -> PlacedChunk:
         """Start the upload of a host chunk (numpy ``Batches``) to the
@@ -251,6 +364,15 @@ class ChunkedDetector:
         chunk k, so the upload overlaps the detect."""
         if isinstance(chunk, PlacedChunk):
             return chunk
+        if self.mesh is not None:
+            from ..parallel.mesh import split_tree
+
+            whole = Batches(*(
+                leaf if isinstance(leaf, torch.Tensor) else _host_leaf(leaf) for leaf in chunk
+            ))
+            return PlacedChunk(tuple(
+                b._replace(X=_widen(b.X)) for b in split_tree(whole, self.mesh)
+            ), None)
         if isinstance(chunk.y, torch.Tensor):
             leaves = [leaf.to(self.device) for leaf in chunk]
             leaves[0] = _widen(leaves[0])
@@ -280,12 +402,30 @@ class ChunkedDetector:
                 leaf.record_stream(stream)
         return placed.batches
 
-    def _run_chunk(self, carry: LoopCarry, chunk: Batches):
+    def _run_one(self, carry: LoopCarry, chunk: Batches):
         if self.window > 1:
             return self._span(carry, chunk)
         table, labels, idx = dense_table(chunk.X, chunk.y)
         return run_steps(self._step, self.model, carry, table, labels, idx,
                          chunk.rows, chunk.valid, shuffle=self.shuffle)
+
+    def _run_chunk(self, carry, chunk):
+        """One chunk through the engine: ``(carry, flags)``. On a mesh each
+        shard runs its rows on its device and the flags are joined on the
+        first."""
+        if self.mesh is None:
+            return self._run_one(carry, chunk)
+        from ..parallel.mesh import join_flags, run_shards
+
+        outs = run_shards([d for _, _, d in self._shards], self._run_one, carry, chunk)
+        return [c for c, _ in outs], join_flags([f for _, f in outs], self.device)
+
+    def _drop_first(self, batches):
+        """The planes past each partition's first microbatch (it seeds
+        ``batch_a``)."""
+        if self.mesh is None:
+            return Batches(*(leaf[:, 1:] for leaf in batches))
+        return tuple(Batches(*(leaf[:, 1:] for leaf in b)) for b in batches)
 
     def feed(self, chunk) -> FlagRows:
         """Process one ``[P, CB, B]`` chunk (host, placed or on the
@@ -298,13 +438,14 @@ class ChunkedDetector:
         if self._feed_started is None:
             self._feed_started = time.monotonic()
         batches = self._ready(self.place(chunk))
-        self._per_batch = int(batches.y.shape[2])
-        self.rows_done += int(batches.y.numel())
-        if self.carry is None:
-            self.carry = self._init_carry(batches)
-            batches = Batches(*(leaf[:, 1:] for leaf in batches))
-        self.carry, flags = self._run_chunk(self.carry, batches)
-        self.batches_done += int(batches.y.shape[1])
+        ys = [batches.y] if self.mesh is None else [b.y for b in batches]
+        self._per_batch = int(ys[0].shape[2])
+        self.rows_done += sum(int(y.numel()) for y in ys)
+        if self._carry is None:
+            self._carry = self._fresh(batches)
+            batches = self._drop_first(batches)
+        self._carry, flags = self._run_chunk(self._carry, batches)
+        self.batches_done += int((batches.y if self.mesh is None else batches[0].y).shape[1])
         return flags
 
     def prepare(self, example_chunk) -> dict:
@@ -320,13 +461,13 @@ class ChunkedDetector:
         build_kernels(kernel_names(self.model.name, self._detector.name, self.shuffle),
                       self.device)
         chunk = self._ready(self.place(example_chunk))
-        fresh = self.carry is None
-        template = self._init_carry(chunk) if fresh else self.carry
-        shapes = [Batches(*(leaf[:, 1:] for leaf in chunk))] if fresh else []
+        fresh = self._carry is None
+        template = self._fresh(chunk) if fresh else self._carry
+        shapes = [self._drop_first(chunk)] if fresh else []
         shapes.append(chunk)
         done = 0
         for s in shapes:
-            sig = _shape_sig(s)
+            sig = _shape_sig(s if self.mesh is None else s[0])
             if sig in self._prepared:
                 continue
             self._run_chunk(template, s)
@@ -520,9 +661,8 @@ class ChunkedDetector:
     def tenant_carry(self, tenant: int) -> LoopCarry:
         """Tenant ``t``'s slice of the carry: structurally a solo
         P-partition detector's carry."""
-        assert self.carry is not None, "no state yet (feed or restore first)"
-        lo, hi = self._tenant_span(tenant)
-        return _tree_map(lambda x: x[lo:hi], self.carry)
+        assert self._carry is not None, "no state yet (feed or restore first)"
+        return self.carry_rows(*self._tenant_span(tenant))
 
     def save_tenant(self, path: str, tenant: int, extra_meta: "dict | None" = None) -> None:
         """Checkpoint one tenant's state as a solo-shaped checkpoint, which
@@ -549,26 +689,20 @@ class ChunkedDetector:
         ``batches_done`` stays the plane's own."""
         from ..utils.checkpoint import load_checkpoint
 
-        if self.carry is None and example_chunk is not None:
-            self.carry = self._init_carry(self._ready(self.place(example_chunk)))
-        assert self.carry is not None, (
+        if self._carry is None and example_chunk is not None:
+            self._carry = self._fresh(self._ready(self.place(example_chunk)))
+        assert self._carry is not None, (
             "restore_tenant needs an existing carry (feed or restore the "
             "plane first, or pass example_chunk)"
         )
         lo, hi = self._tenant_span(tenant)
-        loaded, meta = load_checkpoint(path, _tree_map(lambda x: x[lo:hi], self.carry))
+        loaded, meta = load_checkpoint(path, self.carry_rows(lo, hi))
         if int(meta.get("partitions", self.tenant_partitions)) != self.tenant_partitions:
             raise ValueError(
                 f"checkpoint {path} holds {meta.get('partitions')} partitions; "
                 f"this plane's tenants carry {self.tenant_partitions}"
             )
-
-        def scatter(leaf, sub):
-            leaf = leaf.clone() if isinstance(leaf, torch.Tensor) else np.array(leaf)
-            leaf[lo:hi] = sub
-            return leaf
-
-        self.carry = _tree_map(scatter, self.carry, loaded)
+        self.set_carry_rows(lo, loaded)
         return meta
 
     # -- checkpoint / resume -------------------------------------------------
@@ -576,7 +710,7 @@ class ChunkedDetector:
     def save(self, path: str) -> None:
         from ..utils.checkpoint import save_checkpoint
 
-        assert self.carry is not None, "nothing to checkpoint yet"
+        assert self._carry is not None, "nothing to checkpoint yet"
         save_checkpoint(
             path,
             self.carry,
@@ -599,7 +733,7 @@ class ChunkedDetector:
                     "restore() on a fresh detector needs example_chunk to "
                     "rebuild the carry structure"
                 )
-            template = self._init_carry(self._ready(self.place(example_chunk)))
+            template = self._fresh_whole(self._ready(self.place(example_chunk)))
         self.carry, meta = load_checkpoint(path, template)
         self.batches_done = int(meta["batches_done"])
         return meta

@@ -86,16 +86,21 @@ class LoopCarry(NamedTuple):
     key: "np.ndarray | None" = None  # [P, 2] uint32; None: the run carries none
 
 
-def expand_packed(packed: PackedIndexedBatches) -> IndexedBatches:
+def expand_packed(
+    packed: PackedIndexedBatches, partition_offset: int = 0, partitions: "int | None" = None
+) -> IndexedBatches:
     """Rebuild the ``rows``/``valid`` planes on the tensors' device —
     ``gmap = (slot·B + perm)·P + part``, the host striper's formula
     (``io.stream._stripe_gmap``). ``perm`` is widened to int32 before the
-    arithmetic: the uint8 plane would wrap."""
+    arithmetic: the uint8 plane would wrap. A mesh shard's planes hold the
+    whole plane's rows ``partition_offset`` on, of ``partitions`` in all
+    (default: the planes' own)."""
     p, nb, b = packed.idx.shape
+    total = p if partitions is None else int(partitions)
     dev = packed.idx.device
     slot = torch.arange(nb, dtype=torch.int32, device=dev)[None, :, None]
-    part = torch.arange(p, dtype=torch.int32, device=dev)[:, None, None]
-    gmap = (slot * b + packed.perm.to(torch.int32)) * p + part
+    part = torch.arange(p, dtype=torch.int32, device=dev)[:, None, None] + int(partition_offset)
+    gmap = (slot * b + packed.perm.to(torch.int32)) * total + part
     return IndexedBatches(
         base_X=packed.base_X,
         base_y=packed.base_y,

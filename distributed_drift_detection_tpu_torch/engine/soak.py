@@ -40,6 +40,13 @@ across legs with partition-local rows and the concept offsets ``block0s``
 as a runtime argument, and checkpoints it (``utils/checkpoint.py``). No
 engine reads the device from the host inside its batch loop: the batch
 count is known. Entry points run on the card unless ``device='cpu'``.
+
+``mesh`` (a ``parallel.mesh.Mesh``, or ``device`` given as a sequence of
+devices) splits the partition plane into the mesh's contiguous shards, as
+the JAX package's ``_mesh_sharding`` does: each shard generates its own
+partitions' rows with K6 from the whole plane's keys on its device and runs
+the engine there; the flags are joined on the first device. A sharded
+chain's state is a list of the shards' states.
 """
 
 from __future__ import annotations
@@ -428,11 +435,27 @@ def resolve_soak_detector(ddm_params: DDMParams, detector, drift_every: int):
     return resolve_detector(ddm_params, detector)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: a soak on a device mesh (ROADMAP A15d)"
-        )
+def _mesh_shards(model: Model, mesh, device, rows: int):
+    """``(mesh, [(lo, hi, device)])`` of a soak's ``rows``-wide plane (JAX
+    ``_mesh_sharding``): the mesh's shards, checked (divisibility, no
+    host-callback model); a sequence of devices makes the mesh ``run``
+    makes of them (``parallel.mesh.resolve_mesh``); without a mesh one
+    shard of every row on ``device``."""
+    from ..device import is_device_sequence, resolve_devices
+
+    if mesh is None and is_device_sequence(device):
+        from ..parallel.mesh import resolve_mesh
+
+        devices = resolve_devices(device)
+        mesh = resolve_mesh(devices, rows, model=model)
+        device = devices[0]
+    if mesh is None:
+        return None, [(0, rows, resolve_device(device))]
+    from ..models.base import require_shardable
+    from ..parallel.mesh import shard_bounds
+
+    require_shardable(model, mesh)
+    return mesh, [(lo, hi, d) for _, lo, hi, d in shard_bounds(mesh, rows)]
 
 
 class _Feed:
@@ -535,7 +558,7 @@ def make_soak_runner(
     crossing chunks; batches past ``NB-1`` in the last chunk are generated
     at ``NB-1``, invalid and inert. ``tenants > 1`` widens the plane to
     ``T·P`` streams; tenant ``t``'s block is the solo run keyed by
-    ``split(key, T)[t]``. A mesh is not ported (ROADMAP A15d)."""
+    ``split(key, T)[t]``. ``mesh`` shards the ``T·P`` plane."""
     gen_name = generator
     _generator(gen_name)
     f = generated_width(gen_name, features)
@@ -575,20 +598,29 @@ def make_soak_runner(
     if tenants < 1:
         raise ValueError(f"tenants must be >= 1, got {tenants}")
     t_count = int(tenants)
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
-    gen_kw = dict(per_batch=b, features=f, drift_every=drift_every, generator=gen_name,
-                  device=dev)
+    mesh, shards = _mesh_shards(model, mesh, device, t_count * p)
+    dev = shards[0][2]
 
     def run(key) -> SoakResult:
+        from ..parallel.mesh import join_flags, run_shards
+
         keys, parts = _partition_keys(key, p, t_count)
+        devs = [d for _, _, d in shards]
+        outs = run_shards(devs, run_rows, [keys[lo:hi] for lo, hi, _ in shards],
+                          [parts[lo:hi] for lo, hi, _ in shards], devs)
+        return SoakResult(join_flags(outs, dev), t_count * p * nb * b)
+
+    def run_rows(keys, parts, dev) -> FlagRows:
+        """The soak of the partitions ``parts`` (keys ``keys``) on ``dev``."""
+        gen_kw = dict(per_batch=b, features=f, drift_every=drift_every, generator=gen_name,
+                      device=dev)
         gen_keys = threefry.split(keys, 2)[:, 0]
         offs, zero = parts * (nb * b), np.zeros(len(parts), np.int64)
         if window <= 1:
             feed = _Feed(gen_keys, offs, zero, 1, nb - 1, **gen_kw)
             carry = _seed_carry(model, det, feed, keys, dev)
             _, flags = _run_steps(step, model, carry, feed, range(1, nb))
-            return SoakResult(flags, t_count * p * nb * b)
+            return flags
         carry = _seed_carry(model, det, _Feed(gen_keys, offs, zero, 1, nb - 1, **gen_kw),
                             keys, dev)
         feed = _Feed(gen_keys, offs, zero, cb, nb - 1, **gen_kw)
@@ -605,10 +637,8 @@ def make_soak_runner(
             parts_out.append(fl)
         if not parts_out:
             empty = torch.empty((q, 0), dtype=torch.int32, device=dev)
-            return SoakResult(FlagRows(empty, empty, empty, empty, empty.bool()),
-                              t_count * p * nb * b)
-        flags = FlagRows(*(torch.cat(leaf, 1)[:, :nbf] for leaf in zip(*parts_out)))
-        return SoakResult(flags, t_count * p * nb * b)
+            return FlagRows(empty, empty, empty, empty, empty.bool())
+        return FlagRows(*(torch.cat(leaf, 1)[:, :nbf] for leaf in zip(*parts_out)))
 
     return run
 
@@ -639,8 +669,10 @@ class _SoakChainImpl(NamedTuple):
 
     first: object  # (key, block0s) -> SoakLegFlags
     next: object  # (state, leg_idx, block0s) -> SoakLegFlags
-    block0s: torch.Tensor  # [P] i32 on the device
-    template: object  # () -> a zero SoakChainState of the chain's shapes
+    block0s: torch.Tensor  # [P] i32 on the (first) device
+    # () -> a zero state of the chain's shapes (a SoakChainState; on a mesh
+    # a list of the shards')
+    template: object
 
 
 def _make_soak_chain_impl(
@@ -667,7 +699,8 @@ def _make_soak_chain_impl(
     boundaries are those of the unchained stream. The concatenated flags
     equal :func:`make_soak_runner`'s, modulo the partition row offset.
     ``donate`` is accepted: each leg consumes its input state, which the
-    port never copies. A mesh is not ported (ROADMAP A15d)."""
+    port never copies. On a ``mesh`` the state is a list of the shards'
+    states, each on its device."""
     gen_name = generator
     _generator(gen_name)
     f = generated_width(gen_name, features)
@@ -693,41 +726,70 @@ def _make_soak_chain_impl(
         )
     det = resolve_soak_detector(ddm_params, detector, drift_every)
     step = make_partition_step(model, ddm_params, shuffle=False, detector=det)
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
+    mesh, shards = _mesh_shards(model, mesh, device, p)
+    dev = shards[0][2]
     blocks_pp = t_pp // de
     block0s = torch.arange(p, dtype=torch.int32, device=dev) * blocks_pp
-    gen_kw = dict(per_batch=b, features=f, drift_every=de, generator=gen_name, device=dev)
-    zero = np.zeros(p, np.int64)
 
-    def first_leg_impl(key, block0s: torch.Tensor) -> SoakLegFlags:
-        keys = threefry.split(np.asarray(key, np.uint32), p)
+    def feed_of(gen_keys, block0s: torch.Tensor, d) -> _Feed:
+        return _Feed(gen_keys, np.zeros(len(gen_keys), np.int64), block0s, 1, _I32_MAX,
+                     per_batch=b, features=f, drift_every=de, generator=gen_name, device=d)
+
+    def first_rows(keys, block0s: torch.Tensor, d) -> SoakLegFlags:
         gen_keys = threefry.split(keys, 2)[:, 0]
-        feed = _Feed(gen_keys, zero, block0s, 1, _I32_MAX, **gen_kw)
-        carry = _seed_carry(model, det, feed, keys, dev)
+        feed = feed_of(gen_keys, block0s, d)
+        carry = _seed_carry(model, det, feed, keys, d)
         carry, flags = _run_steps(step, model, carry, feed, range(1, L))
         return SoakLegFlags(SoakChainState(carry, gen_keys), flags)
 
-    def next_leg_impl(state: SoakChainState, leg_idx, block0s: torch.Tensor) -> SoakLegFlags:
+    def next_rows(state: SoakChainState, leg_idx, block0s: torch.Tensor, d) -> SoakLegFlags:
         t0 = int(leg_idx) * L
-        feed = _Feed(state.gen_keys, zero, block0s, 1, _I32_MAX, **gen_kw)
+        feed = feed_of(state.gen_keys, block0s, d)
         carry, flags = _run_steps(step, model, state.carry, feed, range(t0, t0 + L))
         return SoakLegFlags(SoakChainState(carry, state.gen_keys), flags)
 
-    def template() -> SoakChainState:
-        key0 = device_keys(np.zeros((p, 2), np.uint32), dev) if model.keyed else None
+    def template_rows(n: int, d) -> SoakChainState:
+        key0 = device_keys(np.zeros((n, 2), np.uint32), d) if model.keyed else None
         return SoakChainState(
             LoopCarry(
-                params=model.init(p, dev, key=key0),
-                ddm=det.init((p,), dev),
-                a_X=torch.zeros((p, b, f), dtype=torch.float32, device=dev),
-                a_y=torch.zeros((p, b), dtype=torch.int32, device=dev),
-                a_w=torch.zeros((p, b), dtype=torch.float32, device=dev),
-                retrain=torch.zeros(p, dtype=torch.bool, device=dev),
-                key=np.zeros((p, 2), np.uint32) if model.keyed else None,
+                params=model.init(n, d, key=key0),
+                ddm=det.init((n,), d),
+                a_X=torch.zeros((n, b, f), dtype=torch.float32, device=d),
+                a_y=torch.zeros((n, b), dtype=torch.int32, device=d),
+                a_w=torch.zeros((n, b), dtype=torch.float32, device=d),
+                retrain=torch.zeros(n, dtype=torch.bool, device=d),
+                key=np.zeros((n, 2), np.uint32) if model.keyed else None,
             ),
-            np.zeros((p, 2), np.uint32),
+            np.zeros((n, 2), np.uint32),
         )
+
+    def sharded(fn, states, block0s: torch.Tensor) -> SoakLegFlags:
+        """``fn(state, lo, hi, the shard's block0s, device)`` a shard: the
+        leg's state (a list on a mesh) and its joined flags."""
+        from ..parallel.mesh import join_flags, run_shards
+
+        outs = run_shards(
+            [d for _, _, d in shards],
+            lambda st, lo, hi, d: fn(st, lo, hi, block0s[lo:hi].to(d), d),
+            states, *zip(*shards),
+        )
+        if mesh is None:
+            return outs[0]
+        return SoakLegFlags([o.state for o in outs], join_flags([o.flags for o in outs], dev))
+
+    def first_leg_impl(key, block0s: torch.Tensor) -> SoakLegFlags:
+        keys = threefry.split(np.asarray(key, np.uint32), p)
+        return sharded(lambda _, lo, hi, b0, d: first_rows(keys[lo:hi], b0, d),
+                       [None] * len(shards), block0s)
+
+    def next_leg_impl(state, leg_idx, block0s: torch.Tensor) -> SoakLegFlags:
+        return sharded(lambda st, lo, hi, b0, d: next_rows(st, leg_idx, b0, d),
+                       [state] if mesh is None else state, block0s)
+
+    def template():
+        if mesh is None:
+            return template_rows(p, dev)
+        return [template_rows(hi - lo, d) for lo, hi, d in shards]
 
     return _SoakChainImpl(first_leg_impl, next_leg_impl, block0s, template)
 
@@ -826,15 +888,17 @@ def run_soak_chained(
     ``heartbeat`` a leg; ``metrics`` the device memory gauges a leg.
     ``collect_every`` folds (and syncs, observes, checkpoints) every N-th
     leg. The ``soak.leg`` fault site fires before each leg. ``donate`` is
-    accepted (the port never copies a leg's state)."""
+    accepted (the port never copies a leg's state). ``mesh`` (or ``device``
+    as a sequence of devices) shards the partitions; the checkpoint then
+    holds the shards' states in shard order."""
     import os
     import time
 
     from ..kernels import _build
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
-    dev = resolve_device(device)
-    _refuse_mesh(mesh)
+    mesh, shards = _mesh_shards(model, mesh, device, int(partitions))
+    dev = shards[0][2]
     if compile_cache_dir:
         _build.set_build_dir(compile_cache_dir)
     b, p, de = int(per_batch), int(partitions), int(drift_every)
@@ -849,7 +913,7 @@ def run_soak_chained(
     impl = _make_soak_chain_impl(
         model, ddm_params, partitions=p, per_batch=b, batches_per_leg=L, legs=S,
         drift_every=de, generator=generator, features=features, detector=detector,
-        donate=donate, device=dev,
+        mesh=mesh, donate=donate, device=dev,
     )
     if key is None:
         key = threefry.key(0)

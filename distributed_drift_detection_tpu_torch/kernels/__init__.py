@@ -14,7 +14,7 @@ counted wrappers that callers use live beside their plain PyTorch versions
 ``utils/threefry.py`` ``init_normals``, ``models/mlp.py`` ``mlp_fit``
 and ``mlp_predict_err``, ``models/forest.py`` ``forest_fit`` and
 ``forest_predict_err``, ``engine/soak.py`` ``soak_batch``, ``ops/shuffle.py``
-``shuffle_planes``).
+``shuffle_planes``, ``parallel/mesh.py`` ``compact_flag_table``).
 """
 
 from __future__ import annotations
@@ -257,6 +257,14 @@ _SIGNATURES = {
     # dynamic shared bytes)
     "shuffle_perm_path": (
         "shuffle_perm_path", [_I, _I, _P], "shuffle_perm",
+    ),
+    "flag_compact": (
+        "flag_compact_launch",
+        [_P, _I, _I, _I, _I,  # packed plane [5, P, NBF], p, nbf, capacity, partition offset
+         _P, _P],  # the buffer (table, status words, tile counter), stream
+    ),
+    "flag_compact_floor": (
+        "flag_compact_floor_launch", [_I, _I, _P], "flag_compact",
     ),
     # K12's plan at a shape on the current device (p, n, F, trees, depth,
     # classes, force, host int64 out[11]; out[9] the words of the global

@@ -40,7 +40,7 @@ COMMON_FLAGS = (
 # K11 draw threefry normals bit-identical to JAX's (csrc/threefry.cuh),
 # under the same two flags, as do K6's generators;
 # K11 and K12 compute the forest's projections with explicit unfused,
-# unflushed PTX (csrc/forest.cuh). K13 does integer work only.
+# unflushed PTX (csrc/forest.cuh). K13 and K4 do integer work only.
 KERNELS = {
     "ddm_window": ("-fmad=false",),
     "centroid_predict_err": (),
@@ -59,6 +59,7 @@ KERNELS = {
     "forest_predict_err": ("-fmad=false",),
     "soak_batch": ("-fmad=false", "-ftz=true"),
     "shuffle_perm": (),
+    "flag_compact": (),
 }
 
 

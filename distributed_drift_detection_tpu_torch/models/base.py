@@ -23,8 +23,8 @@ draw the JAX package's key chain for it; the others (majority, centroid,
 gnb, linear) ignore ``key`` and get none.
 
 ``host_callback`` marks a family whose predict crosses to the host (``rf``,
-``models/rf.py``): such a model never runs on a device mesh (the JAX
-package's ``models/base.py`` ``require_shardable``).
+``models/rf.py``): such a model never runs on a device mesh
+(:func:`require_shardable`, the JAX package's ``models/base.py:47``).
 """
 
 from __future__ import annotations
@@ -42,6 +42,17 @@ class Model(NamedTuple):
     predict_err: Callable[..., Any]
     keyed: bool = False  # init or fit consumes the partitions' keys
     host_callback: bool = False  # predict runs on the host
+
+
+def require_shardable(model: Model, mesh) -> None:
+    """Reject a host-callback model combined with a device mesh, with the
+    JAX package's message."""
+    if mesh is not None and model.host_callback:
+        raise ValueError(
+            f"model {model.name!r} uses a host callback and cannot run in a "
+            "device-sharded program (host callbacks deadlock the collective "
+            "rendezvous); drop the mesh or pick an on-device model"
+        )
 
 
 class ModelSpec(NamedTuple):

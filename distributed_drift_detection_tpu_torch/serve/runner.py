@@ -787,7 +787,7 @@ class ServeRunner:
                     "FLUSH before SAVETENANT/LOADTENANT"
                 )
             if op == "SAVETENANT":
-                if self.det.carry is None:
+                if not self.det.has_carry:
                     raise RuntimeError(
                         "no detector state yet (slot never saw traffic)"
                     )
@@ -1219,11 +1219,11 @@ class ServeRunner:
         off or no carry exists yet (a fresh plane's first chunk enters
         with init state — the bundle's window stats are simply absent
         there)."""
-        if self._forensics is None or self.det.carry is None:
+        if self._forensics is None or not self.det.has_carry:
             return None
         from ..engine.chunked import _tree_map
 
-        return _tree_map(_clone, self.det.carry.ddm)
+        return _tree_map(_clone, self.det.carry_rows(field="ddm"))
 
     def _publish(self, flags, meta: dict, entry=None, chunk=None) -> None:
         """Collect one chunk's flags host-side and publish its verdict
@@ -1447,7 +1447,7 @@ class ServeRunner:
             )
 
     def _save_checkpoint(self) -> None:
-        if self.det.carry is None or self._last_meta is None:
+        if not self.det.has_carry or self._last_meta is None:
             return
         from ..utils.checkpoint import save_checkpoint
 
@@ -1524,7 +1524,7 @@ class ServeRunner:
 
     def _finish(self) -> None:
         self._stop_ops()
-        if self.params.checkpoint and self.det.carry is not None:
+        if self.params.checkpoint and self.det.has_carry:
             self._save_checkpoint()
         elapsed = time.monotonic() - self._t_start
         if self._log is not None:
@@ -1693,8 +1693,7 @@ def main(argv=None, device="cuda") -> None:
                     help="tenant-axis rows of a 2-D (tenant, partition) "
                     "device mesh: shard the stacked tenant plane over "
                     "devices (must divide --tenants and the device "
-                    "count; 0 = single-device/1-D, the default; a mesh is "
-                    "not ported yet, ROADMAP A15d)")
+                    "count; 0 = single-device/1-D, the default)")
     ap.add_argument("--compile-cache-dir", default="",
                     help="directory the kernels are built into and loaded "
                     "from (a restarted daemon runs no nvcc)")

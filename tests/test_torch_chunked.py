@@ -344,11 +344,19 @@ def test_prepare_chunked_and_its_refusals():
                 fn(c, *args)
     with pytest.raises(ValueError, match="chunk_batches"):
         api.prepare_chunked(cfg, 5, 6, chunk_batches=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15d"):
-        api.prepare_chunked(cfg, 5, 6, mesh=object(), device="cpu")
+    # a mesh is ported: prepare_chunked on a 2-device mesh gives the JAX
+    # package's detector on its 2-device mesh, flags bit for bit
+    from distributed_drift_detection_tpu.parallel.mesh import make_mesh as jmesh
+    from distributed_drift_detection_tpu_torch.parallel.mesh import make_mesh
+
+    stream = jstream.load_stream("synth:" + SPEC, 3, seed=0)
+    tdet_, _ = api.prepare_chunked(cfg, 5, 6, chunk_batches=CB, device="cpu",
+                                   mesh=make_mesh(devices=["cpu"] * 2))
+    jdet_, _ = japi.prepare_chunked(jcfg, 5, 6, chunk_batches=CB, mesh=jmesh(2))
+    _flags_equal(jdet_.run(_chunks(jfeed, stream)), tdet_.run(_chunks(tfeed, stream)))
     m = build_model("centroid", ModelSpec(5, 6))
-    with pytest.raises(NotImplementedError, match="A15d"):
-        TCD(m, partitions=P, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        TCD(m, partitions=P, mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
     # on_drift is ported (tests/test_torch_adapt.py): as in the JAX package,
     # a bad policy spec is refused when the first drained chunk resolves it
     rng = np.random.default_rng(0)

@@ -1701,3 +1701,62 @@ def test_shuffle_perm_path_is_k13_layout(dev, force):
         got = dict(zip(("path", "npow2", "per_thread", "threads", "warps", "shared_bytes"), out))
         got["path"] = shuffle.K13_PATHS[got["path"]]
         assert got == shuffle.k13_layout(b, force), b
+
+
+def _k4_plane(dev, p, nbf, density, seed):
+    """A packed ``[5, P, NBF]`` flag plane: warnings, changes and forced
+    retrains at ``density`` of the slots."""
+    g = torch.Generator().manual_seed(seed)
+    hit = torch.rand((p, nbf), generator=g) < density
+    kind = torch.randint(0, 3, (p, nbf), generator=g)
+    val = torch.randint(0, 5000, (p, nbf), generator=g, dtype=torch.int32)
+    warn = torch.where(hit & (kind == 0), val, -1)
+    change = torch.where(hit & (kind == 1), val, -1)
+    forced = (hit & (kind == 2)).int()
+    return torch.stack([warn, warn * 3, change, change * 3, forced]).int().to(dev)
+
+
+# (P, NBF, density, capacity, partition offset): the main path's shard and
+# plane (SMOKE: 16 x 1,279 at its auto capacity 2,558; 4 shards of 4),
+# overflow, nothing flagged, every slot flagged, K = 1, K at and past the
+# slot count, one slot, no batch column, a plane of one tile (2,048
+# slots) and a plane of hundreds of tiles (the look-back chain).
+K4_CASES = [(16, 1279, 0.03, 2558, 0), (4, 1279, 0.03, 2558, 12), (16, 1279, 0.5, 2558, 0),
+            (16, 1279, 0.0, 2558, 0), (16, 1279, 1.0, 2558, 0), (16, 1279, 1.0, 100, 3),
+            (8, 100, 0.2, 1, 0), (8, 100, 0.2, 800, 0), (8, 100, 1.0, 900, 5), (1, 1, 1.0, 1, 7),
+            (5, 0, 0.5, 64, 0), (2, 1024, 0.1, 64, 0), (128, 5000, 0.02, 80000, 0),
+            (128, 5000, 0.3, 80000, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flag_compact_matches_plain(dev, case):
+    """K4 against its plain version, byte for byte, the count row included,
+    on a packed plane and on its FlagRows."""
+    from distributed_drift_detection_tpu_torch.engine.loop import FlagRows
+    from distributed_drift_detection_tpu_torch.parallel import mesh
+
+    p, nbf, density, k, off = case
+    packed = _k4_plane(dev, p, nbf, density, seed=p * nbf + k)
+    before = mesh.compact_flag_table.launches
+    got = mesh.compact_flag_table(packed, k, off)
+    want = mesh.compact_flag_table_reference(packed, k, off)
+    assert mesh.compact_flag_table.launches == before + 1
+    assert got.shape == (k + 1, 7) and got.dtype == torch.int32
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    flags = FlagRows(packed[0], packed[1], packed[2], packed[3], packed[4].bool())
+    assert torch.equal(mesh.compact_flag_table(flags, k, off), want)
+
+
+@pytest.mark.cuda
+def test_flag_compact_merge_on_the_card(dev):
+    """Four shards' K4 tables merged on the card are the whole plane's
+    table, when a shard overflows and when only the sum does."""
+    from distributed_drift_detection_tpu_torch.parallel import mesh
+
+    for density, k in ((0.3, 500), (0.02, 300), (0.03, 2558)):
+        packed = _k4_plane(dev, 16, 1279, density, seed=k)
+        want = mesh.compact_flag_table_reference(packed, k)
+        tables = [mesh.compact_flag_table(packed[:, s * 4:(s + 1) * 4], k, s * 4)
+                  for s in range(4)]
+        assert torch.equal(mesh.merge_compact_tables(tables, k), want)

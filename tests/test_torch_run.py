@@ -194,16 +194,31 @@ def test_chip_scripts_refuse_without_a_card(script):
     ],
 )
 def test_unported_surfaces_raise(kw, item):
-    """A mesh is not ported yet (ROADMAP A15). The tenant plane is (A11):
-    ``run`` on a ``tenants=2`` config raises the JAX package's
-    ``ValueError`` naming ``run_multi``."""
+    """The surfaces ROADMAP A11 and A15 named, now ported. The tenant plane
+    (A11): ``run`` on a ``tenants=2`` config raises the JAX package's
+    ``ValueError`` naming ``run_multi``. The mesh (A15): ``mesh_devices=2``
+    on two devices (``["cpu"] * 2``; the JAX package's eight CPU devices)
+    gives the JAX run's flags, vote and metrics; ``mesh_tenant_devices=2``
+    on a one-tenant run raises the JAX package's ``ValueError``."""
     if item == "A11":
         for run, mod in ((jpkg.run, jconfig), (lambda c: tpkg.run(c, device="cpu"), tconfig)):
             with pytest.raises(ValueError, match="use run_multi"):
                 run(_cfg(mod, **kw))
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tpkg.run(_cfg(tconfig, **kw), device="cpu")
+    if "mesh_tenant_devices" in kw:
+        with pytest.raises(ValueError, match="tenant mesh axis") as j:
+            jpkg.run(_cfg(jconfig, **kw))
+        with pytest.raises(ValueError, match="tenant mesh axis") as t:
+            tpkg.run(_cfg(tconfig, **kw), device=["cpu"] * 2)
+        assert str(t.value) == str(j.value)
+        return
+    j = jpkg.run(_cfg(jconfig, **kw))
+    t = tpkg.run(_cfg(tconfig, **kw), device=["cpu"] * 2)
+    for f in j.flags._fields:
+        np.testing.assert_array_equal(getattr(j.flags, f), getattr(t.flags, f), err_msg=f)
+    assert np.asarray(j.drift_vote).tobytes() == t.drift_vote.tobytes()
+    assert t.metrics.num_detections == j.metrics.num_detections
+    assert t.metrics.mean_delay_rows == j.metrics.mean_delay_rows
 
 
 def test_a_missing_csv_raises():

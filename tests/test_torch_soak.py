@@ -406,10 +406,26 @@ def test_chain_input_checks_match_jax(kw, match):
     assert str(t.value) == str(j.value)
 
 
-def test_a_mesh_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="A15d"):
-        tsoak.make_soak_runner(tbuild("centroid", TSpec(8, 8)), mesh=object(),
-                               device="cpu", **GEOM)
+def test_a_mesh_is_refused_by_name(one_shot):
+    """A mesh is ported: the soak sharded over a 2-device mesh (the JAX
+    package's over its first two CPU devices, the port's over
+    ``["cpu"] * 2``) gives the unsharded JAX soak's flags bit for bit; an
+    indivisible plane is refused with the JAX package's message."""
+    from distributed_drift_detection_tpu.parallel.mesh import make_mesh as jmesh
+    from distributed_drift_detection_tpu_torch.parallel.mesh import make_mesh
+
+    _, want = one_shot
+    jrun = jax.jit(jsoak.make_soak_runner(jbuild("centroid", JSpec(8, 8)), mesh=jmesh(2), **GEOM))
+    _flags_equal(want.flags, jrun(jax.random.key(0)).flags)
+    got = tsoak.make_soak_runner(tbuild("centroid", TSpec(8, 8)), device="cpu",
+                                 mesh=make_mesh(devices=["cpu"] * 2), **GEOM)(threefry.key(0))
+    _flags_equal(want.flags, got.flags)
+    with pytest.raises(ValueError, match="not divisible") as t:
+        tsoak.make_soak_runner(tbuild("centroid", TSpec(8, 8)), mesh=make_mesh(devices=["cpu"] * 3),
+                               **GEOM)
+    with pytest.raises(ValueError, match="not divisible"):
+        jsoak.make_soak_runner(jbuild("centroid", JSpec(8, 8)), mesh=jmesh(3), **GEOM)
+    assert "leading axis of 4 row(s) not divisible by the 3-device mesh" in str(t.value)
 
 
 @pytest.mark.parametrize("name", ["ddm", "ph", "eddm", "hddm", "adwin"])
